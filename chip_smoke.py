@@ -1,0 +1,632 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``,
+then runs four phases and fails (non-zero exit) if any of them fails:
+
+1. kernels — each kernel against its plain PyTorch version on the card, at
+   the shapes the serving path gives it, with the tolerance stated;
+2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
+   teacher-forced decode through the kernels on the card, held against the
+   same model run with the plain versions on the CPU;
+3. serving — full-width stablelm-1.6b (24 layers, random weights from a seed)
+   through ``FMplexServer`` / ``ServeLoop.run``: 4 tasks with randomized
+   rank-16 q/v LoRA adapters and linear heads, a mixed trace of pooled
+   feature requests and generative requests (prompts of 2-128 tokens, 32 new
+   tokens each) on the dense int8 pool (8 slots, chunk 4, greedy). Every
+   request must finish ok with finite outputs, and each kernel's launch
+   count over this run must be above 0;
+4. timing — device times (``torch.profiler``) of each kernel, its plain
+   version and a library yardstick, beside the least time the card could
+   take (its bound).
+
+The line before last prints the card's name and power limit
+(``nvidia-smi``); before it, one JSON line lists the kernels. The last line
+is ``{"ok": true, "device": {...}}``. Nothing falls back to the CPU: without
+a CUDA device the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor rate (data sheet)
+ARCH = "stablelm-1.6b"
+SLOTS, CHUNK, PROMPT_LEN, MAX_NEW, RANK, BLOCK_T = 8, 4, 128, 32, 16, 16
+N_TASKS = 4
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean ms per call between CUDA events around ``iters`` calls: device
+    time when the device is the bottleneck, the host's enqueue time when the
+    host is (small kernels behind a Python wrapper)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean DEVICE ms per call: the summed durations of every kernel (and
+    copy) the call runs on the card, from ``torch.profiler``, so host gaps
+    between launches do not count. Raises if the profiler saw no device
+    time (CUDA events would time the host's enqueue rate instead)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.device_time for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return busy_us / 1e3 / iters
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=30,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------- phase 1: kernels vs their plain versions ----------------
+
+def sgmv_inputs(gen, T, d, out, na, nsets, dev):
+    """``nsets`` input sets (one per layer, so timing finds them cold)."""
+    import torch
+    nb = T // BLOCK_T
+    sets = []
+    for _ in range(nsets):
+        x = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+        a = torch.randn((na, d, RANK), generator=gen, device=dev) * 0.05
+        b = torch.randn((na, RANK, out), generator=gen, device=dev) * 0.05
+        ids = torch.randint(0, na + 2, (nb,), generator=gen, device=dev)
+        ids = torch.where(ids > na, torch.full_like(ids, 10**6), ids)
+        sets.append((x, ids.to(torch.int32), a, b))
+    return sets
+
+
+def sgmv_bound(x, ids, a, b):
+    """Bytes and flops the function needs on this data: x rows of live
+    blocks only (a sentinel block reads nothing and writes zeros), every
+    output row, the block ids, and A/B of each adapter in use."""
+    T, d = x.shape
+    na, _, r = a.shape
+    out = b.shape[-1]
+    live = ids[ids < na]
+    used = int(torch_unique_count(live))
+    nbytes = 2 * BLOCK_T * d * live.numel() + 2 * T * out + 4 * ids.numel() + \
+        4 * used * (d * r + r * out)
+    flops = 2.0 * live.numel() * BLOCK_T * r * (d + out)
+    return bound_ms(nbytes, flops)
+
+
+def torch_unique_count(t):
+    import torch
+    return torch.unique(t).numel() if t.numel() else 0
+
+
+def int8_inputs(gen, B, H, KV, S, hd, nsets, dev):
+    import torch
+
+    from repro_torch.kernels.decode_attention_int8 import quantize_kv
+    sets = []
+    for _ in range(nsets):
+        q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, KV, S, hd), generator=gen, device=dev)
+        v = torch.randn((B, KV, S, hd), generator=gen, device=dev)
+        kq, vq, ks, vs = quantize_kv(k, v)
+        # the pool's layout: (B, S, KV, hd); the kernel reads the transposed view
+        kq = kq.transpose(1, 2).contiguous()
+        vq = vq.transpose(1, 2).contiguous()
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        sets.append((q, kq, vq, ks, vs, lens))
+    return sets
+
+
+def int8_bound(q, kq, lens, window=None):
+    B, H, hd = q.shape
+    S, KV = kq.shape[1], kq.shape[2]
+    n = lens.clamp(max=S)
+    if window is not None:
+        n = n - (lens - window).clamp(min=0)
+    n = int(n.sum())
+    nbytes = 2 * 2 * B * H * hd + 2 * n * KV * hd + 2 * 4 * B * KV + 4 * B
+    flops = 4.0 * n * H * hd
+    return bound_ms(nbytes, flops)
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version at the serving shapes. The
+    tolerance is two bf16 ulps of the largest output magnitude: both sides
+    accumulate in f32 (in another order) and round the result to bf16."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segmented_lora import padded_tokens
+    cfg = full_config()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    d, out = cfg.d_model, cfg.num_heads * cfg.head_dim
+    results, ok = {}, True
+    cap = 4                                  # slot bucket of 4 adapters
+    shapes = {
+        "decode": padded_tokens(SLOTS, min(SLOTS, cap + 2), BLOCK_T),
+        "prefill": padded_tokens(PROMPT_LEN, min(PROMPT_LEN, cap + 2), BLOCK_T),
+        "pooled": padded_tokens(32 * PROMPT_LEN, min(32, cap + 2), BLOCK_T),
+    }
+    for name, T in shapes.items():
+        x, ids, a, b = sgmv_inputs(gen, T, d, out, cap, 1, dev)[0]
+        got = ops.segmented_lora(x, ids, a, b, block_t=BLOCK_T)
+        want = ref.segmented_lora_ref(x, ids, a, b, BLOCK_T)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+        sentinel_zero = bool((got.view(-1, BLOCK_T, out)[ids >= cap] == 0).all())
+        log(f"kernel segmented_lora [{name}] T={T} d={d} out={out} r={RANK} "
+            f"NA={cap}: max_abs_err={err:.3e} (bound {tol:.3e}), sentinel "
+            f"blocks zero: {sentinel_zero}")
+        ok &= err <= tol and sentinel_zero
+        results.setdefault("segmented_lora", {})[name] = err
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = PROMPT_LEN + MAX_NEW + 1
+    for window in (None, 48):
+        q, kq, vq, ks, vs, lens = int8_inputs(gen, SLOTS, H, KV, S, hd, 1, dev)[0]
+        got = ops.decode_attention_int8(q, kq, vq, ks, vs, lens, window=window)
+        want = ref.decode_attention_int8_ref(q, kq.transpose(1, 2),
+                                             vq.transpose(1, 2), ks, vs, lens,
+                                             window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+        log(f"kernel decode_attention_int8 B={SLOTS} H={H} KV={KV} S={S} "
+            f"hd={hd} window={window}: max_abs_err={err:.3e} (bound {tol:.3e})")
+        ok &= err <= tol
+        results.setdefault("decode_attention_int8", {})[window] = err
+    return ok, results
+
+
+# ---------------- phase 2: a small input against the CPU reference ----------------
+
+def full_config(**over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), **over)
+
+
+def random_adapter(store, i, dev):
+    """A rank-16 q/v adapter with random A AND B (a fresh adapter's B is zero,
+    which would make the LoRA kernel's work invisible)."""
+    import torch
+
+    from repro_torch.models import lora
+    from repro_torch.models.common import tree_map
+    gen = torch.Generator(device=dev).manual_seed(1000 + i)
+    tree = lora.init_single_adapter(gen, store.cfg, store.rank, device=dev)
+    return tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev)
+                    * 0.05, tree)
+
+
+def _teacher_forced(cfg, fm, d, params, lst, cap, toks, aidx, S, steps,
+                    impl, kv_quant):
+    """Prefill ``S`` tokens, then ``steps`` teacher-forced decode steps;
+    returns the f32 logits of every step on the host."""
+    import torch
+
+    from repro_torch.core.physical import seg_to_device
+    from repro_torch.models import lm
+
+    def meta(n):
+        if impl != "segmented":
+            return None
+        perm, inv, blocks = seg_to_device(*fm.segment_meta(aidx, cap, n), d)
+        return {"perm": perm, "inv": inv, "block_adapter": blocks,
+                "block_t": fm.seg_block_t}
+    B = toks.shape[0]
+    adapter_idx = torch.as_tensor(aidx, device=d)
+    cache = lm.init_cache(cfg, B, S + steps + 1, kv_quant=kv_quant, device=d)
+    logits, cache = lm.prefill(
+        params, cfg, tokens=torch.as_tensor(toks[:, :S], device=d), cache=cache,
+        lora=lst, adapter_idx=adapter_idx, lora_impl=impl, lora_seg=meta(S))
+    out = [logits.float().cpu()]
+    seg1 = meta(1)
+    for t in range(steps):
+        logits, cache = lm.decode_step(
+            params, cfg, tokens=torch.as_tensor(toks[:, S + t], device=d),
+            cache=cache, lora=lst, adapter_idx=adapter_idx, lora_impl=impl,
+            lora_seg=seg1)
+        out.append(logits.float().cpu())
+    return torch.stack(out)                       # (1 + steps, B, V)
+
+
+def phase_reference(dev):
+    """Full-width, two-layer model with 4 rows (3 adapters and one base-model
+    row): prefill + teacher-forced decode through the kernels on the card,
+    held against the same weights run with the plain versions on the CPU.
+    The two sides round bf16 activations after matmuls summed in different
+    orders, so they drift apart by bf16 ulps (2^-9 relative), and an ulp of
+    K/V can move an int8 code by one. Bound: relative L2 error of the logits
+    at most 2e-2, and the greedy token equal wherever the CPU's top-2 gap
+    exceeds twice the largest logit difference. For scale, the same drift is
+    printed for the kernel-free path (gather LoRA, bf16 cache)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.physical import AdapterStore, PhysicalFM
+    from repro_torch.models.common import tree_map
+    cfg = full_config(num_layers=2)
+    fm = PhysicalFM(cfg, seed=3, lora_rank=RANK, device=dev)
+    cpu_params = tree_map(lambda t: t.cpu(), fm.params)
+    store = AdapterStore(cfg, RANK, device=dev)
+    for i in range(3):
+        store.add(f"a{i}", random_adapter(store, i, dev))
+    stack = store.stacked()
+    cap = store.capacity()
+    stack_cpu = tree_map(lambda t: t.cpu(), stack)
+    B, S, steps = 4, 16, 4
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (B, S + steps)).astype(np.int64)
+    aidx = np.array([0, 2, cap, 1], np.int32)          # cap == base model
+    report = {}
+    for impl, kvq in (("segmented", True), ("gather", False)):
+        g = _teacher_forced(cfg, fm, torch.device(dev), fm.params, stack, cap,
+                            toks, aidx, S, steps, impl, kvq)
+        c = _teacher_forced(cfg, fm, torch.device("cpu"), cpu_params,
+                            stack_cpu, cap, toks, aidx, S, steps, impl, kvq)
+        diff = (g - c).abs()
+        top2 = torch.topk(c, 2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        worst = diff.max().item()
+        sure = gap > 2 * worst
+        agree = (g.argmax(-1) == c.argmax(-1))[sure]
+        report[impl] = {
+            "finite": bool(torch.isfinite(g).all()),
+            "max_abs": worst, "max_ref": c.abs().max().item(),
+            "rel_l2": (torch.linalg.vector_norm(g - c)
+                       / torch.linalg.vector_norm(c)).item(),
+            "argmax_checked": int(sure.sum()), "argmax_agree": bool(agree.all()),
+        }
+    log("reference: 2-layer full-width model, 4 rows x (16 prompt + 4 decode) "
+        "teacher-forced, GPU vs CPU: " + json.dumps(report))
+    k = report["segmented"]
+    return (k["finite"] and k["rel_l2"] <= 2e-2 and k["argmax_agree"]), report
+
+
+# ---------------- phase 3: serving at full width ----------------
+
+def build_server(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.physical import PhysicalFM
+    from repro_torch.core.server import FMplexServer
+    from repro_torch.core.vfm import TaskExtensions
+    cfg = full_config()
+    t0 = time.perf_counter()
+    fm = PhysicalFM(cfg, seed=0, lora_rank=RANK, input_len=PROMPT_LEN,
+                    lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
+    torch.cuda.synchronize()
+    log(f"model: {ARCH} full width, {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(fm.params)) / 1e9:.3f} B params, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    srv = FMplexServer("s0")
+    srv.deploy_fm("fm0", fm, scheduler="bfq")
+    rng = np.random.RandomState(0)
+    for i in range(N_TASKS):
+        fm.adapters.add(f"lora{i}", random_adapter(fm.adapters, i, dev))
+        w = torch.as_tensor(rng.randn(cfg.d_model, 8).astype(np.float32) * 0.02,
+                            device=dev)
+        head = (lambda ww: (lambda f: torch.as_tensor(f, device=ww.device).float() @ ww))(w)
+        srv.bind_task(f"task{i}", "fm0", weight=1.0 + i,
+                      extensions=TaskExtensions(decoder=head,
+                                                adapter_id=f"lora{i}"))
+    loop = srv.serve_loop("fm0", engine_kwargs=dict(
+        num_slots=SLOTS, prompt_len=PROMPT_LEN, max_new=MAX_NEW, chunk=CHUNK))
+    return srv, cfg, fm, loop
+
+
+def _leaves(tree):
+    from repro_torch.models.common import tree_leaves
+    return tree_leaves(tree)
+
+
+def mixed_trace(cfg, seed: int = 7):
+    """Pooled feature requests from every task and generative requests
+    (prompts uniform in 2..128 tokens, 32 new tokens) over ~1.5 s."""
+    import numpy as np
+
+    from repro_torch.core.request import Request
+    rng = np.random.RandomState(seed)
+    trace = []
+    for i in range(48):
+        trace.append(Request(f"task{i % N_TASKS}", 0.03 * i,
+                             payload=rng.randn(PROMPT_LEN, cfg.d_model)
+                             .astype(np.float32)))
+    for i in range(24):
+        plen = int(rng.randint(2, PROMPT_LEN + 1))
+        trace.append(Request(f"task{(i + 1) % N_TASKS}", 0.005 + 0.06 * i,
+                             payload=rng.randint(0, cfg.vocab_size, plen)
+                             .astype(np.int32),
+                             tokens=float(plen + MAX_NEW),
+                             max_new_tokens=MAX_NEW))
+    return trace
+
+
+def phase_serving(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.metrics import decode_stats, latency_stats
+    srv, cfg, fm, loop = build_server(dev)
+    t0 = time.perf_counter()
+    loop.warmup(pooled_task="task0", gen_task="task1")
+    torch.cuda.synchronize()
+    log(f"warmup: {time.perf_counter() - t0:.1f} s")
+    eng = srv.engines["fm0"]
+    keys0 = (eng.compile_count(), fm.compile_count())
+    trace = mixed_trace(cfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loop.run(trace, max_wall=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(ops.LAUNCHES[k])
+                for k in ("segmented_lora", "decode_attention_int8")}
+    gen = [r for r in trace if r.max_new_tokens > 0]
+    pooled = [r for r in trace if r.max_new_tokens <= 0]
+    ok = True
+    bad = [r for r in trace if not r.ok or r.finish_time is None
+           or r.result is None]
+    if bad:
+        ok = False
+        log(f"serving: {len(bad)} requests did not finish ok: "
+            f"{[(r.rid, r.status) for r in bad[:5]]}")
+    short = [r for r in gen if r.result is None or len(r.result) != r.max_new_tokens]
+    nonfinite = [r for r in pooled
+                 if r.result is None or not np.all(np.isfinite(r.result))]
+    ok &= not short and not nonfinite and eng.quarantines == 0
+    ok &= all(v > 0 for v in launches.values())
+    keys1 = (eng.compile_count(), fm.compile_count())
+    ds = decode_stats(gen)
+    ls = latency_stats(pooled)
+    n_tok = sum(len(r.result) for r in gen if r.result is not None)
+    stats = {
+        "wall_s": wall, "requests": len(trace), "generative": len(gen),
+        "pooled": len(pooled), "tokens": n_tok, "tokens_per_s": n_tok / wall,
+        "ttft_p50_ms": ds.get("ttft_p50_ms"), "tpot_p50_ms": ds.get("tpot_p50_ms"),
+        "pooled_p50_ms": ls.get("p50_ms"), "launches": launches,
+        "ticks": dict(loop.ticks), "decode_steps": eng.steps,
+        "quarantines": eng.quarantines, "shape_keys": [keys0, keys1],
+    }
+    log("serving: " + json.dumps(stats, default=float))
+    if short or nonfinite:
+        log(f"serving: short streams {len(short)}, non-finite pooled {len(nonfinite)}")
+    if keys1 != keys0:
+        log(f"serving: new shape keys after warmup {keys0} -> {keys1}")
+    return ok, stats, (srv, fm, eng)
+
+
+# ---------------- phase 4: timing ----------------
+
+def phase_timing(dev, handles):
+    """Device time of each kernel, its plain version and a library
+    yardstick at the decode shapes (the most launched), over 24 input sets
+    (one per layer, > 50 MB L2 for K3's cache) so each call finds its
+    operands as cold as a decode step does. Also the host-clock time of the
+    kernel call (``enqueue_ms``: what a caller waits per call when the host,
+    not the card, is the bottleneck) and a profile of one decode step."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segmented_lora import padded_tokens
+    cfg = full_config()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    nsets, cap = cfg.num_layers, 4
+    d, out = cfg.d_model, cfg.num_heads * cfg.head_dim
+    rows = []
+    extra = {}
+
+    def rotating(fn, sets):
+        it = [0]
+
+        def call():
+            fn(*sets[it[0] % len(sets)])
+            it[0] += 1
+        return call
+
+    # K1 at the decode, prefill and pooled shapes; the decode one goes in
+    # the kernels line (48 launches per decode step)
+    for name, n_tok, segs in (("decode", SLOTS, min(SLOTS, cap + 2)),
+                              ("prefill", PROMPT_LEN, min(PROMPT_LEN, cap + 2)),
+                              ("pooled", 32 * PROMPT_LEN, min(32, cap + 2))):
+        T = padded_tokens(n_tok, segs, BLOCK_T)
+        sets = sgmv_inputs(gen, T, d, out, cap, nsets if name == "decode" else 2, dev)
+        k_ms = device_ms(rotating(lambda x, i, a, b: ops.segmented_lora(
+            x, i, a, b, block_t=BLOCK_T), sets))
+        p_ms = device_ms(rotating(lambda x, i, a, b: ref.segmented_lora_ref(
+            x, i, a, b, BLOCK_T), sets))
+        b_ms, b_by = sgmv_bound(*sets[0])
+        extra[f"segmented_lora_{name}"] = {
+            "T": T, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "enqueue_ms": time_ms(rotating(
+                lambda x, i, a, b: ops.segmented_lora(x, i, a, b,
+                                                      block_t=BLOCK_T), sets))}
+        if name == "decode":
+            k1 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = PROMPT_LEN + MAX_NEW + 1
+    sets = int8_inputs(gen, SLOTS, H, KV, S, hd, nsets, dev)
+    k_ms = device_ms(rotating(lambda q, kq, vq, ks, vs, l: ops.decode_attention_int8(
+        q, kq, vq, ks, vs, l), sets))
+    p_ms = device_ms(rotating(lambda q, kq, vq, ks, vs, l: ref.decode_attention_int8_ref(
+        q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, l), sets))
+    # yardstick: SDPA on the cache already dequantized to bf16 (never called
+    # by the port); one call, the dequantization not timed
+    lib_sets = []
+    for q, kq, vq, ks, vs, l in sets:
+        kd = (kq.transpose(1, 2).float() * ks[:, :, None, None]).to(torch.bfloat16)
+        vd = (vq.transpose(1, 2).float() * vs[:, :, None, None]).to(torch.bfloat16)
+        mask = (torch.arange(S, device=dev)[None] < l[:, None])[:, None, None]
+        lib_sets.append((q[:, :, None], kd, vd, mask))
+    lib_ms = device_ms(rotating(lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m), lib_sets))
+    b_ms, b_by = int8_bound(sets[0][0], sets[0][1], sets[0][5])
+    extra["decode_attention_int8_enqueue_ms"] = time_ms(rotating(
+        lambda q, kq, vq, ks, vs, l: ops.decode_attention_int8(
+            q, kq, vq, ks, vs, l), sets))
+    k3 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+              library_ms=lib_ms)
+    # launches per decode step and ms per full-width decode step (8 slots)
+    srv, fm, eng = handles
+    cap_now = fm.adapters.capacity()
+    perm, inv, blocks = eng._segments(cap_now)
+    adapters = torch.as_tensor(eng._slot_adapters, device=dev)
+    step = eng._decode_fn(cap_now, 1)
+    ops.reset_launches()
+    step(fm.params, eng.pool, eng._tokens, eng._keys, fm.adapters.stacked(),
+         adapters, perm, inv, blocks)
+    torch.cuda.synchronize()
+    per_step = {k: int(v) for k, v in ops.LAUNCHES.items()}
+    extra["decode_step_ms"] = time_ms(lambda: step(
+        fm.params, eng.pool, eng._tokens, eng._keys, fm.adapters.stacked(),
+        adapters, perm, inv, blocks), iters=10, warmup=2)
+    extra["launches_per_decode_step"] = per_step
+    extra["decode_step_profile"] = profile_step(lambda: step(
+        fm.params, eng.pool, eng._tokens, eng._keys, fm.adapters.stacked(),
+        adapters, perm, inv, blocks))
+    return k1, k3, extra
+
+
+def profile_step(fn) -> dict:
+    """One decode step under ``torch.profiler``: device busy time against
+    the wall time of the step, the number of device kernels, and the
+    kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "device_kernels": len(kernels),
+            "top_kernels_ms": [(n[:60], ms) for n, ms in top]}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("torch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device: this script runs the port on a GPU only")
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        return fail(f"the port is not importable next to this script ({e})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_all = time.perf_counter()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    try:
+        build.build_all()
+    except RuntimeError as e:
+        return fail(str(e))
+    log(f"built kernels in {time.perf_counter() - t0:.1f} s")
+    for name in build.SOURCES:
+        for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    phases = {}
+    ok_k, errs = phase_kernels(dev)
+    phases["kernels"] = ok_k
+    ok_r, _ = phase_reference(dev)
+    phases["reference"] = ok_r
+    ok_s, stats, handles = phase_serving(dev)
+    phases["serving"] = ok_s
+    k1, k3, extra = phase_timing(dev, handles)
+    log("timing: " + json.dumps(extra, default=float))
+    launches = stats["launches"]
+    kernels = [
+        {"name": "segmented_lora", "route": "cuda",
+         "source": "src/repro_torch/csrc/segmented_lora.cu",
+         "replaces": "src/repro/kernels/segmented_lora.py:72",
+         "launches": launches["segmented_lora"],
+         "max_abs_err": max(errs["segmented_lora"].values()),
+         "library_ms": None, **k1},
+        {"name": "decode_attention_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_int8.cu",
+         "replaces": "src/repro/kernels/decode_attention_int8.py:114",
+         "launches": launches["decode_attention_int8"],
+         "max_abs_err": max(errs["decode_attention_int8"].values()), **k3},
+    ]
+    log(f"phases: {phases}, total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    try:
+        smi = smi_line()
+    except (OSError, subprocess.SubprocessError) as e:
+        return fail(f"nvidia-smi failed: {e}")
+    print(smi, flush=True)
+    if not all(phases.values()):
+        return fail(f"phase failed: {[k for k, v in phases.items() if not v]}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

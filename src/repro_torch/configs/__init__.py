@@ -1,0 +1,7 @@
+"""Config registry of the PyTorch port: importing this package registers the
+architectures the port serves so far (a copy of ``configs/base.py`` and of
+each architecture's file, kept in step with the JAX package by hand)."""
+from repro_torch.configs.base import ModelConfig, get_config, list_configs, reduced, register
+from repro_torch.configs import stablelm_1_6b  # noqa: F401  (registration side effect)
+
+__all__ = ["ModelConfig", "get_config", "list_configs", "reduced", "register"]

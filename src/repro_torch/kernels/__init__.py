@@ -1,0 +1,1 @@
+"""kernels of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,102 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
+so a build takes seconds). Libraries land in ``build/kernels/`` at the
+repository root, named by a hash of the source and the flags, on first use;
+``build_all`` starts one ``nvcc`` per source at once. Nothing here runs when
+the module is imported.
+
+Launch counts live here too (``LAUNCHES``, re-exported as
+``kernels.ops.LAUNCHES``): each kernel wrapper adds one where it launches its
+kernel, so a run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+SOURCES = {
+    "segmented_lora": "segmented_lora.cu",
+    "decode_attention_int8": "decode_attention_int8.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+LAUNCHES: collections.Counter = collections.Counter()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches():
+    """Set every launch count to 0 (in place: callers hold the object)."""
+    for k in list(LAUNCHES):
+        LAUNCHES[k] = 0
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                           "machine with the GPU (set CUDA_HOME)")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every missing library among ``names`` (default: all), one
+    ``nvcc`` process per source, all started together. The ptxas report
+    (registers, shared memory, spills) is kept beside each library as
+    ``<name>.log``. Raises with the compiler output if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {n: library_path(n) for n in names}
+    procs = {}
+    for n, lib in out.items():
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True), tmp)
+    errors = []
+    for n, (p, tmp) in procs.items():
+        log, _ = p.communicate()
+        (BUILD_DIR / f"{n}.log").write_text(log)
+        if p.returncode != 0:
+            errors.append(f"{n}: nvcc exited {p.returncode}\n{log}")
+        else:
+            os.replace(tmp, out[n])
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
+    return lib
+
+
+def check(err: int, name: str):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

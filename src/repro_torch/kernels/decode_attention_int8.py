@@ -1,0 +1,92 @@
+"""int8-KV flash-decode: ``quantize_kv`` and the CUDA kernel's wrapper.
+
+Decode is bound by the bytes of the KV cache. Storing K/V as int8 with a
+per-(batch, kv-head) symmetric scale halves them; ``csrc/
+decode_attention_int8.cu`` dequantizes in registers, so device memory only
+ever streams int8. The error per element is at most scale/2.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_HEAD_DIMS = (32, 64, 128)
+_GROUPS = (1, 2, 4, 8)
+
+
+def quantize_kv(k, v):
+    """k, v: (B, KV, S, hd) float -> (k_q, v_q int8, k_scale, v_scale (B, KV)).
+    Symmetric: scale = max|x| / 127 (at least 1e-8 / 127), codes clipped to
+    +-127."""
+    def q(x):
+        scale = torch.clamp(x.abs().amax(dim=(2, 3)), min=1e-8) / 127.0
+        xq = torch.clamp(torch.round(x / scale[:, :, None, None]), -127, 127)
+        return xq.to(torch.int8), scale.float()
+    kq, ks = q(k.float())
+    vq, vs = q(v.float())
+    return kq, vq, ks, vs
+
+
+def _lib():
+    lib = build.load("decode_attention_int8")
+    if not getattr(lib, "_typed", False):
+        lib.decode_int8_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_float,
+                                      ctypes.c_void_p])
+        lib.decode_int8_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
+                          window: Optional[int] = None):
+    """Launch the int8 flash-decode kernel.
+
+    q: (B, H, hd) bf16 CUDA, contiguous; k_q/v_q: (B, KV, S, hd) int8 with
+    any strides but a unit hd stride and 16-byte aligned rows (the model
+    layout's transposed view is taken as is, never copied); k_scale/v_scale:
+    (B, KV) f32 (callers guard free slots' unwritten zeros); lengths: (B,)
+    int32. Returns (B, H, hd) in q's dtype."""
+    B, H, hd = q.shape
+    _, KV, S, _ = k_q.shape
+    if q.device.type != "cuda":
+        raise ValueError("decode_attention_int8 kernel takes CUDA tensors")
+    if q.dtype != torch.bfloat16 or k_q.dtype != torch.int8 \
+            or v_q.dtype != torch.int8:
+        raise TypeError(f"decode_attention_int8 kernel takes bf16 q and int8 "
+                        f"K/V, got {q.dtype}, {k_q.dtype}, {v_q.dtype}")
+    G = H // max(KV, 1)
+    if H % KV or hd not in _HEAD_DIMS or G not in _GROUPS:
+        raise ValueError(f"unsupported H={H}, KV={KV}, hd={hd} (hd in "
+                         f"{_HEAD_DIMS}, H/KV in {_GROUPS})")
+    if tuple(v_q.shape) != tuple(k_q.shape) or k_q.shape[0] != B:
+        raise ValueError("k_q/v_q must be (B, KV, S, hd) alike")
+    for t in (k_q, v_q):
+        if t.stride(3) != 1 or t.data_ptr() % 16 or \
+                any(s % 16 for s in t.stride()[:3]):
+            raise ValueError("K/V rows must have unit hd stride and be "
+                             "16-byte aligned")
+    for t, shape, dt in ((k_scale, (B, KV), torch.float32),
+                         (v_scale, (B, KV), torch.float32),
+                         (lengths, (B,), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"expected contiguous {dt} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().decode_int8_launch(
+        q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, KV, G, S,
+        hd, *k_q.stride()[:3], *v_q.stride()[:3],
+        -1 if window is None else int(window), 1.0 / math.sqrt(hd), stream)
+    build.LAUNCHES["decode_attention_int8"] += 1
+    build.check(err, "decode_attention_int8")
+    return out

@@ -1,0 +1,59 @@
+"""Kernel entry points of the port, in the model layout.
+
+Each op launches its hand-written CUDA kernel for CUDA tensors and uses the
+plain PyTorch version in ``kernels.ref`` only for tensors that lie on the
+CPU (the tests); any other device raises. There is no fallback: a CUDA
+tensor reaches the kernel or an error. ``LAUNCHES`` counts kernel launches
+per kernel name.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import decode_attention_int8 as _int8
+from repro_torch.kernels import segmented_lora as _sgmv
+
+LAUNCHES = build.LAUNCHES
+reset_launches = build.reset_launches
+
+
+def _route(x) -> str:
+    kind = x.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return kind
+
+
+def quantize_kv(k, v):
+    """Symmetric per-(batch, kv-head) int8 KV quantization, model layout.
+
+    k, v: (B, S, KV, hd) float -> (k_q, v_q (B, S, KV, hd) int8,
+    k_scale, v_scale (B, KV) f32). Plain tensor code on every device: it runs
+    once per admission, outside the decode loop."""
+    kq, vq, ks, vs = _int8.quantize_kv(k.transpose(1, 2), v.transpose(1, 2))
+    return kq.transpose(1, 2), vq.transpose(1, 2), ks, vs
+
+
+def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
+                          window: Optional[int] = None):
+    """int8-KV decode attention, model layout.
+
+    q: (B, H, hd); k_q/v_q: (B, S, KV, hd) int8; k_scale/v_scale: (B, KV);
+    lengths: (B,) -> (B, H, hd). The kernel reads the cache through a
+    head-major view of the model layout, never a copy."""
+    kh = k_q.transpose(1, 2)
+    vh = v_q.transpose(1, 2)
+    if _route(q) == "cuda":
+        return _int8.decode_attention_int8(q, kh, vh, k_scale, v_scale,
+                                           lengths, window=window)
+    return ref.decode_attention_int8_ref(q, kh, vh, k_scale, v_scale, lengths,
+                                         window=window)
+
+
+def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int = 128):
+    """x: (T, d) adapter-sorted; b_w: (NA, r, out) -> LoRA delta (T, out)."""
+    if _route(x) == "cuda":
+        return _sgmv.segmented_lora(x, block_adapter, a_w, b_w,
+                                    block_t=block_t)
+    return ref.segmented_lora_ref(x, block_adapter, a_w, b_w, block_t)

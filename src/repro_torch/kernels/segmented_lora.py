@@ -1,0 +1,163 @@
+"""Segmented multi-adapter LoRA (SGMV): the CUDA kernel's wrapper plus the
+host-side helpers that sort a co-batch by adapter.
+
+The vFM executor co-batches requests from many tasks over one shared backbone
+pass and applies per-task LoRA deltas: y[t] += x[t] @ A[a(t)] @ B[a(t)]. The
+batch is sorted by adapter id and each adapter segment padded to a block
+multiple, so every ``block_t`` block of rows touches exactly ONE adapter
+(``csrc/segmented_lora.cu`` computes one block per CTA). The sentinel id
+``>= num_adapters`` means "no adapter" (base-model request): zero delta.
+
+The host helpers (``sort_by_adapter``, ``segment_metadata``,
+``SegmentMetaCache``, ``padded_tokens``) are copies of the JAX package's.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+_RANKS = (4, 8, 16, 32, 64)
+_SMS = 132                       # H100 SXM streaming multiprocessors
+
+
+def _lib():
+    lib = build.load("segmented_lora")
+    if not getattr(lib, "_typed", False):
+        lib.sgmv_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        lib.sgmv_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def column_ctas(num_blocks: int, out: int) -> int:
+    """CTAs along the output axis: enough to put ~2 CTAs on every SM when the
+    batch has few token blocks (decode), few when it has many (pooled), so
+    phase 1 (h = x @ A) is recomputed as rarely as the card allows."""
+    want = -(-2 * _SMS // max(num_blocks, 1))
+    return max(1, min(want, -(-out // 128)))
+
+
+def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int):
+    """Launch the SGMV kernel. x: (T, d) bf16 CUDA, T % block_t == 0;
+    block_adapter: (T // block_t,) int32; a_w: (NA, d, r) f32;
+    b_w: (NA, r, out) f32. Returns the delta (T, out) bf16."""
+    T, d = x.shape
+    na, d_a, r = a_w.shape
+    out = b_w.shape[-1]
+    if x.device.type != "cuda":
+        raise ValueError("segmented_lora kernel takes CUDA tensors")
+    if x.dtype != torch.bfloat16 or a_w.dtype != torch.float32 \
+            or b_w.dtype != torch.float32:
+        raise TypeError(f"segmented_lora kernel takes bf16 x and f32 A/B, got "
+                        f"{x.dtype}, {a_w.dtype}, {b_w.dtype}")
+    if d_a != d or tuple(b_w.shape[:2]) != (na, r) or r not in _RANKS:
+        raise ValueError(f"bad shapes x{tuple(x.shape)} A{tuple(a_w.shape)} "
+                         f"B{tuple(b_w.shape)} (rank must be one of {_RANKS})")
+    if T % block_t or block_t % 4 or 256 % ((block_t // 4) * (r // 4)):
+        raise ValueError(f"T={T} must be a multiple of block_t={block_t}, "
+                         f"block_t a multiple of 4, and (block_t/4)*(r/4) "
+                         f"must divide 256")
+    nb = T // block_t
+    if block_adapter.shape != (nb,) or block_adapter.dtype != torch.int32:
+        raise ValueError("block_adapter must be (T // block_t,) int32")
+    for t in (x, block_adapter, a_w, b_w):
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError("segmented_lora kernel takes contiguous tensors "
+                             "on one device")
+    if a_w.data_ptr() % 16 or x.data_ptr() % 16 or d % 8:
+        raise ValueError("x and A must be 16-byte aligned and d a multiple "
+                         "of 8 (read as 16-byte vectors)")
+    y = torch.empty((T, out), dtype=x.dtype, device=x.device)
+    if nb == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().sgmv_launch(x.data_ptr(), block_adapter.data_ptr(),
+                             a_w.data_ptr(), b_w.data_ptr(), y.data_ptr(), nb,
+                             d, r, out, na, block_t, column_ctas(nb, out),
+                             stream)
+    build.LAUNCHES["segmented_lora"] += 1
+    build.check(err, "segmented_lora")
+    return y
+
+
+# ---------------- host-side helpers (copies of the JAX package's) ----------------
+
+def sort_by_adapter(adapter_ids, num_adapters: int, block_t: int = 128,
+                    max_tokens: int | None = None):
+    """Build (permutation, block_adapter, padded_T) so each ``block_t`` block
+    maps to one adapter (one stable argsort + one ``np.unique``). Returns
+    numpy arrays; ``perm`` holds -1 for pad rows."""
+    adapter_ids = np.asarray(adapter_ids)
+    n = len(adapter_ids)
+    order = np.argsort(adapter_ids, kind="stable")
+    uniq, counts = np.unique(adapter_ids, return_counts=True)
+    padded = -(-counts // block_t) * block_t           # per-segment block pad
+    blocks = np.repeat(uniq, padded // block_t)
+    total = int(padded.sum())
+    # destination of each sorted row: its segment's start + rank within it
+    seg_starts = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    src_starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    perm = np.full(total, -1, np.int64)
+    perm[np.repeat(seg_starts - src_starts, counts) + np.arange(n)] = order
+    if max_tokens is not None:
+        if total > max_tokens:
+            raise ValueError(f"{total} sorted tokens exceed max_tokens={max_tokens}")
+        blocks = np.concatenate(
+            [blocks, np.full((max_tokens - total) // block_t, num_adapters)])
+        perm = np.concatenate([perm, np.full(max_tokens - total, -1)])
+        total = max_tokens
+    return (perm.astype(np.int32), blocks.astype(np.int32), total)
+
+
+def segment_metadata(adapter_ids, num_adapters: int, block_t: int = 128,
+                     max_tokens: int | None = None):
+    """Serve-path metadata, built ONCE per co-batch and reused by every
+    attention sublayer: ``(perm, inv, block_adapter)`` numpy arrays. ``perm``
+    gathers the flat token stream into sorted, block-padded order (pad rows
+    clamped to token 0: their deltas are computed and then dropped);
+    ``inv`` gathers the kernel output back to token order."""
+    raw_perm, blocks, total = sort_by_adapter(
+        adapter_ids, num_adapters, block_t=block_t, max_tokens=max_tokens)
+    real = raw_perm >= 0
+    inv = np.zeros(len(adapter_ids), np.int32)
+    inv[raw_perm[real]] = np.nonzero(real)[0].astype(np.int32)
+    perm = np.where(real, raw_perm, 0).astype(np.int32)
+    return perm, inv, blocks
+
+
+class SegmentMetaCache:
+    """Memoizes ``segment_metadata`` per batch *composition* (raw id bytes
+    plus the static shape inputs), FIFO-evicted at ``maxsize``. ``builds``
+    counts misses: steady-state decode must keep it flat."""
+
+    def __init__(self, maxsize: int = 128):
+        self._cache: dict = {}
+        self.maxsize = maxsize
+        self.builds = 0
+
+    def get(self, adapter_ids, num_adapters: int, block_t: int,
+            max_tokens: int | None):
+        ids = np.ascontiguousarray(np.asarray(adapter_ids, np.int32))
+        key = (ids.tobytes(), num_adapters, block_t, max_tokens)
+        hit = self._cache.get(key)
+        if hit is None:
+            self.builds += 1
+            hit = segment_metadata(ids, num_adapters, block_t=block_t,
+                                   max_tokens=max_tokens)
+            if len(self._cache) >= self.maxsize:
+                self._cache.pop(next(iter(self._cache)))
+            self._cache[key] = hit
+        return hit
+
+
+def padded_tokens(n_tokens: int, max_segments: int, block_t: int) -> int:
+    """Tight static bound on the sorted/padded token count when up to
+    ``max_segments`` adapter segments each pad to a block multiple:
+    ``((n - s)//bt + s) * bt`` with ``s = min(max_segments, n)``."""
+    s = min(max_segments, max(n_tokens, 1))
+    return (max(0, n_tokens - s) // block_t + s) * block_t

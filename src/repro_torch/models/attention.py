@@ -1,0 +1,218 @@
+"""GQA attention: online-softmax prefill in plain torch, and decode.
+
+``flash_attention`` mirrors the JAX package's jnp function of the same name
+(not a Pallas kernel there either): Q chunks, and an online softmax over KV
+chunks, with bf16 operands multiplied in f32. Decode against the dense int8
+pool goes through the hand-written kernel (``kernels.ops``).
+
+The cache is updated IN PLACE: a serving pool is allocated once and every
+prefill/decode writes into its slices, where the JAX package returns a new
+(donated) cache. Functions return the same cache dict they were given.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models.common import ParamSpec
+from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e30
+
+
+# ---------------- specs ----------------
+
+def attn_spec(cfg) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    spec = {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), init="zeros")
+        spec["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        spec["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+    return spec
+
+
+# ---------------- online-softmax attention (plain torch) ----------------
+
+def _chunk(n: int, target: int) -> int:
+    c = min(n, target)
+    while n % c:
+        c -= 1
+    return c
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, q_chunk: int = 1024,
+                    kv_chunk: int = 1024, kv_len=None):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H % KV == 0. Returns
+    (B, Sq, H, hd). Q/K positions align at the end (q is the suffix when
+    Sq < Sk). ``kv_len`` (B,): key positions at or past a row's length are
+    masked (right-padded variable-length prefill)."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    dev = q.device
+    key_valid = None if kv_len is None else \
+        torch.arange(Sk, device=dev)[None] < kv_len.to(dev)[:, None]
+    qc, kc = _chunk(Sq, q_chunk), _chunk(Sk, kv_chunk)
+    scale = 1.0 / math.sqrt(hd)
+    q_off = Sk - Sq
+    qr = q.reshape(B, Sq // qc, qc, KV, G, hd)
+    kr = k.reshape(B, Sk // kc, kc, KV, hd)
+    vr = v.reshape(B, Sk // kc, kc, KV, hd)
+    chunks = []
+    for qi in range(Sq // qc):
+        qblk = qr[:, qi].float()                          # (B, qc, KV, G, hd)
+        q_pos = q_off + qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, KV, G, qc), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, qc), device=dev)
+        acc = torch.zeros((B, KV, G, qc, hd), device=dev)
+        for ki in range(Sk // kc):
+            vblk = vr[:, ki]
+            k_pos = ki * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kr[:, ki].float()) * scale
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            mask = mask[None, None, None]                 # (1, 1, 1, qc, kc)
+            if key_valid is not None:
+                vmask = key_valid[:, ki * kc:(ki + 1) * kc]
+                mask = mask & vmask[:, None, None, None]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            # p rounds to the value dtype before the product, as in JAX
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(vblk.dtype).float(), vblk.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, qc, hd)
+        chunks.append(out.permute(0, 3, 1, 2, 4))         # (B, qc, KV, G, hd)
+    return torch.cat(chunks, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: Optional[int] = None):
+    """Single-token attention against a float KV cache.
+
+    q: (B, H, hd); caches: (B, S, KV, hd); cache_len: (B,) valid lengths."""
+    B, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qr = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)[None]
+    mask = pos < cache_len[:, None]
+    if window is not None:
+        mask &= pos >= (cache_len[:, None] - window)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------- full layer ops ----------------
+
+def _proj(x, w):
+    """x: (B, S, d) @ w: (d, heads, hd) -> (B, S, heads, hd) in x's dtype."""
+    d, nh, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(d, nh * hd)).reshape(
+        x.shape[0], x.shape[1], nh, hd)
+
+
+def qkv_project(p, x, cfg, pos=None, rope: bool = True, lora=None,
+                adapter_idx=None, lora_impl: str = "gather", lora_seg=None):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if lora is not None and adapter_idx is not None:
+        from repro_torch.models.lora import qv_lora
+        q, v = qv_lora(x, lora, adapter_idx, q, v, impl=lora_impl, seg=lora_seg)
+    if rope and pos is not None:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def out_project(p, attn_out, dtype):
+    H, hd, d = p["wo"].shape
+    B, S = attn_out.shape[:2]
+    return attn_out.reshape(B, S, H * hd).to(dtype) @ \
+        p["wo"].to(dtype).reshape(H * hd, d)
+
+
+def self_attention(p, x, cfg, *, causal=True, pos=None, lora=None,
+                   adapter_idx=None, lora_impl="gather", lora_seg=None,
+                   seq_lens=None):
+    """Full-sequence self attention (prefill / pooled forward).
+    Returns (out, (k, v)); ``seq_lens`` (B,) masks right-padding keys."""
+    q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
+                          adapter_idx=adapter_idx, lora_impl=lora_impl,
+                          lora_seg=lora_seg)
+    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                        kv_len=seq_lens)
+    return out_project(p, o, x.dtype), (k, v)
+
+
+def quantize_token(x, scale):
+    """One token's K or V (B, KV, hd) into int8 codes at the slot's fixed
+    per-(B, KV) scale (already epsilon-guarded)."""
+    return torch.clamp(torch.round(x.float() / scale[:, :, None]),
+                       -127, 127).to(torch.int8)
+
+
+def self_attention_decode(p, x, cache, cfg, *, pos=None, lora=None,
+                          adapter_idx=None, lora_impl="gather", lora_seg=None):
+    """One-step decode. x: (B, 1, d); cache: dict(k, v, len[, k_scale,
+    v_scale]) of views into the pool, updated in place. Returns (out, cache).
+
+    With ``k_scale``/``v_scale`` the cache is the dense int8 pool: the new
+    token's K/V quantize into the scales fixed at admission and attention
+    runs through the int8 flash-decode kernel, so the cache is only ever
+    streamed as int8."""
+    if "page_table" in cache:
+        raise NotImplementedError("the paged int8 pool is ported in a later "
+                                  "slice (paged decode kernel K4)")
+    q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
+                          adapter_idx=adapter_idx, lora_impl=lora_impl,
+                          lora_seg=lora_seg)
+    B, S = x.shape[0], cache["k"].shape[1]
+    # insert position. A free pool slot keeps stepping and its length grows
+    # past S; JAX drops such an out-of-range write, torch would raise, so the
+    # write is clamped into the free row's own last position (garbage that
+    # the next admission overwrites). Live rows always have len < S.
+    idx = torch.clamp(cache["len"], max=S - 1).long()
+    bidx = torch.arange(B, device=x.device)
+    new_len = (cache["len"] + 1).to(cache["len"].dtype)
+    if "k_scale" in cache:
+        from repro_torch.kernels import ops
+        # scales are per (B, KV), fixed at prefill; epsilon-guard free slots
+        # whose scales were never written (their rows are masked anyway)
+        ks = torch.clamp(cache["k_scale"], min=1e-8)
+        vs = torch.clamp(cache["v_scale"], min=1e-8)
+        cache["k"][bidx, idx] = quantize_token(k[:, 0], ks)
+        cache["v"][bidx, idx] = quantize_token(v[:, 0], vs)
+        o = ops.decode_attention_int8(q[:, 0].contiguous(), cache["k"],
+                                      cache["v"], ks, vs, new_len,
+                                      window=cfg.sliding_window).to(x.dtype)
+    else:
+        cache["k"][bidx, idx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, idx] = v[:, 0].to(cache["v"].dtype)
+        o = decode_attention(q[:, 0], cache["k"], cache["v"], new_len,
+                             window=cfg.sliding_window)
+    cache["len"].copy_(new_len)
+    return out_project(p, o[:, None], x.dtype), cache

@@ -1,0 +1,145 @@
+"""Config-driven block dispatcher, attention sublayers only.
+
+A model is ``num_periods`` repetitions of a *period* of sublayers; parameters
+and caches carry a leading ``num_periods`` axis, as in the JAX package, and
+``models.lm`` loops over it. Mamba, xLSTM, MoE and cross-attention sublayers
+come with later slices and raise here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ParamSpec
+from repro_torch.models.layers import rmsnorm, rmsnorm_spec
+from repro_torch.models.mlp import mlp, mlp_spec
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayer:
+    kind: str
+    has_moe: bool
+    has_ffn: bool
+    has_cross: bool = False
+
+
+def period_len(cfg: ModelConfig) -> int:
+    base = len(cfg.block_pattern) if cfg.block_pattern else 1
+    if cfg.uses_moe:
+        base = math.lcm(base, cfg.moe_every)
+    if cfg.num_layers % base:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, period {base}")
+    return base
+
+
+def period_layout(cfg: ModelConfig) -> list[SubLayer]:
+    """The period's sublayers. Raises for what this slice does not port."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("encoder-decoder stacks come with a later slice")
+    out = []
+    for pos in range(period_len(cfg)):
+        kind = cfg.blocks[pos]
+        has_ffn = cfg.d_ff > 0
+        has_moe = has_ffn and cfg._layer_has_moe(pos)
+        if kind != ATTN or has_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: {kind}{' + MoE' if has_moe else ''} sublayers "
+                f"come with a later slice (attention stacks only)")
+        out.append(SubLayer(kind, has_moe, has_ffn))
+    return out
+
+
+# ---------------- specs ----------------
+
+def sublayer_spec(cfg: ModelConfig, lay: SubLayer) -> dict:
+    spec: dict = {"ln1": rmsnorm_spec(cfg.d_model), "attn": attn.attn_spec(cfg)}
+    if lay.has_ffn:
+        spec["ln2"] = rmsnorm_spec(cfg.d_model)
+        spec["ffn"] = mlp_spec(cfg)
+    return spec
+
+
+def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
+                        s_max: int, kv_quant: bool = False) -> Optional[dict]:
+    """Dense decode cache of one attention sublayer. ``kv_quant``: int8 K/V
+    with per-(batch, kv-head) scales written at prefill admission."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    kv_dt = torch.int8 if kv_quant else torch.bfloat16
+    spec = {
+        "k": ParamSpec((batch, s_max, kv, hd), ("batch", "cache_seq", "kv_heads", None),
+                       init="zeros", dtype=kv_dt),
+        "v": ParamSpec((batch, s_max, kv, hd), ("batch", "cache_seq", "kv_heads", None),
+                       init="zeros", dtype=kv_dt),
+        "len": ParamSpec((batch,), ("batch",), init="zeros", dtype=torch.int32),
+    }
+    if kv_quant:
+        for name in ("k_scale", "v_scale"):
+            spec[name] = ParamSpec((batch, kv), ("batch", "kv_heads"),
+                                   init="zeros", dtype=torch.float32)
+    return spec
+
+
+# ---------------- apply ----------------
+
+def _fill_cache(cache, k, v, seq_lens):
+    """Prefill: write the prompt's K/V into the (B, s_max) cache in place —
+    quantized per (row, kv head) on an int8 cache — zeroing the rest, and
+    set the per-row lengths."""
+    S = k.shape[1]
+    if seq_lens is not None:
+        # zero the pad positions: the int8 scales are taken over all of S
+        valid = torch.arange(S, device=k.device)[None] < seq_lens[:, None]
+        k = k * valid[..., None, None].to(k.dtype)
+        v = v * valid[..., None, None].to(v.dtype)
+    cache["k"].zero_()
+    cache["v"].zero_()
+    if "k_scale" in cache:
+        from repro_torch.kernels import ops
+        kq, vq, ks, vs = ops.quantize_kv(k, v)
+        cache["k"][:, :S] = kq
+        cache["v"][:, :S] = vq
+        cache["k_scale"].copy_(ks)
+        cache["v_scale"].copy_(vs)
+    else:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+    if seq_lens is None:
+        cache["len"].fill_(S)
+    else:
+        cache["len"].copy_(seq_lens.to(cache["len"].dtype))
+
+
+def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
+                   cache=None, pos=None, causal=True, lora=None,
+                   adapter_idx=None, lora_impl: str = "gather", lora_seg=None,
+                   seq_lens=None):
+    """Apply one attention sublayer. mode: 'full' (pooled forward / prefill)
+    or 'decode'. A given cache is a dict of views that is updated in place
+    (prefill fills it, decode appends one token)."""
+    if lay.kind != ATTN:
+        raise NotImplementedError(f"{lay.kind} sublayers come with a later slice")
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        if pos is None:
+            pos = cache["len"][:, None]                   # rope position
+        out, _ = attn.self_attention_decode(
+            p["attn"], h, cache, cfg, pos=pos, lora=lora,
+            adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg)
+    elif mode == "full":
+        out, (k, v) = attn.self_attention(
+            p["attn"], h, cfg, causal=causal, pos=pos, lora=lora,
+            adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg,
+            seq_lens=seq_lens)
+        if cache is not None:
+            _fill_cache(cache, k, v, seq_lens)
+    else:
+        raise NotImplementedError(f"mode {mode!r} comes with a later slice")
+    x = x + out
+    if lay.has_ffn:
+        x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x

@@ -1,0 +1,168 @@
+"""Config-driven decoder LM: specs, forward, prefill and decode (attention
+stacks; the other block kinds come with later slices).
+
+Parameters are nested dicts/lists of tensors with the JAX package's structure
+(``layers`` is a list over the period's sublayers, each leaf with a leading
+``num_periods`` axis). Activations run in bf16, as in the JAX package; the
+norms and the vocabulary head compute in f32. ``cast_params`` casts each
+weight once to the dtype its use site computes in, so the per-use casts below
+are no-ops on a served model.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks as blk
+from repro_torch.models.common import init_params, stack_specs, tree_map
+from repro_torch.models.layers import embed, embed_spec, head_spec, rmsnorm, rmsnorm_spec
+
+ACT_DTYPE = torch.bfloat16
+
+
+# ---------------- specs ----------------
+
+def model_spec(cfg: ModelConfig) -> dict:
+    if cfg.is_representation or cfg.vocab_size <= 0:
+        raise NotImplementedError("representation backbones come with a later slice")
+    nper = cfg.num_layers // blk.period_len(cfg)
+    return {
+        "layers": [stack_specs(blk.sublayer_spec(cfg, lay), nper)
+                   for lay in blk.period_layout(cfg)],
+        "final_norm": rmsnorm_spec(cfg.d_model),
+        "embed": embed_spec(cfg.vocab_size, cfg.d_model),
+        "head": head_spec(cfg.d_model, cfg.vocab_size),
+    }
+
+
+def cast_params(params: dict) -> dict:
+    """Cast each weight to the dtype of its use site: the embedding and the
+    attention/MLP matrices to bf16 (the activations' dtype), the norms and
+    the head kept f32. The values are exactly those the JAX package computes
+    with after its per-use ``astype``."""
+    def layer(sub):
+        return {k: tree_map(lambda t: t.to(ACT_DTYPE), v)
+                if k in ("attn", "ffn") else v for k, v in sub.items()}
+    out = dict(params)
+    out["embed"] = params["embed"].to(ACT_DTYPE)
+    out["layers"] = [layer(sub) for sub in params["layers"]]
+    return out
+
+
+def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
+               device="cuda") -> dict:
+    """Random weights from ``gen`` (f32 draws), cast for serving."""
+    spec = model_spec(cfg)
+    out = {}
+    for name, sub in spec.items():       # one group at a time: bounded peak
+        p = init_params(gen, sub, device=device)
+        out[name] = p
+    return cast_params(out)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, s_max: int,
+               kv_quant: bool = False, paged: bool = False) -> list:
+    """Stacked per-period dense decode cache (list over sublayers).
+    ``kv_quant``: int8 K/V + per-(batch, kv-head) scales."""
+    if paged:
+        raise NotImplementedError("the paged int8 pool comes with a later slice")
+    nper = cfg.num_layers // blk.period_len(cfg)
+    return [stack_specs(blk.sublayer_cache_spec(cfg, lay, batch, s_max,
+                                                kv_quant=kv_quant), nper)
+            for lay in blk.period_layout(cfg)]
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               kv_quant: bool = False, paged: bool = False, device="cuda"):
+    return init_params(None, cache_spec(cfg, batch, s_max, kv_quant=kv_quant,
+                                        paged=paged), device=device)
+
+
+# ---------------- stack forward ----------------
+
+def _at(tree, i):
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
+                   lora=None, adapter_idx=None, lora_impl="gather",
+                   lora_seg=None, seq_lens=None):
+    """Loop over periods and their sublayers (the JAX package scans)."""
+    nper = cfg.num_layers // len(layout)
+    for i in range(nper):
+        for j, lay in enumerate(layout):
+            x = blk.sublayer_apply(
+                _at(layers_p[j], i), x, cfg, lay, mode=mode,
+                cache=None if cache is None else _at(cache[j], i), pos=pos,
+                causal=causal,
+                lora=_at(lora[j], i) if lora is not None and lora[j] else None,
+                adapter_idx=adapter_idx, lora_impl=lora_impl,
+                lora_seg=lora_seg, seq_lens=seq_lens)
+    return x
+
+
+def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
+            mode: str = "full", pos=None, lora=None, adapter_idx=None,
+            lora_impl: str = "gather", lora_seg=None, seq_lens=None):
+    """Backbone forward. Returns (hidden (B, S, d), cache). Inputs are
+    ``tokens`` (B, S) int or ``embeds`` (B, S, d). ``cache`` (prefill /
+    decode) is updated in place. ``lora_impl`` "gather" or "segmented" (the
+    latter needs ``lora_seg`` metadata); ``seq_lens`` (B,) masks right pads."""
+    if embeds is None:
+        x = embed(params["embed"].to(ACT_DTYPE), tokens)
+    else:
+        x = embeds.to(ACT_DTYPE)
+    if pos is None and mode != "decode":
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+    x = _stack_forward(params["layers"], blk.period_layout(cfg), x, cfg,
+                       mode=mode, cache=cache, pos=pos,
+                       causal=not cfg.is_representation, lora=lora,
+                       adapter_idx=adapter_idx, lora_impl=lora_impl,
+                       lora_seg=lora_seg, seq_lens=seq_lens)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), cache
+
+
+# ---------------- serving steps ----------------
+
+def finite_logits(logits):
+    """(B,) bool: True iff every logit of the row is finite."""
+    return torch.isfinite(logits.float()).all(dim=-1)
+
+
+def _head(params, x):
+    return x.float() @ params["head"].float()
+
+
+def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
+            lora=None, adapter_idx=None, lora_impl: str = "gather",
+            lora_seg=None, seq_lens=None, pos=None):
+    """Fill the decode cache from a prompt (in place). Returns
+    (last_logits (B, V) f32, cache). ``seq_lens`` (B,): true lengths of
+    right-padded prompts; the logits come from each row's last real token."""
+    x, cache = forward(params, cfg, tokens=tokens, embeds=embeds, cache=cache,
+                       mode="full", lora=lora, adapter_idx=adapter_idx,
+                       lora_impl=lora_impl, lora_seg=lora_seg,
+                       seq_lens=seq_lens, pos=pos)
+    if seq_lens is None:
+        last = x[:, -1]
+    else:
+        rows = torch.arange(x.shape[0], device=x.device)
+        last = x[rows, torch.clamp(seq_lens, min=1).long() - 1]
+    return _head(params, last), cache
+
+
+def decode_step(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
+                lora=None, adapter_idx=None, lora_impl: str = "gather",
+                lora_seg=None):
+    """One-token serve step. tokens: (B,) int or embeds: (B, d). Returns
+    (logits (B, V) f32, cache) with the cache advanced in place."""
+    if embeds is None:
+        x = embed(params["embed"].to(ACT_DTYPE), tokens[:, None])
+    else:
+        x = embeds[:, None].to(ACT_DTYPE)
+    x, cache = forward(params, cfg, embeds=x, cache=cache, mode="decode",
+                       lora=lora, adapter_idx=adapter_idx,
+                       lora_impl=lora_impl, lora_seg=lora_seg)
+    return _head(params, x[:, 0]), cache

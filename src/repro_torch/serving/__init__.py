@@ -1,0 +1,1 @@
+"""serving of the PyTorch port (see the package docstring)."""

@@ -25,3 +25,9 @@ def make_batch(cfg, B, S, seed=0):
     else:
         b["tokens"] = jnp.asarray(r.randint(0, cfg.vocab_size, (B, S)), jnp.int32)
     return b
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (the port's kernels run only on the "
+        "card); skips elsewhere with its reason")

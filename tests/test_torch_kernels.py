@@ -1,0 +1,218 @@
+"""The port's kernel modules against the JAX package's: the plain PyTorch
+versions of the SGMV and int8 flash-decode kernels (and ``quantize_kv``)
+against ``repro.kernels.ref`` on the shape sweeps of ``test_kernels.py``,
+plus rectangular outputs, sentinel blocks, ragged cache lengths and a
+window; the host-side sort helpers against the JAX ones; and, on a GPU only,
+the CUDA kernels against their plain versions."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import segmented_lora as jsgmv  # noqa: E402
+from repro.kernels.decode_attention_int8 import quantize_kv as jquantize  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import segmented_lora as sgmv  # noqa: E402
+from repro_torch.kernels.decode_attention_int8 import quantize_kv  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two torch threads: the suite runs in parallel workers on shared
+    cores, and some JAX tests time their own calibration."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# f32: both sides compute the same f32 products, summed in another order.
+# bf16: the same f32 result is rounded to bf16 on both sides, so an order
+# difference can flip the last bf16 bit: one ulp is 2^-8 relative.
+TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
+def _pair(x, dtype):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.tensor(x).to(td)
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T,d,r,NA,bt,out", [(256, 128, 16, 5, 32, 128),
+                                             (128, 256, 8, 2, 64, 256),
+                                             (64, 64, 4, 1, 64, 64),
+                                             (96, 64, 16, 4, 16, 96)])
+def test_segmented_lora_ref_matches_jax(T, d, r, NA, bt, out, dtype):
+    """Square and rectangular outputs; block ids include the sentinel NA
+    (and a larger one), whose blocks must come out zero."""
+    rng = np.random.RandomState(2)
+    x = rng.randn(T, d).astype(np.float32)
+    a = (rng.randn(NA, d, r) * 0.05).astype(np.float32)
+    b = (rng.randn(NA, r, out) * 0.05).astype(np.float32)
+    ids = rng.randint(0, NA + 1, T // bt).astype(np.int32)
+    ids[-1] = NA + 7                                  # beyond the sentinel
+    jx, tx = _pair(x, dtype)
+    ja, ta = _pair(a, dtype)
+    jb, tb = _pair(b, dtype)
+    want = jref.segmented_lora_ref(jx, jnp.asarray(ids), ja, jb, bt)
+    got = ref.segmented_lora_ref(tx, torch.tensor(ids), ta, tb, bt)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (T, out)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    zero = _np(got).reshape(-1, bt, out)[ids >= NA]
+    assert not zero.any()
+    # the CPU route of the op is the plain version
+    np.testing.assert_array_equal(
+        _np(ops.segmented_lora(tx, torch.tensor(ids), ta, tb, block_t=bt)),
+        _np(got))
+
+
+def test_quantize_kv_matches_jax():
+    """Same codes and scales (symmetric, max|x|/127, clip +-127), exactly:
+    both sides divide the same f32 values and round half to even."""
+    rng = np.random.RandomState(0)
+    k = (rng.randn(2, 3, 37, 16) * 2.0).astype(np.float32)
+    v = rng.randn(2, 3, 37, 16).astype(np.float32)
+    v[1, 2] = 0.0                                     # an all-zero head
+    want = jquantize(jnp.asarray(k), jnp.asarray(v))
+    got = quantize_kv(torch.tensor(k), torch.tensor(v))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the model-layout adapter agrees with the JAX one too
+    km, vm = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    want_m = jops.quantize_kv(jnp.asarray(km), jnp.asarray(vm))
+    got_m = ops.quantize_kv(torch.tensor(km), torch.tensor(vm))
+    for g, w in zip(got_m, want_m):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd", [(2, 8, 2, 256, 64), (1, 4, 4, 128, 32),
+                                         (8, 4, 4, 161, 16), (3, 4, 2, 37, 32)])
+@pytest.mark.parametrize("window", [None, 48])
+def test_decode_attention_int8_ref_matches_jax(B, H, KV, S, hd, window):
+    """Ragged S (161, 37: no block multiple), lengths from 1 to S, GQA and
+    MHA, with and without a window. f32 on both sides: 1e-5."""
+    rng = np.random.RandomState(3)
+    q = rng.randn(B, H, hd).astype(np.float32)
+    k = rng.randn(B, KV, S, hd).astype(np.float32)
+    v = rng.randn(B, KV, S, hd).astype(np.float32)
+    lens = rng.randint(1, S + 1, B).astype(np.int32)
+    lens[0] = S
+    kq, vq, ks, vs = (np.asarray(t) for t in jquantize(jnp.asarray(k),
+                                                       jnp.asarray(v)))
+    want = jref.decode_attention_int8_ref(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(ks),
+        jnp.asarray(vs), jnp.asarray(lens), window=window)
+    t = [torch.tensor(a) for a in (q, kq, vq, ks, vs, lens)]
+    got = ref.decode_attention_int8_ref(*t, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    # model-layout op (CPU route) vs the JAX op's XLA path
+    km, vm = kq.transpose(0, 2, 1, 3), vq.transpose(0, 2, 1, 3)
+    want_m = jops.decode_attention_int8(
+        jnp.asarray(q), jnp.asarray(km), jnp.asarray(vm), jnp.asarray(ks),
+        jnp.asarray(vs), jnp.asarray(lens), window=window, backend="xla")
+    got_m = ops.decode_attention_int8(
+        torch.tensor(q), torch.tensor(km), torch.tensor(vm), torch.tensor(ks),
+        torch.tensor(vs), torch.tensor(lens), window=window)
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,na,bt,seed", [(173, 6, 16, 1), (8, 4, 16, 2),
+                                          (64, 3, 8, 3), (1, 1, 4, 4)])
+def test_host_helpers_match_jax(n, na, bt, seed):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, na + 1, n).astype(np.int32)
+    segs = min(n, na + 2)
+    tp = sgmv.padded_tokens(n, segs, bt)
+    assert tp == jsgmv.padded_tokens(n, segs, bt)
+    for a, b in zip(sgmv.sort_by_adapter(ids, na, bt, tp),
+                    jsgmv.sort_by_adapter(ids, na, bt, tp)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(sgmv.segment_metadata(ids, na, bt, tp),
+                    jsgmv.segment_metadata(ids, na, bt, tp)):
+        np.testing.assert_array_equal(a, b)
+    cache = sgmv.SegmentMetaCache(maxsize=2)
+    first = cache.get(ids, na, bt, tp)
+    assert cache.get(ids, na, bt, tp) is first and cache.builds == 1
+    cache.get(ids + 1, na + 1, bt, tp)
+    cache.get(ids + 2, na + 2, bt, tp)             # evicts the first entry
+    cache.get(ids, na, bt, tp)
+    assert cache.builds == 4
+
+
+def test_cpu_route_only_for_cpu_tensors():
+    """The ops take the plain version only for CPU tensors; any other device
+    raises instead of falling back (meta tensors stand in for one here)."""
+    x = torch.empty((16, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.segmented_lora(x, torch.zeros(1, dtype=torch.int32),
+                           torch.empty((1, 8, 4)), torch.empty((1, 4, 8)),
+                           block_t=16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sgmv.segmented_lora(torch.zeros((16, 8), dtype=torch.bfloat16),
+                            torch.zeros(1, dtype=torch.int32),
+                            torch.zeros((1, 8, 4)), torch.zeros((1, 4, 8)),
+                            block_t=16)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are built and run on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,r,NA,bt,out", [(96, 2048, 16, 4, 16, 2048),
+                                             (256, 128, 16, 5, 32, 96)])
+def test_segmented_lora_kernel_on_gpu(cuda_device, T, d, r, NA, bt, out):
+    """CUDA kernel vs its plain version, bf16 in/out: two bf16 ulps of the
+    largest output (both accumulate in f32, in another order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((T, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    a = torch.randn((NA, d, r), generator=gen, device=cuda_device) * 0.05
+    b = torch.randn((NA, r, out), generator=gen, device=cuda_device) * 0.05
+    ids = torch.randint(0, NA + 1, (T // bt,), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    before = ops.LAUNCHES["segmented_lora"]
+    got = ops.segmented_lora(x, ids, a, b, block_t=bt)
+    want = ref.segmented_lora_ref(x, ids, a, b, bt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segmented_lora"] == before + 1
+    tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 48])
+def test_decode_attention_int8_kernel_on_gpu(cuda_device, window):
+    """CUDA kernel vs its plain version at the serving shape (S = 161 is
+    ragged): two bf16 ulps of the largest output."""
+    B, H, KV, S, hd = 8, 32, 32, 161, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((B, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, hd), generator=gen, device=cuda_device)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=cuda_device)
+    kq, vq, ks, vs = ops.quantize_kv(k, v)
+    kq, vq = kq.contiguous(), vq.contiguous()
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=cuda_device,
+                         dtype=torch.int32)
+    got = ops.decode_attention_int8(q, kq, vq, ks, vs, lens, window=window)
+    want = ref.decode_attention_int8_ref(q, kq.transpose(1, 2),
+                                         vq.transpose(1, 2), ks, vs, lens,
+                                         window=window)
+    torch.cuda.synchronize()
+    tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
