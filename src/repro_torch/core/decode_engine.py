@@ -1,43 +1,93 @@
-"""Continuous-batching decode engine over a persistent dense int8 KV pool.
+"""Continuous-batching decode engine over a persistent int8 KV pool —
+dense slot-contiguous or block-paged.
 
 Autoregressive serving is where FMplex's co-location wins compound: every
 decode step re-uses the shared backbone across all co-resident tasks, so the
 per-step cost of multi-task isolation must be ~zero. The engine owns:
 
   * a **slot pool** — a fixed, bucketed number of decode slots backed by one
-    persistent KV cache allocated ONCE (``lm.init_cache(kv_quant=True)``):
-    one contiguous ``(num_slots, s_max)`` int8 region per slot with
-    per-(slot, kv-head) scales fixed at prefill admission. Every stream
-    reserves its worst-case length, so the slot count caps colocation.
-    Decode attention reads it through the int8 flash-decode kernel
-    (``kernels.ops.decode_attention_int8``).
+    persistent KV cache allocated ONCE. Two layouts:
+
+      - *dense* (``paged=False``): one contiguous ``(num_slots, s_max)`` int8
+        region per slot with per-(slot, kv-head) scales fixed at prefill
+        admission, read through the int8 flash-decode kernel
+        (``kernels.ops.decode_attention_int8``). Every stream reserves its
+        worst-case length, so the slot count caps colocation.
+      - *paged* (``paged=True``): one arena of ``total_pages`` pages of
+        ``page_size`` int8 positions with per-(page, kv-head) scales, shared
+        by every slot through a per-slot page table and read through the
+        paged flash-decode kernel (``kernels.ops.paged_decode_attention``),
+        which gathers pages through the table. Page 0 is the trash page:
+        free slots keep stepping (static shapes) and their writes land
+        there, never in a live stream's pages.
+
+  * **the page lifecycle** (paged) — refcounted ownership with copy-on-write
+    prefix sharing, as in the JAX package. A page is on the free list
+    exactly when its refcount is 0. ``_take_pages`` pops from the free list
+    (refcount 1); a joining stream whose prompt starts with a prefix another
+    stream already admitted MAPS those pages (``_share_pages``, refcount
+    +1) — the prefix registry holds one chained sha256 digest per full
+    prompt page, seeded with the adapter identity — and ``_release_pages``
+    (retire, preempt, bucket trim) decrements, freeing at 0 and dropping the
+    page's registry entry. Only pages wholly covered by prompt tokens are
+    registered and decode writes land at or past a stream's prompt length,
+    so shared pages are immutable and the read path needs no change.
+    Admission quantizes the prompt's K/V per (page, kv-head), so a shared
+    page's codes equal what the joining stream's own prefill would have
+    written: sharing is exact. The prompt/decode boundary page is stamped at
+    the slot-wide admission scale; decode appends quantize into the slot's
+    running scale for the first token of a fresh page (stamping it) and into
+    the page's stamped scale after that, so a recycled page's stale scale
+    never leaks into a new owner. The admission always prefills the whole
+    prompt (``chunked_prefill=False``); computing only the private tail of
+    a prefix hit comes with a later slice.
+  * **memory-aware admission, deferral and preemption** (paged) — a join
+    admits when a slot is free and free pages cover its prompt bucket (less
+    the pages its prefix would map) plus a chunk of decode headroom for it
+    and every live stream; otherwise it DEFERS into a pending queue that
+    drains FIFO with a bounded lookahead (``pending_lookahead``; a small
+    prompt may pass a blocked head only ``hol_skip_cap`` times in a row).
+    Before each chunk every live stream is topped up to ``len + chunk``
+    tokens of pages; when the free list runs dry the youngest live stream is
+    PREEMPTED: its pages are released and it re-queues at the front with its
+    generated tokens folded into the prompt. A deferred join that only fit
+    thanks to a prefix discount whose sharer has since retired is STRANDED:
+    it stays queued without blocking others, and only an engine with
+    nothing live and nothing viable raises (``EngineWedged``).
+  * **proactive scale refresh** (paged) — the decode step tracks each slot's
+    decode-era |K|/|V| maxima (``k_max``/``v_max``); when one exceeds
+    ``scale_refresh`` x the slot's admission range (a flag computed with the
+    chunk and returned in its one host sync), the slot's private tail page
+    is re-quantized in place into a wider scale.
   * **variable-length bucketed admission** — a prompt is right-padded to the
     smallest prompt-length bucket holding it (the bucket is a static shape
-    key; the true length masks pads out of attention and the cache), then
-    scattered into a free slot, producing the first token.
+    key; the true length masks pads out of attention and the cache),
+    producing the first token.
   * **chunked decode** — ``step_chunk`` advances every slot ``chunk`` steps
-    (free slots step too, on garbage that the next admission overwrites;
-    their adapter id is the "no adapter" sentinel), with the q/v LoRA
-    deltas of the co-batched tasks through the segmented (SGMV) kernel. The
-    segment metadata is built once per slot *composition* and reused by
-    every step and every layer.
+    (free slots step too, on garbage; their adapter id is the "no adapter"
+    sentinel), with the q/v LoRA deltas of the co-batched tasks through the
+    segmented (SGMV) kernel. The segment metadata is built once per slot
+    *composition* and reused by every step and every layer.
   * **static shapes** — prefill is keyed on (adapter cap, prompt bucket),
-    decode on (slots, adapter cap, chunk): ``compile_count`` counts the
-    distinct keys, and steady-state churn must not add any.
+    decode on (slots, adapter cap, chunk), the paged admission scatter on
+    its page count: ``compile_count`` counts the distinct keys, and
+    steady-state churn, page allocation, deferral and preemption must not
+    add any. Page ids, tables, lengths and slots are data, never keys.
   * **failure semantics** — per-stream non-finite logits quarantine only
     that stream; deadlines cancel live streams at chunk entry (with the
     chunk clamped to a small ladder when a deadline is nearer than a full
-    chunk); ``cancel`` unwinds a stream by rid.
+    chunk) and shed expired pending entries; ``cancel`` unwinds a stream by
+    rid wherever it lives.
 
-This slice ports the dense pool only. The paged pool (and with it prefix
-sharing, chunked prefill and preemption), speculative decoding, the
-host-RAM spill tier, snapshot/restore and encoder-decoder admission come
-with later slices and raise ``NotImplementedError`` here.
+Chunked shared-prefix prefill, speculative decoding, the host-RAM spill
+tier, snapshot/restore and encoder-decoder admission come with later slices
+and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
 import warnings
 from typing import Callable, Optional
@@ -50,6 +100,15 @@ from repro_torch.core.physical import PAD_SENTINEL, PhysicalFM, bucket_for, seg_
 from repro_torch.models import lm
 
 FREE = PAD_SENTINEL   # free-slot adapter sentinel (same as run_batch padding)
+TRASH_PAGE = 0        # arena page absorbing free-slot garbage writes
+
+
+class EngineWedged(ValueError):
+    """A paged engine holds deferred joins that can never be admitted
+    (stranded: the shared prefix they were admitted against was released)
+    and nothing live or viable is left to change that. A ``ValueError`` as
+    in the JAX package; the serve loop catches this class only, so any
+    other error (a kernel's precondition, a device fault) propagates."""
 
 
 def default_prompt_buckets(prompt_len: int) -> tuple[int, ...]:
@@ -102,15 +161,17 @@ class DecodeSlot:
 
 @dataclasses.dataclass
 class _PendingJoin:
-    """One admission request (the dense pool admits at once or raises)."""
+    """An admission request; on a paged pool it may wait in the FIFO
+    pending queue (deferred, or a preempted stream to resume)."""
     task_id: str
     prompt: np.ndarray
     adapter_id: Optional[str]
     max_new_tokens: int
     rid: int
     eos_id: Optional[int]
+    resume: Optional[DecodeSlot] = None   # preempted stream being re-admitted
     deadline: float = float("inf")
-    status: str = "ok"
+    status: str = "ok"                    # stamped when rejected terminally
 
 
 class DecodeEngine:
@@ -123,32 +184,48 @@ class DecodeEngine:
                  prompt_buckets: Optional[tuple] = None,
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, paged: bool = False,
-                 spill_bytes: int = 0, deadline_clamp: bool = True,
-                 spec_k: int = 0):
+                 page_size: int = 16, total_pages: Optional[int] = None,
+                 prefix_sharing: bool = True, scale_refresh: float = 2.0,
+                 pending_lookahead: int = 4, hol_skip_cap: int = 4,
+                 spill_bytes: int = 0, spill_arena=None,
+                 deadline_clamp: bool = True,
+                 chunked_prefill: bool = True,
+                 spec_k: int = 0, spec_force_fill: bool = False,
+                 spec_disable_below: float = 1.25,
+                 spec_probe_every: int = 16,
+                 enc_len: Optional[int] = None):
         cfg = fm.cfg
         if cfg.vocab_size <= 0 or cfg.is_representation:
             raise ValueError("DecodeEngine serves generative decoder LMs "
                              "(vocab head required)")
-        if paged:
-            raise NotImplementedError(
-                "paged=True: the paged int8 pool (page allocator, prefix "
-                "sharing, chunked prefill, paged decode kernel K4) comes "
-                "with a later slice of the port")
         if spec_k > 0:
-            raise NotImplementedError("spec_k > 0: speculative decoding comes "
-                                      "with a later slice of the port")
-        if spill_bytes > 0:
-            raise NotImplementedError("spill_bytes > 0: the host-RAM spill "
-                                      "tier comes with a later slice of the port")
+            raise NotImplementedError("spec_k > 0: speculative decoding (P11) "
+                                      "comes with a later slice of the port")
+        if spill_bytes > 0 or spill_arena is not None:
+            raise NotImplementedError("spill_bytes > 0 / spill_arena: the "
+                                      "host-RAM spill tier (P10) comes with a "
+                                      "later slice of the port")
+        if enc_len is not None:
+            raise NotImplementedError("enc_len: encoder-decoder admission "
+                                      "(P12) comes with a later slice")
+        self.plan = CachePlan.for_config(cfg, paged)
+        if self.plan.needs_state_slots:
+            raise NotImplementedError("per-slot recurrent / cross-attention "
+                                      "state comes with a later slice")
+        paged = self.plan.paged
+        if paged and chunked_prefill and prefix_sharing \
+                and self.plan.prefix_sharing_ok:
+            raise NotImplementedError(
+                "chunked_prefill=True: chunked shared-prefix prefill (P9, "
+                "with the prefill kernel K2) comes with a later slice of the "
+                "port; pass chunked_prefill=False (full prefill, the same "
+                "token streams)")
+        if paged and not kv_quant:
+            raise ValueError("the paged arena is int8-only (kv_quant=True)")
         self.fm = fm
         self.cfg = cfg
         self.device = fm.device
         self.num_slots = bucket_for(num_slots)
-        self.plan = CachePlan.for_config(cfg, paged=False)
-        if self.plan.needs_state_slots:
-            raise NotImplementedError("per-slot recurrent / cross-attention "
-                                      "state comes with a later slice")
-        self.paged = False
         self.impl = fm.lora_impl
         self.prompt_len = prompt_len or fm.input_len
         if prompt_buckets is None:
@@ -166,28 +243,72 @@ class DecodeEngine:
         self._keys = [torch.Generator(device=self.device).manual_seed(
             sample_seed * 1_000_003 + i) for i in range(self.num_slots)]
         self.s_max = self.prompt_len + max_new + 1
-        # the persistent pool: allocated once, updated in place
-        self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
-                                  kv_quant=kv_quant, device=self.device)
-        self.pending: collections.deque = collections.deque()  # never fills
+        self.paged = paged
+        if paged:
+            self.page_size = page_size
+            self.pages_per_slot = -(-self.s_max // page_size)
+            if total_pages is None:        # dense-equivalent memory + trash
+                total_pages = 1 + self.num_slots * self.pages_per_slot
+            if total_pages < 2:
+                raise ValueError("need at least one usable page")
+            self.total_pages = total_pages
+            self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
+                                      kv_quant=True, paged=True,
+                                      page_size=page_size,
+                                      num_pages=total_pages,
+                                      device=self.device)
+            # host allocator state; the device page table is synced from
+            # _ptab before any decode dispatch that follows a change
+            self._free_pages = list(range(total_pages - 1, TRASH_PAGE, -1))
+            self._ptab = np.zeros((self.num_slots, self.pages_per_slot),
+                                  np.int32)
+            self._held = np.zeros((self.num_slots,), np.int64)
+            self._lens = np.zeros((self.num_slots,), np.int64)
+            self._ptab_dirty = True
+            self.deferrals = 0
+            self.preemptions = 0
+            # refcounted ownership + COW prefix sharing (module docstring)
+            self.prefix_sharing = bool(prefix_sharing) and \
+                self.plan.prefix_sharing_ok
+            self._page_refs = np.zeros((total_pages,), np.int32)
+            self._prefix_registry: dict[bytes, int] = {}   # key -> page id
+            self._page_key: dict[int, bytes] = {}          # page id -> key
+            self.prefix_hits = 0            # joins that mapped >= 1 page
+            self.shared_pages_mapped = 0    # cumulative pages mapped, not copied
+            self.scale_refresh = float(scale_refresh)
+            self.scale_refreshes = 0
+            # bounded pending-queue lookahead (head-of-line fix)
+            self.pending_lookahead = max(1, int(pending_lookahead))
+            self.hol_skip_cap = max(1, int(hol_skip_cap))
+            self._hol_skips = 0
+            self.hol_bypasses = 0
+        else:
+            # the persistent pool: allocated once, updated in place
+            self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
+                                      kv_quant=kv_quant, device=self.device)
+        self.pending: collections.deque = collections.deque()
         self._tokens = torch.zeros((self.num_slots,), dtype=torch.int32,
                                    device=self.device)          # last token/slot
         self.slots: list[Optional[DecodeSlot]] = [None] * self.num_slots
         self._slot_adapters = np.full((self.num_slots,), FREE, np.int32)
         self._fn_prefill: dict[tuple, Callable] = {}
         self._fn_decode: dict[tuple, Callable] = {}
-        self._fn_write: dict = {}
+        self._fn_write: dict = {}      # dense: {None: fn}; paged: {npages: fn}
+        self._fn_rescale: Optional[Callable] = None
         self._seg_key = None        # composition signature of cached metadata
         self._seg_dev = None        # device-uploaded (perm, inv, blocks)
         self.steps = 0              # decode steps executed (all slots)
         self.last_chunk_s = 0.0
         self.rejected: list[_PendingJoin] = []   # terminally rejected joins
-        # (rid, task, true_prompt_len, tail_tokens): the dense pool always
+        # (rid, task, true_prompt_len, tail_tokens): every admission here
         # prefills the whole prompt, so tail == true length
         self.admitted_log: list[tuple[int, str, int, int]] = []
         self.admissions = 0
+        self.tail_tokens_computed = 0   # prompt tokens actually prefilled
         self.quarantines = 0
-        self.deadline_cancels = 0
+        self.deadline_cancels = 0    # mid-flight (slot/resume) expirations
+        self.deadline_sheds = 0      # pending entries expired unadmitted
+        self.stranded_rejections = 0  # stranded entries terminally rejected
         self.cancels = 0
         self.deadline_clamp = bool(deadline_clamp)
         self._step_ema = 0.0
@@ -211,14 +332,202 @@ class DecodeEngine:
         return [p.task_id for p in self.pending]
 
     def compile_count(self) -> int:
-        """Distinct static-shape keys of prefill, decode and pool writes;
-        steady state across join/leave churn must not grow this."""
-        return len(self._fn_prefill) + len(self._fn_decode) + len(self._fn_write)
+        """Distinct static-shape keys of prefill, decode, pool writes and
+        the scale refresh; steady state across join/leave churn, page
+        allocation, deferral and preemption must not grow this."""
+        return (len(self._fn_prefill) + len(self._fn_decode)
+                + len(self._fn_write) + int(self._fn_rescale is not None))
 
-    def can_admit(self, prompt_tokens: Optional[int] = None, *, prompt=None,
-                  adapter_id: Optional[str] = None) -> bool:
-        """Would an admission proceed right now? Dense pool: a free slot."""
-        return bool(self.free_slots())
+    # ---- page accounting (paged layout) ----
+    def free_page_count(self) -> int:
+        return len(self._free_pages) if self.paged else 0
+
+    def used_page_count(self) -> int:
+        if not self.paged:
+            return 0
+        return (self.total_pages - 1) - len(self._free_pages)
+
+    def page_occupancy(self) -> float:
+        """Fraction of usable (non-trash) pages held by streams."""
+        if not self.paged:
+            return 0.0
+        return self.used_page_count() / max(self.total_pages - 1, 1)
+
+    def _pages_for(self, tokens: int) -> int:
+        return -(-max(tokens, 1) // self.page_size)
+
+    def _headroom_tokens(self) -> int:
+        """Decode headroom the allocator provisions per live stream per
+        chunk (one chunk of tokens)."""
+        return self.chunk
+
+    def shared_page_count(self) -> int:
+        """Physical pages currently mapped by more than one stream."""
+        return int((self._page_refs > 1).sum()) if self.paged else 0
+
+    def dedup_saved_pages(self) -> int:
+        """Pages prefix sharing is saving right now: logical mappings minus
+        physical pages (sum of max(refcount - 1, 0))."""
+        if not self.paged:
+            return 0
+        return int(np.maximum(self._page_refs - 1, 0).sum())
+
+    def logical_page_count(self) -> int:
+        """Total page-table mappings across live slots — what the streams
+        would hold physically without prefix sharing."""
+        return int(self._held.sum()) if self.paged else 0
+
+    def _imminent_page_need(self) -> int:
+        """Pages the LIVE streams will allocate for their next chunk — the
+        watermark an admission must clear on top of its own need."""
+        need = 0
+        for i, s in enumerate(self.slots):
+            if s is not None and not s.done:
+                need += max(0, self._pages_for(self._lens[i]
+                                               + self._headroom_tokens())
+                            - self._held[i])
+        return need
+
+    def _admission_need(self, prompt_tokens: int, prompt=None,
+                        adapter_id: Optional[str] = None) -> int:
+        """Free pages an admission must find: the prompt bucket's pages
+        minus the pages its prefix would share (known only when the prompt
+        is given), plus a chunk of decode headroom for the new stream and
+        for every live one."""
+        plen = self.bucket_for_prompt(min(max(prompt_tokens, 1),
+                                          self.prompt_len))
+        shared = len(self._match_prefix(adapter_id, prompt)) \
+            if prompt is not None else 0
+        return (self._pages_for(self._adm_s_max(plen)) - shared
+                + self._pages_for(self._headroom_tokens())
+                + self._imminent_page_need())
+
+    def can_admit(self, prompt_tokens: Optional[int] = None, *,
+                  prompt=None, adapter_id: Optional[str] = None) -> bool:
+        """Would an admission of a ``prompt_tokens``-token prompt proceed
+        right now? Dense: a free slot. Paged: a free slot, nothing already
+        deferred ahead of it (FIFO), and free pages covering the prompt's
+        bucket plus a chunk of decode headroom for it AND every live stream
+        — the memory-aware gate ``ServeLoop`` consults before a prefill.
+        The paged gate requires the prompt length (or the prompt, which
+        also lets it discount the pages a shared prefix would map;
+        ``adapter_id`` keys that registry lookup)."""
+        if prompt is not None:
+            prompt = np.asarray(prompt, np.int32).reshape(-1)
+            if prompt_tokens is None:
+                prompt_tokens = len(prompt)
+        if self.paged and prompt_tokens is None:
+            raise TypeError(
+                "can_admit on a paged pool requires prompt_tokens (or "
+                "prompt=): the memory gate cannot size an admission from "
+                "a default 1-token estimate")
+        if not self.free_slots():
+            return False
+        if not self.paged:
+            return True
+        if self.pending:
+            return False
+        return len(self._free_pages) >= self._admission_need(
+            prompt_tokens, prompt=prompt, adapter_id=adapter_id)
+
+    # ---- refcounted page allocator + prefix registry (paged layout) ----
+    def _take_pages(self, n: int) -> np.ndarray:
+        if len(self._free_pages) < n:
+            raise RuntimeError(f"page allocator: {n} pages asked, "
+                               f"{len(self._free_pages)} free")
+        pages = np.array([self._free_pages.pop() for _ in range(n)], np.int32)
+        self._page_refs[pages] = 1
+        return pages
+
+    def _share_pages(self, pages):
+        for p in pages:
+            self._page_refs[int(p)] += 1
+
+    def _release_pages(self, pages):
+        """Drop one reference per page; a page whose refcount reaches zero
+        returns to the free list and falls out of the prefix registry."""
+        for p in pages:
+            p = int(p)
+            r = self._page_refs[p] = self._page_refs[p] - 1
+            if r < 0:
+                raise RuntimeError(f"double free of page {p}")
+            if r == 0:
+                self._free_pages.append(p)
+                key = self._page_key.pop(p, None)
+                if key is not None and self._prefix_registry.get(key) == p:
+                    del self._prefix_registry[key]
+
+    def _release_slot_pages(self, slot: int):
+        self._release_pages(self._ptab[slot, :self._held[slot]])
+        self._ptab[slot] = TRASH_PAGE
+        self._held[slot] = 0
+        self._lens[slot] = 0
+        self._ptab_dirty = True
+
+    def _prefix_keys(self, adapter_id: Optional[str],
+                     prompt: np.ndarray) -> list[bytes]:
+        """One registry key per full page of ``prompt``: a CHAINED sha256
+        digest (key_j = H(key_{j-1} || page_j bytes), seeded with the
+        adapter identity), so hashing stays O(prompt bytes) while each
+        digest commits to the whole prefix up to its page."""
+        h = hashlib.sha256(b"\x00" if adapter_id is None
+                           else b"\x01" + adapter_id.encode())
+        ps = self.page_size
+        keys = []
+        for j in range(len(prompt) // ps):
+            h.update(prompt[j * ps:(j + 1) * ps].tobytes())
+            keys.append(h.digest())
+        return keys
+
+    def _match_prefix(self, adapter_id: Optional[str], prompt) -> list[int]:
+        """Arena page ids of the longest registered page-aligned prefix of
+        ``prompt`` under ``adapter_id`` (LoRA changes V, so prefixes only
+        match within one adapter). Empty when sharing is off."""
+        if not (self.paged and self.prefix_sharing) or prompt is None:
+            return []
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if len(prompt) > self.prompt_len:       # join() left-truncates
+            prompt = prompt[-self.prompt_len:]
+        shared = []
+        for key in self._prefix_keys(adapter_id, prompt):
+            p = self._prefix_registry.get(key)
+            if p is None:
+                break
+            shared.append(p)
+        return shared
+
+    def _register_prefix(self, adapter_id: Optional[str], prompt: np.ndarray,
+                         slot: int, true_len: int):
+        """Publish the slot's FULL prompt pages (the only immutable ones —
+        decode never writes below ``true_len``) for future joins to map. An
+        existing registration for the same prefix wins (first writer); the
+        duplicate page stays private to this slot."""
+        if not self.prefix_sharing:
+            return
+        for j, key in enumerate(self._prefix_keys(adapter_id,
+                                                  prompt[:true_len])):
+            page = int(self._ptab[slot, j])
+            if self._prefix_registry.setdefault(key, page) == page:
+                self._page_key[page] = key
+
+    def _sync_page_table(self):
+        """Push the host page table to the device. One device table serves
+        every attention layer (each sublayer's leaf is a broadcast view of
+        it). The copy goes through a fresh pinned buffer that the host
+        never touches again, so the asynchronous upload cannot race the
+        allocator's next mutation of ``_ptab``."""
+        if not self._ptab_dirty:
+            return
+        host = torch.from_numpy(self._ptab.copy())
+        if self.device.type == "cuda":
+            table = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            table = host
+        for sub in self.pool:
+            if "page_table" in sub:
+                sub["page_table"] = table.expand(
+                    sub["page_table"].shape[0], -1, -1)
+        self._ptab_dirty = False
 
     # ---- static-shape planes ----
     def _seg(self, impl, perm, inv, blocks):
@@ -227,13 +536,23 @@ class DecodeEngine:
         return {"perm": perm, "inv": inv, "block_adapter": blocks,
                 "block_t": self.fm.seg_block_t}
 
+    def _adm_s_max(self, plen: int) -> int:
+        """Admission-prefill cache length for one prompt bucket: the paged
+        scatter needs a whole number of pages; dense scatters into s_max."""
+        if self.paged:
+            return self._pages_for(plen) * self.page_size
+        return self.s_max
+
     def _prefill_fn(self, cap: int, plen: int):
-        """Admission prefill for one prompt-length bucket: a one-row cache of
-        the pool's length, filled and quantized per (row, kv head)."""
+        """Admission prefill for one prompt-length bucket: a one-row cache,
+        filled and quantized per (row, kv head) for the dense pool, kept in
+        float for the paged pool (its scatter quantizes per page, so a
+        page's scale depends only on the tokens it covers)."""
         key = (cap, plen)
         if key not in self._fn_prefill:
             cfg, impl, sample = self.cfg, self.impl, self._sample
-            s_max, kvq, dev = self.s_max, self.kv_quant, self.device
+            s_max, dev = self._adm_s_max(plen), self.device
+            kvq = self.kv_quant and not self.paged
 
             def run(params, tokens, true_len, gens, lora_stack, adapter_idx,
                     perm, inv, blocks):
@@ -261,13 +580,108 @@ class DecodeEngine:
             self._fn_write[None] = write
         return self._fn_write[None]
 
+    def _paged_write_fn(self, npages: int):
+        """Paged admission scatter for one prompt bucket (``npages`` pages),
+        in place: the one-row FLOAT prefill cache reshapes into pages, each
+        page is quantized with its own per-(page, kv-head) scale (a pure
+        function of the tokens it covers — what makes shared prefix pages
+        bit-exact across streams), and pages scatter into the arena at the
+        given page ids. Shared prefix positions arrive pointed at the trash
+        page, so their (identical) content is discarded. The boundary page
+        (``true_len // page_size``, the partial page decode appends into) is
+        stamped at the slot-wide scale. The slot's running scales are set to
+        the prompt-wide maximum, the drift trackers reset, and ``len`` is
+        set to the true prompt length."""
+        if npages not in self._fn_write:
+            ps = self.page_size
+
+            def write(pool, cache, slot, page_idx, true_len):
+                sel = (torch.arange(npages, device=page_idx.device)
+                       == true_len // ps)[None, :, None]
+                for psub, csub in zip(pool, cache):
+                    kf = csub["k"][:, 0].float()           # (nper, S, kv, hd)
+                    nper, _, kv, hd = kf.shape
+                    kf = kf.reshape(nper, npages, ps, kv, hd)
+                    vf = csub["v"][:, 0].float().reshape(nper, npages, ps,
+                                                         kv, hd)
+                    kmax = kf.abs().amax(dim=(2, 4))        # (nper, np, kv)
+                    vmax = vf.abs().amax(dim=(2, 4))
+                    # slot scales = prompt-wide max: the dense pool's per-row
+                    # quantization range
+                    slot_ks = torch.clamp(kmax.amax(dim=1), min=1e-8) / 127.0
+                    slot_vs = torch.clamp(vmax.amax(dim=1), min=1e-8) / 127.0
+                    ks = torch.where(sel, slot_ks[:, None, :], kmax / 127.0)
+                    vs = torch.where(sel, slot_vs[:, None, :], vmax / 127.0)
+                    psub["k"][:, page_idx] = quantize_pages(kf, ks)
+                    psub["v"][:, page_idx] = quantize_pages(vf, vs)
+                    psub["k_scale"][:, page_idx] = ks
+                    psub["v_scale"][:, page_idx] = vs
+                    psub["slot_k_scale"][:, slot] = slot_ks
+                    psub["slot_v_scale"][:, slot] = slot_vs
+                    psub["k_max"][:, slot] = 0.0
+                    psub["v_max"][:, slot] = 0.0
+                    psub["len"][:, slot] = true_len
+                return pool
+
+            self._fn_write[npages] = write
+        return self._fn_write[npages]
+
+    def _rescale_fn(self):
+        """Proactive scale refresh for ONE (slot, tail page), in place: bump
+        the page and slot scales to cover the slot's observed decode-era
+        |K|/|V| maxima (with 10% headroom) and rewrite the page's int8 codes
+        from the old scale into the new one."""
+        if self._fn_rescale is None:
+            margin = 1.1 / 127.0
+
+            def rescale(pool, slot, page):
+                for sub in pool:
+                    for c in ("k", "v"):
+                        mx = sub[f"{c}_max"][:, slot] * margin  # (nper, kv)
+                        old = sub[f"{c}_scale"][:, page]
+                        new = torch.maximum(old, mx)
+                        r = torch.where(new > 0,
+                                        old / torch.clamp(new, min=1e-12),
+                                        torch.ones_like(new))
+                        codes = torch.round(sub[c][:, page].float()
+                                            * r[:, None, :, None])
+                        sub[c][:, page] = codes.to(sub[c].dtype)
+                        sub[f"{c}_scale"][:, page] = new
+                        sub[f"slot_{c}_scale"][:, slot] = torch.maximum(
+                            sub[f"slot_{c}_scale"][:, slot], mx)
+                return pool
+
+            self._fn_rescale = rescale
+        return self._fn_rescale
+
+    def _maybe_refresh_scales(self, over: np.ndarray):
+        """Refresh the (always private) tail page of every slot the chunk's
+        drift check flagged: its decode-era |K|/|V| maxima exceeded
+        ``scale_refresh`` x the admission range."""
+        if not self.paged or self.scale_refresh <= 0 or not over.any():
+            return
+        for i in np.nonzero(over)[0]:
+            s = self.slots[i]
+            # only a slot that has decoded past its prompt has a private
+            # tail page to rewrite — shared prefix pages never are targets
+            if s is None or s.done or self._lens[i] <= s.prompt_tokens:
+                continue
+            page = int(self._ptab[i, (self._lens[i] - 1) // self.page_size])
+            self.pool = self._rescale_fn()(self.pool, int(i), page)
+            self.scale_refreshes += 1
+
     def _decode_fn(self, cap: int, chunk: int):
         """``chunk`` decode steps over every slot; returns (pool, last
-        tokens, generators, tokens (slots, chunk), finite flags (slots,))."""
+        tokens, generators, tokens (slots, chunk), drift flags (slots,),
+        finite flags (slots,)). The drift flag (paged, scale refresh on) is
+        computed from the post-chunk trackers, so it rides the chunk's one
+        host sync with the tokens."""
         key = (self.num_slots, cap, chunk)
         if key not in self._fn_decode:
             cfg, impl, sample = self.cfg, self.impl, self._sample
             nslots, dev = self.num_slots, self.device
+            refresh_thr = self.scale_refresh * 127.0 \
+                if self.paged and self.scale_refresh > 0 else None
 
             def run(params, pool, tokens, gens, lora_stack, adapter_idx,
                     perm, inv, blocks):
@@ -284,7 +698,15 @@ class DecodeEngine:
                     fin = fin & lm.finite_logits(logits)
                     tok, gens = sample(logits, gens)
                     out.append(tok)
-                return pool, tok, gens, torch.stack(out, dim=1), fin
+                drift = torch.zeros((nslots,), dtype=torch.bool, device=dev)
+                if refresh_thr is not None:
+                    for sub in pool:
+                        o = (sub["k_max"] > refresh_thr * torch.clamp(
+                            sub["slot_k_scale"], min=1e-8)) | \
+                            (sub["v_max"] > refresh_thr * torch.clamp(
+                                sub["slot_v_scale"], min=1e-8))
+                        drift = drift | o.any(dim=2).any(dim=0)
+                return pool, tok, gens, torch.stack(out, dim=1), drift, fin
 
             self._fn_decode[key] = run
         return self._fn_decode[key]
@@ -318,10 +740,17 @@ class DecodeEngine:
              adapter_id: Optional[str] = None, max_new_tokens: int = 8,
              rid: int = -1, eos_id: Optional[int] = None,
              deadline: Optional[float] = None) -> int:
-        """Admit one request: prefill its prompt (LoRA applied, K/V int8-
-        quantized per (slot, kv head)), scatter it into a free slot, produce
-        the first token. Returns the slot index. A full dense pool raises:
-        its capacity is the static slot count. Prompts longer than the
+        """Admit one request: prefill its prompt (LoRA applied), write its
+        K/V into a free slot (paged: into freshly allocated pages, mapping a
+        registered shared prefix), produce the first token. Returns the slot
+        index.
+
+        A full pool behaves per layout: the dense pool raises (its capacity
+        is the static slot count); the paged pool DEFERS — the request
+        queues FIFO and admits during a later ``step_chunk`` once a slot and
+        enough free pages exist — and returns -1. A prompt that could not
+        fit even an empty arena raises ``ValueError`` (a configuration
+        error; deferring it would spin forever). Prompts longer than the
         largest bucket keep their LAST ``prompt_len`` tokens (with a
         warning); the decode budget clamps to the pool's ``max_new``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -331,12 +760,26 @@ class DecodeEngine:
                            eos_id=eos_id,
                            deadline=float("inf") if deadline is None
                            else float(deadline))
+        if self.paged and not self.can_admit(len(prompt), prompt=prompt,
+                                             adapter_id=adapter_id):
+            if self._never_fits(req):
+                plen = self.bucket_for_prompt(min(max(len(prompt), 1),
+                                                  self.prompt_len))
+                base = self._pages_for(self._adm_s_max(plen)) + \
+                    self._pages_for(self._headroom_tokens())
+                raise ValueError(
+                    f"prompt needs {base} pages (bucket {plen} + chunk "
+                    f"headroom) beyond any shared prefix but the arena "
+                    f"only has {self.total_pages - 1} usable pages; raise "
+                    f"total_pages or shrink prompt_buckets/chunk")
+            self.pending.append(req)
+            self.deferrals += 1
+            return -1
         if not self.free_slots():
             raise RuntimeError("no free decode slots; step_chunk() first")
         return self._admit_now(req)
 
     def _admit_now(self, req: _PendingJoin) -> int:
-        t_adm = time.perf_counter()
         prompt = req.prompt
         if len(prompt) > self.prompt_len:
             warnings.warn(
@@ -365,18 +808,62 @@ class DecodeEngine:
             torch.full((1,), aslot, dtype=torch.int32, device=dev),
             perm, inv, blocks)
         # the prefill consumed real device work whether or not the stream
-        # survives it — record the admission for token-level charging
+        # survives it — record the admission for token-level charging (a
+        # resumed stream was charged at its first admission)
         self.admissions += 1
-        self.admitted_log.append((req.rid, req.task_id, true_len, true_len))
+        self.tail_tokens_computed += true_len
+        if req.resume is None:
+            self.admitted_log.append((req.rid, req.task_id, true_len,
+                                      true_len))
         # numeric health rides the admission's host sync: a non-finite
-        # prefill quarantines right here, before the pool write
+        # prefill quarantines right here — no pages allocated, no pool
+        # write, no prefix registration (NaN K/V never enters the registry)
         fin_ok = bool(fin[0].item())
-        if fin_ok:
-            self.pool = self._write_fn()(self.pool, cache, slot)
-        else:
+        if not fin_ok:
             self.quarantines += 1
+        elif self.paged:
+            self._write_pages(req, true_prompt, true_len, plen, slot, cache)
+        else:
+            self.pool = self._write_fn()(self.pool, cache, slot)
         return self._finish_admission(req, slot, aslot, first, fin_ok,
                                       true_prompt, true_len, max_new_tokens)
+
+    def _write_pages(self, req: _PendingJoin, true_prompt: np.ndarray,
+                     true_len: int, plen: int, slot: int, cache):
+        """The paged half of an admission: map the registered shared prefix
+        (copy-on-write: those positions scatter to the trash page, their
+        content is already in the arena and others read it), allocate the
+        rest, write, trim the bucket padding's pages, register the prompt's
+        full pages."""
+        npages = self._pages_for(self._adm_s_max(plen))
+        shared = self._match_prefix(req.adapter_id, true_prompt)
+        m = len(shared)
+        priv = self._take_pages(npages - m)
+        pages = priv
+        if m:
+            self._share_pages(shared)
+            self.prefix_hits += 1
+            self.shared_pages_mapped += m
+            pages = np.concatenate([np.asarray(shared, np.int32), priv])
+        scatter = pages.copy()
+        scatter[:m] = TRASH_PAGE
+        self.pool = self._paged_write_fn(npages)(
+            self.pool, cache, slot,
+            torch.as_tensor(scatter, dtype=torch.long, device=self.device),
+            true_len)
+        self._ptab[slot, :npages] = pages
+        self._held[slot] = npages
+        self._lens[slot] = true_len
+        # trim: bucket padding beyond the true length wrote zero pages —
+        # release them now (always private: the shared prefix never extends
+        # past the prompt); decode growth re-allocates
+        keep = self._pages_for(true_len)
+        if keep < npages:
+            self._release_pages(self._ptab[slot, keep:npages])
+            self._ptab[slot, keep:npages] = TRASH_PAGE
+            self._held[slot] = keep
+        self._register_prefix(req.adapter_id, true_prompt, slot, true_len)
+        self._ptab_dirty = True
 
     def _finish_admission(self, req: _PendingJoin, slot: int, aslot: int,
                           first, fin_ok: bool, true_prompt: np.ndarray,
@@ -385,52 +872,243 @@ class DecodeEngine:
         now = time.perf_counter()
         tok0 = int(first[0].item())
         eos = self.eos_id if req.eos_id is None else req.eos_id
-        self.slots[slot] = DecodeSlot(
-            rid=req.rid, task_id=req.task_id, adapter_slot=aslot,
-            max_new=max_new_tokens, eos_id=eos, tokens=[tok0], t_join=now,
-            t_first=now, prompt_tokens=true_len, prompt=true_prompt,
-            adapter_id=req.adapter_id, deadline=req.deadline,
-            status="ok" if fin_ok else "quarantined",
-            done=(not fin_ok or max_new_tokens == 1
-                  or (eos is not None and tok0 == eos)))
+        if req.resume is not None:
+            # a preempted stream resuming keeps its identity and latency
+            # stamps and appends the re-prefill's token. s.prompt stays the
+            # ORIGINAL prompt: s.tokens holds everything generated, so a
+            # second preemption folds prompt + tokens without duplication
+            s = req.resume
+            s.tokens.append(tok0)
+            s.done = (not fin_ok or len(s.tokens) >= s.max_new
+                      or (s.eos_id is not None and tok0 == s.eos_id))
+            if not fin_ok:
+                s.status = "quarantined"
+            self.slots[slot] = s
+        else:
+            self.slots[slot] = DecodeSlot(
+                rid=req.rid, task_id=req.task_id, adapter_slot=aslot,
+                max_new=max_new_tokens, eos_id=eos, tokens=[tok0], t_join=now,
+                t_first=now, prompt_tokens=true_len, prompt=true_prompt,
+                adapter_id=req.adapter_id, deadline=req.deadline,
+                status="ok" if fin_ok else "quarantined",
+                done=(not fin_ok or max_new_tokens == 1
+                      or (eos is not None and tok0 == eos)))
         self._slot_adapters[slot] = aslot
         self._seg_key = None                    # composition changed
         return slot
 
     def leave(self, slot: int) -> DecodeSlot:
-        """Retire a slot (finished or cancelled) and free it for admission."""
+        """Retire a slot (finished or cancelled) and free it for admission
+        (paged: its page references are released)."""
         s = self.slots[slot]
         if s is None:
             raise ValueError(f"slot {slot} is free")
         self.slots[slot] = None
         self._slot_adapters[slot] = FREE
         self._seg_key = None                    # composition changed
+        if self.paged:
+            self._release_slot_pages(slot)
         # keep the freed slot's cache length bounded while it idles
         for sub in self.pool:
             sub["len"][:, slot] = 0
         return s
 
-    # ---- failure semantics: deadlines, cancellation ----
+    # ---- paged page-pressure handling ----
+    def _preempt(self, slot: int):
+        """Evict a live stream to reclaim its pages: it re-queues at the
+        FRONT of the pending queue with its generated tokens folded into the
+        prompt (re-admission re-prefills them, which also refreshes its int8
+        scales). Greedy streams resume exactly; a sampling stream's
+        generator continues from where it was."""
+        s = self.slots[slot]
+        prompt = np.concatenate([
+            np.asarray(s.prompt if s.prompt is not None else [], np.int32),
+            np.asarray(s.tokens, np.int32)])
+        self.slots[slot] = None
+        self._slot_adapters[slot] = FREE
+        self._seg_key = None
+        self._release_slot_pages(slot)
+        for sub in self.pool:
+            sub["len"][:, slot] = 0
+        self.pending.appendleft(_PendingJoin(
+            task_id=s.task_id, prompt=prompt, adapter_id=s.adapter_id,
+            max_new_tokens=s.max_new, rid=s.rid, eos_id=s.eos_id, resume=s))
+        self.preemptions += 1
+
+    def _ensure_chunk_pages(self):
+        """Top every live slot up to ``len + chunk`` tokens of pages before
+        the chunk dispatches. When the free list runs dry, preempt the
+        youngest live streams (least work redone) until it doesn't; a single
+        stream that cannot fit is a configuration error."""
+        while True:
+            live = [i for i, s in enumerate(self.slots)
+                    if s is not None and not s.done]
+            preempted = False
+            for i in live:
+                if self.slots[i] is None:       # preempted by an earlier pass
+                    continue
+                need = self._pages_for(self._lens[i]
+                                       + self._headroom_tokens()) \
+                    - self._held[i]
+                if need <= 0:
+                    continue
+                while need > len(self._free_pages):
+                    victims = [j for j in live
+                               if j != i and self.slots[j] is not None
+                               and not self.slots[j].done]
+                    if not victims:
+                        raise RuntimeError(
+                            f"paged pool exhausted: {need} pages needed for "
+                            f"one stream, {len(self._free_pages)} free and "
+                            f"nothing left to preempt (total_pages="
+                            f"{self.total_pages} is too small)")
+                    self._preempt(min(
+                        victims, key=lambda j: len(self.slots[j].tokens)))
+                    preempted = True
+                pages = self._take_pages(need)
+                h = self._held[i]
+                self._ptab[i, h:h + need] = pages
+                self._held[i] = h + need
+                self._ptab_dirty = True
+            if not preempted:
+                return
+
+    def _never_fits(self, req: _PendingJoin) -> bool:
+        """True when the request cannot be admitted even into an EMPTY
+        arena, counting the pages its prefix currently shares."""
+        plen = self.bucket_for_prompt(min(max(len(req.prompt), 1),
+                                          self.prompt_len))
+        m = len(self._match_prefix(req.adapter_id, req.prompt))
+        return (self._pages_for(self._adm_s_max(plen)) - m
+                + self._pages_for(self._headroom_tokens())) \
+            > self.total_pages - 1
+
+    def _viable_pending(self) -> list[int]:
+        """Pending indices that could fit the arena at its CURRENT sharing
+        state. A deferred join admitted on a prefix discount whose sharer
+        has since retired is STRANDED: it stays queued (a later admission
+        re-registering its prefix would unstrand it) but is invisible to
+        the drain and exempt from the head-of-line fairness cap."""
+        return [i for i, r in enumerate(self.pending)
+                if not self._never_fits(r)]
+
+    def _next_admissible_pending(self) -> Optional[int]:
+        """Index of the next deferred join the pool can take: the (viable)
+        head, or — bounded lookahead — a smaller prompt within
+        ``pending_lookahead`` viable entries of it whose pages ARE free
+        while the head's are not. After ``hol_skip_cap`` consecutive
+        bypasses the window collapses to the head alone until it admits."""
+        if not self.pending or not self.free_slots():
+            return None
+        viable = self._viable_pending()
+        window = 1 if self._hol_skips >= self.hol_skip_cap else \
+            self.pending_lookahead
+        for idx in viable[:window]:
+            req = self.pending[idx]
+            need = self._admission_need(len(req.prompt), prompt=req.prompt,
+                                        adapter_id=req.adapter_id)
+            if len(self._free_pages) >= need:
+                return idx
+        return None
+
+    def _drain_pending(self):
+        """Admit deferred joins while slots and pages allow — FIFO with the
+        bounded skip-ahead of ``_next_admissible_pending``. Bypassing a
+        stranded entry never consumes the fairness budget."""
+        while True:
+            idx = self._next_admissible_pending()
+            if idx is None:
+                return
+            req = self.pending[idx]
+            bypassed_viable = any(not self._never_fits(self.pending[i])
+                                  for i in range(idx))
+            del self.pending[idx]
+            if bypassed_viable:
+                self._hol_skips += 1
+                self.hol_bypasses += 1
+            else:
+                self._hol_skips = 0
+            self._admit_now(req)
+
+    # ---- failure semantics: deadlines, cancellation, terminal rejection ----
+    def _reject_pending(self, p: _PendingJoin, status: str):
+        p.status = status
+        if p.resume is not None:
+            p.resume.status = status
+            p.resume.done = True
+        self.rejected.append(p)
+
     def _expire_deadlines(self, now: float):
         """Live slots past their deadline are marked done
-        (``deadline_cancelled``) and retire with their partial tokens."""
+        (``deadline_cancelled``) and retire with their partial tokens;
+        expired pending entries are terminally rejected — ``deadline_shed``
+        if never admitted, ``deadline_cancelled`` for a preempted resume,
+        ``rejected_stranded`` when the entry is stranded."""
         for s in self.slots:
             if s is not None and not s.done and s.deadline < now:
                 s.done = True
                 s.status = "deadline_cancelled"
                 self.deadline_cancels += 1
+        if not self.pending:
+            return
+        keep: collections.deque = collections.deque()
+        for p in self.pending:
+            if p.deadline >= now:
+                keep.append(p)
+            elif self._never_fits(p):
+                self._reject_pending(p, "rejected_stranded")
+                self.stranded_rejections += 1
+            elif p.resume is not None:
+                self._reject_pending(p, "deadline_cancelled")
+                self.deadline_cancels += 1
+            else:
+                self._reject_pending(p, "deadline_shed")
+                self.deadline_sheds += 1
+        if len(keep) != len(self.pending):
+            self.pending = keep
 
     def cancel(self, rid: int):
-        """Client-cancel one stream by rid: ``("slot", DecodeSlot)`` for a
-        live stream (retired through ``leave``), ``None`` when the rid is
-        not in the engine."""
+        """Client-cancel one stream by rid wherever it lives:
+        ``("slot", DecodeSlot)`` for a live stream (retired through
+        ``leave``: page references released), ``("pending", _PendingJoin)``
+        for a deferred or preempted entry (popped; a preempted resume's
+        pages were freed at preemption), ``None`` when the rid is not in
+        the engine."""
         for i, s in enumerate(self.slots):
             if s is not None and s.rid == rid:
                 s.done = True
                 s.status = "cancelled"
                 self.cancels += 1
                 return ("slot", self.leave(i))
+        for i, p in enumerate(self.pending):
+            if p.rid == rid:
+                del self.pending[i]
+                p.status = "cancelled"
+                if p.resume is not None:
+                    p.resume.status = "cancelled"
+                    p.resume.done = True
+                self.cancels += 1
+                return ("pending", p)
         return None
+
+    def shed_stranded(self) -> int:
+        """Terminally reject every stranded pending entry (regardless of
+        deadline) into ``rejected`` — the serve loop's way out when the
+        engine would otherwise wedge. Returns the count."""
+        if not self.paged:
+            return 0
+        keep: collections.deque = collections.deque()
+        n = 0
+        for p in self.pending:
+            if self._never_fits(p):
+                self._reject_pending(p, "rejected_stranded")
+                self.stranded_rejections += 1
+                n += 1
+            else:
+                keep.append(p)
+        if n:
+            self.pending = keep
+        return n
 
     def take_rejected(self) -> list[_PendingJoin]:
         out, self.rejected = self.rejected, []
@@ -447,6 +1125,19 @@ class DecodeEngine:
         out = dict(self._decode_charges)
         self._decode_charges = collections.Counter()
         return out
+
+    def _raise_if_wedged(self):
+        """Nothing live, nothing viable, stranded joins pending: no future
+        engine event can admit them, so drain() and the serve loop would
+        spin forever. Raise instead."""
+        if self.pending and self.active_count() == 0 \
+                and not self._viable_pending():
+            raise EngineWedged(
+                f"{len(self.pending)} deferred prompt(s) no longer fit the "
+                f"arena ({self.total_pages - 1} usable pages) — the shared "
+                f"prefix they were admitted against was released and "
+                f"nothing is left to free; raise total_pages or shrink "
+                f"prompt_buckets/chunk")
 
     # ---- deadline overrun clamp ----
     def chunk_ladder(self) -> tuple[int, ...]:
@@ -471,43 +1162,84 @@ class DecodeEngine:
     def warm_decode_ladder(self):
         """Dispatch every ladder chunk length once against the idle pool, so
         the deadline clamp adds no shape key mid-measurement. The garbage
-        rows land in regions the next admission overwrites."""
+        rows land in the trash page (paged) or in regions the next
+        admission overwrites (dense)."""
         if self.active_count():
             raise RuntimeError("warm_decode_ladder must run on an idle engine")
+        if self.paged:
+            self._sync_page_table()
         cap = self.fm.adapters.capacity()
         perm, inv, blocks = self._segments(cap)
         adapters = torch.as_tensor(self._slot_adapters, device=self.device)
         for c in self.chunk_ladder():
-            self.pool, self._tokens, _, _, _ = self._decode_fn(cap, c)(
+            self.pool, self._tokens, _, _, _, _ = self._decode_fn(cap, c)(
                 self.fm.params, self.pool, self._tokens, self._keys,
                 self.fm.adapters.stacked(), adapters, perm, inv, blocks)
 
+    def warm_chunked(self):
+        raise NotImplementedError("chunked shared-prefix prefill (P9) comes "
+                                  "with a later slice of the port")
+
+    def warm_speculative(self):
+        raise NotImplementedError("speculative decoding (P11) comes with a "
+                                  "later slice of the port")
+
+    def warm_spill(self):
+        raise NotImplementedError("the host-RAM spill tier (P10) comes with "
+                                  "a later slice of the port")
+
     def step_chunk(self) -> list[DecodeSlot]:
         """Advance every occupied slot by up to ``chunk`` tokens; retire and
-        return the slots that finished (done slots retire first)."""
+        return the slots that finished. Paged: streams already done retire
+        FIRST (their pages fund deferred admissions and spare a live stream
+        from preemption), then deferred admissions drain into the freed
+        capacity, then live slots top up with pages for the chunk and the
+        page table syncs. Entered with nothing occupied and only STRANDED
+        deferred joins left, raises ``EngineWedged`` — checked on entry so
+        the call that retires the last live stream still returns it.
+        Deadlines are enforced first."""
         t0 = time.perf_counter()
         self._expire_deadlines(t0)
+        if self.paged:
+            self._raise_if_wedged()
         retired = [self.leave(i) for i, s in enumerate(self.slots)
                    if s is not None and s.done]
+        if self.paged:
+            self._drain_pending()
         live = [i for i, s in enumerate(self.slots)
                 if s is not None and not s.done]
+        if live and self.paged:
+            self._ensure_chunk_pages()
+            # preemption may have evicted members of the live set
+            live = [i for i, s in enumerate(self.slots)
+                    if s is not None and not s.done]
         finished = []
         if live:
+            if self.paged:
+                self._sync_page_table()
             eff = self._effective_chunk(live, t0)
             cap = self.fm.adapters.capacity()
             t_disp = time.perf_counter()
             perm, inv, blocks = self._segments(cap)
-            self.pool, self._tokens, _, out, fin = self._decode_fn(cap, eff)(
-                self.fm.params, self.pool, self._tokens, self._keys,
-                self.fm.adapters.stacked(),
-                torch.as_tensor(self._slot_adapters, device=self.device),
-                perm, inv, blocks)
-            out = out.cpu().numpy()             # one host sync per chunk
-            fin = fin.cpu().numpy()
+            self.pool, self._tokens, _, out, drift, fin = \
+                self._decode_fn(cap, eff)(
+                    self.fm.params, self.pool, self._tokens, self._keys,
+                    self.fm.adapters.stacked(),
+                    torch.as_tensor(self._slot_adapters, device=self.device),
+                    perm, inv, blocks)
+            # one host sync per chunk: tokens, finite and drift flags
+            host = torch.cat([out, fin[:, None].to(out.dtype),
+                              drift[:, None].to(out.dtype)], dim=1).cpu().numpy()
+            out, fin, drift = host[:, :eff], host[:, eff] != 0, \
+                host[:, eff + 1] != 0
             dt = (time.perf_counter() - t_disp) / eff
             self._step_ema = dt if self._step_ema == 0.0 \
                 else 0.5 * self._step_ema + 0.5 * dt
             self.steps += eff
+            if self.paged:
+                for i, s in enumerate(self.slots):
+                    if s is not None:
+                        self._lens[i] += eff
             for i in live:
                 s = self.slots[i]
                 committed = [int(t) for t in out[i]]
@@ -528,23 +1260,34 @@ class DecodeEngine:
                         s.eos_id is not None and s.tokens[-1] == s.eos_id):
                     s.done = True
                     finished.append(i)
+            self._maybe_refresh_scales(drift)
         retired += [self.leave(i) for i in finished]
         self.last_chunk_s = time.perf_counter() - t0
         return retired
 
     def drain(self) -> list[DecodeSlot]:
-        """Step until every occupied slot retires."""
+        """Step until every occupied slot retires (and, paged, every deferred
+        admission has been served)."""
         out = []
-        while self.active_count():
+        while self.active_count() or self.pending:
             out += self.step_chunk()
         return out
 
     # ---- durability (later slice) ----
     def snapshot(self):
         raise NotImplementedError("engine snapshot/restore comes with a later "
-                                  "slice of the port (durability plane)")
+                                  "slice of the port (durability plane, P10)")
 
     @classmethod
     def restore(cls, fm, snap, **kwargs):
         raise NotImplementedError("engine snapshot/restore comes with a later "
-                                  "slice of the port (durability plane)")
+                                  "slice of the port (durability plane, P10)")
+
+
+def quantize_pages(x, scale):
+    """Pages of float K or V (nper, npages, ps, kv, hd) into int8 codes at
+    their per-(page, kv-head) ``scale`` (nper, npages, kv); an empty page's
+    zero scale is guarded by 1e-12 (its codes are 0)."""
+    return torch.clamp(torch.round(
+        x / torch.clamp(scale, min=1e-12)[:, :, None, :, None]),
+        -127, 127).to(torch.int8)

@@ -38,8 +38,8 @@ preserves the old synchronous one-BFQ-batch contract (``FMplexServer.step``)
 on top of the same machinery.
 
 This module is the JAX package's loop, nearly line for line, without the
-parts that only a paged pool feeds (page-occupancy and dedup samples, the
-prefix-hit TTFT split): the port's engine is the dense int8 pool so far.
+prefix-hit TTFT split (it needs the chunked shared-prefix prefill of a later
+slice) and the durable-state plane.
 
 **Failure semantics.** Performance isolation (BFQ, the page gate) is only
 half of virtualization's promise — the loop also owns FAILURE isolation, and
@@ -66,13 +66,14 @@ for the full catalogue). The exit paths and what each one unwinds:
   * ``head_failed``: the executor isolates a raising task head to that
     task's requests (bounded retry/backoff first); other tasks in the same
     co-batch resolve normally.
-  * ``watchdog_shed``: a loop-level watchdog watches for a stalled engine
-    (work queued, no progress for ``watchdog_stall_s``); on a trip it sheds
-    the lowest-weight task's oldest queued request. The dense pool admits
-    at once or raises, so it cannot wedge; stranded deferred joins and
-    their ``rejected_stranded`` status come back with the paged pool in a
-    later slice. An error raised by the engine (a kernel's precondition, a
-    device fault) propagates out of the loop.
+  * ``watchdog_shed`` / ``rejected_stranded``: a loop-level watchdog
+    watches for wedged engines (work queued, no progress for
+    ``watchdog_stall_s``); on a trip it degrades gracefully — terminally
+    rejects stranded deferred joins and sheds the lowest-weight task's
+    oldest queued request. The engine's wedge (``EngineWedged``: stranded
+    deferred joins, nothing live, nothing that can ever fit) is caught and
+    converted into terminal rejections; any other error raised by the
+    engine (a kernel's precondition, a device fault) propagates.
 
 **Durable serving state** (snapshot / restore / device-reset recovery)
 comes with a later slice of the port: ``snapshot_state``,
@@ -90,6 +91,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.bfq import group_sub_batches
+from repro_torch.core.decode_engine import EngineWedged
 from repro_torch.core.request import Batch, Request
 
 
@@ -115,6 +117,8 @@ class ServeLoop:
         self._inflight: dict[int, Request] = {}  # rid -> loop-admitted request
         self.served: list[Request] = []
         self.ticks = collections.Counter()      # work-kind -> tick count
+        self.page_samples: list[float] = []     # paged-pool occupancy / tick
+        self.shared_samples: list[float] = []   # dedup fraction / decode tick
         self._tie_last = "decode"               # alternation state (see tick)
         # failure-isolation plane (module docstring): terminal-status tallies
         # plus the stall watchdog. The watchdog only arms while work is
@@ -175,7 +179,7 @@ class ServeLoop:
                 self._progress_mark = sig
                 self._last_progress_t = now
             elif now - self._last_progress_t > self.watchdog_stall_s:
-                self._watchdog_trip(sched, vfms, now)
+                self._watchdog_trip(sched, vfms, eng, now)
                 self._last_progress_t = now
         candidates = []
         pooled_tag = sched.peek_tag(vfms, is_pooled)
@@ -326,7 +330,13 @@ class ServeLoop:
         # (its requests must not outlive work dispatched after them)
         self._flush()
         eng = self._engine(create=True)
-        free = len(eng.free_slots())
+        # paged pools admit ONE request per tick: tick()'s can_admit gate
+        # only vetted the head request, so popping more would shove the rest
+        # past the page check into the engine's rid-FIFO pending queue —
+        # charged early and served out of tag order. The loop re-ticks and
+        # admission keeps its tie priority, so a burst still lands back to
+        # back, each admission individually vetted.
+        free = 1 if eng.paged else len(eng.free_slots())
         # defer_charge: dispatch advances the stream's virtual time only to
         # its start tag; the ACTUAL work is charged at admission via the
         # engine's admitted log and per decode chunk (double-pricing would
@@ -356,9 +366,21 @@ class ServeLoop:
         active = collections.Counter(
             s.task_id for s in eng.slots if s is not None and not s.done)
         steps0 = eng.steps
-        # the dense pool admits at once or raises, so it cannot wedge: an
-        # error here (a kernel's precondition, a device fault) propagates
-        retired = eng.step_chunk()
+        try:
+            retired = eng.step_chunk()
+        except EngineWedged:
+            # wedged engine (stranded deferred joins, nothing live, nothing
+            # can ever fit): the engine raises for direct users, the LOOP
+            # degrades — terminally reject the stranded entries and keep
+            # serving everything else. Any other error propagates.
+            self.failures["wedge_recoveries"] += 1
+            eng.shed_stranded()
+            self._handle_rejected(eng, vfms, time.perf_counter())
+            return
+        if eng.paged:
+            self.page_samples.append(eng.page_occupancy())
+            self.shared_samples.append(
+                eng.dedup_saved_pages() / max(eng.logical_page_count(), 1))
         # charge the work the chunk ACTUALLY did (0 when a stalled/faulted
         # engine made no progress — phantom charges would corrupt fair
         # shares for the rest of the run)
@@ -428,7 +450,7 @@ class ServeLoop:
 
     def _handle_rejected(self, eng, vfms, now, *, mine=None, out=None):
         """Drain the engine's terminally rejected pending entries (deadline
-        sweep) into terminal request statuses.
+        sweep, stranded shed, wedge recovery) into terminal request statuses.
         ``mine``/``out`` route ``step_batch``-owned rids back to its result
         map (its while-loop must see a result for every request or it never
         terminates)."""
@@ -475,11 +497,15 @@ class ServeLoop:
                 if now + l1 * plen > dl and sched.on_cancel(vfms, r):
                     self._terminal(r, "deadline_shed", now, vfms=vfms)
 
-    def _watchdog_trip(self, sched, vfms, now):
+    def _watchdog_trip(self, sched, vfms, eng, now):
         """No progress for watchdog_stall_s with work queued: degrade
-        gracefully — the lowest-weight task's oldest queued request is shed,
-        never hang."""
+        gracefully. Stranded deferred joins are terminally rejected (they
+        are the one way the engine can wedge) and the lowest-weight task's
+        oldest queued request is shed — never crash, never hang."""
         self.failures["watchdog_trips"] += 1
+        if eng is not None and eng.pending_count():
+            eng.shed_stranded()
+            self._handle_rejected(eng, vfms, now)
         loaded = [v for v in vfms.values() if v.queue]
         if loaded:
             v = min(loaded, key=lambda x: x.weight)

@@ -12,6 +12,7 @@ from typing import Optional
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import decode_attention_int8 as _int8
+from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import segmented_lora as _sgmv
 
 LAUNCHES = build.LAUNCHES
@@ -49,6 +50,26 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
                                            lengths, window=window)
     return ref.decode_attention_int8_ref(q, kh, vh, k_scale, v_scale, lengths,
                                          window=window)
+
+
+def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                           lengths, *, window: Optional[int] = None):
+    """Paged int8-KV decode attention, model layout.
+
+    q: (B, H, hd); k_pages/v_pages: (P, ps, KV, hd) int8 arena; k_scale/
+    v_scale: (P, KV) per-page scales; page_table: (B, MP) int32 (rows of
+    different streams may map the same page: copy-on-write prefix sharing;
+    the read needs no change); lengths: (B,) -> (B, H, hd). The kernel reads
+    the arena through its model-layout strides; the plain version gathers
+    through a head-major view. Neither copies the arena."""
+    if _route(q) == "cuda":
+        return _paged.paged_decode_attention(q, k_pages, v_pages, k_scale,
+                                             v_scale, page_table, lengths,
+                                             window=window)
+    return ref.paged_decode_attention_ref(q, k_pages.transpose(1, 2),
+                                          v_pages.transpose(1, 2), k_scale,
+                                          v_scale, page_table, lengths,
+                                          window=window)
 
 
 def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int = 128):

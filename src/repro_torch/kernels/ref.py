@@ -45,6 +45,31 @@ def decode_attention_int8_ref(q, k_q, v_q, k_scale, v_scale, lengths, *,
     return decode_attention_ref(q, k, v, lengths, window=window)
 
 
+def paged_decode_attention_ref(q, k_pages, v_pages, k_scale, v_scale,
+                               page_table, lengths, *,
+                               window: Optional[int] = None):
+    """Paged int8-KV decode: gather pages through the table, dequantize each
+    with its own scale, then the f32 decode reference.
+
+    q: (B, H, hd); k_pages/v_pages: (num_pages, KV, ps, hd) int8 (any
+    strides: the model layout's transposed view is taken as is); k_scale/
+    v_scale: (num_pages, KV); page_table: (B, MP) int; lengths: (B,).
+    -> (B, H, hd). Only the gathered pages are materialized."""
+    B = q.shape[0]
+    _, KV, ps, hd = k_pages.shape
+    MP = page_table.shape[1]
+    pt = page_table.to(device=q.device, dtype=torch.long)
+
+    def gather(pages, scale):
+        g = pages[pt].float()                          # (B, MP, KV, ps, hd)
+        g = g * scale[pt][..., None, None]             # per-page dequant
+        return g.transpose(1, 2).reshape(B, KV, MP * ps, hd)
+
+    return decode_attention_ref(q, gather(k_pages, k_scale),
+                                gather(v_pages, v_scale), lengths,
+                                window=window)
+
+
 def segmented_lora_ref(x, block_adapter, a_w, b_w, block_size: int):
     """Multi-adapter LoRA delta on an adapter-sorted batch.
 

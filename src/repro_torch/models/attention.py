@@ -3,7 +3,8 @@
 ``flash_attention`` mirrors the JAX package's jnp function of the same name
 (not a Pallas kernel there either): Q chunks, and an online softmax over KV
 chunks, with bf16 operands multiplied in f32. Decode against the dense int8
-pool goes through the hand-written kernel (``kernels.ops``).
+pool and the paged int8 arena goes through the hand-written kernels
+(``kernels.ops``).
 
 The cache is updated IN PLACE: a serving pool is allocated once and every
 prefill/decode writes into its slices, where the JAX package returns a new
@@ -183,13 +184,13 @@ def self_attention_decode(p, x, cache, cfg, *, pos=None, lora=None,
     With ``k_scale``/``v_scale`` the cache is the dense int8 pool: the new
     token's K/V quantize into the scales fixed at admission and attention
     runs through the int8 flash-decode kernel, so the cache is only ever
-    streamed as int8."""
-    if "page_table" in cache:
-        raise NotImplementedError("the paged int8 pool is ported in a later "
-                                  "slice (paged decode kernel K4)")
+    streamed as int8. With ``page_table`` it is the paged int8 arena
+    (``_paged_decode``)."""
     q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
+    if "page_table" in cache:
+        return _paged_decode(p, x, q, k, v, cache, cfg)
     B, S = x.shape[0], cache["k"].shape[1]
     # insert position. A free pool slot keeps stepping and its length grows
     # past S; JAX drops such an out-of-range write, torch would raise, so the
@@ -214,5 +215,51 @@ def self_attention_decode(p, x, cache, cfg, *, pos=None, lora=None,
         cache["v"][bidx, idx] = v[:, 0].to(cache["v"].dtype)
         o = decode_attention(q[:, 0], cache["k"], cache["v"], new_len,
                              window=cfg.sliding_window)
+    cache["len"].copy_(new_len)
+    return out_project(p, o[:, None], x.dtype), cache
+
+
+def _paged_decode(p, x, q, k, v, cache, cfg):
+    """Paged int8 pool: the new token lands in arena page
+    ``page_table[b, len // ps]`` at offset ``len % ps``. The FIRST token of
+    a page quantizes with the row's admission-era running scale and stamps
+    it as the page scale (a recycled page's stale scale never leaks in);
+    later tokens reuse the page's stamped scale, so the page's earlier codes
+    keep dequantizing right. The row's decode-era |K|/|V| maxima update
+    ``k_max``/``v_max`` for the engine's scale refresh. Attention gathers
+    through the page table (kernel K4).
+
+    A free pool row keeps stepping with an all-trash table, and a finished
+    row may step once more: their lengths can pass the table's width. The
+    column is clamped to the last one (JAX's gather returns a fill value
+    there and its scatter drops the write; a CUDA gather would fault), so
+    such a write lands in page 0, the trash page, or in the finished
+    stream's own last page, which is never a shared prompt page. Several
+    rows may write page 0 at once; the order is unspecified, and page 0 is
+    never read below a live stream's length."""
+    from repro_torch.kernels import ops
+    ptab = cache["page_table"]
+    ps, mp = cache["k"].shape[1], ptab.shape[1]
+    idx = cache["len"].long()
+    bidx = torch.arange(x.shape[0], device=x.device)
+    page = ptab[bidx, torch.clamp(idx // ps, max=mp - 1)].long()
+    off = idx % ps
+    fresh = (off == 0)[:, None]
+    ks = torch.clamp(torch.where(fresh, cache["slot_k_scale"],
+                                 cache["k_scale"][page]), min=1e-8)
+    vs = torch.clamp(torch.where(fresh, cache["slot_v_scale"],
+                                 cache["v_scale"][page]), min=1e-8)
+    kf, vf = k[:, 0].float(), v[:, 0].float()
+    cache["k"][page, off] = quantize_token(kf, ks)
+    cache["v"][page, off] = quantize_token(vf, vs)
+    cache["k_scale"][page] = ks
+    cache["v_scale"][page] = vs
+    torch.maximum(cache["k_max"], kf.abs().amax(dim=-1), out=cache["k_max"])
+    torch.maximum(cache["v_max"], vf.abs().amax(dim=-1), out=cache["v_max"])
+    new_len = (cache["len"] + 1).to(cache["len"].dtype)
+    o = ops.paged_decode_attention(q[:, 0].contiguous(), cache["k"],
+                                   cache["v"], cache["k_scale"],
+                                   cache["v_scale"], ptab, new_len,
+                                   window=cfg.sliding_window).to(x.dtype)
     cache["len"].copy_(new_len)
     return out_project(p, o[:, None], x.dtype), cache

@@ -65,10 +65,48 @@ def sublayer_spec(cfg: ModelConfig, lay: SubLayer) -> dict:
 
 
 def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
-                        s_max: int, kv_quant: bool = False) -> Optional[dict]:
-    """Dense decode cache of one attention sublayer. ``kv_quant``: int8 K/V
-    with per-(batch, kv-head) scales written at prefill admission."""
+                        s_max: int, kv_quant: bool = False,
+                        paged: bool = False, page_size: int = 16,
+                        num_pages: int = 0) -> Optional[dict]:
+    """Decode cache of one attention sublayer.
+
+    Dense: one (batch, s_max) region per row; ``kv_quant`` stores int8 K/V
+    with per-(batch, kv-head) scales written at prefill admission.
+
+    ``paged`` (int8 only): one arena of ``num_pages`` pages of
+    ``page_size`` positions shared by every row, addressed through a
+    per-row ``page_table`` (arena page ids; entries past a stream's last
+    page stay 0, the trash page). Scales are per (page, kv-head);
+    ``slot_k_scale``/``slot_v_scale`` are each row's admission-era running
+    scales (decode appends quantize into them and stamp them on fresh
+    pages), ``k_max``/``v_max`` the row's decode-era magnitude maxima for
+    the engine's scale refresh. ``s_max`` bounds the table width
+    (``ceil(s_max / page_size)``), not the memory held."""
     kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if paged:
+        if not kv_quant or num_pages <= 0:
+            raise ValueError("a paged pool is int8 (kv_quant=True) with "
+                             "num_pages > 0")
+        mp = -(-s_max // page_size)
+        spec = {
+            "k": ParamSpec((num_pages, page_size, kv, hd),
+                           (None, None, "kv_heads", None), init="zeros",
+                           dtype=torch.int8),
+            "v": ParamSpec((num_pages, page_size, kv, hd),
+                           (None, None, "kv_heads", None), init="zeros",
+                           dtype=torch.int8),
+            "page_table": ParamSpec((batch, mp), ("batch", None),
+                                    init="zeros", dtype=torch.int32),
+            "len": ParamSpec((batch,), ("batch",), init="zeros",
+                             dtype=torch.int32),
+        }
+        for name in ("k_scale", "v_scale"):
+            spec[name] = ParamSpec((num_pages, kv), (None, "kv_heads"),
+                                   init="zeros", dtype=torch.float32)
+        for name in ("slot_k_scale", "slot_v_scale", "k_max", "v_max"):
+            spec[name] = ParamSpec((batch, kv), ("batch", "kv_heads"),
+                                   init="zeros", dtype=torch.float32)
+        return spec
     kv_dt = torch.int8 if kv_quant else torch.bfloat16
     spec = {
         "k": ParamSpec((batch, s_max, kv, hd), ("batch", "cache_seq", "kv_heads", None),

@@ -63,21 +63,26 @@ def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def cache_spec(cfg: ModelConfig, batch: int, s_max: int,
-               kv_quant: bool = False, paged: bool = False) -> list:
-    """Stacked per-period dense decode cache (list over sublayers).
-    ``kv_quant``: int8 K/V + per-(batch, kv-head) scales."""
-    if paged:
-        raise NotImplementedError("the paged int8 pool comes with a later slice")
+               kv_quant: bool = False, paged: bool = False,
+               page_size: int = 16, num_pages: int = 0) -> list:
+    """Stacked per-period decode cache (list over sublayers).
+    ``kv_quant``: int8 K/V + per-(batch, kv-head) scales. ``paged``: the
+    int8 page arena of ``num_pages`` pages of ``page_size`` positions plus a
+    per-row page table (``blocks.sublayer_cache_spec``); ``s_max`` then
+    bounds only the table width."""
     nper = cfg.num_layers // blk.period_len(cfg)
-    return [stack_specs(blk.sublayer_cache_spec(cfg, lay, batch, s_max,
-                                                kv_quant=kv_quant), nper)
-            for lay in blk.period_layout(cfg)]
+    return [stack_specs(blk.sublayer_cache_spec(
+        cfg, lay, batch, s_max, kv_quant=kv_quant, paged=paged,
+        page_size=page_size, num_pages=num_pages), nper)
+        for lay in blk.period_layout(cfg)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               kv_quant: bool = False, paged: bool = False, device="cuda"):
+               kv_quant: bool = False, paged: bool = False,
+               page_size: int = 16, num_pages: int = 0, device="cuda"):
     return init_params(None, cache_spec(cfg, batch, s_max, kv_quant=kv_quant,
-                                        paged=paged), device=device)
+                                        paged=paged, page_size=page_size,
+                                        num_pages=num_pages), device=device)
 
 
 # ---------------- stack forward ----------------

@@ -143,8 +143,8 @@ def page_gauges(engine) -> dict:
 def failure_counters(requests=(), *, loop=None, engine=None,
                      executor=None) -> dict:
     """Failure-plane counters: terminal statuses tallied over ``requests``
-    plus the serving components' own tallies — the loop's watchdog trips,
-    the engine's quarantine/deadline/cancel counts, the
+    plus the serving components' own tallies — the loop's watchdog trips and
+    wedge recoveries, the engine's quarantine/deadline/cancel counts, the
     executor's head failures and retry attempts. Everything here is a count
     of a FAULT HANDLED gracefully; a crash would have produced none of them."""
     from repro_torch.core.request import FAILURE_STATUSES
@@ -155,6 +155,8 @@ def failure_counters(requests=(), *, loop=None, engine=None,
             out[s] = out.get(s, 0) + 1
     if loop is not None:
         out["watchdog_trips"] = int(loop.failures.get("watchdog_trips", 0))
+        out["wedge_recoveries"] = int(
+            loop.failures.get("wedge_recoveries", 0))
         out["resets_survived"] = int(
             loop.failures.get("resets_survived", 0))
     if engine is not None:

@@ -242,9 +242,10 @@ def test_segmented_matches_gather_in_the_port(setup):
 
 def test_unported_paths_raise():
     cfg = reduced(get_config("stablelm-1.6b"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.cache_spec(cfg, 2, 8, kv_quant=True, paged=True)
     import dataclasses
+    encdec = dataclasses.replace(cfg, is_encoder_decoder=True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        lm.cache_spec(encdec, 2, 8, kv_quant=True, paged=True, num_pages=4)
     hybrid = dataclasses.replace(cfg, block_pattern=("mamba", "attn"))
     with pytest.raises(NotImplementedError, match="later slice"):
         lm.model_spec(hybrid)
