@@ -4,20 +4,25 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``,
-then runs six phases and fails (non-zero exit) if any of them fails:
+then runs these phases and fails (non-zero exit) if any of them fails:
 
 1. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the serving paths give it, with the tolerance stated; the
    paged decode kernel (K4) also with GQA, a window, shared (COW) pages,
    stale codes in unmapped pages and lengths of 1, a page multiple and the
    table's full width, and against the dense kernel (K3) on a contiguous
-   table whose page scales are the slot scales;
+   table whose page scales are the slot scales; the prefill kernel (K2) at
+   the pooled, full-admission and tail-admission shapes (``FLASH_CASES``:
+   ragged ``kv_len``, a prefix operand with 64 and 0 valid positions), with
+   GQA, a window and queries that are a strict suffix of the keys;
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
    same model run with the plain versions on the CPU;
 3. paged reference — the same two-layer cut through the paged decode
    engine (shared prefix pages, per-page int8 scales) on the card against
-   the same engine on the CPU, teacher-forced;
+   the same engine on the CPU, teacher-forced; then the chunked paged
+   engine (three sharers admitted by their tails behind a mapped prefix
+   page, K2 with the prefix operand) the same way;
 4. serving — full-width stablelm-1.6b (24 layers, random weights from a seed)
    through ``FMplexServer`` / ``ServeLoop.run``: 4 tasks with randomized
    rank-16 q/v LoRA adapters and linear heads, a mixed trace of pooled
@@ -30,11 +35,16 @@ then runs six phases and fails (non-zero exit) if any of them fails:
    admission defers and decode preempts), with copy-on-write prefix sharing
    and full prefill: pooled requests, long-tail generative streams and
    shared-prefix streams on one adapter. Every request finishes ok with its
-   token budget, K4 and K1 launch, at least one prefix hit and one deferral
-   or preemption happen, and no page leaks;
+   token budget, K4, K2 and K1 launch, at least one prefix hit and one
+   deferral or preemption happen, and no page leaks; then the same trace on
+   a paged pool with chunked shared-prefix prefill (the engine's default):
+   at least one tail admission, K2 launched, no leak, the prefix-hit and
+   miss TTFT p50;
 6. timing — device times (``torch.profiler``) of each kernel, its plain
    version and a library yardstick, beside the least time the card could
-   take (its bound), and a profile of one dense and one paged decode step.
+   take (its bound), a profile of one dense and one paged decode step, and
+   the prefill device time a prefix hit saves (full admission against its
+   tail).
 
 The line before last prints the card's name and power limit
 (``nvidia-smi``); before it, one JSON line lists the kernels. The last line
@@ -244,6 +254,117 @@ def paged_bound(q, kp, pt, lens):
     return bound_ms(nbytes, flops)
 
 
+# K2 shapes on the serving paths of full-width stablelm-1.6b (H = KV = 32,
+# hd = 64): the pooled forward (32 rows of 128 features, causal), a full
+# admission (one 128-token bucket, 77 real tokens) and a chunked tail
+# admission (a 64-token tail bucket, 37 real tokens, behind the 128-position
+# prefix operand with 64 and 0 valid positions), plus GQA, a window, queries
+# that are a strict suffix of the keys and lengths that are no tile multiple.
+FLASH_CASES = {
+    "pooled": dict(B=32, Sq=128, Sk=128, KV=None),
+    "admission": dict(B=1, Sq=128, Sk=128, kv_len=[77]),
+    "tail": dict(B=2, Sq=64, Sk=64, Sp=128, kv_len=[37, 37],
+                 prefix_len=[64, 0]),
+    "gqa": dict(B=2, Sq=128, Sk=128, KV=8, kv_len=[100, 128]),
+    "window": dict(B=2, Sq=128, Sk=128, window=48, kv_len=[128, 90]),
+    "suffix": dict(B=2, Sq=45, Sk=77, KV=8, kv_len=[77, 50]),
+    "tail_gqa_ragged": dict(B=2, Sq=16, Sk=16, Sp=128, KV=8, kv_len=[5, 16],
+                            prefix_len=[112, 16]),
+}
+# the shapes timed: one call of each kind as the serving path makes it
+FLASH_TIMED = {
+    "pooled": FLASH_CASES["pooled"],
+    "admission": FLASH_CASES["admission"],
+    "tail": dict(B=1, Sq=64, Sk=64, Sp=128, kv_len=[37], prefix_len=[64]),
+}
+
+
+def flash_inputs(gen, dev, B, Sq, Sk, KV=None, Sp=0, kv_len=None,
+                 prefix_len=None, window=None, nsets=1):
+    """``nsets`` bf16 input sets for one K2 case in the model layout, and
+    its keyword arguments."""
+    import torch
+    cfg = full_config()
+    H, hd = cfg.num_heads, cfg.head_dim
+    KV = KV or cfg.num_kv_heads
+    sets = []
+    for _ in range(nsets):
+        def r(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        args = [r(B, Sq, H, hd), r(B, Sk, KV, hd), r(B, Sk, KV, hd)]
+        kw = {"causal": True, "window": window}
+        if kv_len is not None:
+            kw["kv_len"] = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        if Sp:
+            kw.update(prefix_k=r(B, Sp, KV, hd), prefix_v=r(B, Sp, KV, hd),
+                      prefix_len=torch.tensor(prefix_len, dtype=torch.int32,
+                                              device=dev))
+        sets.append((args, kw))
+    return sets
+
+
+def flash_visible(q, k, kw):
+    """(B, Sq, Sp + Sk) bool: which keys each query may see (the kernel's
+    masks, computed on the host side of the check)."""
+    import torch
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    pk = kw.get("prefix_k")
+    Sp = 0 if pk is None else pk.shape[1]
+    dev = q.device
+    kpos = torch.arange(Sp + Sk, device=dev)
+    qpos = Sp + Sk - Sq + torch.arange(Sq, device=dev)
+    vis = torch.ones((B, Sq, Sp + Sk), dtype=torch.bool, device=dev)
+    if kw.get("causal", True):
+        vis &= (qpos[:, None] >= kpos[None])[None]
+    if kw.get("window") is not None:
+        vis &= ((qpos[:, None] - kpos[None]) < kw["window"])[None]
+    n_new = kw["kv_len"] if kw.get("kv_len") is not None else \
+        torch.full((B,), Sk, device=dev)
+    ok = (kpos[None] >= Sp) & (kpos[None] - Sp < n_new[:, None])
+    if Sp:
+        ok |= (kpos[None] < Sp) & (kpos[None] < kw["prefix_len"][:, None])
+    return vis & ok[:, None]
+
+
+def flash_bound(q, k, kw):
+    """Bytes and flops the function needs on this data: q read and out
+    written once, K and V of the keys inside ``kv_len``/``prefix_len``
+    only, the lengths; 4 * hd flops per (query head, visible key)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    vis = flash_visible(q, k, kw)
+    keys = int(vis.any(dim=1).sum())          # key rows any query reads
+    nbytes = 2 * 2 * B * Sq * H * hd + 2 * 2 * keys * KV * hd + 8 * B
+    flops = 4.0 * hd * H * int(vis.sum())
+    return bound_ms(nbytes, flops)
+
+
+def check_flash(dev, gen):
+    """K2 against its plain version at every case of ``FLASH_CASES``, two
+    bf16 ulps of the largest output; rows with no visible key are left out
+    (the kernel returns zeros there, the plain version the mean of the
+    masked values, as JAX does)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    errs, ok = {}, True
+    for name, case in FLASH_CASES.items():
+        (args, kw), = flash_inputs(gen, dev, **case)
+        got = ops.flash_attention(*args, **kw)
+        want = ref.flash_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        rows = flash_visible(args[0], args[1], kw).any(dim=-1)
+        err = (got.float() - want.float()).abs()[rows].max().item()
+        tol = 2 * 2.0 ** -8 * want.float()[rows].abs().max().item() + 1e-6
+        log(f"kernel flash_attention [{name}] {case}: max_abs_err={err:.3e} "
+            f"(bound {tol:.3e})")
+        ok &= err <= tol and bool(torch.isfinite(got.float()).all())
+        errs[name] = err
+    return ok, errs
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the serving shapes. The
     tolerance is two bf16 ulps of the largest output magnitude: both sides
@@ -338,7 +459,8 @@ def phase_kernels(dev):
         f"contiguous table: max_abs_err={err:.3e} (bound {tol:.3e})")
     ok &= err <= tol
     results["paged_vs_dense"] = err
-    return ok, results
+    ok_f, results["flash_attention"] = check_flash(dev, gen)
+    return ok and ok_f, results
 
 
 # ---------------- phase 2: a small input against the CPU reference ----------------
@@ -436,9 +558,11 @@ def phase_reference(dev):
     return (k["finite"] and k["rel_l2"] <= 2e-2 and k["argmax_agree"]), report
 
 
-def _engine_run(fm, prompts, names, teacher_calls=None, paged=True):
+def _engine_run(fm, prompts, names, teacher_calls=None, paged=True,
+                chunked=False):
     """The prompts through a decode engine on ``fm`` (the paged pool, or
-    the dense one for scale; one chunk of decode after the admissions).
+    the dense one for scale; one chunk of decode after the admissions;
+    ``chunked``: the paged pool with chunked shared-prefix prefill).
     Greedy when ``teacher_calls`` is None; otherwise every sampler call is
     fed the argmax of the matching call in ``teacher_calls``. Returns each
     call's (f32 logits, live rows) and the engine."""
@@ -446,7 +570,8 @@ def _engine_run(fm, prompts, names, teacher_calls=None, paged=True):
     import torch
 
     from repro_torch.core.decode_engine import DecodeEngine
-    kw = dict(PAGED_KW, total_pages=None) if paged else {}
+    kw = dict(PAGED_KW, total_pages=None, chunked_prefill=chunked) \
+        if paged else {}
     eng = DecodeEngine(fm, num_slots=len(prompts), prompt_len=32,
                        max_new=CHUNK + 1, chunk=CHUNK, **kw)
     calls = []
@@ -536,6 +661,61 @@ def phase_reference_paged(dev):
     return ok, report
 
 
+def phase_reference_chunked(dev):
+    """The two-layer full-width model through the paged engine with CHUNKED
+    shared-prefix prefill: five streams, four of them on adapter a0 behind
+    one 16-token prefix page. The first admits in full and registers the
+    page; the three sharers with tails of 9, 16 and 1 tokens map it and
+    prefill only their tails (``_try_admit_tail``, the float-sidecar mode,
+    K2 with the prefix operand); a base-model stream admits in full. Then
+    one teacher-forced decode chunk. The card (K2, K1, K4) against the CPU
+    (plain versions), under the paged reference's bound: relative L2 of
+    the logits at most 3e-2, greedy tokens equal wherever the CPU's top-2
+    gap exceeds twice the largest difference. K2 must launch on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.physical import PhysicalFM
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_map
+    cfg = full_config(num_layers=2)
+    gfm = PhysicalFM(cfg, seed=3, lora_rank=RANK, input_len=32,
+                     lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
+    cfm = PhysicalFM(cfg, seed=3, lora_rank=RANK, input_len=32,
+                     lora_impl="segmented", seg_block_t=BLOCK_T, device="cpu",
+                     params=tree_map(lambda t: t.cpu(), gfm.params))
+    for i in range(2):
+        tree = random_adapter(gfm.adapters, i, dev)
+        gfm.adapters.add(f"a{i}", tree)
+        cfm.adapters.add(f"a{i}", tree_map(lambda t: t.cpu(), tree))
+    rng = np.random.RandomState(6)
+    prefix = rng.randint(0, cfg.vocab_size, PAGE_SIZE).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)])
+               for n in (4, 9, 16, 1)] + \
+        [rng.randint(0, cfg.vocab_size, 13)]
+    prompts = [p.astype(np.int32) for p in prompts]
+    names = ["a0", "a0", "a0", "a0", None]
+    ccalls, ceng = _engine_run(cfm, prompts, names, chunked=True)
+    ops.reset_launches()
+    gcalls, geng = _engine_run(gfm, prompts, names, ccalls, chunked=True)
+    torch.cuda.synchronize()
+    r = drift(torch.cat([lg[lv] for lg, lv in gcalls]),
+              torch.cat([lg[lv] for lg, lv in ccalls]))
+    r.update(calls=[len(ccalls), len(gcalls)],
+             prefix_hits=[ceng.prefix_hits, geng.prefix_hits],
+             prefill_tokens_saved=[ceng.prefill_tokens_saved,
+                                   geng.prefill_tokens_saved],
+             flash_attention_launches=int(ops.LAUNCHES["flash_attention"]))
+    log("chunked reference: 2-layer full-width chunked paged engine, 5 "
+        "streams (3 tail admissions behind one shared prefix page) x "
+        "(prefill + 4 decode) teacher-forced, GPU vs CPU: " + json.dumps(r))
+    ok = (r["finite"] and r["rel_l2"] <= 3e-2 and r["argmax_agree"]
+          and r["calls"][0] == r["calls"][1] and r["prefix_hits"] == [3, 3]
+          and r["prefill_tokens_saved"] == [3 * PAGE_SIZE] * 2
+          and r["flash_attention_launches"] > 0)
+    return ok, r
+
+
 # ---------------- phase 4/5: serving at full width ----------------
 
 def build_server(dev, **engine_kwargs):
@@ -617,7 +797,8 @@ def phase_serving(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: int(ops.LAUNCHES[k])
-                for k in ("segmented_lora", "decode_attention_int8")}
+                for k in ("segmented_lora", "decode_attention_int8",
+                          "flash_attention")}
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     ok = True
@@ -701,31 +882,36 @@ def paged_burst(cfg, eng) -> dict:
             "preemptions": eng.preemptions - before[1]}
 
 
-def phase_paged_serving(dev):
-    """Full-width serving on the paged pool (PAGED_KW); see the module
+def phase_paged_serving(dev, chunked: bool = False):
+    """Full-width serving on the paged pool (PAGED_KW; ``chunked``: with
+    chunked shared-prefix prefill, the engine's default); see the module
     docstring for what must hold."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.serving.metrics import (decode_stats, latency_stats,
-                                             page_gauges)
-    srv, cfg, fm, loop = build_server(dev, **PAGED_KW)
+                                             mixed_stats, page_gauges)
+    name = "chunked serving" if chunked else "paged serving"
+    srv, cfg, fm, loop = build_server(
+        dev, **dict(PAGED_KW, chunked_prefill=chunked))
     t0 = time.perf_counter()
     loop.warmup(pooled_task="task0", gen_task="task1")
     torch.cuda.synchronize()
-    log(f"paged warmup: {time.perf_counter() - t0:.1f} s")
+    log(f"{name} warmup: {time.perf_counter() - t0:.1f} s")
     eng = srv.engines["fm0"]
     keys0 = (eng.compile_count(), fm.compile_count())
     trace = paged_trace(cfg)
+    n_miss0 = len(loop.ttft_miss_samples)       # the warmup's requests
     ops.reset_launches()
     t0 = time.perf_counter()
     loop.run(trace, max_wall=600)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    burst = paged_burst(cfg, eng)
+    burst = None if chunked else paged_burst(cfg, eng)
     launches = {k: int(ops.LAUNCHES[k])
-                for k in ("segmented_lora", "paged_decode_attention")}
+                for k in ("segmented_lora", "paged_decode_attention",
+                          "flash_attention")}
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     bad = [r for r in trace if not r.ok or r.finish_time is None
@@ -750,25 +936,33 @@ def phase_paged_serving(dev):
         "ticks": dict(loop.ticks), "decode_steps": eng.steps,
         "quarantines": eng.quarantines, "page_gauges": gauges,
         "occupancy_max": max(loop.page_samples, default=0.0),
-        "burst": burst,
         "shape_keys": [keys0, (eng.compile_count(), fm.compile_count())],
     }
-    log("paged serving: " + json.dumps(stats, default=float))
     ok = not bad and not short and not nonfinite and not leak
     ok &= eng.quarantines == 0 and all(v > 0 for v in launches.values())
-    ok &= eng.prefix_hits >= 1 and eng.deferrals + eng.preemptions >= 1
-    ok &= burst["finished"] == burst["joins"]
+    ok &= eng.prefix_hits >= 1
+    if chunked:
+        stats["ttft_split"] = mixed_stats(trace, ttft_split={
+            "hit": loop.ttft_hit_samples,
+            "miss": loop.ttft_miss_samples[n_miss0:]}).get("ttft_split")
+        ok &= eng.prefill_tokens_saved > 0 and bool(loop.ttft_hit_samples)
+    else:
+        stats["burst"] = burst
+        ok &= eng.deferrals + eng.preemptions >= 1
+        ok &= burst["finished"] == burst["joins"]
+    log(f"{name}: " + json.dumps(stats, default=float))
     if not ok:
-        log(f"paged serving: not ok {[(r.rid, r.status) for r in bad[:5]]}, "
+        log(f"{name}: not ok {[(r.rid, r.status) for r in bad[:5]]}, "
             f"short {len(short)}, non-finite pooled {len(nonfinite)}, "
-            f"leak {leak}, prefix hits {eng.prefix_hits}, deferrals "
-            f"{eng.deferrals}, preemptions {eng.preemptions}")
+            f"leak {leak}, prefix hits {eng.prefix_hits}, tokens saved "
+            f"{eng.prefill_tokens_saved}, deferrals {eng.deferrals}, "
+            f"preemptions {eng.preemptions}")
     return ok, stats, (srv, fm, eng)
 
 
 # ---------------- phase 6: timing ----------------
 
-def phase_timing(dev, handles, paged_handles):
+def phase_timing(dev, handles, paged_handles, chunked_handles):
     """Device time of each kernel, its plain version and a library
     yardstick at the decode shapes (the most launched), over 24 input sets
     (one per layer, > 50 MB L2 for K3's cache) so each call finds its
@@ -887,7 +1081,116 @@ def phase_timing(dev, handles, paged_handles):
         fm.params, eng.pool, eng._tokens, eng._keys, fm.adapters.stacked(),
         adapters, perm, inv, blocks))
     extra.update(paged_step_timing(dev, paged_handles))
-    return k1, k3, k4, extra
+    # K2 at its three shapes; the pooled one (the most device time per
+    # call) goes in the kernels line
+    extra["flash_attention"] = flash_timing(dev)
+    k2 = {k: extra["flash_attention"]["pooled"][k]
+          for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    extra["tail_saving"] = tail_saving(dev, chunked_handles)
+    return k1, k2, k3, k4, extra
+
+
+def flash_timing(dev) -> dict:
+    """K2's device time per call at the pooled, full-admission and tail
+    shapes of ``FLASH_TIMED`` over rotating input sets (more bytes than the
+    50 MB L2 in all), its plain version's, one
+    ``scaled_dot_product_attention`` call on the same inputs (causal for
+    the pooled shape; a boolean mask from the same visibility, over the
+    prefix and the keys concatenated, for the others; the concatenation is
+    not timed), and the bound counted on this data."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for name, nsets in (("pooled", 6), ("admission", 48), ("tail", 48)):
+        case = FLASH_TIMED[name]
+        sets = flash_inputs(gen, dev, **case, nsets=nsets)
+
+        def rotating(fn, items):
+            it = [0]
+
+            def call():
+                a, kw = items[it[0] % len(items)]
+                fn(*a, **kw)
+                it[0] += 1
+            return call
+        k_ms = device_ms(rotating(ops.flash_attention, sets))
+        p_ms = device_ms(rotating(ref.flash_attention_ref, sets), iters=5)
+        lib = []
+        for (q, k, v), kw in sets:
+            G = q.shape[2] // k.shape[2]
+            mask = flash_visible(q, k, kw)[:, None]
+            if kw.get("prefix_k") is not None:
+                k = torch.cat([kw["prefix_k"], k], dim=1)
+                v = torch.cat([kw["prefix_v"], v], dim=1)
+            qh = q.transpose(1, 2)
+            kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
+            vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
+            lib.append(((qh, kh, vh), {"is_causal": True}
+                        if name == "pooled" else {"attn_mask": mask}))
+        l_ms = device_ms(rotating(F.scaled_dot_product_attention, lib))
+        (q, k, _), kw = sets[0]
+        b_ms, b_by = flash_bound(q, k, kw)
+        out[name] = dict(case=case, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def tail_saving(dev, handles) -> dict:
+    """What a prefix hit saves in prefill device time at full width: a
+    96-token prompt admitted in full (its 128-token bucket) against the same
+    prompt's 32-token tail behind a 64-token prefix operand (the tail path's
+    float mode), each one admission prefill through the chunked engine's own
+    planes, by profiler device time, with one profile of each (device
+    busy against wall time, kernel count, the kernels taking the most
+    device time)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    srv, fm, eng = handles
+    cap = fm.adapters.capacity()
+    aslot = fm.adapters.index("lora2")
+    rng = np.random.RandomState(17)
+    prompt = rng.randint(0, fm.cfg.vocab_size, 128).astype(np.int32)
+    gens = [torch.Generator(device=dev).manual_seed(0)]
+    aidx = torch.full((1,), aslot, dtype=torch.int32, device=dev)
+
+    def i32(n):
+        return torch.full((1,), n, dtype=torch.int32, device=dev)
+    full_fn = eng._prefill_fn(cap, 128)
+    seg = eng._prefill_segments(aslot, cap, 128)
+    toks = torch.as_tensor(prompt[None], device=dev)
+
+    def full():
+        full_fn(fm.params, toks, i32(96), gens, fm.adapters.stacked(), aidx,
+                *seg)
+    tb = eng.bucket_for_tail(32)
+    tail_fn = eng._tail_prefill_fn(cap, tb, "float")
+    tseg = eng._prefill_segments(aslot, cap, tb)
+    ttoks = torch.as_tensor(prompt[None, 64:64 + tb], device=dev)
+    prefix_fp = [{"k": c["k"], "v": c["v"]} for c in lm.init_cache(
+        fm.cfg, 1, eng._prefix_width * PAGE_SIZE, kv_quant=False,
+        device=dev)]
+
+    def tail():
+        tail_fn(fm.params, prefix_fp, ttoks, i32(32), i32(64), gens,
+                fm.adapters.stacked(), aidx, *tseg)
+    out = {}
+    for name, fn in (("full", full), ("tail", tail)):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_flash_attention_launches"] = int(
+            ops.LAUNCHES["flash_attention"])
+        out[f"{name}_prefill_device_ms"] = device_ms(fn, iters=5, warmup=1)
+        out[f"{name}_prefill_profile"] = profile_step(fn)
+    out["saved_device_ms_per_hit"] = out["full_prefill_device_ms"] - \
+        out["tail_prefill_device_ms"]
+    return out
 
 
 def paged_step_timing(dev, handles) -> dict:
@@ -991,17 +1294,24 @@ def main() -> int:
     phases["reference"] = ok_r
     ok_rp, _ = phase_reference_paged(dev)
     phases["paged_reference"] = ok_rp
+    ok_rc, _ = phase_reference_chunked(dev)
+    phases["chunked_reference"] = ok_rc
     ok_s, stats, handles = phase_serving(dev)
     phases["serving"] = ok_s
     ok_p, pstats, paged_handles = phase_paged_serving(dev)
     phases["paged_serving"] = ok_p
-    k1, k3, k4, extra = phase_timing(dev, handles, paged_handles)
+    ok_c, cstats, chunked_handles = phase_paged_serving(dev, chunked=True)
+    phases["chunked_serving"] = ok_c
+    k1, k2, k3, k4, extra = phase_timing(dev, handles, paged_handles,
+                                         chunked_handles)
     log("timing: " + json.dumps(extra, default=float))
-    # launches on the main paths: the dense serving run (K1, K3) and the
-    # paged serving run (K1, K4), each counted from 0 just before it
-    launches = {k: stats["launches"].get(k, 0) + pstats["launches"].get(k, 0)
-                for k in ("segmented_lora", "decode_attention_int8",
-                          "paged_decode_attention")}
+    # launches on the main paths: the dense serving run (K1, K2, K3), the
+    # paged serving run (K1, K2, K4) and the chunked paged serving run (K1,
+    # K2, K4), each counted from 0 just before it
+    launches = {k: sum(st["launches"].get(k, 0)
+                       for st in (stats, pstats, cstats))
+                for k in ("segmented_lora", "flash_attention",
+                          "decode_attention_int8", "paged_decode_attention")}
     kernels = [
         {"name": "segmented_lora", "route": "cuda",
          "source": "src/repro_torch/csrc/segmented_lora.cu",
@@ -1009,6 +1319,11 @@ def main() -> int:
          "launches": launches["segmented_lora"],
          "max_abs_err": max(errs["segmented_lora"].values()),
          "library_ms": None, **k1},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:88",
+         "launches": launches["flash_attention"],
+         "max_abs_err": max(errs["flash_attention"].values()), **k2},
         {"name": "decode_attention_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention_int8.cu",
          "replaces": "src/repro/kernels/decode_attention_int8.py:114",

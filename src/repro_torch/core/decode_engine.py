@@ -38,9 +38,29 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     the slot-wide admission scale; decode appends quantize into the slot's
     running scale for the first token of a fresh page (stamping it) and into
     the page's stamped scale after that, so a recycled page's stale scale
-    never leaks into a new owner. The admission always prefills the whole
-    prompt (``chunked_prefill=False``); computing only the private tail of
-    a prefix hit comes with a later slice.
+    never leaks into a new owner.
+  * **chunked shared-prefix admission** (paged, ``chunked_prefill=True``,
+    the default) — a prefix hit saves compute as well as memory: an
+    admission whose prompt maps >= 1 registered page prefills ONLY its
+    private tail. The *map phase* increments the shared pages' refcounts;
+    the *tail-compute phase* runs the tail through ``_tail_prefill_fn``
+    with the mapped prefix's K/V in front of the tail's own keys in every
+    attention sublayer (absolute RoPE positions, causality and pad masking
+    offset by the prefix length; the prefill kernel K2 walks the prefix as
+    a second key segment). The prefix arrives either from the pages' FLOAT
+    sidecars (``_page_float``: the pre-quantization K/V a full prefill
+    computed, copied to the host once per admission — the tail then sees
+    the values a full prefill would have seen) or, when a sidecar is gone,
+    gathered from the int8 arena and dequantized per page
+    (``kernels.ops.gather_prefix_kv``). Tail lengths bucket separately
+    (powers of two of the page size), so sharer churn adds no shape key.
+    The tail-page scatter quantizes like the full path and folds the mapped
+    pages' scales into the slot-wide scale, the value a full prefill over
+    the whole prompt computes. A quarantined tail rolls the map phase back.
+    The full prefill remains the fallback when nothing is shareable or the
+    free pages cannot cover the tail bucket. ``tail_tokens_computed``/
+    ``prefill_tokens_saved`` count the split and ``admitted_log`` carries
+    each admission's tail tokens, which the serve loop charges.
   * **memory-aware admission, deferral and preemption** (paged) — a join
     admits when a slot is free and free pages cover its prompt bucket (less
     the pages its prefix would map) plus a chunk of decode headroom for it
@@ -79,9 +99,9 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     chunk) and shed expired pending entries; ``cancel`` unwinds a stream by
     rid wherever it lives.
 
-Chunked shared-prefix prefill, speculative decoding, the host-RAM spill
-tier, snapshot/restore and encoder-decoder admission come with later slices
-and raise ``NotImplementedError`` here.
+Speculative decoding, the host-RAM spill tier (and with it the spill branch
+of the chunked admission), snapshot/restore and encoder-decoder admission
+come with later slices and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -213,13 +233,6 @@ class DecodeEngine:
             raise NotImplementedError("per-slot recurrent / cross-attention "
                                       "state comes with a later slice")
         paged = self.plan.paged
-        if paged and chunked_prefill and prefix_sharing \
-                and self.plan.prefix_sharing_ok:
-            raise NotImplementedError(
-                "chunked_prefill=True: chunked shared-prefix prefill (P9, "
-                "with the prefill kernel K2) comes with a later slice of the "
-                "port; pass chunked_prefill=False (full prefill, the same "
-                "token streams)")
         if paged and not kv_quant:
             raise ValueError("the paged arena is int8-only (kv_quant=True)")
         self.fm = fm
@@ -275,6 +288,24 @@ class DecodeEngine:
             self._page_key: dict[int, bytes] = {}          # page id -> key
             self.prefix_hits = 0            # joins that mapped >= 1 page
             self.shared_pages_mapped = 0    # cumulative pages mapped, not copied
+            # chunked shared-prefix prefill (module docstring): registered
+            # prefix pages keep a host-side FLOAT sidecar (the bf16 prefill
+            # K/V the page was quantized from); a page whose sidecar is gone
+            # is attended dequantized from its int8 codes instead
+            self.chunked_prefill = bool(chunked_prefill) and \
+                self.prefix_sharing
+            self._page_float: dict[int, list] = {}   # page id -> float K/V
+            # assembled float-prefix operands per mapped page-id tuple:
+            # sharers of one prefix reuse one host assembly and upload;
+            # entries die with any constituent page (_release_pages)
+            self._prefix_fp_cache: dict[tuple, list] = {}
+            self._prefix_width = self._pages_for(self.prompt_len)
+            tb = {min(page_size, self.prompt_len)}
+            b = page_size
+            while b < self.prompt_len:
+                b *= 2
+                tb.add(min(b, self.prompt_len))
+            self.tail_buckets = tuple(sorted(tb))
             self.scale_refresh = float(scale_refresh)
             self.scale_refreshes = 0
             # bounded pending-queue lookahead (head-of-line fix)
@@ -283,6 +314,7 @@ class DecodeEngine:
             self._hol_skips = 0
             self.hol_bypasses = 0
         else:
+            self.chunked_prefill = False    # needs the paged arena
             # the persistent pool: allocated once, updated in place
             self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
                                       kv_quant=kv_quant, device=self.device)
@@ -300,11 +332,12 @@ class DecodeEngine:
         self.steps = 0              # decode steps executed (all slots)
         self.last_chunk_s = 0.0
         self.rejected: list[_PendingJoin] = []   # terminally rejected joins
-        # (rid, task, true_prompt_len, tail_tokens): every admission here
-        # prefills the whole prompt, so tail == true length
+        # (rid, task, true_prompt_len, tail_tokens): tail_tokens is what the
+        # prefill ACTUALLY computed — schedulers charge it, not true_len
         self.admitted_log: list[tuple[int, str, int, int]] = []
         self.admissions = 0
         self.tail_tokens_computed = 0   # prompt tokens actually prefilled
+        self.prefill_tokens_saved = 0   # prompt tokens skipped (prefix mapped)
         self.quarantines = 0
         self.deadline_cancels = 0    # mid-flight (slot/resume) expirations
         self.deadline_sheds = 0      # pending entries expired unadmitted
@@ -332,9 +365,10 @@ class DecodeEngine:
         return [p.task_id for p in self.pending]
 
     def compile_count(self) -> int:
-        """Distinct static-shape keys of prefill, decode, pool writes and
-        the scale refresh; steady state across join/leave churn, page
-        allocation, deferral and preemption must not grow this."""
+        """Distinct static-shape keys of prefill (full and tail), decode,
+        pool writes and the scale refresh; steady state across join/leave
+        churn, sharer joins of any tail length, page allocation, deferral
+        and preemption must not grow this."""
         return (len(self._fn_prefill) + len(self._fn_decode)
                 + len(self._fn_write) + int(self._fn_rescale is not None))
 
@@ -445,7 +479,10 @@ class DecodeEngine:
 
     def _release_pages(self, pages):
         """Drop one reference per page; a page whose refcount reaches zero
-        returns to the free list and falls out of the prefix registry."""
+        returns to the free list and falls out of the prefix registry, its
+        float sidecar and every assembled prefix operand that holds it (the
+        id may be recycled with new content)."""
+        freed = set()
         for p in pages:
             p = int(p)
             r = self._page_refs[p] = self._page_refs[p] - 1
@@ -453,9 +490,15 @@ class DecodeEngine:
                 raise RuntimeError(f"double free of page {p}")
             if r == 0:
                 self._free_pages.append(p)
+                freed.add(p)
                 key = self._page_key.pop(p, None)
                 if key is not None and self._prefix_registry.get(key) == p:
                     del self._prefix_registry[key]
+                self._page_float.pop(p, None)
+        if freed and self._prefix_fp_cache:
+            self._prefix_fp_cache = {
+                k: v for k, v in self._prefix_fp_cache.items()
+                if not freed.intersection(k)}
 
     def _release_slot_pages(self, slot: int):
         self._release_pages(self._ptab[slot, :self._held[slot]])
@@ -497,18 +540,43 @@ class DecodeEngine:
         return shared
 
     def _register_prefix(self, adapter_id: Optional[str], prompt: np.ndarray,
-                         slot: int, true_len: int):
+                         slot: int, true_len: int, cache=None,
+                         cache_page0: int = 0):
         """Publish the slot's FULL prompt pages (the only immutable ones —
         decode never writes below ``true_len``) for future joins to map. An
         existing registration for the same prefix wins (first writer); the
-        duplicate page stays private to this slot."""
+        duplicate page stays private to this slot.
+
+        ``cache`` (chunked prefill only): the admission's FLOAT prefill
+        cache, whose page ``j - cache_page0`` holds the pre-quantization K/V
+        of registered page ``j``. Winning registrations keep that slice on
+        the host (``_page_float``) so future sharers' tails attend the same
+        values a full prefill would have seen."""
         if not self.prefix_sharing:
             return
+        stash = []
         for j, key in enumerate(self._prefix_keys(adapter_id,
                                                   prompt[:true_len])):
             page = int(self._ptab[slot, j])
             if self._prefix_registry.setdefault(key, page) == page:
                 self._page_key[page] = key
+                if (self.chunked_prefill and cache is not None
+                        and j >= cache_page0
+                        and page not in self._page_float):
+                    stash.append((j - cache_page0, page))
+        if stash:
+            # one device-to-host copy of the admission cache per attention
+            # sublayer (K and V together), then host page slices: per-page
+            # device reads would sync once per page
+            ps = self.page_size
+            host = [torch.stack([csub["k"][:, 0], csub["v"][:, 0]]).cpu()
+                    for csub, psub in zip(cache, self.pool)
+                    if "page_table" in psub]
+            for rel, page in stash:
+                self._page_float[page] = [
+                    {"k": kv[0, :, rel * ps:(rel + 1) * ps].clone(),
+                     "v": kv[1, :, rel * ps:(rel + 1) * ps].clone()}
+                    for kv in host]
 
     def _sync_page_table(self):
         """Push the host page table to the device. One device table serves
@@ -564,6 +632,85 @@ class DecodeEngine:
                     seq_lens=true_len)
                 first, gens = sample(logits, gens)
                 return first, lm.finite_logits(logits), gens, cache
+
+            self._fn_prefill[key] = run
+        return self._fn_prefill[key]
+
+    def _tail_prefill_fn(self, cap: int, tlen: int, mode: str = "float"):
+        """Chunked shared-prefix admission prefill for one TAIL bucket: the
+        model over only the prompt's private tail, its queries attending the
+        mapped prefix in front of the tail's own fresh K/V. Two prefix
+        sources, same attention plumbing:
+
+          * ``mode="float"`` — the prefix K/V arrive as an operand assembled
+            on the host from the pages' float sidecars: the values a full
+            prefill computed, so the tail's logits and cache are those of
+            the full path up to summation order;
+          * ``mode="pages"`` — the prefix is gathered from the int8 arena
+            through the prefix page vector and dequantized per page
+            (``ops.gather_prefix_kv``), for pages whose sidecar is gone:
+            correct to the quantization error.
+
+        The true prefix and tail lengths are operands; only the tail bucket
+        and the mode make a shape key."""
+        key = ("tail", cap, tlen, mode)
+        if key not in self._fn_prefill:
+            cfg, impl, sample = self.cfg, self.impl, self._sample
+            # like the full paged admission, the tail cache stays float: the
+            # tail-page scatter quantizes per page afterwards
+            s_max = self._pages_for(tlen) * self.page_size
+            dev = self.device
+            paged_mask = ["page_table" in sub for sub in self.pool]
+
+            def body(params, prefix, tokens, tail_len, prefix_len, gens,
+                     lora_stack, adapter_idx, perm, inv, blocks):
+                cache = lm.init_cache(cfg, 1, s_max, kv_quant=False,
+                                      device=dev)
+                # absolute positions: RoPE sees the tail behind the prefix
+                pos = prefix_len[:, None] + torch.arange(
+                    tokens.shape[1], device=dev)[None]
+                logits, cache = lm.prefill(
+                    params, cfg, tokens=tokens, cache=cache, lora=lora_stack,
+                    adapter_idx=adapter_idx, lora_impl=impl,
+                    lora_seg=self._seg(impl, perm, inv, blocks),
+                    seq_lens=tail_len, pos=pos, prefix=prefix,
+                    prefix_len=prefix_len)
+                first, gens = sample(logits, gens)
+                return first, lm.finite_logits(logits), gens, cache
+
+            if mode == "float":
+                def run(params, prefix_fp, tokens, tail_len, prefix_len, gens,
+                        lora_stack, adapter_idx, perm, inv, blocks):
+                    it = iter(prefix_fp)
+                    prefix = [next(it) if paged else None
+                              for paged in paged_mask]
+                    return body(params, prefix, tokens, tail_len, prefix_len,
+                                gens, lora_stack, adapter_idx, perm, inv,
+                                blocks)
+            else:
+                from repro_torch.kernels import ops
+
+                def run(params, pool, tokens, tail_len, prefix_pages,
+                        prefix_len, gens, lora_stack, adapter_idx, perm, inv,
+                        blocks):
+                    # dequantized prefix K/V per attention sublayer, gathered
+                    # from the arena through the prefix page vector
+                    # (positions past prefix_len point at the trash page and
+                    # are masked out of attention)
+                    prefix = []
+                    for sub in pool:
+                        if "page_table" not in sub:
+                            prefix.append(None)
+                            continue
+                        per = [ops.gather_prefix_kv(
+                            sub["k"][i], sub["v"][i], sub["k_scale"][i],
+                            sub["v_scale"][i], prefix_pages[None])
+                            for i in range(sub["k"].shape[0])]
+                        prefix.append({"k": torch.stack([g[0] for g in per]),
+                                       "v": torch.stack([g[1] for g in per])})
+                    return body(params, prefix, tokens, tail_len, prefix_len,
+                                gens, lora_stack, adapter_idx, perm, inv,
+                                blocks)
 
             self._fn_prefill[key] = run
         return self._fn_prefill[key]
@@ -625,6 +772,67 @@ class DecodeEngine:
 
             self._fn_write[npages] = write
         return self._fn_write[npages]
+
+    def _paged_tail_write_fn(self, npages: int):
+        """Page scatter for a chunked (tail-only) admission, in place:
+        quantize the tail's float cache per page like ``_paged_write_fn``,
+        but
+
+          * the prompt/decode boundary page index is an operand
+            (``boundary = true_len // page_size - skip``, relative to the
+            tail's first page; out of range when the prompt is
+            page-aligned, as on the full path), and
+          * the slot-wide running scales fold in the mapped prefix pages'
+            stamped scales. A registered full page's scale is its own
+            |K|max / 127 (it is never the boundary page), and max-then-divide
+            equals divide-then-max for a positive constant, so the combined
+            slot scale is the one a full prefill over the whole prompt
+            computes."""
+        key = ("tail", npages)
+        if key not in self._fn_write:
+            ps = self.page_size
+
+            def write(pool, cache, slot, page_idx, true_len, boundary,
+                      prefix_pages, prefix_np):
+                W = prefix_pages.shape[0]
+                pmask = (torch.arange(W, device=prefix_pages.device)
+                         < prefix_np)[None, :, None]
+                sel = (torch.arange(npages, device=page_idx.device)
+                       == boundary)[None, :, None]
+                for psub, csub in zip(pool, cache):
+                    kf = csub["k"][:, 0].float()           # (nper, S, kv, hd)
+                    nper, _, kv, hd = kf.shape
+                    kf = kf.reshape(nper, npages, ps, kv, hd)
+                    vf = csub["v"][:, 0].float().reshape(nper, npages, ps,
+                                                         kv, hd)
+                    kmax = kf.abs().amax(dim=(2, 4))        # (nper, np, kv)
+                    vmax = vf.abs().amax(dim=(2, 4))
+                    # prefix page scales (trash-padded entries masked to 0)
+                    pks = torch.where(pmask, psub["k_scale"][:, prefix_pages],
+                                      0.0)
+                    pvs = torch.where(pmask, psub["v_scale"][:, prefix_pages],
+                                      0.0)
+                    slot_ks = torch.maximum(
+                        torch.clamp(kmax.amax(dim=1), min=1e-8) / 127.0,
+                        pks.amax(dim=1))
+                    slot_vs = torch.maximum(
+                        torch.clamp(vmax.amax(dim=1), min=1e-8) / 127.0,
+                        pvs.amax(dim=1))
+                    ks = torch.where(sel, slot_ks[:, None, :], kmax / 127.0)
+                    vs = torch.where(sel, slot_vs[:, None, :], vmax / 127.0)
+                    psub["k"][:, page_idx] = quantize_pages(kf, ks)
+                    psub["v"][:, page_idx] = quantize_pages(vf, vs)
+                    psub["k_scale"][:, page_idx] = ks
+                    psub["v_scale"][:, page_idx] = vs
+                    psub["slot_k_scale"][:, slot] = slot_ks
+                    psub["slot_v_scale"][:, slot] = slot_vs
+                    psub["k_max"][:, slot] = 0.0
+                    psub["v_max"][:, slot] = 0.0
+                    psub["len"][:, slot] = true_len
+                return pool
+
+            self._fn_write[key] = write
+        return self._fn_write[key]
 
     def _rescale_fn(self):
         """Proactive scale refresh for ONE (slot, tail page), in place: bump
@@ -735,6 +943,16 @@ class DecodeEngine:
                 return b
         return self.prompt_buckets[-1]
 
+    def bucket_for_tail(self, n: int) -> int:
+        """Smallest tail bucket holding an n-token private tail (chunked
+        admission). Tail buckets are powers of two of the page size, capped
+        at ``prompt_len``: a shape key, so any mix of tail lengths across
+        sharer churn reuses the same keys."""
+        for b in self.tail_buckets:
+            if n <= b:
+                return b
+        return self.tail_buckets[-1]
+
     # ---- serving surface ----
     def join(self, task_id: str, prompt: np.ndarray, *,
              adapter_id: Optional[str] = None, max_new_tokens: int = 8,
@@ -799,6 +1017,11 @@ class DecodeEngine:
         slot = self.free_slots()[0]
         cap = self.fm.adapters.capacity()
         aslot = self.fm.adapters.index(req.adapter_id)
+        if self.paged and self.chunked_prefill:
+            admitted = self._try_admit_tail(req, true_prompt, true_len, slot,
+                                            cap, aslot, max_new_tokens)
+            if admitted is not None:
+                return admitted
         perm, inv, blocks = self._prefill_segments(aslot, cap, plen)
         dev = self.device
         first, fin, _, cache = self._prefill_fn(cap, plen)(
@@ -862,8 +1085,136 @@ class DecodeEngine:
             self._release_pages(self._ptab[slot, keep:npages])
             self._ptab[slot, keep:npages] = TRASH_PAGE
             self._held[slot] = keep
-        self._register_prefix(req.adapter_id, true_prompt, slot, true_len)
+        self._register_prefix(req.adapter_id, true_prompt, slot, true_len,
+                              cache=cache)
         self._ptab_dirty = True
+
+    def _try_admit_tail(self, req: _PendingJoin, true_prompt: np.ndarray,
+                        true_len: int, slot: int, cap: int, aslot: int,
+                        max_new_tokens: int) -> Optional[int]:
+        """Chunked shared-prefix admission: when the prompt's leading pages
+        are registered by a live sharer, MAP them and prefill only the
+        private tail, whose queries attend the mapped prefix (float
+        sidecars, or the int8 pages dequantized). Returns the slot, or None
+        to fall back to the full prefill (nothing shareable, or the tail
+        bucket needs more free pages than the arena has right now: the
+        admission gate budgeted for the full path). The spill tier's branch
+        (prefix pages restored from host RAM) comes with the spill slice."""
+        ps = self.page_size
+        shared = self._match_prefix(req.adapter_id, true_prompt)
+        # always leave >= 1 tail token: the first generated token needs a
+        # real last-position forward pass, and the boundary page decode
+        # appends into must be recomputed into a PRIVATE copy — a fully
+        # registered page-aligned prompt re-prefills its last page
+        skip = min(len(shared), (true_len - 1) // ps)
+        if skip < 1:
+            return None
+        tail_len = true_len - skip * ps
+        tbucket = self.bucket_for_tail(tail_len)
+        npages = self._pages_for(tbucket)
+        if len(self._free_pages) < npages:
+            return None
+        # ---- map phase: shared pages ref++ ----
+        shared_eff = np.asarray(shared[:skip], np.int32)
+        priv_tail = self._take_pages(npages)
+        self._share_pages(shared_eff)
+        prefix_ids = np.full((self._prefix_width,), TRASH_PAGE, np.int32)
+        prefix_ids[:skip] = shared_eff
+        # ---- tail-compute phase ----
+        tail = true_prompt[skip * ps:]
+        if len(tail) < tbucket:
+            tail = np.concatenate(
+                [tail, np.zeros(tbucket - len(tail), np.int32)])
+        perm, inv, blocks = self._prefill_segments(aslot, cap, tbucket)
+        dev = self.device
+        tokens = torch.as_tensor(tail[None], device=dev)
+        tail_t = torch.full((1,), tail_len, dtype=torch.int32, device=dev)
+        plen_t = torch.full((1,), skip * ps, dtype=torch.int32, device=dev)
+        aidx = torch.full((1,), aslot, dtype=torch.int32, device=dev)
+        # the float path when EVERY mapped page still has its sidecar;
+        # otherwise attend the int8 arena content dequantized
+        use_float = all(int(p) in self._page_float for p in shared_eff)
+        if use_float:
+            # registered pages are immutable, so the mapped page ids fully
+            # determine the operand; _release_pages drops an entry the
+            # moment any member id frees
+            fpkey = tuple(int(x) for x in prefix_ids[:skip])
+            prefix_fp = self._prefix_fp_cache.get(fpkey)
+            if prefix_fp is None:
+                srcs = [self._page_float[int(p)] for p in shared_eff]
+                prefix_fp = []
+                for i in range(len(srcs[0])):
+                    k0 = srcs[0][i]["k"]            # (nper, ps, kv, hd)
+                    buf = torch.zeros((2, k0.shape[0], 1,
+                                       self._prefix_width * ps)
+                                      + tuple(k0.shape[2:]), dtype=k0.dtype)
+                    for j, src in enumerate(srcs):
+                        buf[0, :, 0, j * ps:(j + 1) * ps] = src[i]["k"]
+                        buf[1, :, 0, j * ps:(j + 1) * ps] = src[i]["v"]
+                    buf = buf.to(dev)              # one upload per sublayer
+                    prefix_fp.append({"k": buf[0], "v": buf[1]})
+                while len(self._prefix_fp_cache) >= 32:   # FIFO bound
+                    self._prefix_fp_cache.pop(
+                        next(iter(self._prefix_fp_cache)))
+                self._prefix_fp_cache[fpkey] = prefix_fp
+            first, fin, _, cache = self._tail_prefill_fn(
+                cap, tbucket, "float")(
+                self.fm.params, prefix_fp, tokens, tail_t, plen_t,
+                [self._keys[slot]], self.fm.adapters.stacked(), aidx, perm,
+                inv, blocks)
+        else:
+            first, fin, _, cache = self._tail_prefill_fn(
+                cap, tbucket, "pages")(
+                self.fm.params, self.pool, tokens, tail_t,
+                torch.as_tensor(prefix_ids, dtype=torch.long, device=dev),
+                plen_t, [self._keys[slot]], self.fm.adapters.stacked(), aidx,
+                perm, inv, blocks)
+        self.admissions += 1
+        self.tail_tokens_computed += tail_len
+        self.prefill_tokens_saved += skip * ps
+        if req.resume is None:
+            self.admitted_log.append((req.rid, req.task_id, true_len,
+                                      tail_len))
+        fin_ok = bool(fin[0].item())
+        if not fin_ok:
+            # quarantined tail: roll the map phase back — shared refcounts
+            # drop to their pre-join values, the tail pages return to the
+            # free list, nothing was registered
+            self.quarantines += 1
+            self._release_pages(shared_eff)
+            self._release_pages(priv_tail)
+        else:
+            self.prefix_hits += 1
+            self.shared_pages_mapped += skip
+            boundary = true_len // ps - skip
+            self.pool = self._paged_tail_write_fn(npages)(
+                self.pool, cache, slot,
+                torch.as_tensor(priv_tail, dtype=torch.long, device=dev),
+                true_len, boundary,
+                torch.as_tensor(prefix_ids, dtype=torch.long, device=dev),
+                skip)
+            self._ptab[slot, :skip] = prefix_ids[:skip]
+            self._ptab[slot, skip:skip + npages] = priv_tail
+            self._held[slot] = skip + npages
+            self._lens[slot] = true_len
+            # trim tail-bucket padding beyond the true length (always
+            # private pages; the prefix never extends past the prompt)
+            keep = self._pages_for(true_len)
+            if keep < skip + npages:
+                self._release_pages(self._ptab[slot, keep:skip + npages])
+                self._ptab[slot, keep:skip + npages] = TRASH_PAGE
+                self._held[slot] = keep
+            # a float-mode tail's cache carries the full path's values, so
+            # its freshly registered pages earn sidecars of their own; a
+            # pages-mode tail carries the prefix's dequantization error and
+            # must not seed sidecars future sharers would trust
+            self._register_prefix(req.adapter_id, true_prompt, slot,
+                                  true_len,
+                                  cache=cache if use_float else None,
+                                  cache_page0=skip)
+            self._ptab_dirty = True
+        return self._finish_admission(req, slot, aslot, first, fin_ok,
+                                      true_prompt, true_len, max_new_tokens)
 
     def _finish_admission(self, req: _PendingJoin, slot: int, aslot: int,
                           first, fin_ok: bool, true_prompt: np.ndarray,
@@ -1177,8 +1528,51 @@ class DecodeEngine:
                 self.fm.adapters.stacked(), adapters, perm, inv, blocks)
 
     def warm_chunked(self):
-        raise NotImplementedError("chunked shared-prefix prefill (P9) comes "
-                                  "with a later slice of the port")
+        """Run the chunked-admission planes once (one tail prefill per mode
+        and one tail-page scatter per tail bucket), so sharer joins add no
+        shape key in steady state, whatever tail length they arrive with.
+        The warm prefill attends only a masked-out prefix (zeros, or the
+        trash page) and its outputs are discarded; it samples with a scratch
+        generator, so no slot's generator advances and a warmed engine
+        samples exactly as an unwarmed one. The warm scatter targets the
+        trash page at slot 0 with a zero length (the idle-engine garbage
+        contract of ``warm_decode_ladder``)."""
+        if self.active_count():
+            raise RuntimeError("warm_chunked must run on an idle engine")
+        if not (self.paged and self.chunked_prefill):
+            return
+        cap = self.fm.adapters.capacity()
+        aslot = self.fm.adapters.index(None)
+        dev, ps = self.device, self.page_size
+        prefix_ids = torch.full((self._prefix_width,), TRASH_PAGE,
+                                dtype=torch.long, device=dev)
+        # a zero float-prefix operand at the one shape every float-mode tail
+        # call uses, in the sidecars' dtype
+        warm_fp = [{"k": c["k"], "v": c["v"]}
+                   for c, p in zip(lm.init_cache(
+                       self.cfg, 1, self._prefix_width * ps, kv_quant=False,
+                       device=dev), self.pool)
+                   if "page_table" in p]
+        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+        aidx = torch.full((1,), aslot, dtype=torch.int32, device=dev)
+        scratch = [torch.Generator(device=dev).manual_seed(0)]
+        for tb in self.tail_buckets:
+            perm, inv, blocks = self._prefill_segments(aslot, cap, tb)
+            tokens = torch.zeros((1, tb), dtype=torch.int32, device=dev)
+            tail_t = torch.full((1,), tb, dtype=torch.int32, device=dev)
+            self._tail_prefill_fn(cap, tb, "float")(
+                self.fm.params, warm_fp, tokens, tail_t, zero, scratch,
+                self.fm.adapters.stacked(), aidx, perm, inv, blocks)
+            self._tail_prefill_fn(cap, tb, "pages")(
+                self.fm.params, self.pool, tokens, tail_t, prefix_ids, zero,
+                scratch, self.fm.adapters.stacked(), aidx, perm, inv, blocks)
+            npages = self._pages_for(tb)
+            cache = lm.init_cache(self.cfg, 1, npages * ps, kv_quant=False,
+                                  device=dev)
+            self.pool = self._paged_tail_write_fn(npages)(
+                self.pool, cache, 0,
+                torch.full((npages,), TRASH_PAGE, dtype=torch.long,
+                           device=dev), 0, -1, prefix_ids, 0)
 
     def warm_speculative(self):
         raise NotImplementedError("speculative decoding (P11) comes with a "

@@ -38,8 +38,10 @@ preserves the old synchronous one-BFQ-batch contract (``FMplexServer.step``)
 on top of the same machinery.
 
 This module is the JAX package's loop, nearly line for line, without the
-prefix-hit TTFT split (it needs the chunked shared-prefix prefill of a later
-slice) and the durable-state plane.
+durable-state plane. On a paged pool with chunked shared-prefix prefill a
+sharer's admission is charged its private TAIL only (what the device
+computed), and TTFT is split into prefix-hit and miss series
+(``ttft_hit_samples``/``ttft_miss_samples``).
 
 **Failure semantics.** Performance isolation (BFQ, the page gate) is only
 half of virtualization's promise — the loop also owns FAILURE isolation, and
@@ -120,6 +122,12 @@ class ServeLoop:
         self.page_samples: list[float] = []     # paged-pool occupancy / tick
         self.shared_samples: list[float] = []   # dedup fraction / decode tick
         self._tie_last = "decode"               # alternation state (see tick)
+        # TTFT split by admission kind (chunked shared-prefix prefill):
+        # rids whose admission mapped a prefix (tail < full prompt) land in
+        # the hit series at retire, everything else in the miss series
+        self._prefix_hit_rids: set[int] = set()
+        self.ttft_hit_samples: list[float] = []
+        self.ttft_miss_samples: list[float] = []
         # failure-isolation plane (module docstring): terminal-status tallies
         # plus the stall watchdog. The watchdog only arms while work is
         # queued and fires when no progress event (serve / engine step /
@@ -321,6 +329,8 @@ class ServeLoop:
             # price (see _drain_gen) — only loop-admitted rids pay here
             if rid in self._inflight:
                 charges[tid] += tail
+                if tail < toks:
+                    self._prefix_hit_rids.add(rid)
         if charges:
             sched.charge_tokens(vfms, charges, now)
 
@@ -408,10 +418,15 @@ class ServeLoop:
         """Stamp a loop-admitted stream's request at ITS retire chunk (keeps
         TTFT/TPOT honest for short streams co-batched with long ones)."""
         r = self._inflight.pop(slot.rid, None)
+        hit = slot.rid in self._prefix_hit_rids
+        self._prefix_hit_rids.discard(slot.rid)
         if r is None:
             return                    # admitted by step_batch; handled there
         r.first_token_time = slot.t_first
         r.finish_time = now
+        if r.arrival is not None and slot.t_first is not None:
+            (self.ttft_hit_samples if hit else self.ttft_miss_samples
+             ).append(slot.t_first - r.arrival)
         r.result = np.asarray(slot.tokens, np.int32)
         v = vfms.get(r.task_id)
         if v is not None:
@@ -569,9 +584,10 @@ class ServeLoop:
         """Run every shape key the loop can dispatch once before measuring:
         one pooled co-batch per batch bucket up to ``pooled_n`` (BFQ can
         form ANY size under load), one admission prefill per prompt-length
-        bucket, the decode chunk, and the pool write — so the kernels are
-        built, the allocator has its blocks and the heads have their
-        verdicts before a measured run. Generative warmup is skipped for FMs
+        bucket, the decode chunk, the pool write and, on a chunked paged
+        pool, one tail prefill and tail scatter per tail bucket — so the
+        kernels are built, the allocator has its blocks and the heads have
+        their verdicts before a measured run. Generative warmup is skipped for FMs
         with no generative head."""
         import numpy as np
 
@@ -618,8 +634,13 @@ class ServeLoop:
         # the deadline clamp dispatches shortened chunks from a fixed
         # ladder; run each once now so deadline traffic adds no shape key
         eng = self._engine()
-        if eng is not None and eng.active_count() == 0 and eng.deadline_clamp:
-            eng.warm_decode_ladder()
+        if eng is not None and eng.active_count() == 0:
+            if eng.deadline_clamp:
+                eng.warm_decode_ladder()
+            # chunked shared-prefix admissions key per TAIL bucket: run
+            # them now so the first sharer join adds no shape key
+            if eng.chunked_prefill:
+                eng.warm_chunked()
 
     def _work_left(self) -> bool:
         eng = self._engine()

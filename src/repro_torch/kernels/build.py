@@ -25,6 +25,7 @@ SOURCES = {
     "segmented_lora": "segmented_lora.cu",
     "decode_attention_int8": "decode_attention_int8.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
+    "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,121 @@
+"""GQA prefill flash attention: the CUDA kernel's wrapper (K2).
+
+Every attention over a whole prompt runs here: the pooled forward (causal,
+Sq = Sk), the full admission prefill (``kv_len`` masks the bucket's right
+pads) and the chunked admission's tail prefill (``kv_len`` plus a prefix
+operand: the mapped shared pages' K/V, attended in front of the tail's own
+keys and masked past ``prefix_len``). ``csrc/flash_attention.cu`` reads
+every operand in the model layout (B, S, heads, hd) through its strides and
+walks the prefix as a second key segment, so nothing is transposed or
+concatenated on the way in.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_HEAD_DIMS = (32, 64, 128)
+_ROWS = 64                  # (query, head) rows per CTA: G must divide it
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            + [ctypes.c_int64] * 15 + [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _rows_ok(t, name):
+    """Unit hd stride and 16-byte aligned head rows (the kernel's 16-byte
+    vector loads), any batch/position/head strides."""
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention kernel takes bf16 {name}, got "
+                        f"{t.dtype}")
+    if t.stride(3) != 1 or t.data_ptr() % 16 or \
+            any(s % 8 for s in t.stride()[:3]):
+        raise ValueError(f"{name}: head rows must have unit hd stride and be "
+                         f"16-byte aligned, got strides {t.stride()}")
+
+
+def _lengths(t, B, name):
+    if t is None:
+        return None
+    if tuple(t.shape) != (B,) or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a ({B},) CUDA tensor, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.to(torch.int32).contiguous()
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, kv_len=None, prefix_k=None,
+                    prefix_v=None, prefix_len=None):
+    """Launch the prefill flash-attention kernel.
+
+    q: (B, Sq, H, hd) bf16 CUDA; k, v: (B, Sk, KV, hd) bf16, H = KV * G
+    with G dividing 64 and hd in (32, 64, 128); every operand read by
+    strides (unit hd stride, 16-byte aligned rows). ``kv_len``/
+    ``prefix_len``: (B,) integer CUDA tensors, read on the device.
+    ``prefix_k``/``prefix_v``: (B, Sp, KV, hd) bf16, with ``prefix_len``
+    and without a window. Returns (B, Sq, H, hd) bf16, contiguous. A query
+    row with no valid key returns zeros."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention kernel takes CUDA tensors")
+    B, Sq, H, hd = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != hd or \
+            tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k/v must be (B={B}, Sk, KV, hd={hd}) alike, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // max(KV, 1)
+    if H % KV or _ROWS % G or hd not in _HEAD_DIMS:
+        raise ValueError(f"unsupported H={H}, KV={KV}, hd={hd} (hd in "
+                         f"{_HEAD_DIMS}, H/KV dividing {_ROWS})")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _rows_ok(t, name)
+    kv_len = _lengths(kv_len, B, "kv_len")
+    if prefix_k is not None:
+        if prefix_v is None or prefix_len is None:
+            raise ValueError("prefix_k needs prefix_v and prefix_len")
+        if window is not None:
+            raise ValueError("a sliding window over a prefix is unsupported")
+        if prefix_k.dim() != 4 or prefix_k.shape[0] != B or \
+                tuple(prefix_k.shape[2:]) != (KV, hd) or \
+                tuple(prefix_v.shape) != tuple(prefix_k.shape):
+            raise ValueError(f"prefix_k/prefix_v must be (B={B}, Sp, KV={KV}, "
+                             f"hd={hd}) alike, got {tuple(prefix_k.shape)} "
+                             f"and {tuple(prefix_v.shape)}")
+        _rows_ok(prefix_k, "prefix_k")
+        _rows_ok(prefix_v, "prefix_v")
+        prefix_len = _lengths(prefix_len, B, "prefix_len")
+        Sp = prefix_k.shape[1]
+        pk, pv = prefix_k, prefix_v
+        pks, pvs = prefix_k.stride()[:3], prefix_v.stride()[:3]
+    else:
+        Sp, pk, pv, prefix_len = 0, None, None, None
+        pks = pvs = (0, 0, 0)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(pk), ptr(pv),
+        ptr(kv_len), ptr(prefix_len), out.data_ptr(), B, Sq, Sk, Sp, KV, G,
+        hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *pks, *pvs,
+        int(causal), -1 if window is None else int(window),
+        1.0 / math.sqrt(hd), stream)
+    build.LAUNCHES["flash_attention"] += 1
+    build.check(err, "flash_attention")
+    return out

@@ -10,8 +10,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import decode_attention_int8 as _int8
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import segmented_lora as _sgmv
 
@@ -24,6 +27,49 @@ def _route(x) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
     return kind
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, q_chunk: int = 1024,
+                    kv_chunk: int = 1024, kv_len=None, prefix_k=None,
+                    prefix_v=None, prefix_len=None):
+    """Prefill GQA attention in the model layout (kernel K2): q (B, Sq, H,
+    hd), k/v (B, Sk, KV, hd), optional ``kv_len`` (B,) and prefix operand
+    (B, Sp, KV, hd) with ``prefix_len`` (B,) — the semantics of
+    ``ref.flash_attention_ref``. ``q_chunk``/``kv_chunk`` tile the plain
+    version only; the kernel has its own tiles."""
+    if _route(q) == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      kv_len=kv_len, prefix_k=prefix_k,
+                                      prefix_v=prefix_v,
+                                      prefix_len=prefix_len)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   kv_len=kv_len, prefix_k=prefix_k,
+                                   prefix_v=prefix_v, prefix_len=prefix_len)
+
+
+def gather_prefix_kv(k_pages, v_pages, k_scale, v_scale, page_table):
+    """Dequantized prefix K/V gather, model layout (chunked prefill).
+
+    k_pages/v_pages: (num_pages, ps, KV, hd) int8 arena; k_scale/v_scale:
+    (num_pages, KV) per-page scales; page_table: (B, P) prefix pages
+    (positions past a row's true prefix length may point at the trash page:
+    the attention mask hides them). Returns float32 (k, v), each
+    (B, P * ps, KV, hd), ready for ``flash_attention(prefix_k=...,
+    prefix_v=...)``. Plain tensor code on every device, as in the JAX
+    package: the gathered block is a handful of pages per admission, and
+    the arena is read through the page vector, never transposed."""
+    B, P = page_table.shape
+    _, ps, KV, hd = k_pages.shape
+    pt = page_table.to(device=k_pages.device, dtype=torch.long)
+
+    def gather(pages, scale):
+        g = pages[pt].float()                          # (B, P, ps, KV, hd)
+        g = g * scale[pt][:, :, None, :, None]
+        return g.reshape(B, P * ps, KV, hd)
+
+    return gather(k_pages, k_scale), gather(v_pages, v_scale)
 
 
 def quantize_kv(k, v):

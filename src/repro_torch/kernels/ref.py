@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the kernels (the port's ``kernels/ref.py``).
 
 Each mirrors its JAX oracle in ``kernels/ref.py`` of the JAX package, in the
-same (kernel, head-major) layouts. ``kernels.ops`` uses them for tensors that
-lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels against them on the
-card.
+same (kernel, head-major) layouts, except ``flash_attention_ref``: it is the
+JAX package's jnp ``models.attention.flash_attention`` (``kv_len`` and the
+prefix operand), in the model layout. ``kernels.ops`` uses them for tensors
+that lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels against them on
+the card.
 """
 from __future__ import annotations
 
@@ -13,6 +15,94 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def _chunk(n: int, target: int) -> int:
+    c = min(n, target)
+    while n % c:
+        c -= 1
+    return c
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_chunk: int = 1024,
+                        kv_chunk: int = 1024, kv_len=None, prefix_k=None,
+                        prefix_v=None, prefix_len=None):
+    """Online-softmax GQA prefill attention in the MODEL layout: the JAX
+    package's jnp ``models.attention.flash_attention``, a superset of the
+    Pallas kernel's function (which takes neither ``kv_len`` nor a prefix).
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H % KV == 0. Returns
+    (B, Sq, H, hd) in q's dtype. Q/K positions align at the end (q is the
+    suffix of the keys). ``kv_len`` (B,): key positions at or past a row's
+    length are masked. ``prefix_k``/``prefix_v`` (B, Sp, KV, hd) with
+    ``prefix_len`` (B,): keys at positions [0, Sp) ahead of ``k``, masked at
+    or past ``prefix_len``; no window with a prefix. Scores and the
+    accumulator are f32; the probabilities round to the value dtype before
+    the P·V product, as in JAX. A row whose keys are all masked yields the
+    mean of the masked values, as JAX does (exp(NEG_INF - NEG_INF) = 1)."""
+    B, Sq, H, hd = q.shape
+    Sk_new = k.shape[1]
+    dev = q.device
+    if prefix_k is not None:
+        if prefix_v is None or prefix_len is None:
+            raise ValueError("prefix_k needs prefix_v and prefix_len")
+        if window is not None:
+            raise ValueError("a sliding window over a prefix is unsupported")
+        Sp = prefix_k.shape[1]
+        k = torch.cat([prefix_k.to(k.dtype), k], dim=1)
+        v = torch.cat([prefix_v.to(v.dtype), v], dim=1)
+        tail_ok = torch.arange(Sk_new, device=dev)[None] < \
+            kv_len.to(dev)[:, None] if kv_len is not None else \
+            torch.ones((B, Sk_new), dtype=torch.bool, device=dev)
+        key_valid = torch.cat([torch.arange(Sp, device=dev)[None]
+                               < prefix_len.to(dev)[:, None], tail_ok], dim=1)
+    elif kv_len is not None:
+        key_valid = torch.arange(Sk_new, device=dev)[None] < \
+            kv_len.to(dev)[:, None]
+    else:
+        key_valid = None
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qc, kc = _chunk(Sq, q_chunk), _chunk(Sk, kv_chunk)
+    scale = 1.0 / math.sqrt(hd)
+    q_off = Sk - Sq
+    qr = q.reshape(B, Sq // qc, qc, KV, G, hd)
+    kr = k.reshape(B, Sk // kc, kc, KV, hd)
+    vr = v.reshape(B, Sk // kc, kc, KV, hd)
+    chunks = []
+    for qi in range(Sq // qc):
+        qblk = qr[:, qi].float()                          # (B, qc, KV, G, hd)
+        q_pos = q_off + qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, KV, G, qc), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, qc), device=dev)
+        acc = torch.zeros((B, KV, G, qc, hd), device=dev)
+        for ki in range(Sk // kc):
+            vblk = vr[:, ki]
+            k_pos = ki * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qblk,
+                             kr[:, ki].float()) * scale
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            mask = mask[None, None, None]                 # (1, 1, 1, qc, kc)
+            if key_valid is not None:
+                vmask = key_valid[:, ki * kc:(ki + 1) * kc]
+                mask = mask & vmask[:, None, None, None]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            # p rounds to the value dtype before the product, as in JAX
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(vblk.dtype).float(), vblk.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, qc, hd)
+        chunks.append(out.permute(0, 3, 1, 2, 4))         # (B, qc, KV, G, hd)
+    return torch.cat(chunks, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None):

@@ -1,10 +1,12 @@
-"""GQA attention: online-softmax prefill in plain torch, and decode.
+"""GQA attention: prefill (pooled forward, full and chunked admission) and
+decode.
 
-``flash_attention`` mirrors the JAX package's jnp function of the same name
-(not a Pallas kernel there either): Q chunks, and an online softmax over KV
-chunks, with bf16 operands multiplied in f32. Decode against the dense int8
-pool and the paged int8 arena goes through the hand-written kernels
-(``kernels.ops``).
+``flash_attention`` keeps the JAX package's jnp function's signature and
+layout (``kv_len``, the prefix operand of a chunked admission) and goes
+through the hand-written prefill kernel K2 (``kernels.ops.flash_attention``);
+its plain version is ``kernels.ref.flash_attention_ref``. Decode against the
+dense int8 pool and the paged int8 arena goes through the hand-written
+decode kernels (``kernels.ops``).
 
 The cache is updated IN PLACE: a serving pool is allocated once and every
 prefill/decode writes into its slices, where the JAX package returns a new
@@ -40,66 +42,31 @@ def attn_spec(cfg) -> dict:
     return spec
 
 
-# ---------------- online-softmax attention (plain torch) ----------------
-
-def _chunk(n: int, target: int) -> int:
-    c = min(n, target)
-    while n % c:
-        c -= 1
-    return c
-
+# ---------------- prefill attention (kernel K2) ----------------
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_chunk: int = 1024,
-                    kv_chunk: int = 1024, kv_len=None):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H % KV == 0. Returns
+                    kv_chunk: int = 1024, kv_len=None, prefix_k=None,
+                    prefix_v=None, prefix_len=None):
+    """Online-softmax GQA attention, the JAX function's signature and layout.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H % KV == 0. Returns
     (B, Sq, H, hd). Q/K positions align at the end (q is the suffix when
     Sq < Sk). ``kv_len`` (B,): key positions at or past a row's length are
-    masked (right-padded variable-length prefill)."""
-    B, Sq, H, hd = q.shape
-    _, Sk, KV, _ = k.shape
-    G = H // KV
-    dev = q.device
-    key_valid = None if kv_len is None else \
-        torch.arange(Sk, device=dev)[None] < kv_len.to(dev)[:, None]
-    qc, kc = _chunk(Sq, q_chunk), _chunk(Sk, kv_chunk)
-    scale = 1.0 / math.sqrt(hd)
-    q_off = Sk - Sq
-    qr = q.reshape(B, Sq // qc, qc, KV, G, hd)
-    kr = k.reshape(B, Sk // kc, kc, KV, hd)
-    vr = v.reshape(B, Sk // kc, kc, KV, hd)
-    chunks = []
-    for qi in range(Sq // qc):
-        qblk = qr[:, qi].float()                          # (B, qc, KV, G, hd)
-        q_pos = q_off + qi * qc + torch.arange(qc, device=dev)
-        m = torch.full((B, KV, G, qc), NEG_INF, device=dev)
-        l = torch.zeros((B, KV, G, qc), device=dev)
-        acc = torch.zeros((B, KV, G, qc, hd), device=dev)
-        for ki in range(Sk // kc):
-            vblk = vr[:, ki]
-            k_pos = ki * kc + torch.arange(kc, device=dev)
-            s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kr[:, ki].float()) * scale
-            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= q_pos[:, None] >= k_pos[None, :]
-            if window is not None:
-                mask &= (q_pos[:, None] - k_pos[None, :]) < window
-            mask = mask[None, None, None]                 # (1, 1, 1, qc, kc)
-            if key_valid is not None:
-                vmask = key_valid[:, ki * kc:(ki + 1) * kc]
-                mask = mask & vmask[:, None, None, None]
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            # p rounds to the value dtype before the product, as in JAX
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p.to(vblk.dtype).float(), vblk.float())
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, qc, hd)
-        chunks.append(out.permute(0, 3, 1, 2, 4))         # (B, qc, KV, G, hd)
-    return torch.cat(chunks, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+    masked (right-padded variable-length prefill). ``prefix_k``/``prefix_v``
+    (B, Sp, KV, hd) with ``prefix_len`` (B,): precomputed prefix K/V (the
+    mapped shared pages of a chunked admission) that the queries attend to
+    in front of their own keys, masked at or past ``prefix_len``; the
+    prefix is cast to the keys' dtype first, as in JAX (the pages mode
+    gathers f32). Runs the prefill kernel (``kernels.ops.flash_attention``)
+    on the card; ``q_chunk``/``kv_chunk`` tile the plain version only."""
+    from repro_torch.kernels import ops
+    if prefix_k is not None:
+        prefix_k, prefix_v = prefix_k.to(k.dtype), prefix_v.to(v.dtype)
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               kv_len=kv_len, prefix_k=prefix_k,
+                               prefix_v=prefix_v, prefix_len=prefix_len)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
@@ -158,14 +125,22 @@ def out_project(p, attn_out, dtype):
 
 def self_attention(p, x, cfg, *, causal=True, pos=None, lora=None,
                    adapter_idx=None, lora_impl="gather", lora_seg=None,
-                   seq_lens=None):
+                   seq_lens=None, prefix=None, prefix_len=None):
     """Full-sequence self attention (prefill / pooled forward).
-    Returns (out, (k, v)); ``seq_lens`` (B,) masks right-padding keys."""
+    Returns (out, (k, v)); ``seq_lens`` (B,) masks right-padding keys.
+
+    ``prefix``: optional dict(k, v) of precomputed (B, Sp, KV, hd) prefix
+    K/V (a chunked admission's mapped shared pages) that the queries attend
+    to in ADDITION to this dispatch's own K/V; ``prefix_len`` (B,) true
+    prefix lengths. The returned (k, v) stay tail-only: the cache stores
+    only what this dispatch computed."""
     q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
+    pk, pv = (None, None) if prefix is None else (prefix["k"], prefix["v"])
     o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
-                        kv_len=seq_lens)
+                        kv_len=seq_lens, prefix_k=pk, prefix_v=pv,
+                        prefix_len=prefix_len)
     return out_project(p, o, x.dtype), (k, v)
 
 

@@ -155,10 +155,16 @@ def _fill_cache(cache, k, v, seq_lens):
 def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
                    cache=None, pos=None, causal=True, lora=None,
                    adapter_idx=None, lora_impl: str = "gather", lora_seg=None,
-                   seq_lens=None):
+                   seq_lens=None, prefix=None, prefix_len=None):
     """Apply one attention sublayer. mode: 'full' (pooled forward / prefill)
     or 'decode'. A given cache is a dict of views that is updated in place
-    (prefill fills it, decode appends one token)."""
+    (prefill fills it, decode appends one token).
+
+    ``prefix``/``prefix_len``: chunked shared-prefix prefill — a dict(k, v)
+    of precomputed (B, Sp, KV, hd) prefix K/V this sublayer's queries
+    attend to in front of their own keys (``attention.self_attention``).
+    The cache fill stores only the tail's K/V: the prefix already lives in
+    the paged arena."""
     if lay.kind != ATTN:
         raise NotImplementedError(f"{lay.kind} sublayers come with a later slice")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -172,7 +178,7 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
         out, (k, v) = attn.self_attention(
             p["attn"], h, cfg, causal=causal, pos=pos, lora=lora,
             adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg,
-            seq_lens=seq_lens)
+            seq_lens=seq_lens, prefix=prefix, prefix_len=prefix_len)
         if cache is not None:
             _fill_cache(cache, k, v, seq_lens)
     else:

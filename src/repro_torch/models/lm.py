@@ -93,7 +93,7 @@ def _at(tree, i):
 
 def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
                    lora=None, adapter_idx=None, lora_impl="gather",
-                   lora_seg=None, seq_lens=None):
+                   lora_seg=None, seq_lens=None, prefix=None, prefix_len=None):
     """Loop over periods and their sublayers (the JAX package scans)."""
     nper = cfg.num_layers // len(layout)
     for i in range(nper):
@@ -104,17 +104,27 @@ def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
                 causal=causal,
                 lora=_at(lora[j], i) if lora is not None and lora[j] else None,
                 adapter_idx=adapter_idx, lora_impl=lora_impl,
-                lora_seg=lora_seg, seq_lens=seq_lens)
+                lora_seg=lora_seg, seq_lens=seq_lens,
+                prefix=_at(prefix[j], i) if prefix is not None and prefix[j]
+                else None, prefix_len=prefix_len)
     return x
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
             mode: str = "full", pos=None, lora=None, adapter_idx=None,
-            lora_impl: str = "gather", lora_seg=None, seq_lens=None):
+            lora_impl: str = "gather", lora_seg=None, seq_lens=None,
+            prefix=None, prefix_len=None):
     """Backbone forward. Returns (hidden (B, S, d), cache). Inputs are
     ``tokens`` (B, S) int or ``embeds`` (B, S, d). ``cache`` (prefill /
     decode) is updated in place. ``lora_impl`` "gather" or "segmented" (the
-    latter needs ``lora_seg`` metadata); ``seq_lens`` (B,) masks right pads."""
+    latter needs ``lora_seg`` metadata); ``seq_lens`` (B,) masks right pads.
+
+    ``prefix``/``prefix_len``: chunked shared-prefix prefill — a list
+    aligned with the period layout of per-sublayer dict(k, v) precomputed
+    prefix K/V (leading ``num_periods`` axis, like ``cache``; None for a
+    sublayer without attention) that every attention sublayer attends to in
+    front of its own keys. Pass absolute ``pos`` (``prefix_len +
+    arange(S)``) so RoPE matches."""
     if embeds is None:
         x = embed(params["embed"].to(ACT_DTYPE), tokens)
     else:
@@ -125,7 +135,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
                        mode=mode, cache=cache, pos=pos,
                        causal=not cfg.is_representation, lora=lora,
                        adapter_idx=adapter_idx, lora_impl=lora_impl,
-                       lora_seg=lora_seg, seq_lens=seq_lens)
+                       lora_seg=lora_seg, seq_lens=seq_lens, prefix=prefix,
+                       prefix_len=prefix_len)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), cache
 
 
@@ -142,14 +153,24 @@ def _head(params, x):
 
 def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
             lora=None, adapter_idx=None, lora_impl: str = "gather",
-            lora_seg=None, seq_lens=None, pos=None):
+            lora_seg=None, seq_lens=None, pos=None, prefix=None,
+            prefix_len=None):
     """Fill the decode cache from a prompt (in place). Returns
     (last_logits (B, V) f32, cache). ``seq_lens`` (B,): true lengths of
-    right-padded prompts; the logits come from each row's last real token."""
+    right-padded prompts; the logits come from each row's last real token.
+
+    Chunked shared-prefix admission passes ``tokens`` holding only the
+    PRIVATE TAIL plus ``prefix``/``prefix_len``/``pos``: ``prefix`` is the
+    per-sublayer K/V of the already-mapped shared pages (see ``forward``),
+    ``pos = prefix_len + arange(tail)`` keeps RoPE at absolute positions,
+    ``seq_lens`` counts TAIL tokens only, and the cache receives only the
+    tail's K/V — the engine scatters it after the prefix pages in the
+    slot's page table."""
     x, cache = forward(params, cfg, tokens=tokens, embeds=embeds, cache=cache,
                        mode="full", lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg,
-                       seq_lens=seq_lens, pos=pos)
+                       seq_lens=seq_lens, pos=pos, prefix=prefix,
+                       prefix_len=prefix_len)
     if seq_lens is None:
         last = x[:, -1]
     else:

@@ -267,10 +267,12 @@ def test_engine_cancel_and_deadline(fms):
 
 def test_unported_engine_options_raise(fms):
     _, fm, _, _ = fms
-    for kw in (dict(paged=True, chunked_prefill=True), dict(spec_k=2),
-               dict(spill_bytes=1 << 20)):
+    for kw in (dict(spec_k=2), dict(spill_bytes=1 << 20)):
         with pytest.raises(NotImplementedError, match="later slice"):
             DecodeEngine(fm, num_slots=2, prompt_len=8, **kw)
+    # chunked shared-prefix prefill is ported: the paged default takes it
+    assert DecodeEngine(fm, num_slots=2, prompt_len=8,
+                        paged=True).chunked_prefill
     with pytest.raises(NotImplementedError, match="later slice"):
         DecodeEngine(fm, num_slots=2, prompt_len=8).snapshot()
     with pytest.raises(NotImplementedError):
