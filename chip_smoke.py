@@ -14,10 +14,19 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    table whose page scales are the slot scales; the prefill kernel (K2) at
    the pooled, full-admission and tail-admission shapes (``FLASH_CASES``:
    ragged ``kv_len``, a prefix operand with 64 and 0 valid positions), with
-   GQA, a window and queries that are a strict suffix of the keys;
+   GQA, a window and queries that are a strict suffix of the keys, and at
+   whisper's bidirectional encoder (1500 frames) and cross-attention
+   prefill (Sq 16 and 64 against 1500 frames) shapes; the float
+   flash-decode kernel (K5) at the cross-attention decode shape (8 slots,
+   1500 frames), the float pool's (S = s_max, ragged lengths), with GQA
+   and windows (``FLOAT_CASES``);
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
-   same model run with the plain versions on the CPU;
+   same model run with the plain versions on the CPU, on the int8 pool (K3)
+   and on the float pool (K5); then a two-layer cut of full-width
+   whisper-base (2 + 2 layers, 1500 frames per row) the same way (K2 for
+   the encoder and the cross-attention of the prompt, K5 for every
+   cross-attention decode);
 3. paged reference — the same two-layer cut through the paged decode
    engine (shared prefix pages, per-page int8 scales) on the card against
    the same engine on the CPU, teacher-forced; then the chunked paged
@@ -40,11 +49,17 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    a paged pool with chunked shared-prefix prefill (the engine's default):
    at least one tail admission, K2 launched, no leak, the prefix-hit and
    miss TTFT p50;
+   then full-width whisper-base (6 + 6 layers, 1500 frames per stream)
+   through the same server on the paged int8 pool: pooled frame requests
+   and transcription streams with their own frames (prompts 4-64 tokens,
+   32-64 new tokens); every request finishes ok with its budget, K5, K4,
+   K2 and K1 launch, and every state slot and page is free at the end;
 6. timing — device times (``torch.profiler``) of each kernel, its plain
    version and a library yardstick, beside the least time the card could
-   take (its bound), a profile of one dense and one paged decode step, and
-   the prefill device time a prefix hit saves (full admission against its
-   tail).
+   take (its bound), K2 also at whisper's encoder and cross-prefill
+   shapes, a profile of one dense, one paged and one whisper decode step
+   and of one whisper pooled batch, and the prefill device time a prefix
+   hit saves (full admission against its tail).
 
 The line before last prints the card's name and power limit
 (``nvidia-smi``); before it, one JSON line lists the kernels. The last line
@@ -65,6 +80,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor rate (data sheet)
 ARCH = "stablelm-1.6b"
+WHISPER = "whisper-base"
+ENC_LEN = 1500                  # whisper's n_audio_ctx (arXiv:2212.04356)
 SLOTS, CHUNK, PROMPT_LEN, MAX_NEW, RANK, BLOCK_T = 8, 4, 128, 32, 16, 16
 N_TASKS = 4
 PAGE_SIZE, TOTAL_PAGES = 16, 45
@@ -102,22 +119,26 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean DEVICE ms per call: the summed durations of every kernel (and
     copy) the call runs on the card, from ``torch.profiler``, so host gaps
-    between launches do not count. Raises if the profiler saw no device
-    time (CUDA events would time the host's enqueue rate instead)."""
+    between launches do not count. A profiling session that records no
+    device activity (CUPTI sometimes returns none) is run again, up to
+    three times; then this raises (CUDA events would time the host's
+    enqueue rate instead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.device_time for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    if busy_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return busy_us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.device_time for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+        log("device_ms: the profiler recorded no device time; again")
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -201,6 +222,84 @@ def int8_bound(q, kq, lens, window=None):
     return bound_ms(nbytes, flops)
 
 
+def float_inputs(gen, B, H, KV, S, hd, nsets, dev, lens=None):
+    """``nsets`` K5 input sets: q (B, H, hd) and a bf16 cache (B, S, KV, hd)
+    in the model layout, each cut from a pool-shaped (2, B, S, KV, hd)
+    block as the engine's views are; lengths random in [1, S] unless
+    given."""
+    import torch
+    sets = []
+    for _ in range(nsets):
+        q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn((2, B, S, KV, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        ln = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                           dtype=torch.int32) if lens is None else \
+            torch.tensor(lens, dtype=torch.int32, device=dev)
+        sets.append((q, kv[0], kv[1], ln))
+    return sets
+
+
+def float_bound(q, k, lens, window=None):
+    """Bytes and flops K5 needs on this data: bf16 K and V of the positions
+    inside each length (and window), q read and the output written once,
+    the lengths; 4 * hd flops per (query head, valid position)."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    n = lens.clamp(max=S)
+    if window is not None:
+        n = n - (lens - window).clamp(min=0)
+    n = int(n.sum())
+    nbytes = 2 * 2 * B * H * hd + 2 * 2 * n * KV * hd + 4 * B
+    flops = 4.0 * n * H * hd
+    return bound_ms(nbytes, flops)
+
+
+# K5 shapes: the cross-attention decode of full-width whisper-base (8 slots,
+# H = KV = 8, 1500 frames, every row at full length), the float dense pool
+# of full-width stablelm-1.6b (H = KV = 32, S = s_max = 161, ragged lengths
+# from 1 to S), with GQA and with a window
+FLOAT_CASES = {
+    "cross": dict(H=8, KV=8, S=ENC_LEN, lens=[ENC_LEN] * SLOTS),
+    "float_pool": dict(H=32, KV=32, S=PROMPT_LEN + MAX_NEW + 1,
+                       lens=[1, 161, 77, 16, 100, 33, 128, 2]),
+    "gqa": dict(H=32, KV=8, S=PROMPT_LEN + MAX_NEW + 1,
+                lens=[161, 1, 64, 90, 17, 160, 5, 128]),
+    "window": dict(H=32, KV=32, S=PROMPT_LEN + MAX_NEW + 1, window=48,
+                   lens=[161, 1, 48, 49, 120, 7, 96, 150]),
+    "cross_gqa_window": dict(H=8, KV=2, S=ENC_LEN, window=700,
+                             lens=[ENC_LEN, 1, 699, 701, 1499, 32, 900, 64]),
+}
+
+
+def check_float_decode(dev, gen):
+    """K5 against its plain version at every case of ``FLOAT_CASES``, two
+    bf16 ulps of the largest output (no row is empty: every length >= 1)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    errs, ok = {}, True
+    hd = full_config().head_dim
+    for name, case in FLOAT_CASES.items():
+        q, k, v, ln = float_inputs(gen, SLOTS, case["H"], case["KV"],
+                                   case["S"], hd, 1, dev,
+                                   lens=case["lens"])[0]
+        window = case.get("window")
+        got = ops.decode_attention(q, k, v, ln, window=window)
+        want = ref.decode_attention_ref(q, k.transpose(1, 2),
+                                        v.transpose(1, 2), ln, window=window,
+                                        p_dtype=v.dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+        log(f"kernel decode_attention [{name}] B={SLOTS} H={case['H']} "
+            f"KV={case['KV']} S={case['S']} hd={hd} window={window}: "
+            f"max_abs_err={err:.3e} (bound {tol:.3e})")
+        ok &= err <= tol and bool(torch.isfinite(got.float()).all())
+        errs[name] = err
+    return ok, errs
+
+
 def paged_inputs(gen, B, H, KV, hd, P, nsets, dev, lens=None):
     """``nsets`` paged input sets: a random int8 arena (every page holds
     codes, so unmapped and recycled pages are stale, not zero), per-page
@@ -259,7 +358,11 @@ def paged_bound(q, kp, pt, lens):
 # admission (one 128-token bucket, 77 real tokens) and a chunked tail
 # admission (a 64-token tail bucket, 37 real tokens, behind the 128-position
 # prefix operand with 64 and 0 valid positions), plus GQA, a window, queries
-# that are a strict suffix of the keys and lengths that are no tile multiple.
+# that are a strict suffix of the keys and lengths that are no tile multiple;
+# and of full-width whisper-base (H = KV = 8, hd = 64), none causal: the
+# bidirectional encoder over 1500 frames (a pooled batch and an admission),
+# the cross-attention of an admission's prompt buckets (Sq 16 and 64 < Sk =
+# 1500 frames) and of the pooled decoder (Sq = Sk = 1500).
 FLASH_CASES = {
     "pooled": dict(B=32, Sq=128, Sk=128, KV=None),
     "admission": dict(B=1, Sq=128, Sk=128, kv_len=[77]),
@@ -270,22 +373,34 @@ FLASH_CASES = {
     "suffix": dict(B=2, Sq=45, Sk=77, KV=8, kv_len=[77, 50]),
     "tail_gqa_ragged": dict(B=2, Sq=16, Sk=16, Sp=128, KV=8, kv_len=[5, 16],
                             prefix_len=[112, 16]),
+    "whisper_encoder": dict(B=2, Sq=ENC_LEN, Sk=ENC_LEN, H=8, KV=8,
+                            causal=False),
+    "whisper_cross_prefill": dict(B=1, Sq=64, Sk=ENC_LEN, H=8, KV=8,
+                                  causal=False),
+    "whisper_cross_short": dict(B=1, Sq=16, Sk=ENC_LEN, H=8, KV=8,
+                                causal=False),
+    "whisper_decoder_self": dict(B=1, Sq=64, Sk=64, H=8, KV=8, kv_len=[37]),
 }
 # the shapes timed: one call of each kind as the serving path makes it
+# (whisper: the encoder of one admission, and the cross-attention of a
+# 64-token prompt bucket against its 1500 frames)
 FLASH_TIMED = {
     "pooled": FLASH_CASES["pooled"],
     "admission": FLASH_CASES["admission"],
     "tail": dict(B=1, Sq=64, Sk=64, Sp=128, kv_len=[37], prefix_len=[64]),
+    "whisper_encoder": dict(B=1, Sq=ENC_LEN, Sk=ENC_LEN, H=8, KV=8,
+                            causal=False),
+    "whisper_cross": FLASH_CASES["whisper_cross_prefill"],
 }
 
 
-def flash_inputs(gen, dev, B, Sq, Sk, KV=None, Sp=0, kv_len=None,
-                 prefix_len=None, window=None, nsets=1):
+def flash_inputs(gen, dev, B, Sq, Sk, KV=None, H=None, Sp=0, kv_len=None,
+                 prefix_len=None, window=None, causal=True, nsets=1):
     """``nsets`` bf16 input sets for one K2 case in the model layout, and
-    its keyword arguments."""
+    its keyword arguments (stablelm-1.6b's heads unless ``H``/``KV``)."""
     import torch
     cfg = full_config()
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, hd = H or cfg.num_heads, cfg.head_dim
     KV = KV or cfg.num_kv_heads
     sets = []
     for _ in range(nsets):
@@ -293,7 +408,7 @@ def flash_inputs(gen, dev, B, Sq, Sk, KV=None, Sp=0, kv_len=None,
             return torch.randn(shape, generator=gen, device=dev).to(
                 torch.bfloat16)
         args = [r(B, Sq, H, hd), r(B, Sk, KV, hd), r(B, Sk, KV, hd)]
-        kw = {"causal": True, "window": window}
+        kw = {"causal": causal, "window": window}
         if kv_len is not None:
             kw["kv_len"] = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         if Sp:
@@ -460,7 +575,8 @@ def phase_kernels(dev):
     ok &= err <= tol
     results["paged_vs_dense"] = err
     ok_f, results["flash_attention"] = check_flash(dev, gen)
-    return ok and ok_f, results
+    ok_d, results["decode_attention"] = check_float_decode(dev, gen)
+    return ok and ok_f and ok_d, results
 
 
 # ---------------- phase 2: a small input against the CPU reference ----------------
@@ -486,9 +602,10 @@ def random_adapter(store, i, dev):
 
 
 def _teacher_forced(cfg, fm, d, params, lst, cap, toks, aidx, S, steps,
-                    impl, kv_quant):
-    """Prefill ``S`` tokens, then ``steps`` teacher-forced decode steps;
-    returns the f32 logits of every step on the host."""
+                    impl, kv_quant, enc=None):
+    """Prefill ``S`` tokens (an encoder-decoder stack: with the frames
+    ``enc`` (B, S_enc, d), numpy), then ``steps`` teacher-forced decode
+    steps; returns the f32 logits of every step on the host."""
     import torch
 
     from repro_torch.core.physical import seg_to_device
@@ -502,9 +619,12 @@ def _teacher_forced(cfg, fm, d, params, lst, cap, toks, aidx, S, steps,
                 "block_t": fm.seg_block_t}
     B = toks.shape[0]
     adapter_idx = torch.as_tensor(aidx, device=d)
-    cache = lm.init_cache(cfg, B, S + steps + 1, kv_quant=kv_quant, device=d)
+    cache = lm.init_cache(cfg, B, S + steps + 1, kv_quant=kv_quant,
+                          enc_len=None if enc is None else enc.shape[1],
+                          device=d)
     logits, cache = lm.prefill(
         params, cfg, tokens=torch.as_tensor(toks[:, :S], device=d), cache=cache,
+        enc_embeds=None if enc is None else torch.as_tensor(enc, device=d),
         lora=lst, adapter_idx=adapter_idx, lora_impl=impl, lora_seg=meta(S))
     out = [logits.float().cpu()]
     seg1 = meta(1)
@@ -525,12 +645,15 @@ def phase_reference(dev):
     orders, so they drift apart by bf16 ulps (2^-9 relative), and an ulp of
     K/V can move an int8 code by one. Bound: relative L2 error of the logits
     at most 2e-2, and the greedy token equal wherever the CPU's top-2 gap
-    exceeds twice the largest logit difference. For scale, the same drift is
-    printed for the kernel-free path (gather LoRA, bf16 cache)."""
+    exceeds twice the largest logit difference, on both legs: the serving
+    path (segmented LoRA through K1, int8 cache through K3) and the float
+    pool (gather LoRA, bf16 cache through K5). K2 carries both prefills;
+    each leg's kernels must launch in its GPU run."""
     import numpy as np
     import torch
 
     from repro_torch.core.physical import AdapterStore, PhysicalFM
+    from repro_torch.kernels import ops
     from repro_torch.models.common import tree_map
     cfg = full_config(num_layers=2)
     fm = PhysicalFM(cfg, seed=3, lora_rank=RANK, device=dev)
@@ -546,16 +669,102 @@ def phase_reference(dev):
     toks = rng.randint(0, cfg.vocab_size, (B, S + steps)).astype(np.int64)
     aidx = np.array([0, 2, cap, 1], np.int32)          # cap == base model
     report = {}
-    for impl, kvq in (("segmented", True), ("gather", False)):
-        g = _teacher_forced(cfg, fm, torch.device(dev), fm.params, stack, cap,
-                            toks, aidx, S, steps, impl, kvq)
+    legs = {"segmented": (True, ("segmented_lora", "decode_attention_int8",
+                                 "flash_attention")),
+            "gather": (False, ("decode_attention", "flash_attention"))}
+    ok = True
+    for impl, (kvq, kernels) in legs.items():
         c = _teacher_forced(cfg, fm, torch.device("cpu"), cpu_params,
                             stack_cpu, cap, toks, aidx, S, steps, impl, kvq)
-        report[impl] = drift(g.flatten(0, 1), c.flatten(0, 1))
+        ops.reset_launches()
+        g = _teacher_forced(cfg, fm, torch.device(dev), fm.params, stack, cap,
+                            toks, aidx, S, steps, impl, kvq)
+        r = report[impl] = drift(g.flatten(0, 1), c.flatten(0, 1))
+        r["launches"] = {k: int(ops.LAUNCHES[k]) for k in kernels}
+        ok &= (r["finite"] and r["rel_l2"] <= 2e-2 and r["argmax_agree"]
+               and all(v > 0 for v in r["launches"].values()))
     log("reference: 2-layer full-width model, 4 rows x (16 prompt + 4 decode) "
-        "teacher-forced, GPU vs CPU: " + json.dumps(report))
-    k = report["segmented"]
-    return (k["finite"] and k["rel_l2"] <= 2e-2 and k["argmax_agree"]), report
+        "teacher-forced, GPU vs CPU, int8 pool (K3) and float pool (K5): "
+        + json.dumps(report))
+    return ok, report
+
+
+def whisper_config(**over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(WHISPER), **over)
+
+
+def phase_reference_whisper(dev):
+    """A two-layer cut (2 decoder, 2 encoder layers) of full-width
+    whisper-base with 4 rows (3 adapters and the base model), each with its
+    own 1500 random frames: encoder, prefill and teacher-forced decode
+    through the kernels on the card (K2 for the bidirectional encoder, the
+    cross-attention of the prompt and the decoder's causal prefill; K5 for
+    every cross-attention decode; K3 for the int8 self-attention; K1),
+    held against the same weights with the plain versions on the CPU. The
+    encoder's bf16 rounding noise reaches the logits through every
+    cross-attention (on the CPU the JAX and PyTorch packages differ by
+    ~4e-2 relative L2 there: tests/test_torch_encdec.py), so the bound is
+    relative L2 at most 6e-2, with greedy tokens equal wherever the CPU's
+    top-2 gap exceeds twice the largest difference.
+
+    The query and key projections are drawn at the model's real fan-in
+    (scaled by sqrt(heads / d_model)): the package's init takes the axis
+    before last (the heads) as the fan-in of a (d, heads, hd) projection,
+    8x too large here, which makes attention over 1500 frames nearly
+    one-hot and the forward chaotic in bf16: a perturbation of one bf16
+    ulp flips which frame a query attends, so no kernel fault could be told
+    from rounding. The drift with the package's init is printed for scale
+    (``package_init``), the gate reads the real fan-in's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.physical import AdapterStore, PhysicalFM
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_map
+    cfg = whisper_config(num_layers=2, encoder_layers=2)
+    fm = PhysicalFM(cfg, seed=4, lora_rank=RANK, device=dev)
+    store = AdapterStore(cfg, RANK, device=dev)
+    for i in range(3):
+        store.add(f"a{i}", random_adapter(store, i, dev))
+    stack, cap = store.stacked(), store.capacity()
+    stack_cpu = tree_map(lambda t: t.cpu(), stack)
+    B, S, steps = 4, 16, 4
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab_size, (B, S + steps)).astype(np.int64)
+    enc = (rng.randn(B, ENC_LEN, cfg.d_model) * 0.5).astype(np.float32)
+    aidx = np.array([0, 2, cap, 1], np.int32)
+
+    def run():
+        cpu_params = tree_map(lambda t: t.cpu(), fm.params)
+        c = _teacher_forced(cfg, fm, torch.device("cpu"), cpu_params,
+                            stack_cpu, cap, toks, aidx, S, steps, "segmented",
+                            True, enc)
+        ops.reset_launches()
+        g = _teacher_forced(cfg, fm, torch.device(dev), fm.params, stack,
+                            cap, toks, aidx, S, steps, "segmented", True, enc)
+        torch.cuda.synchronize()
+        return drift(g.flatten(0, 1), c.flatten(0, 1))
+    package_init = run()
+    scale = (cfg.num_heads / cfg.d_model) ** 0.5
+    for sub in fm.params["layers"] + fm.params["encoder"]["layers"]:
+        for name in ("attn", "cross"):
+            if name in sub:
+                sub[name]["wq"].mul_(scale)
+                sub[name]["wk"].mul_(scale)
+    r = run()
+    r["launches"] = {k: int(ops.LAUNCHES[k]) for k in (
+        "segmented_lora", "flash_attention", "decode_attention",
+        "decode_attention_int8")}
+    r["package_init"] = {k: package_init[k] for k in ("rel_l2", "max_abs")}
+    log(f"whisper reference: 2+2-layer full-width whisper-base, {B} rows x "
+        f"({ENC_LEN} frames, {S} prompt + {steps} decode) teacher-forced, "
+        f"GPU vs CPU: " + json.dumps(r))
+    ok = (r["finite"] and r["rel_l2"] <= 6e-2 and r["argmax_agree"]
+          and all(v > 0 for v in r["launches"].values()))
+    return ok, r
 
 
 def _engine_run(fm, prompts, names, teacher_calls=None, paged=True,
@@ -718,19 +927,24 @@ def phase_reference_chunked(dev):
 
 # ---------------- phase 4/5: serving at full width ----------------
 
-def build_server(dev, **engine_kwargs):
+def build_server(dev, cfg=None, input_len=PROMPT_LEN, prompt_len=PROMPT_LEN,
+                 max_new=MAX_NEW, **engine_kwargs):
+    """Full-width ``cfg`` (default stablelm-1.6b) behind ``FMplexServer``
+    with 4 tasks (random rank-16 q/v adapters, linear heads) and its serve
+    loop (8 slots, chunk 4); pooled requests carry ``input_len`` rows."""
     import numpy as np
     import torch
 
     from repro_torch.core.physical import PhysicalFM
     from repro_torch.core.server import FMplexServer
     from repro_torch.core.vfm import TaskExtensions
-    cfg = full_config()
+    cfg = cfg or full_config()
     t0 = time.perf_counter()
-    fm = PhysicalFM(cfg, seed=0, lora_rank=RANK, input_len=PROMPT_LEN,
+    fm = PhysicalFM(cfg, seed=0, lora_rank=RANK, input_len=input_len,
                     lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
     torch.cuda.synchronize()
-    log(f"model: {ARCH} full width, {cfg.num_layers} layers, "
+    log(f"model: {cfg.name} full width, {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, "
         f"{sum(t.numel() for t in _leaves(fm.params)) / 1e9:.3f} B params, "
         f"built in {time.perf_counter() - t0:.1f} s")
     srv = FMplexServer("s0")
@@ -745,7 +959,7 @@ def build_server(dev, **engine_kwargs):
                       extensions=TaskExtensions(decoder=head,
                                                 adapter_id=f"lora{i}"))
     loop = srv.serve_loop("fm0", engine_kwargs=dict(
-        num_slots=SLOTS, prompt_len=PROMPT_LEN, max_new=MAX_NEW, chunk=CHUNK,
+        num_slots=SLOTS, prompt_len=prompt_len, max_new=max_new, chunk=CHUNK,
         **engine_kwargs))
     return srv, cfg, fm, loop
 
@@ -960,9 +1174,107 @@ def phase_paged_serving(dev, chunked: bool = False):
     return ok, stats, (srv, fm, eng)
 
 
+W_PROMPT_LEN, W_MAX_NEW, W_PAGE_SIZE = 64, 64, 16
+
+
+def whisper_trace(cfg, seed: int = 23):
+    """Whisper traffic within ~1 s: 8 pooled requests of 1500 random frames
+    each (audio-clip features through the encoder and a BOS-only decoder),
+    and 16 transcription streams, each with its own 1500 frames, a prompt
+    of 4-64 tokens (start-of-transcript tokens plus a previous-text prompt)
+    and a budget of 32-64 new tokens."""
+    import numpy as np
+
+    from repro_torch.core.request import Request
+    rng = np.random.RandomState(seed)
+    trace = [Request(f"task{i % N_TASKS}", 0.12 * i,
+                     payload=(rng.randn(ENC_LEN, cfg.d_model) * 0.5)
+                     .astype(np.float32)) for i in range(8)]
+    for i in range(16):
+        plen = int(rng.randint(4, W_PROMPT_LEN + 1))
+        n_new = int(rng.randint(32, W_MAX_NEW + 1))
+        r = Request(f"task{(i + 1) % N_TASKS}", 0.003 + 0.06 * i,
+                    payload=rng.randint(0, cfg.vocab_size, plen)
+                    .astype(np.int32), tokens=float(plen + n_new),
+                    max_new_tokens=n_new)
+        r.enc_feats = (rng.randn(ENC_LEN, cfg.d_model) * 0.5).astype(
+            np.float32)
+        trace.append(r)
+    return trace
+
+
+def phase_whisper_serving(dev):
+    """Full-width whisper-base (6 + 6 layers, random weights from a seed)
+    through ``FMplexServer``/``ServeLoop.run`` on the paged int8 pool (8
+    slots, pages of 16; prefix sharing demotes on this stack): 1500-frame
+    cross state per slot, written at admission. Every request must finish
+    ok with its token budget (pooled: finite features), K5, K4, K2 and K1
+    must launch in the run, no stream may be quarantined, and every state
+    slot and page must be free at the end."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.metrics import (decode_stats, latency_stats,
+                                             page_gauges)
+    srv, cfg, fm, loop = build_server(
+        dev, cfg=whisper_config(), input_len=ENC_LEN,
+        prompt_len=W_PROMPT_LEN, max_new=W_MAX_NEW, enc_len=ENC_LEN,
+        paged=True, page_size=W_PAGE_SIZE)
+    t0 = time.perf_counter()
+    loop.warmup(pooled_task="task0", gen_task="task1")
+    torch.cuda.synchronize()
+    log(f"whisper serving warmup: {time.perf_counter() - t0:.1f} s")
+    eng = srv.engines["fm0"]
+    keys0 = (eng.compile_count(), fm.compile_count())
+    trace = whisper_trace(cfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loop.run(trace, max_wall=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(ops.LAUNCHES[k])
+                for k in ("segmented_lora", "flash_attention",
+                          "decode_attention", "paged_decode_attention")}
+    gen = [r for r in trace if r.max_new_tokens > 0]
+    pooled = [r for r in trace if r.max_new_tokens <= 0]
+    bad = [r for r in trace if not r.ok or r.finish_time is None
+           or r.result is None]
+    short = [r for r in gen if r.result is None
+             or len(r.result) != r.max_new_tokens]
+    nonfinite = [r for r in pooled
+                 if r.result is None or not np.all(np.isfinite(r.result))]
+    leak = eng.free_page_count() != eng.total_pages - 1 \
+        or bool(eng._page_refs.any()) or bool(eng.state_pool.slots_in_use())
+    ds = decode_stats(gen)
+    ls = latency_stats(pooled)
+    n_tok = sum(len(r.result) for r in gen if r.result is not None)
+    stats = {
+        "card": smi_line(), "wall_s": wall, "requests": len(trace),
+        "generative": len(gen), "pooled": len(pooled), "tokens": n_tok,
+        "tokens_per_s": n_tok / wall, "ttft_p50_ms": ds.get("ttft_p50_ms"),
+        "tpot_p50_ms": ds.get("tpot_p50_ms"),
+        "pooled_p50_ms": ls.get("p50_ms"), "launches": launches,
+        "ticks": dict(loop.ticks), "decode_steps": eng.steps,
+        "quarantines": eng.quarantines, "page_gauges": page_gauges(eng),
+        "prefix_sharing": eng.prefix_sharing,
+        "shape_keys": [keys0, (eng.compile_count(), fm.compile_count())],
+    }
+    ok = not bad and not short and not nonfinite and not leak
+    ok &= eng.quarantines == 0 and all(v > 0 for v in launches.values())
+    ok &= not eng.prefix_sharing and eng.state_pool.allocs >= len(gen)
+    log("whisper serving: " + json.dumps(stats, default=float))
+    if not ok:
+        log(f"whisper serving: not ok {[(r.rid, r.status) for r in bad[:5]]}"
+            f", short {len(short)}, non-finite pooled {len(nonfinite)}, "
+            f"leak {leak}")
+    return ok, stats, (srv, fm, eng)
+
+
 # ---------------- phase 6: timing ----------------
 
-def phase_timing(dev, handles, paged_handles, chunked_handles):
+def phase_timing(dev, handles, paged_handles, chunked_handles,
+                 whisper_handles):
     """Device time of each kernel, its plain version and a library
     yardstick at the decode shapes (the most launched), over 24 input sets
     (one per layer, > 50 MB L2 for K3's cache) so each call finds its
@@ -1087,7 +1399,137 @@ def phase_timing(dev, handles, paged_handles, chunked_handles):
     k2 = {k: extra["flash_attention"]["pooled"][k]
           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     extra["tail_saving"] = tail_saving(dev, chunked_handles)
-    return k1, k2, k3, k4, extra
+    extra["decode_attention"] = float_decode_timing(dev)
+    k5 = {k: extra["decode_attention"]["cross"][k]
+          for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    extra.update(whisper_step_timing(dev, whisper_handles))
+    extra["whisper_pooled_batch"] = whisper_pooled_timing(dev,
+                                                          whisper_handles)
+    return k1, k2, k3, k4, k5, extra
+
+
+def whisper_pooled_timing(dev, handles) -> dict:
+    """One pooled whisper batch of 4 requests of 1500 frames (encoder, and
+    the decoder over as many BOS tokens) through ``PhysicalFM``: K2 launches
+    per batch, device time and its profile, and K2's share of it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    srv, fm, eng = handles
+    rng = np.random.RandomState(9)
+    embeds = (rng.randn(4, ENC_LEN, fm.cfg.d_model) * 0.5).astype(np.float32)
+    aidx = np.arange(4, dtype=np.int32)
+
+    def run():
+        fm.run_batch_device(embeds, aidx)
+    ops.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    launches = int(ops.LAUNCHES["flash_attention"])
+    prof = profile_step(run)
+    k2 = sum(ms for n, ms in prof["top_kernels_ms"]
+             if "flash_attention_kernel" in n)
+    return {"flash_attention_launches": launches,
+            "device_ms": device_ms(run, iters=3, warmup=1),
+            "flash_attention_device_ms": k2, "profile": prof}
+
+
+def float_decode_timing(dev) -> dict:
+    """K5's device time per call at the cross-attention decode of
+    full-width whisper-base (8 slots x 8 heads x 1500 frames, 24.6 MB of
+    bf16 K/V per call; 6 sets, one per decoder layer, 147 MB in all, so
+    each call finds its sidecar cold as a decode step does) and at the
+    float dense pool of stablelm-1.6b (ragged lengths up to s_max = 161;
+    24 sets), its plain version's, one ``scaled_dot_product_attention``
+    call on the same bf16 cache (a boolean mask where lengths are ragged),
+    and the bound counted on this data."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, nsets in (("cross", 6), ("float_pool", 24)):
+        case = FLOAT_CASES[name]
+        sets = float_inputs(gen, SLOTS, case["H"], case["KV"], case["S"], 64,
+                            nsets, dev, lens=None if name == "float_pool"
+                            else case["lens"])
+
+        def rotating(fn, items):
+            it = [0]
+
+            def call():
+                fn(*items[it[0] % len(items)])
+                it[0] += 1
+            return call
+        k_ms = device_ms(rotating(ops.decode_attention, sets))
+        p_ms = device_ms(rotating(
+            lambda q, k, v, ln: ref.decode_attention_ref(
+                q, k.transpose(1, 2), v.transpose(1, 2), ln,
+                p_dtype=v.dtype), sets), iters=5)
+        lib = []
+        for q, k, v, ln in sets:
+            kw = {}
+            if bool((ln < case["S"]).any()):
+                kw["attn_mask"] = (torch.arange(case["S"], device=dev)[None]
+                                   < ln[:, None])[:, None, None]
+            lib.append(((q[:, :, None], k.transpose(1, 2),
+                         v.transpose(1, 2)), kw))
+        l_ms = device_ms(rotating(
+            lambda a, kw: F.scaled_dot_product_attention(*a, **kw), lib))
+        q, k, _, ln = sets[0]
+        b_ms, b_by = float_bound(q, k, ln)
+        out[name] = dict(B=SLOTS, H=case["H"], KV=case["KV"], S=case["S"],
+                         ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         enqueue_ms=time_ms(rotating(ops.decode_attention,
+                                                     sets)))
+    return out
+
+
+def whisper_step_timing(dev, handles) -> dict:
+    """One full-width whisper decode step with 8 live streams (64-token
+    prompts, each with its own 1500 frames) on the paged pool: launches per
+    step, ms by CUDA events, and its profile. The streams retire
+    afterwards, and every state slot and page must be free again."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    srv, fm, eng = handles
+    rng = np.random.RandomState(8)
+    for i in range(SLOTS):
+        eng.join(f"task{i % N_TASKS}",
+                 rng.randint(0, fm.cfg.vocab_size, W_PROMPT_LEN),
+                 adapter_id=f"lora{i % N_TASKS}", max_new_tokens=W_MAX_NEW,
+                 rid=-200 - i, enc_feats=(rng.randn(ENC_LEN, fm.cfg.d_model)
+                                          * 0.5).astype(np.float32))
+    if eng.pending_count() or eng.active_count() != SLOTS:
+        raise RuntimeError("whisper step timing: the 8 streams did not admit")
+    eng._ensure_chunk_pages()
+    eng._sync_page_table()
+    cap = fm.adapters.capacity()
+    perm, inv, blocks = eng._segments(cap)
+    adapters = torch.as_tensor(eng._slot_adapters, device=dev)
+    step = eng._decode_fn(cap, 1)
+
+    def run():
+        step(fm.params, eng.pool, eng._tokens, eng._keys,
+             fm.adapters.stacked(), adapters, perm, inv, blocks)
+    ops.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    out = {"whisper_launches_per_decode_step":
+           {k: int(v) for k, v in ops.LAUNCHES.items() if v},
+           "whisper_decode_step_ms": time_ms(run, iters=10, warmup=2),
+           "whisper_decode_step_profile": profile_step(run)}
+    for i in range(SLOTS):
+        eng.leave(i)
+    if eng.free_page_count() != eng.total_pages - 1 or \
+            eng.state_pool.slots_in_use():
+        raise RuntimeError("whisper step timing leaked pages or state slots")
+    return out
 
 
 def flash_timing(dev) -> dict:
@@ -1095,16 +1537,18 @@ def flash_timing(dev) -> dict:
     shapes of ``FLASH_TIMED`` over rotating input sets (more bytes than the
     50 MB L2 in all), its plain version's, one
     ``scaled_dot_product_attention`` call on the same inputs (causal for
-    the pooled shape; a boolean mask from the same visibility, over the
-    prefix and the keys concatenated, for the others; the concatenation is
-    not timed), and the bound counted on this data."""
+    the pooled shape; no mask where every key is visible, as in whisper's
+    encoder and cross-attention; a boolean mask from the same visibility,
+    over the prefix and the keys concatenated, for the others; the
+    concatenation is not timed), and the bound counted on this data."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(4)
     out = {}
-    for name, nsets in (("pooled", 6), ("admission", 48), ("tail", 48)):
+    for name, nsets in (("pooled", 6), ("admission", 48), ("tail", 48),
+                        ("whisper_encoder", 8), ("whisper_cross", 24)):
         case = FLASH_TIMED[name]
         sets = flash_inputs(gen, dev, **case, nsets=nsets)
 
@@ -1129,7 +1573,8 @@ def flash_timing(dev) -> dict:
             kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
             vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
             lib.append(((qh, kh, vh), {"is_causal": True}
-                        if name == "pooled" else {"attn_mask": mask}))
+                        if name == "pooled" else {} if bool(mask.all())
+                        else {"attn_mask": mask}))
         l_ms = device_ms(rotating(F.scaled_dot_product_attention, lib))
         (q, k, _), kw = sets[0]
         b_ms, b_by = flash_bound(q, k, kw)
@@ -1166,8 +1611,8 @@ def tail_saving(dev, handles) -> dict:
     toks = torch.as_tensor(prompt[None], device=dev)
 
     def full():
-        full_fn(fm.params, toks, i32(96), gens, fm.adapters.stacked(), aidx,
-                *seg)
+        full_fn(fm.params, toks, i32(96), None, gens, fm.adapters.stacked(),
+                aidx, *seg)
     tb = eng.bucket_for_tail(32)
     tail_fn = eng._tail_prefill_fn(cap, tb, "float")
     tseg = eng._prefill_segments(aslot, cap, tb)
@@ -1296,22 +1741,28 @@ def main() -> int:
     phases["paged_reference"] = ok_rp
     ok_rc, _ = phase_reference_chunked(dev)
     phases["chunked_reference"] = ok_rc
+    ok_rw, _ = phase_reference_whisper(dev)
+    phases["whisper_reference"] = ok_rw
     ok_s, stats, handles = phase_serving(dev)
     phases["serving"] = ok_s
     ok_p, pstats, paged_handles = phase_paged_serving(dev)
     phases["paged_serving"] = ok_p
     ok_c, cstats, chunked_handles = phase_paged_serving(dev, chunked=True)
     phases["chunked_serving"] = ok_c
-    k1, k2, k3, k4, extra = phase_timing(dev, handles, paged_handles,
-                                         chunked_handles)
+    ok_w, wstats, whisper_handles = phase_whisper_serving(dev)
+    phases["whisper_serving"] = ok_w
+    k1, k2, k3, k4, k5, extra = phase_timing(dev, handles, paged_handles,
+                                             chunked_handles, whisper_handles)
     log("timing: " + json.dumps(extra, default=float))
     # launches on the main paths: the dense serving run (K1, K2, K3), the
-    # paged serving run (K1, K2, K4) and the chunked paged serving run (K1,
-    # K2, K4), each counted from 0 just before it
+    # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
+    # K2, K4) and the whisper serving run (K1, K2, K4, K5), each counted
+    # from 0 just before it
     launches = {k: sum(st["launches"].get(k, 0)
-                       for st in (stats, pstats, cstats))
+                       for st in (stats, pstats, cstats, wstats))
                 for k in ("segmented_lora", "flash_attention",
-                          "decode_attention_int8", "paged_decode_attention")}
+                          "decode_attention_int8", "paged_decode_attention",
+                          "decode_attention")}
     kernels = [
         {"name": "segmented_lora", "route": "cuda",
          "source": "src/repro_torch/csrc/segmented_lora.cu",
@@ -1334,6 +1785,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_decode_attention.py:122",
          "launches": launches["paged_decode_attention"],
          "max_abs_err": max(errs["paged_decode_attention"].values()), **k4},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:96",
+         "launches": launches["decode_attention"],
+         "max_abs_err": max(errs["decode_attention"].values()), **k5},
     ]
     log(f"phases: {phases}, total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""Per-sublayer cache plan: where each sublayer's serving state lives.
+"""Per-sublayer cache plan and the fixed-size state-slot pool.
 
 ``CachePlan.for_config`` walks the period layout and declares, for every
 sublayer, whether its state is paged, grows with decoded tokens, or carries
@@ -7,20 +7,27 @@ against (as in the JAX package):
 
   * ``prefix_sharing_ok`` / ``chunked_prefill_ok``: shared pages capture
     attention KV only; a recurrent sublayer's state at the prefix boundary
-    is stream-private, so sharing is for paged attention-only stacks;
+    and a stream's encoder K/V are stream-private, so sharing is for paged
+    attention-only stacks (on an encoder-decoder stack it demotes);
   * ``speculative_ok``: draft rollback is a length/tracker reset on paged
-    attention state, which recurrent state cannot do;
+    attention state, which recurrent state cannot do, and the verify
+    forward has no encoder-decoder mode;
   * ``spill_resume_ok``: the stream spill captures pages and quantization
     trackers only.
 
-This slice ports attention-only stacks (dense and paged int8 pools):
-recurrent and encoder-decoder stacks raise in
-``models.blocks.period_layout``, and the fixed-size state-slot pool comes
-with the slice that serves them.
+``StateSlotPool`` is the lifecycle of the fixed-size per-slot state (the
+cross-attention K/V of an encoder-decoder stack; recurrent state with the
+slice that serves it): one state slot per live stream, allocated at
+admission and freed on every exit path, strictly, with occupancy gauges.
+The tensors live in the engine's pool (its batch axis is the slot).
+Recurrent and MoE stacks still raise in ``models.blocks.period_layout``;
+the snapshot capture of the dense state comes with the durability slice.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 
@@ -60,7 +67,7 @@ class CachePlan:
     @classmethod
     def for_config(cls, cfg: ModelConfig, paged: bool) -> "CachePlan":
         from repro_torch.models import blocks as blk
-        layout = blk.period_layout(cfg)
+        layout = blk.period_layout(cfg, cross=cfg.is_encoder_decoder)
         has_attn = any(lay.kind == ATTN for lay in layout)
         has_rec = any(lay.kind in RECURRENT_KINDS for lay in layout)
         has_enc = cfg.is_encoder_decoder
@@ -78,3 +85,63 @@ class CachePlan:
             chunked_prefill_ok=paged and attn_only,
             speculative_ok=paged and attn_only,
             spill_resume_ok=paged and attn_only)
+
+
+class StateSlotPool:
+    """Lifecycle and gauges of the fixed-size per-slot serving state.
+
+    One state slot per live stream, 1:1 with the engine's decode slots (the
+    state tensors' batch axis). ``alloc`` and ``free`` are strict: a double
+    allocation or a double free is an engine lifecycle bug and raises.
+    ``note_deferral`` counts admissions refused on state-slot pressure."""
+
+    def __init__(self, num_slots: int):
+        self.num_slots = num_slots
+        self._in_use = np.zeros((num_slots,), bool)
+        self.peak_in_use = 0
+        self.slot_deferrals = 0
+        self.allocs = 0
+        self.frees = 0
+
+    def alloc(self, slot: int):
+        if self._in_use[slot]:
+            raise RuntimeError(f"state slot {slot} double-allocated")
+        self._in_use[slot] = True
+        self.allocs += 1
+        self.peak_in_use = max(self.peak_in_use, self.in_use_count())
+
+    def free(self, slot: int):
+        if not self._in_use[slot]:
+            raise RuntimeError(f"state slot {slot} double-freed")
+        self._in_use[slot] = False
+        self.frees += 1
+
+    def note_deferral(self):
+        self.slot_deferrals += 1
+
+    def in_use(self, slot: int) -> bool:
+        return bool(self._in_use[slot])
+
+    def in_use_count(self) -> int:
+        return int(self._in_use.sum())
+
+    def available(self) -> int:
+        return self.num_slots - self.in_use_count()
+
+    def slots_in_use(self) -> set[int]:
+        return {int(i) for i in np.nonzero(self._in_use)[0]}
+
+    def gauges(self) -> dict:
+        return {
+            "state_slots_total": self.num_slots,
+            "state_slots_in_use": self.in_use_count(),
+            "state_slots_peak": self.peak_in_use,
+            "state_slot_deferrals": self.slot_deferrals,
+        }
+
+
+def dense_state_keys(sub) -> list[str]:
+    """Per-slot dense state keys of one pool sub: the ``ck``/``cv`` sidecars
+    of a cross-attention sub (beside a dense or paged attention cache);
+    recurrent subs (every key) come with their slice."""
+    return [k for k in ("ck", "cv") if k in sub]

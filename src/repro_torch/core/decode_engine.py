@@ -93,6 +93,16 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     its page count: ``compile_count`` counts the distinct keys, and
     steady-state churn, page allocation, deferral and preemption must not
     add any. Page ids, tables, lengths and slots are data, never keys.
+  * **encoder-decoder stacks** (whisper) — a join carries the stream's
+    encoder frames (``enc_feats``: exactly ``enc_len`` frames, zeros when
+    omitted); the admission prefill encodes them and every decoder layer's
+    cross-attention K/V land in the slot's ``ck``/``cv`` state, written
+    once and read by every decode step (K5). That state is fixed-size per
+    slot beside either pool, tracked by a ``StateSlotPool`` (allocated at
+    admission, freed on retire, cancel, quarantine, deadline and
+    preemption); prefix sharing and chunked prefill demote on such stacks
+    (a stream's cross state is private), and a preempted stream re-prefills
+    its folded prompt against its stored frames.
   * **failure semantics** — per-stream non-finite logits quarantine only
     that stream; deadlines cancel live streams at chunk entry (with the
     chunk clamped to a small ladder when a deadline is nearer than a full
@@ -100,8 +110,8 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     rid wherever it lives.
 
 Speculative decoding, the host-RAM spill tier (and with it the spill branch
-of the chunked admission), snapshot/restore and encoder-decoder admission
-come with later slices and raise ``NotImplementedError`` here.
+of the chunked admission) and snapshot/restore come with later slices and
+raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -115,7 +125,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.cache_manager import CachePlan
+from repro_torch.core.cache_manager import CachePlan, StateSlotPool, dense_state_keys
 from repro_torch.core.physical import PAD_SENTINEL, PhysicalFM, bucket_for, seg_to_device
 from repro_torch.models import lm
 
@@ -177,6 +187,7 @@ class DecodeSlot:
     adapter_id: Optional[str] = None
     deadline: float = float("inf")        # wall-clock cancel point (inf: none)
     status: str = "ok"                    # terminal status (core.request)
+    enc_feats: Optional[np.ndarray] = None   # enc-dec: encoder input frames
 
 
 @dataclasses.dataclass
@@ -192,6 +203,7 @@ class _PendingJoin:
     resume: Optional[DecodeSlot] = None   # preempted stream being re-admitted
     deadline: float = float("inf")
     status: str = "ok"                    # stamped when rejected terminally
+    enc_feats: Optional[np.ndarray] = None   # enc-dec: encoder input frames
 
 
 class DecodeEngine:
@@ -225,13 +237,11 @@ class DecodeEngine:
             raise NotImplementedError("spill_bytes > 0 / spill_arena: the "
                                       "host-RAM spill tier (P10) comes with a "
                                       "later slice of the port")
-        if enc_len is not None:
-            raise NotImplementedError("enc_len: encoder-decoder admission "
-                                      "(P12) comes with a later slice")
+        # per-sublayer cache plan: which sublayers page into the int8 arena,
+        # which carry fixed-size per-slot state (the cross-attention K/V of
+        # an encoder-decoder stack), and which serving planes the stack
+        # supports; unsupported planes demote instead of failing mid-serve
         self.plan = CachePlan.for_config(cfg, paged)
-        if self.plan.needs_state_slots:
-            raise NotImplementedError("per-slot recurrent / cross-attention "
-                                      "state comes with a later slice")
         paged = self.plan.paged
         if paged and not kv_quant:
             raise ValueError("the paged arena is int8-only (kv_quant=True)")
@@ -241,6 +251,10 @@ class DecodeEngine:
         self.num_slots = bucket_for(num_slots)
         self.impl = fm.lora_impl
         self.prompt_len = prompt_len or fm.input_len
+        # enc-dec: the per-slot cross K/V is fixed-size state of enc_len
+        # frames per slot, written at admission
+        self.enc_len = int(enc_len) if enc_len is not None else \
+            (self.prompt_len if cfg.is_encoder_decoder else 0)
         if prompt_buckets is None:
             prompt_buckets = default_prompt_buckets(self.prompt_len)
         self.prompt_buckets = tuple(sorted(set(int(b) for b in prompt_buckets)))
@@ -269,6 +283,7 @@ class DecodeEngine:
                                       kv_quant=True, paged=True,
                                       page_size=page_size,
                                       num_pages=total_pages,
+                                      enc_len=self.enc_len or None,
                                       device=self.device)
             # host allocator state; the device page table is synced from
             # _ptab before any decode dispatch that follows a change
@@ -280,7 +295,8 @@ class DecodeEngine:
             self._ptab_dirty = True
             self.deferrals = 0
             self.preemptions = 0
-            # refcounted ownership + COW prefix sharing (module docstring)
+            # refcounted ownership + COW prefix sharing (module docstring);
+            # demoted on stacks with stream-private state (plan)
             self.prefix_sharing = bool(prefix_sharing) and \
                 self.plan.prefix_sharing_ok
             self._page_refs = np.zeros((total_pages,), np.int32)
@@ -317,7 +333,14 @@ class DecodeEngine:
             self.chunked_prefill = False    # needs the paged arena
             # the persistent pool: allocated once, updated in place
             self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
-                                      kv_quant=kv_quant, device=self.device)
+                                      kv_quant=kv_quant,
+                                      enc_len=self.enc_len or None,
+                                      device=self.device)
+        # fixed-size per-slot state lifecycle (module docstring): one state
+        # slot per live stream, allocated at admission, freed on every exit
+        # path; the tensors themselves are the pool's ck/cv rows
+        self.state_pool = StateSlotPool(self.num_slots) \
+            if self.plan.needs_state_slots else None
         self.pending: collections.deque = collections.deque()
         self._tokens = torch.zeros((self.num_slots,), dtype=torch.int32,
                                    device=self.device)          # last token/slot
@@ -456,6 +479,11 @@ class DecodeEngine:
                 "prompt=): the memory gate cannot size an admission from "
                 "a default 1-token estimate")
         if not self.free_slots():
+            return False
+        if self.state_pool is not None and self.state_pool.available() <= 0:
+            # an admission needs a fixed-size state slot beside the decode
+            # slot (1:1, counted apart so the gauge shows the pressure)
+            self.state_pool.note_deferral()
             return False
         if not self.paged:
             return True
@@ -615,21 +643,25 @@ class DecodeEngine:
         """Admission prefill for one prompt-length bucket: a one-row cache,
         filled and quantized per (row, kv head) for the dense pool, kept in
         float for the paged pool (its scatter quantizes per page, so a
-        page's scale depends only on the tokens it covers)."""
+        page's scale depends only on the tokens it covers). An
+        encoder-decoder stack takes the stream's (1, enc_len, d) frames
+        (``enc_embeds``; None otherwise) and fills the cross K/V state."""
         key = (cap, plen)
         if key not in self._fn_prefill:
             cfg, impl, sample = self.cfg, self.impl, self._sample
             s_max, dev = self._adm_s_max(plen), self.device
             kvq = self.kv_quant and not self.paged
+            enc_len = self.enc_len or None
 
-            def run(params, tokens, true_len, gens, lora_stack, adapter_idx,
-                    perm, inv, blocks):
-                cache = lm.init_cache(cfg, 1, s_max, kv_quant=kvq, device=dev)
+            def run(params, tokens, true_len, enc_embeds, gens, lora_stack,
+                    adapter_idx, perm, inv, blocks):
+                cache = lm.init_cache(cfg, 1, s_max, kv_quant=kvq,
+                                      enc_len=enc_len, device=dev)
                 logits, cache = lm.prefill(
                     params, cfg, tokens=tokens, cache=cache, lora=lora_stack,
                     adapter_idx=adapter_idx, lora_impl=impl,
                     lora_seg=self._seg(impl, perm, inv, blocks),
-                    seq_lens=true_len)
+                    seq_lens=true_len, enc_embeds=enc_embeds)
                 first, gens = sample(logits, gens)
                 return first, lm.finite_logits(logits), gens, cache
 
@@ -738,7 +770,9 @@ class DecodeEngine:
         (``true_len // page_size``, the partial page decode appends into) is
         stamped at the slot-wide scale. The slot's running scales are set to
         the prompt-wide maximum, the drift trackers reset, and ``len`` is
-        set to the true prompt length."""
+        set to the true prompt length. Fixed-size per-slot state (the
+        cross-attention ``ck``/``cv`` of an encoder-decoder stack) copies
+        into the slot's row as it is."""
         if npages not in self._fn_write:
             ps = self.page_size
 
@@ -768,6 +802,8 @@ class DecodeEngine:
                     psub["k_max"][:, slot] = 0.0
                     psub["v_max"][:, slot] = 0.0
                     psub["len"][:, slot] = true_len
+                    for name in dense_state_keys(psub):
+                        psub[name][:, slot].copy_(csub[name][:, 0])
                 return pool
 
             self._fn_write[npages] = write
@@ -954,10 +990,28 @@ class DecodeEngine:
         return self.tail_buckets[-1]
 
     # ---- serving surface ----
+    def _norm_enc_feats(self, enc_feats) -> np.ndarray:
+        """One stream's encoder input as the engine's fixed (enc_len,
+        d_model) frames. ``None`` means zero frames (the stub frontend's
+        silence), so callers without audio, the serve loop's warmup
+        included, join unchanged. The frame count is strict: the encoder is
+        bidirectional, so padding would change every encoder output."""
+        d = self.cfg.d_model
+        if enc_feats is None:
+            return np.zeros((self.enc_len, d), np.float32)
+        enc_feats = np.asarray(enc_feats, np.float32).reshape(-1, d)
+        if enc_feats.shape[0] != self.enc_len:
+            raise ValueError(
+                f"enc_feats must carry exactly enc_len={self.enc_len} frames "
+                f"(got {enc_feats.shape[0]}): the encoder is bidirectional, "
+                f"padding is not transparent")
+        return enc_feats
+
     def join(self, task_id: str, prompt: np.ndarray, *,
              adapter_id: Optional[str] = None, max_new_tokens: int = 8,
              rid: int = -1, eos_id: Optional[int] = None,
-             deadline: Optional[float] = None) -> int:
+             deadline: Optional[float] = None,
+             enc_feats: Optional[np.ndarray] = None) -> int:
         """Admit one request: prefill its prompt (LoRA applied), write its
         K/V into a free slot (paged: into freshly allocated pages, mapping a
         registered shared prefix), produce the first token. Returns the slot
@@ -970,14 +1024,21 @@ class DecodeEngine:
         fit even an empty arena raises ``ValueError`` (a configuration
         error; deferring it would spin forever). Prompts longer than the
         largest bucket keep their LAST ``prompt_len`` tokens (with a
-        warning); the decode budget clamps to the pool's ``max_new``."""
+        warning); the decode budget clamps to the pool's ``max_new``.
+        ``enc_feats``: an encoder-decoder stream's frames (see
+        ``_norm_enc_feats``), validated here; ignored by decoder-only
+        stacks."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if self.cfg.is_encoder_decoder:
+            enc_feats = self._norm_enc_feats(enc_feats)
         req = _PendingJoin(task_id=task_id, prompt=prompt,
                            adapter_id=adapter_id,
                            max_new_tokens=max_new_tokens, rid=rid,
                            eos_id=eos_id,
                            deadline=float("inf") if deadline is None
-                           else float(deadline))
+                           else float(deadline),
+                           enc_feats=enc_feats
+                           if self.cfg.is_encoder_decoder else None)
         if self.paged and not self.can_admit(len(prompt), prompt=prompt,
                                              adapter_id=adapter_id):
             if self._never_fits(req):
@@ -1024,9 +1085,12 @@ class DecodeEngine:
                 return admitted
         perm, inv, blocks = self._prefill_segments(aslot, cap, plen)
         dev = self.device
+        # the frames were normalized at join (a resume carries its own)
+        enc = torch.as_tensor(req.enc_feats[None], device=dev) \
+            if self.cfg.is_encoder_decoder else None
         first, fin, _, cache = self._prefill_fn(cap, plen)(
             self.fm.params, torch.as_tensor(prompt[None], device=dev),
-            torch.full((1,), true_len, dtype=torch.int32, device=dev),
+            torch.full((1,), true_len, dtype=torch.int32, device=dev), enc,
             [self._keys[slot]], self.fm.adapters.stacked(),
             torch.full((1,), aslot, dtype=torch.int32, device=dev),
             perm, inv, blocks)
@@ -1219,6 +1283,10 @@ class DecodeEngine:
     def _finish_admission(self, req: _PendingJoin, slot: int, aslot: int,
                           first, fin_ok: bool, true_prompt: np.ndarray,
                           true_len: int, max_new_tokens: int) -> int:
+        if self.state_pool is not None:
+            # strict 1:1 with the decode slot: a double allocation is a
+            # lifecycle bug (an exit path did not free), not backpressure
+            self.state_pool.alloc(slot)
         self._tokens[slot] = first[0]
         now = time.perf_counter()
         tok0 = int(first[0].item())
@@ -1243,7 +1311,8 @@ class DecodeEngine:
                 adapter_id=req.adapter_id, deadline=req.deadline,
                 status="ok" if fin_ok else "quarantined",
                 done=(not fin_ok or max_new_tokens == 1
-                      or (eos is not None and tok0 == eos)))
+                      or (eos is not None and tok0 == eos)),
+                enc_feats=req.enc_feats)
         self._slot_adapters[slot] = aslot
         self._seg_key = None                    # composition changed
         return slot
@@ -1259,6 +1328,8 @@ class DecodeEngine:
         self._seg_key = None                    # composition changed
         if self.paged:
             self._release_slot_pages(slot)
+        if self.state_pool is not None:
+            self.state_pool.free(slot)
         # keep the freed slot's cache length bounded while it idles
         for sub in self.pool:
             sub["len"][:, slot] = 0
@@ -1279,11 +1350,16 @@ class DecodeEngine:
         self._slot_adapters[slot] = FREE
         self._seg_key = None
         self._release_slot_pages(slot)
+        if self.state_pool is not None:
+            # the re-admission re-prefills the folded prompt against the
+            # stored frames, recomputing the same cross state
+            self.state_pool.free(slot)
         for sub in self.pool:
             sub["len"][:, slot] = 0
         self.pending.appendleft(_PendingJoin(
             task_id=s.task_id, prompt=prompt, adapter_id=s.adapter_id,
-            max_new_tokens=s.max_new, rid=s.rid, eos_id=s.eos_id, resume=s))
+            max_new_tokens=s.max_new, rid=s.rid, eos_id=s.eos_id, resume=s,
+            enc_feats=s.enc_feats))
         self.preemptions += 1
 
     def _ensure_chunk_pages(self):

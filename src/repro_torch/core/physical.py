@@ -197,9 +197,15 @@ class PhysicalFM:
                 if impl == "segmented":
                     seg = {"perm": perm, "inv": inv, "block_adapter": blocks,
                            "block_t": bt}
-                feats, _ = lm.forward(params, cfg, embeds=embeds,
-                                      lora=lora_stack, adapter_idx=adapter_idx,
-                                      lora_impl=impl, lora_seg=seg)
+                # an audio-style backbone: the stub frames go to the
+                # encoder; the decoder runs over a BOS-only token stream
+                inputs = dict(tokens=torch.zeros(
+                    embeds.shape[:2], dtype=torch.long, device=embeds.device),
+                    enc_embeds=embeds) if cfg.is_encoder_decoder \
+                    else dict(embeds=embeds)
+                feats, _ = lm.forward(params, cfg, **inputs, lora=lora_stack,
+                                      adapter_idx=adapter_idx, lora_impl=impl,
+                                      lora_seg=seg)
                 return feats.mean(dim=1)                   # (B, d) pooled
 
             self._fn_cache[key] = run

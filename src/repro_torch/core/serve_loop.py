@@ -305,7 +305,10 @@ class ServeLoop:
         prompt = np.asarray(r.payload).reshape(-1)
         eng.join(r.task_id, prompt, adapter_id=ext.adapter_id,
                  max_new_tokens=r.max_new_tokens, rid=r.rid,
-                 deadline=r.deadline() if self.enforce_deadlines else None)
+                 deadline=r.deadline() if self.enforce_deadlines else None,
+                 # enc-dec: encoder input frames ride the request; None is
+                 # the engine's zero-frame default (decoder-only unaffected)
+                 enc_feats=getattr(r, "enc_feats", None))
 
     def _charge_admissions(self, sched, vfms, now):
         """Drain the engine's admitted log and charge each loop-admitted
@@ -588,7 +591,8 @@ class ServeLoop:
         pool, one tail prefill and tail scatter per tail bucket — so the
         kernels are built, the allocator has its blocks and the heads have
         their verdicts before a measured run. Generative warmup is skipped for FMs
-        with no generative head."""
+        with no generative head; encoder-decoder stacks warm through the
+        engine's zero-frame ``enc_feats`` default."""
         import numpy as np
 
         from repro_torch.core.physical import BUCKETS

@@ -26,6 +26,7 @@ SOURCES = {
     "decode_attention_int8": "decode_attention_int8.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
     "flash_attention": "flash_attention.cu",
+    "decode_attention": "decode_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import decode_attention as _float
 from repro_torch.kernels import decode_attention_int8 as _int8
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
@@ -80,6 +81,23 @@ def quantize_kv(k, v):
     once per admission, outside the decode loop."""
     kq, vq, ks, vs = _int8.quantize_kv(k.transpose(1, 2), v.transpose(1, 2))
     return kq.transpose(1, 2), vq.transpose(1, 2), ks, vs
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     window: Optional[int] = None):
+    """Float-cache GQA decode attention, model layout (kernel K5).
+
+    q: (B, H, hd); k_cache/v_cache: (B, S, KV, hd) in the cache dtype (any
+    S; views into a pool are read in place); lengths: (B,) valid lengths
+    -> (B, H, hd) in q's dtype. Positions [max(0, len - window), len) are
+    attended; the probabilities round to the cache dtype before P·V, as in
+    the JAX package's jnp ``models.attention.decode_attention``."""
+    if _route(q) == "cuda":
+        return _float.decode_attention(q, k_cache, v_cache, lengths,
+                                       window=window)
+    return ref.decode_attention_ref(q, k_cache.transpose(1, 2),
+                                    v_cache.transpose(1, 2), lengths,
+                                    window=window, p_dtype=v_cache.dtype)
 
 
 def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,

@@ -3,9 +3,10 @@
 Each mirrors its JAX oracle in ``kernels/ref.py`` of the JAX package, in the
 same (kernel, head-major) layouts, except ``flash_attention_ref``: it is the
 JAX package's jnp ``models.attention.flash_attention`` (``kv_len`` and the
-prefix operand), in the model layout. ``kernels.ops`` uses them for tensors
-that lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels against them on
-the card.
+prefix operand), in the model layout; and ``decode_attention_ref`` with
+``p_dtype`` is the jnp ``models.attention.decode_attention``. ``kernels.ops``
+uses them for tensors that lie on the CPU; ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -105,8 +106,17 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return torch.cat(chunks, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None):
-    """q: (B, H, hd); k, v: (B, KV, S, hd); lengths: (B,). -> (B, H, hd)."""
+def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None,
+                         p_dtype=None):
+    """q: (B, H, hd); k, v: (B, KV, S, hd); lengths: (B,). -> (B, H, hd).
+
+    Scores, softmax and the P·V accumulation in f32. ``p_dtype``: round the
+    probabilities to that dtype before the P·V product — with the cache's
+    dtype this is the JAX package's jnp ``models.attention.
+    decode_attention``, the function the float flash-decode kernel (K5)
+    computes; without it, the f32 oracle the int8 references reuse. A row
+    with no valid position yields the mean of the masked values, as JAX
+    does."""
     B, H, hd = q.shape
     _, KV, S, _ = k.shape
     G = H // KV
@@ -120,6 +130,8 @@ def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None):
         mask &= pos >= (lengths[:, None] - window)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
     o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
 

@@ -1,12 +1,13 @@
-"""GQA attention: prefill (pooled forward, full and chunked admission) and
-decode.
+"""GQA attention: prefill (pooled forward, full and chunked admission,
+encoder self-attention, decoder cross-attention) and decode.
 
 ``flash_attention`` keeps the JAX package's jnp function's signature and
 layout (``kv_len``, the prefix operand of a chunked admission) and goes
 through the hand-written prefill kernel K2 (``kernels.ops.flash_attention``);
-its plain version is ``kernels.ref.flash_attention_ref``. Decode against the
-dense int8 pool and the paged int8 arena goes through the hand-written
-decode kernels (``kernels.ops``).
+its plain version is ``kernels.ref.flash_attention_ref``. Decode against a
+float cache (``decode_attention``: the cross-attention decode and the float
+dense pool) goes through K5, against the dense int8 pool through K3 and
+against the paged int8 arena through K4 (``kernels.ops``).
 
 The cache is updated IN PLACE: a serving pool is allocated once and every
 prefill/decode writes into its slices, where the JAX package returns a new
@@ -14,7 +15,6 @@ prefill/decode writes into its slices, where the JAX package returns a new
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -22,12 +22,12 @@ import torch
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import apply_rope
 
-NEG_INF = -1e30
-
 
 # ---------------- specs ----------------
 
-def attn_spec(cfg) -> dict:
+def attn_spec(cfg, cross: bool = False) -> dict:
+    """Projection weights; the qkv bias (qwen2-style configs) is never on
+    a cross-attention sublayer."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     spec = {
         "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
@@ -35,7 +35,7 @@ def attn_spec(cfg) -> dict:
         "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
         "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         spec["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), init="zeros")
         spec["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
         spec["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
@@ -71,24 +71,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      window: Optional[int] = None):
-    """Single-token attention against a float KV cache.
+    """Single-token attention against a float KV cache, the JAX function's
+    signature and layout, through the float flash-decode kernel K5
+    (``kernels.ops.decode_attention``; plain version ``kernels.ref.
+    decode_attention_ref`` with ``p_dtype``).
 
     q: (B, H, hd); caches: (B, S, KV, hd); cache_len: (B,) valid lengths."""
-    B, H, hd = q.shape
-    _, S, KV, _ = k_cache.shape
-    G = H // KV
-    scale = 1.0 / math.sqrt(hd)
-    qr = q.reshape(B, KV, G, hd).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float()) * scale
-    pos = torch.arange(S, device=q.device)[None]
-    mask = pos < cache_len[:, None]
-    if window is not None:
-        mask &= pos >= (cache_len[:, None] - window)
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(B, H, hd).to(q.dtype)
+    from repro_torch.kernels import ops
+    return ops.decode_attention(q, k_cache, v_cache, cache_len, window=window)
 
 
 # ---------------- full layer ops ----------------
@@ -144,6 +134,15 @@ def self_attention(p, x, cfg, *, causal=True, pos=None, lora=None,
     return out_project(p, o, x.dtype), (k, v)
 
 
+def cross_attention(p, x, enc_kv, cfg):
+    """Decoder cross-attention over precomputed encoder K/V (B, S_enc, KV,
+    hd): every query sees every frame (K2, not causal; no RoPE, no LoRA)."""
+    q = _proj(x, p["wq"])
+    k, v = enc_kv
+    o = flash_attention(q, k.to(x.dtype), v.to(x.dtype), causal=False)
+    return out_project(p, o, x.dtype)
+
+
 def quantize_token(x, scale):
     """One token's K or V (B, KV, hd) into int8 codes at the slot's fixed
     per-(B, KV) scale (already epsilon-guarded)."""
@@ -160,7 +159,8 @@ def self_attention_decode(p, x, cache, cfg, *, pos=None, lora=None,
     token's K/V quantize into the scales fixed at admission and attention
     runs through the int8 flash-decode kernel, so the cache is only ever
     streamed as int8. With ``page_table`` it is the paged int8 arena
-    (``_paged_decode``)."""
+    (``_paged_decode``). Otherwise it is a float pool, attended through the
+    float flash-decode kernel (``decode_attention``)."""
     q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
@@ -188,8 +188,8 @@ def self_attention_decode(p, x, cache, cfg, *, pos=None, lora=None,
     else:
         cache["k"][bidx, idx] = k[:, 0].to(cache["k"].dtype)
         cache["v"][bidx, idx] = v[:, 0].to(cache["v"].dtype)
-        o = decode_attention(q[:, 0], cache["k"], cache["v"], new_len,
-                             window=cfg.sliding_window)
+        o = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
+                             new_len, window=cfg.sliding_window)
     cache["len"].copy_(new_len)
     return out_project(p, o[:, None], x.dtype), cache
 

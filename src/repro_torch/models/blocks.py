@@ -1,9 +1,10 @@
-"""Config-driven block dispatcher, attention sublayers only.
+"""Config-driven block dispatcher: attention sublayers, optionally followed
+by a cross-attention over an encoder's output (encoder-decoder stacks).
 
 A model is ``num_periods`` repetitions of a *period* of sublayers; parameters
 and caches carry a leading ``num_periods`` axis, as in the JAX package, and
-``models.lm`` loops over it. Mamba, xLSTM, MoE and cross-attention sublayers
-come with later slices and raise here.
+``models.lm`` loops over it. Mamba, xLSTM and MoE sublayers come with later
+slices and raise here.
 """
 from __future__ import annotations
 
@@ -37,10 +38,10 @@ def period_len(cfg: ModelConfig) -> int:
     return base
 
 
-def period_layout(cfg: ModelConfig) -> list[SubLayer]:
-    """The period's sublayers. Raises for what this slice does not port."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError("encoder-decoder stacks come with a later slice")
+def period_layout(cfg: ModelConfig, cross: bool = False) -> list[SubLayer]:
+    """The period's sublayers; ``cross`` gives each a cross-attention over
+    the encoder output (the decoder of an encoder-decoder stack). Raises
+    for what the port does not serve yet."""
     out = []
     for pos in range(period_len(cfg)):
         kind = cfg.blocks[pos]
@@ -50,7 +51,7 @@ def period_layout(cfg: ModelConfig) -> list[SubLayer]:
             raise NotImplementedError(
                 f"{cfg.name}: {kind}{' + MoE' if has_moe else ''} sublayers "
                 f"come with a later slice (attention stacks only)")
-        out.append(SubLayer(kind, has_moe, has_ffn))
+        out.append(SubLayer(kind, has_moe, has_ffn, cross))
     return out
 
 
@@ -58,6 +59,9 @@ def period_layout(cfg: ModelConfig) -> list[SubLayer]:
 
 def sublayer_spec(cfg: ModelConfig, lay: SubLayer) -> dict:
     spec: dict = {"ln1": rmsnorm_spec(cfg.d_model), "attn": attn.attn_spec(cfg)}
+    if lay.has_cross:
+        spec["ln_x"] = rmsnorm_spec(cfg.d_model)
+        spec["cross"] = attn.attn_spec(cfg, cross=True)
     if lay.has_ffn:
         spec["ln2"] = rmsnorm_spec(cfg.d_model)
         spec["ffn"] = mlp_spec(cfg)
@@ -65,7 +69,7 @@ def sublayer_spec(cfg: ModelConfig, lay: SubLayer) -> dict:
 
 
 def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
-                        s_max: int, kv_quant: bool = False,
+                        s_max: int, enc_len: int = 0, kv_quant: bool = False,
                         paged: bool = False, page_size: int = 16,
                         num_pages: int = 0) -> Optional[dict]:
     """Decode cache of one attention sublayer.
@@ -81,8 +85,20 @@ def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
     scales (decode appends quantize into them and stamp them on fresh
     pages), ``k_max``/``v_max`` the row's decode-era magnitude maxima for
     the engine's scale refresh. ``s_max`` bounds the table width
-    (``ceil(s_max / page_size)``), not the memory held."""
+    (``ceil(s_max / page_size)``), not the memory held.
+
+    A sublayer with a cross-attention carries ``ck``/``cv``: the encoder
+    output's K/V, bf16, ``enc_len`` frames per row, written once at
+    admission and read by every decode step — per-slot state beside either
+    pool (dense bf16 sidecars next to the paged arena)."""
     kv, hd = cfg.num_kv_heads, cfg.head_dim
+    cross = {}
+    if lay.has_cross:
+        for name in ("ck", "cv"):
+            cross[name] = ParamSpec(
+                (batch, enc_len, kv, hd),
+                ("batch", "cache_seq", "kv_heads", None), init="zeros",
+                dtype=torch.bfloat16)
     if paged:
         if not kv_quant or num_pages <= 0:
             raise ValueError("a paged pool is int8 (kv_quant=True) with "
@@ -106,7 +122,7 @@ def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
         for name in ("slot_k_scale", "slot_v_scale", "k_max", "v_max"):
             spec[name] = ParamSpec((batch, kv), ("batch", "kv_heads"),
                                    init="zeros", dtype=torch.float32)
-        return spec
+        return {**spec, **cross}
     kv_dt = torch.int8 if kv_quant else torch.bfloat16
     spec = {
         "k": ParamSpec((batch, s_max, kv, hd), ("batch", "cache_seq", "kv_heads", None),
@@ -119,7 +135,7 @@ def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
         for name in ("k_scale", "v_scale"):
             spec[name] = ParamSpec((batch, kv), ("batch", "kv_heads"),
                                    init="zeros", dtype=torch.float32)
-    return spec
+    return {**spec, **cross}
 
 
 # ---------------- apply ----------------
@@ -153,9 +169,10 @@ def _fill_cache(cache, k, v, seq_lens):
 
 
 def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
-                   cache=None, pos=None, causal=True, lora=None,
-                   adapter_idx=None, lora_impl: str = "gather", lora_seg=None,
-                   seq_lens=None, prefix=None, prefix_len=None):
+                   cache=None, pos=None, causal=True, enc_out=None,
+                   cross_len=None, lora=None, adapter_idx=None,
+                   lora_impl: str = "gather", lora_seg=None, seq_lens=None,
+                   prefix=None, prefix_len=None):
     """Apply one attention sublayer. mode: 'full' (pooled forward / prefill)
     or 'decode'. A given cache is a dict of views that is updated in place
     (prefill fills it, decode appends one token).
@@ -164,7 +181,12 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
     of precomputed (B, Sp, KV, hd) prefix K/V this sublayer's queries
     attend to in front of their own keys (``attention.self_attention``).
     The cache fill stores only the tail's K/V: the prefix already lives in
-    the paged arena."""
+    the paged arena.
+
+    A cross-attention sublayer projects ``enc_out`` (B, S_enc, d) into its
+    K/V in 'full' mode (and persists them in the cache's ``ck``/``cv`` on a
+    prefill); in 'decode' mode it reads them back from the cache with
+    ``cross_len`` (B,) valid frames, every row at its full length."""
     if lay.kind != ATTN:
         raise NotImplementedError(f"{lay.kind} sublayers come with a later slice")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -184,6 +206,19 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
     else:
         raise NotImplementedError(f"mode {mode!r} comes with a later slice")
     x = x + out
+    if lay.has_cross:
+        hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        if mode == "decode":
+            q = attn._proj(hx, p["cross"]["wq"])[:, 0].contiguous()
+            o = attn.decode_attention(q, cache["ck"], cache["cv"], cross_len)
+            x = x + attn.out_project(p["cross"], o[:, None], hx.dtype)
+        else:
+            ck = attn._proj(enc_out, p["cross"]["wk"])
+            cv = attn._proj(enc_out, p["cross"]["wv"])
+            if cache is not None:                         # persist for decode
+                cache["ck"].copy_(ck)
+                cache["cv"].copy_(cv)
+            x = x + attn.cross_attention(p["cross"], hx, (ck, cv), cfg)
     if lay.has_ffn:
         x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x

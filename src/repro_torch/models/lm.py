@@ -1,5 +1,7 @@
-"""Config-driven decoder LM: specs, forward, prefill and decode (attention
-stacks; the other block kinds come with later slices).
+"""Config-driven LM: specs, forward, prefill and decode for attention
+stacks — decoder-only, and encoder-decoder (whisper: a bidirectional encoder
+over stub frames, a decoder with cross-attention). The other block kinds
+come with later slices.
 
 Parameters are nested dicts/lists of tensors with the JAX package's structure
 (``layers`` is a list over the period's sublayers, each leaf with a leading
@@ -14,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import init_params, stack_specs, tree_map
 from repro_torch.models.layers import embed, embed_spec, head_spec, rmsnorm, rmsnorm_spec
@@ -24,30 +26,47 @@ ACT_DTYPE = torch.bfloat16
 
 # ---------------- specs ----------------
 
+def _encoder_layout(cfg: ModelConfig) -> list:
+    return [blk.SubLayer(kind=ATTN, has_moe=False, has_ffn=cfg.d_ff > 0)]
+
+
 def model_spec(cfg: ModelConfig) -> dict:
     if cfg.is_representation or cfg.vocab_size <= 0:
         raise NotImplementedError("representation backbones come with a later slice")
     nper = cfg.num_layers // blk.period_len(cfg)
-    return {
+    layout = blk.period_layout(cfg, cross=cfg.is_encoder_decoder)
+    spec = {
         "layers": [stack_specs(blk.sublayer_spec(cfg, lay), nper)
-                   for lay in blk.period_layout(cfg)],
+                   for lay in layout],
         "final_norm": rmsnorm_spec(cfg.d_model),
         "embed": embed_spec(cfg.vocab_size, cfg.d_model),
         "head": head_spec(cfg.d_model, cfg.vocab_size),
     }
+    if cfg.is_encoder_decoder:
+        spec["encoder"] = {
+            "layers": [stack_specs(blk.sublayer_spec(cfg, lay),
+                                   cfg.encoder_layers)
+                       for lay in _encoder_layout(cfg)],
+            "final_norm": rmsnorm_spec(cfg.d_model),
+        }
+    return spec
 
 
 def cast_params(params: dict) -> dict:
     """Cast each weight to the dtype of its use site: the embedding and the
-    attention/MLP matrices to bf16 (the activations' dtype), the norms and
-    the head kept f32. The values are exactly those the JAX package computes
+    attention (self and cross)/MLP matrices to bf16 (the activations'
+    dtype), the norms and the head kept f32 — in the decoder and in an
+    encoder alike. The values are exactly those the JAX package computes
     with after its per-use ``astype``."""
     def layer(sub):
         return {k: tree_map(lambda t: t.to(ACT_DTYPE), v)
-                if k in ("attn", "ffn") else v for k, v in sub.items()}
+                if k in ("attn", "cross", "ffn") else v for k, v in sub.items()}
     out = dict(params)
     out["embed"] = params["embed"].to(ACT_DTYPE)
     out["layers"] = [layer(sub) for sub in params["layers"]]
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"], layers=[
+            layer(sub) for sub in params["encoder"]["layers"]])
     return out
 
 
@@ -64,25 +83,36 @@ def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 def cache_spec(cfg: ModelConfig, batch: int, s_max: int,
                kv_quant: bool = False, paged: bool = False,
-               page_size: int = 16, num_pages: int = 0) -> list:
+               page_size: int = 16, num_pages: int = 0,
+               enc_len: Optional[int] = None) -> list:
     """Stacked per-period decode cache (list over sublayers).
     ``kv_quant``: int8 K/V + per-(batch, kv-head) scales. ``paged``: the
     int8 page arena of ``num_pages`` pages of ``page_size`` positions plus a
     per-row page table (``blocks.sublayer_cache_spec``); ``s_max`` then
-    bounds only the table width."""
+    bounds only the table width. ``enc_len``: encoder frames of the
+    cross-attention K/V state of an encoder-decoder stack (default
+    ``s_max``): the serving engine passes its fixed frame count, so the
+    per-slot cross state is sized to the audio frontend, not to the decode
+    budget."""
     nper = cfg.num_layers // blk.period_len(cfg)
+    if not cfg.is_encoder_decoder:
+        enc_len = 0
+    elif enc_len is None:
+        enc_len = s_max
     return [stack_specs(blk.sublayer_cache_spec(
-        cfg, lay, batch, s_max, kv_quant=kv_quant, paged=paged,
-        page_size=page_size, num_pages=num_pages), nper)
-        for lay in blk.period_layout(cfg)]
+        cfg, lay, batch, s_max, enc_len=enc_len, kv_quant=kv_quant,
+        paged=paged, page_size=page_size, num_pages=num_pages), nper)
+        for lay in blk.period_layout(cfg, cross=cfg.is_encoder_decoder)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                kv_quant: bool = False, paged: bool = False,
-               page_size: int = 16, num_pages: int = 0, device="cuda"):
+               page_size: int = 16, num_pages: int = 0,
+               enc_len: Optional[int] = None, device="cuda"):
     return init_params(None, cache_spec(cfg, batch, s_max, kv_quant=kv_quant,
                                         paged=paged, page_size=page_size,
-                                        num_pages=num_pages), device=device)
+                                        num_pages=num_pages, enc_len=enc_len),
+                       device=device)
 
 
 # ---------------- stack forward ----------------
@@ -92,16 +122,24 @@ def _at(tree, i):
 
 
 def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
-                   lora=None, adapter_idx=None, lora_impl="gather",
-                   lora_seg=None, seq_lens=None, prefix=None, prefix_len=None):
-    """Loop over periods and their sublayers (the JAX package scans)."""
-    nper = cfg.num_layers // len(layout)
+                   enc_out=None, lora=None, adapter_idx=None,
+                   lora_impl="gather", lora_seg=None, seq_lens=None,
+                   prefix=None, prefix_len=None):
+    """Loop over periods and their sublayers (the JAX package scans). A
+    decode step over cross-attention sublayers builds the (B,) frame-count
+    vector once, on the device, for every layer."""
+    nper = layers_p[0]["ln1"].shape[0]
+    cross_len = None
+    if mode == "decode" and any(lay.has_cross for lay in layout):
+        ck = next(c["ck"] for c, lay in zip(cache, layout) if lay.has_cross)
+        cross_len = torch.full((ck.shape[1],), ck.shape[2],
+                               dtype=torch.int32, device=ck.device)
     for i in range(nper):
         for j, lay in enumerate(layout):
             x = blk.sublayer_apply(
                 _at(layers_p[j], i), x, cfg, lay, mode=mode,
                 cache=None if cache is None else _at(cache[j], i), pos=pos,
-                causal=causal,
+                causal=causal, enc_out=enc_out, cross_len=cross_len,
                 lora=_at(lora[j], i) if lora is not None and lora[j] else None,
                 adapter_idx=adapter_idx, lora_impl=lora_impl,
                 lora_seg=lora_seg, seq_lens=seq_lens,
@@ -110,14 +148,28 @@ def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
     return x
 
 
+def encode(params, cfg: ModelConfig, enc_embeds):
+    """The encoder of an encoder-decoder stack: bidirectional attention
+    sublayers over the stub frontend's frames (B, S_enc, d), RoPE at
+    positions 0..S_enc-1, no LoRA, then the encoder's final norm."""
+    e = enc_embeds.to(ACT_DTYPE)
+    e_pos = torch.arange(e.shape[1], device=e.device)[None]
+    e = _stack_forward(params["encoder"]["layers"], _encoder_layout(cfg), e,
+                       cfg, mode="full", cache=None, pos=e_pos, causal=False)
+    return rmsnorm(params["encoder"]["final_norm"], e, cfg.norm_eps)
+
+
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
-            mode: str = "full", pos=None, lora=None, adapter_idx=None,
-            lora_impl: str = "gather", lora_seg=None, seq_lens=None,
-            prefix=None, prefix_len=None):
+            mode: str = "full", pos=None, enc_embeds=None, lora=None,
+            adapter_idx=None, lora_impl: str = "gather", lora_seg=None,
+            seq_lens=None, prefix=None, prefix_len=None):
     """Backbone forward. Returns (hidden (B, S, d), cache). Inputs are
-    ``tokens`` (B, S) int or ``embeds`` (B, S, d). ``cache`` (prefill /
-    decode) is updated in place. ``lora_impl`` "gather" or "segmented" (the
-    latter needs ``lora_seg`` metadata); ``seq_lens`` (B,) masks right pads.
+    ``tokens`` (B, S) int or ``embeds`` (B, S, d); an encoder-decoder stack
+    also takes ``enc_embeds`` (B, S_enc, d) outside decode (a decode step
+    reads the cross K/V its prefill stored in the cache). ``cache``
+    (prefill / decode) is updated in place. ``lora_impl`` "gather" or
+    "segmented" (the latter needs ``lora_seg`` metadata); ``seq_lens`` (B,)
+    masks right pads.
 
     ``prefix``/``prefix_len``: chunked shared-prefix prefill — a list
     aligned with the period layout of per-sublayer dict(k, v) precomputed
@@ -125,17 +177,25 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
     sublayer without attention) that every attention sublayer attends to in
     front of its own keys. Pass absolute ``pos`` (``prefix_len +
     arange(S)``) so RoPE matches."""
+    enc_out = None
+    if cfg.is_encoder_decoder and mode != "decode":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is encoder-decoder: forward needs "
+                             f"enc_embeds")
+        enc_out = encode(params, cfg, enc_embeds)
     if embeds is None:
         x = embed(params["embed"].to(ACT_DTYPE), tokens)
     else:
         x = embeds.to(ACT_DTYPE)
     if pos is None and mode != "decode":
         pos = torch.arange(x.shape[1], device=x.device)[None]
-    x = _stack_forward(params["layers"], blk.period_layout(cfg), x, cfg,
-                       mode=mode, cache=cache, pos=pos,
-                       causal=not cfg.is_representation, lora=lora,
-                       adapter_idx=adapter_idx, lora_impl=lora_impl,
-                       lora_seg=lora_seg, seq_lens=seq_lens, prefix=prefix,
+    x = _stack_forward(params["layers"],
+                       blk.period_layout(cfg, cross=cfg.is_encoder_decoder),
+                       x, cfg, mode=mode, cache=cache, pos=pos,
+                       causal=not cfg.is_representation, enc_out=enc_out,
+                       lora=lora, adapter_idx=adapter_idx,
+                       lora_impl=lora_impl, lora_seg=lora_seg,
+                       seq_lens=seq_lens, prefix=prefix,
                        prefix_len=prefix_len)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), cache
 
@@ -151,13 +211,15 @@ def _head(params, x):
     return x.float() @ params["head"].float()
 
 
-def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
-            lora=None, adapter_idx=None, lora_impl: str = "gather",
-            lora_seg=None, seq_lens=None, pos=None, prefix=None,
-            prefix_len=None):
+def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            enc_embeds=None, cache, lora=None, adapter_idx=None,
+            lora_impl: str = "gather", lora_seg=None, seq_lens=None, pos=None,
+            prefix=None, prefix_len=None):
     """Fill the decode cache from a prompt (in place). Returns
     (last_logits (B, V) f32, cache). ``seq_lens`` (B,): true lengths of
     right-padded prompts; the logits come from each row's last real token.
+    An encoder-decoder stack encodes ``enc_embeds`` (B, enc_len, d) here and
+    stores every cross-attention sublayer's K/V of it in the cache.
 
     Chunked shared-prefix admission passes ``tokens`` holding only the
     PRIVATE TAIL plus ``prefix``/``prefix_len``/``pos``: ``prefix`` is the
@@ -167,7 +229,8 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
     tail's K/V — the engine scatters it after the prefix pages in the
     slot's page table."""
     x, cache = forward(params, cfg, tokens=tokens, embeds=embeds, cache=cache,
-                       mode="full", lora=lora, adapter_idx=adapter_idx,
+                       mode="full", enc_embeds=enc_embeds, lora=lora,
+                       adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg,
                        seq_lens=seq_lens, pos=pos, prefix=prefix,
                        prefix_len=prefix_len)

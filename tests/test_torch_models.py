@@ -243,9 +243,16 @@ def test_segmented_matches_gather_in_the_port(setup):
 def test_unported_paths_raise():
     cfg = reduced(get_config("stablelm-1.6b"))
     import dataclasses
+    # encoder-decoder stacks are ported: their cache carries the per-slot
+    # cross K/V beside the paged arena (tests/test_torch_encdec.py)
     encdec = dataclasses.replace(cfg, is_encoder_decoder=True)
+    spec = lm.cache_spec(encdec, 2, 8, kv_quant=True, paged=True,
+                         num_pages=4, enc_len=5)
+    assert spec[0]["ck"].shape == (cfg.num_layers, 2, 5, cfg.num_kv_heads,
+                                   cfg.head_dim)
+    moe = dataclasses.replace(cfg, num_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError, match="later slice"):
-        lm.cache_spec(encdec, 2, 8, kv_quant=True, paged=True, num_pages=4)
+        lm.cache_spec(moe, 2, 8, kv_quant=True, paged=True, num_pages=4)
     hybrid = dataclasses.replace(cfg, block_pattern=("mamba", "attn"))
     with pytest.raises(NotImplementedError, match="later slice"):
         lm.model_spec(hybrid)
