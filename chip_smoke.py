@@ -16,7 +16,9 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    ragged ``kv_len``, a prefix operand with 64 and 0 valid positions), with
    GQA, a window and queries that are a strict suffix of the keys, and at
    whisper's bidirectional encoder (1500 frames) and cross-attention
-   prefill (Sq 16 and 64 against 1500 frames) shapes; the float
+   prefill (Sq 16 and 64 against 1500 frames) shapes, split over the key
+   axis (empty trailing splits, empty splits past a prefix's length, a
+   split holding a prefix's end and the new keys) and at hd 128; the float
    flash-decode kernel (K5) at the cross-attention decode shape (8 slots,
    1500 frames), the float pool's (S = s_max, ragged lengths), with GQA
    and windows (``FLOAT_CASES``);
@@ -57,7 +59,8 @@ then runs these phases and fails (non-zero exit) if any of them fails:
 6. timing — device times (``torch.profiler``) of each kernel, its plain
    version and a library yardstick, beside the least time the card could
    take (its bound), K2 also at whisper's encoder and cross-prefill
-   shapes, a profile of one dense, one paged and one whisper decode step
+   shapes (with its number of key splits and, where it splits, its time
+   unsplit), a profile of one dense, one paged and one whisper decode step
    and of one whisper pooled batch, and the prefill device time a prefix
    hit saves (full admission against its tail).
 
@@ -144,6 +147,25 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def sass_hmma(name: str) -> str:
+    """How many tensor-core (HMMA) instructions the built library of kernel
+    ``name`` holds, by kind, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"cuobjdump failed: {e}"
+    kinds: dict = {}
+    for line in sass.splitlines():
+        for word in line.replace(";", " ").split():
+            if word.startswith("HMMA"):
+                kinds[word] = kinds.get(word, 0) + 1
+    return json.dumps(kinds)
 
 
 def smi_line() -> str:
@@ -380,6 +402,21 @@ FLASH_CASES = {
     "whisper_cross_short": dict(B=1, Sq=16, Sk=ENC_LEN, H=8, KV=8,
                                 causal=False),
     "whisper_decoder_self": dict(B=1, Sq=64, Sk=64, H=8, KV=8, kv_len=[37]),
+    # key splits (``flash_attention.splits``, 128 keys each here): 8 CTAs
+    # over 1500 keys in 12 splits, 11 of them empty past kv_len; 32 CTAs
+    # over a 1024-key prefix and 16 new keys in 9 splits, two of them empty
+    # past prefix_len, the last the new keys alone; the same over a
+    # 1008-key prefix, whose last split holds the prefix's end and the new
+    # keys; hd 128 whole and in 3 splits
+    "split_empty_tail": dict(B=1, Sq=16, Sk=ENC_LEN, H=8, KV=8, causal=False,
+                             kv_len=[100]),
+    "split_prefix_boundary": dict(B=1, Sq=16, Sk=16, Sp=1024, kv_len=[9],
+                                  prefix_len=[700]),
+    "split_prefix_crossing": dict(B=1, Sq=16, Sk=16, Sp=1008, kv_len=[16],
+                                  prefix_len=[1000]),
+    "hd128": dict(B=2, Sq=96, Sk=96, KV=8, hd=128, kv_len=[96, 41]),
+    "hd128_split": dict(B=1, Sq=16, Sk=300, KV=8, hd=128, causal=False,
+                        kv_len=[250]),
 }
 # the shapes timed: one call of each kind as the serving path makes it
 # (whisper: the encoder of one admission, and the cross-attention of a
@@ -395,12 +432,14 @@ FLASH_TIMED = {
 
 
 def flash_inputs(gen, dev, B, Sq, Sk, KV=None, H=None, Sp=0, kv_len=None,
-                 prefix_len=None, window=None, causal=True, nsets=1):
+                 prefix_len=None, window=None, causal=True, hd=None,
+                 nsets=1):
     """``nsets`` bf16 input sets for one K2 case in the model layout, and
-    its keyword arguments (stablelm-1.6b's heads unless ``H``/``KV``)."""
+    its keyword arguments (stablelm-1.6b's heads unless ``H``/``KV``/
+    ``hd``)."""
     import torch
     cfg = full_config()
-    H, hd = H or cfg.num_heads, cfg.head_dim
+    H, hd = H or cfg.num_heads, hd or cfg.head_dim
     KV = KV or cfg.num_kv_heads
     sets = []
     for _ in range(nsets):
@@ -1427,9 +1466,8 @@ def whisper_pooled_timing(dev, handles) -> dict:
     run()
     torch.cuda.synchronize()
     launches = int(ops.LAUNCHES["flash_attention"])
-    prof = profile_step(run)
-    k2 = sum(ms for n, ms in prof["top_kernels_ms"]
-             if "flash_attention_kernel" in n)
+    prof = profile_step(run, match="flash_attention_kernel")
+    k2 = prof["match_ms"]
     return {"flash_attention_launches": launches,
             "device_ms": device_ms(run, iters=3, warmup=1),
             "flash_attention_device_ms": k2, "profile": prof}
@@ -1540,10 +1578,14 @@ def flash_timing(dev) -> dict:
     the pooled shape; no mask where every key is visible, as in whisper's
     encoder and cross-attention; a boolean mask from the same visibility,
     over the prefix and the keys concatenated, for the others; the
-    concatenation is not timed), and the bound counted on this data."""
+    concatenation is not timed), and the bound counted on this data; where
+    the wrapper splits the keys, the same calls unsplit (``unsplit_ms``)."""
+    from unittest import mock
+
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(4)
     out = {}
@@ -1578,9 +1620,29 @@ def flash_timing(dev) -> dict:
         l_ms = device_ms(rotating(F.scaled_dot_product_attention, lib))
         (q, k, _), kw = sets[0]
         b_ms, b_by = flash_bound(q, k, kw)
+        nsplit = flash_splits(q, k, kw)
         out[name] = dict(case=case, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by, nsplit=nsplit)
+        if nsplit > 1:      # what the split buys: the same calls unsplit
+            with mock.patch.object(fa, "splits", lambda *a: (1, 1 << 30)):
+                out[name]["unsplit_ms"] = device_ms(
+                    rotating(ops.flash_attention, sets))
+        log(f"flash_attention [{name}]: {nsplit} key split(s), "
+            f"{k_ms * 1e3:.1f} us"
+            + (f" (unsplit {out[name]['unsplit_ms'] * 1e3:.1f} us)"
+               if nsplit > 1 else ""))
     return out
+
+
+def flash_splits(q, k, kw) -> int:
+    """The number of key splits K2's wrapper takes at these shapes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import splits
+    B, Sq, H, _ = q.shape
+    pk = kw.get("prefix_k")
+    keys = k.shape[1] + (0 if pk is None else pk.shape[1])
+    return splits(B, Sq, H, k.shape[2], keys,
+                  build.sm_count(q.device.index or 0))[0]
 
 
 def tail_saving(dev, handles) -> dict:
@@ -1679,10 +1741,11 @@ def paged_step_timing(dev, handles) -> dict:
     return out
 
 
-def profile_step(fn) -> dict:
+def profile_step(fn, match=None) -> dict:
     """One decode step under ``torch.profiler``: device busy time against
     the wall time of the step, the number of device kernels, and the
-    kernels that take the most device time."""
+    kernels that take the most device time; with ``match``, also the device
+    time of every kernel whose name holds it (``match_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1699,10 +1762,13 @@ def profile_step(fn) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-            "device_kernels": len(kernels),
-            "top_kernels_ms": [(n[:60], ms) for n, ms in top]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+           "device_kernels": len(kernels),
+           "top_kernels_ms": [(n[:60], ms) for n, ms in top]}
+    if match is not None:
+        out["match_ms"] = sum(ms for n, ms in by_name.items() if match in n)
+    return out
 
 
 def main() -> int:
@@ -1732,6 +1798,7 @@ def main() -> int:
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    log(f"  sass flash_attention: {sass_hmma('flash_attention')}")
     phases = {}
     ok_k, errs = phase_kernels(dev)
     phases["kernels"] = ok_k

@@ -1,5 +1,5 @@
 // GQA prefill flash attention with a key-length mask and a prefix segment,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (Pallas, pl.pallas_call at :88) and computes the superset
@@ -10,36 +10,63 @@
 // q_off = Sp + Sk - Sq (the queries are the suffix). Masked: a prefix key at
 // or past prefix_len[b]; a new key at or past kv_len[b]; with `causal`, a key
 // after the query; with a window, a key window or more positions before it.
-// Scores and the accumulator are f32; each probability is rounded to bf16
-// (the value dtype) before the P.V product, and the output is acc / max(l,
-// 1e-30), as in the JAX function. A query row with no valid key at all
-// returns zeros (JAX returns the mean of the masked values there; no such
-// row occurs on the serving path).
+// Both products take bf16 operands and accumulate in f32, as the JAX
+// function's einsums do (preferred_element_type=f32); the running sum l adds
+// the f32 probabilities, and only the P operand of P.V is rounded to bf16,
+// as in JAX. The output is acc / max(l, 1e-30). A query row with no valid
+// key returns zeros (JAX returns the mean of the masked values there; no
+// such row occurs on the serving path).
 //
-// What bounds it on this card: bytes. At the serving shapes (S <= 128,
-// hd = 64) the function does about 32 flops per byte it must move (q, k, v
-// read once, out written once), far below the ~295 at which the bf16 tensor
-// cores would wait on memory. This first kernel runs its products on the
-// CUDA cores in f32 (67 TFLOP/s), so its own limit is operations: a pooled
-// layer's ~2.2 GFLOP take ~32 us there at best. The design keeps each K/V
-// tile's reuse in shared memory, so device memory sees a K/V row once per
-// query tile, and skips tiles the masks empty; tensor cores (mma, wgmma) are
-// later work.
+// What bounds it on this card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16):
+// bytes at the serving shapes of stablelm (the pooled forward, B=32 x 128
+// positions x 32 heads of 64, does ~32 flops per byte it must move; an
+// admission or a tail prefill at one row does fewer) and at whisper's
+// cross-attention prefill (64 queries against 1500 frames); operations at
+// whisper's bidirectional encoder (1500 x 1500 x 8 heads: 4.6 GFLOP on
+// 6 MB). The design answers each: the products run on the tensor cores,
+// so the encoder is not held to the CUDA cores' 67 TFLOP/s; K/V tiles
+// stream through shared memory by cp.async while the previous tile is
+// computed, so copies overlap the math; and where the CTAs are too few to
+// cover the card's 132 SMs, the key split multiplies them, so the byte
+// shapes at one row keep enough copies in flight.
 //
-// Design: one CTA per (query tile, kv head, batch row) serves the G query
-// heads that share the kv head, 64 rows of (query, head) per CTA (64 / G
-// queries). HD / 16 consecutive lanes own one row, 16 head dims each: q and
-// the accumulator live in registers. K and V tiles of 32 keys are staged in
-// shared memory with 16-byte loads (a 128-byte key row per 8 lanes) straight
-// from the model layout (B, S, KV, hd) by strides: no transposed copy, and
-// the prefix is a second key segment walked before the new keys, never
-// concatenated. Per tile each row computes its 32 scores (partial dots
-// reduced across its lanes by shuffles), takes the tile maximum, rescales
-// its running sum and accumulator once, and adds the rounded probabilities
-// times V. The tile range of each segment is cut to what the CTA's queries
-// can see (causal end, window start, kv_len, prefix_len read on the device:
-// no host sync); masks inside a tile are per key, so Sq, Sk and Sp need not
-// be tile multiples.
+// Design: one CTA of 4 warps per (query tile, kv head, batch row, key
+// split) serves the G query heads that share the kv head: 64 rows of
+// (query, head), row r = (query r / G, head r % G), 16 rows per warp. Both
+// products run on the tensor cores as mma.sync m16n8k16 bf16 -> f32. Q is
+// staged once in shared memory and held as A fragments in registers
+// (ldmatrix.x4). S = Q K^T takes each 32-key K tile as the .col B operand
+// straight from its row-major (key, hd) shared-memory rows (ldmatrix, no
+// transpose); P.V reuses the S accumulators as the A operand, packed to
+// bf16x2 in registers (P never touches shared memory), with V's B fragments
+// from ldmatrix.trans on its row-major tile. Shared rows are padded by 16
+// bytes so that ldmatrix reads no bank twice. Masks apply per element of the
+// S fragment from its (row, column) -> (query position, key position) map,
+// and only on tiles that a mask can reach; each tile rescales (m, l, acc)
+// once, the row max and sum reduced over the 4 lanes of a quad. The tile
+// range of each segment is cut to what the CTA's queries can see (causal
+// end, window start, kv_len, prefix_len read on the device: no host sync),
+// so Sq, Sk and Sp need not be tile multiples. K and V tiles are copied
+// from the model layout (B, S, KV, hd) by strides with 16-byte cp.async.cg
+// (rows past a length zero-filled through the copy's src-size; the masks
+// make them inert) into a ring of two stages, Q joining the first copy
+// group: nothing is transposed, and the prefix is a second key segment
+// walked before the new keys, never concatenated.
+//
+// Key split: when the (query tile, kv head, row) CTAs are too few to fill
+// the card (whisper's cross-attention prefill: 1 x 8 x 1), the wrapper cuts
+// the key axis [0, Sp + Sk) into splits of split_len keys (a multiple of the
+// tile), chosen from the shapes alone. Each split writes f32 partials (m,
+// l, acc); flash_attention_kernel_merge rescales them to the largest max and
+// divides once, with no atomics. A split that the lengths or masks leave
+// empty has m = -inf and l = 0 and gets zero weight.
+//
+// Build (nvcc -O3 for sm_90a, ptxas -v, as chip_smoke.py prints it): 120
+// registers at hd 64, 115 at hd 32, 218 at hd 128, the merge 32; no
+// spills. The SASS (cuobjdump -sass, counted by chip_smoke.py) holds
+// HMMA.16816.F32.BF16 for both products. On the card, 32-key tiles were as
+// fast as 64-key tiles or faster at every timed K2 shape, and a third
+// pipeline stage gained nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,27 +75,71 @@
 
 namespace {
 
-constexpr int kRows = 64;   // (query, head) rows per CTA
-constexpr int kTile = 32;   // keys per shared-memory tile
+constexpr int kRows = 64;      // (query, head) rows per CTA
+constexpr int kWarps = 4;      // 16 rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 32;      // keys per shared-memory tile
+constexpr int kStages = 2;     // K/V tiles in flight or in use
+constexpr int kPad = 8;        // bf16 padding per shared row
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void unpack16(const uint4* src, float* dst) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint4 u = src[i];
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dst[8 * i + 2 * j] = bf_lo(w[j]);
-      dst[8 * i + 2 * j + 1] = bf_hi(w[j]);
-    }
-  }
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (relative error ~2^-22, far below the bf16 rounding of p)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&two);
+}
+
+// 16 bytes global -> shared, asynchronous; zeros where !valid (the
+// copy's src-size is 0 and src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 struct Seg {
@@ -77,144 +148,356 @@ struct Seg {
   int64_t skb, sks, skh, svb, svs, svh;
 };
 
+struct Args {
+  const __nv_bfloat16* q;
+  Seg pre, cur;
+  const int32_t* kv_len;
+  const int32_t* prefix_len;
+  __nv_bfloat16* out;
+  float* part_m;
+  float* part_l;
+  float* part_acc;
+  int B, Sq, Sk, Sp, KV, G, nsplit, split_len;
+  int64_t sqb, sqs, sqh;
+  int causal, window;
+  float sm_scale;
+};
+
+// The keys of one segment that a CTA walks: [lo, hi) in the segment's own
+// positions, tiles of kTile from lo; keys at or past kend are masked.
+struct Walk {
+  const __nv_bfloat16* kb;
+  const __nv_bfloat16* vb;
+  int64_t sks, svs;
+  int base, lo, kend, ntiles;
+};
+
+__device__ __forceinline__ Walk walk(const Args& a, int segi, int b, int kvh,
+                                     int s_lo, int s_hi, int qpos_lo,
+                                     int qpos_hi) {
+  const Seg& sg = segi == 0 ? a.pre : a.cur;
+  Walk w{};
+  w.base = segi == 0 ? 0 : a.Sp;
+  const int n = segi == 0 ? a.Sp : a.Sk;
+  if (sg.k == nullptr || n == 0) return w;
+  int limit = n;
+  if (segi == 0) limit = min(n, max(0, a.prefix_len[b]));
+  else if (a.kv_len != nullptr) limit = min(n, max(0, a.kv_len[b]));
+  w.kend = min(limit, s_hi - w.base);
+  int hi = w.kend;
+  if (a.causal) hi = min(hi, qpos_hi - w.base + 1);
+  w.lo = max(0, s_lo - w.base);
+  if (a.window > 0) w.lo = max(w.lo, qpos_lo - a.window + 1 - w.base);
+  w.ntiles = hi > w.lo ? (hi - w.lo + kTile - 1) / kTile : 0;
+  w.kb = sg.k + b * sg.skb + kvh * sg.skh;
+  w.vb = sg.v + b * sg.svb + kvh * sg.svh;
+  w.sks = sg.sks;
+  w.svs = sg.svs;
+  return w;
+}
+
+// Start the copy of tile t of the walk (w0's tiles, then w1's) into one
+// stage of K and V rows.
 template <int HD>
-__global__ void __launch_bounds__(kRows * (HD / 16))
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q, Seg pre, Seg cur,
-                       const int32_t* __restrict__ kv_len,
-                       const int32_t* __restrict__ prefix_len,
-                       __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Sp,
-                       int KV, int G, int64_t sqb, int64_t sqs, int64_t sqh,
-                       int causal, int window, float sm_scale) {
-  constexpr int L = HD / 16;              // lanes per row
-  constexpr int kThreads = kRows * L;
-  constexpr int kVecRow = HD / 8;         // 16-byte vectors per key row
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * HD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * HD];
-
-  const int tid = threadIdx.x;
-  const int row = tid / L, lane = tid % L;
-  const int bq = kRows / G;               // queries per CTA
-  const int qi = blockIdx.x * bq + row / G;
-  const int g = row % G;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int h = kvh * G + g;
-  const bool row_live = qi < Sq;
-  const int q_off = Sp + Sk - Sq;
-  const int qpos = q_off + qi;
-  // the CTA's query positions (for the tile ranges)
-  const int qpos_lo = q_off + blockIdx.x * bq;
-  const int qpos_hi = q_off + min(Sq, (blockIdx.x + 1) * bq) - 1;
-
-  float qf[16], acc[16];
-  if (row_live) {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        q + b * sqb + qi * sqs + h * sqh + lane * 16);
-    unpack16(src, qf);
-  } else {
+__device__ __forceinline__ void load_tile(__nv_bfloat16* ks,
+                                          __nv_bfloat16* vs, const Walk& w0,
+                                          const Walk& w1, int t, int tid) {
+  constexpr int LD = HD + kPad, kVec = HD / 8;
+  const bool first = t < w0.ntiles;
+  const Walk w = first ? w0 : w1;
+  const int j0 = w.lo + (first ? t : t - w0.ntiles) * kTile;
 #pragma unroll
-    for (int e = 0; e < 16; ++e) qf[e] = 0.f;
+  for (int n = 0; n < kTile * kVec / kThreads; ++n) {
+    const int i = tid + n * kThreads;
+    const int r = i / kVec, c = i % kVec;
+    const int j = j0 + r;
+    const bool valid = j < w.kend;
+    const int jc = valid ? j : 0;
+    cp_async16(ks + r * LD + c * 8, w.kb + jc * w.sks + c * 8, valid);
+    cp_async16(vs + r * LD + c * 8, w.vb + jc * w.svs + c * 8, valid);
   }
-#pragma unroll
-  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
-  float m = -INFINITY, l = 0.f;
+}
 
-  for (int segi = 0; segi < 2; ++segi) {
-    const Seg sg = segi == 0 ? pre : cur;
-    if (sg.k == nullptr) continue;
-    const int base = segi == 0 ? 0 : Sp;
-    const int n = segi == 0 ? Sp : Sk;
-    int limit = n;
-    if (segi == 0) limit = min(n, max(0, prefix_len[b]));
-    else if (kv_len != nullptr) limit = min(n, max(0, kv_len[b]));
-    // keys [lo, hi) of this segment that any query of the CTA can see
-    int hi = limit;
-    if (causal) hi = min(hi, qpos_hi - base + 1);
-    int lo = 0;
-    if (window > 0) lo = max(0, qpos_lo - window + 1 - base);
-    lo = (lo / kTile) * kTile;
-    const __nv_bfloat16* kb = sg.k + b * sg.skb + kvh * sg.skh;
-    const __nv_bfloat16* vb = sg.v + b * sg.svb + kvh * sg.svh;
-    for (int j0 = lo; j0 < hi; j0 += kTile) {
-      __syncthreads();                    // previous tile's reads done
-      for (int i = tid; i < kTile * kVecRow; i += kThreads) {
-        const int r = i / kVecRow, c = i % kVecRow;
-        const int j = j0 + r;
-        uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-        if (j < limit) {
-          kk = reinterpret_cast<const uint4*>(kb + j * sg.sks)[c];
-          vv = reinterpret_cast<const uint4*>(vb + j * sg.svs)[c];
+// four CTAs an SM at hd <= 64 (27 KB of shared memory each), two at 128
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
+flash_attention_kernel(const Args a) {
+  constexpr int LD = HD + kPad;         // shared row stride (elements)
+  constexpr int kVec = HD / 8;          // 16-byte vectors per row
+  constexpr int KC = HD / 16;           // k-steps of Q K^T
+  constexpr int NT = kTile / 8;         // key columns of 8 per tile
+  constexpr int DT = HD / 8;            // output columns of 8
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // Q rows, then two stages of (K tile, V tile)
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* kv = qs + kRows * LD;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.G, Sq = a.Sq, H = a.KV * a.G;
+  const int bq = kRows / G;             // queries per CTA
+  const int q0 = blockIdx.x * bq;
+  const int kvh = blockIdx.y;
+  const int split = blockIdx.z % a.nsplit, b = blockIdx.z / a.nsplit;
+  const int q_off = a.Sp + a.Sk - Sq;
+  // the CTA's and the warp's query positions (tile ranges, mask need)
+  const int qpos_lo = q_off + q0;
+  const int qpos_hi = q_off + min(Sq, q0 + bq) - 1;
+  const int wpos_lo = q_off + q0 + (warp * 16) / G;
+  const int wpos_hi = q_off + q0 + (warp * 16 + 15) / G;
+  // this lane's two rows of each fragment: g and g + 8 of the warp's 16
+  const int g = lane / 4, t4 = lane % 4;
+  int qpos[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh)
+    qpos[rh] = q_off + q0 + (warp * 16 + g + 8 * rh) / G;
+
+  const int s_lo = split * a.split_len;
+  const int s_hi = min(a.Sp + a.Sk, s_lo + a.split_len);
+  const Walk w0 = walk(a, 0, b, kvh, s_lo, s_hi, qpos_lo, qpos_hi);
+  const Walk w1 = walk(a, 1, b, kvh, s_lo, s_hi, qpos_lo, qpos_hi);
+  const int ntiles = w0.ntiles + w1.ntiles;
+
+  // Q rows of the CTA (zeros past Sq) and the first tile: one copy group
+#pragma unroll
+  for (int n = 0; n < kRows * kVec / kThreads; ++n) {
+    const int i = tid + n * kThreads;
+    const int r = i / kVec, c = i % kVec;
+    const int qi = q0 + r / G, h = kvh * G + r % G;
+    const bool live = qi < Sq;
+    cp_async16(qs + r * LD + c * 8,
+               a.q + b * a.sqb + (live ? qi : 0) * a.sqs + h * a.sqh + c * 8,
+               live);
+  }
+  // one copy group per tile (Q joins the first), kStages - 1 ahead
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < ntiles) {
+      __nv_bfloat16* nk = kv + p * 2 * kTile * LD;
+      load_tile<HD>(nk, nk + kTile * LD, w0, w1, p, tid);
+    }
+    cp_async_commit();
+  }
+  uint32_t qa[KC][4];
+
+  float o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+    o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sl2 = a.sm_scale * kLog2e;
+
+  // a ring of kStages tiles: tiles t + 1 .. t + kStages - 1 are in
+  // flight while tile t is computed
+  for (int t = 0; t < ntiles; ++t) {
+    const bool first = t < w0.ntiles;
+    const Walk w = first ? w0 : w1;
+    const int j0 = w.lo + (first ? t : t - w0.ntiles) * kTile;
+    if (t + kStages - 1 < ntiles) {     // into the stage tile t - 1 freed
+      __nv_bfloat16* nk =
+          kv + ((t + kStages - 1) % kStages) * 2 * kTile * LD;
+      load_tile<HD>(nk, nk + kTile * LD, w0, w1, t + kStages - 1, tid);
+    }
+    cp_async_commit();                  // empty groups keep the count
+    cp_async_wait<kStages - 1>();
+    __syncthreads();                    // tile t (and Q) landed for all
+    if (t == 0) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        ldsm_x4(smem_u32(qs + (warp * 16 + (lane & 15)) * LD + kc * 16 +
+                         (lane >> 4) * 8),
+                qa[kc]);
+    }
+    const __nv_bfloat16* ks = kv + (t % kStages) * 2 * kTile * LD;
+    const __nv_bfloat16* vs = ks + kTile * LD;
+
+    // S = Q K^T: 16 rows x kTile keys per warp, f32
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; kc += 2) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bk[4];
+        ldsm_x4(smem_u32(ks + (8 * j + (lane & 7)) * LD + kc * 16 +
+                         (lane >> 3) * 8),
+                bk);
+        mma_bf16(s[j], qa[kc], bk[0], bk[1]);
+        mma_bf16(s[j], qa[kc + 1], bk[2], bk[3]);
+      }
+    }
+
+    // masks, only where one can reach this warp's rows in this tile
+    const int kpos0 = w.base + j0;
+    const bool need = j0 + kTile > w.kend ||
+                      (a.causal && kpos0 + kTile - 1 > wpos_lo) ||
+                      (a.window > 0 && wpos_hi - kpos0 >= a.window);
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[j][2 * rh + e];
+          if (need) {
+            const int jj = j0 + 8 * j + 2 * t4 + e;
+            const int kpos = w.base + jj;
+            bool ok = jj < w.kend;
+            if (a.causal) ok = ok && qpos[rh] >= kpos;
+            if (a.window > 0) ok = ok && qpos[rh] - kpos < a.window;
+            if (!ok) x = -INFINITY;
+          }
+          s[j][2 * rh + e] = x;
+          mx = fmaxf(mx, x);
         }
-        reinterpret_cast<uint4*>(ks)[i] = kk;
-        reinterpret_cast<uint4*>(vs)[i] = vv;
       }
-      __syncthreads();
-      float s[kTile];
-      float m_tile = -INFINITY;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // the scale is positive: the max of raw scores scales to the max
+      const float m_new = fmaxf(m[rh], mx * sl2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = fast_exp2(m[rh] - m_use);   // m = -inf: 0
+      m[rh] = m_new;
+      l[rh] *= corr;
 #pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        float kf[16];
-        unpack16(reinterpret_cast<const uint4*>(ks + j * HD + lane * 16), kf);
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < 16; ++e) dot = fmaf(qf[e], kf[e], dot);
-#pragma unroll
-        for (int o = L / 2; o > 0; o >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        const int jj = j0 + j;
-        const int kpos = base + jj;
-        bool ok = jj < limit;
-        if (causal) ok = ok && qpos >= kpos;
-        if (window > 0) ok = ok && (qpos - kpos) < window;
-        s[j] = ok ? dot * sm_scale : -INFINITY;
-        m_tile = fmaxf(m_tile, s[j]);
+      for (int d = 0; d < DT; ++d) {
+        o[d][2 * rh] *= corr;
+        o[d][2 * rh + 1] *= corr;
       }
-      if (m_tile == -INFINITY) continue;  // uniform across the row's lanes
-      const float m_new = fmaxf(m, m_tile);
-      const float corr = expf(m - m_new);   // m = -inf: 0
-      l *= corr;
 #pragma unroll
-      for (int e = 0; e < 16; ++e) acc[e] *= corr;
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        const float p = expf(s[j] - m_new);  // masked: 0
-        l += p;
-        const float pb = round_bf16(p);
-        float vf[16];
-        unpack16(reinterpret_cast<const uint4*>(vs + j * HD + lane * 16), vf);
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[e] = fmaf(pb, vf[e], acc[e]);
+        for (int e = 0; e < 2; ++e) {
+          // masked: exp2(-inf) = 0
+          const float p = fast_exp2(fmaf(s[j][2 * rh + e], sl2, -m_use));
+          l[rh] += p;
+          s[j][2 * rh + e] = p;
+        }
       }
-      m = m_new;
+    }
+
+    // acc += P V: P from the S accumulators (bf16 in registers)
+#pragma unroll
+    for (int kt = 0; kt < kTile / 16; ++kt) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
+      pa[1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
+      pa[2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+      pa[3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(smem_u32(vs + (16 * kt + (lane & 7) +
+                                     ((lane >> 3) & 1) * 8) * LD +
+                               8 * d + (lane >> 4) * 8),
+                      bv);
+        mma_bf16(o[d], pa, bv[0], bv[1]);
+        mma_bf16(o[d + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                    // this stage's reads done
+  }
+  cp_async_wait<0>();                   // no tile: Q's copy still lands
+  __syncthreads();
+
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 1);
+    l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 2);
+  }
+  if (a.nsplit > 1) {
+    // f32 partials of this split, unnormalised (m in log2 units)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = warp * 16 + g + 8 * rh;
+      const int qi = q0 + r / G;
+      if (qi >= Sq) continue;
+      const int h = kvh * G + r % G;
+      const int64_t prow =
+          ((static_cast<int64_t>(b) * Sq + qi) * H + h) * a.nsplit + split;
+      if (t4 == 0) {
+        a.part_m[prow] = m[rh];
+        a.part_l[prow] = l[rh];
+      }
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<float2*>(a.part_acc + prow * HD + 8 * d + 2 * t4) =
+            make_float2(o[d][2 * rh], o[d][2 * rh + 1]);
+    }
+    return;
+  }
+  // normalise, stage the warp's 16 rows in its own Q rows, store 16 bytes
+  // a lane
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const float inv = l[rh] > 0.f ? 1.f / fmaxf(l[rh], 1e-30f) : 0.f;
+    __nv_bfloat16* dst = qs + (warp * 16 + g + 8 * rh) * LD + 2 * t4;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<uint32_t*>(dst + 8 * d) =
+          pack_bf16(o[d][2 * rh] * inv, o[d][2 * rh + 1] * inv);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * kVec; i += 32) {
+    const int r = warp * 16 + i / kVec, c = i % kVec;
+    const int qi = q0 + r / G;
+    if (qi >= Sq) continue;
+    const int h = kvh * G + r % G;
+    *reinterpret_cast<uint4*>(
+        a.out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * HD + c * 8) =
+        *reinterpret_cast<const uint4*>(qs + r * LD + c * 8);
+  }
+}
+
+// Combine the key splits' partials of each output element: rescale each
+// split's sum and accumulator to the largest max and divide once. Rows are
+// (batch, query, head) in the output's order, nsplit partials each. The
+// name keeps "flash_attention_kernel" so that a profile filtered on it
+// counts both of K2's passes.
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_attention_kernel_merge(const float* __restrict__ part_m,
+                             const float* __restrict__ part_l,
+                             const float* __restrict__ part_acc,
+                             __nv_bfloat16* __restrict__ out, int64_t rows,
+                             int nsplit) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= rows * HD) return;
+  const int64_t row = i / HD;
+  const int dd = static_cast<int>(i % HD);
+  const float* pm = part_m + row * nsplit;
+  float mx = -INFINITY;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pm[s]);
+  float lsum = 0.f, o = 0.f;
+  if (mx != -INFINITY) {
+    for (int s = 0; s < nsplit; ++s) {
+      if (pm[s] == -INFINITY) continue;
+      const float wt = fast_exp2(pm[s] - mx);
+      lsum += part_l[row * nsplit + s] * wt;
+      o += part_acc[(row * nsplit + s) * HD + dd] * wt;
     }
   }
-
-  if (!row_live) return;
-  const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-  uint32_t packed[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const __nv_bfloat162 two = __floats2bfloat162_rn(acc[2 * e] * inv,
-                                                     acc[2 * e + 1] * inv);
-    packed[e] = *reinterpret_cast<const uint32_t*>(&two);
-  }
-  const int H = KV * G;
-  uint4* dst = reinterpret_cast<uint4*>(
-      out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * HD + lane * 16);
-  dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-  dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+  out[i] = __float2bfloat16(lsum > 0.f ? o / fmaxf(lsum, 1e-30f) : 0.f);
 }
 
 template <int HD>
-cudaError_t launch(const __nv_bfloat16* q, const Seg& pre, const Seg& cur,
-                   const int32_t* kv_len, const int32_t* prefix_len,
-                   __nv_bfloat16* out, int B, int Sq, int Sk, int Sp, int KV,
-                   int G, int64_t sqb, int64_t sqs, int64_t sqh, int causal,
-                   int window, float sm_scale, cudaStream_t stream) {
-  const int bq = kRows / G;
-  const dim3 grid((Sq + bq - 1) / bq, KV, B);
-  flash_attention_kernel<HD><<<grid, kRows * (HD / 16), 0, stream>>>(
-      q, pre, cur, kv_len, prefix_len, out, Sq, Sk, Sp, KV, G, sqb, sqs, sqh,
-      causal, window, sm_scale);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int smem = (kRows + 2 * kStages * kTile) * (HD + kPad) * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int bq = kRows / a.G;
+  const dim3 grid((a.Sq + bq - 1) / bq, a.KV, a.B * a.nsplit);
+  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.nsplit == 1) return err;
+  const int64_t rows = static_cast<int64_t>(a.B) * a.Sq * a.KV * a.G;
+  const int64_t blocks = (rows * HD + 255) / 256;
+  flash_attention_kernel_merge<HD>
+      <<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+          a.part_m, a.part_l, a.part_acc, a.out, rows, a.nsplit);
   return cudaGetLastError();
 }
 
@@ -225,37 +508,47 @@ cudaError_t launch(const __nv_bfloat16* q, const Seg& pre, const Seg& cur,
 // prefix (B, Sp, KV, hd) with strides sp*/spv* or null (Sp = 0); every head
 // row has unit hd stride and is 16-byte aligned. kv_len and prefix_len are
 // (B,) int32 on the device or null (prefix_len is required with a prefix).
-// out (B, Sq, KV * G, hd) bf16 contiguous. window <= 0 means no window. G
-// divides 64 and hd is 32, 64 or 128. Returns a cudaError_t (0 on success).
+// out (B, Sq, KV * G, hd) bf16 contiguous. The key axis [0, Sp + Sk) is cut
+// into nsplit splits of split_len keys (a multiple of 32); with nsplit > 1,
+// part_m/part_l (B * Sq * KV * G * nsplit) and part_acc (... * hd) f32 hold
+// the partials the merge kernel combines, else they may be null. window <=
+// 0 means no window. G divides 64 and hd is 32, 64 or 128. Returns a
+// cudaError_t (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* pk,
     const void* pv, const void* kv_len, const void* prefix_len, void* out,
-    int B, int Sq, int Sk, int Sp, int KV, int G, int hd, int64_t sqb,
+    void* part_m, void* part_l, void* part_acc, int B, int Sq, int Sk, int Sp,
+    int KV, int G, int hd, int nsplit, int split_len, int64_t sqb,
     int64_t sqs, int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
     int64_t svb, int64_t svs, int64_t svh, int64_t spb, int64_t sps,
     int64_t sph, int64_t spvb, int64_t spvs, int64_t spvh, int causal,
     int window, float sm_scale, void* stream) {
-  if (G <= 0 || kRows % G || B <= 0 || Sq <= 0 || KV <= 0)
+  if (G <= 0 || kRows % G || B <= 0 || Sq <= 0 || KV <= 0 || nsplit <= 0 ||
+      split_len <= 0 || split_len % kTile ||
+      (nsplit > 1 && (part_m == nullptr || part_l == nullptr ||
+                      part_acc == nullptr)) ||
+      (pk != nullptr && prefix_len == nullptr))
     return cudaErrorInvalidValue;
-  const Seg cur{static_cast<const __nv_bfloat16*>(k),
-                static_cast<const __nv_bfloat16*>(v), skb, sks, skh, svb, svs,
-                svh};
-  const Seg pre{static_cast<const __nv_bfloat16*>(pk),
-                static_cast<const __nv_bfloat16*>(pv), spb, sps, sph, spvb,
-                spvs, spvh};
-  const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kl = static_cast<const int32_t*>(kv_len);
-  const auto* pl = static_cast<const int32_t*>(prefix_len);
-  auto* o = static_cast<__nv_bfloat16*>(out);
+  const Args a{static_cast<const __nv_bfloat16*>(q),
+               Seg{static_cast<const __nv_bfloat16*>(pk),
+                   static_cast<const __nv_bfloat16*>(pv), spb, sps, sph, spvb,
+                   spvs, spvh},
+               Seg{static_cast<const __nv_bfloat16*>(k),
+                   static_cast<const __nv_bfloat16*>(v), skb, sks, skh, svb,
+                   svs, svh},
+               static_cast<const int32_t*>(kv_len),
+               static_cast<const int32_t*>(prefix_len),
+               static_cast<__nv_bfloat16*>(out),
+               static_cast<float*>(part_m),
+               static_cast<float*>(part_l),
+               static_cast<float*>(part_acc),
+               B, Sq, Sk, Sp, KV, G, nsplit, split_len, sqb, sqs, sqh,
+               causal, window, sm_scale};
   auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32:  return launch<32>(qq, pre, cur, kl, pl, o, B, Sq, Sk, Sp, KV, G,
-                                sqb, sqs, sqh, causal, window, sm_scale, st);
-    case 64:  return launch<64>(qq, pre, cur, kl, pl, o, B, Sq, Sk, Sp, KV, G,
-                                sqb, sqs, sqh, causal, window, sm_scale, st);
-    case 128: return launch<128>(qq, pre, cur, kl, pl, o, B, Sq, Sk, Sp, KV,
-                                 G, sqb, sqs, sqh, causal, window, sm_scale,
-                                 st);
+    case 32:  return launch<32>(a, st);
+    case 64:  return launch<64>(a, st);
+    case 128: return launch<128>(a, st);
     default:  return cudaErrorInvalidValue;
   }
 }

@@ -13,7 +13,6 @@ so choosing it needs no host sync.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
@@ -36,11 +35,6 @@ def _lib():
         lib.decode_attention_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def splits(pairs: int, S: int, sms: int) -> tuple[int, int]:
@@ -92,7 +86,8 @@ def decode_attention(q, k, v, lengths, *, window: Optional[int] = None):
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out.zero_()
-    nsplit, split_len = splits(B * KV, S, _sm_count(q.device.index or 0))
+    nsplit, split_len = splits(B * KV, S,
+                               build.sm_count(q.device.index or 0))
     part_m = part_l = part_acc = None
     if nsplit > 1:
         part = torch.empty((B * KV * nsplit * G * (hd + 2),),

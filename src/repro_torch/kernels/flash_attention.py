@@ -7,7 +7,11 @@ operand: the mapped shared pages' K/V, attended in front of the tail's own
 keys and masked past ``prefix_len``). ``csrc/flash_attention.cu`` reads
 every operand in the model layout (B, S, heads, hd) through its strides and
 walks the prefix as a second key segment, so nothing is transposed or
-concatenated on the way in.
+concatenated on the way in. Both of its products run on the tensor cores.
+When the (query tile, kv head, row) CTAs are too few to fill the card
+(whisper's cross-attention prefill at one row), the wrapper cuts the key
+axis into splits (``splits``, from the shapes alone: no host sync) and the
+kernel merges their partials in a second pass.
 """
 from __future__ import annotations
 
@@ -21,18 +25,37 @@ from repro_torch.kernels import build
 
 _HEAD_DIMS = (32, 64, 128)
 _ROWS = 64                  # (query, head) rows per CTA: G must divide it
+_TILE = 32                  # keys per shared-memory tile of the kernel
+_MIN_SPLIT = 128            # keys per split at least (four tiles)
 
 
 def _lib():
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
             + [ctypes.c_int64] * 15 + [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def splits(B: int, Sq: int, H: int, KV: int, keys: int,
+           sms: int) -> tuple[int, int]:
+    """(number of splits, keys per split) of the key axis [0, ``keys``)
+    (prefix and new keys together) for a (B, Sq, H) query block over KV kv
+    heads on ``sms`` SMs. The kernel's (query tile, kv head, row) CTAs are
+    cut into enough splits for about two CTAs per SM, each split a multiple
+    of the key tile and at least ``_MIN_SPLIT`` keys; where there are CTAs
+    enough, or fewer keys than two minimum splits (there the merge pass
+    costs more than the split saves), one split holds every key. Shapes
+    only, never lengths: choosing needs no host sync."""
+    ctas = -(-Sq * (H // KV) // _ROWS) * KV * B
+    want = -(-2 * sms // max(ctas, 1)) if keys >= 2 * _MIN_SPLIT else 1
+    n = max(1, min(want, -(-keys // _MIN_SPLIT)))
+    split_len = _TILE * max(1, -(-(-(-keys // n)) // _TILE))
+    return max(1, -(-keys // split_len)), split_len
 
 
 def _rows_ok(t, name):
@@ -67,7 +90,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``prefix_len``: (B,) integer CUDA tensors, read on the device.
     ``prefix_k``/``prefix_v``: (B, Sp, KV, hd) bf16, with ``prefix_len``
     and without a window. Returns (B, Sq, H, hd) bf16, contiguous. A query
-    row with no valid key returns zeros."""
+    row with no valid key returns zeros. With more than one key split
+    (``splits``), f32 partials go to scratch allocated here."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention kernel takes CUDA tensors")
     B, Sq, H, hd = q.shape
@@ -106,15 +130,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:
         return out
+    nsplit, split_len = splits(B, Sq, H, KV, Sp + Sk,
+                               build.sm_count(q.device.index or 0))
+    part_m = part_l = part_acc = None
+    if nsplit > 1:
+        n = B * Sq * H * nsplit
+        part = torch.empty((n * (hd + 2),), dtype=torch.float32,
+                           device=q.device)
+        part_m, part_l, part_acc = part[:n], part[n:2 * n], part[2 * n:]
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(pk), ptr(pv),
-        ptr(kv_len), ptr(prefix_len), out.data_ptr(), B, Sq, Sk, Sp, KV, G,
-        hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *pks, *pvs,
-        int(causal), -1 if window is None else int(window),
+        ptr(kv_len), ptr(prefix_len), out.data_ptr(), ptr(part_m),
+        ptr(part_l), ptr(part_acc), B, Sq, Sk, Sp, KV, G, hd, nsplit,
+        split_len, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *pks,
+        *pvs, int(causal), -1 if window is None else int(window),
         1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["flash_attention"] += 1
     build.check(err, "flash_attention")

@@ -24,7 +24,10 @@ adapters converted to the port:
   within the port; (g) no new shape key across sharer churn after warmup,
   and ``warm_chunked`` advances no slot's generator;
 * (h) ``ServeLoop`` charges tails only and fills the hit/miss TTFT split;
-* (i) on a GPU only, the K2 CUDA kernel against its plain version.
+* (i) on a GPU only, the K2 CUDA kernel against its plain version, split
+  over the key axis and at hd 128 too; on any host, the K2 wrapper's
+  key-split plan (``flash_attention.splits``: the splits cover the key
+  axis, tile multiples, from the shapes alone).
 
 Tolerances: the plain attention computes the JAX function's f32 products in
 another summation order (f32: 1e-5); in bf16 both round the probabilities
@@ -91,6 +94,11 @@ ATTN_CASES = {
     "prefix_kv_len": (3, 8, 8, 4, 4, 16, 16, True, None, (3, 8, 1),
                       (8, 0, 16)),
     "prefix_noncausal": (2, 6, 6, 4, 2, 16, 8, False, None, (6, 2), (3, 8)),
+    # a key axis the kernel splits (8 CTAs over 1500 keys), trailing splits
+    # empty past kv_len; hd 128
+    "long_keys_kv_len": (1, 16, 1500, 8, 8, 16, 0, False, None, (100,),
+                         None),
+    "hd128_kv_len": (2, 12, 12, 4, 2, 128, 0, True, None, (12, 5), None),
 }
 
 
@@ -202,6 +210,66 @@ def test_flash_attention_matches_pallas_interpret(B, H, KV, Sq, Sk, hd,
     np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1, 3),
                                np.asarray(want, np.float32), atol=tol,
                                rtol=tol)
+
+
+# (B, Sq, H, KV, keys): the timed shapes of chip_smoke.py and a few more
+SPLIT_SHAPES = {
+    "pooled": (32, 128, 32, 32, 128),
+    "admission": (1, 128, 32, 32, 128),
+    "tail": (1, 64, 32, 32, 192),
+    "gqa": (2, 128, 32, 8, 128),
+    "whisper_encoder": (1, 1500, 8, 8, 1500),
+    "whisper_encoder_pooled": (4, 1500, 8, 8, 1500),
+    "whisper_cross_prefill": (1, 64, 8, 8, 1500),
+    "whisper_cross_short": (1, 16, 8, 8, 1500),
+    "prefix_boundary": (1, 16, 32, 32, 1040),
+    "odd_keys": (1, 5, 4, 1, 129),
+    "no_keys": (1, 4, 4, 4, 0),
+}
+SMS = 132                     # the H100's SMs
+
+
+@pytest.mark.parametrize("name", list(SPLIT_SHAPES))
+def test_flash_attention_split_plan(name):
+    """The wrapper's key-split plan: the splits cover [0, keys) in order
+    with no gap, no overlap and no empty split; each is a multiple of the
+    key tile and, when there are several, at least the minimum; the CTAs
+    are enough for about two an SM, or one split holds every key; the
+    cross-attention prefill is split and the pooled forward is not."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, KV, keys = SPLIT_SHAPES[name]
+    n, split_len = fa.splits(B, Sq, H, KV, keys, SMS)
+    assert n >= 1 and split_len > 0 and split_len % fa._TILE == 0
+    spans = [(i * split_len, min((i + 1) * split_len, keys))
+             for i in range(n)]
+    if keys:
+        assert spans[0][0] == 0 and spans[-1][1] == keys
+        assert all(hi > lo for lo, hi in spans)
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    else:
+        assert n == 1
+    if n > 1:
+        assert split_len >= fa._MIN_SPLIT
+    ctas = -(-Sq * (H // KV) // fa._ROWS) * KV * B
+    if ctas >= 2 * SMS or keys < 2 * fa._MIN_SPLIT:
+        assert n == 1
+    if name == "whisper_cross_prefill":
+        assert n > 1 and ctas * n >= 96
+    if name in ("pooled", "tail"):
+        assert n == 1
+
+
+def test_flash_attention_split_plan_takes_shapes_only():
+    """The plan is a function of the shapes and the SM count alone (never
+    of kv_len or prefix_len, which live on the device), so choosing it
+    needs no host sync."""
+    import inspect
+
+    from repro_torch.kernels import flash_attention as fa
+    assert list(inspect.signature(fa.splits).parameters) == \
+        ["B", "Sq", "H", "KV", "keys", "sms"]
+    assert fa.splits(1, 64, 8, 8, 1500, SMS) == \
+        fa.splits(1, 64, 8, 8, 1500, SMS)
 
 
 def test_flash_attention_routes_only_cpu_to_the_plain_version():
@@ -690,24 +758,27 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["causal", "window_kv_len", "gqa_suffix",
-                                  "prefix_kv_len"])
+                                  "prefix_kv_len", "long_keys_kv_len",
+                                  "hd128_kv_len"])
 def test_flash_attention_kernel_on_gpu(cuda_device, case):
-    """K2 vs its plain version on the card, widened to hd 64: two bf16
-    ulps of the largest output over the rows that see a key (the kernel
-    returns zeros on a row with none, the plain version JAX's mean)."""
-    B, Sq, Sk, H, KV, _, Sp, causal, window, kv_len, prefix_len = \
+    """K2 vs its plain version on the card, hd widened to at least 64 (the
+    long-keys case runs split over the key axis): two bf16 ulps of the
+    largest output over the rows that see a key (the kernel returns zeros
+    on a row with none, the plain version JAX's mean)."""
+    B, Sq, Sk, H, KV, hd, Sp, causal, window, kv_len, prefix_len = \
         ATTN_CASES[case]
+    hd = max(hd, 64)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     dev = cuda_device
 
     def r(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    q, k, v = r(B, Sq, H, 64), r(B, Sk, KV, 64), r(B, Sk, KV, 64)
+    q, k, v = r(B, Sq, H, hd), r(B, Sk, KV, hd), r(B, Sk, KV, hd)
     kw = {"causal": causal, "window": window}
     if kv_len is not None:
         kw["kv_len"] = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     if Sp:
-        kw.update(prefix_k=r(B, Sp, KV, 64), prefix_v=r(B, Sp, KV, 64),
+        kw.update(prefix_k=r(B, Sp, KV, hd), prefix_v=r(B, Sp, KV, hd),
                   prefix_len=torch.tensor(prefix_len, dtype=torch.int32,
                                           device=dev))
     before = ops.LAUNCHES["flash_attention"]
