@@ -15,13 +15,15 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    the pooled, full-admission and tail-admission shapes (``FLASH_CASES``:
    ragged ``kv_len``, a prefix operand with 64 and 0 valid positions), with
    GQA, a window and queries that are a strict suffix of the keys, and at
-   whisper's bidirectional encoder (1500 frames) and cross-attention
+   whisper's bidirectional encoder (1500 frames, a pooled batch and one
+   admission's, the latter split over the key axis) and cross-attention
    prefill (Sq 16 and 64 against 1500 frames) shapes, split over the key
    axis (empty trailing splits, empty splits past a prefix's length, a
-   split holding a prefix's end and the new keys) and at hd 128; the float
-   flash-decode kernel (K5) at the cross-attention decode shape (8 slots,
-   1500 frames), the float pool's (S = s_max, ragged lengths), with GQA
-   and windows (``FLOAT_CASES``);
+   split holding a prefix's end and the new keys, causal splits over
+   several query tiles) and at hd 128, its library's SASS holding the
+   tensor cores' HMMA; the float flash-decode kernel (K5) at the
+   cross-attention decode shape (8 slots, 1500 frames), the float pool's
+   (S = s_max, ragged lengths), with GQA and windows (``FLOAT_CASES``);
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
    same model run with the plain versions on the CPU, on the int8 pool (K3)
@@ -149,23 +151,21 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
-def sass_hmma(name: str) -> str:
+def sass_hmma(name: str) -> dict:
     """How many tensor-core (HMMA) instructions the built library of kernel
-    ``name`` holds, by kind, from ``cuobjdump -sass``."""
+    ``name`` holds, by kind, from ``cuobjdump -sass`` (raises if the tool
+    fails)."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    try:
-        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
-    except (OSError, subprocess.SubprocessError) as e:
-        return f"cuobjdump failed: {e}"
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
     kinds: dict = {}
     for line in sass.splitlines():
         for word in line.replace(";", " ").split():
             if word.startswith("HMMA"):
                 kinds[word] = kinds.get(word, 0) + 1
-    return json.dumps(kinds)
+    return kinds
 
 
 def smi_line() -> str:
@@ -397,17 +397,23 @@ FLASH_CASES = {
                             prefix_len=[112, 16]),
     "whisper_encoder": dict(B=2, Sq=ENC_LEN, Sk=ENC_LEN, H=8, KV=8,
                             causal=False),
+    "whisper_encoder_admission": dict(B=1, Sq=ENC_LEN, Sk=ENC_LEN, H=8,
+                                      KV=8, causal=False),
     "whisper_cross_prefill": dict(B=1, Sq=64, Sk=ENC_LEN, H=8, KV=8,
                                   causal=False),
     "whisper_cross_short": dict(B=1, Sq=16, Sk=ENC_LEN, H=8, KV=8,
                                 causal=False),
     "whisper_decoder_self": dict(B=1, Sq=64, Sk=64, H=8, KV=8, kv_len=[37]),
-    # key splits (``flash_attention.splits``, 128 keys each here): 8 CTAs
-    # over 1500 keys in 12 splits, 11 of them empty past kv_len; 32 CTAs
-    # over a 1024-key prefix and 16 new keys in 9 splits, two of them empty
-    # past prefix_len, the last the new keys alone; the same over a
-    # 1008-key prefix, whose last split holds the prefix's end and the new
-    # keys; hd 128 whole and in 3 splits
+    # key splits (``flash_attention.splits``; the encoder admission above
+    # runs 24 query tiles in 2 splits of 768 keys): 8 CTAs over 1500 keys
+    # in 12 splits of 128, 11 of them empty past kv_len; 32 CTAs over a
+    # 1024-key prefix and 16 new keys in 9 splits, two of them empty past
+    # prefix_len, the last the new keys alone; the same over a 1008-key
+    # prefix, whose last split holds the prefix's end and the new keys; hd
+    # 128 whole and in 3 splits; causal over several query tiles: a
+    # 128-query tail behind a 192-key prefix (64 CTAs in 3 splits, the
+    # second crossing the prefix's end, the third empty for the first
+    # query tile) and a 512-token admission (256 CTAs in 2 splits)
     "split_empty_tail": dict(B=1, Sq=16, Sk=ENC_LEN, H=8, KV=8, causal=False,
                              kv_len=[100]),
     "split_prefix_boundary": dict(B=1, Sq=16, Sk=16, Sp=1024, kv_len=[9],
@@ -417,6 +423,9 @@ FLASH_CASES = {
     "hd128": dict(B=2, Sq=96, Sk=96, KV=8, hd=128, kv_len=[96, 41]),
     "hd128_split": dict(B=1, Sq=16, Sk=300, KV=8, hd=128, causal=False,
                         kv_len=[250]),
+    "split_causal_tail": dict(B=1, Sq=128, Sk=128, Sp=192, kv_len=[100],
+                              prefix_len=[150]),
+    "split_causal_admission": dict(B=1, Sq=512, Sk=512, kv_len=[400]),
 }
 # the shapes timed: one call of each kind as the serving path makes it
 # (whisper: the encoder of one admission, and the cross-attention of a
@@ -512,8 +521,9 @@ def check_flash(dev, gen):
         rows = flash_visible(args[0], args[1], kw).any(dim=-1)
         err = (got.float() - want.float()).abs()[rows].max().item()
         tol = 2 * 2.0 ** -8 * want.float()[rows].abs().max().item() + 1e-6
-        log(f"kernel flash_attention [{name}] {case}: max_abs_err={err:.3e} "
-            f"(bound {tol:.3e})")
+        log(f"kernel flash_attention [{name}] {case}: "
+            f"{flash_splits(args[0], args[1], kw)} key split(s), "
+            f"max_abs_err={err:.3e} (bound {tol:.3e})")
         ok &= err <= tol and bool(torch.isfinite(got.float()).all())
         errs[name] = err
     return ok, errs
@@ -1635,9 +1645,12 @@ def flash_timing(dev) -> dict:
 
 
 def flash_splits(q, k, kw) -> int:
-    """The number of key splits K2's wrapper takes at these shapes."""
+    """The number of key splits K2's wrapper takes at these shapes (1 on
+    the CPU, where the plain version runs)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import splits
+    if not q.is_cuda:
+        return 1
     B, Sq, H, _ = q.shape
     pk = kw.get("prefix_k")
     keys = k.shape[1] + (0 if pk is None else pk.shape[1])
@@ -1798,8 +1811,14 @@ def main() -> int:
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log(f"  sass flash_attention: {sass_hmma('flash_attention')}")
     phases = {}
+    try:
+        hmma = sass_hmma("flash_attention")
+    except (OSError, subprocess.SubprocessError) as e:
+        return fail(f"cuobjdump failed: {e}")
+    log(f"  sass flash_attention: {json.dumps(hmma)}")
+    # K2's two products must run on the tensor cores (mma.sync m16n8k16)
+    phases["flash_attention_hmma"] = hmma.get("HMMA.16816.F32.BF16", 0) > 0
     ok_k, errs = phase_kernels(dev)
     phases["kernels"] = ok_k
     ok_r, _ = phase_reference(dev)

@@ -484,10 +484,13 @@ flash_attention_kernel_merge(const float* __restrict__ part_m,
 template <int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = (kRows + 2 * kStages * kTile) * (HD + kPad) * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
+  if (smem > 48 * 1024) {   // hd 128 only: past the default dynamic limit
+    err = cudaFuncSetAttribute(flash_attention_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+  }
   const int bq = kRows / a.G;
   const dim3 grid((a.Sq + bq - 1) / bq, a.KV, a.B * a.nsplit);
   flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(a);

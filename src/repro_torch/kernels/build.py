@@ -103,9 +103,24 @@ def load(name: str) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """The number of SMs of CUDA device ``index`` (the wrappers size their
-    key splits by it)."""
+    key splits by it, ``key_splits``)."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def key_splits(ctas: int, keys: int, tile: int, min_split: int,
+               sms: int) -> tuple[int, int]:
+    """(number of splits, keys per split) of a key axis of ``keys`` that
+    ``ctas`` CTAs walk on ``sms`` SMs: enough splits for about two CTAs per
+    SM, each split a multiple of ``tile`` and at least ``min_split`` keys.
+    Where the CTAs are enough already, or there are fewer keys than two
+    minimum splits (there the merge pass costs more than the split saves),
+    one split holds every key. Shapes only, never lengths: choosing needs
+    no host sync."""
+    want = -(-2 * sms // max(ctas, 1)) if keys >= 2 * min_split else 1
+    n = max(1, min(want, -(-keys // min_split)))
+    split_len = tile * max(1, -(-(-(-keys // n)) // tile))
+    return max(1, -(-keys // split_len)), split_len
 
 
 def check(err: int, name: str):

@@ -39,12 +39,9 @@ def _lib():
 
 def splits(pairs: int, S: int, sms: int) -> tuple[int, int]:
     """(number of splits, positions per split) for ``pairs`` (row, kv head)
-    CTAs over ``S`` positions: enough splits for about two CTAs per SM, each
-    at least ``_MIN_SPLIT`` positions, a split a multiple of 32."""
-    want = -(-2 * sms // max(pairs, 1))
-    n = max(1, min(want, -(-S // _MIN_SPLIT)))
-    split_len = 32 * -(-(-(-S // n)) // 32)
-    return -(-S // split_len), split_len
+    CTAs over ``S`` positions: ``build.key_splits`` in chunks of 32, at
+    least ``_MIN_SPLIT`` positions a split."""
+    return build.key_splits(pairs, S, 32, _MIN_SPLIT, sms)
 
 
 def decode_attention(q, k, v, lengths, *, window: Optional[int] = None):

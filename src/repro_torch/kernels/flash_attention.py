@@ -45,17 +45,11 @@ def splits(B: int, Sq: int, H: int, KV: int, keys: int,
            sms: int) -> tuple[int, int]:
     """(number of splits, keys per split) of the key axis [0, ``keys``)
     (prefix and new keys together) for a (B, Sq, H) query block over KV kv
-    heads on ``sms`` SMs. The kernel's (query tile, kv head, row) CTAs are
-    cut into enough splits for about two CTAs per SM, each split a multiple
-    of the key tile and at least ``_MIN_SPLIT`` keys; where there are CTAs
-    enough, or fewer keys than two minimum splits (there the merge pass
-    costs more than the split saves), one split holds every key. Shapes
-    only, never lengths: choosing needs no host sync."""
+    heads on ``sms`` SMs: ``build.key_splits`` over the kernel's (query
+    tile, kv head, row) CTAs, in key tiles, at least ``_MIN_SPLIT`` keys a
+    split."""
     ctas = -(-Sq * (H // KV) // _ROWS) * KV * B
-    want = -(-2 * sms // max(ctas, 1)) if keys >= 2 * _MIN_SPLIT else 1
-    n = max(1, min(want, -(-keys // _MIN_SPLIT)))
-    split_len = _TILE * max(1, -(-(-(-keys // n)) // _TILE))
-    return max(1, -(-keys // split_len)), split_len
+    return build.key_splits(ctas, keys, _TILE, _MIN_SPLIT, sms)
 
 
 def _rows_ok(t, name):

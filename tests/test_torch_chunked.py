@@ -25,7 +25,8 @@ adapters converted to the port:
   and ``warm_chunked`` advances no slot's generator;
 * (h) ``ServeLoop`` charges tails only and fills the hit/miss TTFT split;
 * (i) on a GPU only, the K2 CUDA kernel against its plain version, split
-  over the key axis and at hd 128 too; on any host, the K2 wrapper's
+  over the key axis (over one query tile and over several, causal and
+  not) and at hd 128 too; on any host, the K2 wrapper's
   key-split plan (``flash_attention.splits``: the splits cover the key
   axis, tile multiples, from the shapes alone).
 
@@ -99,6 +100,14 @@ ATTN_CASES = {
     "long_keys_kv_len": (1, 16, 1500, 8, 8, 16, 0, False, None, (100,),
                          None),
     "hd128_kv_len": (2, 12, 12, 4, 2, 128, 0, True, None, (12, 5), None),
+    # causal over several query tiles, split over the key axis on the card
+    # (64 CTAs over a 192-key prefix and 128 new keys: 3 splits, the second
+    # crossing the prefix's end); whisper's encoder at one row (24 query
+    # tiles in 2 splits)
+    "causal_split_prefix": (1, 128, 128, 32, 32, 16, 192, True, None, (100,),
+                            (150,)),
+    "encoder_one_row": (1, 1500, 1500, 8, 8, 16, 0, False, None, None,
+                        None),
 }
 
 
@@ -223,6 +232,7 @@ SPLIT_SHAPES = {
     "whisper_cross_prefill": (1, 64, 8, 8, 1500),
     "whisper_cross_short": (1, 16, 8, 8, 1500),
     "prefix_boundary": (1, 16, 32, 32, 1040),
+    "causal_split_prefix": (1, 128, 32, 32, 320),
     "odd_keys": (1, 5, 4, 1, 129),
     "no_keys": (1, 4, 4, 4, 0),
 }
@@ -257,19 +267,31 @@ def test_flash_attention_split_plan(name):
         assert n > 1 and ctas * n >= 96
     if name in ("pooled", "tail"):
         assert n == 1
+    if name in ("whisper_encoder", "causal_split_prefix"):
+        assert n > 1            # several query tiles, each split too
 
 
 def test_flash_attention_split_plan_takes_shapes_only():
     """The plan is a function of the shapes and the SM count alone (never
     of kv_len or prefix_len, which live on the device), so choosing it
-    needs no host sync."""
+    needs no host sync: the planner takes no length, and the wrapper's one
+    call of it is built from shape names and the device index only (no
+    length tensor, no read of a tensor's values)."""
+    import ast
     import inspect
 
     from repro_torch.kernels import flash_attention as fa
     assert list(inspect.signature(fa.splits).parameters) == \
         ["B", "Sq", "H", "KV", "keys", "sms"]
-    assert fa.splits(1, 64, 8, 8, 1500, SMS) == \
-        fa.splits(1, 64, 8, 8, 1500, SMS)
+    tree = ast.parse(inspect.getsource(fa.flash_attention))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == "splits"]
+    assert len(calls) == 1
+    nodes = [n for a in calls[0].args for n in ast.walk(a)]
+    names = {n.id for n in nodes if isinstance(n, ast.Name)}
+    attrs = {n.attr for n in nodes if isinstance(n, ast.Attribute)}
+    assert names <= {"B", "Sq", "H", "KV", "Sp", "Sk", "build", "q"}, names
+    assert attrs <= {"sm_count", "device", "index"}, attrs
 
 
 def test_flash_attention_routes_only_cpu_to_the_plain_version():
@@ -759,12 +781,14 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["causal", "window_kv_len", "gqa_suffix",
                                   "prefix_kv_len", "long_keys_kv_len",
-                                  "hd128_kv_len"])
+                                  "hd128_kv_len", "causal_split_prefix",
+                                  "encoder_one_row"])
 def test_flash_attention_kernel_on_gpu(cuda_device, case):
     """K2 vs its plain version on the card, hd widened to at least 64 (the
-    long-keys case runs split over the key axis): two bf16 ulps of the
-    largest output over the rows that see a key (the kernel returns zeros
-    on a row with none, the plain version JAX's mean)."""
+    long-keys, causal-split and one-row encoder cases run split over the
+    key axis): two bf16 ulps of the largest output over the rows that see
+    a key (the kernel returns zeros on a row with none, the plain version
+    JAX's mean)."""
     B, Sq, Sk, H, KV, hd, Sp, causal, window, kv_len, prefix_len = \
         ATTN_CASES[case]
     hd = max(hd, 64)
