@@ -23,7 +23,13 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    several query tiles) and at hd 128, its library's SASS holding the
    tensor cores' HMMA; the float flash-decode kernel (K5) at the
    cross-attention decode shape (8 slots, 1500 frames), the float pool's
-   (S = s_max, ragged lengths), with GQA and windows (``FLOAT_CASES``);
+   (S = s_max, ragged lengths), with GQA and windows, at every (hd, G)
+   instantiation, lengths that leave later splits empty and a window
+   across a split boundary (``FLOAT_CASES``); the SGMV kernel (K1) at
+   stablelm's and whisper's serving shapes, ranks 4 and 64, a narrower
+   output, one adapter and sentinel blocks only (``sgmv_cases``); K1 and
+   K5 each twice on the same inputs, bit for bit, and their libraries'
+   ptxas reports free of spill stores;
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
    same model run with the plain versions on the CPU, on the int8 pool (K3)
@@ -62,9 +68,11 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    version and a library yardstick, beside the least time the card could
    take (its bound), K2 also at whisper's encoder and cross-prefill
    shapes (with its number of key splits and, where it splits, its time
-   unsplit), a profile of one dense, one paged and one whisper decode step
-   and of one whisper pooled batch, and the prefill device time a prefix
-   hit saves (full admission against its tail).
+   unsplit), K1 and K5 with their split plans and their time by kernel
+   (shrink/expand), K1 also beside the port's gather path at the same
+   tokens, a profile of one dense, one paged and one whisper decode step
+   (8 live streams each) and of one whisper pooled batch, and the prefill
+   device time a prefix hit saves (full admission against its tail).
 
 The line before last prints the card's name and power limit
 (``nvidia-smi``); before it, one JSON line lists the kernels. The last line
@@ -121,13 +129,13 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean DEVICE ms per call: the summed durations of every kernel (and
-    copy) the call runs on the card, from ``torch.profiler``, so host gaps
-    between launches do not count. A profiling session that records no
-    device activity (CUPTI sometimes returns none) is run again, up to
-    three times; then this raises (CUDA events would time the host's
-    enqueue rate instead)."""
+def device_kernels(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Mean DEVICE ms per call of each kernel (and copy) the call runs on
+    the card, by name, from ``torch.profiler``, so host gaps between
+    launches do not count. A profiling session that records no device
+    activity (CUPTI sometimes returns none) is run again, up to three
+    times; then this raises (CUDA events would time the host's enqueue
+    rate instead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -138,12 +146,29 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(e.device_time for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-        if busy_us > 0:
-            return busy_us / 1e3 / iters
-        log("device_ms: the profiler recorded no device time; again")
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.device_time / 1e3 / iters
+        if sum(by_name.values()) > 0:
+            return by_name
+        log("device_kernels: the profiler recorded no device time; again")
     raise RuntimeError("the profiler recorded no device time")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean DEVICE ms per call: the summed durations of every kernel (and
+    copy) the call runs on the card (``device_kernels``)."""
+    return sum(device_kernels(fn, iters, warmup).values())
+
+
+def kernel_split(by_name: dict, parts: dict) -> dict:
+    """Device ms per call of each named part of a kernel's call: the sum
+    over the kernels whose name holds the part's key (``parts``: key ->
+    label)."""
+    return {label: sum(ms for n, ms in by_name.items() if key in n)
+            for key, label in parts.items()}
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -168,6 +193,16 @@ def sass_hmma(name: str) -> dict:
     return kinds
 
 
+def spill_stores(name: str) -> int:
+    """Bytes of spill stores the ptxas report of kernel ``name``'s library
+    (``build/kernels/<name>.log``) gives, summed over its kernels."""
+    import re
+
+    from repro_torch.kernels import build
+    log_text = (build.BUILD_DIR / f"{name}.log").read_text()
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log_text))
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -178,17 +213,22 @@ def smi_line() -> str:
 
 # ---------------- phase 1: kernels vs their plain versions ----------------
 
-def sgmv_inputs(gen, T, d, out, na, nsets, dev):
-    """``nsets`` input sets (one per layer, so timing finds them cold)."""
+def sgmv_inputs(gen, T, d, out, na, nsets, dev, r=RANK, sentinel_only=False):
+    """``nsets`` input sets (one per layer, so timing finds them cold):
+    bf16 x, f32 A (na, d, r) and B (na, r, out), and per block an adapter id
+    or a sentinel (``na`` or 10**6: no adapter; every block with
+    ``sentinel_only``)."""
     import torch
     nb = T // BLOCK_T
     sets = []
     for _ in range(nsets):
         x = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
-        a = torch.randn((na, d, RANK), generator=gen, device=dev) * 0.05
-        b = torch.randn((na, RANK, out), generator=gen, device=dev) * 0.05
+        a = torch.randn((na, d, r), generator=gen, device=dev) * 0.05
+        b = torch.randn((na, r, out), generator=gen, device=dev) * 0.05
         ids = torch.randint(0, na + 2, (nb,), generator=gen, device=dev)
         ids = torch.where(ids > na, torch.full_like(ids, 10**6), ids)
+        if sentinel_only:
+            ids.fill_(na)
         sets.append((x, ids.to(torch.int32), a, b))
     return sets
 
@@ -206,6 +246,41 @@ def sgmv_bound(x, ids, a, b):
         4 * used * (d * r + r * out)
     flops = 2.0 * live.numel() * BLOCK_T * r * (d + out)
     return bound_ms(nbytes, flops)
+
+
+def sgmv_cases(cfg) -> dict:
+    """K1 shapes: stablelm-1.6b's q/v projections (d = out = 2048, rank 16,
+    4 adapters) at decode (8 tokens: 6 blocks of 16), admission prefill (128
+    tokens) and a pooled batch (32 x 128 tokens); whisper-base's at decode
+    (d = out = 512); and at decode ranks 4 and 64, a narrower output (96),
+    one adapter, and a batch of sentinel blocks only."""
+    from repro_torch.kernels.segmented_lora import padded_tokens
+    d = cfg.d_model
+    dec = padded_tokens(SLOTS, min(SLOTS, 4 + 2), BLOCK_T)
+    return {
+        "decode": dict(T=dec, d=d, out=d),
+        "prefill": dict(T=padded_tokens(PROMPT_LEN, min(PROMPT_LEN, 6),
+                                        BLOCK_T), d=d, out=d),
+        "pooled": dict(T=padded_tokens(32 * PROMPT_LEN, 6, BLOCK_T), d=d,
+                       out=d),
+        "whisper_decode": dict(T=dec, d=512, out=512),
+        "rank4": dict(T=dec, d=d, out=d, r=4),
+        "rank64": dict(T=dec, d=d, out=d, r=64),
+        "out96": dict(T=dec, d=d, out=96),
+        "one_adapter": dict(T=dec, d=d, out=d, na=1),
+        "all_sentinel": dict(T=dec, d=d, out=d, sentinel_only=True),
+    }
+
+
+def sgmv_plan(x) -> str:
+    """K1's d-split plan at these shapes ("plain" on the CPU)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segmented_lora import d_splits
+    if not x.is_cuda:
+        return "plain"
+    n, split_len = d_splits(x.shape[0] // BLOCK_T, x.shape[1],
+                            build.sm_count(x.device.index or 0))
+    return f"{n} d-split(s) of {split_len}"
 
 
 def torch_unique_count(t):
@@ -280,7 +355,11 @@ def float_bound(q, k, lens, window=None):
 # K5 shapes: the cross-attention decode of full-width whisper-base (8 slots,
 # H = KV = 8, 1500 frames, every row at full length), the float dense pool
 # of full-width stablelm-1.6b (H = KV = 32, S = s_max = 161, ragged lengths
-# from 1 to S), with GQA and with a window
+# from 1 to S), with GQA and with a window; at the cross length every other
+# (hd, G) instantiation of the kernel (hd 32, 64, 128; G 1, 2, 4, 8), lengths
+# that end inside the first split (the later splits of those rows empty) and
+# a window whose start crosses a split boundary (split at 384 on 132 SMs);
+# and a grid of 8 splits
 FLOAT_CASES = {
     "cross": dict(H=8, KV=8, S=ENC_LEN, lens=[ENC_LEN] * SLOTS),
     "float_pool": dict(H=32, KV=32, S=PROMPT_LEN + MAX_NEW + 1,
@@ -291,33 +370,61 @@ FLOAT_CASES = {
                    lens=[161, 1, 48, 49, 120, 7, 96, 150]),
     "cross_gqa_window": dict(H=8, KV=2, S=ENC_LEN, window=700,
                              lens=[ENC_LEN, 1, 699, 701, 1499, 32, 900, 64]),
+    **{f"cross_hd{hd}_g{g}": dict(H=8 * g, KV=8, S=ENC_LEN, hd=hd,
+                                  lens=[ENC_LEN, 1, 383, 385, 1100, 32, 767,
+                                        1499])
+       for hd, gs in ((32, (1, 2, 4, 8)), (64, (2, 8)), (128, (1, 2, 4, 8)))
+       for g in gs},
+    "cross_short": dict(H=8, KV=8, S=ENC_LEN,
+                        lens=[100, 1, 383, 384, 385, ENC_LEN, 50, 7]),
+    "cross_window_crossing": dict(H=8, KV=8, S=ENC_LEN, window=300,
+                                  lens=[1000, ENC_LEN, 790, 770, 1153, 400,
+                                        384, 1200]),
+    # 32 pairs over 2048 positions: the most splits a cluster holds (8)
+    "eight_splits": dict(H=8, KV=4, S=2048,
+                         lens=[2048, 1, 255, 257, 1800, 2047, 1024, 600]),
 }
+
+
+def float_splits(q, k) -> str:
+    """K5's split plan at these shapes ("plain" on the CPU)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import splits
+    if not q.is_cuda:
+        return "plain"
+    n, split_len = splits(q.shape[0] * k.shape[2], k.shape[1],
+                          build.sm_count(q.device.index or 0))
+    return f"{n} split(s) of {split_len}"
 
 
 def check_float_decode(dev, gen):
     """K5 against its plain version at every case of ``FLOAT_CASES``, two
-    bf16 ulps of the largest output (no row is empty: every length >= 1)."""
+    bf16 ulps of the largest output (no row is empty: every length >= 1),
+    and bit-identical over two calls on the same inputs."""
     import torch
 
     from repro_torch.kernels import ops, ref
     errs, ok = {}, True
-    hd = full_config().head_dim
     for name, case in FLOAT_CASES.items():
+        hd = case.get("hd", full_config().head_dim)
         q, k, v, ln = float_inputs(gen, SLOTS, case["H"], case["KV"],
                                    case["S"], hd, 1, dev,
                                    lens=case["lens"])[0]
         window = case.get("window")
         got = ops.decode_attention(q, k, v, ln, window=window)
+        again = ops.decode_attention(q, k, v, ln, window=window)
         want = ref.decode_attention_ref(q, k.transpose(1, 2),
                                         v.transpose(1, 2), ln, window=window,
                                         p_dtype=v.dtype)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+        same = torch.equal(got, again)
         log(f"kernel decode_attention [{name}] B={SLOTS} H={case['H']} "
-            f"KV={case['KV']} S={case['S']} hd={hd} window={window}: "
-            f"max_abs_err={err:.3e} (bound {tol:.3e})")
-        ok &= err <= tol and bool(torch.isfinite(got.float()).all())
+            f"KV={case['KV']} S={case['S']} hd={hd} window={window}, "
+            f"{float_splits(q, k)}: max_abs_err={err:.3e} (bound "
+            f"{tol:.3e}), bit-identical twice: {same}")
+        ok &= err <= tol and bool(torch.isfinite(got.float()).all()) and same
         errs[name] = err
     return ok, errs
 
@@ -536,29 +643,29 @@ def phase_kernels(dev):
     import torch
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.segmented_lora import padded_tokens
     cfg = full_config()
     gen = torch.Generator(device=dev).manual_seed(1)
-    d, out = cfg.d_model, cfg.num_heads * cfg.head_dim
     results, ok = {}, True
     cap = 4                                  # slot bucket of 4 adapters
-    shapes = {
-        "decode": padded_tokens(SLOTS, min(SLOTS, cap + 2), BLOCK_T),
-        "prefill": padded_tokens(PROMPT_LEN, min(PROMPT_LEN, cap + 2), BLOCK_T),
-        "pooled": padded_tokens(32 * PROMPT_LEN, min(32, cap + 2), BLOCK_T),
-    }
-    for name, T in shapes.items():
-        x, ids, a, b = sgmv_inputs(gen, T, d, out, cap, 1, dev)[0]
+    for name, case in sgmv_cases(cfg).items():
+        T, dd, oo = case["T"], case["d"], case["out"]
+        na, r = case.get("na", cap), case.get("r", RANK)
+        x, ids, a, b = sgmv_inputs(gen, T, dd, oo, na, 1, dev, r=r,
+                                   sentinel_only=case.get("sentinel_only",
+                                                          False))[0]
         got = ops.segmented_lora(x, ids, a, b, block_t=BLOCK_T)
+        again = ops.segmented_lora(x, ids, a, b, block_t=BLOCK_T)
         want = ref.segmented_lora_ref(x, ids, a, b, BLOCK_T)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
-        sentinel_zero = bool((got.view(-1, BLOCK_T, out)[ids >= cap] == 0).all())
-        log(f"kernel segmented_lora [{name}] T={T} d={d} out={out} r={RANK} "
-            f"NA={cap}: max_abs_err={err:.3e} (bound {tol:.3e}), sentinel "
-            f"blocks zero: {sentinel_zero}")
-        ok &= err <= tol and sentinel_zero
+        sentinel_zero = bool((got.view(-1, BLOCK_T, oo)[ids >= na] == 0).all())
+        same = torch.equal(got, again)
+        log(f"kernel segmented_lora [{name}] T={T} d={dd} out={oo} r={r} "
+            f"NA={na}, {sgmv_plan(x)}: max_abs_err={err:.3e} (bound "
+            f"{tol:.3e}), sentinel blocks zero: {sentinel_zero}, "
+            f"bit-identical twice: {same}")
+        ok &= err <= tol and sentinel_zero and same
         results.setdefault("segmented_lora", {})[name] = err
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S = PROMPT_LEN + MAX_NEW + 1
@@ -1334,12 +1441,9 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.segmented_lora import padded_tokens
     cfg = full_config()
     gen = torch.Generator(device=dev).manual_seed(2)
     nsets, cap = cfg.num_layers, 4
-    d, out = cfg.d_model, cfg.num_heads * cfg.head_dim
-    rows = []
     extra = {}
 
     def rotating(fn, sets):
@@ -1350,23 +1454,43 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
             it[0] += 1
         return call
 
-    # K1 at the decode, prefill and pooled shapes; the decode one goes in
-    # the kernels line (48 launches per decode step)
-    for name, n_tok, segs in (("decode", SLOTS, min(SLOTS, cap + 2)),
-                              ("prefill", PROMPT_LEN, min(PROMPT_LEN, cap + 2)),
-                              ("pooled", 32 * PROMPT_LEN, min(32, cap + 2))):
-        T = padded_tokens(n_tok, segs, BLOCK_T)
-        sets = sgmv_inputs(gen, T, d, out, cap, nsets if name == "decode" else 2, dev)
-        k_ms = device_ms(rotating(lambda x, i, a, b: ops.segmented_lora(
+    # K1 at the decode, prefill and pooled shapes of stablelm and whisper's
+    # decode shape; the stablelm decode one goes in the kernels line (48
+    # launches per decode step). Beside it, as a yardstick, the port's
+    # gather path at the same tokens (``models/lora.py::apply_lora_delta``:
+    # the same tokens as (requests, tokens) rows, one adapter index a
+    # request, two bmm; the other side of the segmented/gather crossover)
+    from repro_torch.models.lora import apply_lora_delta
+    cases = sgmv_cases(cfg)
+    for name, (n_req, per_req) in (("decode", (SLOTS, 1)),
+                                   ("prefill", (1, PROMPT_LEN)),
+                                   ("pooled", (32, PROMPT_LEN)),
+                                   ("whisper_decode", (SLOTS, 1))):
+        n_tok = n_req * per_req
+        T, dd = cases[name]["T"], cases[name]["d"]
+        sets = sgmv_inputs(gen, T, dd, dd, cap,
+                           2 if name == "pooled" else nsets, dev)
+        by_kernel = device_kernels(rotating(lambda x, i, a, b: ops.segmented_lora(
             x, i, a, b, block_t=BLOCK_T), sets))
+        k_ms = sum(by_kernel.values())
         p_ms = device_ms(rotating(lambda x, i, a, b: ref.segmented_lora_ref(
             x, i, a, b, BLOCK_T), sets))
         b_ms, b_by = sgmv_bound(*sets[0])
+        gather = [(x[:n_tok].view(n_req, per_req, dd), a, b,
+                   torch.arange(n_req, device=dev, dtype=torch.int32) % cap)
+                  for x, _, a, b in sets]
         extra[f"segmented_lora_{name}"] = {
-            "T": T, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "enqueue_ms": time_ms(rotating(
+            "T": T, "tokens": n_tok, "d": dd, "plan": sgmv_plan(sets[0][0]),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "split_ms": kernel_split(by_kernel, {"shrink_kernel": "shrink",
+                                                 "expand_kernel": "expand"}),
+            "gather_path_ms": device_ms(rotating(apply_lora_delta, gather)),
+            "enqueue_ms": time_ms(rotating(
                 lambda x, i, a, b: ops.segmented_lora(x, i, a, b,
-                                                      block_t=BLOCK_T), sets))}
+                                                      block_t=BLOCK_T),
+                sets))}
+        log(f"segmented_lora [{name}]: {extra[f'segmented_lora_{name}']['plan']}, "
+            f"{k_ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f})")
         if name == "decode":
             k1 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -1423,25 +1547,10 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
         lambda *a: ops.paged_decode_attention(*a), sets))
     k4 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
               library_ms=lib_ms)
-    # launches per decode step and ms per full-width decode step (8 slots)
-    srv, fm, eng = handles
-    cap_now = fm.adapters.capacity()
-    perm, inv, blocks = eng._segments(cap_now)
-    adapters = torch.as_tensor(eng._slot_adapters, device=dev)
-    step = eng._decode_fn(cap_now, 1)
-    ops.reset_launches()
-    step(fm.params, eng.pool, eng._tokens, eng._keys, fm.adapters.stacked(),
-         adapters, perm, inv, blocks)
-    torch.cuda.synchronize()
-    per_step = {k: int(v) for k, v in ops.LAUNCHES.items()}
-    extra["decode_step_ms"] = time_ms(lambda: step(
-        fm.params, eng.pool, eng._tokens, eng._keys, fm.adapters.stacked(),
-        adapters, perm, inv, blocks), iters=10, warmup=2)
-    extra["launches_per_decode_step"] = per_step
-    extra["decode_step_profile"] = profile_step(lambda: step(
-        fm.params, eng.pool, eng._tokens, eng._keys, fm.adapters.stacked(),
-        adapters, perm, inv, blocks))
-    extra.update(paged_step_timing(dev, paged_handles))
+    # launches, ms and profile of one full-width decode step, 8 live streams
+    extra.update(live_step_timing(dev, handles, "", seed=1, rid0=-300))
+    extra.update(live_step_timing(dev, paged_handles, "paged_", seed=3,
+                                  rid0=-100))
     # K2 at its three shapes; the pooled one (the most device time per
     # call) goes in the kernels line
     extra["flash_attention"] = flash_timing(dev)
@@ -1451,7 +1560,9 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
     extra["decode_attention"] = float_decode_timing(dev)
     k5 = {k: extra["decode_attention"]["cross"][k]
           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-    extra.update(whisper_step_timing(dev, whisper_handles))
+    extra.update(live_step_timing(dev, whisper_handles, "whisper_", seed=8,
+                                  rid0=-200, prompt_len=W_PROMPT_LEN,
+                                  max_new=W_MAX_NEW, frames=True))
     extra["whisper_pooled_batch"] = whisper_pooled_timing(dev,
                                                           whisper_handles)
     return k1, k2, k3, k4, k5, extra
@@ -1491,7 +1602,9 @@ def float_decode_timing(dev) -> dict:
     float dense pool of stablelm-1.6b (ragged lengths up to s_max = 161;
     24 sets), its plain version's, one ``scaled_dot_product_attention``
     call on the same bf16 cache (a boolean mask where lengths are ragged),
-    and the bound counted on this data."""
+    and the bound counted on this data; the split plan, and the time by
+    kernel (``split_ms``: the decode kernel, and a merge kernel where one
+    runs)."""
     import torch
     import torch.nn.functional as F
 
@@ -1511,7 +1624,8 @@ def float_decode_timing(dev) -> dict:
                 fn(*items[it[0] % len(items)])
                 it[0] += 1
             return call
-        k_ms = device_ms(rotating(ops.decode_attention, sets))
+        by_kernel = device_kernels(rotating(ops.decode_attention, sets))
+        k_ms = sum(by_kernel.values())
         p_ms = device_ms(rotating(
             lambda q, k, v, ln: ref.decode_attention_ref(
                 q, k.transpose(1, 2), v.transpose(1, 2), ln,
@@ -1529,54 +1643,16 @@ def float_decode_timing(dev) -> dict:
         q, k, _, ln = sets[0]
         b_ms, b_by = float_bound(q, k, ln)
         out[name] = dict(B=SLOTS, H=case["H"], KV=case["KV"], S=case["S"],
-                         ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by,
+                         plan=float_splits(q, k), ms=k_ms, plain_ms=p_ms,
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                         split_ms=kernel_split(by_kernel, {
+                             "decode_kernel": "decode",
+                             "merge_kernel": "merge"}),
                          enqueue_ms=time_ms(rotating(ops.decode_attention,
                                                      sets)))
-    return out
-
-
-def whisper_step_timing(dev, handles) -> dict:
-    """One full-width whisper decode step with 8 live streams (64-token
-    prompts, each with its own 1500 frames) on the paged pool: launches per
-    step, ms by CUDA events, and its profile. The streams retire
-    afterwards, and every state slot and page must be free again."""
-    import numpy as np
-    import torch
-
-    from repro_torch.kernels import ops
-    srv, fm, eng = handles
-    rng = np.random.RandomState(8)
-    for i in range(SLOTS):
-        eng.join(f"task{i % N_TASKS}",
-                 rng.randint(0, fm.cfg.vocab_size, W_PROMPT_LEN),
-                 adapter_id=f"lora{i % N_TASKS}", max_new_tokens=W_MAX_NEW,
-                 rid=-200 - i, enc_feats=(rng.randn(ENC_LEN, fm.cfg.d_model)
-                                          * 0.5).astype(np.float32))
-    if eng.pending_count() or eng.active_count() != SLOTS:
-        raise RuntimeError("whisper step timing: the 8 streams did not admit")
-    eng._ensure_chunk_pages()
-    eng._sync_page_table()
-    cap = fm.adapters.capacity()
-    perm, inv, blocks = eng._segments(cap)
-    adapters = torch.as_tensor(eng._slot_adapters, device=dev)
-    step = eng._decode_fn(cap, 1)
-
-    def run():
-        step(fm.params, eng.pool, eng._tokens, eng._keys,
-             fm.adapters.stacked(), adapters, perm, inv, blocks)
-    ops.reset_launches()
-    run()
-    torch.cuda.synchronize()
-    out = {"whisper_launches_per_decode_step":
-           {k: int(v) for k, v in ops.LAUNCHES.items() if v},
-           "whisper_decode_step_ms": time_ms(run, iters=10, warmup=2),
-           "whisper_decode_step_profile": profile_step(run)}
-    for i in range(SLOTS):
-        eng.leave(i)
-    if eng.free_page_count() != eng.total_pages - 1 or \
-            eng.state_pool.slots_in_use():
-        raise RuntimeError("whisper step timing leaked pages or state slots")
+        log(f"decode_attention [{name}]: {out[name]['plan']}, "
+            f"{k_ms * 1e3:.2f} us (SDPA {l_ms * 1e3:.2f}, bound "
+            f"{b_ms * 1e3:.2f})")
     return out
 
 
@@ -1713,25 +1789,37 @@ def tail_saving(dev, handles) -> dict:
     return out
 
 
-def paged_step_timing(dev, handles) -> dict:
-    """One full-width paged decode step with 8 live streams of 64-token
-    prompts (5 pages each with the chunk's headroom: 40 of the 44 usable
-    pages): launches per step, ms by CUDA events, and its profile. The
-    streams retire afterwards, and the arena must be whole again."""
+def live_step_timing(dev, handles, prefix: str, seed: int, rid0: int,
+                     prompt_len: int = 64, max_new: int = MAX_NEW,
+                     frames: bool = False) -> dict:
+    """One full-width decode step of the engine in ``handles`` with 8 live
+    streams of ``prompt_len``-token prompts, one adapter each (on the paged
+    pool 5 pages a stream with the chunk's headroom: 40 of the 44 usable
+    pages; with ``frames``, each stream with its own 1500 encoder frames):
+    launches per step, ms by CUDA events, and its profile, under keys
+    starting with ``prefix``. The streams retire afterwards, and every page
+    and state slot must be free again."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     srv, fm, eng = handles
-    rng = np.random.RandomState(3)
+    rng = np.random.RandomState(seed)
     for i in range(SLOTS):
-        eng.join(f"task{i % N_TASKS}", rng.randint(0, fm.cfg.vocab_size, 64),
-                 adapter_id=f"lora{i % N_TASKS}", max_new_tokens=MAX_NEW,
-                 rid=-100 - i)
+        kw = {}
+        if frames:
+            kw["enc_feats"] = (rng.randn(ENC_LEN, fm.cfg.d_model)
+                               * 0.5).astype(np.float32)
+        eng.join(f"task{i % N_TASKS}",
+                 rng.randint(0, fm.cfg.vocab_size, prompt_len),
+                 adapter_id=f"lora{i % N_TASKS}", max_new_tokens=max_new,
+                 rid=rid0 - i, **kw)
     if eng.pending_count() or eng.active_count() != SLOTS:
-        raise RuntimeError("paged step timing: the 8 streams did not admit")
-    eng._ensure_chunk_pages()
-    eng._sync_page_table()
+        raise RuntimeError(f"{prefix}step timing: the 8 streams did not "
+                           "admit")
+    if eng.paged:
+        eng._ensure_chunk_pages()
+        eng._sync_page_table()
     cap = fm.adapters.capacity()
     perm, inv, blocks = eng._segments(cap)
     adapters = torch.as_tensor(eng._slot_adapters, device=dev)
@@ -1743,14 +1831,16 @@ def paged_step_timing(dev, handles) -> dict:
     ops.reset_launches()
     run()
     torch.cuda.synchronize()
-    out = {"paged_launches_per_decode_step":
-           {k: int(v) for k, v in ops.LAUNCHES.items()},
-           "paged_decode_step_ms": time_ms(run, iters=10, warmup=2),
-           "paged_decode_step_profile": profile_step(run)}
+    out = {f"{prefix}launches_per_decode_step":
+           {k: int(v) for k, v in ops.LAUNCHES.items() if v},
+           f"{prefix}decode_step_ms": time_ms(run, iters=10, warmup=2),
+           f"{prefix}decode_step_profile": profile_step(run)}
     for i in range(SLOTS):
         eng.leave(i)
-    if eng.free_page_count() != eng.total_pages - 1:
-        raise RuntimeError("paged step timing leaked pages")
+    if (eng.paged and eng.free_page_count() != eng.total_pages - 1) or \
+            (eng.state_pool is not None and eng.state_pool.slots_in_use()):
+        raise RuntimeError(f"{prefix}step timing leaked pages or state "
+                           "slots")
     return out
 
 
@@ -1812,6 +1902,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     phases = {}
+    # the two kernels redesigned for registers and shared memory must not
+    # spill
+    spills = {n: spill_stores(n) for n in ("decode_attention",
+                                           "segmented_lora")}
+    log(f"  ptxas spill stores (bytes): {json.dumps(spills)}")
+    phases["no_spills"] = not any(spills.values())
     try:
         hmma = sass_hmma("flash_attention")
     except (OSError, subprocess.SubprocessError) as e:

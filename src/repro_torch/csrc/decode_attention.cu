@@ -18,35 +18,51 @@
 //
 // What bounds it on this card: bytes. Each valid position costs 4 * hd
 // bytes of bf16 K/V for 4 * G * hd flops, about G flops per byte, hundreds
-// of times below the compute roof: the only levers are to stream the cache
-// once and to keep enough bytes in flight.
+// of times below the compute roof: the levers are to stream the cache once,
+// to keep enough bytes in flight, and to leave little work after the last
+// byte lands. At a cross decode (8 rows x 8 heads x 1500 frames, 24.6 MB)
+// the grid runs in one wave, so the time is one ramp of the memory system,
+// the bytes, and the tail: the last chunk's math and the merge.
 //
-// Design: K3's structure (one online softmax per warp, merged at the end)
-// with the position range split over CTAs. A CTA serves one (row, kv head)
-// pair and one split of the positions; when the pairs are few (a cross
-// decode at 8 slots x 8 heads: 64 pairs for 132 SMs) the wrapper splits S so
-// that about two CTAs per SM are in flight, and a second, small kernel
-// merges the splits' (max, sum, accumulator) partials: no atomics. Inside a
-// CTA, warp w takes the 32-position chunks w, w + 4, ... of its split. A
-// lane owns one position: it loads the key row into registers with 16-byte
-// loads and dots it with the G query heads (q in shared memory, read as a
-// broadcast: the group shares one K read), while its value row streams into
-// the warp's shared buffer by cp.async (no registers held, overlapping the
-// dots). For P.V the chunk's rounded probabilities are broadcast by shuffle
-// and each lane accumulates hd / 32 output dims from the buffer. The cache
-// is read in the model layout (B, S, KV, hd) by strides: the cross-attention
-// sidecars and the float pool are views, never copied or transposed.
-// Lengths are read on the device: no host sync.
+// Design. A CTA serves one (row, kv head) pair and one split of the
+// positions (the wrapper splits S by shapes only, so that the grid runs in
+// one wave); warp w of the CTA walks its own run of consecutive 32-position
+// chunks. Each warp owns a ring of kStages chunk buffers in shared memory
+// and keeps them in flight by cp.async: neighbouring lanes copy
+// neighbouring 16-byte pieces of the same K and V rows (pieces swizzled by
+// row so that the reads below are free of bank conflicts), and the next
+// chunk lands while the current one is scored. Per chunk, lane i owns
+// position i: it dots its K row (from shared memory) with the G query heads
+// (in registers for a small group, else f32 in shared memory read as a
+// broadcast; the dot in several partial sums), one warp max per head gives
+// the chunk's running max, the lane keeps its own running sum (summed over
+// the warp once, at the end), and the bf16-rounded probabilities go to a
+// small per-warp buffer. For P.V each lane owns hd / 32 adjacent output dims
+// and reads them from each V row as one 2-, 4- or 8-byte load, with the
+// probabilities read four at a time as broadcasts: no shuffle chain. The
+// four warps' states merge in shared memory in warp order. When S is split,
+// the splits of a pair run as one thread-block cluster: each CTA writes its
+// (accumulator, max, sum) into its slot in the first CTA's shared memory
+// (distributed shared memory), one cluster barrier later that CTA merges
+// the slots in split order and writes the output. No second launch, no
+// workspace in device memory, no atomics, the same bits on every run. The
+// cache is read in the model layout (B, S, KV, hd) by strides: the
+// cross-attention sidecars and the float pool are views, never copied or
+// transposed. Lengths are read on the device: no host sync.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxSplits = 8;             // the portable cluster size
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -76,17 +92,62 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                :: "r"(dst), "l"(gmem), "r"(n) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The cluster barrier in its two halves (every thread of every CTA of the
+// cluster): arrive (relaxed: orders nothing; release: this thread's writes,
+// shared memory of other CTAs included, are visible once the barrier
+// completes), then wait for every thread of the cluster to have arrived.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Shared-memory plan of one CTA (bytes, in this order): the warps' rings of
+// chunk buffers (K then V of 32 positions, 16-byte pieces swizzled by row;
+// after the loop the same space holds the warps' accumulators), q in f32,
+// the warps' probability buffers, the warps' maxima and sums, and the
+// splits' states (accumulator, max, sum) that the other CTAs of the cluster
+// write into the first CTA's shared memory.
 template <int HD, int G>
-struct Smem {
-  // the warps' V buffers during the loop, the warps' accumulators after it
-  static constexpr int kVBytes = kWarps * 32 * HD * 2;
-  static constexpr int kAccBytes = kWarps * G * HD * 4;
-  static constexpr int kBytes = kVBytes > kAccBytes ? kVBytes : kAccBytes;
+struct Plan {
+  static constexpr int kVec = HD / 8;               // 16-byte pieces per row
+  static constexpr int kStages = 2;                 // chunks in flight a warp
+  static constexpr int kChunkPieces = 2 * 32 * kVec;
+  static constexpr int kRing = kWarps * kStages * kChunkPieces * 16;
+  static constexpr int kQ = kRing;
+  static constexpr int kP = kQ + G * HD * 4;
+  static constexpr int kM = kP + kWarps * G * 32 * 4;
+  static constexpr int kL = kM + kWarps * G * 4;
+  static constexpr int kSO = kL + kWarps * G * 4;
+  static constexpr int kSM = kSO + kMaxSplits * G * HD * 4;
+  static constexpr int kSL = kSM + kMaxSplits * G * 4;
+  static constexpr int kBytes = kSL + kMaxSplits * G * 4;
+  static_assert(kWarps * G * HD * 4 <= kRing, "accumulators fit in the ring");
 };
+
+// Where piece `piece` of row `row` (0..31) of a chunk buffer lives: an XOR
+// swizzle so that eight lanes reading the same piece of eight consecutive
+// rows, and a cp.async of eight pieces of one row, hit distinct banks.
+template <int VEC>
+__device__ __forceinline__ int swz(int row, int piece) {
+  const int x = VEC >= 8 ? (row & 7) : ((row >> 1) & (VEC - 1));
+  return row * VEC + (piece ^ x);
+}
 
 template <int HD, int G>
 __global__ void __launch_bounds__(kThreads)
@@ -94,125 +155,245 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               const int32_t* __restrict__ lengths,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ part_m,
-              float* __restrict__ part_l, float* __restrict__ part_acc, int KV,
-              int S, int split_len, int64_t skb, int64_t sks, int64_t skh,
-              int64_t svb, int64_t svs, int64_t svh, int window,
-              float sm_scale) {
-  constexpr int kVec = HD / 8;            // 16-byte vectors per bf16 row
-  constexpr int kPerLane = HD / 32;       // output dims owned per lane
-  __shared__ float qs[G * HD];
-  __shared__ float wm[kWarps * G];
-  __shared__ float wl[kWarps * G];
-  __shared__ __align__(16) unsigned char raw[Smem<HD, G>::kBytes];
+              __nv_bfloat16* __restrict__ out, int KV, int S, int split_len,
+              int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
+              int64_t svh, int window, float sm_scale) {
+  using P = Plan<HD, G>;
+  constexpr int kVec = P::kVec;
+  constexpr int kStages = P::kStages;
+  constexpr int kDpl = HD / 32;           // output dims owned per lane
+  // independent partial sums, so that a small group still has several FMA
+  // chains in flight: the dot of a K row in kQp parts, P.V in kAp row sets
+  constexpr int kQp = G >= 4 ? 1 : 4 / G;
+  constexpr int kAp = G >= 4 ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + P::kQ);
+  float* wm = reinterpret_cast<float*>(smem + P::kM);
+  float* wl = reinterpret_cast<float*>(smem + P::kL);
 
   const int bh = blockIdx.x;
   const int b = bh / KV, h = bh % KV;
   const int split = blockIdx.y, nsplit = gridDim.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  uint4* ring = reinterpret_cast<uint4*>(smem) + warp * kStages * P::kChunkPieces;
+  float* pbuf = reinterpret_cast<float*>(smem + P::kP) + warp * G * 32;
 
-  const __nv_bfloat16* qg = q + static_cast<int64_t>(bh) * G * HD;
-  for (int i = threadIdx.x; i < G * HD; i += kThreads)
-    qs[i] = __bfloat162float(qg[i]);
-  __syncthreads();
+  // the splits of a pair are one cluster (dims 1 x nsplit), so a CTA's rank
+  // in it is its split; every CTA must have started before another writes
+  // its shared memory: arrive now, wait before the first remote write
+  if (nsplit > 1) cluster_arrive_relaxed();
 
   const int len = lengths[b];
   const int s_lo = max(window > 0 ? max(0, len - window) : 0, split * split_len);
   const int s_hi = min(min(len, S), (split + 1) * split_len);
   const __nv_bfloat16* kbase = k + b * skb + h * skh;
   const __nv_bfloat16* vbase = v + b * svb + h * svh;
-  __nv_bfloat16* vbuf = reinterpret_cast<__nv_bfloat16*>(raw) + warp * 32 * HD;
+  const int c_begin = s_lo / 32;
+  const int n_chunks = s_hi > s_lo ? (s_hi + 31) / 32 - c_begin : 0;
+  // warp w walks its own run of consecutive chunks
+  const int per_warp = (n_chunks + kWarps - 1) / kWarps;
+  const int c_mine = c_begin + warp * per_warp;
+  const int n_mine = max(0, min(per_warp, n_chunks - warp * per_warp));
 
-  float m[G], l[G], acc[G][kPerLane];
+  // chunk j of this warp into ring slot j % kStages (one commit group per
+  // call, empty past the warp's last chunk, so the group count is uniform)
+  auto issue = [&](int j) {
+    if (j < n_mine) {
+      const int c = c_mine + j;
+      uint4* kst = ring + (j % kStages) * P::kChunkPieces;
+      uint4* vst = kst + 32 * kVec;
+#pragma unroll
+      for (int it = 0; it < kVec; ++it) {
+        const int u = lane + 32 * it;
+        const int row = u / kVec, piece = u % kVec;
+        const int s = c * 32 + row;
+        const bool valid = s >= s_lo && s < s_hi;
+        const int src = valid ? s : s_lo;  // an in-range row (not read if !valid)
+        const int dst = swz<kVec>(row, piece);
+        cp_async16(kst + dst, kbase + src * sks + 8 * piece, valid);
+        cp_async16(vst + dst, vbase + src * svs + 8 * piece, valid);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kStages; ++j) issue(j);
+
+  const __nv_bfloat16* qg = q + static_cast<int64_t>(bh) * G * HD;
+  for (int i = threadIdx.x; i < G * HD; i += kThreads)
+    qs[i] = __bfloat162float(qg[i]);
+  __syncthreads();
+
+  float m[G], lp[G], acc[kAp][G][kDpl];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
-    l[g] = 0.f;
+    lp[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kPerLane; ++e) acc[g][e] = 0.f;
+    for (int a = 0; a < kAp; ++a)
+#pragma unroll
+      for (int e = 0; e < kDpl; ++e) acc[a][g][e] = 0.f;
   }
+  // a small group's q lives in registers, a larger one is read from shared
+  // memory as a broadcast
+  constexpr bool kQReg = G * HD <= 64;
+  float4 qr4[kQReg ? G * HD / 4 : 1];
+  if constexpr (kQReg) {
+#pragma unroll
+    for (int i = 0; i < G * HD / 4; ++i) qr4[i] = reinterpret_cast<const float4*>(qs)[i];
+  }
+  // the 16-byte piece holding this lane's output dims, and their offset in it
+  const int my_piece = lane * kDpl / 8;
+  const int my_off = lane * kDpl % 8;
 
-  const int c_begin = s_lo / 32;
-  const int c_end = s_hi > s_lo ? (s_hi + 31) / 32 : c_begin;
-  for (int c = c_begin + warp; c < c_end; c += kWarps) {
-    const int s = c * 32 + lane;
+  for (int j = 0; j < n_mine; ++j) {
+    cp_async_wait<kStages - 1>();
+    __syncwarp();                         // every lane's pieces have landed
+    const uint4* kst = ring + (j % kStages) * P::kChunkPieces;
+    const __nv_bfloat16* vst = reinterpret_cast<const __nv_bfloat16*>(kst + 32 * kVec);
+    const int s = (c_mine + j) * 32 + lane;
     const bool valid = s >= s_lo && s < s_hi;
-    const int src = valid ? s : s_lo;     // an in-range row (not read if !valid)
-    __syncwarp();                          // previous chunk's reads of vbuf done
+
+    float part[G][kQp];
 #pragma unroll
-    for (int i = 0; i < kVec; ++i)
-      cp_async16(vbuf + lane * HD + 8 * i, vbase + src * svs + 8 * i, valid);
-    uint4 kr[kVec];
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < kVec; ++i)
-      kr[i] = valid ? reinterpret_cast<const uint4*>(kbase + s * sks)[i]
-                    : make_uint4(0u, 0u, 0u, 0u);
+      for (int t = 0; t < kQp; ++t) part[g][t] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const uint4 kr = kst[swz<kVec>(lane, i)];
+      const uint32_t w4[4] = {kr.x, kr.y, kr.z, kr.w};
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float4 q0, q1;
+        if constexpr (kQReg) {
+          q0 = qr4[(g * HD + 8 * i) / 4];
+          q1 = qr4[(g * HD + 8 * i) / 4 + 1];
+        } else {
+          q0 = reinterpret_cast<const float4*>(qs + g * HD + 8 * i)[0];
+          q1 = reinterpret_cast<const float4*>(qs + g * HD + 8 * i)[1];
+        }
+        float dot = part[g][i % kQp];
+        dot = fmaf(q0.x, bf_lo(w4[0]), dot);
+        dot = fmaf(q0.y, bf_hi(w4[0]), dot);
+        dot = fmaf(q0.z, bf_lo(w4[1]), dot);
+        dot = fmaf(q0.w, bf_hi(w4[1]), dot);
+        dot = fmaf(q1.x, bf_lo(w4[2]), dot);
+        dot = fmaf(q1.y, bf_hi(w4[2]), dot);
+        dot = fmaf(q1.z, bf_lo(w4[3]), dot);
+        dot = fmaf(q1.w, bf_hi(w4[3]), dot);
+        part[g][i % kQp] = dot;
+      }
+    }
     float score[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float* qv = qs + g * HD;
-      float dot = 0.f;
+      score[g] = part[g][0];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const uint32_t w4[4] = {kr[i].x, kr[i].y, kr[i].z, kr[i].w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dot = fmaf(qv[8 * i + 2 * j], bf_lo(w4[j]), dot);
-          dot = fmaf(qv[8 * i + 2 * j + 1], bf_hi(w4[j]), dot);
-        }
-      }
-      score[g] = valid ? dot * sm_scale : -INFINITY;
+      for (int t = 1; t < kQp; ++t) score[g] += part[g][t];
     }
-    cp_async_wait_all();
-    __syncwarp();                          // every lane's V row has landed
+    // every chunk holds at least one valid position, so each m_chunk is
+    // finite unless the scores themselves are not
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float m_chunk = warp_max(score[g]);
-      if (m_chunk == -INFINITY) continue;  // warp-uniform
+      const float sc = valid ? score[g] * sm_scale : -INFINITY;
+      const float m_chunk = warp_max(sc);
       const float m_new = fmaxf(m[g], m_chunk);
       const float corr = m[g] == -INFINITY ? 0.f : expf(m[g] - m_new);
-      const float p = valid ? expf(score[g] - m_new) : 0.f;
-      l[g] = l[g] * corr + warp_sum(p);
+      const float p = valid ? expf(sc - m_new) : 0.f;
+      lp[g] = lp[g] * corr + p;
       m[g] = m_new;
-      const float pb = round_bf16(p);      // p in the cache dtype, as in JAX
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) acc[g][e] *= corr;
-#pragma unroll 8
-      for (int i = 0; i < 32; ++i) {
-        const float pi = __shfl_sync(0xffffffffu, pb, i);
-        const __nv_bfloat16* vrow = vbuf + i * HD;
+      for (int a = 0; a < kAp; ++a)
 #pragma unroll
-        for (int e = 0; e < kPerLane; ++e)
-          acc[g][e] = fmaf(pi, __bfloat162float(vrow[lane + 32 * e]), acc[g][e]);
+        for (int e = 0; e < kDpl; ++e) acc[a][g][e] *= corr;
+      pbuf[g * 32 + lane] = round_bf16(p);  // p in the cache dtype, as in JAX
+    }
+    __syncwarp();                         // pbuf written
+    // fully unrolled but for the largest group, where ptxas spilled
+    // (sm_90a, CUDA 12: 16 bytes at hd 32) unless the unroll is halved
+    constexpr int kPvUnroll = G >= 8 ? 4 : 8;
+#pragma unroll (kPvUnroll)
+    for (int i0 = 0; i0 < 32; i0 += 4) {
+      float4 p4[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        p4[g] = reinterpret_cast<const float4*>(pbuf + g * 32 + i0)[0];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int row = i0 + ii;
+        const __nv_bfloat16* vp = vst + 8 * swz<kVec>(row, my_piece) + my_off;
+        float vf[kDpl];
+        if constexpr (kDpl == 1) {
+          vf[0] = __bfloat162float(*vp);
+        } else if constexpr (kDpl == 2) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(vp);
+          vf[0] = bf_lo(w);
+          vf[1] = bf_hi(w);
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(vp);
+          vf[0] = bf_lo(w.x);
+          vf[1] = bf_hi(w.x);
+          vf[2] = bf_lo(w.y);
+          vf[3] = bf_hi(w.y);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float pi = ii == 0 ? p4[g].x : ii == 1 ? p4[g].y
+                         : ii == 2 ? p4[g].z : p4[g].w;
+#pragma unroll
+          for (int e = 0; e < kDpl; ++e)
+            acc[ii % kAp][g][e] = fmaf(pi, vf[e], acc[ii % kAp][g][e]);
+        }
       }
     }
+    __syncwarp();                         // slot and pbuf read: free to reuse
+    issue(j + kStages);
   }
+  cp_async_wait<0>();
 
-  // ---- merge the 4 warp states (the V buffers become the accumulators) ----
+  // ---- merge the 4 warp states (the rings become the accumulators) ----
   __syncthreads();
-  float* wacc = reinterpret_cast<float*>(raw);
+  float* wacc = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int g = 0; g < G; ++g) {
+    const float l = warp_sum(lp[g]);
     if (lane == 0) {
       wm[warp * G + g] = m[g];
-      wl[warp * G + g] = l[g];
+      wl[warp * G + g] = l;
     }
 #pragma unroll
-    for (int e = 0; e < kPerLane; ++e)
-      wacc[(warp * G + g) * HD + lane + 32 * e] = acc[g][e];
+    for (int e = 0; e < kDpl; ++e) {
+      float sum = acc[0][g][e];
+#pragma unroll
+      for (int a = 1; a < kAp; ++a) sum += acc[a][g][e];
+      wacc[(warp * G + g) * HD + lane * kDpl + e] = sum;
+    }
   }
   __syncthreads();
+  // split s's state lands in slot s of the first CTA of the cluster
+  float* so = reinterpret_cast<float*>(smem + P::kSO);
+  float* sm = reinterpret_cast<float*>(smem + P::kSM);
+  float* sl = reinterpret_cast<float*>(smem + P::kSL);
+  if (nsplit > 1) {
+    cluster_wait();
+    cg::cluster_group cluster = cg::this_cluster();
+    so = cluster.map_shared_rank(so, 0);
+    sm = cluster.map_shared_rank(sm, 0);
+    sl = cluster.map_shared_rank(sl, 0);
+  }
   for (int i = threadIdx.x; i < G * HD; i += kThreads) {
     const int g = i / HD, dd = i % HD;
     float mx = -INFINITY;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * G + g]);
     float lsum = 0.f, o = 0.f;
-    if (mx != -INFINITY) {
+    if (mx != -INFINITY) {                // an empty warp weighs 0
+#pragma unroll
       for (int w = 0; w < kWarps; ++w) {
         const float mw = wm[w * G + g];
-        if (mw == -INFINITY) continue;
-        const float wt = expf(mw - mx);
+        const float wt = mw == -INFINITY ? 0.f : expf(mw - mx);
         lsum += wl[w * G + g] * wt;
         o += wacc[(w * G + g) * HD + dd] * wt;
       }
@@ -221,37 +402,33 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       out[static_cast<int64_t>(bh) * G * HD + i] =
           __float2bfloat16(mx == -INFINITY ? 0.f : o / fmaxf(lsum, 1e-30f));
     } else {
-      const int64_t pg = (static_cast<int64_t>(bh) * nsplit + split) * G + g;
-      part_acc[pg * HD + dd] = o;
+      so[split * G * HD + i] = o;
       if (dd == 0) {
-        part_m[pg] = mx;
-        part_l[pg] = lsum;
+        sm[split * G + g] = mx;
+        sl[split * G + g] = lsum;
       }
     }
   }
-}
+  if (nsplit == 1) return;
 
-// Combine the splits' partials of one (row, kv head) pair: rescale each
-// split's sum and accumulator to the largest max and divide once.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-             const float* __restrict__ part_acc, __nv_bfloat16* __restrict__ out,
-             int G, int nsplit) {
-  const int bh = blockIdx.x;
+  // ---- the first CTA of the cluster merges the splits, in split order ----
+  cluster_arrive();                       // this CTA's state is written
+  cluster_wait();                         // and every other CTA's
+  if (split != 0) return;
+  so = reinterpret_cast<float*>(smem + P::kSO);
+  sm = reinterpret_cast<float*>(smem + P::kSM);
+  sl = reinterpret_cast<float*>(smem + P::kSL);
   for (int i = threadIdx.x; i < G * HD; i += kThreads) {
-    const int g = i / HD, dd = i % HD;
-    const int64_t p0 = static_cast<int64_t>(bh) * nsplit * G + g;
+    const int g = i / HD;
     float mx = -INFINITY;
-    for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[p0 + s * G]);
+    for (int r = 0; r < nsplit; ++r) mx = fmaxf(mx, sm[r * G + g]);
     float lsum = 0.f, o = 0.f;
-    if (mx != -INFINITY) {
-      for (int s = 0; s < nsplit; ++s) {
-        const float ms = part_m[p0 + s * G];
-        if (ms == -INFINITY) continue;
-        const float wt = expf(ms - mx);
-        lsum += part_l[p0 + s * G] * wt;
-        o += part_acc[(p0 + s * G) * HD + dd] * wt;
+    if (mx != -INFINITY) {                // an empty split weighs 0
+      for (int r = 0; r < nsplit; ++r) {
+        const float mr = sm[r * G + g];
+        const float wt = mr == -INFINITY ? 0.f : expf(mr - mx);
+        lsum += sl[r * G + g] * wt;
+        o += so[r * G * HD + i] * wt;
       }
     }
     out[static_cast<int64_t>(bh) * G * HD + i] =
@@ -265,9 +442,6 @@ struct Args {
   const __nv_bfloat16* v;
   const int32_t* lengths;
   __nv_bfloat16* out;
-  float* part_m;
-  float* part_l;
-  float* part_acc;
   int B, KV, G, S, nsplit, split_len;
   int64_t skb, sks, skh, svb, svs, svh;
   int window;
@@ -276,16 +450,37 @@ struct Args {
 
 template <int HD, int G>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.B * a.KV, a.nsplit);
-  decode_kernel<HD, G><<<grid, kThreads, 0, stream>>>(
-      a.q, a.k, a.v, a.lengths, a.out, a.part_m, a.part_l, a.part_acc, a.KV,
-      a.S, a.split_len, a.skb, a.sks, a.skh, a.svb, a.svs, a.svh, a.window,
-      a.sm_scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.nsplit == 1) return err;
-  merge_kernel<HD><<<a.B * a.KV, kThreads, 0, stream>>>(
-      a.part_m, a.part_l, a.part_acc, a.out, G, a.nsplit);
-  return cudaGetLastError();
+  // above 48 KB of dynamic shared memory a kernel must opt in, once per
+  // device (a bit per device of this instantiation)
+  static unsigned long long opted = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(opted >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(decode_kernel<HD, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Plan<HD, G>::kBytes);
+    if (err != cudaSuccess) return err;
+    opted |= 1ull << dev;
+  }
+  // the splits of one (row, kv head) pair form one cluster
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * a.KV, a.nsplit);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Plan<HD, G>::kBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_kernel<HD, G>, a.q, a.k, a.v,
+                            a.lengths, a.out, a.KV, a.S, a.split_len, a.skb,
+                            a.sks, a.skh, a.svb, a.svs, a.svh, a.window,
+                            a.sm_scale);
 }
 
 template <int HD>
@@ -303,29 +498,23 @@ cudaError_t launch_g(const Args& a, cudaStream_t st) {
 
 // q (B, KV * G, hd) bf16 contiguous; k/v bf16 addressed as (B, S, KV, hd)
 // through the element strides s*b, s*s, s*h (hd stride 1, every row 16-byte
-// aligned); lengths (B,) int32 on the device; out like q. With nsplit > 1
-// the positions are cut into splits of split_len (a multiple of 32) and
-// part_m/part_l (B * KV * nsplit * G) and part_acc (... * hd) f32 hold the
-// partials the merge kernel combines; with nsplit == 1 they may be null.
-// window <= 0 means no window. Returns a cudaError_t (0 on success).
+// aligned); lengths (B,) int32 on the device; out like q. The positions are
+// cut into nsplit (1 to kMaxSplits) splits of split_len (a multiple of 32),
+// the splits of a pair one cluster. window <= 0 means no window. Returns a
+// cudaError_t (0 on success).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* part_m, void* part_l, void* part_acc, int B, int KV,
-    int G, int S, int hd, int nsplit, int split_len, int64_t skb, int64_t sks,
-    int64_t skh, int64_t svb, int64_t svs, int64_t svh, int window,
-    float sm_scale, void* stream) {
-  if (B <= 0 || KV <= 0 || nsplit <= 0 || split_len <= 0 || split_len % 32 ||
-      (nsplit > 1 && (part_m == nullptr || part_l == nullptr ||
-                      part_acc == nullptr)))
+    void* out, int B, int KV, int G, int S, int hd, int nsplit, int split_len,
+    int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
+    int64_t svh, int window, float sm_scale, void* stream) {
+  if (B <= 0 || KV <= 0 || nsplit <= 0 || nsplit > kMaxSplits ||
+      split_len <= 0 || split_len % 32)
     return cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(k),
                static_cast<const __nv_bfloat16*>(v),
                static_cast<const int32_t*>(lengths),
                static_cast<__nv_bfloat16*>(out),
-               static_cast<float*>(part_m),
-               static_cast<float*>(part_l),
-               static_cast<float*>(part_acc),
                B, KV, G, S, nsplit, split_len, skb, sks, skh, svb, svs, svh,
                window, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

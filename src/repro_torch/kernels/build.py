@@ -108,16 +108,35 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current CUDA stream on device ``index``,
+    for a launch. ``torch.cuda.current_stream(...).cuda_stream`` builds a
+    Stream object on every call (several microseconds of host time on the
+    launch path); PyTorch's own raw getter returns the handle alone."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def key_splits(ctas: int, keys: int, tile: int, min_split: int,
-               sms: int) -> tuple[int, int]:
+               sms: int, slots: int | None = None) -> tuple[int, int]:
     """(number of splits, keys per split) of a key axis of ``keys`` that
     ``ctas`` CTAs walk on ``sms`` SMs: enough splits for about two CTAs per
     SM, each split a multiple of ``tile`` and at least ``min_split`` keys.
     Where the CTAs are enough already, or there are fewer keys than two
-    minimum splits (there the merge pass costs more than the split saves),
-    one split holds every key. Shapes only, never lengths: choosing needs
-    no host sync."""
-    want = -(-2 * sms // max(ctas, 1)) if keys >= 2 * min_split else 1
+    minimum splits (there the merge costs more than the split saves), one
+    split holds every key. ``slots``, when given, is how many CTAs of the
+    kernel the card holds at once: the splits then stop at as many as fit
+    in one wave (``slots // ctas``). Shapes only, never lengths: choosing
+    needs no host sync."""
+    if keys < 2 * min_split:
+        want = 1
+    elif slots is None:
+        want = -(-2 * sms // max(ctas, 1))
+    else:
+        want = max(1, slots // max(ctas, 1))
     n = max(1, min(want, -(-keys // min_split)))
     split_len = tile * max(1, -(-(-(-keys // n)) // tile))
     return max(1, -(-keys // split_len)), split_len

@@ -6,13 +6,15 @@ every row at its full length) and the self-attention decode of a float
 dense pool (``DecodeEngine(kv_quant=False)``). ``csrc/decode_attention.cu``
 reads the cache in the model layout (B, S, KV, hd) through its strides.
 When the (row, kv head) pairs are too few to fill the card, the wrapper
-splits the positions over several CTAs and the kernel merges the splits in
-a second pass; the split depends on the shapes only, never on the lengths,
-so choosing it needs no host sync.
+splits the positions over several CTAs, which the kernel launches as one
+thread-block cluster per pair and merges, in split order, through
+distributed shared memory. The split depends on the shapes only, never on
+the lengths, so choosing it needs no host sync.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -23,13 +25,15 @@ from repro_torch.kernels import build
 _HEAD_DIMS = (32, 64, 128)
 _GROUPS = (1, 2, 4, 8)
 _MIN_SPLIT = 256            # positions per split at least (8 chunks of 32)
+_MAX_SPLITS = 8             # a pair's splits are one cluster: portable size
+_CTAS_PER_SM = 2            # the split stops at this many CTAs an SM
 
 
 def _lib():
     lib = build.load("decode_attention")
     if not getattr(lib, "_typed", False):
         lib.decode_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
             + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_float,
                                       ctypes.c_void_p])
         lib.decode_attention_launch.restype = ctypes.c_int
@@ -37,11 +41,16 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def splits(pairs: int, S: int, sms: int) -> tuple[int, int]:
     """(number of splits, positions per split) for ``pairs`` (row, kv head)
     CTAs over ``S`` positions: ``build.key_splits`` in chunks of 32, at
-    least ``_MIN_SPLIT`` positions a split."""
-    return build.key_splits(pairs, S, 32, _MIN_SPLIT, sms)
+    least ``_MIN_SPLIT`` positions a split and at most ``_MAX_SPLITS``
+    splits, and no more CTAs than ``_CTAS_PER_SM`` an SM, so that the grid
+    runs in one wave."""
+    return build.key_splits(pairs, S, 32,
+                            max(_MIN_SPLIT, -(-S // _MAX_SPLITS)), sms,
+                            slots=_CTAS_PER_SM * sms)
 
 
 def decode_attention(q, k, v, lengths, *, window: Optional[int] = None):
@@ -85,21 +94,12 @@ def decode_attention(q, k, v, lengths, *, window: Optional[int] = None):
         return out.zero_()
     nsplit, split_len = splits(B * KV, S,
                                build.sm_count(q.device.index or 0))
-    part_m = part_l = part_acc = None
-    if nsplit > 1:
-        part = torch.empty((B * KV * nsplit * G * (hd + 2),),
-                           dtype=torch.float32, device=q.device)
-        n = B * KV * nsplit * G
-        part_m, part_l, part_acc = part[:n], part[n:2 * n], part[2 * n:]
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = build.current_stream(q.device.index or 0)
     err = _lib().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), ptr(part_m), ptr(part_l), ptr(part_acc), B, KV, G, S,
-        hd, nsplit, split_len, *k.stride()[:3], *v.stride()[:3],
-        -1 if window is None else int(window), 1.0 / math.sqrt(hd), stream)
+        out.data_ptr(), B, KV, G, S, hd, nsplit, split_len, *k.stride()[:3],
+        *v.stride()[:3], -1 if window is None else int(window),
+        1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["decode_attention"] += 1
     build.check(err, "decode_attention")
     return out

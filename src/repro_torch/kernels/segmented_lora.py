@@ -5,8 +5,10 @@ The vFM executor co-batches requests from many tasks over one shared backbone
 pass and applies per-task LoRA deltas: y[t] += x[t] @ A[a(t)] @ B[a(t)]. The
 batch is sorted by adapter id and each adapter segment padded to a block
 multiple, so every ``block_t`` block of rows touches exactly ONE adapter
-(``csrc/segmented_lora.cu`` computes one block per CTA). The sentinel id
-``>= num_adapters`` means "no adapter" (base-model request): zero delta.
+(``csrc/segmented_lora.cu``: a shrink kernel computes h = x_blk @ A over
+splits of d, an expand kernel sums the splits and writes h @ B). The
+sentinel id ``>= num_adapters`` means "no adapter" (base-model request):
+zero delta.
 
 The host helpers (``sort_by_adapter``, ``segment_metadata``,
 ``SegmentMetaCache``, ``padded_tokens``) are copies of the JAX package's.
@@ -14,6 +16,7 @@ The host helpers (``sort_by_adapter``, ``segment_metadata``,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -21,25 +24,45 @@ import torch
 from repro_torch.kernels import build
 
 _RANKS = (4, 8, 16, 32, 64)
-_SMS = 132                       # H100 SXM streaming multiprocessors
+_MIN_SPLIT = 64                  # rows of d a shrink CTA takes at least
+_MAX_SPLITS = 16                 # partials the expand loads at once
+_WORKSPACE: dict = {}            # (device index, stream) -> f32 scratch
 
 
 def _lib():
     lib = build.load("segmented_lora")
     if not getattr(lib, "_typed", False):
-        lib.sgmv_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        lib.sgmv_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         lib.sgmv_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def column_ctas(num_blocks: int, out: int) -> int:
-    """CTAs along the output axis: enough to put ~2 CTAs on every SM when the
-    batch has few token blocks (decode), few when it has many (pooled), so
-    phase 1 (h = x @ A) is recomputed as rarely as the card allows."""
-    want = -(-2 * _SMS // max(num_blocks, 1))
-    return max(1, min(want, -(-out // 128)))
+@functools.lru_cache(maxsize=None)
+def d_splits(num_blocks: int, d: int, sms: int) -> tuple[int, int]:
+    """(number of splits, rows per split) of the shrink's d axis for
+    ``num_blocks`` token blocks on ``sms`` SMs: about one shrink CTA per SM
+    when the blocks are few (decode), one split once the blocks alone fill
+    the card (pooled); each split a multiple of 8 rows and at least
+    ``_MIN_SPLIT``, and at most ``_MAX_SPLITS`` (the expand sums every
+    block's partials: up to 16 are one round of loads). Shapes only: no
+    host sync."""
+    n = max(1, min(sms // max(num_blocks, 1), d // _MIN_SPLIT, _MAX_SPLITS))
+    split_len = 8 * -(-(-(-d // n)) // 8)
+    return -(-d // split_len), split_len
+
+
+def _workspace(device, stream: int, n: int):
+    """At least ``n`` f32 of shrink partials for calls on ``stream``: kept
+    between calls (they run in stream order, so one call's expand has read
+    it before the next call's shrink writes), grown on demand. Allocating
+    per call would add host time to every one of a step's K1 calls."""
+    ws = _WORKSPACE.get((device.index, stream))
+    if ws is None or ws.numel() < n:
+        ws = _WORKSPACE[(device.index, stream)] = torch.empty(
+            (max(n, 1 << 16),), dtype=torch.float32, device=device)
+    return ws
 
 
 def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int):
@@ -75,11 +98,13 @@ def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int):
     y = torch.empty((T, out), dtype=x.dtype, device=x.device)
     if nb == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    nsplit, split_len = d_splits(nb, d, build.sm_count(x.device.index or 0))
+    stream = build.current_stream(x.device.index or 0)
+    ws = _workspace(x.device, stream, nb * nsplit * block_t * r)
     err = _lib().sgmv_launch(x.data_ptr(), block_adapter.data_ptr(),
-                             a_w.data_ptr(), b_w.data_ptr(), y.data_ptr(), nb,
-                             d, r, out, na, block_t, column_ctas(nb, out),
-                             stream)
+                             a_w.data_ptr(), b_w.data_ptr(), y.data_ptr(),
+                             ws.data_ptr(), nb, d, r, out, na, block_t,
+                             nsplit, split_len, stream)
     build.LAUNCHES["segmented_lora"] += 1
     build.check(err, "segmented_lora")
     return y

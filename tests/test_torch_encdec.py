@@ -229,14 +229,17 @@ def test_decode_attention_routes_only_cpu_to_the_plain_version():
 def test_split_plan_covers_every_position():
     """The wrapper's split of S over CTAs: each split a multiple of 32, at
     least 256 positions unless S is shorter, the splits covering S exactly
-    once; one split when the (row, kv head) pairs already fill the card."""
+    once, at most 8 (a pair's splits are one thread-block cluster) and no
+    more CTAs than two an SM (one wave); one split when the (row, kv head)
+    pairs already fill the card."""
     from repro_torch.kernels.decode_attention import splits
-    for pairs, S in ((64, 1500), (16, 1500), (256, 161), (1, 33), (8, 4096)):
+    for pairs, S in ((64, 1500), (16, 1500), (256, 161), (1, 33), (8, 4096),
+                     (1, 100000)):
         n, sl = splits(pairs, S, 132)
         assert sl % 32 == 0 and (n - 1) * sl < S <= n * sl
         assert sl >= min(256, 32 * -(-S // 32))
-        assert n * pairs <= max(2 * 132 + pairs, pairs)
-    assert splits(64, 1500, 132) == (5, 320)
+        assert n <= 8 and (n == 1 or n * pairs <= 2 * 132)
+    assert splits(64, 1500, 132) == (4, 384)
     assert splits(256, 161, 132)[0] == 1
 
 
@@ -761,26 +764,38 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,KV,S,window", [(8, 8, 8, 1500, None),
-                                             (8, 32, 8, 161, None),
-                                             (8, 8, 2, 1500, 700),
-                                             (3, 32, 32, 161, 48)])
-def test_decode_attention_kernel_on_gpu(cuda_device, B, H, KV, S, window):
+@pytest.mark.parametrize("B,H,KV,S,hd,window,max_len",
+                         [(8, 8, 8, 1500, 64, None, None),
+                          (8, 32, 8, 161, 64, None, None),
+                          (8, 8, 2, 1500, 64, 700, None),
+                          (3, 32, 32, 161, 64, 48, None),
+                          (8, 16, 8, 1500, 32, None, None),
+                          (8, 64, 8, 1500, 128, None, None),
+                          (8, 64, 8, 1500, 64, 300, None),
+                          (8, 8, 8, 1500, 64, None, 383),
+                          (8, 8, 4, 2048, 64, None, None)])
+def test_decode_attention_kernel_on_gpu(cuda_device, B, H, KV, S, hd,
+                                        window, max_len):
     """K5 against its plain version on the card, two bf16 ulps of the
-    largest output (every length >= 1: no empty row)."""
+    largest output (every length >= 1: no empty row), at hd 32/64/128 and
+    G 1 to 8, with lengths that end inside the first of the split's splits
+    (``max_len``), over 8 splits (S 2048 at 32 pairs), and the same bits
+    from a second call."""
     from repro_torch.kernels import ref
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn((B, H, 64), generator=gen, device=cuda_device).to(
+    q = torch.randn((B, H, hd), generator=gen, device=cuda_device).to(
         torch.bfloat16)
-    k = torch.randn((B, S, KV, 64), generator=gen, device=cuda_device).to(
+    k = torch.randn((B, S, KV, hd), generator=gen, device=cuda_device).to(
         torch.bfloat16)
-    v = torch.randn((B, S, KV, 64), generator=gen, device=cuda_device).to(
+    v = torch.randn((B, S, KV, hd), generator=gen, device=cuda_device).to(
         torch.bfloat16)
-    ln = torch.randint(1, S + 1, (B,), generator=gen, device=cuda_device,
-                       dtype=torch.int32)
+    ln = torch.randint(1, (max_len or S) + 1, (B,), generator=gen,
+                       device=cuda_device, dtype=torch.int32)
     got = ops.decode_attention(q, k, v, ln, window=window)
+    again = ops.decode_attention(q, k, v, ln, window=window)
     want = ref.decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
                                     ln, window=window, p_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)

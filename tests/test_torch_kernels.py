@@ -167,6 +167,58 @@ def test_cpu_route_only_for_cpu_tensors():
                             block_t=16)
 
 
+SGMV_SHAPES = {                 # (token blocks of 16, d), stablelm / whisper
+    "decode": (6, 2048), "prefill": (13, 2048), "pooled": (261, 2048),
+    "whisper_decode": (6, 512), "one_block": (1, 2048), "narrow": (4, 96),
+    "fills_card": (132, 2048)}
+
+
+@pytest.mark.parametrize("sms", [132, 66])
+@pytest.mark.parametrize("name", sorted(SGMV_SHAPES))
+def test_segmented_lora_d_split_plan(name, sms):
+    """The shrink's d-split: the splits cover [0, d) in order with no gap,
+    no overlap and no empty split, each a multiple of 8 rows; at decode the
+    shrink CTAs number between half and two an SM (16 splits of 128 rows on
+    132 SMs, the plan measured fastest on an H100: more splits only add
+    partials for the expand to sum), at most 16 splits; one split once the
+    blocks alone fill the card (pooled); the SM count is a parameter."""
+    nb, d = SGMV_SHAPES[name]
+    n, split_len = sgmv.d_splits(nb, d, sms)
+    assert split_len % 8 == 0 and 1 <= n <= 16
+    spans = [(i * split_len, min((i + 1) * split_len, d)) for i in range(n)]
+    assert spans[0][0] == 0 and spans[-1][1] == d
+    assert all(hi > lo for lo, hi in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    if nb >= sms:
+        assert n == 1
+    if name == "decode":
+        assert sms / 2 <= nb * n <= 2 * sms
+    if (name, sms) == ("decode", 132):
+        assert (n, split_len) == (16, 128)
+    if name == "pooled":
+        assert n == 1
+
+
+def test_segmented_lora_plan_takes_shapes_only():
+    """The d-split is a function of the shapes and the SM count alone, so
+    choosing it needs no host sync: the planner takes no tensor, and the
+    wrapper's one call of it is built from shape names and the device index
+    only (no read of a tensor's values)."""
+    import ast
+    import inspect
+    assert list(inspect.signature(sgmv.d_splits).parameters) == \
+        ["num_blocks", "d", "sms"]
+    tree = ast.parse(inspect.getsource(sgmv.segmented_lora))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == "d_splits"]
+    assert len(calls) == 1
+    nodes = [n for a in calls[0].args for n in ast.walk(a)]
+    names = {n.id for n in nodes if isinstance(n, ast.Name)}
+    attrs = {n.attr for n in nodes if isinstance(n, ast.Attribute)}
+    assert names <= {"nb", "d", "build", "x"}, names
+    assert attrs <= {"sm_count", "device", "index"}, attrs
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -176,10 +228,19 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,d,r,NA,bt,out", [(96, 2048, 16, 4, 16, 2048),
-                                             (256, 128, 16, 5, 32, 96)])
+                                             (256, 128, 16, 5, 32, 96),
+                                             (96, 512, 16, 4, 16, 512),
+                                             (96, 2048, 4, 4, 16, 2048),
+                                             (96, 2048, 64, 4, 16, 2048),
+                                             (96, 2048, 16, 1, 16, 96),
+                                             (4176, 2048, 16, 4, 16, 2048),
+                                             (64, 256, 8, 3, 16, 90)])
 def test_segmented_lora_kernel_on_gpu(cuda_device, T, d, r, NA, bt, out):
     """CUDA kernel vs its plain version, bf16 in/out: two bf16 ulps of the
-    largest output (both accumulate in f32, in another order)."""
+    largest output (both accumulate in f32, in another order), at the
+    stablelm and whisper decode shapes, ranks 4 to 64, one adapter, an
+    output narrower than d or not a multiple of 4, the pooled shape; the
+    same bits from a second call."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn((T, d), generator=gen, device=cuda_device).to(torch.bfloat16)
     a = torch.randn((NA, d, r), generator=gen, device=cuda_device) * 0.05
@@ -193,6 +254,8 @@ def test_segmented_lora_kernel_on_gpu(cuda_device, T, d, r, NA, bt, out):
     assert ops.LAUNCHES["segmented_lora"] == before + 1
     tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, ops.segmented_lora(x, ids, a, b, block_t=bt))
+    assert bool((got.view(-1, bt, out)[ids >= NA] == 0).all())
 
 
 @pytest.mark.cuda
@@ -216,3 +279,62 @@ def test_decode_attention_int8_kernel_on_gpu(cuda_device, window):
     torch.cuda.synchronize()
     tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# ---------------- the ctypes bindings against the C sources ----------------
+
+_C_KINDS = {"void*": "pointer", "int": "int", "int64_t": "int64",
+            "float": "float"}
+
+
+def _c_signatures(source: str) -> dict:
+    """{name: [kind, ...]} of every ``extern "C"`` function in a CUDA
+    source, each parameter reduced to pointer / int / int64 / float."""
+    import re
+    sigs = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{',
+                                   source, flags=re.S):
+        kinds = []
+        for p in params.split(","):
+            words = p.replace("const ", "").split()
+            kinds.append(_C_KINDS["void*" if "*" in p else words[0]])
+        sigs[name] = kinds
+    return sigs
+
+
+class _FakeLibrary:
+    """Stands in for a loaded kernel library: records the ``argtypes`` a
+    wrapper sets on each function."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self.fns.setdefault(name, type("Fn", (), {})())
+
+
+@pytest.mark.parametrize("module", ["segmented_lora", "decode_attention",
+                                    "decode_attention_int8",
+                                    "paged_decode_attention",
+                                    "flash_attention"])
+def test_ctypes_argtypes_match_the_c_signatures(module, monkeypatch):
+    """Each wrapper's ``argtypes`` have the count and kinds (pointer, int,
+    int64, float) of its kernel's ``extern "C"`` entry point, so ctypes
+    never passes a pointer as a 32-bit int or shifts an argument."""
+    import ctypes
+    import importlib
+
+    from repro_torch.kernels import build
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+             ctypes.c_int64: "int64", ctypes.c_float: "float"}
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "load", lambda name: fake)
+    importlib.import_module(f"repro_torch.kernels.{module}")._lib()
+    sigs = _c_signatures((build.CSRC / build.SOURCES[module]).read_text())
+    assert sigs and set(fake.fns) == set(sigs)
+    for name, want in sigs.items():
+        got = [kinds[t] for t in fake.fns[name].argtypes]
+        assert got == want, name
+        assert fake.fns[name].restype is ctypes.c_int
