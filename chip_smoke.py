@@ -8,10 +8,14 @@ then runs these phases and fails (non-zero exit) if any of them fails:
 
 1. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the serving paths give it, with the tolerance stated; the
-   paged decode kernel (K4) also with GQA, a window, shared (COW) pages,
-   stale codes in unmapped pages and lengths of 1, a page multiple and the
-   table's full width, and against the dense kernel (K3) on a contiguous
-   table whose page scales are the slot scales; the prefill kernel (K2) at
+   int8 decode kernels (K3 dense, K4 paged: one kernel body) at every case
+   of ``INT8_CASES`` (stablelm's pools with and without a window and with
+   GQA, whisper's self-attention, every (hd, G) instantiation, a window
+   across a pass, caches of several rounds; lengths 1, 32, 33, page
+   multiples and the table's full width; K4 with shared (COW) pages and
+   stale codes in unmapped pages), each twice, bit for bit, and K4 against
+   K3 on a contiguous table whose page scales are the slot scales; the
+   prefill kernel (K2) at
    the pooled, full-admission and tail-admission shapes (``FLASH_CASES``:
    ragged ``kv_len``, a prefix operand with 64 and 0 valid positions), with
    GQA, a window and queries that are a strict suffix of the keys, and at
@@ -28,8 +32,8 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    across a split boundary (``FLOAT_CASES``); the SGMV kernel (K1) at
    stablelm's and whisper's serving shapes, ranks 4 and 64, a narrower
    output, one adapter and sentinel blocks only (``sgmv_cases``); K1 and
-   K5 each twice on the same inputs, bit for bit, and their libraries'
-   ptxas reports free of spill stores;
+   K5 each twice on the same inputs, bit for bit; the ptxas reports of the
+   K1, K3, K4 and K5 libraries free of spill stores;
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
    same model run with the plain versions on the CPU, on the int8 pool (K3)
@@ -70,7 +74,8 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    shapes (with its number of key splits and, where it splits, its time
    unsplit), K1 and K5 with their split plans and their time by kernel
    (shrink/expand), K1 also beside the port's gather path at the same
-   tokens, a profile of one dense, one paged and one whisper decode step
+   tokens, K4 also at whisper's self-attention decode shape, a profile of
+   one dense, one paged and one whisper decode step
    (8 live streams each) and of one whisper pooled batch, and the prefill
    device time a prefix hit saves (full admission against its tail).
 
@@ -132,10 +137,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_kernels(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Mean DEVICE ms per call of each kernel (and copy) the call runs on
     the card, by name, from ``torch.profiler``, so host gaps between
-    launches do not count. A profiling session that records no device
-    activity (CUPTI sometimes returns none) is run again, up to three
-    times; then this raises (CUDA events would time the host's enqueue
-    rate instead)."""
+    launches do not count: for each name, the mean duration of its records
+    times its launches per call (its record count over the calls, rounded),
+    so that records CUPTI drops (it sometimes does) leave the mean as it
+    is. A profiling session that records no device activity is run again,
+    up to three times; then this raises (CUDA events would time the host's
+    enqueue rate instead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -146,13 +153,15 @@ def device_kernels(fn, iters: int = 20, warmup: int = 3) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name: dict = {}
+        total: dict = {}
+        count: dict = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.device_time / 1e3 / iters
-        if sum(by_name.values()) > 0:
-            return by_name
+                total[e.name] = total.get(e.name, 0.0) + e.device_time / 1e3
+                count[e.name] = count.get(e.name, 0) + 1
+        if sum(total.values()) > 0:
+            return {n: total[n] / count[n] * max(1, round(count[n] / iters))
+                    for n in total}
         log("device_kernels: the profiler recorded no device time; again")
     raise RuntimeError("the profiler recorded no device time")
 
@@ -288,7 +297,11 @@ def torch_unique_count(t):
     return torch.unique(t).numel() if t.numel() else 0
 
 
-def int8_inputs(gen, B, H, KV, S, hd, nsets, dev):
+def int8_inputs(gen, B, H, KV, S, hd, nsets, dev, lens=None):
+    """``nsets`` K3 input sets: q (B, H, hd) bf16 and an int8 cache (B, S,
+    KV, hd) in the pool's layout with per-(b, h) scales (``quantize_kv`` of
+    random floats); lengths random in [1, S] unless given (a length past S
+    reads S positions)."""
     import torch
 
     from repro_torch.kernels.decode_attention_int8 import quantize_kv
@@ -301,9 +314,10 @@ def int8_inputs(gen, B, H, KV, S, hd, nsets, dev):
         # the pool's layout: (B, S, KV, hd); the kernel reads the transposed view
         kq = kq.transpose(1, 2).contiguous()
         vq = vq.transpose(1, 2).contiguous()
-        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        sets.append((q, kq, vq, ks, vs, lens))
+        ln = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                           dtype=torch.int32) if lens is None else \
+            torch.tensor(lens, dtype=torch.int32, device=dev)
+        sets.append((q, kq, vq, ks, vs, ln))
     return sets
 
 
@@ -429,14 +443,15 @@ def check_float_decode(dev, gen):
     return ok, errs
 
 
-def paged_inputs(gen, B, H, KV, hd, P, nsets, dev, lens=None):
+def paged_inputs(gen, B, H, KV, hd, P, nsets, dev, lens=None, MP=None):
     """``nsets`` paged input sets: a random int8 arena (every page holds
     codes, so unmapped and recycled pages are stale, not zero), per-page
-    scales, and a table of distinct random pages per stream with entries
-    past a stream's last page 0 and streams 2 and 3 mapping the same first
-    two pages (COW). Lengths random in [1, MP * ps] unless given."""
+    scales, and a table of MP (default: stablelm's pool, 11) distinct random
+    pages per stream with entries past a stream's last page 0 and streams 2
+    and 3 mapping the same first two pages (COW). Lengths random in [1, MP *
+    ps] unless given."""
     import torch
-    MP = -(-(PROMPT_LEN + MAX_NEW + 1) // PAGE_SIZE)
+    MP = MP or -(-(PROMPT_LEN + MAX_NEW + 1) // PAGE_SIZE)
     sets = []
     for _ in range(nsets):
         q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -480,6 +495,83 @@ def paged_bound(q, kp, pt, lens):
         2 * 2 * B * H * hd + 4 * B
     flops = 4.0 * n * H * hd
     return bound_ms(nbytes, flops)
+
+
+# K3/K4 shapes (8 rows each; hd 64 unless given): the dense and paged pools
+# of full-width stablelm-1.6b (H = KV = 32, s_max = 161, a table of 11 pages
+# of 16) with and without a window and with GQA, and whisper-base's decoder
+# self-attention (H = KV = 8, s_max = 129, a table of 9 pages); every (hd,
+# G) instantiation; a window whose start crosses a pass of the CTA (64
+# positions at hd 64) inside a lane group's run; and caches longer than the
+# kernel's register ring holds (hd 64: 256 positions), where it turns over.
+# Lengths 1, 32 and 33 (a warp-pass edge at hd 64 G 1), page multiples and
+# the table's full width (MP * ps; the dense kernel reads min(len, S)). S is
+# the dense cache's length; the paged table holds ceil(S / ps) pages.
+INT8_CASES = {
+    "serving": dict(H=32, KV=32, S=161, lens=[1, 32, 33, 80, 176, 161, 100, 7]),
+    "serving_window": dict(H=32, KV=32, S=161, window=48,
+                           lens=[161, 1, 48, 49, 120, 7, 96, 176]),
+    "gqa": dict(H=32, KV=8, S=161, lens=[161, 1, 64, 90, 17, 160, 5, 176]),
+    "gqa_window": dict(H=32, KV=8, S=161, window=48,
+                       lens=[176, 1, 48, 49, 120, 7, 96, 150]),
+    "whisper": dict(H=8, KV=8, S=129, lens=[1, 32, 33, 48, 144, 129, 100, 64]),
+    "window_crossing": dict(H=8, KV=8, S=161, window=70,
+                            lens=[176, 100, 71, 70, 69, 130, 65, 150]),
+    **{f"hd{hd}_g{g}": dict(H=8 * g, KV=8, hd=hd, S=161,
+                            lens=[1, 32, 33, 64, 176, 161, 65, 128])
+       for hd in (32, 64, 128) for g in (1, 2, 4, 8)},
+    "long": dict(H=8, KV=4, S=1500,
+                 lens=[1500, 1, 257, 700, 1499, 512, 1024, 1504]),
+    "long_window": dict(H=16, KV=8, S=1500, window=300, hd=128,
+                        lens=[1500, 1, 299, 301, 1000, 640, 1024, 1280]),
+}
+
+
+def check_int8_decode(dev, gen):
+    """K3 and K4 against their plain versions at every case of
+    ``INT8_CASES``, two bf16 ulps of the largest output (every length >= 1,
+    so no row is empty), and bit-identical over two calls on the same
+    inputs. K4's inputs hold stale codes in unmapped pages and two streams
+    sharing their first pages (``paged_inputs``)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    errs, ok = {"dense": {}, "paged": {}}, True
+    for name, case in INT8_CASES.items():
+        H, KV, S = case["H"], case["KV"], case["S"]
+        hd, window, lens = case.get("hd", 64), case.get("window"), case["lens"]
+        MP = -(-S // PAGE_SIZE)
+        q, kq, vq, ks, vs, ln = int8_inputs(gen, SLOTS, H, KV, S, hd, 1, dev,
+                                            lens=lens)[0]
+        dense = (lambda: ops.decode_attention_int8(q, kq, vq, ks, vs, ln,
+                                                   window=window),
+                 lambda: ref.decode_attention_int8_ref(
+                     q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, ln,
+                     window=window))
+        q4, kp, vp, pks, pvs, pt, ln4 = paged_inputs(
+            gen, SLOTS, H, KV, hd, 1 + SLOTS * MP, 1, dev, lens=lens, MP=MP)[0]
+        paged = (lambda: ops.paged_decode_attention(q4, kp, vp, pks, pvs, pt,
+                                                    ln4, window=window),
+                 lambda: ref.paged_decode_attention_ref(
+                     q4, kp.transpose(1, 2), vp.transpose(1, 2), pks, pvs, pt,
+                     ln4, window=window))
+        for kind, (kernel, plain) in (("dense", dense), ("paged", paged)):
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+            same = torch.equal(got, again)
+            label, where = (("decode_attention_int8", f"S={S}")
+                            if kind == "dense" else
+                            ("paged_decode_attention",
+                             f"ps={PAGE_SIZE} MP={MP}"))
+            log(f"kernel {label} [{name}] B={SLOTS} H={H} KV={KV} hd={hd} "
+                f"{where} window={window}: max_abs_err={err:.3e} (bound "
+                f"{tol:.3e}), bit-identical twice: {same}")
+            ok &= err <= tol and bool(torch.isfinite(got.float()).all()) \
+                and same
+            errs[kind][name] = err
+    return ok, errs
 
 
 # K2 shapes on the serving paths of full-width stablelm-1.6b (H = KV = 32,
@@ -667,42 +759,14 @@ def phase_kernels(dev):
             f"bit-identical twice: {same}")
         ok &= err <= tol and sentinel_zero and same
         results.setdefault("segmented_lora", {})[name] = err
+    # K3 and K4 at every case of INT8_CASES
+    ok_i, errs_i = check_int8_decode(dev, gen)
+    ok &= ok_i
+    results["decode_attention_int8"] = errs_i["dense"]
+    results["paged_decode_attention"] = errs_i["paged"]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S = PROMPT_LEN + MAX_NEW + 1
-    for window in (None, 48):
-        q, kq, vq, ks, vs, lens = int8_inputs(gen, SLOTS, H, KV, S, hd, 1, dev)[0]
-        got = ops.decode_attention_int8(q, kq, vq, ks, vs, lens, window=window)
-        want = ref.decode_attention_int8_ref(q, kq.transpose(1, 2),
-                                             vq.transpose(1, 2), ks, vs, lens,
-                                             window=window)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
-        log(f"kernel decode_attention_int8 B={SLOTS} H={H} KV={KV} S={S} "
-            f"hd={hd} window={window}: max_abs_err={err:.3e} (bound {tol:.3e})")
-        ok &= err <= tol
-        results.setdefault("decode_attention_int8", {})[window] = err
-    # K4: MHA at the serving shape and GQA, with and without a window;
-    # lengths 1, a page multiple and the table's full width (176) included
     MP = -(-S // PAGE_SIZE)
-    lens = [1, 16, MP * PAGE_SIZE, 33, 100, S, 64, 7]
-    for kv in (KV, 8):
-        for window in (None, 48):
-            q, kp, vp, ks, vs, pt, ln = paged_inputs(
-                gen, SLOTS, H, kv, hd, TOTAL_PAGES, 1, dev, lens=lens)[0]
-            got = ops.paged_decode_attention(q, kp, vp, ks, vs, pt, ln,
-                                             window=window)
-            want = ref.paged_decode_attention_ref(
-                q, kp.transpose(1, 2), vp.transpose(1, 2), ks, vs, pt, ln,
-                window=window)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
-            log(f"kernel paged_decode_attention B={SLOTS} H={H} KV={kv} "
-                f"hd={hd} ps={PAGE_SIZE} MP={MP} P={TOTAL_PAGES} lens={lens} "
-                f"window={window}: max_abs_err={err:.3e} (bound {tol:.3e})")
-            ok &= err <= tol
-            results.setdefault("paged_decode_attention", {})[(kv, window)] = err
     # K4 against K3 on a contiguous table whose page scales are the slot
     # scales: the same attention over the same codes, two bf16 ulps
     q, kq, vq, ks, vs, ln = int8_inputs(gen, SLOTS, H, KV, S, hd, 1, dev)[0]
@@ -1429,6 +1493,56 @@ def phase_whisper_serving(dev):
 
 # ---------------- phase 6: timing ----------------
 
+def paged_timing(dev, gen, H, KV, hd, s_max, nsets) -> dict:
+    """K4's device time per call on 8 streams with ragged lengths up to
+    ``s_max`` (a table of ceil(s_max / 16) pages), over ``nsets``
+    dense-equivalent arenas (one per layer, so each call finds its pages
+    cold), its plain version's, one ``scaled_dot_product_attention`` call
+    on the pages already gathered and dequantized to bf16 (never called by
+    the port; the gather not timed), the bound counted on this data, and
+    the host-clock time of a call (``enqueue_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    MP = -(-s_max // PAGE_SIZE)
+    sets = paged_inputs(gen, SLOTS, H, KV, hd, 1 + SLOTS * MP, nsets, dev,
+                        MP=MP)
+    for st in sets:
+        st[6].clamp_(max=s_max)
+
+    def rotating(fn, items):
+        it = [0]
+
+        def call():
+            fn(*items[it[0] % len(items)])
+            it[0] += 1
+        return call
+    k_ms = device_ms(rotating(lambda *a: ops.paged_decode_attention(*a), sets))
+    p_ms = device_ms(rotating(lambda q, kp, vp, ks, vs, pt, l:
+                              ref.paged_decode_attention_ref(
+                                  q, kp.transpose(1, 2), vp.transpose(1, 2),
+                                  ks, vs, pt, l), sets))
+    lib_sets = []
+    for q, kp, vp, ks, vs, pt, l in sets:
+        def gathered(pages, sc):
+            g = pages[pt.long()].float() * sc[pt.long()][:, :, None, :, None]
+            return g.permute(0, 3, 1, 2, 4).reshape(
+                SLOTS, KV, MP * PAGE_SIZE, hd).to(torch.bfloat16)
+        mask = (torch.arange(MP * PAGE_SIZE, device=dev)[None]
+                < l[:, None])[:, None, None]
+        lib_sets.append((q[:, :, None], gathered(kp, ks), gathered(vp, vs),
+                         mask))
+    lib_ms = device_ms(rotating(lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m), lib_sets))
+    b_ms, b_by = paged_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6])
+    log(f"paged_decode_attention [H={H} KV={KV} MP={MP}]: {k_ms * 1e3:.2f} us "
+        f"(SDPA {lib_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f})")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, enqueue_ms=time_ms(rotating(
+                    lambda *a: ops.paged_decode_attention(*a), sets)))
+
+
 def phase_timing(dev, handles, paged_handles, chunked_handles,
                  whisper_handles):
     """Device time of each kernel, its plain version and a library
@@ -1516,37 +1630,12 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
             q, kq, vq, ks, vs, l), sets))
     k3 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
               library_ms=lib_ms)
-    # K4 at the serving shape, ragged lengths up to S, over a dense-
-    # equivalent arena per set (1 + 8 x 11 pages, 5.8 MB: 24 sets > L2)
-    MP = -(-S // PAGE_SIZE)
-    sets = paged_inputs(gen, SLOTS, H, KV, hd, 1 + SLOTS * MP, nsets, dev,
-                        lens=None)
-    for st in sets:
-        st[6].clamp_(max=S)
-    k_ms = device_ms(rotating(lambda *a: ops.paged_decode_attention(*a), sets))
-    p_ms = device_ms(rotating(lambda q, kp, vp, ks, vs, pt, l:
-                              ref.paged_decode_attention_ref(
-                                  q, kp.transpose(1, 2), vp.transpose(1, 2),
-                                  ks, vs, pt, l), sets))
-    # yardstick: SDPA over the pages already gathered and dequantized to
-    # bf16 (never called by the port); the gather is not timed
-    lib_sets = []
-    for q, kp, vp, ks, vs, pt, l in sets:
-        def gathered(pages, sc):
-            g = pages[pt.long()].float() * sc[pt.long()][:, :, None, :, None]
-            return g.permute(0, 3, 1, 2, 4).reshape(
-                SLOTS, KV, MP * PAGE_SIZE, hd).to(torch.bfloat16)
-        mask = (torch.arange(MP * PAGE_SIZE, device=dev)[None]
-                < l[:, None])[:, None, None]
-        lib_sets.append((q[:, :, None], gathered(kp, ks), gathered(vp, vs),
-                         mask))
-    lib_ms = device_ms(rotating(lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m), lib_sets))
-    b_ms, b_by = paged_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6])
-    extra["paged_decode_attention_enqueue_ms"] = time_ms(rotating(
-        lambda *a: ops.paged_decode_attention(*a), sets))
-    k4 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=lib_ms)
+    # K4 at the stablelm shape (the kernels line) and at whisper-base's
+    # decoder self-attention (H = KV = 8, a table of 9 pages)
+    k4 = paged_timing(dev, gen, H, KV, hd, S, nsets)
+    extra["paged_decode_attention_enqueue_ms"] = k4.pop("enqueue_ms")
+    extra["paged_decode_attention_whisper"] = paged_timing(
+        dev, gen, 8, 8, hd, W_PROMPT_LEN + W_MAX_NEW + 1, 6)
     # launches, ms and profile of one full-width decode step, 8 live streams
     extra.update(live_step_timing(dev, handles, "", seed=1, rid0=-300))
     extra.update(live_step_timing(dev, paged_handles, "paged_", seed=3,
@@ -1902,10 +1991,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     phases = {}
-    # the two kernels redesigned for registers and shared memory must not
-    # spill
+    # the kernels redesigned for registers and shared memory must not spill
     spills = {n: spill_stores(n) for n in ("decode_attention",
-                                           "segmented_lora")}
+                                           "segmented_lora",
+                                           "decode_attention_int8",
+                                           "paged_decode_attention")}
     log(f"  ptxas spill stores (bytes): {json.dumps(spills)}")
     phases["no_spills"] = not any(spills.values())
     try:

@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). Libraries land in ``build/kernels/`` at the
-repository root, named by a hash of the source and the flags, on first use;
+repository root, named by a hash of the source, the headers it includes and
+the flags, on first use;
 ``build_all`` starts one ``nvcc`` per source at once. Nothing here runs when
 the module is imported.
 
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -57,10 +59,26 @@ def nvcc() -> str:
     return str(path)
 
 
+def _sources(path: Path, seen: dict) -> dict:
+    """``path`` and every file it includes by a quoted ``#include`` found
+    beside the includer, recursively: {path: bytes}, in the order met."""
+    if path in seen or not path.exists():
+        return seen
+    text = seen[path] = path.read_bytes()
+    for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+        _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """Where kernel ``name``'s library lives: named by a hash of its source,
+    of every header it includes from ``csrc/`` and of the flags, so that an
+    edit to a shared header rebuilds every library that includes it."""
+    h = hashlib.sha256()
+    for path, text in _sources(CSRC / SOURCES[name], {}).items():
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:

@@ -78,10 +78,10 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
         if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"expected contiguous {dt} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("q must be contiguous and 16-byte aligned")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = build.current_stream(q.device.index or 0)
     err = _lib().decode_int8_launch(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, KV, G, S,

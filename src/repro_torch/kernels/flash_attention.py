@@ -132,7 +132,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         part = torch.empty((n * (hd + 2),), dtype=torch.float32,
                            device=q.device)
         part_m, part_l, part_acc = part[:n], part[n:2 * n], part[2 * n:]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = build.current_stream(q.device.index or 0)
 
     def ptr(t):
         return None if t is None else t.data_ptr()

@@ -79,8 +79,10 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,
     _check(v_scale, (P, KV), torch.float32, "v_scale")
     _check(page_table, (B, MP), torch.int32, "page_table")
     _check(lengths, (B,), torch.int32, "lengths")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = build.current_stream(q.device.index or 0)
     err = _lib().paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),

@@ -258,27 +258,94 @@ def test_segmented_lora_kernel_on_gpu(cuda_device, T, d, r, NA, bt, out):
     assert bool((got.view(-1, bt, out)[ids >= NA] == 0).all())
 
 
+# K3/K4 GPU shapes (H, KV, hd, S, lens, window), 8 rows, after chip_smoke's
+# INT8_CASES: the stablelm pool (S = 161; lengths 1, 32, 33, a page multiple,
+# the paged table's full width 176) with and without a window, GQA,
+# whisper's self-attention (H = KV = 8, S = 129), a window across a pass,
+# every (hd, G) instantiation, and a cache of several rounds of passes
+INT8_GPU_CASES = {
+    "serving": (32, 32, 64, 161, [1, 32, 33, 80, 176, 161, 100, 7], None),
+    "serving_window": (32, 32, 64, 161, [161, 1, 48, 49, 120, 7, 96, 176], 48),
+    "gqa": (32, 8, 64, 161, [161, 1, 64, 90, 17, 160, 5, 176], None),
+    "whisper": (8, 8, 64, 129, [1, 32, 33, 48, 144, 129, 100, 64], None),
+    "window_crossing": (8, 8, 64, 161, [176, 100, 71, 70, 69, 130, 65, 150],
+                        70),
+    **{f"hd{hd}_g{g}": (8 * g, 8, hd, 161, [1, 32, 33, 64, 176, 161, 65, 128],
+                        None)
+       for hd in (32, 64, 128) for g in (1, 2, 4, 8)},
+    "long": (8, 4, 64, 1500, [1500, 1, 257, 700, 1499, 512, 1024, 1504], None),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("window", [None, 48])
-def test_decode_attention_int8_kernel_on_gpu(cuda_device, window):
-    """CUDA kernel vs its plain version at the serving shape (S = 161 is
-    ragged): two bf16 ulps of the largest output."""
-    B, H, KV, S, hd = 8, 32, 32, 161, 64
+@pytest.mark.parametrize("case", sorted(INT8_GPU_CASES))
+def test_decode_attention_int8_kernel_on_gpu(cuda_device, case):
+    """CUDA kernel vs its plain version (the cache in the pool's layout,
+    read through the transposed view; S = 161 is ragged and a length past
+    S reads S positions): two bf16 ulps of the largest output, and the same
+    bits from a second call."""
+    H, KV, hd, S, lens, window = INT8_GPU_CASES[case]
+    B = len(lens)
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn((B, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
     k = torch.randn((B, S, KV, hd), generator=gen, device=cuda_device)
     v = torch.randn((B, S, KV, hd), generator=gen, device=cuda_device)
     kq, vq, ks, vs = ops.quantize_kv(k, v)
     kq, vq = kq.contiguous(), vq.contiguous()
-    lens = torch.randint(1, S + 1, (B,), generator=gen, device=cuda_device,
-                         dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = ops.LAUNCHES["decode_attention_int8"]
     got = ops.decode_attention_int8(q, kq, vq, ks, vs, lens, window=window)
     want = ref.decode_attention_int8_ref(q, kq.transpose(1, 2),
                                          vq.transpose(1, 2), ks, vs, lens,
                                          window=window)
     torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention_int8"] == before + 1
     tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, ops.decode_attention_int8(q, kq, vq, ks, vs, lens,
+                                                      window=window))
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """A library is named by its source AND the headers it includes from
+    csrc/ (recursively), so an edit to a header shared by two kernels
+    rebuilds both; a header it does not include, or an angle-bracket
+    include, does not move the name."""
+    from repro_torch.kernels import build
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n#include <x.h>\n'
+                                   "int a;\n")
+    (tmp_path / "b.cu").write_text('#include "shared.cuh"\nint b;\n')
+    (tmp_path / "shared.cuh").write_text('#include "inner.cuh"\n// v1\n')
+    (tmp_path / "inner.cuh").write_text("// inner v1\n")
+    (tmp_path / "other.cuh").write_text("// other v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "SOURCES", {"a": "a.cu", "b": "b.cu"})
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "other.cuh").write_text("// other v2\n")
+    assert {n: build.library_path(n) for n in ("a", "b")} == before
+    (tmp_path / "inner.cuh").write_text("// inner v2\n")
+    after = {n: build.library_path(n) for n in ("a", "b")}
+    assert after["a"] != before["a"] and after["b"] != before["b"]
+    (tmp_path / "shared.cuh").write_text('#include "inner.cuh"\n// v2\n')
+    assert build.library_path("a") not in (before["a"], after["a"])
+    assert build.library_path("a").name.startswith("a-")
+
+
+def test_int8_decode_sources_share_one_header():
+    """K3 and K4 are one kernel body: both sources include
+    int8_decode.cuh, which defines both kernels, and each keeps its own
+    extern "C" entry point."""
+    from repro_torch.kernels import build
+    header = (build.CSRC / "int8_decode.cuh").read_text()
+    assert "decode_int8_kernel" in header and "paged_decode_kernel" in header
+    for name, entry in (("decode_attention_int8", "decode_int8_launch"),
+                        ("paged_decode_attention", "paged_decode_launch")):
+        src = (build.CSRC / build.SOURCES[name]).read_text()
+        assert '#include "int8_decode.cuh"' in src
+        assert "__global__" not in src
+        assert list(_c_signatures(src)) == [entry]
+        assert (build.CSRC / "int8_decode.cuh") in build._sources(
+            build.CSRC / build.SOURCES[name], {})
 
 
 # ---------------- the ctypes bindings against the C sources ----------------

@@ -534,16 +534,34 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# K4 GPU shapes (H, KV, hd, MP, lens, window), 8 streams, pages of 16:
+# the stablelm pool's table of 11 pages (lengths 1, a page multiple, the
+# full width 176) with and without a window and with GQA, whisper's
+# self-attention table of 9 pages (H = KV = 8), every (hd, G)
+# instantiation, and a table of 94 pages (several rounds of passes)
+PAGED_GPU_CASES = {
+    "serving": (32, 32, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], None),
+    "serving_window": (32, 32, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], 48),
+    "gqa": (32, 8, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], None),
+    "gqa_window": (32, 8, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], 48),
+    "whisper": (8, 8, 64, 9, [1, 32, 33, 48, 144, 129, 100, 64], None),
+    **{f"hd{hd}_g{g}": (8 * g, 8, hd, 11, [1, 32, 33, 64, 176, 161, 65, 128],
+                        None)
+       for hd in (32, 64, 128) for g in (1, 2, 4, 8)},
+    "long": (8, 4, 64, 94, [1504, 1, 257, 700, 1499, 512, 1024, 33], 600),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("KV", [32, 8])
-@pytest.mark.parametrize("window", [None, 48])
-def test_paged_decode_kernel_on_gpu(cuda_device, KV, window):
-    """K4 vs its plain version at the serving shape (8 streams, 32 heads,
-    hd 64, pages of 16, a table of 11 pages) and a GQA shape, with ragged
-    lengths, a shared page and stale codes in unmapped pages: two bf16
-    ulps of the largest output (both accumulate in f32, in another
-    order)."""
-    B, H, hd, ps, MP, P = 8, 32, 64, 16, 11, 96
+@pytest.mark.parametrize("case", sorted(PAGED_GPU_CASES))
+def test_paged_decode_kernel_on_gpu(cuda_device, case):
+    """K4 vs its plain version with ragged lengths, a shared page and stale
+    codes in unmapped pages: two bf16 ulps of the largest output (both
+    accumulate in f32, in another order), and the same bits from a second
+    call."""
+    H, KV, hd, MP, lens, window = PAGED_GPU_CASES[case]
+    B, ps = len(lens), 16
+    P = 1 + B * MP
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     dev = cuda_device
     q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -553,8 +571,7 @@ def test_paged_decode_kernel_on_gpu(cuda_device, KV, window):
                        dtype=torch.int8)
     ks = torch.rand((P, KV), generator=gen, device=dev) * 0.05 + 1e-3
     vs = torch.rand((P, KV), generator=gen, device=dev) * 0.05 + 1e-3
-    lens = torch.tensor([1, 16, 176, 33, 100, 161, 64, 7], dtype=torch.int32,
-                        device=dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     pt = torch.zeros((B, MP), dtype=torch.int32, device=dev)
     perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
     k = 0
@@ -573,3 +590,5 @@ def test_paged_decode_kernel_on_gpu(cuda_device, KV, window):
     assert ops.LAUNCHES["paged_decode_attention"] == before + 1
     tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, ops.paged_decode_attention(
+        q, kp, vp, ks, vs, pt, lens, window=window))
