@@ -134,36 +134,79 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def device_kernels(fn, iters: int = 20, warmup: int = 3) -> dict:
+def timed_records(events, cuda) -> tuple[dict, int]:
+    """Device records of a profiling session (``kineto_results.events()``)
+    launched after its first ``torch.cuda.synchronize`` (a runtime
+    ``cudaDeviceSynchronize``, which the port's code never calls), by name:
+    (summed ns, count); and the ns from the first such record's start to
+    the last one's end. Correlation ids grow with every runtime call, so a
+    record belongs to the timed calls when its id is above the
+    synchronize's."""
+    syncs = [e.correlation_id() for e in events
+             if e.device_type() != cuda and e.name() == "cudaDeviceSynchronize"]
+    if not syncs:
+        return {}, 0
+    first = min(syncs)
+    out: dict = {}
+    lo, hi = None, None
+    for e in events:
+        if e.device_type() == cuda and e.correlation_id() > first:
+            ns, n = out.get(e.name(), (0, 0))
+            out[e.name()] = (ns + e.duration_ns(), n + 1)
+            end = e.start_ns() + e.duration_ns()
+            lo = e.start_ns() if lo is None else min(lo, e.start_ns())
+            hi = end if hi is None else max(hi, end)
+    return out, (hi - lo if out else 0)
+
+
+def device_kernels(fn, iters: int = 20, warmup: int = 3,
+                   tries: int = 20) -> dict:
     """Mean DEVICE ms per call of each kernel (and copy) the call runs on
     the card, by name, from ``torch.profiler``, so host gaps between
-    launches do not count: for each name, the mean duration of its records
-    times its launches per call (its record count over the calls, rounded),
-    so that records CUPTI drops (it sometimes does) leave the mean as it
-    is. A profiling session that records no device activity is run again,
-    up to three times; then this raises (CUDA events would time the host's
-    enqueue rate instead)."""
+    launches do not count: the summed durations of its records over the
+    calls. The profiler can keep no record of a session's first launches
+    (seen on the H100 once several kernel libraries are loaded: up to two
+    launches a session whose runtime calls are recorded and whose kernels
+    are not), so each session starts with ``warmup`` calls and a
+    synchronize and counts only what was launched after it
+    (``timed_records``). A session is run again, up to ``tries`` sessions
+    (then this raises; CUDA events would time the host's enqueue rate
+    instead), when it recorded no device time; when a kernel's record
+    count is not a multiple of the calls (every call launches the same
+    kernels: records were dropped); or when its records do not span
+    0.7-1.02 of the host's time for the calls (the calls are host-bound,
+    so their records span nearly all of it: a session whose durations all
+    read about half was seen on the H100)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(max(1, warmup)):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total: dict = {}
-        count: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                total[e.name] = total.get(e.name, 0.0) + e.device_time / 1e3
-                count[e.name] = count.get(e.name, 0) + 1
-        if sum(total.values()) > 0:
-            return {n: total[n] / count[n] * max(1, round(count[n] / iters))
-                    for n in total}
-        log("device_kernels: the profiler recorded no device time; again")
-    raise RuntimeError("the profiler recorded no device time")
+            wall = time.perf_counter_ns() - t0
+        recs, span = timed_records(
+            list(prof.profiler.kineto_results.events()),
+            torch.autograd.DeviceType.CUDA)
+        short = sorted(f"{n[:48]}: {c}" for n, (_, c) in recs.items()
+                       if c % iters)
+        if not recs or short:
+            log(f"device_kernels: records of {iters} calls "
+                f"{short or 'without device time'}; again")
+        elif not 0.7 * wall <= span <= 1.02 * wall:
+            log(f"device_kernels: records span {span / wall:.3f} of the "
+                f"calls' host time; again")
+        else:
+            return {n: ns / 1e6 / iters for n, (ns, _) in recs.items()}
+    raise RuntimeError(f"the profiler recorded no complete session of "
+                       f"{iters} calls in {tries}")
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -506,7 +549,9 @@ def paged_bound(q, kp, pt, lens):
 # kernel's register ring holds (hd 64: 256 positions), where it turns over.
 # Lengths 1, 32 and 33 (a warp-pass edge at hd 64 G 1), page multiples and
 # the table's full width (MP * ps; the dense kernel reads min(len, S)). S is
-# the dense cache's length; the paged table holds ceil(S / ps) pages.
+# the dense cache's length; the paged table holds ceil(S / ps) pages. The
+# one K3/K4 case table: the cuda-marked tests and the CPU build of the
+# kernel body (tests/test_torch_int8_decode_host.py) import it.
 INT8_CASES = {
     "serving": dict(H=32, KV=32, S=161, lens=[1, 32, 33, 80, 176, 161, 100, 7]),
     "serving_window": dict(H=32, KV=32, S=161, window=48,

@@ -48,8 +48,7 @@
 //
 // Built with -DINT8_DECODE_COPY_ONLY, the kernels only load what they would
 // read (the same prologue and the same loads) and write a token output: the
-// floor of this design at a shape (tools/kernel_ab.py, variant
-// floor=-DINT8_DECODE_COPY_ONLY).
+// floor of this design at a shape (tools/kernel_ab.py --floor).
 
 #pragma once
 

@@ -2,7 +2,8 @@
 ``decode_int8_kernel`` and K4 ``paged_decode_kernel``) compiled by g++ for
 the CPU against the stand-in headers in ``tests/cuda_host/`` (one std::thread
 per CUDA thread, barriers for ``__syncthreads`` and the warp shuffles) and
-run at small shapes against the plain versions in ``kernels/ref.py``, which
+run at the card's case shapes, cut to one kv head, against the plain
+versions in ``kernels/ref.py``, which
 ``test_torch_kernels.py`` and ``test_torch_paged.py`` hold against the JAX
 package. This checks the kernel's logic here, where no GPU or nvcc is: the
 lane groups of every (hd, G) instantiation, the rounds of passes and their
@@ -15,6 +16,7 @@ import ctypes
 import math
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -26,6 +28,9 @@ from repro_torch.kernels import ref  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 STUBS = Path(__file__).resolve().parent / "cuda_host"
+
+sys.path.insert(0, str(ROOT))
+from chip_smoke import INT8_CASES  # noqa: E402
 
 _GLUE = r"""
 #include "int8_decode.cuh"
@@ -118,16 +123,16 @@ def _check(got, want):
     assert err <= tol, (err, tol)
 
 
-# (B, H, KV, hd, S, lens, window): every (hd, G) instantiation at the
-# stablelm pool's S = 161 (and a table of 11 pages of 16), a window whose
-# start crosses a pass, a stream of four rounds (192 positions a round at
-# hd 64, G 1), and an empty row (zeros)
+# (B, H, KV, hd, S, lens, window): chip_smoke's K3/K4 case table, the one
+# the card checks (every (hd, G) instantiation, windows, whisper's shape, a
+# window across a pass, caches of several rounds), cut to one kv head (G
+# kept: one CTA a row, 128 threads each, so the CPU build stays light on
+# the cores other tests share); plus a row of length 0 (zeros), which the
+# card's table does not hold, with two kv heads
 CASES = {
-    **{f"hd{hd}_g{g}": (2, 2 * g, 2, hd, 161, [176, 33], None)
-       for hd in (32, 64, 128) for g in (1, 2, 4, 8)},
-    "window_crossing": (3, 1, 1, 64, 161, [176, 100, 71], 70),
-    "rounds": (2, 2, 1, 64, 700, [700, 389], None),
-    "rounds_window_gqa": (2, 4, 2, 64, 700, [700, 450], 300),
+    **{name: (len(c["lens"]), c["H"] // c["KV"], 1, c.get("hd", 64), c["S"],
+              c["lens"], c.get("window"))
+       for name, c in INT8_CASES.items()},
     "empty_row": (2, 2, 2, 64, 161, [0, 5], None),
 }
 

@@ -4,6 +4,9 @@ against ``repro.kernels.ref`` on the shape sweeps of ``test_kernels.py``,
 plus rectangular outputs, sentinel blocks, ragged cache lengths and a
 window; the host-side sort helpers against the JAX ones; and, on a GPU only,
 the CUDA kernels against their plain versions."""
+import sys
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,6 +21,10 @@ from repro.kernels.decode_attention_int8 import quantize_kv as jquantize  # noqa
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import segmented_lora as sgmv  # noqa: E402
 from repro_torch.kernels.decode_attention_int8 import quantize_kv  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# the one K3/K4 case table, shared with chip_smoke.py's card check
+from chip_smoke import INT8_CASES  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -258,33 +265,16 @@ def test_segmented_lora_kernel_on_gpu(cuda_device, T, d, r, NA, bt, out):
     assert bool((got.view(-1, bt, out)[ids >= NA] == 0).all())
 
 
-# K3/K4 GPU shapes (H, KV, hd, S, lens, window), 8 rows, after chip_smoke's
-# INT8_CASES: the stablelm pool (S = 161; lengths 1, 32, 33, a page multiple,
-# the paged table's full width 176) with and without a window, GQA,
-# whisper's self-attention (H = KV = 8, S = 129), a window across a pass,
-# every (hd, G) instantiation, and a cache of several rounds of passes
-INT8_GPU_CASES = {
-    "serving": (32, 32, 64, 161, [1, 32, 33, 80, 176, 161, 100, 7], None),
-    "serving_window": (32, 32, 64, 161, [161, 1, 48, 49, 120, 7, 96, 176], 48),
-    "gqa": (32, 8, 64, 161, [161, 1, 64, 90, 17, 160, 5, 176], None),
-    "whisper": (8, 8, 64, 129, [1, 32, 33, 48, 144, 129, 100, 64], None),
-    "window_crossing": (8, 8, 64, 161, [176, 100, 71, 70, 69, 130, 65, 150],
-                        70),
-    **{f"hd{hd}_g{g}": (8 * g, 8, hd, 161, [1, 32, 33, 64, 176, 161, 65, 128],
-                        None)
-       for hd in (32, 64, 128) for g in (1, 2, 4, 8)},
-    "long": (8, 4, 64, 1500, [1500, 1, 257, 700, 1499, 512, 1024, 1504], None),
-}
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(INT8_GPU_CASES))
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
 def test_decode_attention_int8_kernel_on_gpu(cuda_device, case):
     """CUDA kernel vs its plain version (the cache in the pool's layout,
     read through the transposed view; S = 161 is ragged and a length past
     S reads S positions): two bf16 ulps of the largest output, and the same
     bits from a second call."""
-    H, KV, hd, S, lens, window = INT8_GPU_CASES[case]
+    c = INT8_CASES[case]
+    H, KV, hd, S, lens, window = (c["H"], c["KV"], c.get("hd", 64), c["S"],
+                                  c["lens"], c.get("window"))
     B = len(lens)
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn((B, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
@@ -346,6 +336,58 @@ def test_int8_decode_sources_share_one_header():
         assert list(_c_signatures(src)) == [entry]
         assert (build.CSRC / "int8_decode.cuh") in build._sources(
             build.CSRC / build.SOURCES[name], {})
+
+
+class _Rec:
+    """Stands in for one event of ``kineto_results.events()``."""
+
+    def __init__(self, device, corr, name, ns=0):
+        self._d, self._c, self._n, self._ns = device, corr, name, ns
+
+    def start_ns(self):
+        return 100 * self._c
+
+    def device_type(self):
+        return self._d
+
+    def correlation_id(self):
+        return self._c
+
+    def name(self):
+        return self._n
+
+    def duration_ns(self):
+        return self._ns
+
+
+@pytest.mark.parametrize("lead_kept", [True, False])
+def test_timed_records_count_only_the_calls_after_the_first_sync(lead_kept):
+    """chip_smoke's device timing counts the records launched after the
+    session's first ``cudaDeviceSynchronize`` (by correlation id), so the
+    lead call's records, kept or dropped by the profiler, never change the
+    sum, the count or the span, and a stream synchronize inside a call is
+    no boundary; a session without the synchronize yields nothing (and is
+    run again)."""
+    from chip_smoke import timed_records
+    ev = [_Rec("cpu", 1, "cudaLaunchKernel")]
+    if lead_kept:
+        ev.append(_Rec("cuda", 1, "k", 999))
+    ev += [_Rec("cpu", 2, "cudaStreamSynchronize"),
+           _Rec("cpu", 3, "cudaDeviceSynchronize")]
+    for i, c in enumerate((4, 7, 10)):
+        ev += [_Rec("cpu", c, "cudaLaunchKernel"),
+               _Rec("cuda", c, "k", 10 + i),
+               _Rec("cpu", c + 1, "cudaMemcpyAsync"),
+               _Rec("cuda", c + 1, "Memcpy HtoD", 4),
+               _Rec("cpu", c + 2, "cudaStreamSynchronize")]
+    ev.append(_Rec("cpu", 13, "cudaDeviceSynchronize"))
+    # the span: from the first timed record's start (corr 4) to the last
+    # one's end (corr 11: start 1100, 4 ns)
+    assert timed_records(ev, "cuda") == (
+        {"k": (33, 3), "Memcpy HtoD": (12, 3)}, 1104 - 400)
+    assert timed_records([e for e in ev
+                          if e.name() != "cudaDeviceSynchronize"],
+                         "cuda") == ({}, 0)
 
 
 # ---------------- the ctypes bindings against the C sources ----------------

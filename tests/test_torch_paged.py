@@ -38,8 +38,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import collections  # noqa: E402
+import sys  # noqa: E402
 import time  # noqa: E402
 import warnings  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -58,6 +60,10 @@ from repro_torch.core.decode_engine import (TRASH_PAGE, DecodeEngine,  # noqa: E
                                             EngineWedged)
 from repro_torch.core.physical import PhysicalFM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# the one K3/K4 case table, shared with chip_smoke.py's card check
+from chip_smoke import INT8_CASES  # noqa: E402
 
 BT = 8
 LOGIT_TOL = 0.75
@@ -534,33 +540,18 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# K4 GPU shapes (H, KV, hd, MP, lens, window), 8 streams, pages of 16:
-# the stablelm pool's table of 11 pages (lengths 1, a page multiple, the
-# full width 176) with and without a window and with GQA, whisper's
-# self-attention table of 9 pages (H = KV = 8), every (hd, G)
-# instantiation, and a table of 94 pages (several rounds of passes)
-PAGED_GPU_CASES = {
-    "serving": (32, 32, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], None),
-    "serving_window": (32, 32, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], 48),
-    "gqa": (32, 8, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], None),
-    "gqa_window": (32, 8, 64, 11, [1, 16, 176, 33, 100, 161, 64, 7], 48),
-    "whisper": (8, 8, 64, 9, [1, 32, 33, 48, 144, 129, 100, 64], None),
-    **{f"hd{hd}_g{g}": (8 * g, 8, hd, 11, [1, 32, 33, 64, 176, 161, 65, 128],
-                        None)
-       for hd in (32, 64, 128) for g in (1, 2, 4, 8)},
-    "long": (8, 4, 64, 94, [1504, 1, 257, 700, 1499, 512, 1024, 33], 600),
-}
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(PAGED_GPU_CASES))
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
 def test_paged_decode_kernel_on_gpu(cuda_device, case):
     """K4 vs its plain version with ragged lengths, a shared page and stale
     codes in unmapped pages: two bf16 ulps of the largest output (both
     accumulate in f32, in another order), and the same bits from a second
     call."""
-    H, KV, hd, MP, lens, window = PAGED_GPU_CASES[case]
+    c = INT8_CASES[case]
+    H, KV, hd, lens, window = (c["H"], c["KV"], c.get("hd", 64), c["lens"],
+                               c.get("window"))
     B, ps = len(lens), 16
+    MP = -(-c["S"] // ps)          # the table of a dense cache of S
     P = 1 + B * MP
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     dev = cuda_device

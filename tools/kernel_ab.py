@@ -3,23 +3,22 @@
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 tools/kernel_ab.py --parent build/parent [--kernels NAME ...] \
-        [--variant LABEL=FLAGS ...]
+        [--floor]
 
 For each kernel named (default: ``decode_attention`` and ``segmented_lora``)
 this builds the parent tree's source (``<parent>/src/repro_torch/csrc``, its
 headers resolved beside it) beside this tree's, loads the parent's wrapper
 module from its file with the parent's library swapped in, and times both
 on the same input sets at the serving shapes of ``chip_smoke.py`` (parent,
-change, each variant, then the same in reverse; device time from
-``torch.profiler`` by kernel name, so a call's split into its kernels
-shows; then the host time per call of parent and change the same way),
-after checking that both agree. Each ``--variant`` is this tree's source
-built again with extra nvcc flags (``-D`` defines) and timed in the same
-turns through this tree's wrapper; for the int8 decode kernels
-``floor=-DINT8_DECODE_COPY_ONLY`` is the copy-only build (the same loads,
-no math: the floor of the design at a shape; its output is not the
-function's). Prints a ptxas summary of every build (spill stores,
-registers), one JSON line per shape and the card's name and power limit.
+change, the floor build if asked for, then the same in reverse; device
+time from ``torch.profiler`` by kernel name, so a call's split into its
+kernels shows; then the host time per call of parent and change the same
+way), after checking that both agree. ``--floor`` also builds this tree's
+int8 decode kernels with ``-DINT8_DECODE_COPY_ONLY`` (the same loads, no
+math: the floor of the design at a shape; its output is not the
+function's) and times that build in the same turns through this tree's
+wrapper. Prints a ptxas summary of every build (spill stores, registers),
+one JSON line per shape and the card's name and power limit.
 ``build/`` is gitignored, so the parent tree and its library stay out of
 commits. Needs a CUDA GPU and nvcc.
 """
@@ -101,16 +100,21 @@ def parent_wrapper(parent: str, name: str):
     return mod, swapper(name, lib)
 
 
-def variant_wrapper(name: str, label: str, flags: str):
-    """This tree's source of kernel ``name`` built with ``flags``, and a
+# the kernels with a copy-only build, and its define
+FLOOR_KERNELS = ("decode_attention_int8", "paged_decode_attention")
+FLOOR_FLAG = "-DINT8_DECODE_COPY_ONLY"
+
+
+def floor_wrapper(name: str):
+    """This tree's source of kernel ``name`` built copy-only, and a
     function that calls a wrapper function with that library in place."""
     import ctypes
 
     from repro_torch.kernels import build
-    so = build.BUILD_DIR / f"{name}-{label}.so"
-    spill_lines(f"{name} {label}",
+    so = build.BUILD_DIR / f"{name}-floor.so"
+    spill_lines(f"{name} floor",
                 nvcc_build(str(build.CSRC / build.SOURCES[name]), so,
-                           flags.split()))
+                           [FLOOR_FLAG]))
     return swapper(name, ctypes.CDLL(str(so)))
 
 
@@ -176,9 +180,9 @@ def main() -> int:
     ap.add_argument("--parent", required=True)
     ap.add_argument("--kernels", nargs="+",
                     default=["decode_attention", "segmented_lora"])
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="LABEL=FLAGS",
-                    help="also time this tree's source built with FLAGS")
+    ap.add_argument("--floor", action="store_true",
+                    help="also time the copy-only build of the int8 decode "
+                    "kernels")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -189,18 +193,18 @@ def main() -> int:
     for name in args.kernels:
         spill_lines(f"{name} change",
                     (build.BUILD_DIR / f"{name}.log").read_text())
-    variants = [v.split("=", 1) for v in args.variant]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(17)
     for name in args.kernels:
         parent_mod, swapped = parent_wrapper(args.parent, name)
         new_mod = importlib.import_module(f"repro_torch.kernels.{name}")
-        built = [(label, variant_wrapper(name, label, flags))
-                 for label, flags in variants]
+        floor = floor_wrapper(name) \
+            if args.floor and name in FLOOR_KERNELS else None
         for shape, sets, pick in cases(name, dev, gen):
             new_fn, old_fn = pick(new_mod), swapped(pick(parent_mod))
-            fns = {"parent": old_fn, "change": new_fn,
-                   **{label: sw(pick(new_mod)) for label, sw in built}}
+            fns = {"parent": old_fn, "change": new_fn}
+            if floor is not None:
+                fns["floor"] = floor(pick(new_mod))
             got, want = new_fn(*sets[0]), old_fn(*sets[0])
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs().max().item()
