@@ -33,7 +33,9 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    stablelm's and whisper's serving shapes, ranks 4 and 64, a narrower
    output, one adapter and sentinel blocks only (``sgmv_cases``); K1 and
    K5 each twice on the same inputs, bit for bit; the ptxas reports of the
-   K1, K3, K4 and K5 libraries free of spill stores;
+   K1, K3, K4 and K5 libraries free of spill stores; moment-large's pooled
+   shapes (K1 at d = out = 1024, ranks 4 and 16; K2 not causal, 16 heads,
+   32 patches);
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
    same model run with the plain versions on the CPU, on the int8 pool (K3)
@@ -68,6 +70,17 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    and transcription streams with their own frames (prompts 4-64 tokens,
    32-64 new tokens); every request finishes ok with its budget, K5, K4,
    K2 and K1 launch, and every state slot and page is free at the end;
+   then three whisper streams on q/k at the real fan-in served through the
+   loop, their logits held position by position against the same streams
+   on the CPU engine (teacher-forced);
+   then a two-layer cut of full-width moment-large (``backbone_features``
+   and ``run_batch`` under each LoRA impl, GPU against CPU, and a planted
+   check that the mask is not causal), and full-width moment-large served
+   through the port's launcher (``repro_torch.launch.serve``, 4 tasks,
+   Poisson load at 40 requests/s, ``lora_impl="auto"``): every request
+   served, K2 and (where the table chose "segmented") K1 launched per
+   forward, no new shape key; and ``python -m repro_torch.launch.serve``
+   with no flags;
 6. timing — device times (``torch.profiler``) of each kernel, its plain
    version and a library yardstick, beside the least time the card could
    take (its bound), K2 also at whisper's encoder and cross-prefill
@@ -76,7 +89,8 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    (shrink/expand), K1 also beside the port's gather path at the same
    tokens, K4 also at whisper's self-attention decode shape, a profile of
    one dense, one paged and one whisper decode step
-   (8 live streams each) and of one whisper pooled batch, and the prefill
+   (8 live streams each), of one whisper pooled batch and of one moment
+   pooled batch (32 x 32 patches) under each LoRA impl, and the prefill
    device time a prefix hit saves (full admission against its tail).
 
 The line before last prints the card's name and power limit
@@ -99,6 +113,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor rate (data sheet)
 ARCH = "stablelm-1.6b"
 WHISPER = "whisper-base"
+MOMENT = "moment-large"
+MOMENT_LEN = 32                 # patches a request (the launcher's input_len)
 ENC_LEN = 1500                  # whisper's n_audio_ctx (arXiv:2212.04356)
 SLOTS, CHUNK, PROMPT_LEN, MAX_NEW, RANK, BLOCK_T = 8, 4, 128, 32, 16, 16
 N_TASKS = 4
@@ -304,8 +320,9 @@ def sgmv_cases(cfg) -> dict:
     """K1 shapes: stablelm-1.6b's q/v projections (d = out = 2048, rank 16,
     4 adapters) at decode (8 tokens: 6 blocks of 16), admission prefill (128
     tokens) and a pooled batch (32 x 128 tokens); whisper-base's at decode
-    (d = out = 512); and at decode ranks 4 and 64, a narrower output (96),
-    one adapter, and a batch of sentinel blocks only."""
+    (d = out = 512); moment-large's pooled batch (32 x 32 patches, d = out
+    = 1024) at ranks 4 and 16; and at decode ranks 4 and 64, a narrower
+    output (96), one adapter, and a batch of sentinel blocks only."""
     from repro_torch.kernels.segmented_lora import padded_tokens
     d = cfg.d_model
     dec = padded_tokens(SLOTS, min(SLOTS, 4 + 2), BLOCK_T)
@@ -321,6 +338,10 @@ def sgmv_cases(cfg) -> dict:
         "out96": dict(T=dec, d=d, out=96),
         "one_adapter": dict(T=dec, d=d, out=d, na=1),
         "all_sentinel": dict(T=dec, d=d, out=d, sentinel_only=True),
+        # moment-large's pooled batch: 32 requests x 32 patches, d = out =
+        # 1024, the launcher's rank 4 and rank 16
+        **{f"moment_r{r}": dict(T=padded_tokens(32 * MOMENT_LEN, 6, BLOCK_T),
+                                d=1024, out=1024, r=r) for r in (4, 16)},
     }
 
 
@@ -670,6 +691,12 @@ FLASH_CASES = {
     "split_causal_tail": dict(B=1, Sq=128, Sk=128, Sp=192, kv_len=[100],
                               prefix_len=[150]),
     "split_causal_admission": dict(B=1, Sq=512, Sk=512, kv_len=[400]),
+    # moment-large's bidirectional encoder: a pooled batch of 32 requests of
+    # 32 patches (H = KV = 16, hd 64), and one request
+    "moment": dict(B=32, Sq=MOMENT_LEN, Sk=MOMENT_LEN, H=16, KV=16,
+                   causal=False),
+    "moment_one": dict(B=1, Sq=MOMENT_LEN, Sk=MOMENT_LEN, H=16, KV=16,
+                       causal=False),
 }
 # the shapes timed: one call of each kind as the serving path makes it
 # (whisper: the encoder of one admission, and the cross-attention of a
@@ -681,6 +708,7 @@ FLASH_TIMED = {
     "whisper_encoder": dict(B=1, Sq=ENC_LEN, Sk=ENC_LEN, H=8, KV=8,
                             causal=False),
     "whisper_cross": FLASH_CASES["whisper_cross_prefill"],
+    "moment": FLASH_CASES["moment"],
 }
 
 
@@ -921,7 +949,8 @@ def phase_reference(dev):
     from repro_torch.kernels import ops
     from repro_torch.models.common import tree_map
     cfg = full_config(num_layers=2)
-    fm = PhysicalFM(cfg, seed=3, lora_rank=RANK, device=dev)
+    fm = PhysicalFM(cfg, seed=3, lora_rank=RANK, lora_impl="segmented",
+                    device=dev)
     cpu_params = tree_map(lambda t: t.cpu(), fm.params)
     store = AdapterStore(cfg, RANK, device=dev)
     for i in range(3):
@@ -961,6 +990,19 @@ def whisper_config(**over):
     return dataclasses.replace(get_config(WHISPER), **over)
 
 
+def fan_in_qk(params, cfg):
+    """Scale every query and key projection (self and cross, decoder and
+    encoder) in place to the model's real fan-in, sqrt(heads / d_model):
+    the package's init takes the heads axis of a (d, heads, hd) projection
+    as its fan-in (see ``phase_reference_whisper``)."""
+    scale = (cfg.num_heads / cfg.d_model) ** 0.5
+    for sub in params["layers"] + params["encoder"]["layers"]:
+        for name in ("attn", "cross"):
+            if name in sub:
+                sub[name]["wq"].mul_(scale)
+                sub[name]["wk"].mul_(scale)
+
+
 def phase_reference_whisper(dev):
     """A two-layer cut (2 decoder, 2 encoder layers) of full-width
     whisper-base with 4 rows (3 adapters and the base model), each with its
@@ -990,7 +1032,8 @@ def phase_reference_whisper(dev):
     from repro_torch.kernels import ops
     from repro_torch.models.common import tree_map
     cfg = whisper_config(num_layers=2, encoder_layers=2)
-    fm = PhysicalFM(cfg, seed=4, lora_rank=RANK, device=dev)
+    fm = PhysicalFM(cfg, seed=4, lora_rank=RANK, lora_impl="segmented",
+                    device=dev)
     store = AdapterStore(cfg, RANK, device=dev)
     for i in range(3):
         store.add(f"a{i}", random_adapter(store, i, dev))
@@ -1013,12 +1056,7 @@ def phase_reference_whisper(dev):
         torch.cuda.synchronize()
         return drift(g.flatten(0, 1), c.flatten(0, 1))
     package_init = run()
-    scale = (cfg.num_heads / cfg.d_model) ** 0.5
-    for sub in fm.params["layers"] + fm.params["encoder"]["layers"]:
-        for name in ("attn", "cross"):
-            if name in sub:
-                sub[name]["wq"].mul_(scale)
-                sub[name]["wk"].mul_(scale)
+    fan_in_qk(fm.params, cfg)
     r = run()
     r["launches"] = {k: int(ops.LAUNCHES[k]) for k in (
         "segmented_lora", "flash_attention", "decode_attention",
@@ -1528,12 +1566,294 @@ def phase_whisper_serving(dev):
     ok = not bad and not short and not nonfinite and not leak
     ok &= eng.quarantines == 0 and all(v > 0 for v in launches.values())
     ok &= not eng.prefix_sharing and eng.state_pool.allocs >= len(gen)
+    ok_tf, stats["teacher_forced"] = whisper_teacher_forced(dev)
     log("whisper serving: " + json.dumps(stats, default=float))
     if not ok:
         log(f"whisper serving: not ok {[(r.rid, r.status) for r in bad[:5]]}"
             f", short {len(short)}, non-finite pooled {len(nonfinite)}, "
             f"leak {leak}")
-    return ok, stats, (srv, fm, eng)
+    return ok and ok_tf, stats, (srv, fm, eng)
+
+
+def record_streams(eng, log: dict, teacher: dict = None):
+    """Route ``eng``'s sampler through a recorder (before any of its plane
+    functions exists: each captures the sampler when it is built). Every
+    sampler call's f32 logits go into ``log`` under (rid, position) for
+    each live row: an admission prefill (one row) at the stream's position
+    (0, or a resumed stream's generated count), a decode chunk's rows at
+    each slot's generated count plus the step within the chunk. Greedy when
+    ``teacher`` is None; otherwise every row is fed ``teacher``'s argmax at
+    the same (rid, position), so two runs that schedule the same streams
+    differently compare position by position."""
+    import torch
+    cur = {}
+    admit, decode_fn = eng._admit_now, eng._decode_fn
+
+    def admit_now(req):
+        cur["adm"] = (req.rid, 0 if req.resume is None
+                      else len(req.resume.tokens))
+        try:
+            return admit(req)
+        finally:
+            cur.pop("adm", None)
+
+    def dfn(cap, chunk):
+        run = decode_fn(cap, chunk)
+
+        def counted(*a, **kw):
+            cur["step"] = 0
+            return run(*a, **kw)
+        return counted
+
+    def sample(logits, gens):
+        host = logits.float().cpu()
+        if "adm" in cur:
+            keys = [cur["adm"]]
+        else:
+            keys = [None if sl is None or sl.done else
+                    (sl.rid, len(sl.tokens) + cur["step"]) for sl in eng.slots]
+            cur["step"] += 1
+        tok = host.argmax(-1)
+        for i, key in enumerate(keys):
+            if key is None:
+                continue
+            log[key] = host[i]
+            if teacher is not None and key in teacher:
+                tok[i] = teacher[key].argmax()
+        return tok.to(torch.int32).to(logits.device), gens
+    eng._admit_now, eng._decode_fn, eng._sample = admit_now, dfn, sample
+
+
+# (prompt tokens, new tokens) of the teacher-forced whisper streams
+W_TF_STREAMS = ((7, 12), (20, 10), (37, 12))
+
+
+def whisper_teacher_forced(dev):
+    """Three whisper streams served through the loop on the card, on
+    full-width whisper-base with q/k at the real fan-in (``fan_in_qk``; the
+    package's init makes attention over 1500 frames nearly one-hot, where
+    the card and the CPU drift 0.40 apart, see ``phase_reference_whisper``),
+    on the paged int8 pool, each with its own frames and adapter; held
+    teacher-forced against the same streams through the port's engine on
+    the CPU (the plain versions), position by position: relative L2 of the
+    logits at most 6e-2 (``phase_reference_whisper``'s bound), greedy tokens
+    equal wherever the CPU's top-2 gap exceeds twice the largest
+    difference, and every generated position compared."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import DecodeEngine
+    from repro_torch.core.physical import PhysicalFM
+    from repro_torch.core.request import Request
+    from repro_torch.models.common import tree_map
+    srv, cfg, fm, loop = build_server(
+        dev, cfg=whisper_config(), input_len=ENC_LEN,
+        prompt_len=W_PROMPT_LEN, max_new=W_MAX_NEW, enc_len=ENC_LEN,
+        paged=True, page_size=W_PAGE_SIZE)
+    fan_in_qk(fm.params, cfg)
+    glog, clog = {}, {}
+    record_streams(srv.decode_engine("fm0", **loop.engine_kwargs), glog)
+    rng = np.random.RandomState(29)
+    trace = []
+    for i, (plen, n_new) in enumerate(W_TF_STREAMS):
+        r = Request(f"task{i}", 0.01 * i, payload=rng.randint(
+            0, cfg.vocab_size, plen).astype(np.int32),
+            tokens=float(plen + n_new), max_new_tokens=n_new)
+        r.enc_feats = (rng.randn(ENC_LEN, cfg.d_model) * 0.5).astype(
+            np.float32)
+        trace.append(r)
+    loop.run(trace, max_wall=300)
+    torch.cuda.synchronize()
+    cfm = PhysicalFM(cfg, lora_rank=RANK, input_len=ENC_LEN,
+                     lora_impl="segmented", seg_block_t=BLOCK_T, device="cpu",
+                     params=tree_map(lambda t: t.cpu(), fm.params))
+    for aid, tree in zip(fm.adapters.ids, fm.adapters._trees):
+        cfm.adapters.add(aid, tree_map(lambda t: t.cpu(), tree))
+    ceng = DecodeEngine(cfm, **loop.engine_kwargs)
+    record_streams(ceng, clog, teacher=glog)
+    for r in trace:
+        ceng.join(r.task_id, r.payload, rid=r.rid, enc_feats=r.enc_feats,
+                  adapter_id=srv.vfms[r.task_id].extensions.adapter_id,
+                  max_new_tokens=r.max_new_tokens)
+    ceng.drain()
+    want = {(r.rid, t) for r in trace for t in range(r.max_new_tokens)}
+    keys = sorted(want & set(glog) & set(clog))
+    out = drift(torch.stack([glog[k] for k in keys]),
+                torch.stack([clog[k] for k in keys]))
+    out.update(streams=len(trace), positions=len(keys), expected=len(want),
+               served=[bool(r.ok and r.result is not None
+                            and len(r.result) == r.max_new_tokens)
+                       for r in trace])
+    log("whisper teacher-forced streams: " + json.dumps(out))
+    ok = (out["finite"] and out["rel_l2"] <= 6e-2 and out["argmax_agree"]
+          and len(keys) == len(want) and all(out["served"]))
+    return ok, out
+
+
+def moment_config(**over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOMENT), **over)
+
+
+def phase_reference_moment(dev):
+    """A two-layer cut of full-width moment-large (d 1024, 16 heads of 64,
+    bidirectional) with 3 random rank-16 adapters: ``backbone_features`` of
+    4 requests of 32 patches, and ``run_batch`` of the same requests with
+    mixed adapters and a "no adapter" row under each LoRA impl, through the
+    kernels on the card (K2 not causal, K1 under "segmented"), held against
+    the same weights with the plain versions on the CPU. Both sides round
+    bf16 activations after matmuls summed in different orders: bound,
+    relative L2 at most 2e-2 (the port's CPU parity bound for hidden states,
+    tests/test_torch_models.py). Planted check that the mask is not causal:
+    changing the last patch moves the first position's features on the card
+    (relative L2) by more than 10x the features' GPU-CPU drift; under a
+    causal mask they would not move at all."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.physical import PhysicalFM
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    cfg = moment_config(num_layers=2)
+    gfm = PhysicalFM(cfg, seed=5, lora_rank=RANK, input_len=MOMENT_LEN,
+                     lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
+    cfm = PhysicalFM(cfg, lora_rank=RANK, input_len=MOMENT_LEN,
+                     lora_impl="segmented", seg_block_t=BLOCK_T, device="cpu",
+                     params=tree_map(lambda t: t.cpu(), gfm.params))
+    for i in range(3):
+        tree = random_adapter(gfm.adapters, i, dev)
+        gfm.adapters.add(f"a{i}", tree)
+        cfm.adapters.add(f"a{i}", tree_map(lambda t: t.cpu(), tree))
+    rng = np.random.RandomState(31)
+    x = rng.randn(4, MOMENT_LEN, cfg.d_model).astype(np.float32)
+    aidx = np.array([0, 2, gfm.adapters.capacity(), 1], np.int32)
+
+    def feats(fm, embeds):
+        return lm.backbone_features(fm.params, cfg, torch.as_tensor(
+            embeds, device=fm.device)).float().cpu()
+    report = {}
+    ops.reset_launches()
+    g = feats(gfm, x)
+    report["backbone_features"] = drift(g.flatten(0, 1), feats(cfm, x)
+                                        .flatten(0, 1))
+    report["backbone_features"]["flash_attention_launches"] = int(
+        ops.LAUNCHES["flash_attention"])
+    for impl in ("segmented", "gather"):
+        gfm.lora_impl = cfm.lora_impl = impl
+        ops.reset_launches()
+        gr = torch.as_tensor(gfm.run_batch(x, aidx))
+        r = report[f"run_batch_{impl}"] = drift(
+            gr, torch.as_tensor(cfm.run_batch(x, aidx)))
+        r["launches"] = {k: int(ops.LAUNCHES[k]) for k in (
+            "segmented_lora", "flash_attention")}
+    x2 = x.copy()
+    x2[:, -1] += 1.0
+    moved = feats(gfm, x2)[:, 0] - g[:, 0]
+    report["first_position_moved_by_last_patch"] = {
+        "max_abs": moved.abs().max().item(),
+        "rel_l2": (moved.norm() / g[:, 0].norm()).item()}
+    log("moment reference: 2-layer full-width moment-large, 4 requests x "
+        f"{MOMENT_LEN} patches, GPU vs CPU: " + json.dumps(report))
+    ok = all(report[k]["finite"] and report[k]["rel_l2"] <= 2e-2 for k in (
+        "backbone_features", "run_batch_segmented", "run_batch_gather"))
+    ok &= report["backbone_features"]["flash_attention_launches"] == 2
+    ok &= report["run_batch_segmented"]["launches"] == {
+        "segmented_lora": 4, "flash_attention": 2}
+    ok &= report["run_batch_gather"]["launches"] == {
+        "segmented_lora": 0, "flash_attention": 2}
+    ok &= report["first_position_moved_by_last_patch"]["rel_l2"] > \
+        10 * report["backbone_features"]["rel_l2"]
+    return ok, report
+
+
+MOMENT_TASKS, MOMENT_RPS, MOMENT_SECONDS = 4, 40.0, 5.0
+
+
+def phase_moment_serving(dev):
+    """Full-width moment-large (24 layers, random weights from a seed)
+    through the port's launcher (``repro_torch.launch.serve``:
+    ``build_server``, then ``run_load``): 4 tasks, Poisson arrivals at the
+    launcher's 40 requests/s for 5 s, 32 patches a request, every batch
+    bucket warmed first. Every request must finish ok with finite outputs,
+    each pooled forward must launch 24 K2 and, where the table chose
+    "segmented" for it, 48 K1 (q and v of 24 layers; none under "gather"),
+    and no shape key may be added after warm-up. Prints what the launcher
+    prints. Then ``python -m repro_torch.launch.serve`` with no flags, the
+    user's entry point, must print ``served n/n``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.physical import BUCKETS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    t0 = time.perf_counter()
+    srv, cfg = launch.build_server(MOMENT_TASKS, device=dev)
+    fm = srv.fms["fm0"]
+    prof = srv.profiles["fm0"]
+    srv.serve_loop("fm0").warmup(pooled_n=BUCKETS[-1])
+    torch.cuda.synchronize()
+    log(f"moment serving: built, calibrated and warmed in "
+        f"{time.perf_counter() - t0:.1f} s; backbone={cfg.name} "
+        f"layers={cfg.num_layers} d={cfg.d_model} l(1)={prof.l(1) * 1e3:.1f}ms "
+        f"l({prof.b_max})={prof.l(prof.b_max) * 1e3:.1f}ms b_max={prof.b_max}")
+    keys0 = fm.compile_count()
+    chosen = []
+    resolve = fm.resolve_lora_impl
+
+    def recorded(rows, num_adapters=None):
+        impl = resolve(rows, num_adapters)
+        chosen.append(impl)
+        return impl
+    fm.resolve_lora_impl = recorded
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reqs = launch.run_load(srv, cfg, rps=MOMENT_RPS, seconds=MOMENT_SECONDS,
+                           n_tasks=MOMENT_TASKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del fm.resolve_lora_impl
+    launches = {k: int(ops.LAUNCHES[k])
+                for k in ("segmented_lora", "flash_attention")}
+    s = launch.summary(srv, reqs, MOMENT_TASKS)
+    bad = [r for r in reqs if not r.ok or r.result is None
+           or not np.all(np.isfinite(r.result))]
+    n_seg = chosen.count("segmented")
+    stats = {
+        "card": smi_line(), "wall_s": wall, "requests": len(reqs),
+        "served": s["n"], "mean_ms": s.get("mean_ms"),
+        "p50_ms": s.get("p50_ms"), "p99_ms": s.get("p99_ms"),
+        "fairness": s["fairness"], "l1_ms": 1e3 * prof.l(1),
+        "b_max": prof.b_max, "l_bmax_ms": 1e3 * prof.l(prof.b_max),
+        "forwards": len(chosen), "segmented_forwards": n_seg,
+        "launches": launches, "shape_keys": [keys0, fm.compile_count()],
+    }
+    log(f"served {s['n']}/{len(reqs)} mean={s.get('mean_ms', float('nan')):.1f}ms "
+        f"p99={s.get('p99_ms', float('nan')):.1f}ms "
+        f"fairness={s['fairness']:.3f}")
+    ok = bool(reqs) and not bad and s["n"] == len(reqs)
+    ok &= launches["flash_attention"] == cfg.num_layers * len(chosen) > 0
+    ok &= launches["segmented_lora"] == 2 * cfg.num_layers * n_seg
+    ok &= fm.compile_count() == keys0
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(
+                             ROOT, "src")))
+    lines = cli.stdout.strip().splitlines()
+    stats["cli"] = {"rc": cli.returncode, "lines": lines,
+                    "seconds": time.perf_counter() - t0}
+    served = [ln for ln in lines if ln.startswith("served ")]
+    n, _, total = served[-1].split()[1].partition("/") if served else ("", "", "")
+    ok &= cli.returncode == 0 and bool(served) and n == total and int(n) > 0 \
+        and f"layers={cfg.num_layers} d={cfg.d_model}" in cli.stdout
+    log("moment serving: " + json.dumps(stats, default=float))
+    if not ok:
+        log(f"moment serving: not ok {[(r.rid, r.status) for r in bad[:5]]}; "
+            f"cli stderr: {cli.stderr[-2000:]}")
+    return ok, stats, (srv, fm, None)
 
 
 # ---------------- phase 6: timing ----------------
@@ -1589,7 +1909,7 @@ def paged_timing(dev, gen, H, KV, hd, s_max, nsets) -> dict:
 
 
 def phase_timing(dev, handles, paged_handles, chunked_handles,
-                 whisper_handles):
+                 whisper_handles, moment_handles):
     """Device time of each kernel, its plain version and a library
     yardstick at the decode shapes (the most launched), over 24 input sets
     (one per layer, > 50 MB L2 for K3's cache) so each call finds its
@@ -1613,8 +1933,9 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
             it[0] += 1
         return call
 
-    # K1 at the decode, prefill and pooled shapes of stablelm and whisper's
-    # decode shape; the stablelm decode one goes in the kernels line (48
+    # K1 at the decode, prefill and pooled shapes of stablelm, whisper's
+    # decode shape and moment-large's pooled batch at ranks 4 and 16; the
+    # stablelm decode one goes in the kernels line (48
     # launches per decode step). Beside it, as a yardstick, the port's
     # gather path at the same tokens (``models/lora.py::apply_lora_delta``:
     # the same tokens as (requests, tokens) rows, one adapter index a
@@ -1624,11 +1945,14 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
     for name, (n_req, per_req) in (("decode", (SLOTS, 1)),
                                    ("prefill", (1, PROMPT_LEN)),
                                    ("pooled", (32, PROMPT_LEN)),
-                                   ("whisper_decode", (SLOTS, 1))):
+                                   ("whisper_decode", (SLOTS, 1)),
+                                   ("moment_r4", (32, MOMENT_LEN)),
+                                   ("moment_r16", (32, MOMENT_LEN))):
         n_tok = n_req * per_req
         T, dd = cases[name]["T"], cases[name]["d"]
         sets = sgmv_inputs(gen, T, dd, dd, cap,
-                           2 if name == "pooled" else nsets, dev)
+                           2 if name == "pooled" else nsets, dev,
+                           r=cases[name].get("r", RANK))
         by_kernel = device_kernels(rotating(lambda x, i, a, b: ops.segmented_lora(
             x, i, a, b, block_t=BLOCK_T), sets))
         k_ms = sum(by_kernel.values())
@@ -1639,7 +1963,8 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
                    torch.arange(n_req, device=dev, dtype=torch.int32) % cap)
                   for x, _, a, b in sets]
         extra[f"segmented_lora_{name}"] = {
-            "T": T, "tokens": n_tok, "d": dd, "plan": sgmv_plan(sets[0][0]),
+            "T": T, "tokens": n_tok, "d": dd, "r": sets[0][2].shape[-1],
+            "plan": sgmv_plan(sets[0][0]),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "split_ms": kernel_split(by_kernel, {"shrink_kernel": "shrink",
                                                  "expand_kernel": "expand"}),
@@ -1699,6 +2024,7 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
                                   max_new=W_MAX_NEW, frames=True))
     extra["whisper_pooled_batch"] = whisper_pooled_timing(dev,
                                                           whisper_handles)
+    extra["moment_pooled_batch"] = moment_pooled_timing(dev, moment_handles)
     return k1, k2, k3, k4, k5, extra
 
 
@@ -1726,6 +2052,41 @@ def whisper_pooled_timing(dev, handles) -> dict:
     return {"flash_attention_launches": launches,
             "device_ms": device_ms(run, iters=3, warmup=1),
             "flash_attention_device_ms": k2, "profile": prof}
+
+
+def moment_pooled_timing(dev, handles) -> dict:
+    """One pooled moment-large batch of 32 requests x 32 patches (4
+    adapters) through ``PhysicalFM`` pinned to each LoRA impl in turn: wall
+    ms, device busy ms and idle share of one profiled call, K1 and K2
+    launches per batch; the FM goes back to "auto" afterwards."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    srv, fm, _ = handles
+    rng = np.random.RandomState(10)
+    embeds = rng.randn(32, MOMENT_LEN, fm.cfg.d_model).astype(np.float32)
+    aidx = np.sort(np.arange(32) % len(fm.adapters)).astype(np.int32)
+
+    def run():
+        fm.run_batch_device(embeds, aidx)
+    out = {}
+    for impl in ("segmented", "gather"):
+        fm.lora_impl = impl
+        ops.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        out[impl] = {"launches": {k: int(ops.LAUNCHES[k]) for k in (
+            "segmented_lora", "flash_attention")},
+            "profile": profile_step(run)}
+        p = out[impl]["profile"]
+        log(f"moment pooled batch [{impl}]: wall {p['wall_ms']:.2f} ms, "
+            f"device busy {p['device_busy_ms']:.3f} ms, idle "
+            f"{p['device_idle_share']:.3f}, {p['device_kernels']} kernels, "
+            f"{out[impl]['launches']}")
+    fm.lora_impl = "auto"
+    out["auto_picks"] = fm.resolve_lora_impl(32)
+    return out
 
 
 def float_decode_timing(dev) -> dict:
@@ -1810,7 +2171,8 @@ def flash_timing(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
     out = {}
     for name, nsets in (("pooled", 6), ("admission", 48), ("tail", 48),
-                        ("whisper_encoder", 8), ("whisper_cross", 24)):
+                        ("whisper_encoder", 8), ("whisper_cross", 24),
+                        ("moment", 24)):
         case = FLASH_TIMED[name]
         sets = flash_inputs(gen, dev, **case, nsets=nsets)
 
@@ -2068,15 +2430,21 @@ def main() -> int:
     phases["chunked_serving"] = ok_c
     ok_w, wstats, whisper_handles = phase_whisper_serving(dev)
     phases["whisper_serving"] = ok_w
+    ok_rm, _ = phase_reference_moment(dev)
+    phases["moment_reference"] = ok_rm
+    ok_m, mstats, moment_handles = phase_moment_serving(dev)
+    phases["moment_serving"] = ok_m
     k1, k2, k3, k4, k5, extra = phase_timing(dev, handles, paged_handles,
-                                             chunked_handles, whisper_handles)
+                                             chunked_handles, whisper_handles,
+                                             moment_handles)
     log("timing: " + json.dumps(extra, default=float))
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
-    # K2, K4) and the whisper serving run (K1, K2, K4, K5), each counted
-    # from 0 just before it
+    # K2, K4), the whisper serving run (K1, K2, K4, K5) and the moment
+    # serving run (K2, and K1 where the table chose "segmented"), each
+    # counted from 0 just before it
     launches = {k: sum(st["launches"].get(k, 0)
-                       for st in (stats, pstats, cstats, wstats))
+                       for st in (stats, pstats, cstats, wstats, mstats))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
                           "decode_attention")}

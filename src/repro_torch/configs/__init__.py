@@ -3,6 +3,7 @@ architectures the port serves so far (a copy of ``configs/base.py`` and of
 each architecture's file, kept in step with the JAX package by hand)."""
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, reduced, register
 from repro_torch.configs import (  # noqa: F401  (registration side effects)
+    moment_large,
     stablelm_1_6b,
     whisper_base,
 )

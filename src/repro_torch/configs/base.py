@@ -54,7 +54,9 @@ class ModelConfig:
 
     # modality frontend stub: if set, input_specs() provides precomputed
     # frame/patch embeddings of shape (batch, seq, d_model) instead of token ids.
-    frontend_stub: Optional[str] = None   # None | "audio_frames" | "vision_patches"
+    # "ts_patches" (moment-large) is such a stub too: the caller passes
+    # patch embeddings made elsewhere (numpy), no patching frontend runs.
+    frontend_stub: Optional[str] = None   # None | "audio_frames" | "vision_patches" | "ts_patches"
 
     # mamba-specific
     mamba_d_state: int = 16

@@ -249,7 +249,6 @@ class DecodeEngine:
         self.cfg = cfg
         self.device = fm.device
         self.num_slots = bucket_for(num_slots)
-        self.impl = fm.lora_impl
         self.prompt_len = prompt_len or fm.input_len
         # enc-dec: the per-slot cross K/V is fixed-size state of enc_len
         # frames per slot, written at admission
@@ -626,6 +625,12 @@ class DecodeEngine:
         self._ptab_dirty = False
 
     # ---- static-shape planes ----
+    def _impl(self, rows: int, cap: int) -> str:
+        """LoRA path for a ``rows``-row co-batch, resolved from the slot
+        bucket (not the live adapter count) so the choice is stable within
+        each (rows, cap) shape key."""
+        return self.fm.resolve_lora_impl(rows, num_adapters=cap)
+
     def _seg(self, impl, perm, inv, blocks):
         if impl != "segmented":
             return None
@@ -648,7 +653,7 @@ class DecodeEngine:
         (``enc_embeds``; None otherwise) and fills the cross K/V state."""
         key = (cap, plen)
         if key not in self._fn_prefill:
-            cfg, impl, sample = self.cfg, self.impl, self._sample
+            cfg, impl, sample = self.cfg, self._impl(1, cap), self._sample
             s_max, dev = self._adm_s_max(plen), self.device
             kvq = self.kv_quant and not self.paged
             enc_len = self.enc_len or None
@@ -687,7 +692,7 @@ class DecodeEngine:
         and the mode make a shape key."""
         key = ("tail", cap, tlen, mode)
         if key not in self._fn_prefill:
-            cfg, impl, sample = self.cfg, self.impl, self._sample
+            cfg, impl, sample = self.cfg, self._impl(1, cap), self._sample
             # like the full paged admission, the tail cache stays float: the
             # tail-page scatter quantizes per page afterwards
             s_max = self._pages_for(tlen) * self.page_size
@@ -922,7 +927,8 @@ class DecodeEngine:
         host sync with the tokens."""
         key = (self.num_slots, cap, chunk)
         if key not in self._fn_decode:
-            cfg, impl, sample = self.cfg, self.impl, self._sample
+            cfg, sample = self.cfg, self._sample
+            impl = self._impl(self.num_slots, cap)
             nslots, dev = self.num_slots, self.device
             refresh_thr = self.scale_refresh * 127.0 \
                 if self.paged and self.scale_refresh > 0 else None
@@ -957,7 +963,7 @@ class DecodeEngine:
 
     # ---- segment metadata (per composition, not per token) ----
     def _segments(self, cap: int):
-        if self.impl != "segmented":
+        if self._impl(self.num_slots, cap) != "segmented":
             return None, None, None
         key = (self._slot_adapters.tobytes(), cap)
         if key != self._seg_key:
@@ -967,7 +973,7 @@ class DecodeEngine:
         return self._seg_dev
 
     def _prefill_segments(self, adapter_slot: int, cap: int, plen: int):
-        if self.impl != "segmented":
+        if self._impl(1, cap) != "segmented":
             return None, None, None
         ids = np.full((plen,), adapter_slot, np.int32)
         return seg_to_device(*self.fm.segment_meta(ids, cap, 1), self.device)

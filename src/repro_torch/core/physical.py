@@ -11,10 +11,11 @@ A PhysicalFM owns:
     bucket, lora impl): the static-shape contract of the JAX package, whose
     zero-recompile tests carry over through ``compile_count``.
 
-The LoRA path is explicit (``"segmented"``, the serve path through the SGMV
-kernel, or ``"gather"``). The JAX package's ``"auto"`` crossover table was
-measured on its CPU backend and does not carry over; ``"auto"`` raises until
-the port has measured its own table on the GPU.
+``run_batch`` picks the LoRA path per co-batch (``lora_impl="auto"``, the
+default, as in the JAX package): ``AUTO_LORA_TABLE``, measured on the GPU by
+``tools/lora_crossover.py``, chooses between the segmented path (the SGMV
+kernel over adapter-sorted token blocks) and the per-request gather path
+(two batched matmuls). Explicit ``"segmented"``/``"gather"`` pin one path.
 """
 from __future__ import annotations
 
@@ -33,7 +34,36 @@ from repro_torch.models.common import tree_leaves, tree_map
 
 BUCKETS = (1, 2, 4, 8, 16, 32)
 SLOT_BUCKETS = (4, 8, 16, 32, 64)
-LORA_IMPLS = ("segmented", "gather")
+LORA_IMPLS = ("auto", "segmented", "gather")
+
+# lora_impl="auto": the faster path per (batch bucket, adapter-count bucket)
+# cell, from ``run_batch`` pinned to each path on full-width moment-large
+# (rank-4 adapters with random B, 32 patches a request; median wall time of
+# a synchronized call), measured by ``tools/lora_crossover.py`` on an NVIDIA
+# H100 80GB HBM3 at a 700.00 W power limit (nvidia-smi), twice. "segmented"
+# won every cell of one run and 29 of the other; the cell where the runs
+# differ, (32, 4), is close on the wall clock and takes the path with less
+# device time (segmented, in both runs). The pooled forward is host-bound
+# (85-95% of its wall time the device is idle), and the gather path
+# launches ~330 more kernels a forward: no crossover at these shapes. The
+# JAX package's table was measured on its CPU backend and does not carry
+# over. Re-measure when a kernel, the model path or the card changes.
+NA_BUCKETS = (1, 2, 4, 8, 16)
+AUTO_LORA_TABLE = {
+    (1, 1): "segmented", (1, 2): "segmented", (1, 4): "segmented",
+    (1, 8): "segmented", (1, 16): "segmented",
+    (2, 1): "segmented", (2, 2): "segmented", (2, 4): "segmented",
+    (2, 8): "segmented", (2, 16): "segmented",
+    (4, 1): "segmented", (4, 2): "segmented", (4, 4): "segmented",
+    (4, 8): "segmented", (4, 16): "segmented",
+    (8, 1): "segmented", (8, 2): "segmented", (8, 4): "segmented",
+    (8, 8): "segmented", (8, 16): "segmented",
+    (16, 1): "segmented", (16, 2): "segmented", (16, 4): "segmented",
+    (16, 8): "segmented", (16, 16): "segmented",
+    (32, 1): "segmented", (32, 2): "segmented",
+    (32, 4): "segmented",      # close: gather in one run (wall clock)
+    (32, 8): "segmented", (32, 16): "segmented",
+}
 # adapter-id sentinel for rows that are padding / free decode slots; beyond
 # any real slot index AND any slot bucket, so both LoRA paths zero it out.
 PAD_SENTINEL = 10**6
@@ -146,13 +176,10 @@ class PhysicalFM:
     """One deployed backbone instance on one device."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, lora_rank: int = 16,
-                 input_len: int = 32, lora_impl: str = "segmented",
+                 input_len: int = 32, lora_impl: str = "auto",
                  seg_block_t: int = 16, device="cuda", params=None):
         if lora_impl not in LORA_IMPLS:
-            raise NotImplementedError(
-                f"lora_impl={lora_impl!r}: the port takes an explicit impl "
-                f"{LORA_IMPLS}; 'auto' needs a crossover table measured on "
-                f"the GPU, which the port does not have yet")
+            raise ValueError(f"lora_impl={lora_impl!r}: one of {LORA_IMPLS}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.input_len = input_len
@@ -184,6 +211,19 @@ class PhysicalFM:
         """Distinct static-shape keys seen (batch bucket, slot bucket, impl):
         steady-state serving must not grow this."""
         return len(self._fn_cache)
+
+    def resolve_lora_impl(self, rows: int, num_adapters: Optional[int] = None
+                          ) -> str:
+        """The LoRA path for a ``rows``-row co-batch: ``AUTO_LORA_TABLE`` at
+        (batch bucket, adapter-count bucket) under "auto"; an explicit impl
+        passes through. ``num_adapters`` defaults to the registered count;
+        the decode engine passes its slot bucket so the choice cannot flip
+        within one of its shape keys."""
+        if self.lora_impl != "auto":
+            return self.lora_impl
+        na = len(self.adapters) if num_adapters is None else num_adapters
+        nb = next((b for b in NA_BUCKETS if max(1, na) <= b), NA_BUCKETS[-1])
+        return AUTO_LORA_TABLE[(bucket_for(rows), nb)]
 
     def _features_fn(self, bucket: int, slots: int, impl: str):
         """Shared backbone forward with per-request backbone LoRA deltas,
@@ -244,7 +284,7 @@ class PhysicalFM:
                 [adapter_idx, np.full((pad,), PAD_SENTINEL, np.int32)])
         stack = self.adapters.stacked()
         cap = self.adapters.capacity()
-        impl = self.lora_impl
+        impl = self.resolve_lora_impl(b)
         if impl == "segmented":
             perm, inv, blocks = seg_to_device(
                 *self.segment_meta(adapter_idx, cap, embeds.shape[1]),

@@ -1,7 +1,8 @@
 """Config-driven LM: specs, forward, prefill and decode for attention
-stacks — decoder-only, and encoder-decoder (whisper: a bidirectional encoder
-over stub frames, a decoder with cross-attention). The other block kinds
-come with later slices.
+stacks — decoder-only, encoder-decoder (whisper: a bidirectional encoder
+over stub frames, a decoder with cross-attention) and the representation
+encoder (moment-large: bidirectional over stub patch embeddings, pooled by
+the caller). The other block kinds come with later slices.
 
 Parameters are nested dicts/lists of tensors with the JAX package's structure
 (``layers`` is a list over the period's sublayers, each leaf with a leading
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import blocks as blk
-from repro_torch.models.common import init_params, stack_specs, tree_map
+from repro_torch.models.common import ParamSpec, init_params, stack_specs, tree_map
 from repro_torch.models.layers import embed, embed_spec, head_spec, rmsnorm, rmsnorm_spec
 
 ACT_DTYPE = torch.bfloat16
@@ -31,17 +32,22 @@ def _encoder_layout(cfg: ModelConfig) -> list:
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    if cfg.is_representation or cfg.vocab_size <= 0:
-        raise NotImplementedError("representation backbones come with a later slice")
+    """The parameter tree, as the JAX package's: an embed and a vocab head
+    where ``vocab_size > 0``; a representation backbone's head is a (d, d)
+    matrix in the vocab head's place. So full moment-large (vocab 0) has no
+    embed, and its ``reduced`` cut (vocab 256) an unused one."""
     nper = cfg.num_layers // blk.period_len(cfg)
     layout = blk.period_layout(cfg, cross=cfg.is_encoder_decoder)
     spec = {
         "layers": [stack_specs(blk.sublayer_spec(cfg, lay), nper)
                    for lay in layout],
         "final_norm": rmsnorm_spec(cfg.d_model),
-        "embed": embed_spec(cfg.vocab_size, cfg.d_model),
-        "head": head_spec(cfg.d_model, cfg.vocab_size),
     }
+    if cfg.vocab_size > 0:
+        spec["embed"] = embed_spec(cfg.vocab_size, cfg.d_model)
+        spec["head"] = head_spec(cfg.d_model, cfg.vocab_size)
+    if cfg.is_representation:
+        spec["head"] = ParamSpec((cfg.d_model, cfg.d_model), ("embed", None))
     if cfg.is_encoder_decoder:
         spec["encoder"] = {
             "layers": [stack_specs(blk.sublayer_spec(cfg, lay),
@@ -53,16 +59,17 @@ def model_spec(cfg: ModelConfig) -> dict:
 
 
 def cast_params(params: dict) -> dict:
-    """Cast each weight to the dtype of its use site: the embedding and the
-    attention (self and cross)/MLP matrices to bf16 (the activations'
-    dtype), the norms and the head kept f32 — in the decoder and in an
-    encoder alike. The values are exactly those the JAX package computes
-    with after its per-use ``astype``."""
+    """Cast each weight to the dtype of its use site: the embedding (where
+    the tree has one) and the attention (self and cross)/MLP matrices to
+    bf16 (the activations' dtype), the norms and the head kept f32 — in the
+    decoder and in an encoder alike. The values are exactly those the JAX
+    package computes with after its per-use ``astype``."""
     def layer(sub):
         return {k: tree_map(lambda t: t.to(ACT_DTYPE), v)
                 if k in ("attn", "cross", "ffn") else v for k, v in sub.items()}
     out = dict(params)
-    out["embed"] = params["embed"].to(ACT_DTYPE)
+    if "embed" in params:
+        out["embed"] = params["embed"].to(ACT_DTYPE)
     out["layers"] = [layer(sub) for sub in params["layers"]]
     if "encoder" in params:
         out["encoder"] = dict(params["encoder"], layers=[
@@ -255,3 +262,11 @@ def decode_step(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
                        lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg)
     return _head(params, x[:, 0]), cache
+
+
+def backbone_features(params, cfg: ModelConfig, embeds):
+    """Representation-FM forward (MOMENT-style): patch embeddings (B, S, d)
+    -> final-norm features (B, S, d), bidirectional attention (K2 with
+    ``causal=False``)."""
+    x, _ = forward(params, cfg, embeds=embeds)
+    return x

@@ -275,8 +275,11 @@ def test_unported_engine_options_raise(fms):
                         paged=True).chunked_prefill
     with pytest.raises(NotImplementedError, match="later slice"):
         DecodeEngine(fm, num_slots=2, prompt_len=8).snapshot()
-    with pytest.raises(NotImplementedError):
-        PhysicalFM(fm.cfg, lora_impl="auto", device="cpu")
+    # "auto" is ported (the GPU-measured crossover table,
+    # tests/test_torch_representation.py); an unknown impl still raises
+    assert PhysicalFM(fm.cfg, lora_impl="auto", device="cpu").lora_impl == "auto"
+    with pytest.raises(ValueError):
+        PhysicalFM(fm.cfg, lora_impl="sgmv", device="cpu")
 
 
 def _pooled_inputs(cfg, fm):
