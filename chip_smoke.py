@@ -93,6 +93,21 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    pooled batch (32 x 32 patches) under each LoRA impl, and the prefill
    device time a prefix hit saves (full admission against its tail).
 
+The serving paths run graphed: every executable of ``PhysicalFM`` and
+``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
+second call on (``repro_torch.core.graphs``), and the warm-ups call every
+key twice. Each serving phase (dense, paged, chunked, whisper, moment)
+records the calls it makes on the engine and the FM and replays them in
+order under ``graphs.disabled()`` on a fresh engine of the same
+configuration (``replay_eager``): greedy tokens, launches per kernel and
+``compile_count`` must be equal, no page or state slot may leak, pooled
+features are compared bit for bit; every key called twice must hold a
+graph, and no key may be added after warm-up. The timing profiles each
+step, prefill and pooled batch both ways (``profile_both``), with the
+capture time of each key and the device memory reserved before and after
+each warm-up. The references that record every sampler call on the host
+(``_engine_run``, ``whisper_teacher_forced``) run eagerly.
+
 The line before last prints the card's name and power limit
 (``nvidia-smi``); before it, one JSON line lists the kernels. The last line
 is ``{"ok": true, "device": {...}}``. Nothing falls back to the CPU: without
@@ -1077,10 +1092,13 @@ def _engine_run(fm, prompts, names, teacher_calls=None, paged=True,
     ``chunked``: the paged pool with chunked shared-prefix prefill).
     Greedy when ``teacher_calls`` is None; otherwise every sampler call is
     fed the argmax of the matching call in ``teacher_calls``. Returns each
-    call's (f32 logits, live rows) and the engine."""
+    call's (f32 logits, live rows) and the engine. Eager
+    (``graphs.disabled()``): the recording sampler reads the logits on the
+    host."""
     import numpy as np
     import torch
 
+    from repro_torch.core import graphs
     from repro_torch.core.decode_engine import DecodeEngine
     kw = dict(PAGED_KW, total_pages=None, chunked_prefill=chunked) \
         if paged else {}
@@ -1096,9 +1114,11 @@ def _engine_run(fm, prompts, names, teacher_calls=None, paged=True,
             teacher_calls[len(calls) - 1][0]
         return torch.argmax(src, dim=-1).to(torch.int32).to(logits.device), gens
     eng._sample = sample
-    for i, (p, name) in enumerate(zip(prompts, names)):
-        eng.join(f"t{i}", p, adapter_id=name, max_new_tokens=CHUNK + 1, rid=i)
-    eng.drain()
+    with graphs.disabled():
+        for i, (p, name) in enumerate(zip(prompts, names)):
+            eng.join(f"t{i}", p, adapter_id=name, max_new_tokens=CHUNK + 1,
+                     rid=i)
+        eng.drain()
     return calls, eng
 
 
@@ -1228,6 +1248,178 @@ def phase_reference_chunked(dev):
     return ok, r
 
 
+# ---------------- graphed against eager ----------------
+
+ENGINE_CALLS = ("join", "step_chunk", "cancel", "shed_stranded",
+                "warm_decode_ladder", "warm_chunked")
+
+
+def call_summary(name, out):
+    """What a recorded call returned, in a comparable form: the streams a
+    ``step_chunk`` retired with their tokens and status, a cancel's place
+    and rid, a copy of pooled features on the device; else the value."""
+    if name == "step_chunk":
+        return [(d.rid, list(d.tokens), d.status) for d in out]
+    if name == "cancel":
+        return None if out is None else (out[0], out[1].rid)
+    if name == "run_batch_device":
+        return out.clone()
+    return out
+
+
+def record_calls(eng, fm) -> dict:
+    """Route every call that does device work on ``eng`` (a
+    ``DecodeEngine``, or None) and ``fm`` (``PhysicalFM.run_batch_device``)
+    through a recorder: each call's arguments, what it returned (a join's
+    slot, the streams a ``step_chunk`` retired with their tokens and status,
+    a copy of the pooled features on the device) and the kernel launches it
+    made, in order. ``rec["unwrap"]()`` takes the recorder out."""
+    from repro_torch.kernels import ops
+    rec = {"calls": []}
+
+    def wrap(obj, target, name):
+        orig = getattr(obj, name)
+
+        def recorded(*a, **kw):
+            before = dict(ops.LAUNCHES)
+            out = orig(*a, **kw)
+            rec["calls"].append((target, name, a, kw, call_summary(name, out), {
+                k: n - before.get(k, 0) for k, n in ops.LAUNCHES.items()
+                if n != before.get(k, 0)}))
+            return out
+        setattr(obj, name, recorded)
+    targets = [(fm, "fm", ("run_batch_device",))]
+    if eng is not None:
+        targets.append((eng, "eng", ENGINE_CALLS))
+    for obj, target, names in targets:
+        for name in names:
+            wrap(obj, target, name)
+
+    def unwrap():
+        for obj, _, names in targets:
+            for name in names:
+                obj.__dict__.pop(name, None)
+    rec["unwrap"] = unwrap
+    return rec
+
+
+def replay_eager(rec, fm, eng, engine_kwargs) -> dict:
+    """The calls ``record_calls`` recorded, in order, under
+    ``graphs.disabled()`` on the same FM and (for engine calls) a fresh
+    ``DecodeEngine`` of the same configuration: the graphed run against
+    eager. Greedy tokens must be equal stream by stream and position by
+    position (every join's slot and every retired stream's tokens and
+    status), the launches of every call equal per kernel, the engines'
+    ``compile_count`` equal and the FM's unchanged, and every page and state
+    slot free at the end on both sides. Pooled features are compared bit
+    for bit; where a forward differs, its max |diff| and relative L2 are
+    reported and bounded by the reference phases' 2e-2 (cuBLAS may pick
+    another algorithm under capture)."""
+    import torch
+
+    from repro_torch.core import graphs
+    from repro_torch.core.decode_engine import DecodeEngine
+    from repro_torch.kernels import ops
+    rec["unwrap"]()
+    e2 = DecodeEngine(fm, **engine_kwargs) if eng is not None else None
+    if eng is not None and eng._fn_rescale is not None:
+        e2._rescale_fn()           # made before the run, as on the graphed side
+    fm_keys = fm.compile_count()
+    bad, tokens, pooled_diff = [], 0, []
+    launches_g: dict = {}
+    launches_e: dict = {}
+    t0 = time.perf_counter()
+    with graphs.disabled():
+        for i, (target, name, a, kw, want, delta) in enumerate(rec["calls"]):
+            obj = e2 if target == "eng" else fm
+            before = dict(ops.LAUNCHES)
+            out = getattr(obj, name)(*a, **kw)
+            got = {k: n - before.get(k, 0) for k, n in ops.LAUNCHES.items()
+                   if n != before.get(k, 0)}
+            for k, n in delta.items():
+                launches_g[k] = launches_g.get(k, 0) + n
+            for k, n in got.items():
+                launches_e[k] = launches_e.get(k, 0) + n
+            if got != delta:
+                bad.append((i, name, "launches", delta, got))
+            if name == "run_batch_device":
+                if not torch.equal(out, want):
+                    d = (out.float() - want.float())
+                    pooled_diff.append({
+                        "call": i, "max_abs": d.abs().max().item(),
+                        "rel_l2": (d.norm() / want.float().norm()).item()})
+                continue
+            out = call_summary(name, out)
+            if name == "step_chunk":
+                tokens += sum(len(t) for _, t, _ in out)
+            if out != want:
+                bad.append((i, name, "result", want, out))
+    torch.cuda.synchronize()
+    n_pooled = sum(1 for c in rec["calls"] if c[1] == "run_batch_device")
+    out = {"calls": len(rec["calls"]), "eager_s": time.perf_counter() - t0,
+           "mismatches": [str(b)[:300] for b in bad[:5]],
+           "tokens_compared": tokens, "launches_graphed": launches_g,
+           "launches_eager": launches_e, "pooled_forwards": n_pooled,
+           "pooled_bit_equal": n_pooled - len(pooled_diff),
+           "pooled_max_rel_l2": max((d["rel_l2"] for d in pooled_diff),
+                                    default=0.0),
+           "pooled_diffs": pooled_diff[:5], "fm_keys": [fm_keys,
+                                                        fm.compile_count()]}
+    ok = not bad and launches_g == launches_e and fm.compile_count() == fm_keys
+    ok &= out["pooled_max_rel_l2"] <= 2e-2
+    if eng is not None:
+        out["engine_keys"] = [eng.compile_count(), e2.compile_count()]
+        leak = [e.free_page_count() != e.total_pages - 1
+                or bool(e._page_refs.any()) if e.paged else False
+                for e in (eng, e2)]
+        leak += [bool(e.state_pool.slots_in_use()) for e in (eng, e2)
+                 if e.state_pool is not None]
+        out["leak"] = any(leak) or bool(e2.active_count() or e2.pending)
+        ok &= eng.compile_count() == e2.compile_count() and not out["leak"]
+    out["ok"] = bool(ok)
+    return out
+
+
+def graphed_against_eager(stats, rec, fm, eng, loop, mem) -> bool:
+    """Add a serving phase's graph report to ``stats`` (its keys with
+    their capture times, the device memory reserved before and after the
+    warm-up that captured them, and the recorded calls replayed eagerly:
+    ``replay_eager``) and say whether it holds: every key called twice is
+    captured and the eager replay agrees."""
+    keys = graph_keys(eng, fm)
+    replay = replay_eager(rec, fm, eng, loop.engine_kwargs if loop else {})
+    stats["graphs"] = {"memory_reserved_mb": [m / 2**20 for m in mem],
+                       "uncaptured": keys["uncaptured"], "keys": keys["keys"],
+                       "eager_replay": replay}
+    if keys["uncaptured"] or not replay["ok"]:
+        log(f"graphs: uncaptured {keys['uncaptured']}, eager replay "
+            f"{json.dumps(replay, default=float)[:2000]}")
+    return not keys["uncaptured"] and replay["ok"]
+
+
+def graph_keys(eng, fm) -> dict:
+    """Every executable of ``eng`` and ``fm`` by shape key: calls, whether
+    it is captured, its capture's host ms and its kernel launches per
+    replay; ``uncaptured``: keys called twice or more that hold no graph
+    (none may)."""
+    exes = []
+    if eng is not None:
+        for plane, fns in (("prefill", eng._fn_prefill),
+                           ("decode", eng._fn_decode),
+                           ("write", eng._fn_write)):
+            exes += [(f"{plane} {k}", e) for k, e in fns.items()]
+        if eng._fn_rescale is not None:
+            exes.append(("rescale", eng._fn_rescale))
+    for k, fns in fm._fn_cache.items():
+        exes += [(f"forward {k} len {n}", e) for n, e in fns.items()]
+    return {"keys": {name: {"calls": e.calls, "captured": e.captured,
+                            "capture_ms": None if e.capture_s is None
+                            else 1e3 * e.capture_s,
+                            "launches": e.launches} for name, e in exes},
+            "uncaptured": [name for name, e in exes
+                           if e.calls >= 2 and not e.captured]}
+
+
 # ---------------- phase 4/5: serving at full width ----------------
 
 def build_server(dev, cfg=None, input_len=PROMPT_LEN, prompt_len=PROMPT_LEN,
@@ -1298,14 +1490,18 @@ def phase_serving(dev):
     import numpy as np
     import torch
 
+    from repro_torch.core.physical import BUCKETS
     from repro_torch.kernels import ops
     from repro_torch.serving.metrics import decode_stats, latency_stats
     srv, cfg, fm, loop = build_server(dev)
+    eng = srv.decode_engine("fm0", **loop.engine_kwargs)
+    rec = record_calls(eng, fm)
+    mem0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    loop.warmup(pooled_task="task0", gen_task="task1")
+    loop.warmup(pooled_task="task0", gen_task="task1", pooled_n=BUCKETS[-1])
     torch.cuda.synchronize()
     log(f"warmup: {time.perf_counter() - t0:.1f} s")
-    eng = srv.engines["fm0"]
+    mem1 = torch.cuda.memory_reserved()
     keys0 = (eng.compile_count(), fm.compile_count())
     trace = mixed_trace(cfg)
     ops.reset_launches()
@@ -1331,6 +1527,7 @@ def phase_serving(dev):
     ok &= not short and not nonfinite and eng.quarantines == 0
     ok &= all(v > 0 for v in launches.values())
     keys1 = (eng.compile_count(), fm.compile_count())
+    ok &= keys1 == keys0
     ds = decode_stats(gen)
     ls = latency_stats(pooled)
     n_tok = sum(len(r.result) for r in gen if r.result is not None)
@@ -1342,6 +1539,7 @@ def phase_serving(dev):
         "ticks": dict(loop.ticks), "decode_steps": eng.steps,
         "quarantines": eng.quarantines, "shape_keys": [keys0, keys1],
     }
+    ok &= graphed_against_eager(stats, rec, fm, eng, loop, (mem0, mem1))
     log("serving: " + json.dumps(stats, default=float))
     if short or nonfinite:
         log(f"serving: short streams {len(short)}, non-finite pooled {len(nonfinite)}")
@@ -1406,17 +1604,22 @@ def phase_paged_serving(dev, chunked: bool = False):
     import numpy as np
     import torch
 
+    from repro_torch.core.physical import BUCKETS
     from repro_torch.kernels import ops
     from repro_torch.serving.metrics import (decode_stats, latency_stats,
                                              mixed_stats, page_gauges)
     name = "chunked serving" if chunked else "paged serving"
     srv, cfg, fm, loop = build_server(
         dev, **dict(PAGED_KW, chunked_prefill=chunked))
+    eng = srv.decode_engine("fm0", **loop.engine_kwargs)
+    rec = record_calls(eng, fm)
+    mem0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    loop.warmup(pooled_task="task0", gen_task="task1")
+    loop.warmup(pooled_task="task0", gen_task="task1", pooled_n=BUCKETS[-1])
+    eng._rescale_fn()          # the refresh's one key, made on first use
     torch.cuda.synchronize()
     log(f"{name} warmup: {time.perf_counter() - t0:.1f} s")
-    eng = srv.engines["fm0"]
+    mem1 = torch.cuda.memory_reserved()
     keys0 = (eng.compile_count(), fm.compile_count())
     trace = paged_trace(cfg)
     n_miss0 = len(loop.ttft_miss_samples)       # the warmup's requests
@@ -1458,6 +1661,7 @@ def phase_paged_serving(dev, chunked: bool = False):
     ok = not bad and not short and not nonfinite and not leak
     ok &= eng.quarantines == 0 and all(v > 0 for v in launches.values())
     ok &= eng.prefix_hits >= 1
+    ok &= stats["shape_keys"][1] == keys0
     if chunked:
         stats["ttft_split"] = mixed_stats(trace, ttft_split={
             "hit": loop.ttft_hit_samples,
@@ -1467,6 +1671,7 @@ def phase_paged_serving(dev, chunked: bool = False):
         stats["burst"] = burst
         ok &= eng.deferrals + eng.preemptions >= 1
         ok &= burst["finished"] == burst["joins"]
+    ok &= graphed_against_eager(stats, rec, fm, eng, loop, (mem0, mem1))
     log(f"{name}: " + json.dumps(stats, default=float))
     if not ok:
         log(f"{name}: not ok {[(r.rid, r.status) for r in bad[:5]]}, "
@@ -1524,11 +1729,15 @@ def phase_whisper_serving(dev):
         dev, cfg=whisper_config(), input_len=ENC_LEN,
         prompt_len=W_PROMPT_LEN, max_new=W_MAX_NEW, enc_len=ENC_LEN,
         paged=True, page_size=W_PAGE_SIZE)
+    eng = srv.decode_engine("fm0", **loop.engine_kwargs)
+    rec = record_calls(eng, fm)
+    mem0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    loop.warmup(pooled_task="task0", gen_task="task1")
+    loop.warmup(pooled_task="task0", gen_task="task1", pooled_n=8)
+    eng._rescale_fn()          # the refresh's one key, made on first use
     torch.cuda.synchronize()
     log(f"whisper serving warmup: {time.perf_counter() - t0:.1f} s")
-    eng = srv.engines["fm0"]
+    mem1 = torch.cuda.memory_reserved()
     keys0 = (eng.compile_count(), fm.compile_count())
     trace = whisper_trace(cfg)
     ops.reset_launches()
@@ -1566,6 +1775,8 @@ def phase_whisper_serving(dev):
     ok = not bad and not short and not nonfinite and not leak
     ok &= eng.quarantines == 0 and all(v > 0 for v in launches.values())
     ok &= not eng.prefix_sharing and eng.state_pool.allocs >= len(gen)
+    ok &= stats["shape_keys"][1] == keys0
+    ok &= graphed_against_eager(stats, rec, fm, eng, loop, (mem0, mem1))
     ok_tf, stats["teacher_forced"] = whisper_teacher_forced(dev)
     log("whisper serving: " + json.dumps(stats, default=float))
     if not ok:
@@ -1638,10 +1849,13 @@ def whisper_teacher_forced(dev):
     the CPU (the plain versions), position by position: relative L2 of the
     logits at most 6e-2 (``phase_reference_whisper``'s bound), greedy tokens
     equal wherever the CPU's top-2 gap exceeds twice the largest
-    difference, and every generated position compared."""
+    difference, and every generated position compared. Eager on both sides
+    (``graphs.disabled()``): the recorder reads every sampler call's logits
+    on the host."""
     import numpy as np
     import torch
 
+    from repro_torch.core import graphs
     from repro_torch.core.decode_engine import DecodeEngine
     from repro_torch.core.physical import PhysicalFM
     from repro_torch.core.request import Request
@@ -1662,7 +1876,8 @@ def whisper_teacher_forced(dev):
         r.enc_feats = (rng.randn(ENC_LEN, cfg.d_model) * 0.5).astype(
             np.float32)
         trace.append(r)
-    loop.run(trace, max_wall=300)
+    with graphs.disabled():
+        loop.run(trace, max_wall=300)
     torch.cuda.synchronize()
     cfm = PhysicalFM(cfg, lora_rank=RANK, input_len=ENC_LEN,
                      lora_impl="segmented", seg_block_t=BLOCK_T, device="cpu",
@@ -1793,8 +2008,11 @@ def phase_moment_serving(dev):
     srv, cfg = launch.build_server(MOMENT_TASKS, device=dev)
     fm = srv.fms["fm0"]
     prof = srv.profiles["fm0"]
+    rec = record_calls(None, fm)
+    mem0 = torch.cuda.memory_reserved()
     srv.serve_loop("fm0").warmup(pooled_n=BUCKETS[-1])
     torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_reserved()
     log(f"moment serving: built, calibrated and warmed in "
         f"{time.perf_counter() - t0:.1f} s; backbone={cfg.name} "
         f"layers={cfg.num_layers} d={cfg.d_model} l(1)={prof.l(1) * 1e3:.1f}ms "
@@ -1837,6 +2055,7 @@ def phase_moment_serving(dev):
     ok &= launches["flash_attention"] == cfg.num_layers * len(chosen) > 0
     ok &= launches["segmented_lora"] == 2 * cfg.num_layers * n_seg
     ok &= fm.compile_count() == keys0
+    ok &= graphed_against_eager(stats, rec, fm, None, None, (mem0, mem1))
     t0 = time.perf_counter()
     cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
                          capture_output=True, text=True, timeout=300,
@@ -2025,6 +2244,28 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
     extra["whisper_pooled_batch"] = whisper_pooled_timing(dev,
                                                           whisper_handles)
     extra["moment_pooled_batch"] = moment_pooled_timing(dev, moment_handles)
+
+    def brief(pb):
+        out = {way: {k: pb[way][k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "device_kernels", "event_ms", "event_idle_share")}
+            for way in ("eager", "graphed")}
+        out["kernels_extra"] = pb["kernels_extra"]
+        return out
+    ts, mp = extra["tail_saving"], extra["moment_pooled_batch"]
+    extra["rows"] = {
+        "stablelm dense decode step": brief(extra["decode_step_profile"]),
+        "stablelm paged decode step": brief(
+            extra["paged_decode_step_profile"]),
+        "stablelm full admission prefill": brief(ts["full_prefill_profile"]),
+        "stablelm tail admission prefill": brief(ts["tail_prefill_profile"]),
+        "whisper paged decode step": brief(
+            extra["whisper_decode_step_profile"]),
+        "whisper pooled batch": brief(
+            extra["whisper_pooled_batch"]["profile"]),
+        "moment pooled batch segmented": brief(mp["segmented"]["profile"]),
+        "moment pooled batch gather": brief(mp["gather"]["profile"])}
+    log("rows (eager | graphed): " + json.dumps(extra["rows"]))
     return k1, k2, k3, k4, k5, extra
 
 
@@ -2047,8 +2288,8 @@ def whisper_pooled_timing(dev, handles) -> dict:
     run()
     torch.cuda.synchronize()
     launches = int(ops.LAUNCHES["flash_attention"])
-    prof = profile_step(run, match="flash_attention_kernel")
-    k2 = prof["match_ms"]
+    prof = profile_both(run, match="flash_attention_kernel")
+    k2 = prof["graphed"]["match_ms"]
     return {"flash_attention_launches": launches,
             "device_ms": device_ms(run, iters=3, warmup=1),
             "flash_attention_device_ms": k2, "profile": prof}
@@ -2078,12 +2319,14 @@ def moment_pooled_timing(dev, handles) -> dict:
         torch.cuda.synchronize()
         out[impl] = {"launches": {k: int(ops.LAUNCHES[k]) for k in (
             "segmented_lora", "flash_attention")},
-            "profile": profile_step(run)}
-        p = out[impl]["profile"]
-        log(f"moment pooled batch [{impl}]: wall {p['wall_ms']:.2f} ms, "
-            f"device busy {p['device_busy_ms']:.3f} ms, idle "
-            f"{p['device_idle_share']:.3f}, {p['device_kernels']} kernels, "
-            f"{out[impl]['launches']}")
+            "profile": profile_both(run)}
+        for way in ("eager", "graphed"):
+            p = out[impl]["profile"][way]
+            log(f"moment pooled batch [{impl}, {way}]: wall "
+                f"{p['wall_ms']:.2f} ms, device busy "
+                f"{p['device_busy_ms']:.3f} ms, idle "
+                f"{p['device_idle_share']:.3f}, {p['device_kernels']} "
+                f"kernels, {out[impl]['launches']}")
     fm.lora_impl = "auto"
     out["auto_picks"] = fm.resolve_lora_impl(32)
     return out
@@ -2279,7 +2522,7 @@ def tail_saving(dev, handles) -> dict:
         out[f"{name}_flash_attention_launches"] = int(
             ops.LAUNCHES["flash_attention"])
         out[f"{name}_prefill_device_ms"] = device_ms(fn, iters=5, warmup=1)
-        out[f"{name}_prefill_profile"] = profile_step(fn)
+        out[f"{name}_prefill_profile"] = profile_both(fn)
     out["saved_device_ms_per_hit"] = out["full_prefill_device_ms"] - \
         out["tail_prefill_device_ms"]
     return out
@@ -2328,9 +2571,11 @@ def live_step_timing(dev, handles, prefix: str, seed: int, rid0: int,
     run()
     torch.cuda.synchronize()
     out = {f"{prefix}launches_per_decode_step":
-           {k: int(v) for k, v in ops.LAUNCHES.items() if v},
-           f"{prefix}decode_step_ms": time_ms(run, iters=10, warmup=2),
-           f"{prefix}decode_step_profile": profile_step(run)}
+           {k: int(v) for k, v in ops.LAUNCHES.items() if v}}
+    prof = out[f"{prefix}decode_step_profile"] = profile_both(run)
+    out[f"{prefix}decode_step_ms"] = {way: prof[way]["event_ms"]
+                                      for way in ("eager", "graphed")}
+    out[f"{prefix}decode_step_capture_ms"] = 1e3 * step.capture_s
     for i in range(SLOTS):
         eng.leave(i)
     if (eng.paged and eng.free_page_count() != eng.total_pages - 1) or \
@@ -2338,6 +2583,30 @@ def live_step_timing(dev, handles, prefix: str, seed: int, rid0: int,
         raise RuntimeError(f"{prefix}step timing leaked pages or state "
                            "slots")
     return out
+
+
+def profile_both(fn, match=None) -> dict:
+    """``profile_step`` of ``fn`` two ways: eager (``graphs.disabled()``:
+    every op launched from Python) and graphed (after the calls that
+    capture its executable, a replay); each with ``event_ms``, the mean ms
+    of a call between CUDA events without the profiler (5 eager calls, 20
+    replays), and ``event_idle_share``, 1 - device busy / event_ms.
+    ``kernels_extra``: the device records of a replay beyond the eager
+    call's (the profiler sees each kernel inside a graph; a replay adds
+    its staging copies)."""
+    from repro_torch.core import graphs
+    with graphs.disabled():
+        eager = profile_step(fn, match)
+        eager["event_ms"] = time_ms(fn, iters=5, warmup=1)
+    fn()
+    fn()
+    graphed = profile_step(fn, match)
+    graphed["event_ms"] = time_ms(fn, iters=20, warmup=2)
+    for p in (eager, graphed):
+        p["event_idle_share"] = 1.0 - p["device_busy_ms"] / p["event_ms"]
+    return {"eager": eager, "graphed": graphed,
+            "kernels_extra": graphed["device_kernels"]
+            - eager["device_kernels"]}
 
 
 def profile_step(fn, match=None) -> dict:

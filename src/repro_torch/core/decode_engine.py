@@ -90,9 +90,17 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     *composition* and reused by every step and every layer.
   * **static shapes** — prefill is keyed on (adapter cap, prompt bucket),
     decode on (slots, adapter cap, chunk), the paged admission scatter on
-    its page count: ``compile_count`` counts the distinct keys, and
+    its page count: ``compile_count`` counts the executables, and
     steady-state churn, page allocation, deferral and preemption must not
-    add any. Page ids, tables, lengths and slots are data, never keys.
+    add any. Page ids, tables, lengths and slots are data, never keys:
+    device tensors, staged into each executable's static buffers.
+  * **captured executables** — every plane function is a
+    ``core.graphs.Executable``: eager at its first call, captured as one
+    CUDA graph at its second and replayed after, with the weights, the pool
+    and the adapter stack baked in place (so the device page table is one
+    persistent tensor, rewritten in place) and everything else staged.
+    Sampling keys (``temperature > 0``) stay eager: they draw from per-slot
+    generators.
   * **encoder-decoder stacks** (whisper) — a join carries the stream's
     encoder frames (``enc_feats``: exactly ``enc_len`` frames, zeros when
     omitted); the admission prefill encodes them and every decoder layer's
@@ -120,11 +128,12 @@ import dataclasses
 import hashlib
 import time
 import warnings
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.cache_manager import CachePlan, StateSlotPool, dense_state_keys
 from repro_torch.core.physical import PAD_SENTINEL, PhysicalFM, bucket_for, seg_to_device
 from repro_torch.models import lm
@@ -289,6 +298,14 @@ class DecodeEngine:
             self._free_pages = list(range(total_pages - 1, TRASH_PAGE, -1))
             self._ptab = np.zeros((self.num_slots, self.pages_per_slot),
                                   np.int32)
+            # the one device page table, rewritten in place by every sync:
+            # each attention sublayer's leaf is a broadcast view of it
+            self._ptab_dev = torch.zeros(self._ptab.shape, dtype=torch.int32,
+                                         device=self.device)
+            for sub in self.pool:
+                if "page_table" in sub:
+                    sub["page_table"] = self._ptab_dev.expand(
+                        sub["page_table"].shape[0], -1, -1)
             self._held = np.zeros((self.num_slots,), np.int64)
             self._lens = np.zeros((self.num_slots,), np.int64)
             self._ptab_dirty = True
@@ -345,10 +362,11 @@ class DecodeEngine:
                                    device=self.device)          # last token/slot
         self.slots: list[Optional[DecodeSlot]] = [None] * self.num_slots
         self._slot_adapters = np.full((self.num_slots,), FREE, np.int32)
-        self._fn_prefill: dict[tuple, Callable] = {}
-        self._fn_decode: dict[tuple, Callable] = {}
+        # shape key -> graphs.Executable
+        self._fn_prefill: dict[tuple, graphs.Executable] = {}
+        self._fn_decode: dict[tuple, graphs.Executable] = {}
         self._fn_write: dict = {}      # dense: {None: fn}; paged: {npages: fn}
-        self._fn_rescale: Optional[Callable] = None
+        self._fn_rescale: Optional[graphs.Executable] = None
         self._seg_key = None        # composition signature of cached metadata
         self._seg_dev = None        # device-uploaded (perm, inv, blocks)
         self.steps = 0              # decode steps executed (all slots)
@@ -387,10 +405,12 @@ class DecodeEngine:
         return [p.task_id for p in self.pending]
 
     def compile_count(self) -> int:
-        """Distinct static-shape keys of prefill (full and tail), decode,
-        pool writes and the scale refresh; steady state across join/leave
-        churn, sharer joins of any tail length, page allocation, deferral
-        and preemption must not grow this."""
+        """Executables of prefill (full and tail), decode, pool writes and
+        the scale refresh, one per shape key (each captured as a CUDA graph
+        at its second call); steady state across join/leave churn, sharer
+        joins of any tail length, page allocation, deferral, preemption,
+        scale refresh and adapter churn within capacity must not grow
+        this."""
         return (len(self._fn_prefill) + len(self._fn_decode)
                 + len(self._fn_write) + int(self._fn_rescale is not None))
 
@@ -606,25 +626,33 @@ class DecodeEngine:
                     for kv in host]
 
     def _sync_page_table(self):
-        """Push the host page table to the device. One device table serves
-        every attention layer (each sublayer's leaf is a broadcast view of
-        it). The copy goes through a fresh pinned buffer that the host
-        never touches again, so the asynchronous upload cannot race the
-        allocator's next mutation of ``_ptab``."""
+        """Push the host page table into the one persistent device table
+        (every attention layer reads it through a broadcast view, and every
+        captured executable reads it where it lies: it never moves). The
+        copy goes through a fresh pinned buffer that the host never touches
+        again, so the asynchronous upload cannot race the allocator's next
+        mutation of ``_ptab``."""
         if not self._ptab_dirty:
             return
         host = torch.from_numpy(self._ptab.copy())
         if self.device.type == "cuda":
-            table = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            table = host
-        for sub in self.pool:
-            if "page_table" in sub:
-                sub["page_table"] = table.expand(
-                    sub["page_table"].shape[0], -1, -1)
+            host = host.pin_memory()
+        self._ptab_dev.copy_(host, non_blocking=True)
         self._ptab_dirty = False
 
     # ---- static-shape planes ----
+    def _dev(self, *vals, dtype=torch.long):
+        """Host ints as a device tensor: a slot, page or length operand of
+        an executable (data, never part of a shape key)."""
+        return torch.tensor(vals, dtype=dtype, device=self.device)
+
+    def _executable(self, fn, bake, sampled: bool = False):
+        """A plane function as a ``graphs.Executable``. A ``sampled`` plane
+        stays eager under ``temperature > 0``: it draws from per-slot
+        generators a capture would bake."""
+        return graphs.Executable(fn, bake=bake,
+                                 capture=not (sampled and self.temperature > 0))
+
     def _impl(self, rows: int, cap: int) -> str:
         """LoRA path for a ``rows``-row co-batch, resolved from the slot
         bucket (not the live adapter count) so the choice is stable within
@@ -670,7 +698,7 @@ class DecodeEngine:
                 first, gens = sample(logits, gens)
                 return first, lm.finite_logits(logits), gens, cache
 
-            self._fn_prefill[key] = run
+            self._fn_prefill[key] = self._executable(run, (0, 5), True)
         return self._fn_prefill[key]
 
     def _tail_prefill_fn(self, cap: int, tlen: int, mode: str = "float"):
@@ -716,6 +744,8 @@ class DecodeEngine:
                 return first, lm.finite_logits(logits), gens, cache
 
             if mode == "float":
+                bake = (0, 6)
+
                 def run(params, prefix_fp, tokens, tail_len, prefix_len, gens,
                         lora_stack, adapter_idx, perm, inv, blocks):
                     it = iter(prefix_fp)
@@ -726,6 +756,7 @@ class DecodeEngine:
                                 blocks)
             else:
                 from repro_torch.kernels import ops
+                bake = (0, 1, 7)
 
                 def run(params, pool, tokens, tail_len, prefix_pages,
                         prefix_len, gens, lora_stack, adapter_idx, perm, inv,
@@ -749,19 +780,19 @@ class DecodeEngine:
                                 gens, lora_stack, adapter_idx, perm, inv,
                                 blocks)
 
-            self._fn_prefill[key] = run
+            self._fn_prefill[key] = self._executable(run, bake, True)
         return self._fn_prefill[key]
 
     def _write_fn(self):
         """Admission scatter: copy the one-row prefill cache into the pool's
-        slot along the batch axis (in place)."""
+        slot (a (1,) device index) along the batch axis, in place."""
         if None not in self._fn_write:
             def write(pool, cache, slot):
                 for psub, csub in zip(pool, cache):
                     for name, t in psub.items():
-                        t[:, slot].copy_(csub[name][:, 0])
+                        t.index_copy_(1, slot, csub[name])
                 return pool
-            self._fn_write[None] = write
+            self._fn_write[None] = self._executable(write, (0,))
         return self._fn_write[None]
 
     def _paged_write_fn(self, npages: int):
@@ -777,7 +808,8 @@ class DecodeEngine:
         the prompt-wide maximum, the drift trackers reset, and ``len`` is
         set to the true prompt length. Fixed-size per-slot state (the
         cross-attention ``ck``/``cv`` of an encoder-decoder stack) copies
-        into the slot's row as it is."""
+        into the slot's row as it is. ``slot`` and ``true_len`` are (1,)
+        device tensors."""
         if npages not in self._fn_write:
             ps = self.page_size
 
@@ -802,16 +834,12 @@ class DecodeEngine:
                     psub["v"][:, page_idx] = quantize_pages(vf, vs)
                     psub["k_scale"][:, page_idx] = ks
                     psub["v_scale"][:, page_idx] = vs
-                    psub["slot_k_scale"][:, slot] = slot_ks
-                    psub["slot_v_scale"][:, slot] = slot_vs
-                    psub["k_max"][:, slot] = 0.0
-                    psub["v_max"][:, slot] = 0.0
-                    psub["len"][:, slot] = true_len
+                    _set_slot(psub, slot, slot_ks, slot_vs, true_len)
                     for name in dense_state_keys(psub):
-                        psub[name][:, slot].copy_(csub[name][:, 0])
+                        psub[name].index_copy_(1, slot, csub[name])
                 return pool
 
-            self._fn_write[npages] = write
+            self._fn_write[npages] = self._executable(write, (0,))
         return self._fn_write[npages]
 
     def _paged_tail_write_fn(self, npages: int):
@@ -828,7 +856,10 @@ class DecodeEngine:
             |K|max / 127 (it is never the boundary page), and max-then-divide
             equals divide-then-max for a positive constant, so the combined
             slot scale is the one a full prefill over the whole prompt
-            computes."""
+            computes.
+
+        ``slot``, ``true_len``, ``boundary`` and ``prefix_np`` are (1,)
+        device tensors."""
         key = ("tail", npages)
         if key not in self._fn_write:
             ps = self.page_size
@@ -865,42 +896,42 @@ class DecodeEngine:
                     psub["v"][:, page_idx] = quantize_pages(vf, vs)
                     psub["k_scale"][:, page_idx] = ks
                     psub["v_scale"][:, page_idx] = vs
-                    psub["slot_k_scale"][:, slot] = slot_ks
-                    psub["slot_v_scale"][:, slot] = slot_vs
-                    psub["k_max"][:, slot] = 0.0
-                    psub["v_max"][:, slot] = 0.0
-                    psub["len"][:, slot] = true_len
+                    _set_slot(psub, slot, slot_ks, slot_vs, true_len)
                 return pool
 
-            self._fn_write[key] = write
+            self._fn_write[key] = self._executable(write, (0,))
         return self._fn_write[key]
 
     def _rescale_fn(self):
-        """Proactive scale refresh for ONE (slot, tail page), in place: bump
-        the page and slot scales to cover the slot's observed decode-era
-        |K|/|V| maxima (with 10% headroom) and rewrite the page's int8 codes
-        from the old scale into the new one."""
+        """Proactive scale refresh for ONE (slot, tail page), each a (1,)
+        device index, in place: bump the page and slot scales to cover the
+        slot's observed decode-era |K|/|V| maxima (with 10% headroom) and
+        rewrite the page's int8 codes from the old scale into the new
+        one."""
         if self._fn_rescale is None:
             margin = 1.1 / 127.0
 
             def rescale(pool, slot, page):
                 for sub in pool:
                     for c in ("k", "v"):
-                        mx = sub[f"{c}_max"][:, slot] * margin  # (nper, kv)
-                        old = sub[f"{c}_scale"][:, page]
+                        # (nper, 1, kv)
+                        mx = sub[f"{c}_max"].index_select(1, slot) * margin
+                        old = sub[f"{c}_scale"].index_select(1, page)
                         new = torch.maximum(old, mx)
                         r = torch.where(new > 0,
                                         old / torch.clamp(new, min=1e-12),
                                         torch.ones_like(new))
-                        codes = torch.round(sub[c][:, page].float()
-                                            * r[:, None, :, None])
-                        sub[c][:, page] = codes.to(sub[c].dtype)
-                        sub[f"{c}_scale"][:, page] = new
-                        sub[f"slot_{c}_scale"][:, slot] = torch.maximum(
-                            sub[f"slot_{c}_scale"][:, slot], mx)
+                        codes = torch.round(
+                            sub[c].index_select(1, page).float()
+                            * r[:, :, None, :, None])
+                        sub[c].index_copy_(1, page, codes.to(sub[c].dtype))
+                        sub[f"{c}_scale"].index_copy_(1, page, new)
+                        slot_s = sub[f"slot_{c}_scale"]
+                        slot_s.index_copy_(1, slot, torch.maximum(
+                            slot_s.index_select(1, slot), mx))
                 return pool
 
-            self._fn_rescale = rescale
+            self._fn_rescale = self._executable(rescale, (0,))
         return self._fn_rescale
 
     def _maybe_refresh_scales(self, over: np.ndarray):
@@ -916,7 +947,8 @@ class DecodeEngine:
             if s is None or s.done or self._lens[i] <= s.prompt_tokens:
                 continue
             page = int(self._ptab[i, (self._lens[i] - 1) // self.page_size])
-            self.pool = self._rescale_fn()(self.pool, int(i), page)
+            self.pool = self._rescale_fn()(self.pool, self._dev(int(i)),
+                                           self._dev(page))
             self.scale_refreshes += 1
 
     def _decode_fn(self, cap: int, chunk: int):
@@ -958,7 +990,7 @@ class DecodeEngine:
                         drift = drift | o.any(dim=2).any(dim=0)
                 return pool, tok, gens, torch.stack(out, dim=1), drift, fin
 
-            self._fn_decode[key] = run
+            self._fn_decode[key] = self._executable(run, (0, 1, 4), True)
         return self._fn_decode[key]
 
     # ---- segment metadata (per composition, not per token) ----
@@ -1117,7 +1149,7 @@ class DecodeEngine:
         elif self.paged:
             self._write_pages(req, true_prompt, true_len, plen, slot, cache)
         else:
-            self.pool = self._write_fn()(self.pool, cache, slot)
+            self.pool = self._write_fn()(self.pool, cache, self._dev(slot))
         return self._finish_admission(req, slot, aslot, first, fin_ok,
                                       true_prompt, true_len, max_new_tokens)
 
@@ -1141,9 +1173,9 @@ class DecodeEngine:
         scatter = pages.copy()
         scatter[:m] = TRASH_PAGE
         self.pool = self._paged_write_fn(npages)(
-            self.pool, cache, slot,
+            self.pool, cache, self._dev(slot),
             torch.as_tensor(scatter, dtype=torch.long, device=self.device),
-            true_len)
+            self._dev(true_len, dtype=torch.int32))
         self._ptab[slot, :npages] = pages
         self._held[slot] = npages
         self._lens[slot] = true_len
@@ -1258,11 +1290,12 @@ class DecodeEngine:
             self.shared_pages_mapped += skip
             boundary = true_len // ps - skip
             self.pool = self._paged_tail_write_fn(npages)(
-                self.pool, cache, slot,
+                self.pool, cache, self._dev(slot),
                 torch.as_tensor(priv_tail, dtype=torch.long, device=dev),
-                true_len, boundary,
+                self._dev(true_len, dtype=torch.int32),
+                self._dev(boundary),
                 torch.as_tensor(prefix_ids, dtype=torch.long, device=dev),
-                skip)
+                self._dev(skip))
             self._ptab[slot, :skip] = prefix_ids[:skip]
             self._ptab[slot, skip:skip + npages] = priv_tail
             self._held[slot] = skip + npages
@@ -1593,10 +1626,10 @@ class DecodeEngine:
         return next((c for c in self.chunk_ladder() if c <= room), 1)
 
     def warm_decode_ladder(self):
-        """Dispatch every ladder chunk length once against the idle pool, so
-        the deadline clamp adds no shape key mid-measurement. The garbage
-        rows land in the trash page (paged) or in regions the next
-        admission overwrites (dense)."""
+        """Dispatch every ladder chunk length twice against the idle pool
+        (eager, then captured), so the deadline clamp adds no shape key and
+        no capture mid-measurement. The garbage rows land in the trash page
+        (paged) or in regions the next admission overwrites (dense)."""
         if self.active_count():
             raise RuntimeError("warm_decode_ladder must run on an idle engine")
         if self.paged:
@@ -1605,14 +1638,16 @@ class DecodeEngine:
         perm, inv, blocks = self._segments(cap)
         adapters = torch.as_tensor(self._slot_adapters, device=self.device)
         for c in self.chunk_ladder():
-            self.pool, self._tokens, _, _, _, _ = self._decode_fn(cap, c)(
-                self.fm.params, self.pool, self._tokens, self._keys,
-                self.fm.adapters.stacked(), adapters, perm, inv, blocks)
+            for _ in range(2):
+                self.pool, self._tokens, _, _, _, _ = self._decode_fn(cap, c)(
+                    self.fm.params, self.pool, self._tokens, self._keys,
+                    self.fm.adapters.stacked(), adapters, perm, inv, blocks)
 
     def warm_chunked(self):
-        """Run the chunked-admission planes once (one tail prefill per mode
-        and one tail-page scatter per tail bucket), so sharer joins add no
-        shape key in steady state, whatever tail length they arrive with.
+        """Run the chunked-admission planes twice, eager then captured (one
+        tail prefill per mode and one tail-page scatter per tail bucket), so
+        sharer joins add no shape key and no capture in steady state,
+        whatever tail length they arrive with.
         The warm prefill attends only a masked-out prefix (zeros, or the
         trash page) and its outputs are discarded; it samples with a scratch
         generator, so no slot's generator advances and a warmed engine
@@ -1638,23 +1673,27 @@ class DecodeEngine:
         zero = torch.zeros((1,), dtype=torch.int32, device=dev)
         aidx = torch.full((1,), aslot, dtype=torch.int32, device=dev)
         scratch = [torch.Generator(device=dev).manual_seed(0)]
+        slot0, zero_l = self._dev(0), self._dev(0)
         for tb in self.tail_buckets:
             perm, inv, blocks = self._prefill_segments(aslot, cap, tb)
             tokens = torch.zeros((1, tb), dtype=torch.int32, device=dev)
             tail_t = torch.full((1,), tb, dtype=torch.int32, device=dev)
-            self._tail_prefill_fn(cap, tb, "float")(
-                self.fm.params, warm_fp, tokens, tail_t, zero, scratch,
-                self.fm.adapters.stacked(), aidx, perm, inv, blocks)
-            self._tail_prefill_fn(cap, tb, "pages")(
-                self.fm.params, self.pool, tokens, tail_t, prefix_ids, zero,
-                scratch, self.fm.adapters.stacked(), aidx, perm, inv, blocks)
             npages = self._pages_for(tb)
             cache = lm.init_cache(self.cfg, 1, npages * ps, kv_quant=False,
                                   device=dev)
-            self.pool = self._paged_tail_write_fn(npages)(
-                self.pool, cache, 0,
-                torch.full((npages,), TRASH_PAGE, dtype=torch.long,
-                           device=dev), 0, -1, prefix_ids, 0)
+            for _ in range(2):
+                self._tail_prefill_fn(cap, tb, "float")(
+                    self.fm.params, warm_fp, tokens, tail_t, zero, scratch,
+                    self.fm.adapters.stacked(), aidx, perm, inv, blocks)
+                self._tail_prefill_fn(cap, tb, "pages")(
+                    self.fm.params, self.pool, tokens, tail_t, prefix_ids,
+                    zero, scratch, self.fm.adapters.stacked(), aidx, perm,
+                    inv, blocks)
+                self.pool = self._paged_tail_write_fn(npages)(
+                    self.pool, cache, slot0,
+                    torch.full((npages,), TRASH_PAGE, dtype=torch.long,
+                               device=dev), zero, self._dev(-1), prefix_ids,
+                    zero_l)
 
     def warm_speculative(self):
         raise NotImplementedError("speculative decoding (P11) comes with a "
@@ -1758,6 +1797,19 @@ class DecodeEngine:
     def restore(cls, fm, snap, **kwargs):
         raise NotImplementedError("engine snapshot/restore comes with a later "
                                   "slice of the port (durability plane, P10)")
+
+
+def _set_slot(psub, slot, slot_ks, slot_vs, true_len):
+    """An admission's per-slot entries of one paged sublayer, in place:
+    the running scales (``slot_ks``/``slot_vs`` (nper, kv)), the drift
+    trackers reset, ``len`` set to ``true_len``; ``slot`` and ``true_len``
+    are (1,) device tensors."""
+    psub["slot_k_scale"].index_copy_(1, slot, slot_ks[:, None])
+    psub["slot_v_scale"].index_copy_(1, slot, slot_vs[:, None])
+    psub["k_max"].index_fill_(1, slot, 0.0)
+    psub["v_max"].index_fill_(1, slot, 0.0)
+    psub["len"].index_copy_(1, slot, true_len.to(psub["len"].dtype).expand(
+        psub["len"].shape[0], 1))
 
 
 def quantize_pages(x, scale):

@@ -7,9 +7,11 @@ A PhysicalFM owns:
     bucket (4/8/16/...) so the stacked shapes stay fixed while tasks come and
     go within capacity;
   * a decoder-head store — per-task heads applied after the shared pass;
-  * a cache of forward functions keyed on (batch bucket, adapter slot
-    bucket, lora impl): the static-shape contract of the JAX package, whose
-    zero-recompile tests carry over through ``compile_count``.
+  * a cache of forward executables keyed on (batch bucket, adapter slot
+    bucket, lora impl), one per input length under each key, each captured
+    as a CUDA graph at its second call (``core.graphs``): the JAX package's
+    bucketed jit cache, whose zero-recompile tests carry over through
+    ``compile_count``.
 
 ``run_batch`` picks the LoRA path per co-batch (``lora_impl="auto"``, the
 default, as in the JAX package): ``AUTO_LORA_TABLE``, measured on the GPU by
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import graphs
 from repro_torch.core.profile import FMProfile, profile_backbone
 from repro_torch.kernels.segmented_lora import SegmentMetaCache, padded_tokens
 from repro_torch.models import lm
@@ -39,15 +42,14 @@ LORA_IMPLS = ("auto", "segmented", "gather")
 # lora_impl="auto": the faster path per (batch bucket, adapter-count bucket)
 # cell, from ``run_batch`` pinned to each path on full-width moment-large
 # (rank-4 adapters with random B, 32 patches a request; median wall time of
-# a synchronized call), measured by ``tools/lora_crossover.py`` on an NVIDIA
-# H100 80GB HBM3 at a 700.00 W power limit (nvidia-smi), twice. "segmented"
-# won every cell of one run and 29 of the other; the cell where the runs
-# differ, (32, 4), is close on the wall clock and takes the path with less
-# device time (segmented, in both runs). The pooled forward is host-bound
-# (85-95% of its wall time the device is idle), and the gather path
-# launches ~330 more kernels a forward: no crossover at these shapes. The
-# JAX package's table was measured on its CPU backend and does not carry
-# over. Re-measure when a kernel, the model path or the card changes.
+# a synchronized call, each a replay of the key's captured graph), measured
+# by ``tools/lora_crossover.py`` on an NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit (nvidia-smi), twice. "segmented" won every cell of both runs,
+# by 0.9-2.0 ms of a 3.7-9.4 ms call: with the host out of the way the
+# gather path's extra device time (1.0-3.2 ms a forward, ~330 more kernels)
+# decides, so there is no crossover at these shapes. The JAX package's
+# table was measured on its CPU backend and does not carry over.
+# Re-measure when a kernel, the model path or the card changes.
 NA_BUCKETS = (1, 2, 4, 8, 16)
 AUTO_LORA_TABLE = {
     (1, 1): "segmented", (1, 2): "segmented", (1, 4): "segmented",
@@ -60,8 +62,7 @@ AUTO_LORA_TABLE = {
     (8, 8): "segmented", (8, 16): "segmented",
     (16, 1): "segmented", (16, 2): "segmented", (16, 4): "segmented",
     (16, 8): "segmented", (16, 16): "segmented",
-    (32, 1): "segmented", (32, 2): "segmented",
-    (32, 4): "segmented",      # close: gather in one run (wall clock)
+    (32, 1): "segmented", (32, 2): "segmented", (32, 4): "segmented",
     (32, 8): "segmented", (32, 16): "segmented",
 }
 # adapter-id sentinel for rows that are padding / free decode slots; beyond
@@ -97,9 +98,11 @@ class AdapterStore:
     ``stacked()`` maintains one NA=capacity() stack padded with zero-weight
     adapters up to the slot bucket, so its shape is stable while tasks come
     and go within capacity, and the "no adapter" sentinel ``capacity()``
-    never aliases a real slot. Adding an adapter writes it into the next
-    free pad slot of the existing stack; removal or a capacity change
-    rebuilds it."""
+    never aliases a real slot. The stack of each capacity is built once and
+    then rewritten IN PLACE, slot by slot, wherever its slot's adapter
+    changed (an add fills a pad slot; a removal shifts the later slots down
+    and zeroes the freed one): the captured executables of a capacity read
+    its stack where it lies, so it never moves."""
 
     def __init__(self, cfg, rank: int = 16, device="cuda"):
         self.cfg = cfg
@@ -107,9 +110,8 @@ class AdapterStore:
         self.device = torch.device(device)
         self.ids: list[str] = []
         self._trees: list = []
-        self._stacked = None
-        self._stacked_n = 0        # how many real adapters the cache holds
-        self._stacked_cap = 0      # slot capacity the cache was built for
+        # capacity -> (stack, the tree each slot holds; None: zeros)
+        self._stacks: dict[int, tuple] = {}
 
     def __len__(self):
         return len(self.ids)
@@ -126,8 +128,6 @@ class AdapterStore:
         self.ids.append(adapter_id)
         self._trees.append(tree_map(lambda t: t.to(self.device, torch.float32),
                                     tree))
-        if self._stacked is not None and self._stacked_cap != self.capacity():
-            self._stacked = None   # crossed a slot bucket: full rebuild
 
     def new(self, adapter_id: str, seed: int = 0):
         """A fresh adapter (zero B: a zero delta until trained)."""
@@ -142,8 +142,7 @@ class AdapterStore:
         if adapter_id not in self.ids:
             return
         i = self.ids.index(adapter_id)
-        del self.ids[i], self._trees[i]
-        self._stacked = None       # slots shift: full invalidation
+        del self.ids[i], self._trees[i]     # stacked() shifts the slots
 
     def index(self, adapter_id: Optional[str]) -> int:
         """Sentinel == capacity() (the stack's NA) means 'no adapter'."""
@@ -160,16 +159,21 @@ class AdapterStore:
     def stacked(self):
         cap = self.capacity()
         n = len(self.ids)
-        if self._stacked is not None and self._stacked_cap == cap:
-            for j in range(self._stacked_n, n):    # incremental pad-slot write
-                tree_map(lambda s, t: s[:, j].copy_(t[:, 0]), self._stacked,
-                         self._trees[j])
-            self._stacked_n = n
-            return self._stacked
-        trees = self._trees + [self._zero_tree() for _ in range(cap - n)]
-        self._stacked = lora_mod.stack_adapters(trees)
-        self._stacked_n, self._stacked_cap = n, cap
-        return self._stacked
+        if cap not in self._stacks:
+            trees = self._trees + [self._zero_tree() for _ in range(cap - n)]
+            self._stacks[cap] = (lora_mod.stack_adapters(trees),
+                                 self._trees + [None] * (cap - n))
+            return self._stacks[cap][0]
+        stack, held = self._stacks[cap]
+        for j in range(cap):                    # in place, changed slots only
+            want = self._trees[j] if j < n else None
+            if held[j] is not want:
+                if want is None:
+                    tree_map(lambda s: s[:, j].zero_(), stack)
+                else:
+                    tree_map(lambda s, t: s[:, j].copy_(t[:, 0]), stack, want)
+                held[j] = want
+        return stack
 
 
 class PhysicalFM:
@@ -194,7 +198,8 @@ class PhysicalFM:
         self.params = params
         self.adapters = AdapterStore(cfg, lora_rank, device=self.device)
         self.heads: dict[str, Callable] = {}        # task_id -> head fn
-        self._fn_cache: dict[tuple, Callable] = {}
+        # (batch bucket, slot bucket, impl) -> {input length: Executable}
+        self._fn_cache: dict[tuple, dict] = {}
         self.seg_meta_cache = SegmentMetaCache()    # per-composition host sort
         self.load_time_s = time.perf_counter() - t0
         self.profile: Optional[FMProfile] = None
@@ -208,9 +213,11 @@ class PhysicalFM:
 
     # ---- execution ----
     def compile_count(self) -> int:
-        """Distinct static-shape keys seen (batch bucket, slot bucket, impl):
-        steady-state serving must not grow this."""
-        return len(self._fn_cache)
+        """Executables across every (batch bucket, slot bucket, impl) key,
+        one per input length as ``jax.jit`` traces one per input shape
+        (each captured as a CUDA graph at its second call): steady-state
+        serving must not grow this."""
+        return sum(len(fns) for fns in self._fn_cache.values())
 
     def resolve_lora_impl(self, rows: int, num_adapters: Optional[int] = None
                           ) -> str:
@@ -225,11 +232,12 @@ class PhysicalFM:
         nb = next((b for b in NA_BUCKETS if max(1, na) <= b), NA_BUCKETS[-1])
         return AUTO_LORA_TABLE[(bucket_for(rows), nb)]
 
-    def _features_fn(self, bucket: int, slots: int, impl: str):
+    def _features_fn(self, bucket: int, slots: int, impl: str, seq_len: int):
         """Shared backbone forward with per-request backbone LoRA deltas,
-        one per (batch bucket, adapter slot bucket, lora impl)."""
-        key = (bucket, slots, impl)
-        if key not in self._fn_cache:
+        one executable per (batch bucket, adapter slot bucket, lora impl)
+        and input length; the weights and the adapter stack are baked."""
+        fns = self._fn_cache.setdefault((bucket, slots, impl), {})
+        if seq_len not in fns:
             cfg, bt = self.cfg, self.seg_block_t
 
             def run(params, embeds, lora_stack, adapter_idx, perm, inv, blocks):
@@ -248,8 +256,8 @@ class PhysicalFM:
                                       lora_seg=seg)
                 return feats.mean(dim=1)                   # (B, d) pooled
 
-            self._fn_cache[key] = run
-        return self._fn_cache[key]
+            fns[seq_len] = graphs.Executable(run, bake=(0, 2))
+        return fns[seq_len]
 
     def segment_meta(self, adapter_idx: np.ndarray, cap: int, seq_len: int):
         """Per-batch SGMV metadata (host side, memoized per composition).
@@ -266,7 +274,10 @@ class PhysicalFM:
 
     def run_batch_device(self, embeds, adapter_idx: np.ndarray):
         """Serve forward returning the pooled features as a device tensor
-        (no host pull) so per-task heads can run on the device."""
+        (no host pull) so per-task heads can run on the device. The tensor
+        is the caller's: a copy of the executable's output, which the next
+        forward of the same key overwrites (the executor holds one batch's
+        features while it dispatches the next)."""
         n = embeds.shape[0]
         if n > BUCKETS[-1]:            # oversize co-batch: serve in chunks
             c = BUCKETS[-1]
@@ -291,11 +302,11 @@ class PhysicalFM:
                 self.device)
         else:   # the gather path never reads the metadata
             perm = inv = blocks = None
-        out = self._features_fn(b, cap, impl)(
+        out = self._features_fn(b, cap, impl, embeds.shape[1])(
             self.params, torch.as_tensor(embeds, device=self.device), stack,
             torch.as_tensor(adapter_idx, device=self.device), perm, inv,
             blocks)
-        return out[:n]
+        return out[:n].clone()
 
     def run_batch(self, embeds: np.ndarray, adapter_idx: np.ndarray):
         """embeds: (n, S, d); adapter_idx: (n,). Returns (n, d) f32 numpy
@@ -310,7 +321,10 @@ class PhysicalFM:
             e = rng.randn(b, self.input_len, d).astype(np.float32)
             self.run_batch(e, np.zeros((b,), np.int32))   # syncs on the copy
 
-        self.profile = profile_backbone(run, sizes=sizes, name=self.cfg.name)
+        # two lead calls a size: the executable's eager first call and its
+        # capture, so the timed call is a replay, as in serving
+        self.profile = profile_backbone(run, sizes=sizes, name=self.cfg.name,
+                                        warmup=2)
         self.profile.load_time_s = self.load_time_s
         self.profile.memory_bytes = sum(
             t.numel() * t.element_size() for t in tree_leaves(self.params))

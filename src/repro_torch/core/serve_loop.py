@@ -584,13 +584,15 @@ class ServeLoop:
     # ---- drivers ----
     def warmup(self, *, pooled_task: Optional[str] = None,
                gen_task: Optional[str] = None, pooled_n: int = 4):
-        """Run every shape key the loop can dispatch once before measuring:
-        one pooled co-batch per batch bucket up to ``pooled_n`` (BFQ can
-        form ANY size under load), one admission prefill per prompt-length
-        bucket, the decode chunk, the pool write and, on a chunked paged
-        pool, one tail prefill and tail scatter per tail bucket — so the
-        kernels are built, the allocator has its blocks and the heads have
-        their verdicts before a measured run. Generative warmup is skipped for FMs
+        """Run every shape key the loop can dispatch twice before
+        measuring (its first call runs eagerly, its second captures it as a
+        CUDA graph: ``core.graphs``): one pooled co-batch per batch bucket up
+        to ``pooled_n`` (BFQ can form ANY size under load), one admission
+        prefill per prompt-length bucket, the decode chunk, the pool write
+        and, on a chunked paged pool, one tail prefill and tail scatter per
+        tail bucket — so the kernels are built, the graphs captured, the
+        allocator has its blocks and the heads have their verdicts before a
+        measured run. Generative warmup is skipped for FMs
         with no generative head; encoder-decoder stacks warm through the
         engine's zero-frame ``enc_feats`` default."""
         import numpy as np
@@ -613,19 +615,21 @@ class ServeLoop:
 
         ex = self._executor()
         for b in (x for x in BUCKETS if x <= max(pooled_n, 1)):
-            reqs = [Request(pooled_task, 0.0, payload=payload())
-                    for _ in range(b)]
-            ex.execute(Batch(reqs, group_sub_batches(reqs, vfms)), vfms)
+            for _ in range(2):
+                reqs = [Request(pooled_task, 0.0, payload=payload())
+                        for _ in range(b)]
+                ex.execute(Batch(reqs, group_sub_batches(reqs, vfms)), vfms)
         trace = [Request(pooled_task, 0.0, payload=payload())
                  for _ in range(pooled_n)]
         if cfg.vocab_size > 0 and not cfg.is_representation:
             eng = self._engine(create=True)
             for plen in eng.prompt_buckets:
-                trace.append(Request(
+                trace += [Request(
                     gen_task, 0.0,
                     payload=rng.randint(0, cfg.vocab_size,
                                         plen).astype("int32"),
-                    tokens=float(plen + 2), max_new_tokens=2))
+                    tokens=float(plen + 2), max_new_tokens=2)
+                    for _ in range(2)]
         # warmup requests inherit task-level SLOs at enqueue, and a first
         # call (kernel build) takes arbitrarily long: enforcement would shed
         # the very requests meant to warm the path

@@ -26,7 +26,8 @@ from repro_torch.kernels import build
 _RANKS = (4, 8, 16, 32, 64)
 _MIN_SPLIT = 64                  # rows of d a shrink CTA takes at least
 _MAX_SPLITS = 16                 # partials the expand loads at once
-_WORKSPACE: dict = {}            # (device index, stream) -> f32 scratch
+_WORKSPACE: dict = {}            # device index -> f32 scratch
+_OUTGROWN: list = []             # earlier workspaces a captured graph may use
 
 
 def _lib():
@@ -53,14 +54,24 @@ def d_splits(num_blocks: int, d: int, sms: int) -> tuple[int, int]:
     return -(-d // split_len), split_len
 
 
-def _workspace(device, stream: int, n: int):
-    """At least ``n`` f32 of shrink partials for calls on ``stream``: kept
-    between calls (they run in stream order, so one call's expand has read
-    it before the next call's shrink writes), grown on demand. Allocating
-    per call would add host time to every one of a step's K1 calls."""
-    ws = _WORKSPACE.get((device.index, stream))
+def _workspace(device, n: int):
+    """At least ``n`` f32 of shrink partials: one buffer per device, kept
+    between calls (the port launches on one stream at a time, eager calls
+    and graph replays alike, so one call's expand has read it before the
+    next call's shrink writes), grown on demand. Allocating per call would
+    add host time to every one of a step's K1 calls. A graph captured with
+    the buffer bakes its address, so an outgrown buffer is kept, never
+    freed; and the buffer is never allocated during a capture (it would
+    come from that graph's private pool): an executable's eager first call
+    sizes it for its key before the capture."""
+    ws = _WORKSPACE.get(device.index)
     if ws is None or ws.numel() < n:
-        ws = _WORKSPACE[(device.index, stream)] = torch.empty(
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the segmented_lora workspace must be sized by "
+                               "an eager call before a capture")
+        if ws is not None:
+            _OUTGROWN.append(ws)
+        ws = _WORKSPACE[device.index] = torch.empty(
             (max(n, 1 << 16),), dtype=torch.float32, device=device)
     return ws
 
@@ -100,7 +111,7 @@ def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int):
         return y
     nsplit, split_len = d_splits(nb, d, build.sm_count(x.device.index or 0))
     stream = build.current_stream(x.device.index or 0)
-    ws = _workspace(x.device, stream, nb * nsplit * block_t * r)
+    ws = _workspace(x.device, nb * nsplit * block_t * r)
     err = _lib().sgmv_launch(x.data_ptr(), block_adapter.data_ptr(),
                              a_w.data_ptr(), b_w.data_ptr(), y.data_ptr(),
                              ws.data_ptr(), nb, d, r, out, na, block_t,

@@ -461,9 +461,10 @@ def test_paged_tail_write_matches_jax(fms):
         jnp.int32(slot), jnp.asarray(tail_pages), jnp.int32(true_len),
         jnp.int32(boundary), jnp.asarray(prefix_pages), jnp.int32(skip))
     eng.pool = eng._paged_tail_write_fn(npages)(
-        eng.pool, [{n: torch.tensor(c[n]) for n in c} for c in cache], slot,
-        torch.tensor(tail_pages).long(), true_len, boundary,
-        torch.tensor(prefix_pages).long(), skip)
+        eng.pool, [{n: torch.tensor(c[n]) for n in c} for c in cache],
+        torch.tensor([slot]), torch.tensor(tail_pages).long(),
+        torch.tensor([true_len], dtype=torch.int32), torch.tensor([boundary]),
+        torch.tensor(prefix_pages).long(), torch.tensor([skip]))
     keys = ("k", "v", "k_scale", "v_scale", "slot_k_scale", "slot_v_scale",
             "len")
     for jsub, sub in zip(_subs_np(jeng.pool, keys), _subs_np(eng.pool, keys)):

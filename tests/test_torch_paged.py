@@ -217,7 +217,8 @@ def test_paged_write_and_rescale_match_jax(fms):
         jnp.int32(slot), jnp.asarray(pages), jnp.int32(true_len))
     eng.pool = eng._paged_write_fn(npages)(
         eng.pool, [{n: torch.tensor(c[n]) for n in c} for c in cache],
-        slot, torch.tensor(pages).long(), true_len)
+        torch.tensor([slot]), torch.tensor(pages).long(),
+        torch.tensor([true_len], dtype=torch.int32))
     keys = ("k", "v", "k_scale", "v_scale", "slot_k_scale", "slot_v_scale",
             "len")
     real = [3, 7, 5]
@@ -242,7 +243,8 @@ def test_paged_write_and_rescale_match_jax(fms):
             jsub[n] = jnp.asarray(mx)
             sub[n].copy_(torch.tensor(mx))
     jeng.pool = jeng._rescale_fn()(jeng.pool, jnp.int32(slot), jnp.int32(7))
-    eng.pool = eng._rescale_fn()(eng.pool, slot, 7)
+    eng.pool = eng._rescale_fn()(eng.pool, torch.tensor([slot]),
+                                 torch.tensor([7]))
     for jsub, sub in zip(_subs_np(jeng.pool, keys), _subs_np(eng.pool, keys)):
         for n in ("k", "v"):
             np.testing.assert_array_equal(sub[n][:, 7], jsub[n][:, 7])

@@ -10,8 +10,10 @@ every (batch bucket in ``BUCKETS``) x (adapter count in ``NA_BUCKETS``) cell
 it serves one co-batch of that many requests spread round-robin over that
 many registered adapters (the executor's adapter-sorted order) through
 ``PhysicalFM.run_batch`` pinned to "segmented" and pinned to "gather", the
-two in turns: the median wall time of a synchronized call (what a caller
-waits), the device busy time of one call and its idle share
+two in turns, each a replay of its key's captured executable (three warm
+calls a key first: eager, capture, replay): the median wall time of a
+synchronized call (what a caller waits), the device busy time of one call
+and its idle share
 (``chip_smoke.profile_step``: every device record of the call under
 ``torch.profiler``), K1's launches per call, and the host time of one segment-metadata
 build with an empty memo (the serving path memoizes it per composition).
