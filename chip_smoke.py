@@ -81,7 +81,24 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    served, K2 and (where the table chose "segmented") K1 launched per
    forward, no new shape key; and ``python -m repro_torch.launch.serve``
    with no flags;
-6. timing — device times (``torch.profiler``) of each kernel, its plain
+6. durability — full-width stablelm-1.6b on the paged pool with a host
+   spill arena (``phase_durability``): a burst that preempts, resumed from
+   the host, whose tokens must equal the same joins on an unpressured pool,
+   and with a 20 MiB arena (at least one re-prefill, every stream its
+   budget); 8 sampled streams (temperature 0.7, top-k 8) spilled against
+   the unpressured pool, tokens equal; a shared prefix spilled across an
+   idle gap and restored for the next wave's tail admissions (K2 with the
+   prefix operand); a mid-flight snapshot restored over the old arena,
+   scrambled in place, reusing the executables (tokens equal, no key added
+   or captured again, reserved memory grown by less than one pool); a
+   tampered page (a digest failure, every stream its budget); the disk
+   round trip (npz + json, restored without reuse); ``checkpoint_restart``
+   and ``DeviceResetFault`` through ``ServeLoop`` (streams equal the
+   fault-free run's, ``resets_survived`` stamped, no leak); whisper's
+   cross state through a snapshot (a two-layer cut, tokens equal); K4, K2
+   and K1 must launch; and one sampled decode step (eager) against the
+   greedy graphed step;
+7. timing — device times (``torch.profiler``) of each kernel, its plain
    version and a library yardstick, beside the least time the card could
    take (its bound), K2 also at whisper's encoder and cross-prefill
    shapes (with its number of key splits and, where it splits, its time
@@ -1408,8 +1425,9 @@ def graph_keys(eng, fm) -> dict:
                            ("decode", eng._fn_decode),
                            ("write", eng._fn_write)):
             exes += [(f"{plane} {k}", e) for k, e in fns.items()]
-        if eng._fn_rescale is not None:
-            exes.append(("rescale", eng._fn_rescale))
+        for name in ("rescale", "gather", "page_restore", "slot_restore"):
+            if getattr(eng, f"_fn_{name}") is not None:
+                exes.append((name, getattr(eng, f"_fn_{name}")))
     for k, fns in fm._fn_cache.items():
         exes += [(f"forward {k} len {n}", e) for n, e in fns.items()]
     return {"keys": {name: {"calls": e.calls, "captured": e.captured,
@@ -2075,6 +2093,515 @@ def phase_moment_serving(dev):
     return ok, stats, (srv, fm, None)
 
 
+# ---------------- phase 7: durability ----------------
+
+SPILL_BYTES = 256 << 20          # the host arena of the durability checks
+# a victim's entry (~12 MiB) and its own prompt pages (6 x 1.5 MiB), spilled
+# right after it, outgrow this budget: the entry is evicted, a re-prefill
+SMALL_SPILL_BYTES = 20 << 20
+BURST_PROMPT = 96                # paged_burst's prompts
+SAMPLED_PROMPT = 64              # 8 streams that all admit, then outgrow
+RESTORE_AT = 3                   # chunks before a mid-flight snapshot
+
+
+def durability_joins(cfg, seed: int, n: int = 12, plen: int = BURST_PROMPT):
+    """``n`` joins of ``plen``-token prompts on the 4 adapters in turn."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [(f"task{i % N_TASKS}",
+             rng.randint(0, cfg.vocab_size, plen).astype(np.int32),
+             f"lora{i % N_TASKS}", -2000 - i) for i in range(n)]
+
+
+def run_joins(eng, joins, pause=None, max_new: int = MAX_NEW):
+    """Join every stream straight into ``eng`` (a paged pool defers what
+    does not fit), then step until all retire. ``pause(eng, chunks)`` runs
+    after every chunk and may return the engine to continue on (a restored
+    one). Returns ({rid: tokens}, {rid: status}, the last engine)."""
+    for task, prompt, aid, rid in joins:
+        eng.join(task, prompt, adapter_id=aid, max_new_tokens=max_new,
+                 rid=rid)
+    done, n = [], 0
+    while eng.active_count() or eng.pending_count():
+        done += eng.step_chunk()
+        n += 1
+        if pause is not None:
+            eng = pause(eng, n) or eng
+    return ({d.rid: list(d.tokens) for d in done},
+            {d.rid: d.status for d in done}, eng)
+
+
+def durability_engine(fm, warm: bool = True, **kw):
+    """A full-width engine of the serving phases' shape (8 slots, prompts
+    up to 128, 32 new tokens, chunk 4) on the paged pool of ``PAGED_KW``
+    updated with ``kw``; ``warm``: the decode ladder and the spill tier's
+    executables captured first, so costs are read in steady state."""
+    from repro_torch.core.decode_engine import DecodeEngine
+    eng = DecodeEngine(fm, num_slots=SLOTS, prompt_len=PROMPT_LEN,
+                       max_new=MAX_NEW, chunk=CHUNK, **dict(PAGED_KW, **kw))
+    if warm:
+        eng.warm_decode_ladder()
+        eng.warm_spill()
+    return eng
+
+
+def executable_state(eng) -> tuple:
+    """``compile_count`` and the shape keys that hold a captured graph."""
+    keys = graph_keys(eng, eng.fm)["keys"]
+    return (eng.compile_count(),
+            sorted(k for k, v in keys.items() if v["captured"]
+                   and not k.startswith("forward")))
+
+
+def leaked(eng) -> bool:
+    return (eng.free_page_count() != eng.total_pages - 1
+            or bool(eng._page_refs.any()) or bool(eng.active_count())
+            or bool(eng.pending_count()))
+
+
+def _release():
+    """Return the device memory of the engines a check dropped."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def durability_spill(fm, cfg) -> dict:
+    """Checks 1 and 2: the burst of ``paged_burst`` (12 joins of 96
+    tokens) on the 45-page pool with a 256 MiB arena, against the same
+    joins on an unpressured pool (``total_pages=None``); then with a
+    20 MiB arena; then 8 SAMPLED streams (temperature 0.7, top-k 8) that
+    all admit and then outgrow the 45 pages, against the unpressured
+    pool."""
+    import numpy as np
+
+    from repro_torch.core.spill import _blob_digest
+    out = {}
+    joins = durability_joins(cfg, seed=41)
+    ref = durability_engine(fm, total_pages=None)
+    want, _, _ = run_joins(ref, joins)
+    eng = durability_engine(fm, spill_bytes=SPILL_BYTES)
+    got, status, _ = run_joins(eng, joins)
+    spill_ms = [1e3 * t for k, t in eng.resume_costs if k == "spill"]
+    out["spill"] = {
+        "tokens_equal": got == want, "streams": len(got),
+        "statuses_ok": all(v == "ok" for v in status.values()),
+        "preemptions": eng.preemptions, "spill_resumes": eng.spill_resumes,
+        "spilled_pages": eng.spilled_pages,
+        "restored_pages": eng.restored_pages,
+        "digest_failures": eng.digest_failures, "leak": leaked(eng),
+        "resume_kinds": [k for k, _ in eng.resume_costs],
+        "spill_resume_ms": spill_ms,
+        "arena_mb": eng.spill.bytes_in_use / 2**20,
+        "arena_evictions": eng.spill.evictions}
+    if got != want:
+        out["spill"]["first_mismatch"] = first_mismatch(got, want)
+    small = durability_engine(fm, spill_bytes=SMALL_SPILL_BYTES)
+    got_s, status_s, _ = run_joins(small, joins)
+    out["budget"] = {
+        "finished": sum(1 for r, t in got_s.items()
+                        if len(t) == MAX_NEW and status_s[r] == "ok"),
+        "joins": len(joins), "preemptions": small.preemptions,
+        "spill_resumes": small.spill_resumes,
+        "skips": small.spill.skips, "evictions": small.spill.evictions,
+        "reprefill_ms": [1e3 * t for k, t in small.resume_costs
+                         if k == "reprefill"],
+        "leak": leaked(small)}
+    # a resume's cost (``resume_costs``, as in the JAX package) starts after
+    # the entry's digest check: time that host sha256 apart, over an entry
+    # of the resumed stream's size
+    n = eng.restored_pages // max(eng.spill_resumes, 1)
+    blob = [{k: np.zeros((cfg.num_layers, n, PAGE_SIZE, cfg.num_kv_heads,
+                          cfg.head_dim), np.int8) for k in ("k", "v")}]
+    t0 = time.perf_counter()
+    _blob_digest(blob)
+    out["spill_verify_ms"] = {"pages": n,
+                              "ms": 1e3 * (time.perf_counter() - t0)}
+    out["resume_ms_mean"] = {
+        "spill": float(np.mean(spill_ms)) if spill_ms else None,
+        "reprefill": float(np.mean(out["budget"]["reprefill_ms"]))
+        if out["budget"]["reprefill_ms"] else None}
+    del ref, eng, small
+    _release()
+    sjoins = durability_joins(cfg, seed=43, n=SLOTS, plen=SAMPLED_PROMPT)
+    skw = dict(temperature=0.7, top_k=8, sample_seed=5)
+    sref = durability_engine(fm, total_pages=None, **skw)
+    swant, _, _ = run_joins(sref, sjoins)
+    seng = durability_engine(fm, spill_bytes=SPILL_BYTES, **skw)
+    sgot, sstatus, _ = run_joins(seng, sjoins)
+    out["sampled"] = {
+        "tokens_equal": sgot == swant, "streams": len(sgot),
+        "deferrals": seng.deferrals, "preemptions": seng.preemptions,
+        "spill_resumes": seng.spill_resumes,
+        "resume_kinds": [k for k, _ in seng.resume_costs],
+        "leak": leaked(seng)}
+    if sgot != swant:
+        out["sampled"]["first_mismatch"] = first_mismatch(sgot, swant)
+    sp, bu, sa = out["spill"], out["budget"], out["sampled"]
+    out["ok"] = bool(
+        sp["tokens_equal"] and sp["statuses_ok"] and sp["spill_resumes"] >= 1
+        and sp["digest_failures"] == 0 and not sp["leak"]
+        and set(sp["resume_kinds"]) == {"spill"}
+        and bu["finished"] == bu["joins"] and len(bu["reprefill_ms"]) >= 1
+        and not bu["leak"]
+        and sa["tokens_equal"] and sa["spill_resumes"] >= 1
+        and sa["deferrals"] == 0 and not sa["leak"])
+    return out
+
+
+def first_mismatch(got: dict, want: dict) -> dict:
+    """The first stream and position where two runs' tokens differ."""
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return {"rid": rid, "position": j, "got": x, "want": y}
+        if len(a) != len(b):
+            return {"rid": rid, "lengths": [len(a), len(b)]}
+    return {"missing": sorted(set(want) ^ set(got))}
+
+
+def durability_prefix(fm, cfg) -> dict:
+    """Check 3: on the chunked pool with a 256 MiB arena, a wave of four
+    sharers of one 64-token prefix, drained to idle (the prefix's last
+    sharer spills its pages), then a second wave: its first sharer
+    restores the prefix from the host (with its float sidecars) and every
+    sharer prefills only its tail, through K2 with the prefix operand."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    eng = durability_engine(fm, chunked_prefill=True,
+                            spill_bytes=SPILL_BYTES)
+    eng.warm_chunked()
+    rng = np.random.RandomState(47)
+    prefix = rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
+
+    def wave(base):
+        return [("task2", np.concatenate([prefix, rng.randint(
+            0, cfg.vocab_size, 8 + 8 * i).astype(np.int32)]), "lora2",
+            base - i) for i in range(4)]
+    first, _, _ = run_joins(eng, wave(-3000))
+    spilled = eng.spilled_pages
+    saved0, hits0 = eng.prefill_tokens_saved, eng.spill_prefix_hits
+    ops.reset_launches()
+    second, status, _ = run_joins(eng, wave(-3100))
+    out = {"spilled_pages_after_wave_1": spilled,
+           "spill_prefix_hits": eng.spill_prefix_hits - hits0,
+           "prefill_tokens_saved": eng.prefill_tokens_saved - saved0,
+           "restored_pages": eng.restored_pages,
+           "flash_attention_launches": int(ops.LAUNCHES["flash_attention"]),
+           "finished": sum(1 for r, t in second.items()
+                           if len(t) == MAX_NEW and status[r] == "ok"),
+           "leak": leaked(eng)}
+    out["ok"] = bool(out["spilled_pages_after_wave_1"] >= 4
+                     and out["spill_prefix_hits"] >= 1
+                     and out["prefill_tokens_saved"] > 0
+                     and out["flash_attention_launches"] > 0
+                     and out["finished"] == 4 and not out["leak"])
+    return out
+
+
+def durability_snapshot(fm, cfg) -> dict:
+    """Checks 4-6. The burst on the pressured pool (256 MiB arena),
+    snapshotted after ``RESTORE_AT`` chunks, the old arena scrambled in
+    place (``serving.faults.scramble_arena``) and restored over it reusing
+    the executables: the tokens equal the uninterrupted run's, no shape
+    key is added and none captured again, and the reserved memory grows
+    by less than one pool. Then a snapshot with one page's codes flipped:
+    at least one digest failure, every stream finishes its budget. Then
+    a snapshot of the unpressured pool written to disk, read back and
+    restored without reuse (a fresh pool and fresh executables): the
+    tokens equal the uninterrupted run's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.decode_engine import DecodeEngine
+    from repro_torch.serving.faults import scramble_arena
+    joins = durability_joins(cfg, seed=53)
+    ref = durability_engine(fm, total_pages=None)
+    want, _, _ = run_joins(ref, joins)
+    eng = durability_engine(fm, spill_bytes=SPILL_BYTES)
+    run_joins(eng, durability_joins(cfg, seed=59))     # every key captured
+    out = {}
+
+    def restore_over(e, n, tamper=False):
+        if n != RESTORE_AT:
+            return None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = e.snapshot()
+        out["snapshot_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["snapshot_mb"] = sum(
+            a.nbytes for part in (snap.pages, snap.slot_state)
+            for sub in part for a in sub.values()) / 2**20
+        out["snapshot_pages"] = len(snap.used_pages)
+        out["pending_at_snapshot"] = len(snap.pending)
+        out["resumes_pending"] = sum(p.resume is not None
+                                     for p in snap.pending)
+        if tamper:
+            snap.pages[0]["k"] = np.array(snap.pages[0]["k"])
+            snap.pages[0]["k"][:, 0] ^= 1
+        before = executable_state(e)
+        scramble_arena(e)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        new = DecodeEngine.restore(e.fm, snap, reuse_jits_from=e)
+        torch.cuda.synchronize()
+        out["restore_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["memory_reserved_mb"] = [mem0 / 2**20,
+                                     torch.cuda.memory_reserved() / 2**20]
+        out["same_pool"] = new.pool is e.pool
+        out["executables_before_after"] = [before, executable_state(new)]
+        return new
+    got, status, eng = run_joins(eng, joins, pause=restore_over)
+    pool_mb = sum(t.numel() * t.element_size() for sub in eng.pool
+                  for k, t in sub.items() if k != "page_table") / 2**20
+    b, a = out["executables_before_after"]
+    grow = out["memory_reserved_mb"][1] - out["memory_reserved_mb"][0]
+    snap_ok = (got == want and all(v == "ok" for v in status.values())
+               and a == b and executable_state(eng)[0] == b[0]
+               and grow < pool_mb and out["same_pool"]
+               and eng.digest_failures == 0 and not leaked(eng))
+    res = {"restore": dict(out, tokens_equal=got == want,
+                           pool_mb=pool_mb, memory_growth_mb=grow,
+                           spill_resumes=eng.spill_resumes,
+                           executables_after_drain=executable_state(eng)[0],
+                           leak=leaked(eng))}
+    if got != want:
+        res["restore"]["first_mismatch"] = first_mismatch(got, want)
+    out = {}
+    got_t, status_t, eng = run_joins(
+        eng, durability_joins(cfg, seed=61),
+        pause=lambda e, n: restore_over(e, n, tamper=True))
+    res["tamper"] = {"digest_failures": eng.digest_failures,
+                     "finished": sum(1 for r, t in got_t.items()
+                                     if len(t) == MAX_NEW
+                                     and status_t[r] == "ok"),
+                     "joins": len(got_t), "leak": leaked(eng)}
+    tamper_ok = (res["tamper"]["digest_failures"] >= 1
+                 and res["tamper"]["finished"] == 12 and not leaked(eng))
+    path = os.path.join(ROOT, "build", "durability", "snap")
+    disk = {}
+
+    def to_disk(e, n):
+        if n != RESTORE_AT:
+            return None
+        snap = e.snapshot()
+        ckpt.save_snapshot(path, snap)
+        loaded = ckpt.load_snapshot(path)
+        disk["digests_equal"] = loaded.page_digests == snap.page_digests
+        new = DecodeEngine.restore(e.fm, loaded)
+        disk["fresh_pool"] = new.pool is not e.pool
+        return new
+    got_d, _, dis = run_joins(ref, joins, pause=to_disk)
+    disk.update(tokens_equal=got_d == want, leak=leaked(dis),
+                digest_failures=dis.digest_failures)
+    res["disk"] = disk
+    disk_ok = (disk["tokens_equal"] and disk["digests_equal"]
+               and disk["fresh_pool"] and not disk["leak"]
+               and disk["digest_failures"] == 0)
+    res["ok"] = bool(snap_ok and tamper_ok and disk_ok)
+    return res
+
+
+def durability_loop(srv, cfg, loop) -> dict:
+    """Check 7: generative requests through ``FMplexServer``/``ServeLoop``
+    on the pressured pool with a 256 MiB arena, fault-free; then the same
+    requests with ``checkpoint_restart`` under load and then a
+    ``DeviceResetFault`` (the old arena scrambled in place before the
+    restore reads it). Streams equal the fault-free run's bit for bit,
+    every request in flight at a reset carries it, nothing leaks."""
+    import numpy as np
+
+    from repro_torch.core.request import Request
+    from repro_torch.serving.faults import DeviceResetFault
+    rng = np.random.RandomState(67)
+    prompts = [(f"task{i % N_TASKS}", rng.randint(
+        0, cfg.vocab_size, int(rng.randint(32, BURST_PROMPT + 1)))
+        .astype(np.int32)) for i in range(SLOTS)]
+
+    def requests():
+        return [Request(t, 0.0, payload=p, tokens=float(len(p) + MAX_NEW),
+                        max_new_tokens=MAX_NEW) for t, p in prompts]
+    clean = requests()
+    loop.run(clean, max_wall=300)
+    hit = requests()
+    for r in hit:
+        loop.submit(r, time.perf_counter())
+    eng = srv.engines["fm0"]
+    for _ in range(1000):
+        if eng.active_count() >= SLOTS // 2:
+            break
+        loop.tick()
+    else:
+        raise RuntimeError("durability loop: the streams did not admit")
+    loop.checkpoint_restart()
+    at_first = set(loop._inflight)
+    for _ in range(4):
+        loop.tick()
+    fault = DeviceResetFault()
+    fault.inject(loop)
+    at_second = set(loop._inflight)
+    while loop._work_left():
+        loop.tick()
+    eng = srv.engines["fm0"]
+    out = {"requests": len(hit),
+           "ok": [r.ok for r in clean + hit].count(True),
+           "tokens_equal": all(r.result is not None and c.result is not None
+                               and list(r.result) == list(c.result)
+                               for r, c in zip(hit, clean)),
+           "resets_survived": loop.failures["resets_survived"],
+           "stamps": [r.resets_survived for r in hit],
+           "expected_stamps": [int(r.rid in at_first) + int(r.rid in at_second)
+                               for r in hit],
+           "digest_failures": eng.digest_failures, "leak": leaked(eng)}
+    out["ok"] = bool(out["ok"] == 2 * len(hit) and out["tokens_equal"]
+                     and out["resets_survived"] == 2
+                     and out["stamps"] == out["expected_stamps"]
+                     and max(out["stamps"]) == 2
+                     and out["digest_failures"] == 0 and not out["leak"])
+    return out
+
+
+def durability_whisper(dev) -> dict:
+    """Check 8: a two-layer cut of full-width whisper-base on the paged
+    pool, four streams with their own 1500 frames; the same joins again,
+    snapshotted after two chunks (the cross ``ck``/``cv`` with it, the
+    ``dense_state`` path), the old arena scrambled in place and restored
+    over reusing the executables: the tokens equal the uninterrupted
+    run's."""
+    import numpy as np
+
+    from repro_torch.core.decode_engine import DecodeEngine
+    from repro_torch.core.physical import PhysicalFM
+    from repro_torch.serving.faults import scramble_arena
+    cfg = whisper_config(num_layers=2, encoder_layers=2)
+    fm = PhysicalFM(cfg, seed=4, lora_rank=RANK, input_len=ENC_LEN,
+                    lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
+    for i in range(2):
+        fm.adapters.add(f"lora{i}", random_adapter(fm.adapters, i, dev))
+    eng = DecodeEngine(fm, num_slots=SLOTS, prompt_len=W_PROMPT_LEN,
+                       max_new=16, chunk=CHUNK, enc_len=ENC_LEN, paged=True,
+                       page_size=W_PAGE_SIZE)
+    rng = np.random.RandomState(71)
+    jobs = [(rng.randint(0, cfg.vocab_size, int(rng.randint(4, 65)))
+             .astype(np.int32), f"lora{i % 2}" if i < 3 else None,
+             (rng.randn(ENC_LEN, cfg.d_model) * 0.5).astype(np.float32))
+            for i in range(4)]
+
+    def run(restore: bool):
+        for i, (p, aid, feats) in enumerate(jobs):
+            eng.join("t", p, adapter_id=aid, max_new_tokens=16, rid=-4000 - i,
+                     enc_feats=feats)
+        e, done, n, snap = eng, [], 0, None
+        while e.active_count() or e.pending_count():
+            done += e.step_chunk()
+            n += 1
+            if restore and n == 2:
+                snap = e.snapshot()
+                scramble_arena(e)
+                e = DecodeEngine.restore(fm, snap, reuse_jits_from=e)
+        return {d.rid: list(d.tokens) for d in done}, e, snap
+    want, _, _ = run(restore=False)
+    got, e, snap = run(restore=True)
+    out = {"tokens_equal": got == want, "streams": len(got),
+           "dense_state_mb": sum(a.nbytes for sub in snap.dense_state
+                                 if sub for a in sub.values()) / 2**20,
+           "same_pool": e.pool is eng.pool,
+           "state_slots_free": not e.state_pool.slots_in_use(),
+           "leak": leaked(e)}
+    out["ok"] = bool(out["tokens_equal"] and out["streams"] == 4
+                     and out["same_pool"] and out["state_slots_free"]
+                     and not out["leak"])
+    return out
+
+
+def phase_durability(dev):
+    """The durability plane at full width on stablelm-1.6b (24 layers,
+    the serving phases' 4 tasks and rank-16 q/v adapters, 8 slots, pages
+    of 16, chunk 4, greedy unless said): spill resume against the
+    unpressured pool and the budget fallback, a sampled pair, a prefix
+    spilled across an idle wave, snapshot/restore over the scrambled old
+    arena reusing the executables, a tampered page, the disk round trip,
+    ``checkpoint_restart`` and the device reset through the serve loop,
+    and whisper's cross state through a snapshot; then one sampled decode
+    step (eager: its executables draw from per-slot generators) against
+    the greedy graphed step, 8 live streams each. Launches are counted
+    from 0 at the start of the phase: K4, K2 and K1 must launch."""
+    import torch
+
+    from repro_torch.kernels import ops
+    srv, cfg, fm, loop = build_server(
+        dev, **dict(PAGED_KW, spill_bytes=SPILL_BYTES))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats = {"card": smi_line()}
+    for name, fn in (("spill", lambda: durability_spill(fm, cfg)),
+                     ("prefix", lambda: durability_prefix(fm, cfg)),
+                     ("snapshot", lambda: durability_snapshot(fm, cfg))):
+        t1 = time.perf_counter()
+        stats[name] = fn()
+        stats[name]["seconds"] = time.perf_counter() - t1
+        log(f"durability {name}: " + json.dumps(stats[name], default=float))
+        _release()
+    t1 = time.perf_counter()
+    loop.warmup(pooled_task="task0", gen_task="task1", pooled_n=1)
+    stats["loop"] = durability_loop(srv, cfg, loop)
+    stats["loop"]["seconds"] = time.perf_counter() - t1
+    log("durability loop: " + json.dumps(stats["loop"], default=float))
+    srv.engines.pop("fm0")
+    _release()
+    t1 = time.perf_counter()
+    stats["whisper"] = durability_whisper(dev)
+    stats["whisper"]["seconds"] = time.perf_counter() - t1
+    log("durability whisper: " + json.dumps(stats["whisper"], default=float))
+    torch.cuda.synchronize()
+    stats["launches"] = {k: int(ops.LAUNCHES[k])
+                         for k in ("segmented_lora", "flash_attention",
+                                   "decode_attention_int8",
+                                   "paged_decode_attention",
+                                   "decode_attention")}
+    stats["wall_s"] = time.perf_counter() - t0
+    stats["sampled_step"] = sampled_step_timing(dev, fm)
+    log("durability sampled step: " + json.dumps(stats["sampled_step"],
+                                                  default=float))
+    ok = all(stats[k]["ok"] for k in ("spill", "prefix", "snapshot", "loop",
+                                      "whisper"))
+    ok &= all(stats["launches"][k] > 0 for k in (
+        "segmented_lora", "flash_attention", "paged_decode_attention"))
+    log(f"durability: ok {ok}, launches {stats['launches']}, "
+        f"{stats['wall_s']:.1f} s")
+    return ok, stats
+
+
+def sampled_step_timing(dev, fm) -> dict:
+    """One full-width decode step with 8 live streams: greedy (its
+    executable a captured graph) against sampled at temperature 0.7 and
+    top-k 8 (eager: the sampling executables draw from per-slot
+    generators), ms between CUDA events, one call each way
+    (``live_step_timing``)."""
+    out = {}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(temperature=0.7, top_k=8))):
+        eng = durability_engine(fm, total_pages=None, warm=False, **kw)
+        r = live_step_timing(dev, (None, fm, eng), "", seed=73, rid0=-5000)
+        del eng
+        out[name] = {"event_ms": r["decode_step_ms"],
+                     "launches": r["launches_per_decode_step"],
+                     "device_busy_ms": {
+                         w: r["decode_step_profile"][w]["device_busy_ms"]
+                         for w in ("eager", "graphed")}}
+        _release()
+    out["sampled_eager_over_greedy_graphed"] = \
+        out["sampled"]["event_ms"]["eager"] / \
+        out["greedy"]["event_ms"]["graphed"]
+    return out
+
+
 # ---------------- phase 6: timing ----------------
 
 def paged_timing(dev, gen, H, KV, hd, s_max, nsets) -> dict:
@@ -2575,7 +3102,8 @@ def live_step_timing(dev, handles, prefix: str, seed: int, rid0: int,
     prof = out[f"{prefix}decode_step_profile"] = profile_both(run)
     out[f"{prefix}decode_step_ms"] = {way: prof[way]["event_ms"]
                                       for way in ("eager", "graphed")}
-    out[f"{prefix}decode_step_capture_ms"] = 1e3 * step.capture_s
+    out[f"{prefix}decode_step_capture_ms"] = None if step.capture_s is None \
+        else 1e3 * step.capture_s
     for i in range(SLOTS):
         eng.leave(i)
     if (eng.paged and eng.free_page_count() != eng.total_pages - 1) or \
@@ -2703,17 +3231,20 @@ def main() -> int:
     phases["moment_reference"] = ok_rm
     ok_m, mstats, moment_handles = phase_moment_serving(dev)
     phases["moment_serving"] = ok_m
+    ok_d, dstats = phase_durability(dev)
+    phases["durability"] = ok_d
     k1, k2, k3, k4, k5, extra = phase_timing(dev, handles, paged_handles,
                                              chunked_handles, whisper_handles,
                                              moment_handles)
     log("timing: " + json.dumps(extra, default=float))
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
-    # K2, K4), the whisper serving run (K1, K2, K4, K5) and the moment
-    # serving run (K2, and K1 where the table chose "segmented"), each
-    # counted from 0 just before it
+    # K2, K4), the whisper serving run (K1, K2, K4, K5), the moment
+    # serving run (K2, and K1 where the table chose "segmented") and the
+    # durability phase (K1, K2, K4, K5), each counted from 0 just before it
     launches = {k: sum(st["launches"].get(k, 0)
-                       for st in (stats, pstats, cstats, wstats, mstats))
+                       for st in (stats, pstats, cstats, wstats, mstats,
+                                  dstats))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
                           "decode_attention")}

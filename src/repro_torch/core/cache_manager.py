@@ -20,14 +20,16 @@ cross-attention K/V of an encoder-decoder stack; recurrent state with the
 slice that serves it): one state slot per live stream, allocated at
 admission and freed on every exit path, strictly, with occupancy gauges.
 The tensors live in the engine's pool (its batch axis is the slot).
-Recurrent and MoE stacks still raise in ``models.blocks.period_layout``;
-the snapshot capture of the dense state comes with the durability slice.
+Recurrent and MoE stacks still raise in ``models.blocks.period_layout``.
+``capture_dense_state``/``restore_dense_state`` carry the per-slot state
+through an engine snapshot (``core.spill.EngineSnapshot``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 
@@ -145,3 +147,28 @@ def dense_state_keys(sub) -> list[str]:
     of a cross-attention sub (beside a dense or paged attention cache);
     recurrent subs (every key) come with their slice."""
     return [k for k in ("ck", "cv") if k in sub]
+
+
+def capture_dense_state(pool) -> list:
+    """Host copies of the fixed-size per-slot state, one entry per pool sub
+    (None when the sub has none): the snapshot's counterpart of the
+    used-page capture. float32 numpy arrays (bf16 widens exactly; numpy has
+    no bfloat16)."""
+    out = []
+    for sub in pool:
+        keys = dense_state_keys(sub)
+        out.append({k: sub[k].float().cpu().numpy() for k in keys}
+                   if keys else None)
+    return out
+
+
+def restore_dense_state(pool, state) -> list:
+    """Write a ``capture_dense_state`` payload back into ``pool`` IN PLACE
+    (``copy_``, casting to each tensor's dtype): captured executables read
+    these tensors where they lie. Returns ``pool``."""
+    if state is None:
+        return pool
+    for sub, st in zip(pool, state):
+        for k, v in (st or {}).items():
+            sub[k].copy_(torch.from_numpy(np.asarray(v)))
+    return pool

@@ -116,10 +116,38 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     chunk clamped to a small ladder when a deadline is nearer than a full
     chunk) and shed expired pending entries; ``cancel`` unwinds a stream by
     rid wherever it lives.
+  * **durability plane** (paged, ``spill_bytes > 0``; ``core.spill``) —
+    losing device state may cost time, never tokens:
 
-Speculative decoding, the host-RAM spill tier (and with it the spill branch
-of the chunked admission) and snapshot/restore come with later slices and
-raise ``NotImplementedError`` here.
+      - *spill on eviction*: a preemption victim's pages, page scales,
+        slot scales, drift trackers, last token and generator state are
+        copied to the host arena before its pages are released; a
+        registered prefix page whose LAST sharer releases it spills the
+        same way (with its float sidecar), keyed by its chained digest. An
+        entry over the budget is skipped: losing the tier costs a
+        re-prefill only.
+      - *restore on re-entry*: a resume whose entry survived restores into
+        fresh pages (``spill_resumes``, ``resume_costs``), no re-prefill;
+        a join whose prompt chain continues into the arena restores those
+        prefix pages and registers them again (``spill_prefix_hits``), on
+        the full path and on the chunked tail path. The pending gate
+        prices a spill-backed resume at its true page count.
+      - *snapshot/restore*: ``snapshot()`` captures the whole logical state
+        between chunks with one sha256 digest per used page;
+        ``restore()`` rebuilds an engine from it. With
+        ``reuse_jits_from`` it adopts the old engine's executables AND the
+        tensors they bake (the pool, the device page table, the token
+        buffer) and rewrites every element in place from the snapshot, so
+        no graph is captured again and no second pool is allocated.
+
+    The gather, page write-back and slot write-back are one executable
+    each, at the fixed width ``pages_per_slot`` padded with the trash page.
+    A page or entry whose digest does not match is never served: it counts
+    in ``digest_failures`` and its streams recompute from their host-side
+    tokens.
+
+Speculative decoding comes with a later slice and raises
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -134,8 +162,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import graphs
-from repro_torch.core.cache_manager import CachePlan, StateSlotPool, dense_state_keys
+from repro_torch.core.cache_manager import (CachePlan, StateSlotPool,
+                                            capture_dense_state,
+                                            dense_state_keys,
+                                            restore_dense_state)
 from repro_torch.core.physical import PAD_SENTINEL, PhysicalFM, bucket_for, seg_to_device
+from repro_torch.core.spill import (PAGE_KEYS, SLOT_KEYS, EngineSnapshot,
+                                    HostSpillArena)
 from repro_torch.models import lm
 
 FREE = PAD_SENTINEL   # free-slot adapter sentinel (same as run_batch padding)
@@ -228,13 +261,19 @@ class DecodeEngine:
                  page_size: int = 16, total_pages: Optional[int] = None,
                  prefix_sharing: bool = True, scale_refresh: float = 2.0,
                  pending_lookahead: int = 4, hol_skip_cap: int = 4,
-                 spill_bytes: int = 0, spill_arena=None,
+                 spill_bytes: int = 0,
+                 spill_arena: Optional[HostSpillArena] = None,
                  deadline_clamp: bool = True,
                  chunked_prefill: bool = True,
                  spec_k: int = 0, spec_force_fill: bool = False,
                  spec_disable_below: float = 1.25,
                  spec_probe_every: int = 16,
-                 enc_len: Optional[int] = None):
+                 enc_len: Optional[int] = None,
+                 _adopt: Optional["DecodeEngine"] = None):
+        """``_adopt`` (``restore`` only): a dead engine of the same
+        configuration on the same FM whose pool, device page table and
+        token buffer this engine takes over instead of allocating its own
+        (its executables bake them)."""
         cfg = fm.cfg
         if cfg.vocab_size <= 0 or cfg.is_representation:
             raise ValueError("DecodeEngine serves generative decoder LMs "
@@ -242,10 +281,6 @@ class DecodeEngine:
         if spec_k > 0:
             raise NotImplementedError("spec_k > 0: speculative decoding (P11) "
                                       "comes with a later slice of the port")
-        if spill_bytes > 0 or spill_arena is not None:
-            raise NotImplementedError("spill_bytes > 0 / spill_arena: the "
-                                      "host-RAM spill tier (P10) comes with a "
-                                      "later slice of the port")
         # per-sublayer cache plan: which sublayers page into the int8 arena,
         # which carry fixed-size per-slot state (the cross-attention K/V of
         # an encoder-decoder stack), and which serving planes the stack
@@ -287,25 +322,29 @@ class DecodeEngine:
             if total_pages < 2:
                 raise ValueError("need at least one usable page")
             self.total_pages = total_pages
-            self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
-                                      kv_quant=True, paged=True,
-                                      page_size=page_size,
-                                      num_pages=total_pages,
-                                      enc_len=self.enc_len or None,
-                                      device=self.device)
             # host allocator state; the device page table is synced from
             # _ptab before any decode dispatch that follows a change
             self._free_pages = list(range(total_pages - 1, TRASH_PAGE, -1))
             self._ptab = np.zeros((self.num_slots, self.pages_per_slot),
                                   np.int32)
-            # the one device page table, rewritten in place by every sync:
-            # each attention sublayer's leaf is a broadcast view of it
-            self._ptab_dev = torch.zeros(self._ptab.shape, dtype=torch.int32,
-                                         device=self.device)
-            for sub in self.pool:
-                if "page_table" in sub:
-                    sub["page_table"] = self._ptab_dev.expand(
-                        sub["page_table"].shape[0], -1, -1)
+            if _adopt is not None:
+                self.pool, self._ptab_dev = _adopt.pool, _adopt._ptab_dev
+            else:
+                self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
+                                          kv_quant=True, paged=True,
+                                          page_size=page_size,
+                                          num_pages=total_pages,
+                                          enc_len=self.enc_len or None,
+                                          device=self.device)
+                # the one device page table, rewritten in place by every
+                # sync: each attention sublayer's leaf is a broadcast view
+                self._ptab_dev = torch.zeros(self._ptab.shape,
+                                             dtype=torch.int32,
+                                             device=self.device)
+                for sub in self.pool:
+                    if "page_table" in sub:
+                        sub["page_table"] = self._ptab_dev.expand(
+                            sub["page_table"].shape[0], -1, -1)
             self._held = np.zeros((self.num_slots,), np.int64)
             self._lens = np.zeros((self.num_slots,), np.int64)
             self._ptab_dirty = True
@@ -345,7 +384,19 @@ class DecodeEngine:
             self.hol_skip_cap = max(1, int(hol_skip_cap))
             self._hol_skips = 0
             self.hol_bypasses = 0
+            # host-RAM spill tier (module docstring, durability plane)
+            self.spill = spill_arena if spill_arena is not None else (
+                HostSpillArena(spill_bytes) if spill_bytes > 0 else None)
+            if self.spill is not None and not self.plan.spill_resume_ok:
+                warnings.warn(
+                    "spill tier demoted: the stream spill captures pages and "
+                    "quantization trackers only, not per-slot dense state "
+                    "(the encoder's cross K/V): preemption falls back to the "
+                    "lossless fold-and-re-prefill path", RuntimeWarning,
+                    stacklevel=2)
+                self.spill = None
         else:
+            self.spill = None
             self.chunked_prefill = False    # needs the paged arena
             # the persistent pool: allocated once, updated in place
             self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
@@ -358,8 +409,8 @@ class DecodeEngine:
         self.state_pool = StateSlotPool(self.num_slots) \
             if self.plan.needs_state_slots else None
         self.pending: collections.deque = collections.deque()
-        self._tokens = torch.zeros((self.num_slots,), dtype=torch.int32,
-                                   device=self.device)          # last token/slot
+        self._tokens = _adopt._tokens if _adopt is not None else torch.zeros(
+            (self.num_slots,), dtype=torch.int32, device=self.device)
         self.slots: list[Optional[DecodeSlot]] = [None] * self.num_slots
         self._slot_adapters = np.full((self.num_slots,), FREE, np.int32)
         # shape key -> graphs.Executable
@@ -367,6 +418,9 @@ class DecodeEngine:
         self._fn_decode: dict[tuple, graphs.Executable] = {}
         self._fn_write: dict = {}      # dense: {None: fn}; paged: {npages: fn}
         self._fn_rescale: Optional[graphs.Executable] = None
+        self._fn_gather: Optional[graphs.Executable] = None
+        self._fn_page_restore: Optional[graphs.Executable] = None
+        self._fn_slot_restore: Optional[graphs.Executable] = None
         self._seg_key = None        # composition signature of cached metadata
         self._seg_dev = None        # device-uploaded (perm, inv, blocks)
         self.steps = 0              # decode steps executed (all slots)
@@ -383,6 +437,13 @@ class DecodeEngine:
         self.deadline_sheds = 0      # pending entries expired unadmitted
         self.stranded_rejections = 0  # stranded entries terminally rejected
         self.cancels = 0
+        # durability plane (spill tier, snapshot/restore)
+        self.spilled_pages = 0       # pages copied to the host arena
+        self.restored_pages = 0      # pages written back from the arena
+        self.digest_failures = 0     # corrupted spill/snapshot pages caught
+        self.spill_resumes = 0       # preempted streams resumed, no prefill
+        self.spill_prefix_hits = 0   # joins that restored spilled prefix pages
+        self.resume_costs: list[tuple[str, float]] = []  # (kind, seconds)
         self.deadline_clamp = bool(deadline_clamp)
         self._step_ema = 0.0
         self.deadline_clamps = 0
@@ -405,14 +466,18 @@ class DecodeEngine:
         return [p.task_id for p in self.pending]
 
     def compile_count(self) -> int:
-        """Executables of prefill (full and tail), decode, pool writes and
-        the scale refresh, one per shape key (each captured as a CUDA graph
+        """Executables of prefill (full and tail), decode, pool writes, the
+        scale refresh and the spill tier's gather and write-backs, one per
+        shape key (each captured as a CUDA graph
         at its second call); steady state across join/leave churn, sharer
         joins of any tail length, page allocation, deferral, preemption,
         scale refresh and adapter churn within capacity must not grow
         this."""
         return (len(self._fn_prefill) + len(self._fn_decode)
-                + len(self._fn_write) + int(self._fn_rescale is not None))
+                + len(self._fn_write)
+                + sum(f is not None for f in (
+                    self._fn_rescale, self._fn_gather, self._fn_page_restore,
+                    self._fn_slot_restore)))
 
     # ---- page accounting (paged layout) ----
     def free_page_count(self) -> int:
@@ -528,7 +593,11 @@ class DecodeEngine:
         """Drop one reference per page; a page whose refcount reaches zero
         returns to the free list and falls out of the prefix registry, its
         float sidecar and every assembled prefix operand that holds it (the
-        id may be recycled with new content)."""
+        id may be recycled with new content). With a spill arena, a
+        registered page losing its LAST sharer is first copied to the host
+        (keyed by its chained digest, its sidecar with it): no allocation
+        can rewrite it within this call."""
+        spillable = []
         freed = set()
         for p in pages:
             p = int(p)
@@ -541,11 +610,16 @@ class DecodeEngine:
                 key = self._page_key.pop(p, None)
                 if key is not None and self._prefix_registry.get(key) == p:
                     del self._prefix_registry[key]
+                    if self.spill is not None:
+                        spillable.append((p, key))
+                        continue
                 self._page_float.pop(p, None)
         if freed and self._prefix_fp_cache:
             self._prefix_fp_cache = {
                 k: v for k, v in self._prefix_fp_cache.items()
                 if not freed.intersection(k)}
+        if spillable:
+            self._spill_prefix_pages(spillable)
 
     def _release_slot_pages(self, slot: int):
         self._release_pages(self._ptab[slot, :self._held[slot]])
@@ -639,6 +713,229 @@ class DecodeEngine:
             host = host.pin_memory()
         self._ptab_dev.copy_(host, non_blocking=True)
         self._ptab_dirty = False
+
+    # ---- host-RAM spill tier (paged layout) ----
+    def _paged_subs(self):
+        return [sub for sub in self.pool if "page_table" in sub]
+
+    def _gather_fn(self):
+        """Capture of up to ``pages_per_slot`` pages plus one slot's running
+        scales and drift trackers in one executable: the page vector is
+        padded to the fixed width with the trash page, so spill traffic
+        adds no shape key. ``page_idx`` (W,) and ``slot`` (1,) are device
+        tensors."""
+        if self._fn_gather is None:
+            def gather(pool, page_idx, slot):
+                out = []
+                for sub in pool:
+                    if "page_table" not in sub:
+                        continue
+                    d = {k: sub[k].index_select(1, page_idx)
+                         for k in PAGE_KEYS}
+                    d.update({k: sub[k].index_select(1, slot)[:, 0]
+                              for k in SLOT_KEYS})
+                    out.append(d)
+                return out
+            self._fn_gather = self._executable(gather, (0,))
+        return self._fn_gather
+
+    def _page_restore_fn(self):
+        """Write-back of up to ``pages_per_slot`` pages' int8 codes and
+        page scales, in place. Padded page ids point at the trash page
+        (garbage by contract), so the padding's duplicate writes are
+        harmless and the write is one shape key."""
+        if self._fn_page_restore is None:
+            def write(pool, data, page_idx):
+                for sub, d in zip((s for s in pool if "page_table" in s),
+                                  data):
+                    for k in PAGE_KEYS:
+                        sub[k].index_copy_(1, page_idx, d[k])
+                return pool
+            self._fn_page_restore = self._executable(write, (0,))
+        return self._fn_page_restore
+
+    def _slot_restore_fn(self):
+        """Write-back of one slot's running scales, drift trackers and true
+        length, in place: the second half of a spill resume. ``slot`` and
+        ``true_len`` are (1,) device tensors."""
+        if self._fn_slot_restore is None:
+            def write(pool, state, slot, true_len):
+                for sub, st in zip((s for s in pool if "page_table" in s),
+                                   state):
+                    for k in SLOT_KEYS:
+                        sub[k].index_copy_(1, slot, st[k][:, None])
+                    sub["len"].index_copy_(1, slot, true_len.to(
+                        sub["len"].dtype).expand(sub["len"].shape[0], 1))
+                return pool
+            self._fn_slot_restore = self._executable(write, (0,))
+        return self._fn_slot_restore
+
+    def _capture_pages(self, pages: np.ndarray, slot: int) -> list:
+        """``pages`` (and ``slot``'s running state) as host arrays: one
+        padded gather, then one copy to the host per array, of the ``n``
+        real pages only."""
+        n = len(pages)
+        idx = np.full((self.pages_per_slot,), TRASH_PAGE, np.int64)
+        idx[:n] = pages
+        dev = self._gather_fn()(self.pool, torch.as_tensor(
+            idx, device=self.device), self._dev(slot))
+        host = []
+        for sub in dev:
+            d = {k: _host(sub[k][:, :n]) for k in PAGE_KEYS}
+            d.update({k: _host(sub[k]) for k in SLOT_KEYS})
+            host.append(d)
+        return host
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; to a GPU through pinned
+        memory (a non-blocking copy from a buffer the host never touches
+        again), at the link's rate rather than a pageable copy's."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _restore_pages(self, blob: list, pages: np.ndarray):
+        """Write captured page content back into arena pages ``pages``
+        (freshly allocated, possibly other ids than at capture). Only the
+        ``n`` real pages cross to the device; the padding to the fixed
+        width is zeros made there."""
+        n = len(pages)
+        W = self.pages_per_slot
+        idx = np.full((W,), TRASH_PAGE, np.int64)
+        idx[:n] = pages
+        data = []
+        for sub in blob:
+            d = {}
+            for k in PAGE_KEYS:
+                src = self._upload(np.asarray(sub[k])[:, :n])
+                d[k] = src.new_zeros((src.shape[0], W) + src.shape[2:])
+                d[k][:, :n] = src
+            data.append(d)
+        self.pool = self._page_restore_fn()(
+            self.pool, data, torch.as_tensor(idx, device=self.device))
+
+    def _spill_stream(self, slot: int, s: DecodeSlot):
+        """Copy a preemption victim's whole KV state to the host before its
+        pages are released: pages, scales, drift trackers, last token and
+        its slot generator's state. A resume restores all of it."""
+        n = int(self._held[slot])
+        if n == 0:
+            return
+        blob = self._capture_pages(self._ptab[slot, :n], slot)
+        meta = {
+            "n_pages": n,
+            "true_len": int(self._lens[slot]),
+            "last_token": int(self._tokens[slot].item()),
+            "key": self._keys[slot].get_state().numpy().copy(),
+        }
+        if self.spill.put(("stream", s.rid), blob, meta):
+            self.spilled_pages += n
+
+    def _drop_stream_spill(self, rid: int):
+        if self.spill is not None:
+            self.spill.pop(("stream", rid))
+
+    def _try_spill_resume(self, req: _PendingJoin) -> Optional[int]:
+        """Resume a preempted stream from its host spill: fresh pages, its
+        codes, scales, trackers and generator state written back, the page
+        table rebuilt and its prefix registered again, with no re-prefill.
+        Returns the slot, or None to fall back to the re-prefill (no entry,
+        a digest mismatch, or too few free pages for its true length)."""
+        entry = self.spill.get(("stream", req.rid))
+        if entry is None:
+            return None
+        if not entry.verify():
+            self.spill.pop(("stream", req.rid))
+            self.digest_failures += 1
+            return None
+        n = int(entry.meta["n_pages"])
+        if len(self._free_pages) < n or not self.free_slots():
+            return None
+        t0 = time.perf_counter()
+        self.spill.pop(("stream", req.rid))
+        s = req.resume
+        slot = self.free_slots()[0]
+        pages = self._take_pages(n)
+        true_len = int(entry.meta["true_len"])
+        self._restore_pages(entry.blob, pages)
+        state = [{k: torch.as_tensor(sub[k], device=self.device)
+                  for k in SLOT_KEYS} for sub in entry.blob]
+        self.pool = self._slot_restore_fn()(
+            self.pool, state, self._dev(slot),
+            self._dev(true_len, dtype=torch.int32))
+        self._ptab[slot, :n] = pages
+        self._held[slot] = n
+        self._lens[slot] = true_len
+        self._ptab_dirty = True
+        self._tokens[slot] = int(entry.meta["last_token"])
+        self._keys[slot].set_state(torch.from_numpy(entry.meta["key"]))
+        self.slots[slot] = s
+        self._slot_adapters[slot] = self.fm.adapters.index(req.adapter_id)
+        self._seg_key = None
+        # restored prompt pages sit at their original table positions, so
+        # registering again publishes the prefix for future sharers
+        if s.prompt is not None:
+            self._register_prefix(s.adapter_id, np.asarray(s.prompt), slot,
+                                  s.prompt_tokens)
+        self.admissions += 1      # progress signal (watchdog); not re-logged
+        self.spill_resumes += 1
+        self.restored_pages += n
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # the cost is device time
+        self.resume_costs.append(("spill", time.perf_counter() - t0))
+        return slot
+
+    def _spill_prefix_pages(self, pairs: list):
+        """Copy last-sharer prefix pages to the host as they leave the
+        registry, keyed by their chained digest, each with its float
+        sidecar where it had one (as int16 bit patterns)."""
+        pages = np.array([p for p, _ in pairs], np.int32)
+        blob = self._capture_pages(pages, 0)    # slot state ignored
+        for j, (p, key) in enumerate(pairs):
+            per_page = [{k: sub[k][:, j:j + 1] for k in PAGE_KEYS}
+                        for sub in blob]
+            fp = self._page_float.pop(p, None)
+            if fp is not None:
+                for sub, f in zip(per_page, fp):
+                    sub["kf"] = f["k"].view(torch.int16).numpy()
+                    sub["vf"] = f["v"].view(torch.int16).numpy()
+            if self.spill.put(("prefix", key), per_page, {}):
+                self.spilled_pages += 1
+
+    def _match_spilled_prefix(self, adapter_id: Optional[str], prompt,
+                              skip: int) -> list:
+        """Continue a prompt's digest chain past the live registry into the
+        spill arena: (key, entry) pairs of consecutive spilled full pages
+        from page index ``skip``. A digest mismatch ends the chain (the
+        corrupt entry is dropped and counted)."""
+        if self.spill is None or not (self.paged and self.prefix_sharing) \
+                or prompt is None:
+            return []
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if len(prompt) > self.prompt_len:
+            prompt = prompt[-self.prompt_len:]
+        out = []
+        for j, key in enumerate(self._prefix_keys(adapter_id, prompt)):
+            if j < skip:
+                continue
+            entry = self.spill.get(("prefix", key))
+            if entry is None:
+                break
+            if not entry.verify():
+                self.spill.pop(("prefix", key))
+                self.digest_failures += 1
+                break
+            out.append((key, entry))
+        return out
+
+    @staticmethod
+    def _spilled_blob(spilled: list) -> list:
+        """The arena content of consecutive spilled prefix pages, one dict
+        per paged sublayer group, pages along axis 1."""
+        return [{k: np.concatenate([e.blob[j][k] for _, e in spilled],
+                                   axis=1) for k in PAGE_KEYS}
+                for j in range(len(spilled[0][1].blob))]
 
     # ---- static-shape planes ----
     def _dev(self, *vals, dtype=torch.long):
@@ -1097,6 +1394,11 @@ class DecodeEngine:
         return self._admit_now(req)
 
     def _admit_now(self, req: _PendingJoin) -> int:
+        if req.resume is not None and self.spill is not None:
+            slot = self._try_spill_resume(req)
+            if slot is not None:
+                return slot
+        t_adm = time.perf_counter()
         prompt = req.prompt
         if len(prompt) > self.prompt_len:
             warnings.warn(
@@ -1118,7 +1420,7 @@ class DecodeEngine:
         aslot = self.fm.adapters.index(req.adapter_id)
         if self.paged and self.chunked_prefill:
             admitted = self._try_admit_tail(req, true_prompt, true_len, slot,
-                                            cap, aslot, max_new_tokens)
+                                            cap, aslot, max_new_tokens, t_adm)
             if admitted is not None:
                 return admitted
         perm, inv, blocks = self._prefill_segments(aslot, cap, plen)
@@ -1151,18 +1453,24 @@ class DecodeEngine:
         else:
             self.pool = self._write_fn()(self.pool, cache, self._dev(slot))
         return self._finish_admission(req, slot, aslot, first, fin_ok,
-                                      true_prompt, true_len, max_new_tokens)
+                                      true_prompt, true_len, max_new_tokens,
+                                      t_adm)
 
     def _write_pages(self, req: _PendingJoin, true_prompt: np.ndarray,
                      true_len: int, plen: int, slot: int, cache):
         """The paged half of an admission: map the registered shared prefix
         (copy-on-write: those positions scatter to the trash page, their
-        content is already in the arena and others read it), allocate the
-        rest, write, trim the bucket padding's pages, register the prompt's
-        full pages."""
+        content is already in the arena and others read it), restore the
+        pages where the prompt's digest chain continues into the spill arena
+        (their exact content replaces what the prefill recomputed: their
+        positions scatter to the trash page too), allocate the rest, write,
+        trim the bucket padding's pages, register the prompt's full
+        pages."""
         npages = self._pages_for(self._adm_s_max(plen))
         shared = self._match_prefix(req.adapter_id, true_prompt)
         m = len(shared)
+        spilled = self._match_spilled_prefix(req.adapter_id, true_prompt, m)
+        k = len(spilled)
         priv = self._take_pages(npages - m)
         pages = priv
         if m:
@@ -1170,8 +1478,14 @@ class DecodeEngine:
             self.prefix_hits += 1
             self.shared_pages_mapped += m
             pages = np.concatenate([np.asarray(shared, np.int32), priv])
+        if k:
+            self._restore_pages(self._spilled_blob(spilled), priv[:k])
+            for key, _ in spilled:
+                self.spill.pop(("prefix", key))
+            self.spill_prefix_hits += 1
+            self.restored_pages += k
         scatter = pages.copy()
-        scatter[:m] = TRASH_PAGE
+        scatter[:m + k] = TRASH_PAGE
         self.pool = self._paged_write_fn(npages)(
             self.pool, cache, self._dev(slot),
             torch.as_tensor(scatter, dtype=torch.long, device=self.device),
@@ -1193,35 +1507,46 @@ class DecodeEngine:
 
     def _try_admit_tail(self, req: _PendingJoin, true_prompt: np.ndarray,
                         true_len: int, slot: int, cap: int, aslot: int,
-                        max_new_tokens: int) -> Optional[int]:
+                        max_new_tokens: int, t_adm: float) -> Optional[int]:
         """Chunked shared-prefix admission: when the prompt's leading pages
-        are registered by a live sharer, MAP them and prefill only the
-        private tail, whose queries attend the mapped prefix (float
-        sidecars, or the int8 pages dequantized). Returns the slot, or None
-        to fall back to the full prefill (nothing shareable, or the tail
-        bucket needs more free pages than the arena has right now: the
-        admission gate budgeted for the full path). The spill tier's branch
-        (prefix pages restored from host RAM) comes with the spill slice."""
+        are in the arena (registered by a live sharer, or restorable from
+        the prefix spill tier), MAP them and prefill only the private tail,
+        whose queries attend the mapped prefix (float sidecars, or the int8
+        pages dequantized). Returns the slot, or None to fall back to the
+        full prefill (nothing shareable, or the tail bucket and the
+        restores need more free pages than the arena has right now: the
+        admission gate budgeted for the full path)."""
         ps = self.page_size
         shared = self._match_prefix(req.adapter_id, true_prompt)
+        spilled = self._match_spilled_prefix(req.adapter_id, true_prompt,
+                                             len(shared))
         # always leave >= 1 tail token: the first generated token needs a
         # real last-position forward pass, and the boundary page decode
         # appends into must be recomputed into a PRIVATE copy — a fully
         # registered page-aligned prompt re-prefills its last page
-        skip = min(len(shared), (true_len - 1) // ps)
+        skip = min(len(shared) + len(spilled), (true_len - 1) // ps)
         if skip < 1:
             return None
+        m_eff = min(len(shared), skip)
+        k_eff = skip - m_eff
+        spilled = spilled[:k_eff]
         tail_len = true_len - skip * ps
         tbucket = self.bucket_for_tail(tail_len)
         npages = self._pages_for(tbucket)
-        if len(self._free_pages) < npages:
+        if len(self._free_pages) < k_eff + npages:
             return None
-        # ---- map phase: shared pages ref++ ----
-        shared_eff = np.asarray(shared[:skip], np.int32)
+        # ---- map phase: shared pages ref++, spilled pages written back ----
+        shared_eff = np.asarray(shared[:m_eff], np.int32)
+        priv_restore = self._take_pages(k_eff)
         priv_tail = self._take_pages(npages)
         self._share_pages(shared_eff)
+        if k_eff:
+            # the entries are popped only after the numeric-health gate: a
+            # quarantined admission must not cost the arena its prefix
+            self._restore_pages(self._spilled_blob(spilled), priv_restore)
         prefix_ids = np.full((self._prefix_width,), TRASH_PAGE, np.int32)
-        prefix_ids[:skip] = shared_eff
+        prefix_ids[:m_eff] = shared_eff
+        prefix_ids[m_eff:skip] = priv_restore
         # ---- tail-compute phase ----
         tail = true_prompt[skip * ps:]
         if len(tail) < tbucket:
@@ -1233,9 +1558,11 @@ class DecodeEngine:
         tail_t = torch.full((1,), tail_len, dtype=torch.int32, device=dev)
         plen_t = torch.full((1,), skip * ps, dtype=torch.int32, device=dev)
         aidx = torch.full((1,), aslot, dtype=torch.int32, device=dev)
-        # the float path when EVERY mapped page still has its sidecar;
-        # otherwise attend the int8 arena content dequantized
-        use_float = all(int(p) in self._page_float for p in shared_eff)
+        # the float path when EVERY mapped page still has its sidecar (live
+        # pages in _page_float, spilled ones carrying kf/vf); otherwise
+        # attend the int8 arena content dequantized
+        use_float = (all(int(p) in self._page_float for p in shared_eff)
+                     and all("kf" in e.blob[0] for _, e in spilled))
         if use_float:
             # registered pages are immutable, so the mapped page ids fully
             # determine the operand; _release_pages drops an entry the
@@ -1243,7 +1570,8 @@ class DecodeEngine:
             fpkey = tuple(int(x) for x in prefix_ids[:skip])
             prefix_fp = self._prefix_fp_cache.get(fpkey)
             if prefix_fp is None:
-                srcs = [self._page_float[int(p)] for p in shared_eff]
+                srcs = [self._page_float[int(p)] for p in shared_eff] + \
+                    [_spilled_float(e) for _, e in spilled]
                 prefix_fp = []
                 for i in range(len(srcs[0])):
                     k0 = srcs[0][i]["k"]            # (nper, ps, kv, hd)
@@ -1280,14 +1608,27 @@ class DecodeEngine:
         fin_ok = bool(fin[0].item())
         if not fin_ok:
             # quarantined tail: roll the map phase back — shared refcounts
-            # drop to their pre-join values, the tail pages return to the
-            # free list, nothing was registered
+            # drop to their pre-join values, restored and tail pages return
+            # to the free list (none were registered, so nothing spills
+            # again) and the untouched spill entries keep the prefix
             self.quarantines += 1
             self._release_pages(shared_eff)
+            self._release_pages(priv_restore)
             self._release_pages(priv_tail)
         else:
-            self.prefix_hits += 1
-            self.shared_pages_mapped += skip
+            # restored prefix pages take their float sidecars back from the
+            # blob, so they keep serving float-mode tails
+            for pg, (_, e) in zip(priv_restore, spilled):
+                if "kf" in e.blob[0]:
+                    self._page_float[int(pg)] = _spilled_float(e)
+            for key, _ in spilled:
+                self.spill.pop(("prefix", key))
+            if k_eff:
+                self.spill_prefix_hits += 1
+                self.restored_pages += k_eff
+            if m_eff:
+                self.prefix_hits += 1
+                self.shared_pages_mapped += m_eff
             boundary = true_len // ps - skip
             self.pool = self._paged_tail_write_fn(npages)(
                 self.pool, cache, self._dev(slot),
@@ -1317,11 +1658,13 @@ class DecodeEngine:
                                   cache_page0=skip)
             self._ptab_dirty = True
         return self._finish_admission(req, slot, aslot, first, fin_ok,
-                                      true_prompt, true_len, max_new_tokens)
+                                      true_prompt, true_len, max_new_tokens,
+                                      t_adm)
 
     def _finish_admission(self, req: _PendingJoin, slot: int, aslot: int,
                           first, fin_ok: bool, true_prompt: np.ndarray,
-                          true_len: int, max_new_tokens: int) -> int:
+                          true_len: int, max_new_tokens: int,
+                          t_adm: float) -> int:
         if self.state_pool is not None:
             # strict 1:1 with the decode slot: a double allocation is a
             # lifecycle bug (an exit path did not free), not backpressure
@@ -1342,6 +1685,10 @@ class DecodeEngine:
             if not fin_ok:
                 s.status = "quarantined"
             self.slots[slot] = s
+            # a stale spill entry (free pages or the budget forced the
+            # re-prefill) no longer matches the stream once it decodes again
+            self._drop_stream_spill(s.rid)
+            self.resume_costs.append(("reprefill", now - t_adm))
         else:
             self.slots[slot] = DecodeSlot(
                 rid=req.rid, task_id=req.task_id, adapter_slot=aslot,
@@ -1379,9 +1726,14 @@ class DecodeEngine:
         """Evict a live stream to reclaim its pages: it re-queues at the
         FRONT of the pending queue with its generated tokens folded into the
         prompt (re-admission re-prefills them, which also refreshes its int8
-        scales). Greedy streams resume exactly; a sampling stream's
-        generator continues from where it was."""
+        scales). With a spill arena its pages, scales, trackers, last token
+        and generator state are copied to the host first, and the resume
+        writes them back: the same tokens and the same sampling stream as
+        a run never preempted. The folded prompt stays the fallback for
+        when the budget evicts the entry."""
         s = self.slots[slot]
+        if self.spill is not None:
+            self._spill_stream(slot, s)
         prompt = np.concatenate([
             np.asarray(s.prompt if s.prompt is not None else [], np.int32),
             np.asarray(s.tokens, np.int32)])
@@ -1458,6 +1810,23 @@ class DecodeEngine:
         return [i for i, r in enumerate(self.pending)
                 if not self._never_fits(r)]
 
+    def _spill_resume_need(self, req: _PendingJoin) -> Optional[int]:
+        """Free pages a resume from its stream spill needs, or None when no
+        usable entry exists (nothing spilled, evicted, or it could never fit
+        an empty arena: the gate then prices the re-prefill). A spill resume
+        restores the TRUE page count held at preemption, which can exceed
+        the re-prefill bucket's estimate."""
+        if self.spill is None or req.resume is None:
+            return None
+        entry = self.spill.peek(("stream", req.rid))
+        if entry is None:
+            return None
+        n = int(entry.meta["n_pages"])
+        hr = self._pages_for(self._headroom_tokens())
+        if n + hr > self.total_pages - 1:
+            return None
+        return n + hr + self._imminent_page_need()
+
     def _next_admissible_pending(self) -> Optional[int]:
         """Index of the next deferred join the pool can take: the (viable)
         head, or — bounded lookahead — a smaller prompt within
@@ -1473,6 +1842,12 @@ class DecodeEngine:
             req = self.pending[idx]
             need = self._admission_need(len(req.prompt), prompt=req.prompt,
                                         adapter_id=req.adapter_id)
+            spill_need = self._spill_resume_need(req)
+            if spill_need is not None:
+                # both resume paths must fit: the spill restore (its true
+                # page count) and the re-prefill it falls back to on a
+                # digest mismatch found at restore time
+                need = max(need, spill_need)
             if len(self._free_pages) >= need:
                 return idx
         return None
@@ -1502,6 +1877,7 @@ class DecodeEngine:
         if p.resume is not None:
             p.resume.status = status
             p.resume.done = True
+            self._drop_stream_spill(p.rid)
         self.rejected.append(p)
 
     def _expire_deadlines(self, now: float):
@@ -1553,6 +1929,7 @@ class DecodeEngine:
                 if p.resume is not None:
                     p.resume.status = "cancelled"
                     p.resume.done = True
+                    self._drop_stream_spill(p.rid)
                 self.cancels += 1
                 return ("pending", p)
         return None
@@ -1700,8 +2077,25 @@ class DecodeEngine:
                                   "later slice of the port")
 
     def warm_spill(self):
-        raise NotImplementedError("the host-RAM spill tier (P10) comes with "
-                                  "a later slice of the port")
+        """Run the spill tier's gather and write-backs twice (eager, then
+        captured) so spills, spilled-prefix restores and spill resumes add
+        no shape key and no capture in steady state. The round trip is a
+        no-op: an empty capture reads only the trash page (garbage by
+        contract), the write-back puts zeros into it, and slot 0's running
+        state is written back to itself."""
+        if self.active_count():
+            raise RuntimeError("warm_spill must run on an idle engine")
+        if self.spill is None or not self.paged:
+            return
+        none_ = np.empty((0,), np.int32)
+        for _ in range(2):
+            blob = self._capture_pages(none_, 0)
+            self._restore_pages(blob, none_)
+            state = [{k: torch.as_tensor(sub[k], device=self.device)
+                      for k in SLOT_KEYS} for sub in blob]
+            self.pool = self._slot_restore_fn()(
+                self.pool, state, self._dev(0),
+                self._dev(int(self._lens[0]), dtype=torch.int32))
 
     def step_chunk(self) -> list[DecodeSlot]:
         """Advance every occupied slot by up to ``chunk`` tokens; retire and
@@ -1788,15 +2182,178 @@ class DecodeEngine:
             out += self.step_chunk()
         return out
 
-    # ---- durability (later slice) ----
-    def snapshot(self):
-        raise NotImplementedError("engine snapshot/restore comes with a later "
-                                  "slice of the port (durability plane, P10)")
+    # ---- engine snapshot / restore (durability plane) ----
+    _COUNTERS = ("steps", "admissions", "deferrals", "preemptions",
+                 "prefix_hits", "shared_pages_mapped", "scale_refreshes",
+                 "hol_bypasses", "_hol_skips", "quarantines",
+                 "deadline_cancels", "deadline_sheds", "stranded_rejections",
+                 "cancels", "spilled_pages", "restored_pages",
+                 "digest_failures", "spill_resumes", "spill_prefix_hits",
+                 "deadline_clamps", "tail_tokens_computed",
+                 "prefill_tokens_saved")
+    _EXECUTABLES = ("_fn_prefill", "_fn_decode", "_fn_write", "_fn_rescale",
+                    "_fn_gather", "_fn_page_restore", "_fn_slot_restore")
+
+    def _config_dict(self) -> dict:
+        """Constructor kwargs that rebuild an identical engine."""
+        return {
+            "num_slots": self.num_slots, "max_new": self.max_new,
+            "chunk": self.chunk, "kv_quant": self.kv_quant,
+            "eos_id": self.eos_id, "prompt_buckets": self.prompt_buckets,
+            "temperature": self.temperature, "top_k": self.top_k,
+            "paged": True, "page_size": self.page_size,
+            "total_pages": self.total_pages,
+            "prefix_sharing": self.prefix_sharing,
+            "scale_refresh": self.scale_refresh,
+            "pending_lookahead": self.pending_lookahead,
+            "hol_skip_cap": self.hol_skip_cap,
+            "deadline_clamp": self.deadline_clamp,
+            "chunked_prefill": self.chunked_prefill,
+            "enc_len": self.enc_len,
+        }
+
+    def snapshot(self) -> EngineSnapshot:
+        """The engine's whole logical state between chunks: the used pages'
+        contents (copied to the host) with one sha256 digest per page, page
+        tables, refcounts, the prefix registry, per-slot sampling,
+        generator and deadline state, the pending queue and the counters.
+        Deep copies: the live engine can keep running. The spill arena
+        rides by reference (it is host RAM already). Paged pools only: the
+        dense layout has no allocator state worth surviving a reset."""
+        import copy
+        if not self.paged:
+            raise ValueError("snapshot/restore is a paged-arena feature")
+        used = np.nonzero(self._page_refs > 0)[0].astype(np.int32)
+        idx = torch.as_tensor(used.astype(np.int64), device=self.device)
+        pages, slot_state = [], []
+        for sub in self._paged_subs():
+            pages.append({k: _host(sub[k].index_select(1, idx))
+                          for k in PAGE_KEYS})
+            slot_state.append({k: _host(sub[k]) for k in SLOT_KEYS})
+        snap = EngineSnapshot(
+            config=self._config_dict(),
+            used_pages=used, pages=pages, page_digests={},
+            slot_state=slot_state,
+            ptab=self._ptab.copy(), held=self._held.copy(),
+            lens=self._lens.copy(), page_refs=self._page_refs.copy(),
+            slot_adapters=self._slot_adapters.copy(),
+            tokens=_host(self._tokens),
+            keys=np.stack([g.get_state().numpy() for g in self._keys]),
+            slots=copy.deepcopy(self.slots),
+            pending=copy.deepcopy(list(self.pending)),
+            rejected=copy.deepcopy(self.rejected),
+            registry=dict(self._prefix_registry),
+            page_key=dict(self._page_key),
+            counters={k: getattr(self, k) for k in self._COUNTERS},
+            spill=self.spill,
+            # fixed-size per-slot state (whisper's cross K/V): the page
+            # capture above covers the paged arena only
+            dense_state=capture_dense_state(self.pool)
+            if self.plan.needs_state_slots else None)
+        snap.counters["admitted_log"] = list(self.admitted_log)
+        snap.page_digests = {int(p): snap.page_digest(i)
+                             for i, p in enumerate(used)}
+        return snap
 
     @classmethod
-    def restore(cls, fm, snap, **kwargs):
-        raise NotImplementedError("engine snapshot/restore comes with a later "
-                                  "slice of the port (durability plane, P10)")
+    def restore(cls, fm: PhysicalFM, snap: EngineSnapshot, *,
+                reuse_jits_from: Optional["DecodeEngine"] = None
+                ) -> "DecodeEngine":
+        """An engine rebuilt from a snapshot. Every page's sha256 is
+        recomputed and checked BEFORE any stream can decode against it: a
+        corrupted page leaves the registry and every live stream mapping it
+        re-queues through the fold-and-re-prefill path (``digest_failures``
+        counted), with the spill capture suppressed, since the content it
+        would copy is exactly what failed.
+
+        ``reuse_jits_from``: the dead engine of the same configuration on
+        the same FM (an in-process restore after a device reset). The new
+        engine shares its executables and adopts the tensors they bake —
+        the pool, the device page table, the token buffer, whisper's
+        ``ck``/``cv`` — and rewrites every element of them in place from
+        the snapshot (zeros outside the used pages), so every storage check
+        passes, ``compile_count`` stays and nothing is captured again. No
+        second pool is allocated. Without it (a restore from disk), a fresh
+        pool and fresh executables are built."""
+        import copy
+        reuse = (reuse_jits_from is not None
+                 and reuse_jits_from._config_dict() == snap.config
+                 and reuse_jits_from.fm is fm)
+        eng = cls(fm, **snap.config,
+                  _adopt=reuse_jits_from if reuse else None)
+        if reuse:
+            for name in cls._EXECUTABLES:
+                setattr(eng, name, getattr(reuse_jits_from, name))
+        used = np.asarray(snap.used_pages)
+        bad = [int(p) for i, p in enumerate(used)
+               if snap.page_digest(i) != snap.page_digests[int(p)]]
+        idx = torch.as_tensor(used.astype(np.int64), device=eng.device)
+        for j, sub in enumerate(eng._paged_subs()):
+            cap, st = snap.pages[j], snap.slot_state[j]
+            for k in PAGE_KEYS:
+                _fill_pages(sub[k], idx, eng._upload(cap[k]))
+            for k in SLOT_KEYS:
+                sub[k].copy_(torch.from_numpy(np.asarray(st[k])))
+            sub["len"].copy_(torch.from_numpy(
+                np.asarray(snap.lens, np.int32))[None].expand_as(sub["len"]))
+        eng._ptab = snap.ptab.copy()
+        eng._held = snap.held.copy()
+        eng._lens = snap.lens.copy()
+        eng._page_refs = snap.page_refs.copy()
+        eng._free_pages = [p for p in range(eng.total_pages - 1, TRASH_PAGE,
+                                            -1) if eng._page_refs[p] == 0]
+        eng._prefix_registry = dict(snap.registry)
+        eng._page_key = dict(snap.page_key)
+        eng._ptab_dirty = True
+        eng._sync_page_table()
+        eng._slot_adapters = snap.slot_adapters.copy()
+        eng._seg_key = None
+        eng._tokens.copy_(torch.from_numpy(np.asarray(snap.tokens)))
+        for g, state in zip(eng._keys, np.asarray(snap.keys)):
+            g.set_state(torch.from_numpy(state.copy()))
+        eng.slots = copy.deepcopy(snap.slots)
+        eng.pending = collections.deque(copy.deepcopy(snap.pending))
+        eng.rejected = copy.deepcopy(snap.rejected)
+        if snap.dense_state is not None:
+            restore_dense_state(eng.pool, snap.dense_state)
+        if eng.state_pool is not None:
+            # live slots are marked BEFORE the bad-page requeue below: its
+            # _preempt frees the victim's state slot
+            for i, s in enumerate(eng.slots):
+                if s is not None:
+                    eng.state_pool.alloc(i)
+        counters = dict(snap.counters)
+        eng.admitted_log = [tuple(x) for x in
+                            counters.pop("admitted_log", [])]
+        for k in cls._COUNTERS:
+            setattr(eng, k, counters.get(k, getattr(eng, k)))
+        if snap.spill is not None:
+            eng.spill = snap.spill
+        for p in bad:
+            eng.digest_failures += 1
+            key = eng._page_key.pop(p, None)
+            if key is not None:
+                eng._prefix_registry.pop(key, None)
+        if bad:
+            badset = set(bad)
+            for i, s in enumerate(eng.slots):
+                if s is None or s.done:
+                    continue
+                if badset & {int(x) for x in eng._ptab[i, :eng._held[i]]}:
+                    sp, eng.spill = eng.spill, None
+                    try:
+                        eng._preempt(i)
+                    finally:
+                        eng.spill = sp
+        return eng
+
+
+def _fill_pages(t: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor):
+    """Rewrite one arena tensor IN PLACE from a snapshot: zeros everywhere
+    (as a fresh pool holds), then the used pages' content (axis 1)."""
+    t.zero_()
+    if idx.numel():
+        t.index_copy_(1, idx, vals)
 
 
 def _set_slot(psub, slot, slot_ks, slot_vs, true_len):
@@ -1810,6 +2367,21 @@ def _set_slot(psub, slot, slot_ks, slot_vs, true_len):
     psub["v_max"].index_fill_(1, slot, 0.0)
     psub["len"].index_copy_(1, slot, true_len.to(psub["len"].dtype).expand(
         psub["len"].shape[0], 1))
+
+
+def _spilled_float(entry) -> list:
+    """A spilled prefix page's float sidecar (per sublayer group), back
+    from its int16 bit patterns."""
+    return [{"k": torch.from_numpy(np.ascontiguousarray(sub["kf"]))
+             .view(torch.bfloat16),
+             "v": torch.from_numpy(np.ascontiguousarray(sub["vf"]))
+             .view(torch.bfloat16)} for sub in entry.blob]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t`` that no later executable call overwrites
+    (on the CPU ``.cpu()`` would return the executable's own buffer)."""
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
 def quantize_pages(x, scale):

@@ -37,11 +37,10 @@ below the decode stream's, and vice versa.
 preserves the old synchronous one-BFQ-batch contract (``FMplexServer.step``)
 on top of the same machinery.
 
-This module is the JAX package's loop, nearly line for line, without the
-durable-state plane. On a paged pool with chunked shared-prefix prefill a
-sharer's admission is charged its private TAIL only (what the device
-computed), and TTFT is split into prefix-hit and miss series
-(``ttft_hit_samples``/``ttft_miss_samples``).
+This module is the JAX package's loop, nearly line for line. On a paged
+pool with chunked shared-prefix prefill a sharer's admission is charged its
+private TAIL only (what the device computed), and TTFT is split into
+prefix-hit and miss series (``ttft_hit_samples``/``ttft_miss_samples``).
 
 **Failure semantics.** Performance isolation (BFQ, the page gate) is only
 half of virtualization's promise — the loop also owns FAILURE isolation, and
@@ -77,9 +76,18 @@ for the full catalogue). The exit paths and what each one unwinds:
     converted into terminal rejections; any other error raised by the
     engine (a kernel's precondition, a device fault) propagates.
 
-**Durable serving state** (snapshot / restore / device-reset recovery)
-comes with a later slice of the port: ``snapshot_state``,
-``restore_state`` and ``checkpoint_restart`` raise ``NotImplementedError``.
+**Durable serving state.** ``snapshot_state`` quiesces (resolves the
+double-buffered pooled batch) and captures the engine snapshot, the
+scheduler's virtual-time tags and the in-flight request map;
+``restore_state`` rebuilds the engine from it (every page sha256-checked:
+``DecodeEngine.restore``) and re-applies the tags, so fair shares resume
+where they left off; ``checkpoint_restart`` chains quiesce, snapshot,
+teardown, restore and resume, counting ``resets_survived`` on the loop and
+on every in-flight request. The restored engine shares the dead one's
+captured executables and rewrites the tensors they bake in place. A device
+reset mid-trace loses no request: live streams resume from their restored
+pages, pending and preempted entries keep their places, and a stream whose
+page fails its digest re-prefills from its host-side tokens.
 
 Non-ok terminations count ``acct.dropped`` (never ``completed``) and feed
 ``ServeLoop.failures`` — ``serving.metrics.failure_counters`` reports them.
@@ -568,18 +576,60 @@ class ServeLoop:
                            t_first=t_first, vfms=vfms)
         return True
 
-    # ---- durable serving state (later slice) ----
+    # ---- durable serving state (snapshot / restore / device reset) ----
     def snapshot_state(self) -> dict:
-        raise NotImplementedError("serving-state snapshot comes with a later "
-                                  "slice of the port (durability plane)")
+        """Quiesce (resolve the double-buffered pooled batch) and capture
+        what a restore needs: the engine snapshot (page contents, tables,
+        refcounts, registry, slot, generator and deadline state, pending
+        queue), the scheduler's virtual-time tags and the in-flight request
+        map. Host-side objects (requests, the spill arena) ride by
+        reference: they are what a device reset cannot touch."""
+        self._flush()
+        eng = self._engine()
+        tags = self.sched.snapshot_tags() \
+            if hasattr(self.sched, "snapshot_tags") else None
+        return {"engine": None if eng is None else eng.snapshot(),
+                "sched": tags, "inflight": dict(self._inflight)}
 
     def restore_state(self, state: dict, *, reuse_jits_from=None):
-        raise NotImplementedError("serving-state restore comes with a later "
-                                  "slice of the port (durability plane)")
+        """Rebuild the engine from a snapshot (digest-checked; see
+        ``DecodeEngine.restore``), swap it into the server and re-apply the
+        scheduler's tags. In-flight requests keep their identities: the
+        retire path finds them by rid as before the reset."""
+        from repro_torch.core.decode_engine import DecodeEngine
+        self._flush()
+        snap = state.get("engine")
+        if snap is not None:
+            eng = DecodeEngine.restore(self.srv.fms[self.fm_id], snap,
+                                       reuse_jits_from=reuse_jits_from)
+            self.srv.engines[self.fm_id] = eng
+        if state.get("sched") is not None \
+                and hasattr(self.sched, "restore_tags"):
+            self.sched.restore_tags(state["sched"])
+        self._inflight.update(state.get("inflight", {}))
+        # restored streams re-arm the watchdog from NOW, not from the
+        # pre-reset progress mark
+        self._progress_mark = None
+        self._last_progress_t = time.perf_counter()
 
     def checkpoint_restart(self) -> dict:
-        raise NotImplementedError("checkpoint/restart comes with a later "
-                                  "slice of the port (durability plane)")
+        """The whole recovery sequence: quiesce, snapshot, teardown (the old
+        engine leaves the server; its executables and the tensors they
+        bake are reused), restore, resume. Returns the snapshot used.
+        ``serving.faults.DeviceResetFault`` scrambles the old arena in
+        between, to prove the restore reads nothing from dead state."""
+        state = self.snapshot_state()
+        old = self.srv.engines.pop(self.fm_id, None)
+        self.restore_state(state, reuse_jits_from=old)
+        self.stamp_reset()
+        return state
+
+    def stamp_reset(self):
+        """Count one survived reset on the loop and on every in-flight
+        request."""
+        self.failures["resets_survived"] += 1
+        for r in self._inflight.values():
+            r.resets_survived += 1
 
     # ---- drivers ----
     def warmup(self, *, pooled_task: Optional[str] = None,
@@ -590,7 +640,8 @@ class ServeLoop:
         to ``pooled_n`` (BFQ can form ANY size under load), one admission
         prefill per prompt-length bucket, the decode chunk, the pool write
         and, on a chunked paged pool, one tail prefill and tail scatter per
-        tail bucket — so the kernels are built, the graphs captured, the
+        tail bucket, and with a spill arena the spill tier's gather and
+        write-backs — so the kernels are built, the graphs captured, the
         allocator has its blocks and the heads have their verdicts before a
         measured run. Generative warmup is skipped for FMs
         with no generative head; encoder-decoder stacks warm through the
@@ -640,11 +691,15 @@ class ServeLoop:
         finally:
             self.enforce_deadlines = enforce
         # the deadline clamp dispatches shortened chunks from a fixed
-        # ladder; run each once now so deadline traffic adds no shape key
+        # ladder, and the spill tier gathers and writes back pages at a
+        # fixed width: run them now so deadline traffic, spills and
+        # restores add no shape key
         eng = self._engine()
         if eng is not None and eng.active_count() == 0:
             if eng.deadline_clamp:
                 eng.warm_decode_ladder()
+            if eng.spill is not None:
+                eng.warm_spill()
             # chunked shared-prefix admissions key per TAIL bucket: run
             # them now so the first sharer join adds no shape key
             if eng.chunked_prefill:

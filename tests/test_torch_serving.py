@@ -267,13 +267,19 @@ def test_engine_cancel_and_deadline(fms):
 
 def test_unported_engine_options_raise(fms):
     _, fm, _, _ = fms
-    for kw in (dict(spec_k=2), dict(spill_bytes=1 << 20)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            DecodeEngine(fm, num_slots=2, prompt_len=8, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        DecodeEngine(fm, num_slots=2, prompt_len=8, spec_k=2)
     # chunked shared-prefix prefill is ported: the paged default takes it
     assert DecodeEngine(fm, num_slots=2, prompt_len=8,
                         paged=True).chunked_prefill
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the spill tier and snapshots are ported (tests/test_torch_recovery.py):
+    # a paged pool takes an arena; the dense layout has no snapshot, as in
+    # the JAX package, and keeps no arena
+    assert DecodeEngine(fm, num_slots=2, prompt_len=8, paged=True,
+                        spill_bytes=1 << 20).spill.budget_bytes == 1 << 20
+    assert DecodeEngine(fm, num_slots=2, prompt_len=8,
+                        spill_bytes=1 << 20).spill is None
+    with pytest.raises(ValueError, match="paged-arena"):
         DecodeEngine(fm, num_slots=2, prompt_len=8).snapshot()
     # "auto" is ported (the GPU-measured crossover table,
     # tests/test_torch_representation.py); an unknown impl still raises
