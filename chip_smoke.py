@@ -33,9 +33,13 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    stablelm's and whisper's serving shapes, ranks 4 and 64, a narrower
    output, one adapter and sentinel blocks only (``sgmv_cases``); K1 and
    K5 each twice on the same inputs, bit for bit; the ptxas reports of the
-   K1, K3, K4 and K5 libraries free of spill stores; moment-large's pooled
-   shapes (K1 at d = out = 1024, ranks 4 and 16; K2 not causal, 16 heads,
-   32 patches);
+   K1, K3, K4, K5 and verify-window libraries free of spill stores;
+   moment-large's pooled shapes (K1 at d = out = 1024, ranks 4 and 16; K2
+   not causal, 16 heads, 32 patches); the speculative verify window (K4
+   over T positions) at every case of ``VERIFY_CASES`` (T 1 to 10, GQA,
+   windows, hd 32/64/128, a span too long to stage), within two bf16 ulps
+   of its plain version, bit-identical twice, one launch a call, and every
+   window position bit-identical to K4 at its length;
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
    same model run with the plain versions on the CPU, on the int8 pool (K3)
@@ -98,7 +102,19 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    cross state through a snapshot (a two-layer cut, tokens equal); K4, K2
    and K1 must launch; and one sampled decode step (eager) against the
    greedy graphed step;
-7. timing — device times (``torch.profiler``) of each kernel, its plain
+7. speculative — self-speculative decoding (spec_k 4) at full width on
+   stablelm-1.6b (``phase_speculative``): the verify window teacher-forced
+   against five sequential decode steps on copies of one live cache (a
+   two-layer cut gated at relative L2 2e-2; the 24 layers reported), then
+   8 streams through the speculative engine, graphed and speculating on
+   every dispatch, on random weights and on the copy-inclined model (every
+   attention out-projection zeroed; prompts that re-feed the model's own
+   output): the device length equal to the host's committed length after
+   every chunk, accepts on the copy-inclined run, no leak, no key after
+   the warm-ups, the graphed run equal to its eager replay, the verify
+   kernel launched; the streams against the plain engine's reported
+   (equal, or the first mismatch with the plain run's top-2 margin);
+8. timing — device times (``torch.profiler``) of each kernel, its plain
    version and a library yardstick, beside the least time the card could
    take (its bound), K2 also at whisper's encoder and cross-prefill
    shapes (with its number of key splits and, where it splits, its time
@@ -108,7 +124,11 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    one dense, one paged and one whisper decode step
    (8 live streams each), of one whisper pooled batch and of one moment
    pooled batch (32 x 32 patches) under each LoRA impl, and the prefill
-   device time a prefix hit saves (full admission against its tail).
+   device time a prefix hit saves (full admission against its tail); the
+   verify kernel against its bound, five unrolled K4 calls, its plain
+   version and SDPA on dequantized K/V with the per-position mask; and one
+   speculative step (a verify forward of 8 x 5 rows) against the plain
+   step of the same engine, both profiled eager and graphed.
 
 The serving paths run graphed: every executable of ``PhysicalFM`` and
 ``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
@@ -625,6 +645,141 @@ INT8_CASES = {
 }
 
 
+# The verify window (K4 over T positions, paged_verify_attention; 8 rows
+# each, pages of 16, hd 64 unless given). ``base``: row b's window position
+# j attends base[b] + j + 1 positions. Stablelm's speculative pool at
+# spec_k 4 (T 5; a table of 13 pages: s_max 161 plus a chunk of 4 windows
+# of 5 positions of speculative room) with and without a window; T 1 (K4's
+# function), 2, 4 and 10; GQA (G 2 and 4); hd 32, 64 and 128; base lengths
+# 0 (the first decoded token), windows that cross a page inside the window
+# (base 15 and 31 straddle pages 1 and 2), tables filled to their last
+# position, caches longer than the kernel's register ring, and one whose
+# codes do not fit in shared memory (hd 128 over 1520 positions: each
+# position walks the arena). The one verify case table: the cuda-marked
+# tests and the CPU build of the kernel body
+# (tests/test_torch_int8_decode_host.py) import it.
+VERIFY_CASES = {
+    "serving": dict(H=32, KV=32, T=5, MP=13,
+                    base=[0, 15, 31, 100, 155, 60, 7, 203]),
+    "serving_window": dict(H=32, KV=32, T=5, MP=13, window=48,
+                           base=[160, 1, 47, 44, 120, 7, 96, 180]),
+    "t1": dict(H=32, KV=32, T=1, MP=11, base=[0, 31, 32, 79, 175, 160, 99, 6]),
+    "t2": dict(H=32, KV=32, T=2, MP=11, base=[0, 14, 15, 16, 100, 174, 63, 64]),
+    "t4": dict(H=32, KV=32, T=4, MP=12, window=33,
+               base=[0, 13, 29, 30, 100, 188, 63, 64]),
+    "gqa_t2": dict(H=32, KV=8, T=2, MP=13, base=[160, 0, 63, 90, 17, 150, 5, 206]),
+    "g2_t4": dict(H=16, KV=8, T=4, MP=13, base=[0, 15, 31, 130, 12, 150, 77, 204]),
+    "g2_t5_split": dict(H=16, KV=8, T=5, MP=13, window=40,
+                        base=[0, 15, 31, 130, 12, 150, 77, 203]),
+    "t10_split": dict(H=8, KV=8, T=10, MP=13, window=20,
+                      base=[0, 10, 31, 130, 12, 150, 77, 198]),
+    "hd64_t3": dict(H=8, KV=8, T=3, MP=13, base=[0, 14, 31, 130, 12, 150, 77, 205]),
+    "hd32_t7": dict(H=8, KV=8, hd=32, T=7, MP=13,
+                    base=[0, 10, 31, 130, 12, 150, 77, 201]),
+    "hd128_t3": dict(H=16, KV=8, hd=128, T=3, MP=13,
+                     base=[0, 14, 31, 130, 12, 150, 77, 205]),
+    "long": dict(H=8, KV=4, T=5, MP=95,
+                 base=[1490, 0, 256, 700, 1400, 511, 1020, 1515]),
+    "long_window": dict(H=16, KV=8, hd=128, T=3, MP=95, window=300,
+                        base=[1490, 0, 299, 301, 1000, 640, 1024, 1280]),
+    "long_unstaged": dict(H=8, KV=8, hd=128, T=3, MP=95,
+                          base=[1490, 0, 299, 301, 1000, 640, 1024, 1517]),
+}
+
+
+def verify_inputs(gen, B, H, KV, hd, T, MP, base, dev):
+    """One verify input set: q (B, T, H, hd) bf16, a random int8 arena of
+    1 + B * MP pages of 16 (every page holds codes: unmapped and recycled
+    pages are stale), per-page scales, a table of distinct random pages
+    covering each stream's base + T positions (entries past them 0, streams
+    2 and 3 mapping the same first two pages), and the base lengths."""
+    import torch
+    P = 1 + B * MP
+    q = torch.randn((B, T, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randint(-127, 128, (P, PAGE_SIZE, KV, hd), generator=gen,
+                       device=dev, dtype=torch.int8)
+    vp = torch.randint(-127, 128, (P, PAGE_SIZE, KV, hd), generator=gen,
+                       device=dev, dtype=torch.int8)
+    ks = torch.rand((P, KV), generator=gen, device=dev) * 0.05 + 1e-3
+    vs = torch.rand((P, KV), generator=gen, device=dev) * 0.05 + 1e-3
+    npg = [min(MP, -(-(int(n) + T) // PAGE_SIZE)) for n in base]
+    perm = (torch.randperm(P - 1, generator=gen, device=dev) + 1).tolist()
+    pt = torch.zeros((B, MP), dtype=torch.int32)
+    for b in range(B):
+        pt[b, :npg[b]] = torch.tensor(perm[:npg[b]], dtype=torch.int32)
+        perm = perm[npg[b]:]
+    if min(npg[2], npg[3]) >= 2:
+        pt[3, :2] = pt[2, :2]
+    return (q, kp, vp, ks, vs, pt.to(dev),
+            torch.tensor(base, dtype=torch.int32, device=dev))
+
+
+def verify_bound(q, kp, pt, base, window=None):
+    """Bytes and flops of the verify window on this data: K and V int8 of
+    every page the window's positions visit, walked once (``ceil(hi / ps)``
+    pages of a stream, less those wholly before the first position's
+    window), one k and one v scale per visited (page, kv head), the table,
+    q, the output and the lengths; flops of every (row, position) pair a
+    query row attends."""
+    B, T, H, hd = q.shape
+    _, ps, KV, _ = kp.shape
+    MP = pt.shape[1]
+    pages, pairs = 0, 0
+    for b in base.tolist():
+        hi = min(b + T, MP * ps)
+        lo = max(0, b + 1 - window) if window else 0
+        pages += -(-hi // ps) - lo // ps
+        for j in range(T):
+            hj = min(b + j + 1, MP * ps)
+            pairs += hj - (max(0, hj - window) if window else 0)
+    nbytes = 2 * pages * ps * KV * hd + 2 * 4 * pages * KV + 4 * B * MP + \
+        2 * 2 * B * T * H * hd + 4 * B
+    return bound_ms(nbytes, 4.0 * pairs * H * hd)
+
+
+def check_verify(dev, gen):
+    """The verify window against its plain version (T single-token reads)
+    at every case of ``VERIFY_CASES``: two bf16 ulps of the largest output,
+    bit-identical over two calls, one launch a call, and every window
+    position bit-identical to K4 (``paged_decode_attention``) at its
+    length: the speculative engine's attention is the plain engine's."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    errs, ok = {}, True
+    for name, c in VERIFY_CASES.items():
+        H, KV, T, MP = c["H"], c["KV"], c["T"], c["MP"]
+        hd, window = c.get("hd", 64), c.get("window")
+        q, kp, vp, ks, vs, pt, base = verify_inputs(
+            gen, SLOTS, H, KV, hd, T, MP, c["base"], dev)
+        before = ops.LAUNCHES["paged_verify_attention"]
+        got = ops.paged_verify_attention(q, kp, vp, ks, vs, pt, base,
+                                         window=window)
+        launched = ops.LAUNCHES["paged_verify_attention"] - before
+        again = ops.paged_verify_attention(q, kp, vp, ks, vs, pt, base,
+                                           window=window)
+        want = ref.paged_verify_attention_ref(
+            q, kp.transpose(1, 2), vp.transpose(1, 2), ks, vs, pt, base,
+            window=window)
+        k4 = torch.stack([ops.paged_decode_attention(
+            q[:, j].contiguous(), kp, vp, ks, vs, pt,
+            (base + j + 1).to(torch.int32), window=window)
+            for j in range(T)], dim=1)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+        same = torch.equal(got, again)
+        as_k4 = torch.equal(got, k4)
+        log(f"kernel paged_verify_attention [{name}] B={SLOTS} T={T} H={H} "
+            f"KV={KV} hd={hd} ps={PAGE_SIZE} MP={MP} window={window}: "
+            f"max_abs_err={err:.3e} (bound {tol:.3e}), bit-identical twice: "
+            f"{same}, each position bit-identical to K4: {as_k4}")
+        ok &= err <= tol and bool(torch.isfinite(got.float()).all()) \
+            and same and launched == 1 and as_k4
+        errs[name] = err
+    return ok, errs
+
+
 def check_int8_decode(dev, gen):
     """K3 and K4 against their plain versions at every case of
     ``INT8_CASES``, two bf16 ulps of the largest output (every length >= 1,
@@ -869,6 +1024,9 @@ def phase_kernels(dev):
     ok &= ok_i
     results["decode_attention_int8"] = errs_i["dense"]
     results["paged_decode_attention"] = errs_i["paged"]
+    # the verify window at every case of VERIFY_CASES
+    ok_v, results["paged_verify_attention"] = check_verify(dev, gen)
+    ok &= ok_v
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S = PROMPT_LEN + MAX_NEW + 1
     MP = -(-S // PAGE_SIZE)
@@ -1268,7 +1426,7 @@ def phase_reference_chunked(dev):
 # ---------------- graphed against eager ----------------
 
 ENGINE_CALLS = ("join", "step_chunk", "cancel", "shed_stranded",
-                "warm_decode_ladder", "warm_chunked")
+                "warm_decode_ladder", "warm_chunked", "warm_speculative")
 
 
 def call_summary(name, out):
@@ -2251,13 +2409,20 @@ def durability_spill(fm, cfg) -> dict:
     return out
 
 
-def first_mismatch(got: dict, want: dict) -> dict:
-    """The first stream and position where two runs' tokens differ."""
+def first_mismatch(got: dict, want: dict, logits: dict = None) -> dict:
+    """The first stream and position where two runs' tokens differ; with
+    ``logits`` (the ``want`` run's f32 logits by (rid, position),
+    ``record_streams``), also that run's top-2 logit margin there."""
     for rid in sorted(want):
         a, b = got.get(rid, []), want[rid]
         for j, (x, y) in enumerate(zip(a, b)):
             if x != y:
-                return {"rid": rid, "position": j, "got": x, "want": y}
+                out = {"rid": rid, "position": j, "got": x, "want": y}
+                if logits is not None and (rid, j) in logits:
+                    import torch
+                    top2 = torch.topk(logits[(rid, j)], 2).values
+                    out["want_top2_margin"] = (top2[0] - top2[1]).item()
+                return out
         if len(a) != len(b):
             return {"rid": rid, "lengths": [len(a), len(b)]}
     return {"missing": sorted(set(want) ^ set(got))}
@@ -2599,6 +2764,488 @@ def sampled_step_timing(dev, fm) -> dict:
     out["sampled_eager_over_greedy_graphed"] = \
         out["sampled"]["event_ms"]["eager"] / \
         out["greedy"]["event_ms"]["graphed"]
+    return out
+
+
+# ---------------- the speculative plane (P11) ----------------
+
+SPEC_K = 4                       # drafted tokens a step: windows of 5
+SPEC_KW = dict(paged=True, page_size=PAGE_SIZE, total_pages=None,
+               prefix_sharing=True, chunked_prefill=False, spec_k=SPEC_K,
+               spec_disable_below=1.0)
+# the verify window against T sequential decode steps on the same cache,
+# and the spec engine's logits against the CPU's: the reference phases'
+# relative L2 bound (bf16 activations rounded after products over B * T
+# rows instead of B, in another order)
+SPEC_REL_L2 = 2e-2
+
+
+def spec_engine(fm, **kw):
+    """A full-width engine of the serving phases' shape (8 slots, prompts
+    up to 128, 32 new tokens, chunk 4) on a dense-equivalent paged pool of
+    pages of 16 (SPEC_KW: spec_k 4, speculating on every dispatch unless
+    ``kw`` says otherwise)."""
+    from repro_torch.core.decode_engine import DecodeEngine
+    return DecodeEngine(fm, num_slots=SLOTS, prompt_len=PROMPT_LEN,
+                        max_new=MAX_NEW, chunk=CHUNK, **dict(SPEC_KW, **kw))
+
+
+def spec_joins(cfg, seed: int, n: int = SLOTS) -> list:
+    """``n`` joins on the 4 tasks' adapters, prompts of 16-96 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [(f"task{i % N_TASKS}",
+             rng.randint(0, cfg.vocab_size, int(rng.randint(16, 97))).astype(
+                 np.int32), f"lora{i % N_TASKS}", 9000 + 100 * seed + i)
+            for i in range(n)]
+
+
+def echo_joins(fm, cfg, seed: int) -> list:
+    """Joins whose prompts re-feed the model's own earlier output, as an
+    agent loop re-feeds its context: ``spec_joins``' prompts (cut to 80
+    tokens) are run through a plain engine for ``MAX_NEW`` greedy tokens c,
+    then each new prompt is the old one, c, four random tokens and c's
+    first two tokens again. On the copy-inclined model (the next token a
+    function of the current one) the stream then continues c, and its
+    history holds every bigram it meets. At stablelm's vocabulary of
+    ~100k the copy-inclined chain from a random prompt does not revisit a
+    bigram within 32 tokens (measured on an H100: no draft proposed over 8
+    such streams), so without the echo nothing would be accepted."""
+    import numpy as np
+    eng = spec_engine(fm, spec_k=0)
+    base = [(t, p[:80], a, rid) for t, p, a, rid in spec_joins(cfg, seed)]
+    for task, prompt, adapter, rid in base:
+        eng.join(task, prompt, adapter_id=adapter, max_new_tokens=MAX_NEW,
+                 rid=rid)
+    chains = {d.rid: np.asarray(d.tokens, np.int32) for d in eng.drain()}
+    rng = np.random.RandomState(seed)
+    out = []
+    for task, prompt, adapter, rid in base:
+        c = chains[rid]
+        out.append((task, np.concatenate([
+            prompt, c, rng.randint(0, cfg.vocab_size, 4).astype(np.int32),
+            c[:2]]), adapter, rid))
+    del eng
+    return out
+
+
+def spec_warm(eng, cfg):
+    """One join per prompt bucket (drained), both decode ladders and the
+    refresh's key: every key the run can dispatch, twice."""
+    import numpy as np
+    rng = np.random.RandomState(91)
+    for _ in range(2):
+        for i, b in enumerate(eng.prompt_buckets):
+            eng.join("task0", rng.randint(0, cfg.vocab_size, b),
+                     adapter_id="lora0", max_new_tokens=2, rid=-9000 - i)
+        eng.drain()
+    eng.warm_decode_ladder()
+    eng.warm_speculative()
+    eng._rescale_fn()
+
+
+def spec_run(eng, joins) -> tuple[dict, int]:
+    """The joins, then chunks until every stream retires; after every chunk
+    each live slot's device length (every layer) must equal the host's
+    committed length. Returns the streams and the chunks where it did
+    not."""
+    import torch
+    for task, prompt, adapter, rid in joins:
+        eng.join(task, prompt, adapter_id=adapter, max_new_tokens=MAX_NEW,
+                 rid=rid)
+    done, bad = [], 0
+    while eng.active_count() or eng.pending_count():
+        done += eng.step_chunk()
+        dev_len = torch.stack([sub["len"] for sub in eng.pool
+                               if "page_table" in sub]).cpu().numpy()
+        live = [i for i, s in enumerate(eng.slots)
+                if s is not None and not s.done]
+        bad += int(any((dev_len[:, :, i] != eng._lens[i]).any()
+                       for i in live))
+    return {d.rid: list(d.tokens) for d in done}, bad
+
+
+def plain_reference(fm, joins) -> tuple[dict, dict]:
+    """The joins through a plain paged engine (spec_k 0), eager, every
+    sampler call recorded (``record_streams``): its streams and its f32
+    logits by (rid, position)."""
+    from repro_torch.core import graphs
+    eng = spec_engine(fm, spec_k=0)
+    logits: dict = {}
+    record_streams(eng, logits)
+    with graphs.disabled():
+        for task, prompt, adapter, rid in joins:
+            eng.join(task, prompt, adapter_id=adapter,
+                     max_new_tokens=MAX_NEW, rid=rid)
+        out = {d.rid: list(d.tokens) for d in eng.drain()}
+    return out, logits
+
+
+def verify_vs_sequential(fm, cfg, seed: int = 61) -> dict:
+    """Teacher-forced: 8 live streams, one 5-token window scored by
+    ``lm.verify_step`` on a copy of the pool against 5 ``decode_step``
+    calls on another copy, fed the sequential walk's own greedy tokens.
+    Logits compared by ``drift`` (bound SPEC_REL_L2, greedy agreement where
+    the sequential step's top-2 gap exceeds twice the largest difference);
+    the lengths must be equal and the int8 codes within one step. On the
+    H100 every dense product, K1 and the verify kernel give each row the
+    bits its sequential step gets; what differs is the rmsnorm's f32
+    reduction over d, whose order changes with the row count (40 rows
+    against 8): a one-ulp difference that a deep random-weight stack
+    amplifies (measured: none through six layers, then 0.12 relative L2
+    of the logits at 24), so the gate runs on a two-layer cut."""
+    import torch
+
+    from repro_torch.models import lm
+    eng = spec_engine(fm)
+    for task, prompt, adapter, rid in spec_joins(cfg, seed):
+        eng.join(task, prompt, adapter_id=adapter, max_new_tokens=MAX_NEW,
+                 rid=rid)
+    eng._ensure_chunk_pages()
+    eng._sync_page_table()
+    full = torch.cat([eng._ptab_dev, eng._ptab_spec], dim=1)
+    aidx = torch.as_tensor(eng._slot_adapters, device=fm.device)
+    stack = fm.adapters.stacked()
+    T = SPEC_K + 1
+
+    def clone(extra):
+        out = []
+        for sub in eng.pool:
+            d = {k: v.clone() for k, v in sub.items() if k != "page_table"}
+            d["page_table"] = full.expand(d["k"].shape[0], -1, -1)
+            if extra:
+                shape = d["k_max"].shape[:2] + (T, d["k_max"].shape[2])
+                d["k_cmax"] = torch.empty(shape, device=fm.device)
+                d["v_cmax"] = torch.empty(shape, device=fm.device)
+            out.append(d)
+        return out
+    seq, toks, want = clone(False), [eng._tokens.clone()], []
+    for j in range(T):
+        logits, seq = lm.decode_step(fm.params, cfg, tokens=toks[-1],
+                                     cache=seq, lora=stack, adapter_idx=aidx,
+                                     lora_impl="segmented",
+                                     lora_seg=eng._seg(
+                                         "segmented", *eng._segments(
+                                             fm.adapters.capacity())))
+        want.append(logits.float())
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    wide = clone(True)
+    meta = eng._spec_segments(fm.adapters.capacity())
+    got, wide = lm.verify_step(fm.params, cfg,
+                               tokens=torch.stack(toks[:T], dim=1),
+                               cache=wide, lora=stack, adapter_idx=aidx,
+                               lora_impl="segmented",
+                               lora_seg=eng._seg("segmented", *meta))
+    torch.cuda.synchronize()
+    r = drift(got.float().transpose(0, 1).reshape(-1, got.shape[-1]).cpu(),
+              torch.stack(want).reshape(-1, got.shape[-1]).cpu())
+    r["len_equal"] = all(torch.equal(a["len"], b["len"])
+                         for a, b in zip(wide, seq))
+    r["code_max_diff"] = max(
+        int((a[c].int() - b[c].int()).abs().max()) for a, b in zip(wide, seq)
+        for c in ("k", "v"))
+    r["ok"] = bool(r["finite"] and r["rel_l2"] <= SPEC_REL_L2
+                   and r["argmax_agree"] and r["len_equal"]
+                   and r["code_max_diff"] <= 1)
+    for i in range(SLOTS):
+        eng.leave(i)
+    return r
+
+
+def spec_serving(fm, cfg, name: str, joins: list) -> dict:
+    """One model's speculative run (module docstring): warm, the joins
+    through the spec engine graphed with the rollback invariant after
+    every chunk, keys before and after, no leak, the eager replay of the
+    recorded calls, and the streams against the plain engine's (equal, or
+    the first mismatch with the plain run's top-2 margin there)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.metrics import speculation_stats
+    want, logits = plain_reference(fm, joins)
+    _release()
+    eng = spec_engine(fm)
+    rec = record_calls(eng, fm)
+    mem0 = torch.cuda.memory_reserved()
+    spec_warm(eng, cfg)
+    mem1 = torch.cuda.memory_reserved()
+    keys0 = eng.compile_count()
+    base = {k: getattr(eng, k) for k in ("draft_proposed", "draft_accepted",
+                                        "spec_dispatches", "spec_commits",
+                                        "spec_fallbacks", "steps")}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got, bad_len = spec_run(eng, joins)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    st = {"card": smi_line(), "wall_s": wall,
+          "tokens": sum(len(v) for v in got.values()),
+          "len_mismatch_chunks": bad_len, "launches": launches,
+          "run": {k: getattr(eng, k) - v for k, v in base.items()},
+          "speculation": speculation_stats(eng),
+          "shape_keys": [keys0, eng.compile_count()],
+          "leak": leaked(eng)}
+    st["tokens_per_s"] = st["tokens"] / wall
+    st["equal_to_plain"] = got == want
+    if got != want:
+        st["first_mismatch"] = first_mismatch(got, want, logits)
+    ok = (bad_len == 0 and not st["leak"] and keys0 == eng.compile_count()
+          and launches.get("paged_verify_attention", 0) > 0
+          and st["run"]["spec_dispatches"] > 0 and eng.quarantines == 0
+          and all(len(v) == MAX_NEW for v in got.values())
+          and set(got) == set(want))
+    keys = graph_keys(eng, fm)
+    replay = replay_eager(rec, fm, eng, dict(
+        num_slots=SLOTS, prompt_len=PROMPT_LEN, max_new=MAX_NEW,
+        chunk=CHUNK, **SPEC_KW))
+    st["graphs"] = {"memory_reserved_mb": [m / 2**20 for m in (mem0, mem1)],
+                    "uncaptured": keys["uncaptured"],
+                    "spec_keys": {k: v for k, v in keys["keys"].items()
+                                  if "spec" in k},
+                    "eager_replay": replay}
+    ok &= not keys["uncaptured"] and replay["ok"]
+    st["ok"] = bool(ok)
+    log(f"speculative {name}: " + json.dumps(st, default=float)[:6000])
+    return st
+
+
+def spec_loop(srv, cfg, loop) -> dict:
+    """The speculative engine behind the serve loop (``FMplexServer`` /
+    ``ServeLoop.run``, the user's entry point): ``ServeLoop.warmup`` (it
+    warms both decode ladders on a speculative engine), then a burst of 8
+    pooled requests and 12 generative streams (prompts 16-96 tokens, 32
+    new tokens) arriving within ~0.5 s. Every request finishes ok with its
+    budget, no key is added, no page leaks, the verify kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.request import Request
+    from repro_torch.kernels import ops
+    loop.warmup(pooled_task="task0", gen_task="task1", pooled_n=1)
+    eng = srv.engines["fm0"]
+    keys0 = eng.compile_count()
+    rng = np.random.RandomState(17)
+    trace = [Request(f"task{i % N_TASKS}", 0.05 * i,
+                     payload=rng.randn(PROMPT_LEN, cfg.d_model).astype(
+                         np.float32)) for i in range(8)]
+    trace += [Request(task, 0.04 * i, payload=p, tokens=float(len(p) + MAX_NEW),
+                      max_new_tokens=MAX_NEW)
+              for i, (task, p, _, _) in enumerate(spec_joins(cfg, 3, n=12))]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loop.run(trace, max_wall=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    gen = [r for r in trace if r.max_new_tokens > 0]
+    bad = [r for r in trace if not r.ok or r.result is None]
+    short = [r for r in gen if r.result is None or len(r.result) != MAX_NEW]
+    st = {"wall_s": wall, "requests": len(trace), "launches": launches,
+          "tokens": sum(len(r.result) for r in gen if r.result is not None),
+          "shape_keys": [keys0, eng.compile_count()], "leak": leaked(eng),
+          "spec_dispatches": eng.spec_dispatches,
+          "spec_keys_warm": sorted(str(k) for k in eng._fn_decode
+                                   if k[0] == "spec")}
+    st["ok"] = bool(not bad and not short and not st["leak"]
+                    and keys0 == eng.compile_count()
+                    and launches.get("paged_verify_attention", 0) > 0
+                    and len(st["spec_keys_warm"]) == len(eng.chunk_ladder()))
+    log("speculative serve loop: " + json.dumps(st, default=float))
+    return st
+
+
+def phase_speculative(dev):
+    """Self-speculative decoding at full width on stablelm-1.6b (24
+    layers; the serving phases' 4 tasks with rank-16 q/v adapters; 8
+    slots, pages of 16, chunk 4, spec_k 4, greedy): the verify window
+    teacher-forced against sequential decode steps on the same cache (a
+    two-layer full-width cut gated, the 24 layers reported); then
+    on random weights (zero accepts: every step commits one token) and on
+    the copy-inclined model (every attention out-projection zeroed, as the
+    JAX package's ``bench_speculative.py`` does: accepts fire), 8 streams
+    of 32 tokens each through the speculative engine, graphed, with every
+    dispatch speculative (``spec_disable_below`` 1.0), and on random
+    weights behind the serve loop (``spec_loop``). Gates: the verify
+    logits within SPEC_REL_L2 of the sequential ones; the device length
+    equal to the host's committed length after every chunk; accepts on the
+    copy-inclined run; no page leak; no key added after the warm-ups; the
+    graphed run equal to its eager replay; the verify kernel launched.
+    Token equality with the plain engine is reported (the first mismatch
+    with the plain run's top-2 margin), not gated: the verify forward runs
+    its dense products over 40 rows, a plain step over 8."""
+    from repro_torch.core.physical import PhysicalFM
+    t0 = time.perf_counter()
+    stats = {"card": smi_line()}
+    # the teacher-forced window, gated on the two-layer cut (the reference
+    # phases' cut: deeper random stacks amplify a one-ulp difference)
+    cfg2 = full_config(num_layers=2)
+    fm2 = PhysicalFM(cfg2, seed=3, lora_rank=RANK, input_len=PROMPT_LEN,
+                     lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
+    for i in range(N_TASKS):
+        fm2.adapters.add(f"lora{i}", random_adapter(fm2.adapters, i, dev))
+    stats["verify_vs_sequential"] = verify_vs_sequential(fm2, cfg2)
+    log("speculative verify vs sequential steps, 2 layers: "
+        + json.dumps(stats["verify_vs_sequential"], default=float))
+    del fm2
+    _release()
+    srv, cfg, fm, loop = build_server(dev, **SPEC_KW)
+    # the same at full depth: a figure, not a gate
+    full = stats["verify_vs_sequential_24_layers"] = verify_vs_sequential(
+        fm, cfg)
+    full.pop("ok")
+    log("speculative verify vs sequential steps, 24 layers (not gated): "
+        + json.dumps(full, default=float))
+    _release()
+    stats["random"] = spec_serving(fm, cfg, "random weights",
+                                   spec_joins(cfg, 1))
+    _release()
+    stats["loop"] = spec_loop(srv, cfg, loop)
+    srv.engines.pop("fm0")
+    _release()
+    for sub in fm.params["layers"]:          # the copy-inclined model
+        sub["attn"]["wo"].zero_()
+    stats["copy_inclined"] = spec_serving(fm, cfg, "copy-inclined",
+                                          echo_joins(fm, cfg, 2))
+    _release()
+    # launches of the three served runs, each counted from 0 just before it
+    launches: dict = {}
+    for run in ("random", "loop", "copy_inclined"):
+        for k, v in stats[run]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    stats["launches"] = launches
+    stats["wall_s"] = time.perf_counter() - t0
+    ok = stats["verify_vs_sequential"]["ok"] and stats["random"]["ok"] \
+        and stats["loop"]["ok"] and stats["copy_inclined"]["ok"]
+    ok &= stats["copy_inclined"]["run"]["draft_accepted"] > 0
+    ok &= all(launches.get(k, 0) > 0 for k in (
+        "paged_verify_attention", "segmented_lora", "flash_attention"))
+    log(f"speculative: ok {ok}, launches {launches}, "
+        f"{stats['wall_s']:.1f} s")
+    del srv, fm
+    _release()
+    return ok, stats
+
+
+def verify_timing(dev, gen, nsets: int = 24) -> dict:
+    """The verify kernel's device time per call at the speculative
+    serving shape (8 streams, T 5, H = KV = 32, hd 64, a table of 13 pages
+    of 16, ragged base lengths), over ``nsets`` arenas (one per layer, so
+    each call finds its pages cold); its plain version's; T unrolled K4
+    calls at the successive lengths (the JAX Pallas path); one
+    ``scaled_dot_product_attention`` call on the pages already gathered
+    and dequantized to bf16 with the per-position mask (never called by the
+    port; the gather not timed); the bound counted on this data."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    T, H, KV, hd, MP = SPEC_K + 1, 32, 32, 64, 13
+    rng = torch.Generator().manual_seed(5)
+    sets = []
+    for _ in range(nsets):
+        base = torch.randint(0, MP * PAGE_SIZE - T, (SLOTS,), generator=rng)
+        sets.append(verify_inputs(gen, SLOTS, H, KV, hd, T, MP,
+                                  base.tolist(), dev))
+
+    def rotating(fn, items):
+        it = [0]
+
+        def call():
+            fn(*items[it[0] % len(items)])
+            it[0] += 1
+        return call
+    k_ms = device_ms(rotating(lambda *a: ops.paged_verify_attention(*a),
+                              sets))
+    p_ms = device_ms(rotating(lambda q, kp, vp, ks, vs, pt, b:
+                              ref.paged_verify_attention_ref(
+                                  q, kp.transpose(1, 2), vp.transpose(1, 2),
+                                  ks, vs, pt, b), sets))
+    # the JAX Pallas path: T single-token calls, each at its own length
+    unrolled = [([q[:, j].contiguous() for j in range(T)], kp, vp, ks, vs,
+                 pt, [(b + j + 1).to(torch.int32) for j in range(T)])
+                for q, kp, vp, ks, vs, pt, b in sets]
+    u_ms = device_ms(rotating(lambda qs, kp, vp, ks, vs, pt, ls: [
+        ops.paged_decode_attention(qj, kp, vp, ks, vs, pt, lj)
+        for qj, lj in zip(qs, ls)], unrolled))
+    S = MP * PAGE_SIZE
+    lib_sets = []
+    for q, kp, vp, ks, vs, pt, b in sets:
+        def gathered(pages, sc):
+            g = pages[pt.long()].float() * sc[pt.long()][:, :, None, :, None]
+            return g.permute(0, 3, 1, 2, 4).reshape(
+                SLOTS, KV, S, hd).to(torch.bfloat16)
+        lens = b[:, None] + 1 + torch.arange(T, device=dev)[None]
+        mask = (torch.arange(S, device=dev)[None, None]
+                < lens[..., None])[:, None]                 # (B, 1, T, S)
+        lib_sets.append((q.transpose(1, 2).contiguous(), gathered(kp, ks),
+                         gathered(vp, vs), mask))
+    lib_ms = device_ms(rotating(
+        lambda q, k, v, m: F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=m),
+        lib_sets))
+    b_ms, b_by = verify_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6])
+    log(f"paged_verify_attention [B={SLOTS} T={T} H={H} MP={MP}]: "
+        f"{k_ms * 1e3:.2f} us (T unrolled K4 {u_ms * 1e3:.2f}, SDPA "
+        f"{lib_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f})")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, unrolled_k4_ms=u_ms,
+                enqueue_ms=time_ms(rotating(
+                    lambda *a: ops.paged_verify_attention(*a), sets)))
+
+
+def spec_step_timing(dev, fm) -> dict:
+    """One full-width speculative step (chunk 1: draft, one verify forward
+    of 8 x 5 rows, acceptance, rollback) with 8 live streams of 64-token
+    prompts on ``fm`` (random weights, the 4 tasks' adapters), and the
+    plain step of the same engine on the same streams: launches per step,
+    ms by CUDA events and the profile both ways (``profile_both``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    cfg = fm.cfg
+    eng = spec_engine(fm)
+    rng = np.random.RandomState(83)
+    for i in range(SLOTS):
+        eng.join(f"task{i % N_TASKS}", rng.randint(0, cfg.vocab_size, 64),
+                 adapter_id=f"lora{i % N_TASKS}", max_new_tokens=MAX_NEW,
+                 rid=-7000 - i)
+    eng._ensure_chunk_pages()
+    eng._sync_page_table()
+    cap = fm.adapters.capacity()
+    adapters = torch.as_tensor(eng._slot_adapters, device=dev)
+    hist, hlen = eng._spec_history()
+    spec = eng._spec_decode_fn(cap, 1)
+    plain = eng._decode_fn(cap, 1)
+    smeta, pmeta = eng._spec_segments(cap), eng._segments(cap)
+
+    def run_spec():
+        spec(fm.params, eng.pool, eng._tokens, eng._keys, hist, hlen,
+             [eng._ptab_dev, eng._ptab_spec], fm.adapters.stacked(),
+             adapters, *smeta)
+
+    def run_plain():
+        plain(fm.params, eng.pool, eng._tokens, eng._keys,
+              fm.adapters.stacked(), adapters, *pmeta)
+    out = {}
+    for name, fn in (("verify_step", run_spec), ("plain_step", run_plain)):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        out[f"launches_per_{name}"] = {k: int(v) for k, v in
+                                       ops.LAUNCHES.items() if v}
+        prof = out[f"{name}_profile"] = profile_both(fn)
+        out[f"{name}_ms"] = {w: prof[w]["event_ms"]
+                             for w in ("eager", "graphed")}
+    out["verify_over_plain_graphed"] = out["verify_step_ms"]["graphed"] / \
+        out["plain_step_ms"]["graphed"]
+    for i in range(SLOTS):
+        eng.leave(i)
+    if leaked(eng):
+        raise RuntimeError("speculative step timing leaked pages")
+    del eng
+    _release()
     return out
 
 
@@ -3199,7 +3846,8 @@ def main() -> int:
     spills = {n: spill_stores(n) for n in ("decode_attention",
                                            "segmented_lora",
                                            "decode_attention_int8",
-                                           "paged_decode_attention")}
+                                           "paged_decode_attention",
+                                           "paged_verify_attention")}
     log(f"  ptxas spill stores (bytes): {json.dumps(spills)}")
     phases["no_spills"] = not any(spills.values())
     try:
@@ -3233,9 +3881,13 @@ def main() -> int:
     phases["moment_serving"] = ok_m
     ok_d, dstats = phase_durability(dev)
     phases["durability"] = ok_d
+    ok_sp, spstats = phase_speculative(dev)
+    phases["speculative"] = ok_sp
     k1, k2, k3, k4, k5, extra = phase_timing(dev, handles, paged_handles,
                                              chunked_handles, whisper_handles,
                                              moment_handles)
+    kv = verify_timing(dev, torch.Generator(device=dev).manual_seed(9))
+    extra["speculative_step"] = spec_step_timing(dev, paged_handles[1])
     log("timing: " + json.dumps(extra, default=float))
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
@@ -3244,10 +3896,10 @@ def main() -> int:
     # durability phase (K1, K2, K4, K5), each counted from 0 just before it
     launches = {k: sum(st["launches"].get(k, 0)
                        for st in (stats, pstats, cstats, wstats, mstats,
-                                  dstats))
+                                  dstats, spstats))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
-                          "decode_attention")}
+                          "paged_verify_attention", "decode_attention")}
     kernels = [
         {"name": "segmented_lora", "route": "cuda",
          "source": "src/repro_torch/csrc/segmented_lora.cu",
@@ -3270,6 +3922,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_decode_attention.py:122",
          "launches": launches["paged_decode_attention"],
          "max_abs_err": max(errs["paged_decode_attention"].values()), **k4},
+        {"name": "paged_verify_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_verify_attention.cu",
+         "replaces": "src/repro/kernels/paged_decode_attention.py:122",
+         "launches": launches["paged_verify_attention"],
+         "max_abs_err": max(errs["paged_verify_attention"].values()),
+         **{k: kv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:96",

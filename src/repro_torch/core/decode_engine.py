@@ -146,8 +146,26 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     in ``digest_failures`` and its streams recompute from their host-side
     tokens.
 
-Speculative decoding comes with a later slice and raises
-``NotImplementedError`` here.
+  * **self-speculative decoding** (paged, ``spec_k > 0``) — each step of
+    a speculative chunk drafts up to ``spec_k`` tokens per slot from the
+    slot's own history (the latest earlier occurrence of its current
+    bigram: prompt lookup, no draft model), scores the ``spec_k + 1``
+    window positions in ONE ``lm.verify_step`` forward through the paged
+    pool (the verify-window kernel walks each stream's pages once for all
+    positions), accepts the longest draft prefix the backbone itself emits
+    and commits it plus one corrected token. Rollback is a length and
+    tracker reset (``len``, ``k_max``/``v_max`` from the per-position
+    running-max stacks): the rejected positions' codes sit past the
+    committed length in decode-private pages and are overwritten later, so
+    no page is freed. An exponential moving average of the committed tokens
+    per slot-step demotes to plain dispatches below ``spec_disable_below``
+    and re-probes with single-step speculative chunks whose interval backs
+    off while they accept nothing. The plain planes see the page table at
+    the width of a ``spec_k = 0`` engine: the device table is one storage
+    whose first block is the plain-width table every plain executable
+    bakes, followed by the headroom columns the speculative chunk joins
+    back on. Each step's draft sentinel (one past the vocabulary) is
+    clamped before the embedding gather.
 """
 from __future__ import annotations
 
@@ -278,9 +296,6 @@ class DecodeEngine:
         if cfg.vocab_size <= 0 or cfg.is_representation:
             raise ValueError("DecodeEngine serves generative decoder LMs "
                              "(vocab head required)")
-        if spec_k > 0:
-            raise NotImplementedError("spec_k > 0: speculative decoding (P11) "
-                                      "comes with a later slice of the port")
         # per-sublayer cache plan: which sublayers page into the int8 arena,
         # which carry fixed-size per-slot state (the cross-attention K/V of
         # an encoder-decoder stack), and which serving planes the stack
@@ -313,10 +328,29 @@ class DecodeEngine:
         self._keys = [torch.Generator(device=self.device).manual_seed(
             sample_seed * 1_000_003 + i) for i in range(self.num_slots)]
         self.s_max = self.prompt_len + max_new + 1
+        self.spec_k = int(spec_k)
+        if self.spec_k > 0 and not self.plan.speculative_ok and \
+                (self.plan.has_recurrent or self.plan.has_encoder):
+            warnings.warn(
+                "spec_k > 0 demoted to plain decode: speculative rollback is "
+                "a length/tracker reset on paged attention KV only, and the "
+                "verify forward has no encoder-decoder mode", RuntimeWarning,
+                stacklevel=2)
+            self.spec_k = 0
+        if self.spec_k > 0 and not paged:
+            raise ValueError("speculative decoding (spec_k > 0) requires "
+                             "paged=True: its rollback relies on "
+                             "decode-private pages past the committed length")
+        # a speculative chunk can run the device length up to one chunk of
+        # (k + 1)-token steps past a slot's nominal maximum before the host
+        # truncates, so the table (and the arena sized from it) covers it
+        spec_room = self.chunk * (self.spec_k + 1) if self.spec_k > 0 else 0
         self.paged = paged
         if paged:
             self.page_size = page_size
-            self.pages_per_slot = -(-self.s_max // page_size)
+            self.pages_per_slot = -(-(self.s_max + spec_room) // page_size)
+            # the width every plain plane's table has: a spec_k = 0 engine's
+            self._plain_pages = -(-self.s_max // page_size)
             if total_pages is None:        # dense-equivalent memory + trash
                 total_pages = 1 + self.num_slots * self.pages_per_slot
             if total_pages < 2:
@@ -328,19 +362,29 @@ class DecodeEngine:
             self._ptab = np.zeros((self.num_slots, self.pages_per_slot),
                                   np.int32)
             if _adopt is not None:
-                self.pool, self._ptab_dev = _adopt.pool, _adopt._ptab_dev
+                self.pool = _adopt.pool
+                self._ptab_store, self._ptab_dev, self._ptab_spec = \
+                    _adopt._ptab_store, _adopt._ptab_dev, _adopt._ptab_spec
             else:
-                self.pool = lm.init_cache(cfg, self.num_slots, self.s_max,
+                self.pool = lm.init_cache(cfg, self.num_slots,
+                                          self.s_max + spec_room,
                                           kv_quant=True, paged=True,
                                           page_size=page_size,
                                           num_pages=total_pages,
                                           enc_len=self.enc_len or None,
                                           device=self.device)
                 # the one device page table, rewritten in place by every
-                # sync: each attention sublayer's leaf is a broadcast view
-                self._ptab_dev = torch.zeros(self._ptab.shape,
-                                             dtype=torch.int32,
-                                             device=self.device)
+                # sync: one storage holding the plain-width table (every
+                # attention sublayer's leaf is a broadcast view of it, so
+                # every plain plane computes what a spec_k = 0 engine
+                # computes) and behind it the speculative headroom columns
+                n, w = self.num_slots, self._plain_pages
+                self._ptab_store = torch.zeros(
+                    (n * self.pages_per_slot,), dtype=torch.int32,
+                    device=self.device)
+                self._ptab_dev = self._ptab_store[:n * w].view(n, w)
+                self._ptab_spec = self._ptab_store[n * w:].view(
+                    n, self.pages_per_slot - w)
                 for sub in self.pool:
                     if "page_table" in sub:
                         sub["page_table"] = self._ptab_dev.expand(
@@ -448,6 +492,28 @@ class DecodeEngine:
         self._step_ema = 0.0
         self.deadline_clamps = 0
         self._decode_charges: collections.Counter = collections.Counter()
+        # self-speculative decode plane (module docstring); spec_k parses
+        # above, before the arena sizing it feeds
+        self.spec_force_fill = bool(spec_force_fill)
+        self.spec_disable_below = float(spec_disable_below)
+        self.spec_probe_every = max(1, int(spec_probe_every))
+        # the drafter's history: prompt + generated tokens never exceed
+        # s_max, plus one dispatch's in-flight growth; one trash column
+        # behind it takes the uncommitted positions' writes
+        self._spec_hist_len = self.s_max + self.chunk * (self.spec_k + 1)
+        self._spec_seg_key = None    # composition signature (spec metadata)
+        self._spec_seg_dev = None
+        self._spec_accept_ema = 0.0  # committed tokens per slot-step (EMA)
+        self._spec_cool = 0          # plain dispatches since the last probe
+        # re-probe interval: doubles after a dry probe, up to 16x the base
+        self._spec_probe_interval = self.spec_probe_every
+        self._spec_probe = False     # the current spec dispatch is a probe
+        self._spec_task_stats: dict = {}   # task -> [proposed, accepted]
+        self.draft_proposed = 0      # draft tokens sent to verification
+        self.draft_accepted = 0      # draft tokens committed
+        self.spec_dispatches = 0     # chunk dispatches through the spec fn
+        self.spec_commits = 0        # tokens committed by spec dispatches
+        self.spec_fallbacks = 0      # dispatches demoted to the plain fn
 
     # ---- occupancy ----
     def free_slots(self) -> list[int]:
@@ -466,13 +532,13 @@ class DecodeEngine:
         return [p.task_id for p in self.pending]
 
     def compile_count(self) -> int:
-        """Executables of prefill (full and tail), decode, pool writes, the
-        scale refresh and the spill tier's gather and write-backs, one per
-        shape key (each captured as a CUDA graph
-        at its second call); steady state across join/leave churn, sharer
-        joins of any tail length, page allocation, deferral, preemption,
-        scale refresh and adapter churn within capacity must not grow
-        this."""
+        """Executables of prefill (full and tail), decode (plain and
+        speculative), pool writes, the scale refresh and the spill tier's
+        gather and write-backs, one per shape key (each captured as a CUDA
+        graph at its second call); steady state across join/leave churn,
+        sharer joins of any tail length, page allocation, deferral,
+        preemption, scale refresh, accept-rate swings and adapter churn
+        within capacity must not grow this."""
         return (len(self._fn_prefill) + len(self._fn_decode)
                 + len(self._fn_write)
                 + sum(f is not None for f in (
@@ -499,8 +565,11 @@ class DecodeEngine:
 
     def _headroom_tokens(self) -> int:
         """Decode headroom the allocator provisions per live stream per
-        chunk (one chunk of tokens)."""
-        return self.chunk
+        chunk: ``chunk`` tokens, or ``chunk * (spec_k + 1)`` on a
+        speculative engine (each step may commit up to ``k + 1``). Static
+        on ``spec_k``, never on the adaptive spec/plain state: the mode can
+        flip between chunks and the provisioning must hold either way."""
+        return self.chunk * (self.spec_k + 1 if self.spec_k > 0 else 1)
 
     def shared_page_count(self) -> int:
         """Physical pages currently mapped by more than one stream."""
@@ -702,16 +771,20 @@ class DecodeEngine:
     def _sync_page_table(self):
         """Push the host page table into the one persistent device table
         (every attention layer reads it through a broadcast view, and every
-        captured executable reads it where it lies: it never moves). The
+        captured executable reads it where it lies: it never moves), laid
+        out as the plain-width table, then the speculative headroom columns
+        (``_ptab_dev``, ``_ptab_spec``: views of one storage). The
         copy goes through a fresh pinned buffer that the host never touches
         again, so the asynchronous upload cannot race the allocator's next
         mutation of ``_ptab``."""
         if not self._ptab_dirty:
             return
-        host = torch.from_numpy(self._ptab.copy())
+        w = self._plain_pages
+        host = torch.from_numpy(np.concatenate([self._ptab[:, :w].ravel(),
+                                                self._ptab[:, w:].ravel()]))
         if self.device.type == "cuda":
             host = host.pin_memory()
-        self._ptab_dev.copy_(host, non_blocking=True)
+        self._ptab_store.copy_(host, non_blocking=True)
         self._ptab_dirty = False
 
     # ---- host-RAM spill tier (paged layout) ----
@@ -1290,6 +1363,192 @@ class DecodeEngine:
             self._fn_decode[key] = self._executable(run, (0, 1, 4), True)
         return self._fn_decode[key]
 
+    def _spec_decode_fn(self, cap: int, chunk: int):
+        """``chunk`` draft -> verify -> accept steps over every slot (module
+        docstring), unrolled as in ``_decode_fn``; keyed ``("spec", slots,
+        cap, chunk, k)`` among the decode executables. Each step drafts up to
+        ``spec_k`` tokens per slot from the slot's history, scores the
+        ``k + 1`` window positions in one ``lm.verify_step``, samples every
+        position, accepts the longest matching draft prefix (``m = 1 +
+        sum(cumprod(match))`` tokens committed), rolls ``len`` and the drift
+        trackers back to the commit point, and appends the committed tokens
+        to the history, so later steps draft from them. Returns (pool, last
+        tokens, generators, candidates (slots, chunk, k + 1), commits
+        (slots, chunk), proposals (slots, chunk), drift flags, finite
+        flags); a slot commits ``candidates[:, s, :commits[:, s]]`` at step
+        s. ``hist`` (slots, H + 1) and ``hlen`` (slots,) are staged; column
+        H is the trash column of the uncommitted positions' writes."""
+        k = self.spec_k
+        key = ("spec", self.num_slots, cap, chunk, k)
+        if key not in self._fn_decode:
+            cfg, sample = self.cfg, self._sample
+            impl = self._impl(self.num_slots, cap)
+            nslots, dev = self.num_slots, self.device
+            refresh_thr = self.scale_refresh * 127.0 \
+                if self.scale_refresh > 0 else None
+            T = k + 1
+            # the draft sentinel: one past the vocabulary. No sampled token
+            # can equal it, so a filled position never matches and the step
+            # commits exactly one token, the plain step's; it is clamped to
+            # a valid row before the embedding gather (garbage compute where
+            # JAX clips in its gather; an unclamped CUDA gather would fault)
+            FILL = cfg.vocab_size
+            force_fill = self.spec_force_fill
+            H = self._spec_hist_len
+
+            def draft_fn(tok, hist, hlen, ar_h, ar_k):
+                """The latest earlier occurrence of the slot's current bigram
+                (prev, tok) in its history, and the k tokens that followed
+                it: (drafts (slots, k), proposals (slots,))."""
+                if force_fill:
+                    return (torch.full((nslots, k), FILL, dtype=torch.int32,
+                                       device=dev),
+                            torch.zeros((nslots,), dtype=torch.int32,
+                                        device=dev))
+                hv = hist[:, :H]
+                prev = hv.gather(1, torch.clamp(hlen - 2, min=0)[:, None].long())
+                mt = (hv[:, :-1] == prev) & (hv[:, 1:] == tok[:, None]) \
+                    & (ar_h[None, :H - 1] + 1 < (hlen - 1)[:, None])
+                has = mt.any(dim=1)
+                jbest = (H - 2) - torch.argmax(
+                    mt.flip(1).to(torch.int32), dim=1)
+                src = jbest[:, None] + 2 + ar_k[None]
+                cand = hv.gather(1, torch.clamp(src, max=H - 1))
+                valid = has[:, None] & (src < hlen[:, None])
+                draft = torch.where(valid, cand, torch.full_like(cand, FILL))
+                return draft.to(torch.int32), valid.sum(dim=1).to(torch.int32)
+
+            def run(params, pool, tokens, gens, hist, hlen, ptab, lora_stack,
+                    adapter_idx, perm, inv, blocks):
+                seg = self._seg(impl, perm, inv, blocks)
+                ar_t = torch.arange(T, device=dev)
+                ar_h = torch.arange(H + 1, device=dev)
+                bidx = torch.arange(nslots, device=dev)
+                # the verify forward's pool: the full-width table (the
+                # plain-width block and the headroom columns joined once)
+                # and the per-position running-max stacks it fills
+                full = torch.cat(ptab, dim=1)
+                wide = []
+                for sub in pool:
+                    nper, kv = sub["k_max"].shape[0], sub["k_max"].shape[2]
+                    wide.append(dict(
+                        sub, page_table=full.expand(nper, -1, -1),
+                        k_cmax=torch.empty((nper, nslots, T, kv), device=dev),
+                        v_cmax=torch.empty((nper, nslots, T, kv), device=dev)))
+                fin = torch.ones((nslots,), dtype=torch.bool, device=dev)
+                tok = tokens
+                gs, ms, ps = [], [], []
+                for _ in range(chunk):
+                    draft, nprop = draft_fn(tok, hist, hlen, ar_h, ar_t[:k])
+                    seq = torch.cat([tok[:, None], draft], dim=1)
+                    logits, _ = lm.verify_step(
+                        params, cfg, tokens=torch.clamp(seq, max=FILL - 1),
+                        cache=wide, lora=lora_stack, adapter_idx=adapter_idx,
+                        lora_impl=impl, lora_seg=seg)
+                    # every window position sampled, each row's generator
+                    # once per position in window order (greedy draws none)
+                    cols = []
+                    for j in range(T):
+                        t_j, gens = sample(logits[:, j], gens)
+                        cols.append(t_j)
+                    g = torch.stack(cols, dim=1)                   # (B, T)
+                    match = (draft == g[:, :k]).to(torch.int32)
+                    m = 1 + torch.cumprod(match, dim=1).sum(dim=1)
+                    tok = g.gather(1, (m - 1)[:, None].long())[:, 0]
+                    # quarantine on committed positions only: the rejected
+                    # tail conditions on wrong tokens and is discarded
+                    fin = fin & (lm.finite_logits(logits)
+                                 | (ar_t[None] >= m[:, None])).all(dim=1)
+                    # rollback: len and the drift maxima back to the commit
+                    # point's running values (the codes past it stay, to be
+                    # overwritten)
+                    sel = (m - 1).long()
+                    for sub in wide:
+                        sub["k_max"].copy_(sub["k_cmax"][:, bidx, sel])
+                        sub["v_max"].copy_(sub["v_cmax"][:, bidx, sel])
+                        sub["len"].copy_((sub["len"] - T + m[None]).to(
+                            sub["len"].dtype))
+                    # committed tokens join the history; the rest of the
+                    # window writes the trash column
+                    wpos = hlen[:, None] + ar_t[None]
+                    wpos = torch.where((ar_t[None] < m[:, None]) & (wpos < H),
+                                       wpos, torch.full_like(wpos, H))
+                    hist.scatter_(1, wpos.long(), g.to(hist.dtype))
+                    hlen = hlen + m.to(hlen.dtype)
+                    gs.append(g)
+                    ms.append(m.to(torch.int32))
+                    ps.append(nprop)
+                drift = torch.zeros((nslots,), dtype=torch.bool, device=dev)
+                if refresh_thr is not None:
+                    for sub in pool:
+                        o = (sub["k_max"] > refresh_thr * torch.clamp(
+                            sub["slot_k_scale"], min=1e-8)) | \
+                            (sub["v_max"] > refresh_thr * torch.clamp(
+                                sub["slot_v_scale"], min=1e-8))
+                        drift = drift | o.any(dim=2).any(dim=0)
+                return (pool, tok, gens, torch.stack(gs, dim=1),
+                        torch.stack(ms, dim=1), torch.stack(ps, dim=1),
+                        drift, fin)
+
+            self._fn_decode[key] = self._executable(run, (0, 1, 6, 7), True)
+        return self._fn_decode[key]
+
+    def _spec_history(self):
+        """The drafter's per-slot (history, length) from the host: prompt +
+        generated tokens, right-padded to ``_spec_hist_len`` plus the trash
+        column; position ``hlen - 1`` holds the pending token. Built per
+        dispatch and staged into the executable: the device copy changes
+        inside the chunk and is discarded (the host state stays the one
+        source of truth across preemption and spill)."""
+        H = self._spec_hist_len
+        hist = np.zeros((self.num_slots, H + 1), np.int32)
+        hlen = np.zeros((self.num_slots,), np.int32)
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            seq = np.concatenate([
+                np.asarray(s.prompt if s.prompt is not None else [],
+                           np.int64).reshape(-1),
+                np.asarray(s.tokens, np.int64).reshape(-1)]).astype(
+                    np.int32)[-H:]
+            hist[i, :len(seq)] = seq
+            hlen[i] = len(seq)
+        return (torch.as_tensor(hist, device=self.device),
+                torch.as_tensor(hlen, device=self.device))
+
+    def _spec_dispatch_now(self) -> bool:
+        """Adaptive spec/plain demotion: speculate while the accept EMA
+        clears ``spec_disable_below`` committed tokens per slot-step (or has
+        no reading yet); below it, dispatch the plain executable (counted in
+        ``spec_fallbacks``) and re-probe speculatively after
+        ``_spec_probe_interval`` plain dispatches. A probe is a one-step
+        chunk (the chunk-1 key is in the warmed ladder), and each dry probe
+        doubles the interval, up to 16x ``spec_probe_every``, so a workload
+        that never accepts pays a vanishing probe tax and one that turns
+        self-similar again is found within a bounded number of dispatches.
+        Both executables are warmed: flipping adds no key."""
+        self._spec_probe = False
+        if self.spec_k <= 0 or not self.paged:
+            return False
+        if self._spec_accept_ema == 0.0 \
+                or self._spec_accept_ema >= self.spec_disable_below:
+            self._spec_cool = 0
+            self._spec_probe_interval = self.spec_probe_every
+            return True
+        self._spec_cool += 1
+        if self._spec_cool >= self._spec_probe_interval:
+            self._spec_cool = 0
+            self._spec_probe = True
+            return True
+        self.spec_fallbacks += 1
+        return False
+
+    def spec_task_accept_rates(self) -> dict:
+        """Per task: drafted tokens accepted / proposed (tasks that
+        proposed at least one)."""
+        return {t: a / p for t, (p, a) in self._spec_task_stats.items()
+                if p > 0}
+
     # ---- segment metadata (per composition, not per token) ----
     def _segments(self, cap: int):
         if self._impl(self.num_slots, cap) != "segmented":
@@ -1300,6 +1559,20 @@ class DecodeEngine:
                 *self.fm.segment_meta(self._slot_adapters, cap, 1), self.device)
             self._seg_key = key
         return self._seg_dev
+
+    def _spec_segments(self, cap: int):
+        """Segment metadata of the verify co-batch: the composition of
+        ``_segments`` with ``spec_k + 1`` tokens a slot (the window
+        flattens row-major, as ``segment_meta`` repeats ids), memoized on
+        the composition."""
+        if self._impl(self.num_slots, cap) != "segmented":
+            return None, None, None
+        key = (self._slot_adapters.tobytes(), cap)
+        if key != self._spec_seg_key:
+            self._spec_seg_dev = seg_to_device(*self.fm.segment_meta(
+                self._slot_adapters, cap, self.spec_k + 1), self.device)
+            self._spec_seg_key = key
+        return self._spec_seg_dev
 
     def _prefill_segments(self, adapter_slot: int, cap: int, plen: int):
         if self._impl(1, cap) != "segmented":
@@ -2073,8 +2346,30 @@ class DecodeEngine:
                     zero_l)
 
     def warm_speculative(self):
-        raise NotImplementedError("speculative decoding (P11) comes with a "
-                                  "later slice of the port")
+        """Dispatch the speculative executable of every ladder chunk length
+        twice against the idle pool (eager, then captured), so spec/plain
+        flips, probes and deadline clamps add no shape key and no capture
+        in steady state. The idle-engine garbage contract of
+        ``warm_decode_ladder``: every history is empty (the drafter proposes
+        nothing), so each step commits one token, into the trash page."""
+        if self.active_count():
+            raise RuntimeError("warm_speculative must run on an idle engine")
+        if self.spec_k <= 0 or not self.paged:
+            return
+        self._sync_page_table()
+        cap = self.fm.adapters.capacity()
+        perm, inv, blocks = self._spec_segments(cap)
+        adapters = torch.as_tensor(self._slot_adapters, device=self.device)
+        hist = torch.zeros((self.num_slots, self._spec_hist_len + 1),
+                           dtype=torch.int32, device=self.device)
+        hlen = torch.zeros((self.num_slots,), dtype=torch.int32,
+                           device=self.device)
+        for c in self.chunk_ladder():
+            for _ in range(2):
+                self.pool, self._tokens, *_ = self._spec_decode_fn(cap, c)(
+                    self.fm.params, self.pool, self._tokens, self._keys,
+                    hist, hlen, [self._ptab_dev, self._ptab_spec],
+                    self.fm.adapters.stacked(), adapters, perm, inv, blocks)
 
     def warm_spill(self):
         """Run the spill tier's gather and write-backs twice (eager, then
@@ -2128,19 +2423,45 @@ class DecodeEngine:
                 self._sync_page_table()
             eff = self._effective_chunk(live, t0)
             cap = self.fm.adapters.capacity()
+            use_spec = self._spec_dispatch_now()
+            if use_spec and self._spec_probe:
+                eff = 1     # probes are single-step (_spec_dispatch_now)
+            adapters = torch.as_tensor(self._slot_adapters, device=self.device)
             t_disp = time.perf_counter()
-            perm, inv, blocks = self._segments(cap)
-            self.pool, self._tokens, _, out, drift, fin = \
-                self._decode_fn(cap, eff)(
-                    self.fm.params, self.pool, self._tokens, self._keys,
-                    self.fm.adapters.stacked(),
-                    torch.as_tensor(self._slot_adapters, device=self.device),
-                    perm, inv, blocks)
-            # one host sync per chunk: tokens, finite and drift flags
-            host = torch.cat([out, fin[:, None].to(out.dtype),
-                              drift[:, None].to(out.dtype)], dim=1).cpu().numpy()
-            out, fin, drift = host[:, :eff], host[:, eff] != 0, \
-                host[:, eff + 1] != 0
+            if use_spec:
+                perm, inv, blocks = self._spec_segments(cap)
+                hist, hlen = self._spec_history()
+                self.pool, self._tokens, _, out_g, out_m, out_p, drift, fin = \
+                    self._spec_decode_fn(cap, eff)(
+                        self.fm.params, self.pool, self._tokens, self._keys,
+                        hist, hlen, [self._ptab_dev, self._ptab_spec],
+                        self.fm.adapters.stacked(), adapters, perm, inv,
+                        blocks)
+                T = self.spec_k + 1
+                parts = [out_g.reshape(self.num_slots, eff * T), out_m, out_p]
+            else:
+                perm, inv, blocks = self._segments(cap)
+                self.pool, self._tokens, _, out, drift, fin = \
+                    self._decode_fn(cap, eff)(
+                        self.fm.params, self.pool, self._tokens, self._keys,
+                        self.fm.adapters.stacked(), adapters, perm, inv,
+                        blocks)
+                parts = [out]
+            # one host sync per chunk: tokens (speculative: candidates,
+            # commits and proposals), finite and drift flags
+            host = torch.cat([x.to(torch.int32) for x in parts]
+                             + [fin[:, None].to(torch.int32),
+                                drift[:, None].to(torch.int32)],
+                             dim=1).cpu().numpy()
+            fin, drift = host[:, -2] != 0, host[:, -1] != 0
+            if use_spec:
+                out_g = host[:, :eff * T].reshape(self.num_slots, eff, T)
+                out_m = host[:, eff * T:eff * (T + 1)]
+                out_p = host[:, eff * (T + 1):eff * (T + 2)]
+            else:
+                out = host[:, :eff]
+            # per scan step: the deadline clamp reasons in steps either way,
+            # and a speculative step's extra verify cost is what it must learn
             dt = (time.perf_counter() - t_disp) / eff
             self._step_ema = dt if self._step_ema == 0.0 \
                 else 0.5 * self._step_ema + 0.5 * dt
@@ -2148,10 +2469,24 @@ class DecodeEngine:
             if self.paged:
                 for i, s in enumerate(self.slots):
                     if s is not None:
-                        self._lens[i] += eff
+                        self._lens[i] += int(out_m[i].sum()) if use_spec \
+                            else eff
             for i in live:
                 s = self.slots[i]
-                committed = [int(t) for t in out[i]]
+                if use_spec:
+                    committed = [int(t) for st in range(eff)
+                                 for t in out_g[i, st, :out_m[i, st]]]
+                    prop = int(out_p[i].sum())
+                    self.spec_commits += len(committed)
+                    self.draft_proposed += prop
+                    self.draft_accepted += len(committed) - eff
+                    ts = self._spec_task_stats.setdefault(s.task_id, [0, 0])
+                    ts[0] += prop
+                    ts[1] += len(committed) - eff
+                else:
+                    committed = [int(t) for t in out[i]]
+                # fair-share accounting charges the tokens COMMITTED for the
+                # stream (accepted + corrected), not chunk x slots
                 self._decode_charges[(s.task_id, s.rid)] += len(committed)
                 take = min(len(committed), s.max_new - len(s.tokens))
                 for t in committed[:take]:
@@ -2169,6 +2504,20 @@ class DecodeEngine:
                         s.eos_id is not None and s.tokens[-1] == s.eos_id):
                     s.done = True
                     finished.append(i)
+            if use_spec:
+                self.spec_dispatches += 1
+                rate = sum(int(out_m[i].sum()) for i in live) \
+                    / max(eff * len(live), 1)
+                self._spec_accept_ema = rate if self._spec_accept_ema == 0.0 \
+                    else 0.5 * self._spec_accept_ema + 0.5 * rate
+                if self._spec_probe:
+                    # a dry probe (1.0 committed a slot-step: nothing
+                    # accepted) backs off; any accept restores the base
+                    # cadence and lets the EMA drive re-promotion
+                    self._spec_probe_interval = min(
+                        self._spec_probe_interval * 2,
+                        self.spec_probe_every * 16) if rate <= 1.0 \
+                        else self.spec_probe_every
             self._maybe_refresh_scales(drift)
         retired += [self.leave(i) for i in finished]
         self.last_chunk_s = time.perf_counter() - t0
@@ -2190,7 +2539,8 @@ class DecodeEngine:
                  "cancels", "spilled_pages", "restored_pages",
                  "digest_failures", "spill_resumes", "spill_prefix_hits",
                  "deadline_clamps", "tail_tokens_computed",
-                 "prefill_tokens_saved")
+                 "prefill_tokens_saved", "draft_proposed", "draft_accepted",
+                 "spec_dispatches", "spec_commits", "spec_fallbacks")
     _EXECUTABLES = ("_fn_prefill", "_fn_decode", "_fn_write", "_fn_rescale",
                     "_fn_gather", "_fn_page_restore", "_fn_slot_restore")
 
@@ -2209,6 +2559,10 @@ class DecodeEngine:
             "hol_skip_cap": self.hol_skip_cap,
             "deadline_clamp": self.deadline_clamp,
             "chunked_prefill": self.chunked_prefill,
+            "spec_k": self.spec_k,
+            "spec_force_fill": self.spec_force_fill,
+            "spec_disable_below": self.spec_disable_below,
+            "spec_probe_every": self.spec_probe_every,
             "enc_len": self.enc_len,
         }
 

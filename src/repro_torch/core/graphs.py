@@ -55,6 +55,7 @@ executable runs its closure eagerly on every call, without checks.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable
 
@@ -237,7 +238,7 @@ class Executable:
         if any(t.is_cuda for t in staged + baked):
             g = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
-            with torch.cuda.graph(g):
+            with _collector_paused(), torch.cuda.graph(g):
                 out = self.fn(*static_args)
             self.capture_s = time.perf_counter() - t0
             self.launches = _delta(before)
@@ -249,7 +250,8 @@ class Executable:
             _add(self.launches)
         else:
             t0 = time.perf_counter()
-            out = self.fn(*static_args)
+            with _collector_paused():
+                out = self.fn(*static_args)
             self.capture_s = time.perf_counter() - t0
             self.launches = _delta(before)
             self._cuda = False
@@ -278,6 +280,23 @@ class Executable:
                                "between calls")
         _copy_into(mine, new)
         return self._result(args)
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector paused for a capture. A collection
+    that ran inside one would finalize whatever dropped objects happened to
+    be garbage then (an engine's graphs, pinned host buffers, events), and
+    their teardown makes CUDA runtime calls that a global-mode capture
+    forbids: the capture is invalidated and fails at its end. The garbage
+    waits for the first collection after the capture."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _delta(before: dict) -> dict:

@@ -698,6 +698,13 @@ class ServeLoop:
         if eng is not None and eng.active_count() == 0:
             if eng.deadline_clamp:
                 eng.warm_decode_ladder()
+            # the speculative plane flips between the spec and plain
+            # executables adaptively: warm both ladders, so accept-rate
+            # swings add no shape key
+            if eng.spec_k > 0:
+                if not eng.deadline_clamp:
+                    eng.warm_decode_ladder()
+                eng.warm_speculative()
             if eng.spill is not None:
                 eng.warm_spill()
             # chunked shared-prefix admissions key per TAIL bucket: run

@@ -1,10 +1,12 @@
-// One kernel body for the two int8 flash-decode kernels, for Hopper (sm_90a):
-// the dense pool's (decode_attention_int8.cu, K3) and the paged pool's
-// (paged_decode_attention.cu, K4). They differ only in how position s of
-// row b finds its K/V rows and its two scales, which a source policy
-// supplies: Dense reads row b of a (B, KV, S, hd) cache with the (b, h)
-// scales; Paged looks position s up in row b of the page table, reads the
-// arena (P, ps, KV, hd) and takes the (page, h) scales.
+// One kernel body for the int8 flash-decode kernels, for Hopper (sm_90a):
+// the dense pool's (decode_attention_int8.cu, K3), the paged pool's
+// (paged_decode_attention.cu, K4) and the paged pool's speculative verify
+// window (paged_verify_attention.cu: K4 over T window positions). They
+// differ only in how position s of row b finds its K/V rows and its two
+// scales, which a source policy supplies: Dense reads row b of a (B, KV, S,
+// hd) cache with the (b, h) scales; Paged looks position s up in row b of
+// the page table, reads the arena (P, ps, KV, hd) and takes the (page, h)
+// scales; Staged reads codes the verify kernel copied into shared memory.
 //
 // Function (both): for batch row b and kv head h, the G = H / KV query heads
 // of the group attend the int8 keys/values of positions [max(0, len -
@@ -45,6 +47,18 @@
 //   shared memory, and every thread sums a share of them for one output
 //   element; the shares meet by xor-shuffles. A fixed order: the same bits
 //   on every call.
+//
+// The verify window (paged_verify_kernel): the CTA of (row b, kv head h)
+// stages its table row, the page scales and the int8 K/V rows of every
+// position any of the T window positions reads (the union of their
+// ranges) in shared memory, each row loaded from the arena ONCE, then runs
+// this body once per window position j, at length base_len + j + 1, on
+// the staged rows (source Staged). The lane layout, the passes, the rounds
+// and the merge are K4's for that length, so each position's output is
+// bit-identical to a K4 call at its length: a verify step computes what T
+// sequential decode steps compute. A span whose codes do not fit in shared
+// memory (hd 128 past ~880 positions) takes the Paged source for each
+// position instead (one launch still; the repeats are served by L1/L2).
 //
 // Built with -DINT8_DECODE_COPY_ONLY, the kernels only load what they would
 // read (the same prologue and the same loads) and write a token output: the
@@ -88,6 +102,7 @@ __device__ __forceinline__ float code_f32(uint32_t x) {
 
 template <int W>
 __device__ __forceinline__ void load_row(const int8_t* p, uint32_t (&w)[W]) {
+  // (global memory, read-only path)
   if constexpr (W == 4) {
     const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
     w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
@@ -133,6 +148,10 @@ struct Dense {
     ks = kscale;
     vs = vscale;
   }
+  template <int W>
+  __device__ __forceinline__ static void load(const int8_t* p, uint32_t (&w)[W]) {
+    load_row<W>(p, w);
+  }
 };
 
 // Paged pool (K4): position s lives in page table[b, s / ps] at offset
@@ -148,24 +167,28 @@ struct Paged {
   float* ksc;
   float* vsc;
   int s_lo, s_hi;
+  int len;                              // the (first) length
 
   // The length and the table row (loaded together), one barrier. The
   // scales follow in staged(), called once the first round's K/V loads are
-  // issued, so that those loads and the scales' overlap.
+  // issued, so that those loads and the scales' overlap. The verify window
+  // passes lead and span: the lengths are lengths[b] + lead + j for j <
+  // span, and [s_lo, s_hi) is the union of their ranges (K4: 0 and 1).
   __device__ __forceinline__ Paged(const int8_t* kp, const int8_t* vp,
                                    const int32_t* page_table,
                                    const int32_t* lengths, int b, int h, int MP,
                                    int P_, int ps_, int ps_shift_, int64_t skp_,
                                    int64_t sks_, int64_t skh, int64_t svp_,
                                    int64_t svs_, int64_t svh, int window,
-                                   int* tab_s, float* ksc_s, float* vsc_s)
+                                   int* tab_s, float* ksc_s, float* vsc_s,
+                                   int lead = 0, int span = 1)
       : kbase(kp + h * skh), vbase(vp + h * svh), skp(skp_), sks(sks_),
         svp(svp_), svs(svs_), ps(ps_), ps_shift(ps_shift_), P(P_),
         tab(tab_s), ksc(ksc_s), vsc(vsc_s) {
     const int32_t* prow = page_table + static_cast<int64_t>(b) * MP;
     for (int j = threadIdx.x; j < MP; j += kThreads) tab_s[j] = __ldg(prow + j);
-    const int len = __ldg(lengths + b);
-    s_hi = min(len, MP * ps);
+    len = __ldg(lengths + b) + lead;
+    s_hi = min(len + span - 1, MP * ps);
     s_lo = window > 0 ? max(0, len - window) : 0;
     __syncthreads();
   }
@@ -201,7 +224,86 @@ struct Paged {
     ks = ksc[j];
     vs = vsc[j];
   }
+  template <int W>
+  __device__ __forceinline__ static void load(const int8_t* p, uint32_t (&w)[W]) {
+    load_row<W>(p, w);
+  }
 };
+
+// The verify window's source for one window position: the K/V codes of row
+// b's positions [st_lo, st_lo + n) staged in shared memory (HD bytes a row,
+// by stage_rows), the table and page scales staged by Paged, and this
+// position's own range [s_lo, s_hi). A table entry outside [0, P) masks its
+// positions, as in Paged.
+template <int HD>
+struct Staged {
+  const int8_t* krows;
+  const int8_t* vrows;
+  const int* tab;
+  const float* ksc;
+  const float* vsc;
+  int st_lo, ps, ps_shift, P;
+  int s_lo, s_hi;
+
+  __device__ __forceinline__ int row(int s, const int8_t*& kr, const int8_t*& vr) const {
+    const int j = ps_shift >= 0 ? s >> ps_shift : s / ps;
+    const int page = tab[j];
+    if (page < 0 || page >= P) return -1;
+    kr = krows + (s - st_lo) * HD;
+    vr = vrows + (s - st_lo) * HD;
+    return j;
+  }
+  __device__ __forceinline__ void scales(int j, float& ks, float& vs) const {
+    ks = ksc[j];
+    vs = vsc[j];
+  }
+  // (shared memory: a plain load of the same words)
+  template <int W>
+  __device__ __forceinline__ static void load(const int8_t* p, uint32_t (&w)[W]) {
+    if constexpr (W == 4) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p);
+      w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
+    } else if constexpr (W == 2) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      w[0] = t.x; w[1] = t.y;
+    } else {
+      w[0] = *reinterpret_cast<const unsigned int*>(p);
+    }
+  }
+};
+
+// Copy the K and V rows of positions [src.s_lo, src.s_hi) (the union of a
+// verify window's ranges) from the arena into shared memory, and the T
+// window positions' G query rows (qg: position j's at qg + j * qst), 16
+// bytes a thread at a time, all in flight together; rows whose table
+// entry is outside [0, P) are skipped.
+template <int HD, int G>
+__device__ __forceinline__ void stage_rows(const Paged& src, int8_t* krows,
+                                           int8_t* vrows,
+                                           const __nv_bfloat16* qg,
+                                           int64_t qst, int T,
+                                           __nv_bfloat16* qs) {
+  constexpr int C = HD / 16;                        // 16-byte chunks a row
+  constexpr int QC = G * HD / 8;                    // 16-byte chunks of q
+  const int n = max(0, src.s_hi - src.s_lo);
+  for (int c = threadIdx.x; c < 2 * n * C + T * QC; c += kThreads) {
+    if (c >= 2 * n * C) {
+      const int j = (c - 2 * n * C) / QC;
+      const int k = (c - 2 * n * C) % QC;
+      *reinterpret_cast<uint4*>(qs + j * G * HD + 8 * k) =
+          *reinterpret_cast<const uint4*>(qg + j * qst + 8 * k);
+      continue;
+    }
+    const int v = c / (n * C);
+    const int r = (c / C) % n;
+    const int k = c % C;
+    const int8_t* kr;
+    const int8_t* vr;
+    if (src.row(src.s_lo + r, kr, vr) < 0) continue;
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>((v ? vr : kr) + 16 * k));
+    *reinterpret_cast<uint4*>((v ? vrows : krows) + r * HD + 16 * k) = t;
+  }
+}
 
 // Shared memory of the merge (floats): every lane group's accumulators
 // (kThreads / LPP groups x G x HD), then each warp's (m, l) per head.
@@ -250,8 +352,8 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
       const int8_t* vr = nullptr;
       if (p < n_pass && s < s_hi) tag[u] = src.row(s, kr, vr);
       if (tag[u] >= 0) {
-        load_row<W>(kr + sub * DPL, kb[u]);
-        load_row<W>(vr + sub * DPL, vb[u]);
+        Src::template load<W>(kr + sub * DPL, kb[u]);
+        Src::template load<W>(vr + sub * DPL, vb[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < W; ++i) kb[u][i] = vb[u][i] = 0x80808080u;
@@ -474,7 +576,7 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
 extern __shared__ __align__(16) unsigned char int8_decode_smem[];
 
 template <int HD, int G>
-constexpr size_t smem_bytes(int MP) {
+__host__ __device__ constexpr size_t smem_bytes(int MP) {
   return sizeof(float) * MergePlan<HD, G>::kFloats + 12 * static_cast<size_t>(MP);
 }
 
@@ -523,6 +625,79 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int64_t base = (static_cast<int64_t>(b) * KV + h) * G * HD;
   attend<HD, G>(src, [&] { src.staged(k_scale, v_scale, h, KV, sm_scale); },
                 q + base, out + base, merge);
+}
+
+// The verify window: one CTA per (row b, kv head h), blockIdx.x = b * KV +
+// h; window position j's query and output rows start at q + b * qsb + j *
+// qst and out + b * osb + j * ost (head h's G rows follow), and it attends
+// lengths[b] + lead + j positions (lead 1: position j sits at absolute
+// position base_len + j). kStaged: the union of the positions' ranges is
+// staged in shared memory once (rows after the merge, the table and the
+// scales, at a 16-byte boundary, then the T positions' query rows:
+// verify_smem_bytes); otherwise every position walks the arena through the
+// Paged source. Either way each position runs K4's body at its own length.
+template <int HD, int G>
+__host__ __device__ constexpr size_t verify_rows_offset(int MP) {
+  return (smem_bytes<HD, G>(MP) + 15) / 16 * 16;
+}
+
+template <int HD, int G>
+__host__ __device__ constexpr size_t verify_smem_bytes(int MP, int span, int T) {
+  return verify_rows_offset<HD, G>(MP) + 2 * static_cast<size_t>(span) * HD +
+         static_cast<size_t>(T) * G * HD * sizeof(__nv_bfloat16);
+}
+
+template <int HD, int G, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_kernel(const __nv_bfloat16* __restrict__ q,
+                    const int8_t* __restrict__ kp, const int8_t* __restrict__ vp,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int32_t* __restrict__ page_table,
+                    const int32_t* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out, int KV, int P, int ps,
+                    int ps_shift, int MP, int64_t skp, int64_t sks, int64_t skh,
+                    int64_t svp, int64_t svs, int64_t svh, int window,
+                    float sm_scale, int T, int lead, int span, int64_t qsb,
+                    int64_t qst, int64_t osb, int64_t ost) {
+  float* merge = reinterpret_cast<float*>(int8_decode_smem);
+  int* tab = reinterpret_cast<int*>(merge + MergePlan<HD, G>::kFloats);
+  float* ksc = reinterpret_cast<float*>(tab + MP);
+  float* vsc = ksc + MP;
+  const int b = blockIdx.x / KV;
+  const int h = blockIdx.x % KV;
+  const __nv_bfloat16* qb = q + b * qsb + static_cast<int64_t>(h) * G * HD;
+  __nv_bfloat16* ob = out + b * osb + static_cast<int64_t>(h) * G * HD;
+  if constexpr (kStaged) {
+    int8_t* krows = reinterpret_cast<int8_t*>(int8_decode_smem) +
+                    verify_rows_offset<HD, G>(MP);
+    int8_t* vrows = krows + static_cast<size_t>(span) * HD;
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
+        vrows + static_cast<size_t>(span) * HD);
+    const Paged all(kp, vp, page_table, lengths, b, h, MP, P, ps, ps_shift,
+                    skp, sks, skh, svp, svs, svh, window, tab, ksc, vsc, lead,
+                    T);
+    stage_rows<HD, G>(all, krows, vrows, qb, qst, T, qs);
+    all.staged(k_scale, v_scale, h, KV, sm_scale);    // ends in a barrier
+    for (int j = 0; j < T; ++j) {
+      const int len = all.len + j;
+      const Staged<HD> src{krows, vrows, tab, ksc, vsc, all.s_lo, ps,
+                           ps_shift, P, window > 0 ? max(0, len - window) : 0,
+                           min(len, MP * ps)};
+      attend<HD, G>(src, [] {}, qs + j * G * HD, ob + j * ost, merge);
+      __syncthreads();                    // the merge's shared memory again
+    }
+  } else {
+    (void)span;
+    for (int j = 0; j < T; ++j) {
+      const Paged src(kp, vp, page_table, lengths, b, h, MP, P, ps, ps_shift,
+                      skp, sks, skh, svp, svs, svh, window, tab, ksc, vsc,
+                      lead + j, 1);
+      attend<HD, G>(src, [&] { src.staged(k_scale, v_scale, h, KV, sm_scale); },
+                    qb + j * qst, ob + j * ost, merge);
+      __syncthreads();
+    }
+  }
 }
 
 }  // namespace int8_decode

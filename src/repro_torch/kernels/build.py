@@ -28,6 +28,7 @@ SOURCES = {
     "segmented_lora": "segmented_lora.cu",
     "decode_attention_int8": "decode_attention_int8.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
+    "paged_verify_attention": "paged_verify_attention.cu",
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
 }

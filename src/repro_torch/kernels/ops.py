@@ -17,6 +17,7 @@ from repro_torch.kernels import decode_attention as _float
 from repro_torch.kernels import decode_attention_int8 as _int8
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
+from repro_torch.kernels import paged_verify_attention as _verify
 from repro_torch.kernels import segmented_lora as _sgmv
 
 LAUNCHES = build.LAUNCHES
@@ -133,6 +134,28 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,
     return ref.paged_decode_attention_ref(q, k_pages.transpose(1, 2),
                                           v_pages.transpose(1, 2), k_scale,
                                           v_scale, page_table, lengths,
+                                          window=window)
+
+
+def paged_verify_attention(q, k_pages, v_pages, k_scale, v_scale,
+                           page_table, base_len, *,
+                           window: Optional[int] = None):
+    """The speculative verify window through the paged pool, model layout.
+
+    q: (B, T, H, hd), the T = k + 1 window positions' queries; window
+    position j sits at absolute position ``base_len + j`` and attends
+    ``base_len + j + 1`` keys, so every position's K/V must already be in
+    the arena; k_pages/v_pages: (P, ps, KV, hd) int8; k_scale/v_scale:
+    (P, KV); page_table: (B, MP) int32; base_len: (B,) -> (B, T, H, hd).
+    The kernel walks each stream's pages once for all T positions; the
+    plain version is T single-token reads."""
+    if _route(q) == "cuda":
+        return _verify.paged_verify_attention(q, k_pages, v_pages, k_scale,
+                                              v_scale, page_table, base_len,
+                                              window=window)
+    return ref.paged_verify_attention_ref(q, k_pages.transpose(1, 2),
+                                          v_pages.transpose(1, 2), k_scale,
+                                          v_scale, page_table, base_len,
                                           window=window)
 
 

@@ -172,6 +172,22 @@ def paged_decode_attention_ref(q, k_pages, v_pages, k_scale, v_scale,
                                 window=window)
 
 
+def paged_verify_attention_ref(q, k_pages, v_pages, k_scale, v_scale,
+                               page_table, base_len, *,
+                               window: Optional[int] = None):
+    """The speculative verify window: T single-token paged reads at the
+    successive lengths ``base_len + j + 1``.
+
+    q: (B, T, H, hd); k_pages/v_pages: (num_pages, KV, ps, hd) int8 (any
+    strides); k_scale/v_scale: (num_pages, KV); page_table: (B, MP);
+    base_len: (B,). -> (B, T, H, hd)."""
+    T = q.shape[1]
+    base_len = base_len.to(q.device)
+    return torch.stack([paged_decode_attention_ref(
+        q[:, j], k_pages, v_pages, k_scale, v_scale, page_table,
+        base_len + (j + 1), window=window) for j in range(T)], dim=1)
+
+
 def segmented_lora_ref(x, block_adapter, a_w, b_w, block_size: int):
     """Multi-adapter LoRA delta on an adapter-sorted batch.
 

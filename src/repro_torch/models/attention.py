@@ -7,7 +7,9 @@ through the hand-written prefill kernel K2 (``kernels.ops.flash_attention``);
 its plain version is ``kernels.ref.flash_attention_ref``. Decode against a
 float cache (``decode_attention``: the cross-attention decode and the float
 dense pool) goes through K5, against the dense int8 pool through K3 and
-against the paged int8 arena through K4 (``kernels.ops``).
+against the paged int8 arena through K4 (``kernels.ops``); the speculative
+verify window (``self_attention_verify``) through K4's verify-window kernel,
+which walks each stream's pages once for all window positions.
 
 The cache is updated IN PLACE: a serving pool is allocated once and every
 prefill/decode writes into its slices, where the JAX package returns a new
@@ -238,3 +240,78 @@ def _paged_decode(p, x, q, k, v, cache, cfg):
                                    window=cfg.sliding_window).to(x.dtype)
     cache["len"].copy_(new_len)
     return out_project(p, o[:, None], x.dtype), cache
+
+
+def self_attention_verify(p, x, cache, cfg, *, pos=None, lora=None,
+                          adapter_idx=None, lora_impl="gather",
+                          lora_seg=None):
+    """Speculative verify window: T = k + 1 positions through the paged
+    pool, in place. x: (B, T, d): position 0 embeds the slot's last sampled
+    token (what a plain decode step would feed), positions 1..k the drafted
+    continuation. Returns (out (B, T, d), cache).
+
+    Every window position's K/V is written into the slot's pages with
+    exactly the scale a sequential walk of T single-token steps would use:
+    a position reuses the page's stamped scale only if it lands in the page
+    that already holds token ``len - 1`` (only the window's first page can
+    predate the window); any other position is the first write to a fresh
+    page, or follows one, and quantizes with the slot's running scale, which
+    the sequential walk stamps at offset 0 and reuses for the rest of that
+    page. A row's positions in one page write equal scale values, so the
+    duplicate page indices of the scale write carry one value each and the
+    unordered ``index_put_`` is exact. Attention then reads position j
+    against keys ``0..len+j`` (``ops.paged_verify_attention``).
+
+    ``len`` advances by T; ``k_max``/``v_max`` take the window's running
+    maxima, and the per-position stacks ``k_cmax``/``v_cmax`` (B, T, KV),
+    buffers the caller put in the cache, receive them at every position, so
+    that the engine can roll ``len`` and the trackers back to each slot's
+    commit point. Rejected positions' codes and fresh-page scale stamps lie
+    past the rolled-back length, where the next write overwrites them:
+    rollback frees no page.
+
+    As in ``_paged_decode``, a free row (an all-trash table) or a finished
+    row stepping on may run past the table's width: the column is clamped
+    to the last one, so such writes land in the trash page or the stream's
+    own last page."""
+    from repro_torch.kernels import ops
+    if "page_table" not in cache:
+        raise ValueError("the speculative verify window needs the paged pool")
+    q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
+                          adapter_idx=adapter_idx, lora_impl=lora_impl,
+                          lora_seg=lora_seg)
+    B, T = x.shape[:2]
+    ptab = cache["page_table"]
+    ps, mp = cache["k"].shape[1], ptab.shape[1]
+    idx = cache["len"].long()                              # (B,)
+    pos_abs = idx[:, None] + torch.arange(T, device=x.device)[None]
+    col = pos_abs // ps
+    bidx = torch.arange(B, device=x.device)[:, None]
+    page = ptab[bidx, torch.clamp(col, max=mp - 1)].long()  # (B, T)
+    off = pos_abs % ps
+    in_old = (col == ((idx - 1) // ps)[:, None])[..., None]
+    ks = torch.clamp(torch.where(in_old, cache["k_scale"][page],
+                                 cache["slot_k_scale"][:, None]), min=1e-8)
+    vs = torch.clamp(torch.where(in_old, cache["v_scale"][page],
+                                 cache["slot_v_scale"][:, None]), min=1e-8)
+    kf, vf = k.float(), v.float()                          # (B, T, KV, hd)
+    kq = torch.clamp(torch.round(kf / ks[..., None]), -127, 127).to(torch.int8)
+    vq = torch.clamp(torch.round(vf / vs[..., None]), -127, 127).to(torch.int8)
+    pf, of = page.reshape(-1), off.reshape(-1)
+    cache["k"][pf, of] = kq.reshape((B * T,) + kq.shape[2:])
+    cache["v"][pf, of] = vq.reshape((B * T,) + vq.shape[2:])
+    cache["k_scale"][pf] = ks.reshape(B * T, -1)
+    cache["v_scale"][pf] = vs.reshape(B * T, -1)
+    k_cmax = torch.maximum(torch.cummax(kf.abs().amax(dim=-1), dim=1).values,
+                           cache["k_max"][:, None])
+    v_cmax = torch.maximum(torch.cummax(vf.abs().amax(dim=-1), dim=1).values,
+                           cache["v_max"][:, None])
+    cache["k_cmax"].copy_(k_cmax)
+    cache["v_cmax"].copy_(v_cmax)
+    cache["k_max"].copy_(k_cmax[:, -1])
+    cache["v_max"].copy_(v_cmax[:, -1])
+    o = ops.paged_verify_attention(q.contiguous(), cache["k"], cache["v"],
+                                   cache["k_scale"], cache["v_scale"], ptab,
+                                   cache["len"], window=cfg.sliding_window)
+    cache["len"].copy_((cache["len"] + T).to(cache["len"].dtype))
+    return out_project(p, o.to(x.dtype), x.dtype), cache

@@ -173,9 +173,12 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
                    cross_len=None, lora=None, adapter_idx=None,
                    lora_impl: str = "gather", lora_seg=None, seq_lens=None,
                    prefix=None, prefix_len=None):
-    """Apply one attention sublayer. mode: 'full' (pooled forward / prefill)
-    or 'decode'. A given cache is a dict of views that is updated in place
-    (prefill fills it, decode appends one token).
+    """Apply one attention sublayer. mode: 'full' (pooled forward / prefill),
+    'decode' or 'verify' (the speculative window: T positions at rope
+    positions ``len + arange(T)`` through the paged pool,
+    ``attention.self_attention_verify``). A given cache is a dict of views
+    that is updated in place (prefill fills it, decode appends one token,
+    verify appends the window).
 
     ``prefix``/``prefix_len``: chunked shared-prefix prefill — a dict(k, v)
     of precomputed (B, Sp, KV, hd) prefix K/V this sublayer's queries
@@ -194,6 +197,15 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
         if pos is None:
             pos = cache["len"][:, None]                   # rope position
         out, _ = attn.self_attention_decode(
+            p["attn"], h, cache, cfg, pos=pos, lora=lora,
+            adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg)
+    elif mode == "verify":
+        if lay.has_cross:
+            raise ValueError("the verify window has no encoder-decoder mode")
+        if pos is None:
+            pos = cache["len"][:, None] + torch.arange(
+                x.shape[1], device=x.device)[None]
+        out, _ = attn.self_attention_verify(
             p["attn"], h, cache, cfg, pos=pos, lora=lora,
             adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg)
     elif mode == "full":

@@ -194,7 +194,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
         x = embed(params["embed"].to(ACT_DTYPE), tokens)
     else:
         x = embeds.to(ACT_DTYPE)
-    if pos is None and mode != "decode":
+    if pos is None and mode not in ("decode", "verify"):
         pos = torch.arange(x.shape[1], device=x.device)[None]
     x = _stack_forward(params["layers"],
                        blk.period_layout(cfg, cross=cfg.is_encoder_decoder),
@@ -210,7 +210,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
 # ---------------- serving steps ----------------
 
 def finite_logits(logits):
-    """(B,) bool: True iff every logit of the row is finite."""
+    """True iff every logit of the row is finite: (B,) for (B, V) logits,
+    (B, T) for a verify window's (B, T, V)."""
     return torch.isfinite(logits.float()).all(dim=-1)
 
 
@@ -262,6 +263,28 @@ def decode_step(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
                        lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg)
     return _head(params, x[:, 0]), cache
+
+
+def verify_step(params, cfg: ModelConfig, *, tokens, cache, lora=None,
+                adapter_idx=None, lora_impl: str = "gather", lora_seg=None):
+    """Speculative verify: score T = k + 1 positions in one batched forward.
+
+    tokens: (B, T) int; column 0 is the slot's last sampled token (what a
+    plain ``decode_step`` would feed), columns 1..k the drafted
+    continuation, every id inside the vocabulary (the engine clamps its
+    out-of-vocab draft sentinel before the embedding gather). Returns
+    (logits (B, T, V) f32, cache): ``logits[:, j]`` is what a sequential
+    ``decode_step`` walk would produce after feeding ``tokens[:, :j+1]``
+    (the same embedding rows, the same per-position paged attention, the
+    same f32 head), up to the rounding of dense products over B * T rows
+    instead of B. The cache advances in place by the whole window; the
+    caller rolls each slot back to its commit point through the cache's
+    ``k_cmax``/``v_cmax`` stacks and ``len``."""
+    x = embed(params["embed"].to(ACT_DTYPE), tokens)
+    x, cache = forward(params, cfg, embeds=x, cache=cache, mode="verify",
+                       lora=lora, adapter_idx=adapter_idx,
+                       lora_impl=lora_impl, lora_seg=lora_seg)
+    return _head(params, x), cache
 
 
 def backbone_features(params, cfg: ModelConfig, embeds):

@@ -176,7 +176,7 @@ def scramble_arena(eng):
             sub[k].zero_()
         for k in dense_state_keys(sub):
             sub[k].fill_(7.0)
-    eng._ptab_dev.zero_()
+    eng._ptab_store.zero_()
 
 
 class DeviceResetFault(Fault):

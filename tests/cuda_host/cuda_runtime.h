@@ -21,6 +21,7 @@ using std::max;
 using std::min;
 
 #define __device__
+#define __host__
 #define __global__
 #define __shared__
 #define __forceinline__ inline

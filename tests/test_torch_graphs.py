@@ -20,7 +20,9 @@ through the staging path every call after the first takes:
 The ``cuda``-marked twins run the graphed-against-eager checks on the card
 and skip elsewhere.
 """
+import collections
 import dataclasses
+import gc
 
 import pytest
 
@@ -129,6 +131,72 @@ def test_executable_bakes_the_weight_where_it_lies():
     w.mul_(2.0)
     got, _ = exe(w, x, 0)
     torch.testing.assert_close(got, torch.tanh(2.0 * x), rtol=0, atol=0)
+
+
+def _collections_per_call(dev, held=None):
+    """Call an executable three times with the collector's threshold at 1
+    (each call allocates enough objects for several collections) and
+    return, per call, how many collections started while its closure ran.
+    ``held``: a list whose last item the closure drops during its second
+    call (the capture)."""
+    calls, inside, seen = [0], [False], collections.Counter()
+
+    def on_gc(phase, info):
+        if phase == "start" and inside[0]:
+            seen[calls[0]] += 1
+
+    def fn(w, x):
+        calls[0] += 1
+        inside[0] = True
+        if calls[0] == 2 and held:
+            held.pop()
+        out = [w * x + i for i in range(64)][-1]
+        inside[0] = False
+        return out
+
+    exe = graphs.Executable(fn, bake=(0,))
+    w = torch.ones(64, device=dev)
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(on_gc)
+    gc.set_threshold(1, 1, 1)
+    try:
+        for _ in range(3):
+            got = exe(w, torch.full((64,), 2.0, device=dev))
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.callbacks.remove(on_gc)
+    torch.testing.assert_close(got, torch.full((64,), 65.0, device=dev))
+    return [seen[c] for c in (1, 2, 3)], exe
+
+
+def test_capture_pauses_the_cyclic_collector():
+    """No collection starts while call 2 captures (one would finalize
+    whatever dropped objects were garbage then, an engine's graphs among
+    them, inside the capture); calls 1 and 3 collect as usual, and the
+    collector is on again after the capture."""
+    per_call, _ = _collections_per_call(torch.device("cpu"))
+    assert per_call[1] == 0 and per_call[0] > 0 and per_call[2] > 0
+    assert gc.isenabled()
+
+
+@pytest.mark.cuda
+def test_capture_pauses_the_cyclic_collector_on_cuda(cuda_device):
+    """On the card, with a captured executable in a dropped reference
+    cycle released during the capture: a graph finalized inside a capture
+    invalidates it, so the capture succeeds only if nothing collects."""
+    class Holder:
+        pass
+
+    dead = Holder()
+    dead.self = dead
+    dead.exe = graphs.Executable(lambda a, b: a * b, bake=(0,))
+    w = torch.ones(64, device=cuda_device)
+    for _ in range(3):
+        dead.exe(w, torch.ones(64, device=cuda_device))
+    held = [dead]
+    del dead
+    per_call, exe = _collections_per_call(cuda_device, held)
+    assert per_call[1] == 0 and exe.captured and not held
 
 
 # ---------------- DecodeEngine: graphed against eager ----------------

@@ -427,6 +427,7 @@ class _FakeLibrary:
 @pytest.mark.parametrize("module", ["segmented_lora", "decode_attention",
                                     "decode_attention_int8",
                                     "paged_decode_attention",
+                                    "paged_verify_attention",
                                     "flash_attention"])
 def test_ctypes_argtypes_match_the_c_signatures(module, monkeypatch):
     """Each wrapper's ``argtypes`` have the count and kinds (pointer, int,

@@ -267,8 +267,12 @@ def test_engine_cancel_and_deadline(fms):
 
 def test_unported_engine_options_raise(fms):
     _, fm, _, _ = fms
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # speculation is ported (tests/test_torch_speculative.py): it needs the
+    # paged pool, as in the JAX package, and the dense layout refuses it
+    with pytest.raises(ValueError, match="paged=True"):
         DecodeEngine(fm, num_slots=2, prompt_len=8, spec_k=2)
+    assert DecodeEngine(fm, num_slots=2, prompt_len=8, paged=True,
+                        spec_k=2).spec_k == 2
     # chunked shared-prefix prefill is ported: the paged default takes it
     assert DecodeEngine(fm, num_slots=2, prompt_len=8,
                         paged=True).chunked_prefill
