@@ -33,11 +33,15 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    stablelm's and whisper's serving shapes, ranks 4 and 64, a narrower
    output, one adapter and sentinel blocks only (``sgmv_cases``); K1 and
    K5 each twice on the same inputs, bit for bit; the ptxas reports of the
-   K1, K3, K4, K5 and verify-window libraries free of spill stores;
+   K1, K3, K4, K5, verify-window and rmsnorm libraries free of spill
+   stores; rmsnorm (no Pallas counterpart: the jnp ``layers.rmsnorm``) at
+   d 512, 1024 and 2048 within one bf16 ulp of each element of its plain
+   version, with each row's bits the same alone and among 8, 40 and 4176
+   rows;
    moment-large's pooled shapes (K1 at d = out = 1024, ranks 4 and 16; K2
    not causal, 16 heads, 32 patches); the speculative verify window (K4
    over T positions) at every case of ``VERIFY_CASES`` (T 1 to 10, GQA,
-   windows, hd 32/64/128, a span too long to stage), within two bf16 ulps
+   windows, hd 32/64/128, caches of 1520 positions), within two bf16 ulps
    of its plain version, bit-identical twice, one launch a call, and every
    window position bit-identical to K4 at its length;
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
@@ -105,15 +109,15 @@ then runs these phases and fails (non-zero exit) if any of them fails:
 7. speculative — self-speculative decoding (spec_k 4) at full width on
    stablelm-1.6b (``phase_speculative``): the verify window teacher-forced
    against five sequential decode steps on copies of one live cache (a
-   two-layer cut gated at relative L2 2e-2; the 24 layers reported), then
-   8 streams through the speculative engine, graphed and speculating on
-   every dispatch, on random weights and on the copy-inclined model (every
-   attention out-projection zeroed; prompts that re-feed the model's own
-   output): the device length equal to the host's committed length after
+   two-layer cut and the full 24 layers, both gated at relative L2 2e-2
+   with greedy agreement), then 8 streams through the speculative engine,
+   graphed and speculating on every dispatch, on random weights and on the
+   copy-inclined model (every attention out-projection zeroed; prompts
+   that re-feed the model's own output): the streams equal to the plain
+   engine's, the device length equal to the host's committed length after
    every chunk, accepts on the copy-inclined run, no leak, no key after
    the warm-ups, the graphed run equal to its eager replay, the verify
-   kernel launched; the streams against the plain engine's reported
-   (equal, or the first mismatch with the plain run's top-2 margin);
+   kernel launched;
 8. timing — device times (``torch.profiler``) of each kernel, its plain
    version and a library yardstick, beside the least time the card could
    take (its bound), K2 also at whisper's encoder and cross-prefill
@@ -126,9 +130,12 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    pooled batch (32 x 32 patches) under each LoRA impl, and the prefill
    device time a prefix hit saves (full admission against its tail); the
    verify kernel against its bound, five unrolled K4 calls, its plain
-   version and SDPA on dequantized K/V with the per-position mask; and one
-   speculative step (a verify forward of 8 x 5 rows) against the plain
-   step of the same engine, both profiled eager and graphed.
+   version and SDPA on dequantized K/V with the per-position mask; rmsnorm
+   at stablelm's width over a decode step's, a verify forward's, a prefill
+   bucket's and a pooled batch's rows against its plain version and
+   ``F.rms_norm``; and one speculative step (a verify forward of 8 x 5
+   rows) against the plain step of the same engine, both profiled eager
+   and graphed.
 
 The serving paths run graphed: every executable of ``PhysicalFM`` and
 ``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
@@ -157,6 +164,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -321,6 +329,35 @@ def spill_stores(name: str) -> int:
     from repro_torch.kernels import build
     log_text = (build.BUILD_DIR / f"{name}.log").read_text()
     return sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log_text))
+
+
+def ptxas_kernels(name: str) -> list:
+    """(kernel, registers, spill store bytes) of every kernel in the ptxas
+    report of kernel ``name``'s library, the kernel named by its mangled
+    name's function and template arguments (e.g.
+    ``paged_verify_kernel<64,1,0>``)."""
+    import re
+
+    from repro_torch.kernels import build
+    text = (build.BUILD_DIR / f"{name}.log").read_text()
+    out = []
+    for mangled, body in re.findall(
+            r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
+            text, flags=re.S):
+        names, i = [], 3 if mangled.startswith("_ZN") else 2
+        while i < len(mangled) and mangled[i].isdigit():
+            n = re.match(r"\d+", mangled[i:]).group()
+            names.append(mangled[i + len(n):i + len(n) + int(n)])
+            i += len(n) + int(n)
+        args = re.findall(r"Li(\d+)E", mangled) \
+            if mangled[i:i + 1] == "I" else []
+        label = (names[-1] if names else mangled) + (
+            f"<{','.join(args)}>" if args else "")
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        out.append((label, int(regs.group(1)) if regs else None,
+                    int(spill.group(1)) if spill else 0))
+    return out
 
 
 def smi_line() -> str:
@@ -650,13 +687,12 @@ INT8_CASES = {
 # j attends base[b] + j + 1 positions. Stablelm's speculative pool at
 # spec_k 4 (T 5; a table of 13 pages: s_max 161 plus a chunk of 4 windows
 # of 5 positions of speculative room) with and without a window; T 1 (K4's
-# function), 2, 4 and 10; GQA (G 2 and 4); hd 32, 64 and 128; base lengths
-# 0 (the first decoded token), windows that cross a page inside the window
-# (base 15 and 31 straddle pages 1 and 2), tables filled to their last
-# position, caches longer than the kernel's register ring, and one whose
-# codes do not fit in shared memory (hd 128 over 1520 positions: each
-# position walks the arena). The one verify case table: the cuda-marked
-# tests and the CPU build of the kernel body
+# function), 2, 4 and 10; GQA (G 2, 4 and 8); hd 32, 64 and 128; base
+# lengths 0 (the first decoded token), windows that cross a page inside the
+# window (base 15 and 31 straddle pages 1 and 2), tables filled to their
+# last position, and caches longer than the kernel's register ring
+# (several rounds of passes, hd 128 over 1520 positions among them). The one verify case table: the
+# cuda-marked tests and the CPU build of the kernel body
 # (tests/test_torch_int8_decode_host.py) import it.
 VERIFY_CASES = {
     "serving": dict(H=32, KV=32, T=5, MP=13,
@@ -684,6 +720,8 @@ VERIFY_CASES = {
                         base=[1490, 0, 299, 301, 1000, 640, 1024, 1280]),
     "long_unstaged": dict(H=8, KV=8, hd=128, T=3, MP=95,
                           base=[1490, 0, 299, 301, 1000, 640, 1024, 1517]),
+    "g8_t4": dict(H=32, KV=4, T=4, MP=13, window=40,
+                  base=[0, 15, 31, 130, 12, 150, 77, 204]),
 }
 
 
@@ -777,6 +815,82 @@ def check_verify(dev, gen):
         ok &= err <= tol and bool(torch.isfinite(got.float()).all()) \
             and same and launched == 1 and as_k4
         errs[name] = err
+    return ok, errs
+
+
+# rmsnorm at the model widths (whisper-base, moment-large, stablelm-1.6b)
+# and the row counts it meets: one row, a decode step's 8, a verify
+# forward's 40 (8 x 5), and 4176
+RMSNORM_WIDTHS = (512, 1024, 2048)
+RMSNORM_ROWS = (1, 8, 40, 4176)
+
+
+def rmsnorm_inputs(gen, rows, d, dev):
+    """bf16 activations (rows, d) of spread magnitudes and f32 weights, as
+    the models hold them."""
+    import torch
+    x = torch.randn((rows, d), generator=gen, device=dev) * \
+        (0.1 + 8 * torch.rand((rows, 1), generator=gen, device=dev))
+    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
+    return x.to(torch.bfloat16), w
+
+
+def check_rmsnorm(dev, gen):
+    """rmsnorm against its plain version at ``RMSNORM_WIDTHS`` on 4176 rows,
+    every element within one bf16 ulp (2^-7 of its magnitude: both compute
+    in f32, summing in another order, and round once), bit-identical twice;
+    and row-invariant: every row gives the same bits in that one call, in
+    calls of 8 rows (a decode step's), of 40 rows shaped (8, 5, d) (a verify
+    forward's) and of one row. The plain version is put through the same
+    chunks and its differences are reported (not gated): the elements whose
+    bits differ between its 8-row and 40-row calls, and the rows whose f32
+    mean of squares differs."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    n = RMSNORM_ROWS[-1]
+    n40 = n // 40 * 40
+    errs, ok = {}, True
+    for d in RMSNORM_WIDTHS:
+        x, w = rmsnorm_inputs(gen, n, d, dev)
+        before = ops.LAUNCHES["rmsnorm"]
+        whole = ops.rmsnorm(w, x)
+        launched = ops.LAUNCHES["rmsnorm"] - before
+        same = torch.equal(whole, ops.rmsnorm(w, x))
+
+        def by(fn, rows, shape=None):
+            return torch.cat([fn(w, x[i:i + rows] if shape is None else
+                                 x[i:i + rows].view(*shape, d)).view(-1, d)
+                              for i in range(0, n // rows * rows, rows)])
+        by8, by40, by1 = by(ops.rmsnorm, 8), by(ops.rmsnorm, 40, (8, 5)), \
+            torch.cat([ops.rmsnorm(w, x[i:i + 1]) for i in range(8)])
+        inv = torch.equal(by8, whole) and torch.equal(by40, whole[:n40]) \
+            and torch.equal(by1, whole[:8])
+        plain = ref.rmsnorm(w, x)
+        p8 = by(ref.rmsnorm, 8)[:n40]
+        p40 = by(ref.rmsnorm, 40, (8, 5))
+        plain_elems = int((p8 != p40).sum().item())
+
+        def mean_sq(t):                     # the plain version's mean
+            t = t.float()
+            return torch.mean(t * t, dim=-1)
+        m8 = torch.cat([mean_sq(x[i:i + 8]) for i in range(0, n40, 8)])
+        m40 = torch.cat([mean_sq(x[i:i + 40].view(8, 5, d)).view(-1)
+                         for i in range(0, n40, 40)])
+        plain_rows = int((m8 != m40).sum().item())
+        torch.cuda.synchronize()
+        diff = (whole.float() - plain.float()).abs()
+        within = bool((diff <= 2.0 ** -7 * plain.float().abs()).all())
+        err = diff.max().item()
+        log(f"kernel rmsnorm [d={d}] {n} rows: max_abs_err={err:.3e} (one "
+            f"bf16 ulp of each element: {within}), bit-identical twice: "
+            f"{same}, row-invariant over calls of {n}, 8, 40 as (8, 5, d) "
+            f"and 1 rows: {inv}; the plain version over calls of 8 and 40 "
+            f"rows: {plain_elems} of {n40 * d} elements differ, the f32 "
+            f"mean of squares of {plain_rows} of {n40} rows")
+        ok &= within and same and inv and launched == 1 \
+            and bool(torch.isfinite(whole.float()).all())
+        errs[f"d{d}"] = err
     return ok, errs
 
 
@@ -1059,7 +1173,8 @@ def phase_kernels(dev):
     results["paged_vs_dense"] = err
     ok_f, results["flash_attention"] = check_flash(dev, gen)
     ok_d, results["decode_attention"] = check_float_decode(dev, gen)
-    return ok and ok_f and ok_d, results
+    ok_n, results["rmsnorm"] = check_rmsnorm(dev, gen)
+    return ok and ok_f and ok_d and ok_n, results
 
 
 # ---------------- phase 2: a small input against the CPU reference ----------------
@@ -1154,8 +1269,9 @@ def phase_reference(dev):
     aidx = np.array([0, 2, cap, 1], np.int32)          # cap == base model
     report = {}
     legs = {"segmented": (True, ("segmented_lora", "decode_attention_int8",
-                                 "flash_attention")),
-            "gather": (False, ("decode_attention", "flash_attention"))}
+                                 "flash_attention", "rmsnorm")),
+            "gather": (False, ("decode_attention", "flash_attention",
+                               "rmsnorm"))}
     ok = True
     for impl, (kvq, kernels) in legs.items():
         c = _teacher_forced(cfg, fm, torch.device("cpu"), cpu_params,
@@ -1250,7 +1366,7 @@ def phase_reference_whisper(dev):
     r = run()
     r["launches"] = {k: int(ops.LAUNCHES[k]) for k in (
         "segmented_lora", "flash_attention", "decode_attention",
-        "decode_attention_int8")}
+        "decode_attention_int8", "rmsnorm")}
     r["package_init"] = {k: package_init[k] for k in ("rel_l2", "max_abs")}
     log(f"whisper reference: 2+2-layer full-width whisper-base, {B} rows x "
         f"({ENC_LEN} frames, {S} prompt + {steps} decode) teacher-forced, "
@@ -1687,7 +1803,7 @@ def phase_serving(dev):
     wall = time.perf_counter() - t0
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "decode_attention_int8",
-                          "flash_attention")}
+                          "flash_attention", "rmsnorm")}
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     ok = True
@@ -1807,7 +1923,7 @@ def phase_paged_serving(dev, chunked: bool = False):
     burst = None if chunked else paged_burst(cfg, eng)
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "paged_decode_attention",
-                          "flash_attention")}
+                          "flash_attention", "rmsnorm")}
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     bad = [r for r in trace if not r.ok or r.finish_time is None
@@ -1923,7 +2039,8 @@ def phase_whisper_serving(dev):
     wall = time.perf_counter() - t0
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "flash_attention",
-                          "decode_attention", "paged_decode_attention")}
+                          "decode_attention", "paged_decode_attention",
+                          "rmsnorm")}
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     bad = [r for r in trace if not r.ok or r.finish_time is None
@@ -2140,6 +2257,7 @@ def phase_reference_moment(dev):
             gr, torch.as_tensor(cfm.run_batch(x, aidx)))
         r["launches"] = {k: int(ops.LAUNCHES[k]) for k in (
             "segmented_lora", "flash_attention")}
+        r["rmsnorm_launches"] = int(ops.LAUNCHES["rmsnorm"])
     x2 = x.copy()
     x2[:, -1] += 1.0
     moved = feats(gfm, x2)[:, 0] - g[:, 0]
@@ -2155,6 +2273,8 @@ def phase_reference_moment(dev):
         "segmented_lora": 4, "flash_attention": 2}
     ok &= report["run_batch_gather"]["launches"] == {
         "segmented_lora": 0, "flash_attention": 2}
+    ok &= all(report[f"run_batch_{impl}"]["rmsnorm_launches"] > 0
+              for impl in ("segmented", "gather"))
     ok &= report["first_position_moved_by_last_patch"]["rel_l2"] > \
         10 * report["backbone_features"]["rel_l2"]
     return ok, report
@@ -2210,7 +2330,7 @@ def phase_moment_serving(dev):
     wall = time.perf_counter() - t0
     del fm.resolve_lora_impl
     launches = {k: int(ops.LAUNCHES[k])
-                for k in ("segmented_lora", "flash_attention")}
+                for k in ("segmented_lora", "flash_attention", "rmsnorm")}
     s = launch.summary(srv, reqs, MOMENT_TASKS)
     bad = [r for r in reqs if not r.ok or r.result is None
            or not np.all(np.isfinite(r.result))]
@@ -2230,6 +2350,7 @@ def phase_moment_serving(dev):
     ok = bool(reqs) and not bad and s["n"] == len(reqs)
     ok &= launches["flash_attention"] == cfg.num_layers * len(chosen) > 0
     ok &= launches["segmented_lora"] == 2 * cfg.num_layers * n_seg
+    ok &= launches["rmsnorm"] > 0
     ok &= fm.compile_count() == keys0
     ok &= graphed_against_eager(stats, rec, fm, None, None, (mem0, mem1))
     t0 = time.perf_counter()
@@ -2729,7 +2850,7 @@ def phase_durability(dev):
                          for k in ("segmented_lora", "flash_attention",
                                    "decode_attention_int8",
                                    "paged_decode_attention",
-                                   "decode_attention")}
+                                   "decode_attention", "rmsnorm")}
     stats["wall_s"] = time.perf_counter() - t0
     stats["sampled_step"] = sampled_step_timing(dev, fm)
     log("durability sampled step: " + json.dumps(stats["sampled_step"],
@@ -2737,7 +2858,8 @@ def phase_durability(dev):
     ok = all(stats[k]["ok"] for k in ("spill", "prefix", "snapshot", "loop",
                                       "whisper"))
     ok &= all(stats["launches"][k] > 0 for k in (
-        "segmented_lora", "flash_attention", "paged_decode_attention"))
+        "segmented_lora", "flash_attention", "paged_decode_attention",
+        "rmsnorm"))
     log(f"durability: ok {ok}, launches {stats['launches']}, "
         f"{stats['wall_s']:.1f} s")
     return ok, stats
@@ -2888,12 +3010,11 @@ def verify_vs_sequential(fm, cfg, seed: int = 61) -> dict:
     Logits compared by ``drift`` (bound SPEC_REL_L2, greedy agreement where
     the sequential step's top-2 gap exceeds twice the largest difference);
     the lengths must be equal and the int8 codes within one step. On the
-    H100 every dense product, K1 and the verify kernel give each row the
-    bits its sequential step gets; what differs is the rmsnorm's f32
-    reduction over d, whose order changes with the row count (40 rows
-    against 8): a one-ulp difference that a deep random-weight stack
-    amplifies (measured: none through six layers, then 0.12 relative L2
-    of the logits at 24), so the gate runs on a two-layer cut."""
+    H100 every dense product, K1 and the verify kernel give each of the 40
+    rows the bits its sequential step gets, and so does the rmsnorm kernel
+    (its reduction order depends on d alone): PyTorch's f32 mean, whose
+    order followed the row count, made a one-ulp difference at layer 6 that
+    24 random layers amplified to 0.12 relative L2 of the logits."""
     import torch
 
     from repro_torch.models import lm
@@ -2956,8 +3077,9 @@ def spec_serving(fm, cfg, name: str, joins: list) -> dict:
     """One model's speculative run (module docstring): warm, the joins
     through the spec engine graphed with the rollback invariant after
     every chunk, keys before and after, no leak, the eager replay of the
-    recorded calls, and the streams against the plain engine's (equal, or
-    the first mismatch with the plain run's top-2 margin there)."""
+    recorded calls, and the streams equal to the plain engine's (gated;
+    where not, the first mismatch with the plain run's top-2 margin
+    there)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2991,6 +3113,7 @@ def spec_serving(fm, cfg, name: str, joins: list) -> dict:
     if got != want:
         st["first_mismatch"] = first_mismatch(got, want, logits)
     ok = (bad_len == 0 and not st["leak"] and keys0 == eng.compile_count()
+          and st["equal_to_plain"]
           and launches.get("paged_verify_attention", 0) > 0
           and st["run"]["spec_dispatches"] > 0 and eng.quarantines == 0
           and all(len(v) == MAX_NEW for v in got.values())
@@ -3059,26 +3182,28 @@ def phase_speculative(dev):
     """Self-speculative decoding at full width on stablelm-1.6b (24
     layers; the serving phases' 4 tasks with rank-16 q/v adapters; 8
     slots, pages of 16, chunk 4, spec_k 4, greedy): the verify window
-    teacher-forced against sequential decode steps on the same cache (a
-    two-layer full-width cut gated, the 24 layers reported); then
-    on random weights (zero accepts: every step commits one token) and on
-    the copy-inclined model (every attention out-projection zeroed, as the
+    teacher-forced against sequential decode steps on the same cache, on
+    a two-layer full-width cut and at the full 24 layers; then on random
+    weights (zero accepts: every step commits one token) and on the
+    copy-inclined model (every attention out-projection zeroed, as the
     JAX package's ``bench_speculative.py`` does: accepts fire), 8 streams
     of 32 tokens each through the speculative engine, graphed, with every
     dispatch speculative (``spec_disable_below`` 1.0), and on random
     weights behind the serve loop (``spec_loop``). Gates: the verify
-    logits within SPEC_REL_L2 of the sequential ones; the device length
-    equal to the host's committed length after every chunk; accepts on the
-    copy-inclined run; no page leak; no key added after the warm-ups; the
-    graphed run equal to its eager replay; the verify kernel launched.
-    Token equality with the plain engine is reported (the first mismatch
-    with the plain run's top-2 margin), not gated: the verify forward runs
-    its dense products over 40 rows, a plain step over 8."""
+    logits within SPEC_REL_L2 of the sequential ones with greedy agreement,
+    at 2 and at 24 layers; the streams equal to the plain engine's (the
+    JAX contract: greedy speculation is lossless), on random weights and
+    on the copy-inclined model; the device length equal to the host's
+    committed length after every chunk; accepts on the copy-inclined run;
+    no page leak; no key added after the warm-ups; the graphed run equal
+    to its eager replay; the verify kernel and rmsnorm launched. Both
+    exactness gates rest on every op giving a verify row the bits of its
+    sequential step (``verify_vs_sequential``)."""
     from repro_torch.core.physical import PhysicalFM
     t0 = time.perf_counter()
     stats = {"card": smi_line()}
-    # the teacher-forced window, gated on the two-layer cut (the reference
-    # phases' cut: deeper random stacks amplify a one-ulp difference)
+    # the teacher-forced window on the two-layer cut (the reference
+    # phases') and at full depth
     cfg2 = full_config(num_layers=2)
     fm2 = PhysicalFM(cfg2, seed=3, lora_rank=RANK, input_len=PROMPT_LEN,
                      lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
@@ -3090,11 +3215,9 @@ def phase_speculative(dev):
     del fm2
     _release()
     srv, cfg, fm, loop = build_server(dev, **SPEC_KW)
-    # the same at full depth: a figure, not a gate
     full = stats["verify_vs_sequential_24_layers"] = verify_vs_sequential(
         fm, cfg)
-    full.pop("ok")
-    log("speculative verify vs sequential steps, 24 layers (not gated): "
+    log("speculative verify vs sequential steps, 24 layers: "
         + json.dumps(full, default=float))
     _release()
     stats["random"] = spec_serving(fm, cfg, "random weights",
@@ -3115,11 +3238,13 @@ def phase_speculative(dev):
             launches[k] = launches.get(k, 0) + v
     stats["launches"] = launches
     stats["wall_s"] = time.perf_counter() - t0
-    ok = stats["verify_vs_sequential"]["ok"] and stats["random"]["ok"] \
-        and stats["loop"]["ok"] and stats["copy_inclined"]["ok"]
+    ok = stats["verify_vs_sequential"]["ok"] and full["ok"] \
+        and stats["random"]["ok"] and stats["loop"]["ok"] \
+        and stats["copy_inclined"]["ok"]
     ok &= stats["copy_inclined"]["run"]["draft_accepted"] > 0
     ok &= all(launches.get(k, 0) > 0 for k in (
-        "paged_verify_attention", "segmented_lora", "flash_attention"))
+        "paged_verify_attention", "segmented_lora", "flash_attention",
+        "rmsnorm"))
     log(f"speculative: ok {ok}, launches {launches}, "
         f"{stats['wall_s']:.1f} s")
     del srv, fm
@@ -3192,6 +3317,58 @@ def verify_timing(dev, gen, nsets: int = 24) -> dict:
                 library_ms=lib_ms, unrolled_k4_ms=u_ms,
                 enqueue_ms=time_ms(rotating(
                     lambda *a: ops.paged_verify_attention(*a), sets)))
+
+
+def rmsnorm_timing(dev, gen) -> dict:
+    """rmsnorm's device time per call at stablelm's width (d 2048) over
+    rows of a decode step (8), a verify forward (40), a prefill bucket
+    (128) and a pooled batch (32 x 128), each over 8 input sets; its plain
+    version's; one ``torch.nn.functional.rms_norm`` call on the same inputs
+    (never called by the port; bf16 x with an f32 weight takes its
+    composite path) and, beside it, the same call with the weight cast to
+    bf16 beforehand (its fused path; a weight rounded to bf16, so not the
+    same function); the bound counted on this data (x and w read once, the
+    output written once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    d = 2048
+
+    def rotating(fn, items):
+        it = [0]
+
+        def call():
+            fn(*items[it[0] % len(items)])
+            it[0] += 1
+        return call
+
+    def library(w, x):
+        return F.rms_norm(x, (d,), w, 1e-5)
+    out = {}
+    for name, rows in (("decode", SLOTS), ("verify", SLOTS * (SPEC_K + 1)),
+                       ("prefill", PROMPT_LEN), ("pooled", 32 * PROMPT_LEN)):
+        sets = [rmsnorm_inputs(gen, rows, d, dev)[::-1] for _ in range(8)]
+        b_ms, b_by = bound_ms(2 * 2 * rows * d + 4 * d, 4.0 * rows * d)
+        with warnings.catch_warnings():     # the composite path's notice
+            warnings.simplefilter("ignore", UserWarning)
+            lib_ms = device_ms(rotating(library, sets))
+        out[name] = dict(
+            rows=rows, d=d,
+            ms=device_ms(rotating(ops.rmsnorm, sets)),
+            plain_ms=device_ms(rotating(ref.rmsnorm, sets)),
+            library_ms=lib_ms,
+            library_bf16_weight_ms=device_ms(rotating(library, [
+                (w.to(x.dtype), x) for w, x in sets])),
+            bound_ms=b_ms, bound_by=b_by,
+            enqueue_ms=time_ms(rotating(ops.rmsnorm, sets)))
+        log(f"rmsnorm [{name}: {rows} x {d}]: "
+            f"{out[name]['ms'] * 1e3:.2f} us (plain "
+            f"{out[name]['plain_ms'] * 1e3:.2f}, F.rms_norm "
+            f"{out[name]['library_ms'] * 1e3:.2f}, with a bf16 weight "
+            f"{out[name]['library_bf16_weight_ms'] * 1e3:.2f}, bound "
+            f"{b_ms * 1e3:.2f})")
+    return out
 
 
 def spec_step_timing(dev, fm) -> dict:
@@ -3492,7 +3669,7 @@ def moment_pooled_timing(dev, handles) -> dict:
         run()
         torch.cuda.synchronize()
         out[impl] = {"launches": {k: int(ops.LAUNCHES[k]) for k in (
-            "segmented_lora", "flash_attention")},
+            "segmented_lora", "flash_attention", "rmsnorm")},
             "profile": profile_both(run)}
         for way in ("eager", "graphed"):
             p = out[impl]["profile"][way]
@@ -3838,16 +4015,16 @@ def main() -> int:
         return fail(str(e))
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
-        for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        log(f"  ptxas {name} (kernel: registers, spill store bytes): "
+            + ", ".join(f"{k}: {r}, {sp}" for k, r, sp in ptxas_kernels(name)))
     phases = {}
     # the kernels redesigned for registers and shared memory must not spill
     spills = {n: spill_stores(n) for n in ("decode_attention",
                                            "segmented_lora",
                                            "decode_attention_int8",
                                            "paged_decode_attention",
-                                           "paged_verify_attention")}
+                                           "paged_verify_attention",
+                                           "rmsnorm")}
     log(f"  ptxas spill stores (bytes): {json.dumps(spills)}")
     phases["no_spills"] = not any(spills.values())
     try:
@@ -3887,19 +4064,24 @@ def main() -> int:
                                              chunked_handles, whisper_handles,
                                              moment_handles)
     kv = verify_timing(dev, torch.Generator(device=dev).manual_seed(9))
+    extra["rmsnorm"] = rmsnorm_timing(
+        dev, torch.Generator(device=dev).manual_seed(10))
     extra["speculative_step"] = spec_step_timing(dev, paged_handles[1])
     log("timing: " + json.dumps(extra, default=float))
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
     # K2, K4), the whisper serving run (K1, K2, K4, K5), the moment
-    # serving run (K2, and K1 where the table chose "segmented") and the
-    # durability phase (K1, K2, K4, K5), each counted from 0 just before it
+    # serving run (K2, and K1 where the table chose "segmented"), the
+    # durability phase (K1, K2, K4, K5) and the speculative runs (K1, K2,
+    # K4's verify window), rmsnorm in every one, each counted from 0 just
+    # before it
     launches = {k: sum(st["launches"].get(k, 0)
                        for st in (stats, pstats, cstats, wstats, mstats,
                                   dstats, spstats))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
-                          "paged_verify_attention", "decode_attention")}
+                          "paged_verify_attention", "decode_attention",
+                          "rmsnorm")}
     kernels = [
         {"name": "segmented_lora", "route": "cuda",
          "source": "src/repro_torch/csrc/segmented_lora.cu",
@@ -3934,6 +4116,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attention.py:96",
          "launches": launches["decode_attention"],
          "max_abs_err": max(errs["decode_attention"].values()), **k5},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/models/layers.py:29",
+         "launches": launches["rmsnorm"],
+         "max_abs_err": max(errs["rmsnorm"].values()),
+         **{k: extra["rmsnorm"]["decode"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
     log(f"phases: {phases}, total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

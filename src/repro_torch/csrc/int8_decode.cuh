@@ -6,7 +6,7 @@
 // scales, which a source policy supplies: Dense reads row b of a (B, KV, S,
 // hd) cache with the (b, h) scales; Paged looks position s up in row b of
 // the page table, reads the arena (P, ps, KV, hd) and takes the (page, h)
-// scales; Staged reads codes the verify kernel copied into shared memory.
+// scales.
 //
 // Function (both): for batch row b and kv head h, the G = H / KV query heads
 // of the group attend the int8 keys/values of positions [max(0, len -
@@ -48,17 +48,13 @@
 //   element; the shares meet by xor-shuffles. A fixed order: the same bits
 //   on every call.
 //
-// The verify window (paged_verify_kernel): the CTA of (row b, kv head h)
-// stages its table row, the page scales and the int8 K/V rows of every
-// position any of the T window positions reads (the union of their
-// ranges) in shared memory, each row loaded from the arena ONCE, then runs
-// this body once per window position j, at length base_len + j + 1, on
-// the staged rows (source Staged). The lane layout, the passes, the rounds
-// and the merge are K4's for that length, so each position's output is
+// The verify window (paged_verify_kernel) runs this body once per window
+// position j, at length base_len + j + 1, with K4's lane layout, passes,
+// rounds and merge for that length, so each position's output is
 // bit-identical to a K4 call at its length: a verify step computes what T
-// sequential decode steps compute. A span whose codes do not fit in shared
-// memory (hd 128 past ~880 positions) takes the Paged source for each
-// position instead (one launch still; the repeats are served by L1/L2).
+// sequential decode steps compute. The positions run at once, one CTA
+// each, and the body runs lean there (one register buffer; see attend) so
+// that six CTAs share an SM.
 //
 // Built with -DINT8_DECODE_COPY_ONLY, the kernels only load what they would
 // read (the same prologue and the same loads) and write a token output: the
@@ -148,10 +144,6 @@ struct Dense {
     ks = kscale;
     vs = vscale;
   }
-  template <int W>
-  __device__ __forceinline__ static void load(const int8_t* p, uint32_t (&w)[W]) {
-    load_row<W>(p, w);
-  }
 };
 
 // Paged pool (K4): position s lives in page table[b, s / ps] at offset
@@ -167,13 +159,11 @@ struct Paged {
   float* ksc;
   float* vsc;
   int s_lo, s_hi;
-  int len;                              // the (first) length
 
   // The length and the table row (loaded together), one barrier. The
   // scales follow in staged(), called once the first round's K/V loads are
   // issued, so that those loads and the scales' overlap. The verify window
-  // passes lead and span: the lengths are lengths[b] + lead + j for j <
-  // span, and [s_lo, s_hi) is the union of their ranges (K4: 0 and 1).
+  // passes lead: the length is lengths[b] + lead (K4: 0).
   __device__ __forceinline__ Paged(const int8_t* kp, const int8_t* vp,
                                    const int32_t* page_table,
                                    const int32_t* lengths, int b, int h, int MP,
@@ -181,14 +171,14 @@ struct Paged {
                                    int64_t sks_, int64_t skh, int64_t svp_,
                                    int64_t svs_, int64_t svh, int window,
                                    int* tab_s, float* ksc_s, float* vsc_s,
-                                   int lead = 0, int span = 1)
+                                   int lead = 0)
       : kbase(kp + h * skh), vbase(vp + h * svh), skp(skp_), sks(sks_),
         svp(svp_), svs(svs_), ps(ps_), ps_shift(ps_shift_), P(P_),
         tab(tab_s), ksc(ksc_s), vsc(vsc_s) {
     const int32_t* prow = page_table + static_cast<int64_t>(b) * MP;
     for (int j = threadIdx.x; j < MP; j += kThreads) tab_s[j] = __ldg(prow + j);
-    len = __ldg(lengths + b) + lead;
-    s_hi = min(len + span - 1, MP * ps);
+    const int len = __ldg(lengths + b) + lead;
+    s_hi = min(len, MP * ps);
     s_lo = window > 0 ? max(0, len - window) : 0;
     __syncthreads();
   }
@@ -224,86 +214,7 @@ struct Paged {
     ks = ksc[j];
     vs = vsc[j];
   }
-  template <int W>
-  __device__ __forceinline__ static void load(const int8_t* p, uint32_t (&w)[W]) {
-    load_row<W>(p, w);
-  }
 };
-
-// The verify window's source for one window position: the K/V codes of row
-// b's positions [st_lo, st_lo + n) staged in shared memory (HD bytes a row,
-// by stage_rows), the table and page scales staged by Paged, and this
-// position's own range [s_lo, s_hi). A table entry outside [0, P) masks its
-// positions, as in Paged.
-template <int HD>
-struct Staged {
-  const int8_t* krows;
-  const int8_t* vrows;
-  const int* tab;
-  const float* ksc;
-  const float* vsc;
-  int st_lo, ps, ps_shift, P;
-  int s_lo, s_hi;
-
-  __device__ __forceinline__ int row(int s, const int8_t*& kr, const int8_t*& vr) const {
-    const int j = ps_shift >= 0 ? s >> ps_shift : s / ps;
-    const int page = tab[j];
-    if (page < 0 || page >= P) return -1;
-    kr = krows + (s - st_lo) * HD;
-    vr = vrows + (s - st_lo) * HD;
-    return j;
-  }
-  __device__ __forceinline__ void scales(int j, float& ks, float& vs) const {
-    ks = ksc[j];
-    vs = vsc[j];
-  }
-  // (shared memory: a plain load of the same words)
-  template <int W>
-  __device__ __forceinline__ static void load(const int8_t* p, uint32_t (&w)[W]) {
-    if constexpr (W == 4) {
-      const uint4 t = *reinterpret_cast<const uint4*>(p);
-      w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
-    } else if constexpr (W == 2) {
-      const uint2 t = *reinterpret_cast<const uint2*>(p);
-      w[0] = t.x; w[1] = t.y;
-    } else {
-      w[0] = *reinterpret_cast<const unsigned int*>(p);
-    }
-  }
-};
-
-// Copy the K and V rows of positions [src.s_lo, src.s_hi) (the union of a
-// verify window's ranges) from the arena into shared memory, and the T
-// window positions' G query rows (qg: position j's at qg + j * qst), 16
-// bytes a thread at a time, all in flight together; rows whose table
-// entry is outside [0, P) are skipped.
-template <int HD, int G>
-__device__ __forceinline__ void stage_rows(const Paged& src, int8_t* krows,
-                                           int8_t* vrows,
-                                           const __nv_bfloat16* qg,
-                                           int64_t qst, int T,
-                                           __nv_bfloat16* qs) {
-  constexpr int C = HD / 16;                        // 16-byte chunks a row
-  constexpr int QC = G * HD / 8;                    // 16-byte chunks of q
-  const int n = max(0, src.s_hi - src.s_lo);
-  for (int c = threadIdx.x; c < 2 * n * C + T * QC; c += kThreads) {
-    if (c >= 2 * n * C) {
-      const int j = (c - 2 * n * C) / QC;
-      const int k = (c - 2 * n * C) % QC;
-      *reinterpret_cast<uint4*>(qs + j * G * HD + 8 * k) =
-          *reinterpret_cast<const uint4*>(qg + j * qst + 8 * k);
-      continue;
-    }
-    const int v = c / (n * C);
-    const int r = (c / C) % n;
-    const int k = c % C;
-    const int8_t* kr;
-    const int8_t* vr;
-    if (src.row(src.s_lo + r, kr, vr) < 0) continue;
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>((v ? vr : kr) + 16 * k));
-    *reinterpret_cast<uint4*>((v ? vrows : krows) + r * HD + 16 * k) = t;
-  }
-}
 
 // Shared memory of the merge (floats): every lane group's accumulators
 // (kThreads / LPP groups x G x HD), then each warp's (m, l) per head.
@@ -320,7 +231,21 @@ struct MergePlan {
 // called once after the first passes' loads are issued (the paged source
 // stores its scales there and synchronises). q: this (row, kv head)'s G x
 // HD bf16 query heads; out: its G x HD outputs; merge: MergePlan floats.
-template <int HD, int G, class Src, class Stage>
+// K3 and K4 read a round ahead into two register buffers. kLean (the
+// verify window's positions, many CTAs an SM): no round ahead, a round's K
+// words loaded in two batches, the scores, then its V words in two
+// batches, and a pass wholly past the range not computed (its scores would
+// be -inf); the passes, rounds and arithmetic are the same, so are the
+// bits (the lean loop below mirrors consume's arithmetic line for line;
+// the host test holds the verify window, lean, against K4 bit for bit at
+// G 1 to 8), in a third of the registers (80 against K4's 245 at hd 64,
+// G 1, by ptxas: six CTAs an SM instead of two). Why two forms: K3 and K4
+// built lean, on an H100 at 700 W (tools/kernel_ab.py, two turns each),
+// took 7.7-8.1 us against 5.0 (K4, stablelm), 5.2 against 3.9 (K4,
+// whisper) and 6.3-6.6 against 4.7 (K3, stablelm): one CTA a (row, kv
+// head) waits for the scores before it loads a round's V words, and
+// nothing else on the SM hides that round trip; lean K3 also spilled.
+template <int HD, int G, bool kLean = false, class Src, class Stage>
 __device__ __forceinline__ void attend(const Src& src, Stage stage,
                                        const __nv_bfloat16* __restrict__ qg,
                                        __nv_bfloat16* __restrict__ og,
@@ -352,8 +277,8 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
       const int8_t* vr = nullptr;
       if (p < n_pass && s < s_hi) tag[u] = src.row(s, kr, vr);
       if (tag[u] >= 0) {
-        Src::template load<W>(kr + sub * DPL, kb[u]);
-        Src::template load<W>(vr + sub * DPL, vb[u]);
+        load_row<W>(kr + sub * DPL, kb[u]);
+        load_row<W>(vr + sub * DPL, vb[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < W; ++i) kb[u][i] = vb[u][i] = 0x80808080u;
@@ -361,8 +286,36 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
     }
   };
   const int n_round = (n_pass + D - 1) / D;
-  issue(0, kb0, vb0, tag0);
-  if (n_round > 1) issue(1, kb1, vb1, tag1);
+  // the lean path's round, in LS batches of SB passes: its tags, and the K
+  // words of one batch (V words are loaded after the round's scores, a
+  // batch at a time). Two batches: half a round's words live at once
+  constexpr int LS = 2, SB = (D + LS - 1) / LS;
+  int ltag[D];
+  uint32_t lkw[SB][W];
+  auto lean_issue = [&](int r, int h) {     // h: the batch (unrolled)
+    const int np = min(D, n_pass - r * D);  // passes in range: CTA-uniform
+#pragma unroll
+    for (int k = 0; k < SB; ++k) {
+      const int u = h * SB + k;
+      if (u >= D) break;
+      const int s = s0 + (r * D + u) * PCTA;
+      const int8_t* kr = nullptr;
+      const int8_t* vr = nullptr;
+      ltag[u] = u < np && s < s_hi ? src.row(s, kr, vr) : -1;
+      if (ltag[u] >= 0) {
+        load_row<W>(kr + sub * DPL, lkw[k]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) lkw[k][i] = 0x80808080u;
+      }
+    }
+  };
+  if constexpr (kLean) {
+    if (n_round > 0) lean_issue(0, 0);
+  } else {
+    issue(0, kb0, vb0, tag0);
+    if (n_round > 1) issue(1, kb1, vb1, tag1);
+  }
 
   // this lane's DPL dims of the G query heads, f32 (q is 16-byte aligned,
   // so a slice of 2 * DPL bytes is aligned to its size)
@@ -495,12 +448,149 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
     }
 #endif
   };
-  for (int r = 0; r < n_round; r += 2) {    // CTA-uniform
-    consume(kb0, vb0, tag0);
-    if (r + 2 < n_round) issue(r + 2, kb0, vb0, tag0);
-    if (r + 1 >= n_round) break;
-    consume(kb1, vb1, tag1);
-    if (r + 3 < n_round) issue(r + 3, kb1, vb1, tag1);
+  if constexpr (kLean) {
+    // the arithmetic below is consume's, in the same order: keep them in
+    // step
+    for (int r = 0; r < n_round; ++r) {     // CTA-uniform
+      const int np = min(D, n_pass - r * D);
+      const int (&tag)[D] = ltag;
+#ifdef INT8_DECODE_COPY_ONLY
+      (void)np;
+#pragma unroll
+      for (int h = 0; h < LS; ++h) {
+        if (r > 0 || h > 0) lean_issue(r, h);
+#pragma unroll
+        for (int k = 0; k < SB; ++k) {
+          const int u = h * SB + k;
+          if (u >= D) break;
+          uint32_t vw[W] = {};
+          if (tag[u] >= 0) {
+            const int8_t* kr;
+            const int8_t* vr;
+            src.row(s0 + (r * D + u) * PCTA, kr, vr);
+            load_row<W>(vr + sub * DPL, vw);
+          }
+#pragma unroll
+          for (int i = 0; i < W; ++i) sink ^= lkw[k][i] ^ vw[i];
+        }
+      }
+#else
+      float sc[D][G];
+#pragma unroll
+      for (int h = 0; h < LS; ++h) {
+        if (r > 0 || h > 0) lean_issue(r, h);
+#pragma unroll
+        for (int k = 0; k < SB; ++k) {
+          const int u = h * SB + k;
+          if (u >= D) break;
+          if (u >= np) {                    // CTA-uniform
+#pragma unroll
+            for (int g = 0; g < G; ++g) sc[u][g] = -INFINITY;
+            continue;
+          }
+          float part[G][NP];
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int t = 0; t < NP; ++t) part[g][t] = 0.f;
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            const uint32_t x = lkw[k][i] ^ 0x80808080u;
+            const float k0 = code_f32<0>(x), k1 = code_f32<1>(x);
+            const float k2 = code_f32<2>(x), k3 = code_f32<3>(x);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              float d = part[g][i % NP];
+              d = fmaf(qr[g][4 * i], k0, d);
+              d = fmaf(qr[g][4 * i + 1], k1, d);
+              d = fmaf(qr[g][4 * i + 2], k2, d);
+              d = fmaf(qr[g][4 * i + 3], k3, d);
+              part[g][i % NP] = d;
+            }
+          }
+          float ks, vs;
+          src.scales(tag[u] >= 0 ? tag[u] : 0, ks, vs);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            float dot = part[g][0];
+#pragma unroll
+            for (int t = 1; t < NP; ++t) dot += part[g][t];
+#pragma unroll
+            for (int o = LPP / 2; o > 0; o >>= 1)
+              dot += __shfl_xor_sync(0xffffffffu, dot, o);
+            sc[u][g] = tag[u] >= 0 ? dot * ks : -INFINITY;
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = sc[0][g];
+#pragma unroll
+        for (int u = 1; u < D; ++u) mx = fmaxf(mx, sc[u][g]);
+#pragma unroll
+        for (int o = LPP; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        if (mx > m[g]) {                    // warp-uniform
+          if (m[g] != -INFINITY) {
+            const float corr = exp2f(m[g] - mx);
+            l[g] *= corr;
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
+          }
+          m[g] = mx;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < LS; ++h) {
+        uint32_t vw[SB][W];
+#pragma unroll
+        for (int k = 0; k < SB; ++k) {
+          const int u = h * SB + k;
+          if (u >= D) break;
+          if (tag[u] >= 0) {
+            const int8_t* kr;
+            const int8_t* vr;
+            src.row(s0 + (r * D + u) * PCTA, kr, vr);
+            load_row<W>(vr + sub * DPL, vw[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < SB; ++k) {
+          const int u = h * SB + k;
+          if (u >= D) break;
+          if (tag[u] >= 0) {
+            float ks, vs;
+            src.scales(tag[u], ks, vs);
+            float vf[DPL];
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const uint32_t x = vw[k][i] ^ 0x80808080u;
+              vf[4 * i] = code_f32<0>(x);
+              vf[4 * i + 1] = code_f32<1>(x);
+              vf[4 * i + 2] = code_f32<2>(x);
+              vf[4 * i + 3] = code_f32<3>(x);
+            }
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const float p = exp2f(sc[u][g] - m[g]);
+              l[g] += p;
+              const float pv = p * vs;
+#pragma unroll
+              for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
+            }
+          }
+        }
+      }
+#endif
+    }
+  } else {
+    for (int r = 0; r < n_round; r += 2) {  // CTA-uniform
+      consume(kb0, vb0, tag0);
+      if (r + 2 < n_round) issue(r + 2, kb0, vb0, tag0);
+      if (r + 1 >= n_round) break;
+      consume(kb1, vb1, tag1);
+      if (r + 3 < n_round) issue(r + 3, kb1, vb1, tag1);
+    }
   }
 
 #ifdef INT8_DECODE_COPY_ONLY
@@ -572,8 +662,11 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
 
 // A CTA's shared memory, all dynamic: the merge (MergePlan floats), then,
 // for the paged kernel, its staged table row and the pages' k and v scales
-// (MP int32 and 2 x MP floats).
+// (MP int32 and 2 x MP floats). (A host build that runs the body on the
+// CPU defines int8_decode_smem itself, one array a CTA.)
+#ifndef int8_decode_smem
 extern __shared__ __align__(16) unsigned char int8_decode_smem[];
+#endif
 
 template <int HD, int G>
 __host__ __device__ constexpr size_t smem_bytes(int MP) {
@@ -627,27 +720,15 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                 q + base, out + base, merge);
 }
 
-// The verify window: one CTA per (row b, kv head h), blockIdx.x = b * KV +
-// h; window position j's query and output rows start at q + b * qsb + j *
-// qst and out + b * osb + j * ost (head h's G rows follow), and it attends
+// The verify window: window position j = blockIdx.y of row b attends
 // lengths[b] + lead + j positions (lead 1: position j sits at absolute
-// position base_len + j). kStaged: the union of the positions' ranges is
-// staged in shared memory once (rows after the merge, the table and the
-// scales, at a 16-byte boundary, then the T positions' query rows:
-// verify_smem_bytes); otherwise every position walks the arena through the
-// Paged source. Either way each position runs K4's body at its own length.
+// position base_len + j); its query and output rows start at q + b * qsb +
+// j * qst and out + b * osb + j * ost (head h's G rows follow); blockIdx.x
+// = b * KV + h. One CTA a position, reading the arena as K4 does (L2
+// serves the rows the positions share), running K4's body at its own
+// length, so its output is bit-identical to a K4 call; the body runs
+// lean (attend), so that six CTAs share an SM. Shared memory: smem_bytes.
 template <int HD, int G>
-__host__ __device__ constexpr size_t verify_rows_offset(int MP) {
-  return (smem_bytes<HD, G>(MP) + 15) / 16 * 16;
-}
-
-template <int HD, int G>
-__host__ __device__ constexpr size_t verify_smem_bytes(int MP, int span, int T) {
-  return verify_rows_offset<HD, G>(MP) + 2 * static_cast<size_t>(span) * HD +
-         static_cast<size_t>(T) * G * HD * sizeof(__nv_bfloat16);
-}
-
-template <int HD, int G, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 paged_verify_kernel(const __nv_bfloat16* __restrict__ q,
                     const int8_t* __restrict__ kp, const int8_t* __restrict__ vp,
@@ -658,46 +739,21 @@ paged_verify_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out, int KV, int P, int ps,
                     int ps_shift, int MP, int64_t skp, int64_t sks, int64_t skh,
                     int64_t svp, int64_t svs, int64_t svh, int window,
-                    float sm_scale, int T, int lead, int span, int64_t qsb,
-                    int64_t qst, int64_t osb, int64_t ost) {
+                    float sm_scale, int lead, int64_t qsb, int64_t qst,
+                    int64_t osb, int64_t ost) {
   float* merge = reinterpret_cast<float*>(int8_decode_smem);
   int* tab = reinterpret_cast<int*>(merge + MergePlan<HD, G>::kFloats);
   float* ksc = reinterpret_cast<float*>(tab + MP);
   float* vsc = ksc + MP;
   const int b = blockIdx.x / KV;
   const int h = blockIdx.x % KV;
-  const __nv_bfloat16* qb = q + b * qsb + static_cast<int64_t>(h) * G * HD;
-  __nv_bfloat16* ob = out + b * osb + static_cast<int64_t>(h) * G * HD;
-  if constexpr (kStaged) {
-    int8_t* krows = reinterpret_cast<int8_t*>(int8_decode_smem) +
-                    verify_rows_offset<HD, G>(MP);
-    int8_t* vrows = krows + static_cast<size_t>(span) * HD;
-    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
-        vrows + static_cast<size_t>(span) * HD);
-    const Paged all(kp, vp, page_table, lengths, b, h, MP, P, ps, ps_shift,
-                    skp, sks, skh, svp, svs, svh, window, tab, ksc, vsc, lead,
-                    T);
-    stage_rows<HD, G>(all, krows, vrows, qb, qst, T, qs);
-    all.staged(k_scale, v_scale, h, KV, sm_scale);    // ends in a barrier
-    for (int j = 0; j < T; ++j) {
-      const int len = all.len + j;
-      const Staged<HD> src{krows, vrows, tab, ksc, vsc, all.s_lo, ps,
-                           ps_shift, P, window > 0 ? max(0, len - window) : 0,
-                           min(len, MP * ps)};
-      attend<HD, G>(src, [] {}, qs + j * G * HD, ob + j * ost, merge);
-      __syncthreads();                    // the merge's shared memory again
-    }
-  } else {
-    (void)span;
-    for (int j = 0; j < T; ++j) {
-      const Paged src(kp, vp, page_table, lengths, b, h, MP, P, ps, ps_shift,
-                      skp, sks, skh, svp, svs, svh, window, tab, ksc, vsc,
-                      lead + j, 1);
-      attend<HD, G>(src, [&] { src.staged(k_scale, v_scale, h, KV, sm_scale); },
-                    qb + j * qst, ob + j * ost, merge);
-      __syncthreads();
-    }
-  }
+  const int j = blockIdx.y;
+  const int64_t qo = b * qsb + j * qst + static_cast<int64_t>(h) * G * HD;
+  const int64_t oo = b * osb + j * ost + static_cast<int64_t>(h) * G * HD;
+  const Paged src(kp, vp, page_table, lengths, b, h, MP, P, ps, ps_shift, skp,
+                  sks, skh, svp, svs, svh, window, tab, ksc, vsc, lead + j);
+  attend<HD, G, true>(src, [&] { src.staged(k_scale, v_scale, h, KV, sm_scale); },
+                      q + qo, out + oo, merge);
 }
 
 }  // namespace int8_decode

@@ -14,28 +14,26 @@
 // valid position gives zeros; a table entry outside [0, P) is never
 // dereferenced.
 //
-// What bounds it: as K4 (int8_decode.cuh), not the bytes of the pages but
-// the chain of dependent round trips (length and table, then the K/V rows)
-// and the instructions per code, now for T positions. The design: one CTA
-// per (row, kv head) reads its table row once, copies the int8 K/V rows of
-// the union of the T positions' ranges from the arena into shared memory
-// ONCE, with the T positions' query rows (16 bytes a thread, all in flight
-// together), then runs K4's body for
-// each window position in turn on the staged rows, at that position's own
-// length (paged_verify_kernel in int8_decode.cuh). So a verify step reads a
-// stream's pages from device memory once, where T unrolled K4 launches read
-// them T times and pay T launch latencies; and since every position runs
-// K4's lane layout, passes, rounds and merge at its length, its output is
-// bit-identical to a K4 call's: the speculative engine's attention is the
-// plain engine's, to the bit. (Walking once with the G * T rows as one
-// group of heads would need another lane layout than K4's at G = 1, whose
-// accumulators do not fit T-fold; that layout rounds differently, and on an
-// H100 a 24-layer random-weight stack amplified its one-ulp differences to
-// 0.36 relative L2 of the logits.)
-// Staging needs 2 * hd bytes a position of the union (26 KB at stablelm's
-// 208 positions, hd 64); where that exceeds the card's shared memory a
-// block, each position walks the arena itself (the Paged source; L1/L2
-// serve the repeats).
+// What bounds it: as K4 (int8_decode.cuh), not the bytes of the pages (a
+// few MB, about a microsecond at 3.35 TB/s) but the chain of dependent
+// round trips (length and table, then the K/V rows) and the instructions:
+// K4's lane layout at G = 1 converts every int8 code and runs its FMAs once
+// per window position, so T positions issue T times K4's instructions.
+// The design keeps K4's arithmetic per position, bit for bit, and runs the
+// positions at once: one CTA per (row, kv head, position), each running
+// K4's body at its position's length on the arena (L2 serves the rows the
+// positions share; device memory is read about once). The body runs lean
+// (int8_decode.cuh, attend<..., kLean>): no round read ahead, a round's K
+// words and then its V words loaded in two batches each, and passes wholly
+// past a position's range skipped, which takes the hd 64, G 1 body from
+// K4's 245 registers to 80, six CTAs an SM instead of two. Every position
+// runs K4's lane layout, passes, rounds and merge at its length, so its
+// output is bit-identical to a K4 call's: the speculative engine's
+// attention is the plain engine's, to the bit. (One walk with the G * T
+// rows as one group of heads would convert each code once, but needs
+// another lane layout than K4's at G = 1, whose accumulators do not fit
+// T-fold; that layout rounds differently, and a 24-layer stack amplifies
+// its one-ulp differences into other greedy tokens: PERF.md.)
 
 #include "int8_decode.cuh"
 
@@ -55,44 +53,30 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD, int G, bool kStaged>
-cudaError_t launch_kernel(const Args& a, int ps_shift, int span, size_t dyn) {
+template <int HD, int G>
+cudaError_t launch(const Args& a) {
+  // the merge and the staged table row and scales (12 bytes a table
+  // entry): past 48 KB the kernel must opt in
+  const size_t dyn = smem_bytes<HD, G>(a.MP);
   if (dyn > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_verify_kernel<HD, G, kStaged>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
+        paged_verify_kernel<HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dyn));
     if (err != cudaSuccess) return err;
   }
-  paged_verify_kernel<HD, G, kStaged><<<a.B * a.KV, kThreads, dyn, a.stream>>>(
+  int ps_shift = -1;
+  if ((a.ps & (a.ps - 1)) == 0)
+    for (ps_shift = 0; (1 << ps_shift) < a.ps; ++ps_shift) {}
+  // window position j at length base_len + 1 + j: lead 1
+  paged_verify_kernel<HD, G><<<dim3(a.B * a.KV, a.T), kThreads, dyn, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.kp),
       static_cast<const int8_t*>(a.vp), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int32_t*>(a.ptab),
       static_cast<const int32_t*>(a.lengths),
       static_cast<__nv_bfloat16*>(a.out), a.KV, a.P, a.ps, ps_shift, a.MP,
-      a.skp, a.sks, a.skh, a.svp, a.svs, a.svh, a.window, a.sm_scale, a.T, 1,
-      span, a.qsb, a.qst, a.osb, a.ost);
+      a.skp, a.sks, a.skh, a.svp, a.svs, a.svh, a.window, a.sm_scale, 1,
+      a.qsb, a.qst, a.osb, a.ost);
   return cudaGetLastError();
-}
-
-template <int HD, int G>
-cudaError_t launch(const Args& a) {
-  int ps_shift = -1;
-  if ((a.ps & (a.ps - 1)) == 0)
-    for (ps_shift = 0; (1 << ps_shift) < a.ps; ++ps_shift) {}
-  // the staged rows: every position the union of the T ranges can hold
-  const int cap = a.MP * a.ps;
-  const int span =
-      a.window > 0 && a.window + a.T - 1 < cap ? a.window + a.T - 1 : cap;
-  const size_t staged = verify_smem_bytes<HD, G>(a.MP, span, a.T);
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  if (staged <= static_cast<size_t>(optin))
-    return launch_kernel<HD, G, true>(a, ps_shift, span, staged);
-  return launch_kernel<HD, G, false>(a, ps_shift, 0, smem_bytes<HD, G>(a.MP));
 }
 
 template <int HD>

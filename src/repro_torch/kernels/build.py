@@ -31,6 +31,7 @@ SOURCES = {
     "paged_verify_attention": "paged_verify_attention.cu",
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
+    "rmsnorm": "rmsnorm.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -18,6 +18,7 @@ from repro_torch.kernels import decode_attention_int8 as _int8
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import paged_verify_attention as _verify
+from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import segmented_lora as _sgmv
 
 LAUNCHES = build.LAUNCHES
@@ -165,3 +166,13 @@ def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int = 128):
         return _sgmv.segmented_lora(x, block_adapter, a_w, b_w,
                                     block_t=block_t)
     return ref.segmented_lora_ref(x, block_adapter, a_w, b_w, block_t)
+
+
+def rmsnorm(w, x, eps: float = 1e-5):
+    """RMS norm over the last dim: x (..., d) taken to f32, scaled by
+    ``rsqrt(mean(x^2) + eps)`` and by ``w`` in f32, returned in x's dtype.
+    The kernel's row outputs depend on the row alone, never on how many
+    rows share the call (the plain version's f32 mean on the card does)."""
+    if _route(x) == "cuda":
+        return _rmsnorm.rmsnorm(w, x, eps)
+    return ref.rmsnorm(w, x, eps)

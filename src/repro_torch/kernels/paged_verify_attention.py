@@ -3,13 +3,14 @@ wrapper (K4 over T window positions).
 
 A verify step scores the T = spec_k + 1 positions of every stream's window
 in one forward, and window position j attends ``base_len + j + 1`` keys.
-``csrc/paged_verify_attention.cu`` reads each (row, kv head)'s table row
-and the K/V codes of the positions the window reads ONCE, into shared
-memory, then runs the paged decode kernel's body (K4) for each position at
-its own length, so each position's output is bit-identical to a K4 call's
-(the JAX package's XLA path gathers once the same way; its Pallas path
-unrolls T single-token calls). The arena is read in the model layout
-``(P, ps, KV, hd)`` through its strides. One launch per call.
+``csrc/paged_verify_attention.cu`` runs the paged decode kernel's body (K4)
+for every position at its own length, so each position's output is
+bit-identical to a K4 call's, and runs the positions at once: one CTA per
+(row, kv head, position), the body in a leaner register form than K4's so
+that six CTAs share an SM (the JAX package's XLA path gathers the pages
+once for all T positions; its Pallas path unrolls T single-token calls).
+The arena is read in the model layout ``(P, ps, KV, hd)`` through its
+strides. One launch per call.
 """
 from __future__ import annotations
 

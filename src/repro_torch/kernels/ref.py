@@ -4,7 +4,9 @@ Each mirrors its JAX oracle in ``kernels/ref.py`` of the JAX package, in the
 same (kernel, head-major) layouts, except ``flash_attention_ref``: it is the
 JAX package's jnp ``models.attention.flash_attention`` (``kv_len`` and the
 prefix operand), in the model layout; and ``decode_attention_ref`` with
-``p_dtype`` is the jnp ``models.attention.decode_attention``. ``kernels.ops``
+``p_dtype`` is the jnp ``models.attention.decode_attention``; and
+``rmsnorm``, the jnp ``models/layers.py::rmsnorm`` (no Pallas kernel: the
+port's kernel exists for its row invariance on the card). ``kernels.ops``
 uses them for tensors that lie on the CPU; ``chip_smoke.py`` holds the CUDA
 kernels against them on the card.
 """
@@ -207,3 +209,12 @@ def segmented_lora_ref(x, block_adapter, a_w, b_w, block_size: int):
     y = torch.bmm(h, b_w[aid_c].float())
     y = torch.where(valid[:, None, None], y, torch.zeros_like(y))
     return y.reshape(T, out_dim).to(x.dtype)
+
+
+def rmsnorm(w, x, eps: float = 1e-5):
+    """The JAX package's ``models/layers.py::rmsnorm``: normalize in f32,
+    scale by ``w`` in f32, return in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)

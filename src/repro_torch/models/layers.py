@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec
 
 
@@ -13,11 +14,10 @@ def rmsnorm_spec(d: int) -> ParamSpec:
 
 
 def rmsnorm(w, x, eps: float = 1e-5):
-    """Normalize in f32, scale by ``w`` in f32, return in ``x``'s dtype."""
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * w.float()).to(dt)
+    """Normalize in f32, scale by ``w`` in f32, return in ``x``'s dtype:
+    the row-invariant kernel on the card, its plain version on the CPU
+    (``kernels.ops.rmsnorm``)."""
+    return ops.rmsnorm(w, x, eps)
 
 
 # ---------------- embeddings ----------------

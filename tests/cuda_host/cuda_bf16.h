@@ -21,3 +21,5 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {uint16_t(u >> 16)};
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.bits; }

@@ -1,11 +1,13 @@
 // Host stand-in for the parts of the CUDA runtime and device library that
-// src/repro_torch/csrc/int8_decode.cuh uses, so that g++ can compile that
-// kernel body for the CPU (tests/test_torch_int8_decode_host.py). A grid runs
-// one CTA at a time; each CUDA thread is a std::thread; __syncthreads is a
-// barrier of the CTA and __shfl_xor_sync an exchange through a per-warp
-// slot array between two barriers of the warp, so every lane of a warp must
-// reach each shuffle (as on the card). __shared__ is empty: the one shared
-// array, declared extern, is defined by the test as a plain global.
+// the kernels in src/repro_torch/csrc/ (int8_decode.cuh, rmsnorm.cu) use, so
+// that g++ can compile their bodies for the CPU
+// (tests/test_torch_int8_decode_host.py, tests/test_torch_rmsnorm.py). A
+// grid runs one CTA at a time; each CUDA thread is a std::thread;
+// __syncthreads is a barrier of the CTA and __shfl_xor_sync an exchange
+// through a per-warp slot array between two barriers of the warp, so every
+// lane of a warp must reach each shuffle (as on the card). __shared__ is
+// empty: the one shared array, declared extern, is defined by the test as
+// a plain global.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -41,6 +43,8 @@ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c,
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline float __int_as_float(int u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   const uint64_t v = (uint64_t(y) << 32) | x;
   unsigned r = 0;
@@ -67,17 +71,29 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   return r;
 }
 
-// Run `body` as a grid of `grid` CTAs of `threads` threads (x dims only).
-inline void host_launch(int grid, int threads, const std::function<void()>& body) {
+// Run `body` as a grid of gx x gy CTAs of `threads` threads.
+inline void host_launch(int gx, int gy, int threads,
+                        const std::function<void()>& body) {
   host_grid.cta = std::make_unique<std::barrier<>>(threads);
   host_grid.warps.clear();
   for (int w = 0; w < threads / 32; ++w)
     host_grid.warps.push_back(std::make_unique<std::barrier<>>(32));
   host_grid.slots.assign(threads, 0.f);
-  for (int b = 0; b < grid; ++b) {
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t, b] { threadIdx.x = t; blockIdx.x = b; body(); });
-    for (auto& th : ts) th.join();
-  }
+  for (int y = 0; y < gy; ++y)
+    for (int x = 0; x < gx; ++x) {
+      std::vector<std::thread> ts;
+      for (int t = 0; t < threads; ++t)
+        ts.emplace_back([&, t, x, y] {
+          threadIdx.x = t;
+          blockIdx.x = x;
+          blockIdx.y = y;
+          body();
+        });
+      for (auto& th : ts) th.join();
+    }
+}
+
+// A grid of `grid` CTAs along x.
+inline void host_launch(int grid, int threads, const std::function<void()>& body) {
+  host_launch(grid, 1, threads, body);
 }

@@ -1,21 +1,21 @@
 """The int8 flash-decode kernels' CUDA body (``csrc/int8_decode.cuh``: K3
 ``decode_int8_kernel``, K4 ``paged_decode_kernel`` and its verify window
-``paged_verify_kernel``) compiled by g++ for
-the CPU against the stand-in headers in ``tests/cuda_host/`` (one std::thread
-per CUDA thread, barriers for ``__syncthreads`` and the warp shuffles) and
-run at the card's case shapes, cut to one kv head, against the plain
-versions in ``kernels/ref.py``, which
+``paged_verify_kernel``) compiled by g++ for the CPU against the stand-in
+headers in ``tests/cuda_host/`` (one std::thread per CUDA thread, barriers
+for ``__syncthreads`` and the warp shuffles) and run at the card's case
+shapes, cut to one kv head, against the plain versions in
+``kernels/ref.py``, which
 ``test_torch_kernels.py`` and ``test_torch_paged.py`` hold against the JAX
 package. This checks the kernel's logic here, where no GPU or nvcc is: the
 lane groups of every (hd, G) instantiation, the rounds of passes and their
 second register buffer, windows, ragged and empty rows, the page lookup
 (a shift or a division), table entries outside [0, P), lengths past the
 cache or table; and the verify window at ``VERIFY_CASES`` (T 1 to 10,
-windows that cross a page), both ways (the K/V rows staged in shared
-memory once, or every position walking the arena), each window position
-bit-identical to K4's body at its length. Tolerance: two bf16 ulps of the largest output, as on the
-card (both sides accumulate in f32, in another order, and round to bf16).
-Skipped where g++ with C++20 is missing."""
+windows that cross a page, G 1 to 8), its body in the lean register form
+and each window position bit-identical to K4's body (K4's own form) at its
+length. Tolerance: two bf16 ulps of the largest output, as on the card (both
+sides accumulate in f32, in another order, and round to bf16). Skipped
+where g++ with C++20 is missing."""
 import ctypes
 import math
 import shutil
@@ -35,8 +35,6 @@ STUBS = Path(__file__).resolve().parent / "cuda_host"
 
 sys.path.insert(0, str(ROOT))
 from chip_smoke import INT8_CASES, VERIFY_CASES  # noqa: E402
-
-SMEM = 1 << 18           # the stand-in shared memory of the glue (bytes)
 
 _GLUE = r"""
 #include "int8_decode.cuh"
@@ -97,40 +95,24 @@ extern "C" int host_paged_decode(
   HD_G_SWITCH(PAGED)
 }
 
-// span > 0: the staged kernel with room for span positions; 0: every
-// position walks the arena
 extern "C" int host_paged_verify(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* pt, const void* base, void* out, int B,
     int KV, int G, int T, int P, int ps, int MP, int hd, int64_t skp,
     int64_t sks, int64_t skh, int64_t svp, int64_t svs, int64_t svh,
     int64_t qsb, int64_t qst, int64_t osb, int64_t ost, int window,
-    float sm_scale, int span) {
-  const int shift = (ps & (ps - 1)) == 0 ? __builtin_ctz(ps) : -1;
+    float sm_scale) {
+  const int pshift = (ps & (ps - 1)) == 0 ? __builtin_ctz(ps) : -1;
+#define VERIFY_ARGS                                                         \
+  (const __nv_bfloat16*)q, (const int8_t*)kp, (const int8_t*)vp,            \
+      (const float*)ks, (const float*)vs, (const int32_t*)pt,               \
+      (const int32_t*)base, (__nv_bfloat16*)out, KV, P, ps, pshift, MP,     \
+      skp, sks, skh, svp, svs, svh, window, sm_scale, 1, qsb, qst, osb, ost
 #define VERIFY(HD, GG)                                                      \
-  host_launch(B * KV, kThreads, [&] {                                       \
-    if (span > 0)                                                           \
-      paged_verify_kernel<HD, GG, true>(                                    \
-          (const __nv_bfloat16*)q, (const int8_t*)kp, (const int8_t*)vp,    \
-          (const float*)ks, (const float*)vs, (const int32_t*)pt,           \
-          (const int32_t*)base, (__nv_bfloat16*)out, KV, P, ps, shift, MP,  \
-          skp, sks, skh, svp, svs, svh, window, sm_scale, T, 1, span, qsb,  \
-          qst, osb, ost);                                                   \
-    else                                                                    \
-      paged_verify_kernel<HD, GG, false>(                                   \
-          (const __nv_bfloat16*)q, (const int8_t*)kp, (const int8_t*)vp,    \
-          (const float*)ks, (const float*)vs, (const int32_t*)pt,           \
-          (const int32_t*)base, (__nv_bfloat16*)out, KV, P, ps, shift, MP,  \
-          skp, sks, skh, svp, svs, svh, window, sm_scale, T, 1, 0, qsb,     \
-          qst, osb, ost);                                                   \
+  host_launch(B * KV, T, kThreads, [&] {                                    \
+    paged_verify_kernel<HD, GG>(VERIFY_ARGS);                               \
   })
   HD_G_SWITCH(VERIFY)
-}
-
-extern "C" long host_verify_smem_bytes(int hd, int G, int MP, int span,
-                                       int T) {
-#define SMEM_BYTES(HD, GG) return (long)verify_smem_bytes<HD, GG>(MP, span, T)
-  HD_G_SWITCH(SMEM_BYTES)
 }
 """
 
@@ -157,9 +139,7 @@ def host_lib(tmp_path_factory):
     lib.host_paged_decode.argtypes = [P_] * 8 + [I_] * 7 + [L_] * 6 + \
         [I_, ctypes.c_float]
     lib.host_paged_verify.argtypes = [P_] * 8 + [I_] * 8 + [L_] * 10 + \
-        [I_, ctypes.c_float, I_]
-    lib.host_verify_smem_bytes.argtypes = [I_] * 5
-    lib.host_verify_smem_bytes.restype = ctypes.c_long
+        [I_, ctypes.c_float]
     return lib
 
 
@@ -327,25 +307,18 @@ def _verify_arena(gen, B, KV, hd, ps, MP, T, base):
     return P, kp, vp, ks, vs, pt
 
 
-def _run_verify(lib, q, kp, vp, ks, vs, pt, base, window, staged):
-    """The verify kernel body, one launch for the window: ``staged`` with
-    the launcher's room (every position a window's ranges can hold), else
-    every position walking the arena."""
+def _run_verify(lib, q, kp, vp, ks, vs, pt, base, window):
+    """The verify kernel body, one launch for the window, one CTA a
+    position."""
     B, T, H, hd = q.shape
     P, ps, KV, _ = kp.shape
-    MP = pt.shape[1]
-    cap = MP * ps
-    span = min(cap, window + T - 1) if window else cap
-    if staged:
-        assert lib.host_verify_smem_bytes(hd, H // KV, MP, span, T) <= SMEM
     out = torch.empty_like(q)
     rc = lib.host_paged_verify(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), pt.data_ptr(), base.data_ptr(), out.data_ptr(), B, KV,
-        H // KV, T, P, ps, MP, hd, *kp.stride()[:3], *vp.stride()[:3],
-        q.stride(0), q.stride(1), out.stride(0), out.stride(1),
-        -1 if window is None else window, 1 / math.sqrt(hd),
-        span if staged else 0)
+        H // KV, T, P, ps, pt.shape[1], hd, *kp.stride()[:3],
+        *vp.stride()[:3], q.stride(0), q.stride(1), out.stride(0),
+        out.stride(1), -1 if window is None else window, 1 / math.sqrt(hd))
     assert rc == 0
     return out
 
@@ -361,9 +334,8 @@ def _per_position_k4(lib, q, kp, vp, ks, vs, pt, base, window):
 def test_verify_kernel_body_matches_plain(host_lib, name):
     """The verify window's body at chip_smoke's cases, cut to one kv head
     (G kept), against T single-token plain reads at the successive
-    lengths base + j + 1, staged and unstaged (where the staged rows fit
-    the stand-in shared memory), each position equal to K4's body at its
-    length bit for bit."""
+    lengths base + j + 1, each position equal to K4's body at its length
+    bit for bit (the lean register form against K4's)."""
     c = VERIFY_CASES[name]
     G, T, MP, hd = c["H"] // c["KV"], c["T"], c["MP"], c.get("hd", 64)
     base, window = c["base"], c.get("window")
@@ -376,15 +348,9 @@ def test_verify_kernel_body_matches_plain(host_lib, name):
                                           vp.transpose(1, 2), ks, vs, pt, bl,
                                           window=window)
     k4 = _per_position_k4(host_lib, q, kp, vp, ks, vs, pt, bl, window)
-    cap = MP * 16
-    span = min(cap, window + T - 1) if window else cap
-    ways = [False]
-    if host_lib.host_verify_smem_bytes(hd, G, MP, span, T) <= SMEM:
-        ways.append(True)
-    for staged in ways:
-        out = _run_verify(host_lib, q, kp, vp, ks, vs, pt, bl, window, staged)
-        _check(out, want)
-        assert torch.equal(out, k4), staged
+    out = _run_verify(host_lib, q, kp, vp, ks, vs, pt, bl, window)
+    _check(out, want)
+    assert torch.equal(out, k4)
 
 
 def test_verify_kernel_body_page_size_and_outside_entries(host_lib):
@@ -400,15 +366,13 @@ def test_verify_kernel_body_page_size_and_outside_entries(host_lib):
     want = ref.paged_verify_attention_ref(q, kp.transpose(1, 2),
                                           vp.transpose(1, 2), ks, vs, pt, bl,
                                           window=30)
-    for staged in (True, False):
-        out = _run_verify(host_lib, q, kp, vp, ks, vs, pt, bl, 30, staged)
-        _check(out, want)
+    out = _run_verify(host_lib, q, kp, vp, ks, vs, pt, bl, 30)
+    _check(out, want)
     pt[1, 0] = P                                 # never dereferenced
-    for staged in (True, False):
-        out = _run_verify(host_lib, q, kp, vp, ks, vs, pt, bl, None, staged)
-        assert torch.isfinite(out.float()).all()
-        # row 1's first position sees only position 0, on the masked page:
-        # no valid position, zeros
-        assert (out[1, 0].float() == 0).all()
-        assert torch.equal(out, _per_position_k4(host_lib, q, kp, vp, ks, vs,
-                                                 pt, bl, None))
+    k4 = _per_position_k4(host_lib, q, kp, vp, ks, vs, pt, bl, None)
+    out = _run_verify(host_lib, q, kp, vp, ks, vs, pt, bl, None)
+    assert torch.isfinite(out.float()).all()
+    # row 1's first position sees only position 0, on the masked page: no
+    # valid position, zeros
+    assert (out[1, 0].float() == 0).all()
+    assert torch.equal(out, k4)

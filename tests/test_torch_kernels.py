@@ -428,7 +428,7 @@ class _FakeLibrary:
                                     "decode_attention_int8",
                                     "paged_decode_attention",
                                     "paged_verify_attention",
-                                    "flash_attention"])
+                                    "flash_attention", "rmsnorm"])
 def test_ctypes_argtypes_match_the_c_signatures(module, monkeypatch):
     """Each wrapper's ``argtypes`` have the count and kinds (pointer, int,
     int64, float) of its kernel's ``extern "C"`` entry point, so ctypes

@@ -726,6 +726,46 @@ def test_verify_kernel_on_gpu(cuda_device, case):
         q, kp, vp, ks, vs, pt, base, window=window))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [512, 1024, 2048])
+def test_rmsnorm_kernel_row_invariant_on_gpu(cuda_device, d):
+    """The rmsnorm kernel on the card: within one bf16 ulp of each
+    element of its plain version, one launch a call, and the bits of 8
+    rows (a decode step's) the same alone, among 40 rows (a verify
+    forward's) and among 4176, at other indices, and 4160 rows the same
+    in calls of 8 and of (8, 5, d): what lets a verify forward reproduce T
+    sequential steps at full depth."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((8 + 4176, d), generator=gen, device=cuda_device) * 3
+    x = x.to(torch.bfloat16)
+    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda_device)
+    rows = x[:8].clone()
+    before = ops.LAUNCHES["rmsnorm"]
+    want = ops.rmsnorm(w, rows)
+    assert ops.LAUNCHES["rmsnorm"] - before == 1
+    plain = ref.rmsnorm(w, rows)
+    assert ((want.float() - plain.float()).abs()
+            <= 2.0 ** -7 * plain.float().abs()).all()
+    for i in range(8):
+        assert torch.equal(ops.rmsnorm(w, rows[i:i + 1]), want[i:i + 1])
+    for n, at in ((40, 29), (4176, 3001)):
+        batch = x[8:8 + n].clone()
+        batch[at:at + 8] = rows
+        assert torch.equal(ops.rmsnorm(w, batch)[at:at + 8], want)
+    win = x[8:48].clone().view(8, 5, d)         # (B, T, d) as a verify step
+    win[:, 4] = rows
+    assert torch.equal(ops.rmsnorm(w, win)[:, 4], want)
+    # every row of 4160 the same in one call, in calls of 8 rows and in
+    # calls of (8, 5, d) (where PyTorch's f32 mean of squares differs)
+    xs = x[8:8 + 4160]
+    whole = ops.rmsnorm(w, xs)
+    assert torch.equal(torch.cat([ops.rmsnorm(w, xs[i:i + 8])
+                                  for i in range(0, 4160, 8)]), whole)
+    assert torch.equal(torch.cat([
+        ops.rmsnorm(w, xs[i:i + 40].view(8, 5, d)).view(40, d)
+        for i in range(0, 4160, 40)]), whole)
+
+
 def test_graphed_spec_engine_equals_eager(copy_fms):
     """The speculative executables through the graphs module's staging
     (calls 2 and later copy into static buffers, as on the card) against

@@ -12,13 +12,15 @@ module from its file with the parent's library swapped in, and times both
 on the same input sets at the serving shapes of ``chip_smoke.py`` (parent,
 change, the floor build if asked for, then the same in reverse; device
 time from ``torch.profiler`` by kernel name, so a call's split into its
-kernels shows; then the host time per call of parent and change the same
-way), after checking that both agree. ``--floor`` also builds this tree's
-int8 decode kernels with ``-DINT8_DECODE_COPY_ONLY`` (the same loads, no
-math: the floor of the design at a shape; its output is not the
-function's) and times that build in the same turns through this tree's
-wrapper. Prints a ptxas summary of every build (spill stores, registers),
-one JSON line per shape and the card's name and power limit.
+kernels shows; then the host time per call of parent and change the
+same way), after checking that both agree. A kernel the parent has no
+source for (``rmsnorm``) is timed against the parent's plain function
+(``PARENT_PLAIN``). ``--floor`` also builds this tree's int8 decode
+kernels with ``-DINT8_DECODE_COPY_ONLY`` (the same loads, no math: the
+floor of the design at a shape; its output is not the function's) and
+times that build in the same turns through this tree's wrapper. Prints a
+ptxas summary of every build (spill stores, registers), one JSON line per
+shape and the card's name and power limit.
 ``build/`` is gitignored, so the parent tree and its library stay out of
 commits. Needs a CUDA GPU and nvcc.
 """
@@ -81,27 +83,44 @@ def spill_lines(label: str, report: str):
           f"registers (hd 64, G 1: {serving})", flush=True)
 
 
+# kernels the parent may have no source for: (module file, function) of
+# the plain code the parent ran instead
+PARENT_PLAIN = {"rmsnorm": ("models/layers.py", "rmsnorm")}
+
+
+def _module_from(path: str, label: str):
+    spec = importlib.util.spec_from_file_location(label, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def parent_wrapper(parent: str, name: str):
     """The parent tree's wrapper module of kernel ``name``, its library
     built from the parent's source, and a function that calls a wrapper
-    function with that library in place of this tree's."""
+    function with that library in place of this tree's; where the parent
+    has no such source, its plain code (``PARENT_PLAIN``) as it is."""
     import ctypes
 
     from repro_torch.kernels import build
-    src = os.path.join(parent, "src", "repro_torch", "csrc", build.SOURCES[name])
+    pkg = os.path.join(parent, "src", "repro_torch")
+    src = os.path.join(pkg, "csrc", build.SOURCES[name])
+    if not os.path.exists(src) and name in PARENT_PLAIN:
+        rel, _ = PARENT_PLAIN[name]
+        print(f"parent {name}: no kernel, its plain {rel}", flush=True)
+        return _module_from(os.path.join(pkg, rel), f"_parent_{name}"), \
+            (lambda fn: fn)
     so = build.BUILD_DIR / f"{name}-parent.so"
     spill_lines(f"{name} parent", nvcc_build(src, so))
     lib = ctypes.CDLL(str(so))
-    spec = importlib.util.spec_from_file_location(
-        f"_parent_{name}",
-        os.path.join(parent, "src", "repro_torch", "kernels", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _module_from(os.path.join(pkg, "kernels", f"{name}.py"),
+                       f"_parent_{name}")
     return mod, swapper(name, lib)
 
 
 # the kernels with a copy-only build, and its define
-FLOOR_KERNELS = ("decode_attention_int8", "paged_decode_attention")
+FLOOR_KERNELS = ("decode_attention_int8", "paged_decode_attention",
+                 "paged_verify_attention")
 FLOOR_FLAG = "-DINT8_DECODE_COPY_ONLY"
 
 
@@ -129,6 +148,8 @@ def rotating(fn, sets):
 
 def cases(name: str, dev, gen):
     """(shape name, input sets, call(new_module)) at the serving shapes."""
+    import torch
+
     from repro_torch.kernels.segmented_lora import padded_tokens
     if name == "decode_attention":
         for shape, nsets in (("cross", 6), ("float_pool", 24)):
@@ -171,6 +192,25 @@ def cases(name: str, dev, gen):
             for st in sets:
                 st[6].clamp_(max=s_max)
             yield shape, sets, lambda mod: mod.paged_decode_attention
+    elif name == "paged_verify_attention":
+        # chip_smoke.verify_timing's shape: stablelm's speculative pool
+        # (8 streams, T 5, H = KV = 32, hd 64, a table of 13 pages of 16),
+        # ragged base lengths; 24 sets (one a layer)
+        T, MP = cs.SPEC_K + 1, 13
+        rng = torch.Generator().manual_seed(5)
+        sets = [cs.verify_inputs(gen, cs.SLOTS, 32, 32, 64, T, MP, torch.randint(
+            0, MP * cs.PAGE_SIZE - T, (cs.SLOTS,), generator=rng).tolist(), dev)
+            for _ in range(24)]
+        yield "serving", sets, lambda mod: mod.paged_verify_attention
+    elif name == "rmsnorm":
+        # stablelm's width over a decode step's, a verify forward's and a
+        # prefill bucket's rows; 8 sets each
+        for shape, rows in (("decode", cs.SLOTS),
+                            ("verify", cs.SLOTS * (cs.SPEC_K + 1)),
+                            ("prefill", cs.PROMPT_LEN)):
+            sets = [cs.rmsnorm_inputs(gen, rows, 2048, dev)[::-1]
+                    for _ in range(8)]
+            yield shape, sets, lambda mod: mod.rmsnorm
     else:
         raise SystemExit(f"no A/B cases for kernel {name!r}")
 
