@@ -43,7 +43,15 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    over T positions) at every case of ``VERIFY_CASES`` (T 1 to 10, GQA,
    windows, hd 32/64/128, caches of 1520 positions), within two bf16 ulps
    of its plain version, bit-identical twice, one launch a call, and every
-   window position bit-identical to K4 at its length;
+   window position bit-identical to K4 at its length; and at the shapes of
+   the other attention families: qwen2-7b's G 7 (H 28, KV 4, hd 128) and
+   h2o-danube-1.8b's hd 80 (H 32, KV 8) under its 4096-position window in
+   every case table (K2 pooled, admission and tail, and h2o's 4160-token
+   prefill; K3/K4 and K5 pools; the verify window at T 5), every (hd, G)
+   of hd 32, 64, 80, 128 and G 1, 2, 4, 7, 8 for K3, K4, the verify
+   window and K5, K1 at the four configs' q and v widths, and rmsnorm at
+   d 2560, 3584, 4096 and 8192; and the ptxas reports of every library
+   free of spill stores;
 2. reference — a two-layer cut of full-width stablelm-1.6b, prefill plus
    teacher-forced decode through the kernels on the card, held against the
    same model run with the plain versions on the CPU, on the int8 pool (K3)
@@ -135,7 +143,20 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    bucket's and a pooled batch's rows against its plain version and
    ``F.rms_norm``; and one speculative step (a verify forward of 8 x 5
    rows) against the plain step of the same engine, both profiled eager
-   and graphed.
+   and graphed;
+9. families — the other attention-only families (``phase_families``),
+   after stablelm's servers are freed: two-layer full-width cuts of
+   qwen2-7b and h2o-danube-1.8b on the card against the CPU on the dense
+   int8, float and paged pools (h2o with one 4160-token prompt and 32
+   decode steps, so its window binds in K2, K3 and K4); qwen2-7b (28
+   layers; dense and paged), h2o-danube-1.8b (24; dense and paged, full
+   prefill) and minitron-8b (32; paged) at full width and depth through
+   ``FMplexServer``/``ServeLoop`` with stablelm's gates, each server freed
+   before the next model is built; qwen2-vl-72b at full width cut to 2 of
+   its 80 layers (a pooled batch of vision-patch embeddings, a greedy
+   decode from patches with M-RoPE streams against the CPU, and M-RoPE on
+   the card against its CPU run); then the device times of K2-K5 and the
+   verify window at these shapes beside their bounds and SDPA.
 
 The serving paths run graphed: every executable of ``PhysicalFM`` and
 ``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
@@ -410,8 +431,9 @@ def sgmv_cases(cfg) -> dict:
     4 adapters) at decode (8 tokens: 6 blocks of 16), admission prefill (128
     tokens) and a pooled batch (32 x 128 tokens); whisper-base's at decode
     (d = out = 512); moment-large's pooled batch (32 x 32 patches, d = out
-    = 1024) at ranks 4 and 16; and at decode ranks 4 and 64, a narrower
-    output (96), one adapter, and a batch of sentinel blocks only."""
+    = 1024) at ranks 4 and 16; at decode ranks 4 and 64, a narrower
+    output (96), one adapter, and a batch of sentinel blocks only; and the
+    q and v projections of the other attention families at decode."""
     from repro_torch.kernels.segmented_lora import padded_tokens
     d = cfg.d_model
     dec = padded_tokens(SLOTS, min(SLOTS, 4 + 2), BLOCK_T)
@@ -431,6 +453,14 @@ def sgmv_cases(cfg) -> dict:
         # 1024, the launcher's rank 4 and rank 16
         **{f"moment_r{r}": dict(T=padded_tokens(32 * MOMENT_LEN, 6, BLOCK_T),
                                 d=1024, out=1024, r=r) for r in (4, 16)},
+        # the q and v projections of qwen2-7b, h2o-danube-1.8b, minitron-8b
+        # and qwen2-vl-72b at decode (v: KV * hd wide)
+        **{f"{name}_{p}": dict(T=dec, d=dm, out=o)
+           for name, dm, outs in (("qwen2", 3584, (3584, 512)),
+                                  ("h2o", 2560, (2560, 640)),
+                                  ("minitron", 4096, (4096, 1024)),
+                                  ("qwen2_vl", 8192, (8192, 1024)))
+           for p, o in zip("qv", outs)},
     }
 
 
@@ -523,10 +553,12 @@ def float_bound(q, k, lens, window=None):
 # H = KV = 8, 1500 frames, every row at full length), the float dense pool
 # of full-width stablelm-1.6b (H = KV = 32, S = s_max = 161, ragged lengths
 # from 1 to S), with GQA and with a window; at the cross length every other
-# (hd, G) instantiation of the kernel (hd 32, 64, 128; G 1, 2, 4, 8), lengths
-# that end inside the first split (the later splits of those rows empty) and
-# a window whose start crosses a split boundary (split at 384 on 132 SMs);
-# and a grid of 8 splits
+# (hd, G) instantiation of the kernel (hd 32, 64, 80, 128; G 1, 2, 4, 7, 8),
+# lengths that end inside the first split (the later splits of those rows
+# empty) and a window whose start crosses a split boundary (split at 384 on
+# 132 SMs); a grid of 8 splits; and the float pools of qwen2-7b (H 28, KV
+# 4, hd 128) and h2o-danube-1.8b (H 32, KV 8, hd 80) under its 4096-position
+# window over 4160 prompt positions and more
 FLOAT_CASES = {
     "cross": dict(H=8, KV=8, S=ENC_LEN, lens=[ENC_LEN] * SLOTS),
     "float_pool": dict(H=32, KV=32, S=PROMPT_LEN + MAX_NEW + 1,
@@ -540,7 +572,8 @@ FLOAT_CASES = {
     **{f"cross_hd{hd}_g{g}": dict(H=8 * g, KV=8, S=ENC_LEN, hd=hd,
                                   lens=[ENC_LEN, 1, 383, 385, 1100, 32, 767,
                                         1499])
-       for hd, gs in ((32, (1, 2, 4, 8)), (64, (2, 8)), (128, (1, 2, 4, 8)))
+       for hd, gs in ((32, (1, 2, 4, 7, 8)), (64, (2, 7, 8)),
+                      (80, (1, 2, 4, 7, 8)), (128, (1, 2, 4, 7, 8)))
        for g in gs},
     "cross_short": dict(H=8, KV=8, S=ENC_LEN,
                         lens=[100, 1, 383, 384, 385, ENC_LEN, 50, 7]),
@@ -550,6 +583,11 @@ FLOAT_CASES = {
     # 32 pairs over 2048 positions: the most splits a cluster holds (8)
     "eight_splits": dict(H=8, KV=4, S=2048,
                          lens=[2048, 1, 255, 257, 1800, 2047, 1024, 600]),
+    "qwen2_pool": dict(H=28, KV=4, hd=128, S=PROMPT_LEN + MAX_NEW + 1,
+                       lens=[1, 161, 77, 16, 100, 33, 128, 2]),
+    "h2o_pool_window": dict(H=32, KV=8, hd=80, S=4200, window=4096,
+                            lens=[4200, 1, 4096, 4097, 4160, 4191, 2000,
+                                  4199]),
 }
 
 
@@ -618,7 +656,7 @@ def paged_inputs(gen, B, H, KV, hd, P, nsets, dev, lens=None, MP=None):
                            device=dev, dtype=torch.int32) \
             if lens is None else torch.tensor(lens, dtype=torch.int32,
                                               device=dev)
-        npg = [-(-int(n) // PAGE_SIZE) for n in ln.tolist()]
+        npg = [min(MP, -(-int(n) // PAGE_SIZE)) for n in ln.tolist()]
         perm = (torch.randperm(P - 1, generator=gen, device=dev) + 1).tolist()
         pt = torch.zeros((B, MP), dtype=torch.int32)
         for b in range(B):
@@ -630,11 +668,11 @@ def paged_inputs(gen, B, H, KV, hd, P, nsets, dev, lens=None, MP=None):
     return sets
 
 
-def paged_bound(q, kp, pt, lens):
+def paged_bound(q, kp, pt, lens, window=None):
     """Bytes and flops on this data: K and V int8 of every page a stream
-    visits (``ceil(len / ps) * ps`` positions per (stream, kv head)), one k
-    and one v scale per visited (page, kv head), the table, q, the output
-    and the lengths."""
+    visits (``ceil(len / ps) * ps`` positions per (stream, kv head), less
+    the pages wholly before a window), one k and one v scale per visited
+    (page, kv head), the table, q, the output and the lengths."""
     B, H, hd = q.shape
     _, ps, KV, _ = kp.shape
     MP = pt.shape[1]
@@ -642,8 +680,9 @@ def paged_bound(q, kp, pt, lens):
     n = 0
     for ln in lens.tolist():
         hi = min(ln, MP * ps)
-        pages += -(-hi // ps)
-        n += hi
+        lo = max(0, ln - window) if window else 0
+        pages += -(-hi // ps) - lo // ps
+        n += hi - min(lo, hi)
     nbytes = 2 * pages * ps * KV * hd + 2 * 4 * pages * KV + 4 * B * MP + \
         2 * 2 * B * H * hd + 4 * B
     flops = 4.0 * n * H * hd
@@ -659,9 +698,13 @@ def paged_bound(q, kp, pt, lens):
 # kernel's register ring holds (hd 64: 256 positions), where it turns over.
 # Lengths 1, 32 and 33 (a warp-pass edge at hd 64 G 1), page multiples and
 # the table's full width (MP * ps; the dense kernel reads min(len, S)). S is
-# the dense cache's length; the paged table holds ceil(S / ps) pages. The
-# one K3/K4 case table: the cuda-marked tests and the CPU build of the
-# kernel body (tests/test_torch_int8_decode_host.py) import it.
+# the dense cache's length; the paged table holds ceil(S / ps) pages. Also
+# qwen2-7b's heads (H 28, KV 4, hd 128: G 7) with a window, and
+# h2o-danube-1.8b's (H 32, KV 8, hd 80: lane groups with idle lanes) with
+# its own 4096-position window over a 4200-position cache (4160 prompt
+# tokens plus decode). The one K3/K4 case table: the cuda-marked tests and
+# the CPU build of the kernel body (tests/test_torch_int8_decode_host.py)
+# import it.
 INT8_CASES = {
     "serving": dict(H=32, KV=32, S=161, lens=[1, 32, 33, 80, 176, 161, 100, 7]),
     "serving_window": dict(H=32, KV=32, S=161, window=48,
@@ -674,7 +717,11 @@ INT8_CASES = {
                             lens=[176, 100, 71, 70, 69, 130, 65, 150]),
     **{f"hd{hd}_g{g}": dict(H=8 * g, KV=8, hd=hd, S=161,
                             lens=[1, 32, 33, 64, 176, 161, 65, 128])
-       for hd in (32, 64, 128) for g in (1, 2, 4, 8)},
+       for hd in (32, 64, 80, 128) for g in (1, 2, 4, 7, 8)},
+    "qwen2_window": dict(H=28, KV=4, hd=128, S=161, window=48,
+                         lens=[161, 1, 48, 49, 120, 7, 96, 176]),
+    "h2o_window": dict(H=32, KV=8, hd=80, S=4200, window=4096,
+                       lens=[4200, 1, 4096, 4097, 4160, 4192, 2000, 4216]),
     "long": dict(H=8, KV=4, S=1500,
                  lens=[1500, 1, 257, 700, 1499, 512, 1024, 1504]),
     "long_window": dict(H=16, KV=8, S=1500, window=300, hd=128,
@@ -691,9 +738,11 @@ INT8_CASES = {
 # lengths 0 (the first decoded token), windows that cross a page inside the
 # window (base 15 and 31 straddle pages 1 and 2), tables filled to their
 # last position, and caches longer than the kernel's register ring
-# (several rounds of passes, hd 128 over 1520 positions among them). The one verify case table: the
-# cuda-marked tests and the CPU build of the kernel body
-# (tests/test_torch_int8_decode_host.py) import it.
+# (several rounds of passes, hd 128 over 1520 positions among them); qwen2-7b's
+# heads (G 7, hd 128) and h2o-danube-1.8b's (G 4, hd 80) at T 5, the latter
+# under its 4096-position window over 4160 prompt positions and more. The
+# one verify case table: the cuda-marked tests and the CPU build of the
+# kernel body (tests/test_torch_int8_decode_host.py) import it.
 VERIFY_CASES = {
     "serving": dict(H=32, KV=32, T=5, MP=13,
                     base=[0, 15, 31, 100, 155, 60, 7, 203]),
@@ -722,6 +771,10 @@ VERIFY_CASES = {
                           base=[1490, 0, 299, 301, 1000, 640, 1024, 1517]),
     "g8_t4": dict(H=32, KV=4, T=4, MP=13, window=40,
                   base=[0, 15, 31, 130, 12, 150, 77, 204]),
+    "qwen2_t5": dict(H=28, KV=4, hd=128, T=5, MP=13,
+                     base=[0, 15, 31, 130, 12, 150, 77, 203]),
+    "h2o_t5_window": dict(H=32, KV=8, hd=80, T=5, MP=264, window=4096,
+                          base=[4160, 0, 4091, 15, 31, 130, 77, 4219]),
 }
 
 
@@ -818,10 +871,11 @@ def check_verify(dev, gen):
     return ok, errs
 
 
-# rmsnorm at the model widths (whisper-base, moment-large, stablelm-1.6b)
-# and the row counts it meets: one row, a decode step's 8, a verify
-# forward's 40 (8 x 5), and 4176
-RMSNORM_WIDTHS = (512, 1024, 2048)
+# rmsnorm at the model widths (whisper-base, moment-large, stablelm-1.6b,
+# h2o-danube-1.8b, qwen2-7b, minitron-8b, qwen2-vl-72b) and the row counts
+# it meets: one row, a decode step's 8, a verify forward's 40 (8 x 5), and
+# 4176
+RMSNORM_WIDTHS = (512, 1024, 2048, 2560, 3584, 4096, 8192)
 RMSNORM_ROWS = (1, 8, 40, 4176)
 
 
@@ -998,6 +1052,23 @@ FLASH_CASES = {
                    causal=False),
     "moment_one": dict(B=1, Sq=MOMENT_LEN, Sk=MOMENT_LEN, H=16, KV=16,
                        causal=False),
+    # qwen2-7b (H 28, KV 4, hd 128: G 7, 9 queries and a dead row a CTA)
+    # and h2o-danube-1.8b (H 32, KV 8, hd 80, its 4096-position window):
+    # pooled, admission and tail (h2o's without the window: a window over a
+    # prefix is refused, so h2o admits whole), and h2o's causal prefill of
+    # 4160 prompt tokens in a 4352 bucket, longer than its window
+    "qwen2_pooled": dict(B=32, Sq=128, Sk=128, H=28, KV=4, hd=128),
+    "qwen2_admission": dict(B=1, Sq=128, Sk=128, H=28, KV=4, hd=128,
+                            kv_len=[77]),
+    "qwen2_tail": dict(B=2, Sq=64, Sk=64, Sp=128, H=28, KV=4, hd=128,
+                       kv_len=[37, 37], prefix_len=[64, 0]),
+    "h2o_pooled": dict(B=32, Sq=128, Sk=128, H=32, KV=8, hd=80, window=4096),
+    "h2o_admission": dict(B=1, Sq=128, Sk=128, H=32, KV=8, hd=80,
+                          window=4096, kv_len=[77]),
+    "h2o_tail": dict(B=2, Sq=64, Sk=64, Sp=128, H=32, KV=8, hd=80,
+                     kv_len=[37, 37], prefix_len=[64, 0]),
+    "h2o_window_prefill": dict(B=1, Sq=4352, Sk=4352, H=32, KV=8, hd=80,
+                               window=4096, kv_len=[4160]),
 }
 # the shapes timed: one call of each kind as the serving path makes it
 # (whisper: the encoder of one admission, and the cross-attention of a
@@ -1010,6 +1081,9 @@ FLASH_TIMED = {
                             causal=False),
     "whisper_cross": FLASH_CASES["whisper_cross_prefill"],
     "moment": FLASH_CASES["moment"],
+    "qwen2_pooled": FLASH_CASES["qwen2_pooled"],
+    "h2o_pooled": FLASH_CASES["h2o_pooled"],
+    "h2o_window_prefill": FLASH_CASES["h2o_window_prefill"],
 }
 
 
@@ -1102,6 +1176,49 @@ def check_flash(dev, gen):
     return ok, errs
 
 
+def check_unsupported(dev) -> dict:
+    """Each attention wrapper raises ``ValueError`` for a shape it has no
+    instantiation for: hd 96 (every one), and a group of 3 for K3, K4, the
+    verify window and K5 (K2 takes any group up to 64)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    bf, i8, i32 = torch.bfloat16, torch.int8, torch.int32
+
+    def z(*shape, dt=bf):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def raises(fn):
+        try:
+            fn()
+        except ValueError:
+            return True
+        return False
+    out = {}
+    for hd, H, KV in ((96, 8, 8), (64, 12, 4)):
+        if hd == 96:
+            out["flash_attention hd96"] = raises(lambda: ops.flash_attention(
+                z(1, 16, H, hd), z(1, 16, KV, hd), z(1, 16, KV, hd)))
+        tag = f"hd{hd}_g{H // KV}"
+        ln = torch.ones(2, dtype=i32, device=dev)
+        out[f"decode_attention {tag}"] = raises(lambda: ops.decode_attention(
+            z(2, H, hd), z(2, 32, KV, hd), z(2, 32, KV, hd), ln))
+        out[f"decode_attention_int8 {tag}"] = raises(
+            lambda: ops.decode_attention_int8(
+                z(2, H, hd), z(2, 32, KV, hd, dt=i8), z(2, 32, KV, hd, dt=i8),
+                z(2, KV, dt=torch.float32), z(2, KV, dt=torch.float32), ln))
+        pt = torch.zeros((2, 2), dtype=i32, device=dev)
+        arena = z(3, PAGE_SIZE, KV, hd, dt=i8)
+        scale = z(3, KV, dt=torch.float32)
+        pages = (arena, arena, scale, scale, pt)
+        out[f"paged_decode_attention {tag}"] = raises(
+            lambda: ops.paged_decode_attention(z(2, H, hd), *pages, ln))
+        out[f"paged_verify_attention {tag}"] = raises(
+            lambda: ops.paged_verify_attention(z(2, 3, H, hd), *pages, ln))
+    log(f"kernel wrappers raise for shapes without an instantiation: {out}")
+    return out
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the serving shapes. The
     tolerance is two bf16 ulps of the largest output magnitude: both sides
@@ -1174,7 +1291,8 @@ def phase_kernels(dev):
     ok_f, results["flash_attention"] = check_flash(dev, gen)
     ok_d, results["decode_attention"] = check_float_decode(dev, gen)
     ok_n, results["rmsnorm"] = check_rmsnorm(dev, gen)
-    return ok and ok_f and ok_d and ok_n, results
+    ok_u = all(check_unsupported(dev).values())
+    return ok and ok_f and ok_d and ok_n and ok_u, results
 
 
 # ---------------- phase 2: a small input against the CPU reference ----------------
@@ -1298,15 +1416,17 @@ def whisper_config(**over):
 
 def fan_in_qk(params, cfg):
     """Scale every query and key projection (self and cross, decoder and
-    encoder) in place to the model's real fan-in, sqrt(heads / d_model):
-    the package's init takes the heads axis of a (d, heads, hd) projection
-    as its fan-in (see ``phase_reference_whisper``)."""
-    scale = (cfg.num_heads / cfg.d_model) ** 0.5
-    for sub in params["layers"] + params["encoder"]["layers"]:
+    encoder) in place to the model's real fan-in, sqrt(heads / d_model)
+    with the projection's own heads (query or kv): the package's init
+    takes the heads axis of a (d, heads, hd) projection as its fan-in (see
+    ``phase_reference_whisper``)."""
+    encoder = params["encoder"]["layers"] if "encoder" in params else []
+    for sub in params["layers"] + encoder:
         for name in ("attn", "cross"):
             if name in sub:
-                sub[name]["wq"].mul_(scale)
-                sub[name]["wk"].mul_(scale)
+                for w, heads in (("wq", cfg.num_heads),
+                                 ("wk", cfg.num_kv_heads)):
+                    sub[name][w].mul_((heads / cfg.d_model) ** 0.5)
 
 
 def phase_reference_whisper(dev):
@@ -1377,10 +1497,11 @@ def phase_reference_whisper(dev):
 
 
 def _engine_run(fm, prompts, names, teacher_calls=None, paged=True,
-                chunked=False):
+                chunked=False, prompt_len=32, max_new=CHUNK + 1):
     """The prompts through a decode engine on ``fm`` (the paged pool, or
-    the dense one for scale; one chunk of decode after the admissions;
-    ``chunked``: the paged pool with chunked shared-prefix prefill).
+    the dense one for scale; ``max_new`` tokens a stream, one chunk of
+    decode after the admissions by default; ``chunked``: the paged pool
+    with chunked shared-prefix prefill).
     Greedy when ``teacher_calls`` is None; otherwise every sampler call is
     fed the argmax of the matching call in ``teacher_calls``. Returns each
     call's (f32 logits, live rows) and the engine. Eager
@@ -1393,8 +1514,8 @@ def _engine_run(fm, prompts, names, teacher_calls=None, paged=True,
     from repro_torch.core.decode_engine import DecodeEngine
     kw = dict(PAGED_KW, total_pages=None, chunked_prefill=chunked) \
         if paged else {}
-    eng = DecodeEngine(fm, num_slots=len(prompts), prompt_len=32,
-                       max_new=CHUNK + 1, chunk=CHUNK, **kw)
+    eng = DecodeEngine(fm, num_slots=len(prompts), prompt_len=prompt_len,
+                       max_new=max_new, chunk=CHUNK, **kw)
     calls = []
 
     def sample(logits, gens):
@@ -1407,7 +1528,7 @@ def _engine_run(fm, prompts, names, teacher_calls=None, paged=True,
     eng._sample = sample
     with graphs.disabled():
         for i, (p, name) in enumerate(zip(prompts, names)):
-            eng.join(f"t{i}", p, adapter_id=name, max_new_tokens=CHUNK + 1,
+            eng.join(f"t{i}", p, adapter_id=name, max_new_tokens=max_new,
                      rid=i)
         eng.drain()
     return calls, eng
@@ -1778,21 +1899,24 @@ def mixed_trace(cfg, seed: int = 7):
     return trace
 
 
-def phase_serving(dev):
+def phase_serving(dev, cfg=None):
+    """Full-width serving of ``cfg`` (default stablelm-1.6b) on the dense
+    int8 pool; see the module docstring for what must hold."""
     import numpy as np
     import torch
 
     from repro_torch.core.physical import BUCKETS
     from repro_torch.kernels import ops
     from repro_torch.serving.metrics import decode_stats, latency_stats
-    srv, cfg, fm, loop = build_server(dev)
+    name = "serving" if cfg is None else f"{cfg.name} serving"
+    srv, cfg, fm, loop = build_server(dev, cfg)
     eng = srv.decode_engine("fm0", **loop.engine_kwargs)
     rec = record_calls(eng, fm)
     mem0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     loop.warmup(pooled_task="task0", gen_task="task1", pooled_n=BUCKETS[-1])
     torch.cuda.synchronize()
-    log(f"warmup: {time.perf_counter() - t0:.1f} s")
+    log(f"{name} warmup: {time.perf_counter() - t0:.1f} s")
     mem1 = torch.cuda.memory_reserved()
     keys0 = (eng.compile_count(), fm.compile_count())
     trace = mixed_trace(cfg)
@@ -1811,7 +1935,7 @@ def phase_serving(dev):
            or r.result is None]
     if bad:
         ok = False
-        log(f"serving: {len(bad)} requests did not finish ok: "
+        log(f"{name}: {len(bad)} requests did not finish ok: "
             f"{[(r.rid, r.status) for r in bad[:5]]}")
     short = [r for r in gen if r.result is None or len(r.result) != r.max_new_tokens]
     nonfinite = [r for r in pooled
@@ -1824,6 +1948,7 @@ def phase_serving(dev):
     ls = latency_stats(pooled)
     n_tok = sum(len(r.result) for r in gen if r.result is not None)
     stats = {
+        "card": smi_line(),
         "wall_s": wall, "requests": len(trace), "generative": len(gen),
         "pooled": len(pooled), "tokens": n_tok, "tokens_per_s": n_tok / wall,
         "ttft_p50_ms": ds.get("ttft_p50_ms"), "tpot_p50_ms": ds.get("tpot_p50_ms"),
@@ -1832,11 +1957,11 @@ def phase_serving(dev):
         "quarantines": eng.quarantines, "shape_keys": [keys0, keys1],
     }
     ok &= graphed_against_eager(stats, rec, fm, eng, loop, (mem0, mem1))
-    log("serving: " + json.dumps(stats, default=float))
+    log(f"{name}: " + json.dumps(stats, default=float))
     if short or nonfinite:
-        log(f"serving: short streams {len(short)}, non-finite pooled {len(nonfinite)}")
+        log(f"{name}: short streams {len(short)}, non-finite pooled {len(nonfinite)}")
     if keys1 != keys0:
-        log(f"serving: new shape keys after warmup {keys0} -> {keys1}")
+        log(f"{name}: new shape keys after warmup {keys0} -> {keys1}")
     return ok, stats, (srv, fm, eng)
 
 
@@ -1889,10 +2014,30 @@ def paged_burst(cfg, eng) -> dict:
             "preemptions": eng.preemptions - before[1]}
 
 
-def phase_paged_serving(dev, chunked: bool = False):
-    """Full-width serving on the paged pool (PAGED_KW; ``chunked``: with
-    chunked shared-prefix prefill, the engine's default); see the module
-    docstring for what must hold."""
+def prefix_pair(cfg, eng) -> int:
+    """Two joins straight into the engine on one adapter whose prompts
+    share a 64-token prefix (4 full pages), the second joined once the
+    first is admitted: it maps the first's pages, whatever the serve
+    loop's admission batches did (a prefix registers after its admission's
+    prefill, so sharers admitted in one batch do not hit each other, and
+    how requests batch follows the model's speed). Returns the prefix hits
+    the pair made."""
+    import numpy as np
+    rng = np.random.RandomState(17)
+    prefix = rng.randint(0, cfg.vocab_size, 64)
+    before = eng.prefix_hits
+    for i in range(2):
+        eng.join("task2", np.concatenate([
+            prefix, rng.randint(0, cfg.vocab_size, 16)]).astype(np.int32),
+            adapter_id="lora2", max_new_tokens=8, rid=-2000 - i)
+    eng.drain()
+    return eng.prefix_hits - before
+
+
+def phase_paged_serving(dev, chunked: bool = False, cfg=None):
+    """Full-width serving of ``cfg`` (default stablelm-1.6b) on the paged
+    pool (PAGED_KW; ``chunked``: with chunked shared-prefix prefill, the
+    engine's default); see the module docstring for what must hold."""
     import numpy as np
     import torch
 
@@ -1901,8 +2046,11 @@ def phase_paged_serving(dev, chunked: bool = False):
     from repro_torch.serving.metrics import (decode_stats, latency_stats,
                                              mixed_stats, page_gauges)
     name = "chunked serving" if chunked else "paged serving"
+    family = cfg is not None
+    if family:
+        name = f"{cfg.name} {name}"
     srv, cfg, fm, loop = build_server(
-        dev, **dict(PAGED_KW, chunked_prefill=chunked))
+        dev, cfg, **dict(PAGED_KW, chunked_prefill=chunked))
     eng = srv.decode_engine("fm0", **loop.engine_kwargs)
     rec = record_calls(eng, fm)
     mem0 = torch.cuda.memory_reserved()
@@ -1920,7 +2068,9 @@ def phase_paged_serving(dev, chunked: bool = False):
     loop.run(trace, max_wall=600)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    loop_hits = eng.prefix_hits
     burst = None if chunked else paged_burst(cfg, eng)
+    pair = None if chunked else prefix_pair(cfg, eng)
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "paged_decode_attention",
                           "flash_attention", "rmsnorm")}
@@ -1952,7 +2102,11 @@ def phase_paged_serving(dev, chunked: bool = False):
     }
     ok = not bad and not short and not nonfinite and not leak
     ok &= eng.quarantines == 0 and all(v > 0 for v in launches.values())
-    ok &= eng.prefix_hits >= 1
+    # stablelm's trace shares prefixes through the loop; another model's
+    # speed batches its admissions otherwise, and there the direct pair
+    # (stablelm's too) shows the sharing
+    stats["prefix_hits"] = {"loop": loop_hits, "pair": pair}
+    ok &= (loop_hits >= 1 or family) and (chunked or pair == 1)
     ok &= stats["shape_keys"][1] == keys0
     if chunked:
         stats["ttft_split"] = mixed_stats(trace, ttft_split={
@@ -3252,10 +3406,13 @@ def phase_speculative(dev):
     return ok, stats
 
 
-def verify_timing(dev, gen, nsets: int = 24) -> dict:
+def verify_timing(dev, gen, nsets: int = 24, H: int = 32, KV: int = 32,
+                  hd: int = 64, MP: int = 13, window=None,
+                  base_lo: int = 0) -> dict:
     """The verify kernel's device time per call at the speculative
     serving shape (8 streams, T 5, H = KV = 32, hd 64, a table of 13 pages
-    of 16, ragged base lengths), over ``nsets`` arenas (one per layer, so
+    of 16, ragged base lengths; or the heads, table, window and least base
+    length given), over ``nsets`` arenas (one per layer, so
     each call finds its pages cold); its plain version's; T unrolled K4
     calls at the successive lengths (the JAX Pallas path); one
     ``scaled_dot_product_attention`` call on the pages already gathered
@@ -3265,33 +3422,28 @@ def verify_timing(dev, gen, nsets: int = 24) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    T, H, KV, hd, MP = SPEC_K + 1, 32, 32, 64, 13
+    T = SPEC_K + 1
     rng = torch.Generator().manual_seed(5)
     sets = []
     for _ in range(nsets):
-        base = torch.randint(0, MP * PAGE_SIZE - T, (SLOTS,), generator=rng)
+        base = torch.randint(base_lo, MP * PAGE_SIZE - T, (SLOTS,),
+                             generator=rng)
         sets.append(verify_inputs(gen, SLOTS, H, KV, hd, T, MP,
                                   base.tolist(), dev))
-
-    def rotating(fn, items):
-        it = [0]
-
-        def call():
-            fn(*items[it[0] % len(items)])
-            it[0] += 1
-        return call
-    k_ms = device_ms(rotating(lambda *a: ops.paged_verify_attention(*a),
-                              sets))
+    kernel = rotating(lambda *a: ops.paged_verify_attention(
+        *a, window=window), sets)
+    k_ms = device_ms(kernel)
     p_ms = device_ms(rotating(lambda q, kp, vp, ks, vs, pt, b:
                               ref.paged_verify_attention_ref(
                                   q, kp.transpose(1, 2), vp.transpose(1, 2),
-                                  ks, vs, pt, b), sets))
+                                  ks, vs, pt, b, window=window), sets),
+                     iters=5 if MP > 64 else 20)
     # the JAX Pallas path: T single-token calls, each at its own length
     unrolled = [([q[:, j].contiguous() for j in range(T)], kp, vp, ks, vs,
                  pt, [(b + j + 1).to(torch.int32) for j in range(T)])
                 for q, kp, vp, ks, vs, pt, b in sets]
     u_ms = device_ms(rotating(lambda qs, kp, vp, ks, vs, pt, ls: [
-        ops.paged_decode_attention(qj, kp, vp, ks, vs, pt, lj)
+        ops.paged_decode_attention(qj, kp, vp, ks, vs, pt, lj, window=window)
         for qj, lj in zip(qs, ls)], unrolled))
     S = MP * PAGE_SIZE
     lib_sets = []
@@ -3301,25 +3453,31 @@ def verify_timing(dev, gen, nsets: int = 24) -> dict:
             return g.permute(0, 3, 1, 2, 4).reshape(
                 SLOTS, KV, S, hd).to(torch.bfloat16)
         lens = b[:, None] + 1 + torch.arange(T, device=dev)[None]
-        mask = (torch.arange(S, device=dev)[None, None]
-                < lens[..., None])[:, None]                 # (B, 1, T, S)
-        lib_sets.append((q.transpose(1, 2).contiguous(), gathered(kp, ks),
-                         gathered(vp, vs), mask))
+        pos = torch.arange(S, device=dev)[None, None]
+        mask = pos < lens[..., None]
+        if window is not None:
+            mask &= pos >= lens[..., None] - window
+        G = H // KV
+        lib_sets.append((q.transpose(1, 2).contiguous(),
+                         gathered(kp, ks).repeat_interleave(G, dim=1),
+                         gathered(vp, vs).repeat_interleave(G, dim=1),
+                         mask[:, None]))                   # (B, 1, T, S)
     lib_ms = device_ms(rotating(
         lambda q, k, v, m: F.scaled_dot_product_attention(q, k, v,
                                                           attn_mask=m),
         lib_sets))
-    b_ms, b_by = verify_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6])
-    log(f"paged_verify_attention [B={SLOTS} T={T} H={H} MP={MP}]: "
-        f"{k_ms * 1e3:.2f} us (T unrolled K4 {u_ms * 1e3:.2f}, SDPA "
-        f"{lib_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f})")
+    b_ms, b_by = verify_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6],
+                              window)
+    log(f"paged_verify_attention [B={SLOTS} T={T} H={H} KV={KV} hd={hd} "
+        f"MP={MP} window={window}]: {k_ms * 1e3:.2f} us (T unrolled K4 "
+        f"{u_ms * 1e3:.2f}, SDPA {lib_ms * 1e3:.2f}, bound "
+        f"{b_ms * 1e3:.2f})")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, unrolled_k4_ms=u_ms,
-                enqueue_ms=time_ms(rotating(
-                    lambda *a: ops.paged_verify_attention(*a), sets)))
+                enqueue_ms=time_ms(kernel))
 
 
-def rmsnorm_timing(dev, gen) -> dict:
+def rmsnorm_timing(dev, gen, d: int = 2048, shapes=None) -> dict:
     """rmsnorm's device time per call at stablelm's width (d 2048) over
     rows of a decode step (8), a verify forward (40), a prefill bucket
     (128) and a pooled batch (32 x 128), each over 8 input sets; its plain
@@ -3333,21 +3491,13 @@ def rmsnorm_timing(dev, gen) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    d = 2048
-
-    def rotating(fn, items):
-        it = [0]
-
-        def call():
-            fn(*items[it[0] % len(items)])
-            it[0] += 1
-        return call
 
     def library(w, x):
         return F.rms_norm(x, (d,), w, 1e-5)
     out = {}
-    for name, rows in (("decode", SLOTS), ("verify", SLOTS * (SPEC_K + 1)),
-                       ("prefill", PROMPT_LEN), ("pooled", 32 * PROMPT_LEN)):
+    for name, rows in shapes or (
+            ("decode", SLOTS), ("verify", SLOTS * (SPEC_K + 1)),
+            ("prefill", PROMPT_LEN), ("pooled", 32 * PROMPT_LEN)):
         sets = [rmsnorm_inputs(gen, rows, d, dev)[::-1] for _ in range(8)]
         b_ms, b_by = bound_ms(2 * 2 * rows * d + 4 * d, 4.0 * rows * d)
         with warnings.catch_warnings():     # the composite path's notice
@@ -3426,11 +3576,419 @@ def spec_step_timing(dev, fm) -> dict:
     return out
 
 
+# ---------------- phase 9: the other attention-only families ----------------
+
+QWEN2, H2O, MINITRON, QWEN2_VL = ("qwen2-7b", "h2o-danube-1.8b", "minitron-8b",
+                                  "qwen2-vl-72b")
+H2O_PROMPT, H2O_STEPS = 4160, 32    # a prompt past h2o-danube's 4096 window
+VLM_LAYERS = 2                      # of qwen2-vl-72b's 80 (see phase_vlm)
+VLM_GRID = 8                        # patches a side: 64 a request
+
+
+def family_config(arch, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def free_device():
+    """Drop what the collector can reach and return the cached blocks, so
+    the next model's weights find the card's memory."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_fms(dev, cfg, seed):
+    """One backbone on the card (q/k at the real fan-in, ``fan_in_qk``) and
+    the same weights on the CPU, with the same three random rank-16
+    adapters."""
+    from repro_torch.core.physical import PhysicalFM
+    from repro_torch.models.common import tree_map
+    kw = dict(seed=seed, lora_rank=RANK, input_len=32, lora_impl="segmented",
+              seg_block_t=BLOCK_T)
+    gfm = PhysicalFM(cfg, device=dev, **kw)
+    fan_in_qk(gfm.params, cfg)
+    cfm = PhysicalFM(cfg, device="cpu", params=tree_map(
+        lambda t: t.cpu(), gfm.params), **kw)
+    for i in range(3):
+        tree = random_adapter(gfm.adapters, i, dev)
+        gfm.adapters.add(f"a{i}", tree)
+        cfm.adapters.add(f"a{i}", tree_map(lambda t: t.cpu(), tree))
+    return gfm, cfm
+
+
+def phase_reference_family(dev, arch):
+    """A two-layer cut of full-width ``arch`` (qwen2-7b: GQA 28 / 4, G 7,
+    hd 128, a qkv bias; h2o-danube-1.8b: hd 80, a 4096-position window),
+    prefill and teacher-forced decode through the kernels on the card
+    against the same weights with the plain versions on the CPU, q/k at the
+    real fan-in (``fan_in_qk``), three adapters and the base model: the
+    dense int8 pool (segmented LoRA: K1, K3), the float pool (gather LoRA:
+    K5) and the paged pool (the engine, full prefill: K4, K1), K2 carrying
+    every prefill. qwen2-7b: 4 rows of 16 prompt tokens and 4 decode steps
+    on the dense pools, phase_reference_paged's 4 streams (one shared
+    prefix page) on the paged one. h2o-danube-1.8b: on the int8 and paged
+    pools one stream of 4160 prompt tokens and 32 decode steps, so that its
+    window binds in K2, K3 and K4; the float pool as qwen2's. Bounds as
+    stablelm's: relative L2 2e-2 (dense pools), 3e-2 (paged), greedy tokens
+    equal wherever the CPU's top-2 gap exceeds twice the largest logit
+    difference; each leg's kernels must launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    cfg = family_config(arch, num_layers=2)
+    gfm, cfm = family_fms(dev, cfg, seed=6)
+    stack, cstack = gfm.adapters.stacked(), cfm.adapters.stacked()
+    cap = gfm.adapters.capacity()
+    long = arch == H2O
+    rng = np.random.RandomState(8)
+    report, ok = {}, True
+    for leg, impl, kvq, kernels in (
+            ("int8", "segmented", True, ("segmented_lora",
+                                         "decode_attention_int8",
+                                         "flash_attention", "rmsnorm")),
+            ("float", "gather", False, ("decode_attention", "flash_attention",
+                                        "rmsnorm"))):
+        if long and leg == "int8":
+            B, S, steps, aidx = 1, H2O_PROMPT, H2O_STEPS, np.array([1],
+                                                                    np.int32)
+        else:
+            B, S, steps, aidx = 4, 16, 4, np.array([0, 2, cap, 1], np.int32)
+        toks = rng.randint(0, cfg.vocab_size, (B, S + steps)).astype(np.int64)
+        c = _teacher_forced(cfg, cfm, torch.device("cpu"), cfm.params, cstack,
+                            cap, toks, aidx, S, steps, impl, kvq)
+        ops.reset_launches()
+        g = _teacher_forced(cfg, gfm, torch.device(dev), gfm.params, stack,
+                            cap, toks, aidx, S, steps, impl, kvq)
+        torch.cuda.synchronize()
+        r = report[leg] = drift(g.flatten(0, 1), c.flatten(0, 1))
+        r.update(rows=B, prompt=S, steps=steps, bound=2e-2, launches={
+            k: int(ops.LAUNCHES[k]) for k in kernels})
+        ok &= (r["finite"] and r["rel_l2"] <= 2e-2 and r["argmax_agree"]
+               and all(v > 0 for v in r["launches"].values()))
+    if long:
+        prompts = [rng.randint(0, cfg.vocab_size, H2O_PROMPT).astype(np.int32)]
+        names, plen, max_new = ["a1"], H2O_PROMPT, H2O_STEPS + 1
+    else:
+        prefix = rng.randint(0, cfg.vocab_size, PAGE_SIZE)
+        prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, 4)]),
+                   np.concatenate([prefix, rng.randint(0, cfg.vocab_size, 9)]),
+                   rng.randint(0, cfg.vocab_size, 20),
+                   rng.randint(0, cfg.vocab_size, 13)]
+        prompts = [p.astype(np.int32) for p in prompts]
+        names, plen, max_new = ["a0", "a0", "a2", None], 32, CHUNK + 1
+    ccalls, _ = _engine_run(cfm, prompts, names, prompt_len=plen,
+                            max_new=max_new)
+    ops.reset_launches()
+    gcalls, geng = _engine_run(gfm, prompts, names, ccalls, prompt_len=plen,
+                               max_new=max_new)
+    torch.cuda.synchronize()
+    r = report["paged"] = drift(torch.cat([lg[lv] for lg, lv in gcalls]),
+                                torch.cat([lg[lv] for lg, lv in ccalls]))
+    r.update(calls=[len(ccalls), len(gcalls)], prompt=plen, bound=3e-2,
+             launches={k: int(ops.LAUNCHES[k]) for k in (
+                 "paged_decode_attention", "segmented_lora",
+                 "flash_attention", "rmsnorm")})
+    ok &= (r["finite"] and r["rel_l2"] <= 3e-2 and r["argmax_agree"]
+           and r["calls"][0] == r["calls"][1]
+           and all(v > 0 for v in r["launches"].values()))
+    del gfm, cfm, stack, cstack, geng
+    free_device()
+    report["seconds"] = time.perf_counter() - t0
+    log(f"{arch} reference: 2-layer full-width cut, GPU vs CPU, int8 pool "
+        f"(K3), float pool (K5), paged pool (K4): " + json.dumps(report))
+    return bool(ok), report
+
+
+def phase_family_serving(dev, arch, pool):
+    """Full-width, full-depth ``arch`` behind ``FMplexServer``/``ServeLoop``
+    as stablelm is served (random weights from a seed, 4 tasks with rank-16
+    q/v adapters, 8 slots, graphed): ``pool`` "dense" is
+    ``phase_serving`` (the dense int8 pool), "paged" is
+    ``phase_paged_serving`` (the paged pool of 45 pages, full prefill, the
+    burst that defers and preempts), with the same gates. The server is
+    freed before the next model is built."""
+    t0 = time.perf_counter()
+    cfg = family_config(arch)
+    if pool == "dense":
+        ok, stats, handles = phase_serving(dev, cfg)
+    else:
+        ok, stats, handles = phase_paged_serving(dev, cfg=cfg)
+    del handles
+    free_device()
+    stats["seconds"] = time.perf_counter() - t0
+    log(f"{arch} {pool} serving: ok {ok}, {stats['tokens_per_s']:.1f} "
+        f"tokens/s, TTFT p50 {stats['ttft_p50_ms']:.1f} ms, TPOT p50 "
+        f"{stats['tpot_p50_ms']:.2f} ms, {stats['seconds']:.1f} s")
+    return ok, stats
+
+
+def vlm_inputs(rng, B, d):
+    """B requests of VLM_GRID x VLM_GRID vision-patch embeddings (numpy)
+    and their M-RoPE streams (B, S, 3): t the request's frame (0-2), h and
+    w the patch's row and column."""
+    import numpy as np
+    S = VLM_GRID * VLM_GRID
+    emb = (rng.randn(B, S, d) * 0.5).astype(np.float32)
+    s = np.arange(S)
+    pos3 = np.stack([np.zeros(S, int), s // VLM_GRID, s % VLM_GRID], -1)
+    pos3 = pos3[None] + np.stack([rng.randint(0, 3, B), np.zeros(B, int),
+                                  np.zeros(B, int)], -1)[:, None]
+    return emb, pos3.astype(np.int64)
+
+
+def phase_vlm(dev):
+    """qwen2-vl-72b at full width (d 8192, 64 query heads over 8 kv heads
+    of 128, M-RoPE sections (16, 24, 24), a qkv bias, vocab 152064), its
+    depth cut to VLM_LAYERS of 80: 145 GB of bf16 weights do not fit one
+    80 GB card, 2 layers hold 4.3 B parameters (most of them the embedding
+    and the f32 head). q/k at the real fan-in (``fan_in_qk``), three
+    adapters. (1) One pooled batch of 8 requests of 64 vision-patch
+    embeddings through ``PhysicalFM.run_batch_device`` (segmented LoRA):
+    finite (8, d) features, K1 and K2 launched. (2) Two streams of 64 patch
+    embeddings with M-RoPE streams prefilled into the dense int8 pool, then
+    4 greedy decode steps (text positions, t = h = w), on the card fed the
+    CPU run's tokens: relative L2 of the logits at most 2e-2, the greedy
+    tokens equal where the CPU's top-2 gap exceeds twice the largest
+    difference, K3 launched. (3) ``apply_mrope`` on the card at distinct
+    (t, h, w) streams against its CPU run: two bf16 ulps of the largest
+    output."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.physical import seg_to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, lm
+    t0 = time.perf_counter()
+    full = family_config(QWEN2_VL)
+    cfg = family_config(QWEN2_VL, num_layers=VLM_LAYERS)
+    reduced = {"num_layers": [full.num_layers, cfg.num_layers],
+               "params_b": [full.param_count() / 1e9,
+                            cfg.param_count() / 1e9]}
+    gfm, cfm = family_fms(dev, cfg, seed=9)
+    rng = np.random.RandomState(10)
+    cap = gfm.adapters.capacity()
+    report, ok = {"reduced": reduced}, True
+    # (1) the pooled forward
+    x, _ = vlm_inputs(rng, 8, cfg.d_model)
+    ops.reset_launches()
+    feats = gfm.run_batch_device(x, np.array([0, 1, 2, cap, 0, 1, 2, cap],
+                                             np.int32))
+    torch.cuda.synchronize()
+    pooled = {"shape": list(feats.shape),
+              "finite": bool(torch.isfinite(feats.float()).all()),
+              "launches": {k: int(ops.LAUNCHES[k]) for k in (
+                  "segmented_lora", "flash_attention", "rmsnorm")}}
+    ok &= pooled["shape"] == [8, cfg.d_model] and pooled["finite"] and \
+        all(v > 0 for v in pooled["launches"].values())
+    report["pooled"] = pooled
+    # (2) prefill from patches with M-RoPE, then greedy decode
+    B, steps = 2, 4
+    emb, pos3 = vlm_inputs(rng, B, cfg.d_model)
+    S = emb.shape[1]
+    aidx = np.array([1, cap], np.int32)
+
+    def run(d, fm, teacher=None):
+        stack = fm.adapters.stacked()
+
+        def meta(n):
+            perm, inv, blocks = seg_to_device(
+                *fm.segment_meta(aidx, cap, n), d)
+            return {"perm": perm, "inv": inv, "block_adapter": blocks,
+                    "block_t": fm.seg_block_t}
+        ai = torch.as_tensor(aidx, device=d)
+        cache = lm.init_cache(cfg, B, S + steps + 1, kv_quant=True, device=d)
+        logits, cache = lm.prefill(
+            fm.params, cfg, embeds=torch.as_tensor(emb, device=d),
+            pos3=torch.as_tensor(pos3, device=d), cache=cache, lora=stack,
+            adapter_idx=ai, lora_impl="segmented", lora_seg=meta(S))
+        out, toks = [logits.float().cpu()], []
+        for t in range(steps):
+            tok = out[-1].argmax(-1) if teacher is None else teacher[t]
+            toks.append(tok)
+            logits, cache = lm.decode_step(
+                fm.params, cfg, tokens=tok.to(d), cache=cache, lora=stack,
+                adapter_idx=ai, lora_impl="segmented", lora_seg=meta(1))
+            out.append(logits.float().cpu())
+        return torch.stack(out), toks
+    c, toks = run(torch.device("cpu"), cfm)
+    ops.reset_launches()
+    g, _ = run(torch.device(dev), gfm, toks)
+    torch.cuda.synchronize()
+    r = report["decode"] = drift(g.flatten(0, 1), c.flatten(0, 1))
+    r.update(rows=B, patches=S, steps=steps, bound=2e-2, launches={
+        k: int(ops.LAUNCHES[k]) for k in ("decode_attention_int8",
+                                          "flash_attention",
+                                          "segmented_lora")})
+    ok &= (r["finite"] and r["rel_l2"] <= 2e-2 and r["argmax_agree"]
+           and all(v > 0 for v in r["launches"].values()))
+    # (3) M-RoPE on the card against its CPU run
+    xq = torch.randn((B, S, cfg.num_heads, cfg.head_dim),
+                     generator=torch.Generator().manual_seed(11)).to(
+        torch.bfloat16)
+    p3 = torch.as_tensor(pos3 * 7)        # farther angles than the grid's
+    want = layers.apply_mrope(xq, p3, cfg.mrope_sections, cfg.rope_theta)
+    got = layers.apply_mrope(xq.to(dev), p3.to(dev), cfg.mrope_sections,
+                             cfg.rope_theta).cpu()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 * 2.0 ** -8 * want.float().abs().max().item()
+    report["mrope"] = {"max_abs_err": err, "bound": tol,
+                       "distinct_streams": bool((p3[..., 1] != p3[..., 2])
+                                                .any())}
+    ok &= err <= tol and report["mrope"]["distinct_streams"]
+    del gfm, cfm, feats
+    free_device()
+    report["seconds"] = time.perf_counter() - t0
+    log(f"qwen2-vl-72b: reduced {json.dumps(reduced)}: "
+        + json.dumps(report, default=float))
+    return bool(ok), report
+
+
+def phase_families(dev):
+    """The other attention-only families (the slice's models): the
+    qwen2-7b and h2o-danube-1.8b references, full-width, full-depth serving
+    of qwen2-7b (dense and paged), h2o-danube-1.8b (dense and paged) and
+    minitron-8b (paged), and qwen2-vl-72b cut to VLM_LAYERS layers. Each
+    step's seconds are printed; returns (phase results, serving stats)."""
+    phases, stats = {}, {}
+    for arch in (QWEN2, H2O):
+        phases[f"{arch} reference"], _ = phase_reference_family(dev, arch)
+    for arch, pool in ((QWEN2, "dense"), (QWEN2, "paged"), (H2O, "dense"),
+                       (H2O, "paged"), (MINITRON, "paged")):
+        key = f"{arch} {pool} serving"
+        phases[key], stats[key] = phase_family_serving(dev, arch, pool)
+    phases[f"{QWEN2_VL} pooled and decode"], _ = phase_vlm(dev)
+    return phases, stats
+
+
+def family_timing(dev) -> dict:
+    """Device time per call of each attention kernel at the shapes the
+    other families give it, beside its bound and one PyTorch call that
+    computes the same function (SDPA; never called by the port): K2 at
+    qwen2-7b's and h2o-danube-1.8b's pooled forward (32 x 128) and h2o's
+    4160-token prefill in a 4352 bucket under its window
+    (``flash_timing``); K3 (``int8_timing``) and K4 (``paged_timing``) at 8
+    streams of qwen2's pool (s_max 161) and of h2o's under its window
+    (lengths 4097-4200); the verify window (``verify_timing``, T 5) at
+    both; K5 (``float_decode_timing``) at both float pools; K1 at the four
+    configs' q and v projections of a decode step (8 tokens) and rmsnorm
+    over a decode step's 8 rows at their widths (``rmsnorm_timing``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(12)
+    S = PROMPT_LEN + MAX_NEW + 1
+    out = {"flash_attention": flash_timing(dev, (
+        ("qwen2_pooled", 6), ("h2o_pooled", 6), ("h2o_window_prefill", 2)))}
+    out["decode_attention_int8"] = {
+        "qwen2": int8_timing(dev, gen, 28, 4, 128, S, 24),
+        "h2o_window": int8_timing(dev, gen, 32, 8, 80, 4200, 6, window=4096,
+                                  lo=4097)}
+    out["paged_decode_attention"] = {
+        "qwen2": paged_timing(dev, gen, 28, 4, 128, S, 24),
+        "h2o_window": paged_timing(dev, gen, 32, 8, 80, 4200, 6,
+                                   window=4096, lo=4097)}
+    out["paged_verify_attention"] = {
+        "qwen2": verify_timing(dev, gen, 24, H=28, KV=4, hd=128),
+        "h2o_window": verify_timing(dev, gen, 6, H=32, KV=8, hd=80, MP=264,
+                                    window=4096, base_lo=4097)}
+    out["decode_attention"] = float_decode_timing(
+        dev, (("qwen2_pool", 24), ("h2o_pool_window", 6)))
+    # K1 at the q and v projections of a decode step (no library call
+    # computes it), and rmsnorm over a decode step's rows at each width
+    cases = sgmv_cases(full_config())
+    out["segmented_lora"] = {}
+    for name in (f"{m}_{p}" for m in ("qwen2", "h2o", "minitron", "qwen2_vl")
+                 for p in "qv"):
+        T, dd, oo = cases[name]["T"], cases[name]["d"], cases[name]["out"]
+        sets = sgmv_inputs(gen, T, dd, oo, 4, 8, dev)
+        b_ms, b_by = sgmv_bound(*sets[0])
+        k_ms = device_ms(rotating(lambda x, i, a, b: ops.segmented_lora(
+            x, i, a, b, block_t=BLOCK_T), sets))
+        out["segmented_lora"][name] = dict(T=T, d=dd, out=oo, ms=k_ms,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=None)
+    out["rmsnorm"] = {f"d{d}": rmsnorm_timing(dev, gen, d, (
+        ("decode", SLOTS),))["decode"] for d in (2560, 3584, 4096, 8192)}
+    log("family timing: " + json.dumps(out, default=float))
+    return out
+
+
 # ---------------- phase 6: timing ----------------
 
-def paged_timing(dev, gen, H, KV, hd, s_max, nsets) -> dict:
+def rotating(fn, items):
+    """A call of ``fn`` on the next of ``items`` (argument tuples) in turn."""
+    it = [0]
+
+    def call():
+        fn(*items[it[0] % len(items)])
+        it[0] += 1
+    return call
+
+
+def window_mask(S, lens, window, dev):
+    """(B, 1, 1, S) bool: the positions below each length, and with a
+    window the last ``window`` of them."""
+    import torch
+    pos = torch.arange(S, device=dev)[None]
+    mask = pos < lens[:, None]
+    if window is not None:
+        mask &= pos >= lens[:, None] - window
+    return mask[:, None, None]
+
+
+def int8_timing(dev, gen, H, KV, hd, S, nsets, window=None, lo=1) -> dict:
+    """K3's device time per call on 8 rows of an int8 cache of ``S``
+    positions with lengths random in [``lo``, S] (``window``: attended
+    under it), over ``nsets`` input sets (one per layer, so each call finds
+    its cache cold), its plain version's, one
+    ``scaled_dot_product_attention`` call on the cache already dequantized
+    to bf16 (never called by the port; the dequantization not timed), the
+    bound on this data, and the host-clock time of a call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    lens = None
+    if lo > 1:
+        lens = torch.randint(lo, S + 1, (SLOTS,), generator=torch.Generator()
+                             .manual_seed(S)).tolist()
+    sets = int8_inputs(gen, SLOTS, H, KV, S, hd, nsets, dev, lens=lens)
+    kernel = rotating(lambda q, kq, vq, ks, vs, l: ops.decode_attention_int8(
+        q, kq, vq, ks, vs, l, window=window), sets)
+    k_ms = device_ms(kernel)
+    p_ms = device_ms(rotating(lambda q, kq, vq, ks, vs, l: ref.decode_attention_int8_ref(
+        q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, l, window=window),
+        sets), iters=5 if S > 1024 else 20)
+    lib_sets = []
+    for q, kq, vq, ks, vs, l in sets:
+        kd = (kq.transpose(1, 2).float() * ks[:, :, None, None]).to(torch.bfloat16)
+        vd = (vq.transpose(1, 2).float() * vs[:, :, None, None]).to(torch.bfloat16)
+        G = H // KV
+        lib_sets.append((q[:, :, None], kd.repeat_interleave(G, dim=1),
+                         vd.repeat_interleave(G, dim=1),
+                         window_mask(S, l, window, dev)))
+    lib_ms = device_ms(rotating(lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m), lib_sets))
+    b_ms, b_by = int8_bound(sets[0][0], sets[0][1], sets[0][5], window)
+    log(f"decode_attention_int8 [H={H} KV={KV} hd={hd} S={S} window={window}]: "
+        f"{k_ms * 1e3:.2f} us (SDPA {lib_ms * 1e3:.2f}, bound "
+        f"{b_ms * 1e3:.2f})")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, enqueue_ms=time_ms(kernel))
+
+
+def paged_timing(dev, gen, H, KV, hd, s_max, nsets, window=None,
+                 lo=None) -> dict:
     """K4's device time per call on 8 streams with ragged lengths up to
-    ``s_max`` (a table of ceil(s_max / 16) pages), over ``nsets``
+    ``s_max`` (from ``lo`` where given; ``window``: attended under it; a
+    table of ceil(s_max / 16) pages), over ``nsets``
     dense-equivalent arenas (one per layer, so each call finds its pages
     cold), its plain version's, one ``scaled_dot_product_attention`` call
     on the pages already gathered and dequantized to bf16 (never called by
@@ -3441,41 +3999,43 @@ def paged_timing(dev, gen, H, KV, hd, s_max, nsets) -> dict:
 
     from repro_torch.kernels import ops, ref
     MP = -(-s_max // PAGE_SIZE)
+    lens = None
+    if lo is not None:
+        lens = torch.randint(lo, s_max + 1, (SLOTS,),
+                             generator=torch.Generator().manual_seed(s_max)
+                             ).tolist()
     sets = paged_inputs(gen, SLOTS, H, KV, hd, 1 + SLOTS * MP, nsets, dev,
-                        MP=MP)
+                        lens=lens, MP=MP)
     for st in sets:
         st[6].clamp_(max=s_max)
-
-    def rotating(fn, items):
-        it = [0]
-
-        def call():
-            fn(*items[it[0] % len(items)])
-            it[0] += 1
-        return call
-    k_ms = device_ms(rotating(lambda *a: ops.paged_decode_attention(*a), sets))
+    kernel = rotating(lambda *a: ops.paged_decode_attention(*a, window=window),
+                      sets)
+    k_ms = device_ms(kernel)
     p_ms = device_ms(rotating(lambda q, kp, vp, ks, vs, pt, l:
                               ref.paged_decode_attention_ref(
                                   q, kp.transpose(1, 2), vp.transpose(1, 2),
-                                  ks, vs, pt, l), sets))
+                                  ks, vs, pt, l, window=window), sets),
+                     iters=5 if s_max > 1024 else 20)
     lib_sets = []
     for q, kp, vp, ks, vs, pt, l in sets:
         def gathered(pages, sc):
             g = pages[pt.long()].float() * sc[pt.long()][:, :, None, :, None]
             return g.permute(0, 3, 1, 2, 4).reshape(
                 SLOTS, KV, MP * PAGE_SIZE, hd).to(torch.bfloat16)
-        mask = (torch.arange(MP * PAGE_SIZE, device=dev)[None]
-                < l[:, None])[:, None, None]
-        lib_sets.append((q[:, :, None], gathered(kp, ks), gathered(vp, vs),
-                         mask))
+        G = H // KV
+        lib_sets.append((q[:, :, None],
+                         gathered(kp, ks).repeat_interleave(G, dim=1),
+                         gathered(vp, vs).repeat_interleave(G, dim=1),
+                         window_mask(MP * PAGE_SIZE, l, window, dev)))
     lib_ms = device_ms(rotating(lambda q, k, v, m: F.scaled_dot_product_attention(
         q, k, v, attn_mask=m), lib_sets))
-    b_ms, b_by = paged_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6])
-    log(f"paged_decode_attention [H={H} KV={KV} MP={MP}]: {k_ms * 1e3:.2f} us "
-        f"(SDPA {lib_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f})")
+    b_ms, b_by = paged_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6],
+                             window)
+    log(f"paged_decode_attention [H={H} KV={KV} hd={hd} MP={MP} "
+        f"window={window}]: {k_ms * 1e3:.2f} us (SDPA {lib_ms * 1e3:.2f}, "
+        f"bound {b_ms * 1e3:.2f})")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, enqueue_ms=time_ms(rotating(
-                    lambda *a: ops.paged_decode_attention(*a), sets)))
+                library_ms=lib_ms, enqueue_ms=time_ms(kernel))
 
 
 def phase_timing(dev, handles, paged_handles, chunked_handles,
@@ -3494,14 +4054,6 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
     gen = torch.Generator(device=dev).manual_seed(2)
     nsets, cap = cfg.num_layers, 4
     extra = {}
-
-    def rotating(fn, sets):
-        it = [0]
-
-        def call():
-            fn(*sets[it[0] % len(sets)])
-            it[0] += 1
-        return call
 
     # K1 at the decode, prefill and pooled shapes of stablelm, whisper's
     # decode shape and moment-large's pooled batch at ranks 4 and 16; the
@@ -3549,27 +4101,8 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
             k1 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S = PROMPT_LEN + MAX_NEW + 1
-    sets = int8_inputs(gen, SLOTS, H, KV, S, hd, nsets, dev)
-    k_ms = device_ms(rotating(lambda q, kq, vq, ks, vs, l: ops.decode_attention_int8(
-        q, kq, vq, ks, vs, l), sets))
-    p_ms = device_ms(rotating(lambda q, kq, vq, ks, vs, l: ref.decode_attention_int8_ref(
-        q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, l), sets))
-    # yardstick: SDPA on the cache already dequantized to bf16 (never called
-    # by the port); one call, the dequantization not timed
-    lib_sets = []
-    for q, kq, vq, ks, vs, l in sets:
-        kd = (kq.transpose(1, 2).float() * ks[:, :, None, None]).to(torch.bfloat16)
-        vd = (vq.transpose(1, 2).float() * vs[:, :, None, None]).to(torch.bfloat16)
-        mask = (torch.arange(S, device=dev)[None] < l[:, None])[:, None, None]
-        lib_sets.append((q[:, :, None], kd, vd, mask))
-    lib_ms = device_ms(rotating(lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m), lib_sets))
-    b_ms, b_by = int8_bound(sets[0][0], sets[0][1], sets[0][5])
-    extra["decode_attention_int8_enqueue_ms"] = time_ms(rotating(
-        lambda q, kq, vq, ks, vs, l: ops.decode_attention_int8(
-            q, kq, vq, ks, vs, l), sets))
-    k3 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-              library_ms=lib_ms)
+    k3 = int8_timing(dev, gen, H, KV, hd, S, nsets)
+    extra["decode_attention_int8_enqueue_ms"] = k3.pop("enqueue_ms")
     # K4 at the stablelm shape (the kernels line) and at whisper-base's
     # decoder self-attention (H = KV = 8, a table of 9 pages)
     k4 = paged_timing(dev, gen, H, KV, hd, S, nsets)
@@ -3683,7 +4216,8 @@ def moment_pooled_timing(dev, handles) -> dict:
     return out
 
 
-def float_decode_timing(dev) -> dict:
+def float_decode_timing(dev,
+                        shapes=(("cross", 6), ("float_pool", 24))) -> dict:
     """K5's device time per call at the cross-attention decode of
     full-width whisper-base (8 slots x 8 heads x 1500 frames, 24.6 MB of
     bf16 K/V per call; 6 sets, one per decoder layer, 147 MB in all, so
@@ -3700,52 +4234,49 @@ def float_decode_timing(dev) -> dict:
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(5)
     out = {}
-    for name, nsets in (("cross", 6), ("float_pool", 24)):
+    for name, nsets in shapes:
         case = FLOAT_CASES[name]
-        sets = float_inputs(gen, SLOTS, case["H"], case["KV"], case["S"], 64,
-                            nsets, dev, lens=None if name == "float_pool"
+        window, G = case.get("window"), case["H"] // case["KV"]
+        sets = float_inputs(gen, SLOTS, case["H"], case["KV"], case["S"],
+                            case.get("hd", 64), nsets, dev,
+                            lens=None if name == "float_pool"
                             else case["lens"])
-
-        def rotating(fn, items):
-            it = [0]
-
-            def call():
-                fn(*items[it[0] % len(items)])
-                it[0] += 1
-            return call
-        by_kernel = device_kernels(rotating(ops.decode_attention, sets))
+        kernel = rotating(lambda q, k, v, ln: ops.decode_attention(
+            q, k, v, ln, window=window), sets)
+        by_kernel = device_kernels(kernel)
         k_ms = sum(by_kernel.values())
         p_ms = device_ms(rotating(
             lambda q, k, v, ln: ref.decode_attention_ref(
                 q, k.transpose(1, 2), v.transpose(1, 2), ln,
-                p_dtype=v.dtype), sets), iters=5)
+                window=window, p_dtype=v.dtype), sets), iters=5)
         lib = []
         for q, k, v, ln in sets:
             kw = {}
-            if bool((ln < case["S"]).any()):
-                kw["attn_mask"] = (torch.arange(case["S"], device=dev)[None]
-                                   < ln[:, None])[:, None, None]
-            lib.append(((q[:, :, None], k.transpose(1, 2),
-                         v.transpose(1, 2)), kw))
+            if bool((ln < case["S"]).any()) or window is not None:
+                kw["attn_mask"] = window_mask(case["S"], ln, window, dev)
+            lib.append(((q[:, :, None],
+                         k.transpose(1, 2).repeat_interleave(G, dim=1),
+                         v.transpose(1, 2).repeat_interleave(G, dim=1)), kw))
         l_ms = device_ms(rotating(
             lambda a, kw: F.scaled_dot_product_attention(*a, **kw), lib))
         q, k, _, ln = sets[0]
-        b_ms, b_by = float_bound(q, k, ln)
+        b_ms, b_by = float_bound(q, k, ln, window)
         out[name] = dict(B=SLOTS, H=case["H"], KV=case["KV"], S=case["S"],
                          plan=float_splits(q, k), ms=k_ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                          split_ms=kernel_split(by_kernel, {
                              "decode_kernel": "decode",
                              "merge_kernel": "merge"}),
-                         enqueue_ms=time_ms(rotating(ops.decode_attention,
-                                                     sets)))
+                         enqueue_ms=time_ms(kernel))
         log(f"decode_attention [{name}]: {out[name]['plan']}, "
             f"{k_ms * 1e3:.2f} us (SDPA {l_ms * 1e3:.2f}, bound "
             f"{b_ms * 1e3:.2f})")
     return out
 
 
-def flash_timing(dev) -> dict:
+def flash_timing(dev, shapes=(("pooled", 6), ("admission", 48), ("tail", 48),
+                             ("whisper_encoder", 8), ("whisper_cross", 24),
+                             ("moment", 24))) -> dict:
     """K2's device time per call at the pooled, full-admission and tail
     shapes of ``FLASH_TIMED`` over rotating input sets (more bytes than the
     50 MB L2 in all), its plain version's, one
@@ -3764,9 +4295,7 @@ def flash_timing(dev) -> dict:
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(4)
     out = {}
-    for name, nsets in (("pooled", 6), ("admission", 48), ("tail", 48),
-                        ("whisper_encoder", 8), ("whisper_cross", 24),
-                        ("moment", 24)):
+    for name, nsets in shapes:
         case = FLASH_TIMED[name]
         sets = flash_inputs(gen, dev, **case, nsets=nsets)
 
@@ -3791,7 +4320,9 @@ def flash_timing(dev) -> dict:
             kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
             vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
             lib.append(((qh, kh, vh), {"is_causal": True}
-                        if name == "pooled" else {} if bool(mask.all())
+                        if kw.get("causal", True) and kw.get("window") is None
+                        and kw.get("kv_len") is None and q.shape[1] ==
+                        k.shape[1] else {} if bool(mask.all())
                         else {"attn_mask": mask}))
         l_ms = device_ms(rotating(F.scaled_dot_product_attention, lib))
         (q, k, _), kw = sets[0]
@@ -4019,12 +4550,7 @@ def main() -> int:
             + ", ".join(f"{k}: {r}, {sp}" for k, r, sp in ptxas_kernels(name)))
     phases = {}
     # the kernels redesigned for registers and shared memory must not spill
-    spills = {n: spill_stores(n) for n in ("decode_attention",
-                                           "segmented_lora",
-                                           "decode_attention_int8",
-                                           "paged_decode_attention",
-                                           "paged_verify_attention",
-                                           "rmsnorm")}
+    spills = {n: spill_stores(n) for n in build.SOURCES}
     log(f"  ptxas spill stores (bytes): {json.dumps(spills)}")
     phases["no_spills"] = not any(spills.values())
     try:
@@ -4068,16 +4594,26 @@ def main() -> int:
         dev, torch.Generator(device=dev).manual_seed(10))
     extra["speculative_step"] = spec_step_timing(dev, paged_handles[1])
     log("timing: " + json.dumps(extra, default=float))
+    # the other families: stablelm's servers go first, so that each new
+    # model's weights (minitron-8b: 22 GB) find the card's memory
+    del handles, paged_handles, chunked_handles, whisper_handles
+    del moment_handles
+    free_device()
+    t0 = time.perf_counter()
+    fam_phases, fstats = phase_families(dev)
+    phases.update(fam_phases)
+    extra["families"] = family_timing(dev)
+    log(f"families: {fam_phases}, {time.perf_counter() - t0:.1f} s")
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
     # K2, K4), the whisper serving run (K1, K2, K4, K5), the moment
     # serving run (K2, and K1 where the table chose "segmented"), the
-    # durability phase (K1, K2, K4, K5) and the speculative runs (K1, K2,
-    # K4's verify window), rmsnorm in every one, each counted from 0 just
-    # before it
+    # durability phase (K1, K2, K4, K5), the speculative runs (K1, K2,
+    # K4's verify window) and the other families' serving runs (K1, K2, K3
+    # or K4), rmsnorm in every one, each counted from 0 just before it
     launches = {k: sum(st["launches"].get(k, 0)
                        for st in (stats, pstats, cstats, wstats, mstats,
-                                  dstats, spstats))
+                                  dstats, spstats, *fstats.values()))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
                           "paged_verify_attention", "decode_attention",

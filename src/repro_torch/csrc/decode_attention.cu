@@ -142,11 +142,18 @@ struct Plan {
 
 // Where piece `piece` of row `row` (0..31) of a chunk buffer lives: an XOR
 // swizzle so that eight lanes reading the same piece of eight consecutive
-// rows, and a cp.async of eight pieces of one row, hit distinct banks.
+// rows, and a cp.async of eight pieces of one row, hit distinct banks. At hd
+// 80 (10 pieces a row, no power of two) the first eight pieces of a row are
+// swizzled so and the last two stay in place (reading those, rows r and r +
+// 4 share a bank group: two ways, on a fifth of the K reads).
 template <int VEC>
 __device__ __forceinline__ int swz(int row, int piece) {
-  const int x = VEC >= 8 ? (row & 7) : ((row >> 1) & (VEC - 1));
-  return row * VEC + (piece ^ x);
+  if constexpr ((VEC & (VEC - 1)) != 0) {
+    return row * VEC + (piece < 8 ? piece ^ (row & 7) : piece);
+  } else {
+    const int x = VEC >= 8 ? (row & 7) : ((row >> 1) & (VEC - 1));
+    return row * VEC + (piece ^ x);
+  }
 }
 
 template <int HD, int G>
@@ -161,7 +168,12 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   using P = Plan<HD, G>;
   constexpr int kVec = P::kVec;
   constexpr int kStages = P::kStages;
-  constexpr int kDpl = HD / 32;           // output dims owned per lane
+  // output dims owned per lane in P.V: hd / 32, and at hd 80 four, on the
+  // first kPvLanes (20) lanes, the other 12 idle there (they read piece 0
+  // and store nothing)
+  constexpr int kDpl = HD % 32 == 0 ? HD / 32 : 4;
+  constexpr int kPvLanes = HD / kDpl;
+  static_assert(HD % kDpl == 0 && kPvLanes <= 32 && 8 % kDpl == 0, "P.V lanes");
   // independent partial sums, so that a small group still has several FMA
   // chains in flight: the dot of a K row in kQp parts, P.V in kAp row sets
   constexpr int kQp = G >= 4 ? 1 : 4 / G;
@@ -197,13 +209,17 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_mine = max(0, min(per_warp, n_chunks - warp * per_warp));
 
   // chunk j of this warp into ring slot j % kStages (one commit group per
-  // call, empty past the warp's last chunk, so the group count is uniform)
+  // call, empty past the warp's last chunk, so the group count is uniform).
+  // At hd 80 the copy loop stays rolled: unrolled, its ten rows' addresses
+  // stayed live across the chunk loop and ptxas spilled 4-28 bytes at G 1,
+  // 2, 4 and 8 (sm_90a), rolled none
+  constexpr int kIssueUnroll = HD % 32 ? 1 : kVec;
   auto issue = [&](int j) {
     if (j < n_mine) {
       const int c = c_mine + j;
       uint4* kst = ring + (j % kStages) * P::kChunkPieces;
       uint4* vst = kst + 32 * kVec;
-#pragma unroll
+#pragma unroll (kIssueUnroll)
       for (int it = 0; it < kVec; ++it) {
         const int u = lane + 32 * it;
         const int row = u / kVec, piece = u % kVec;
@@ -244,8 +260,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < G * HD / 4; ++i) qr4[i] = reinterpret_cast<const float4*>(qs)[i];
   }
   // the 16-byte piece holding this lane's output dims, and their offset in it
-  const int my_piece = lane * kDpl / 8;
-  const int my_off = lane * kDpl % 8;
+  const bool pv_live = lane < kPvLanes;
+  const int my_piece = (pv_live ? lane : 0) * kDpl / 8;
+  const int my_off = (pv_live ? lane : 0) * kDpl % 8;
 
   for (int j = 0; j < n_mine; ++j) {
     cp_async_wait<kStages - 1>();
@@ -311,9 +328,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       pbuf[g * 32 + lane] = round_bf16(p);  // p in the cache dtype, as in JAX
     }
     __syncwarp();                         // pbuf written
-    // fully unrolled but for the largest group, where ptxas spilled
-    // (sm_90a, CUDA 12: 16 bytes at hd 32) unless the unroll is halved
-    constexpr int kPvUnroll = G >= 8 ? 4 : 8;
+    // fully unrolled but for the largest groups, where ptxas spilled
+    // (sm_90a, CUDA 12: 16 bytes at hd 32, G 8) unless the unroll is halved
+    constexpr int kPvUnroll = G >= 7 ? 4 : 8;
 #pragma unroll (kPvUnroll)
     for (int i0 = 0; i0 < 32; i0 += 4) {
       float4 p4[G];
@@ -363,12 +380,14 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       wm[warp * G + g] = m[g];
       wl[warp * G + g] = l;
     }
+    if (pv_live) {
 #pragma unroll
-    for (int e = 0; e < kDpl; ++e) {
-      float sum = acc[0][g][e];
+      for (int e = 0; e < kDpl; ++e) {
+        float sum = acc[0][g][e];
 #pragma unroll
-      for (int a = 1; a < kAp; ++a) sum += acc[a][g][e];
-      wacc[(warp * G + g) * HD + lane * kDpl + e] = sum;
+        for (int a = 1; a < kAp; ++a) sum += acc[a][g][e];
+        wacc[(warp * G + g) * HD + lane * kDpl + e] = sum;
+      }
     }
   }
   __syncthreads();
@@ -489,6 +508,7 @@ cudaError_t launch_g(const Args& a, cudaStream_t st) {
     case 1: return launch<HD, 1>(a, st);
     case 2: return launch<HD, 2>(a, st);
     case 4: return launch<HD, 4>(a, st);
+    case 7: return launch<HD, 7>(a, st);
     case 8: return launch<HD, 8>(a, st);
     default: return cudaErrorInvalidValue;
   }
@@ -521,6 +541,7 @@ extern "C" int decode_attention_launch(
   switch (hd) {
     case 32:  return launch_g<32>(a, st);
     case 64:  return launch_g<64>(a, st);
+    case 80:  return launch_g<80>(a, st);
     case 128: return launch_g<128>(a, st);
     default:  return cudaErrorInvalidValue;
   }

@@ -32,7 +32,11 @@
 //
 // Design: one CTA of 4 warps per (query tile, kv head, batch row, key
 // split) serves the G query heads that share the kv head: 64 rows of
-// (query, head), row r = (query r / G, head r % G), 16 rows per warp. Both
+// (query, head), row r = (query r / G, head r % G), 16 rows per warp, so a
+// CTA holds bq = 64 / G queries. Where G does not divide 64 (qwen2-7b's G 7:
+// 9 queries, rows 0-62) the rows from bq * G on are dead: their Q is zero,
+// they are computed with the rest (the tensor-core tiles are whole) and
+// never stored. Both
 // products run on the tensor cores as mma.sync m16n8k16 bf16 -> f32. Q is
 // staged once in shared memory and held as A fragments in registers
 // (ldmatrix.x4). S = Q K^T takes each 32-key K tile as the .col B operand
@@ -61,9 +65,13 @@
 // divides once, with no atomics. A split that the lengths or masks leave
 // empty has m = -inf and l = 0 and gets zero weight.
 //
-// Build (nvcc -O3 for sm_90a, ptxas -v, as chip_smoke.py prints it): 120
-// registers at hd 64, 115 at hd 32, 218 at hd 128, the merge 32; no
-// spills. The SASS (cuobjdump -sass, counted by chip_smoke.py) holds
+// Build (nvcc -O3 for sm_90a, ptxas -v, as chip_smoke.py prints it): 119
+// registers at hd 64, 117 at hd 32, 166 at hd 80, 222 at hd 128, the merge
+// 32; no spills. hd 80 (h2o-danube) runs 5 k-steps of Q K^T (the last
+// one's K fragments by ldmatrix.x2) and 10 output column tiles (5
+// ldmatrix.x4.trans pairs); its 176-byte padded rows start eight ldmatrix
+// rows in eight distinct 16-byte bank groups (176 = 11 x 16, 11 odd). The
+// SASS (cuobjdump -sass, counted by chip_smoke.py) holds
 // HMMA.16816.F32.BF16 for both products. On the card, 32-key tiles were as
 // fast as 64-key tiles or faster at every timed K2 shape, and a third
 // pipeline stage gained nothing.
@@ -91,6 +99,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
 }
 
@@ -203,12 +218,16 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* ks,
                                           __nv_bfloat16* vs, const Walk& w0,
                                           const Walk& w1, int t, int tid) {
   constexpr int LD = HD + kPad, kVec = HD / 8;
+  // 16-byte pieces of a tile, and copies a thread makes (the last round
+  // partial where kThreads does not divide them: hd 80, 320 pieces)
+  constexpr int kPieces = kTile * kVec;
   const bool first = t < w0.ntiles;
   const Walk w = first ? w0 : w1;
   const int j0 = w.lo + (first ? t : t - w0.ntiles) * kTile;
 #pragma unroll
-  for (int n = 0; n < kTile * kVec / kThreads; ++n) {
+  for (int n = 0; n < (kPieces + kThreads - 1) / kThreads; ++n) {
     const int i = tid + n * kThreads;
+    if (kPieces % kThreads != 0 && i >= kPieces) break;
     const int r = i / kVec, c = i % kVec;
     const int j = j0 + r;
     const bool valid = j < w.kend;
@@ -218,9 +237,10 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* ks,
   }
 }
 
-// four CTAs an SM at hd <= 64 (27 KB of shared memory each), two at 128
+// four CTAs an SM at hd <= 64 (27 KB of shared memory each), three at 80
+// (33 KB; at most 168 registers), two at 128
 template <int HD>
-__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : (HD <= 80 ? 3 : 2))
 flash_attention_kernel(const Args a) {
   constexpr int LD = HD + kPad;         // shared row stride (elements)
   constexpr int kVec = HD / 8;          // 16-byte vectors per row
@@ -235,6 +255,7 @@ flash_attention_kernel(const Args a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = a.G, Sq = a.Sq, H = a.KV * a.G;
   const int bq = kRows / G;             // queries per CTA
+  const int live_rows = bq * G;         // rows from here on are dead
   const int q0 = blockIdx.x * bq;
   const int kvh = blockIdx.y;
   const int split = blockIdx.z % a.nsplit, b = blockIdx.z / a.nsplit;
@@ -257,13 +278,15 @@ flash_attention_kernel(const Args a) {
   const Walk w1 = walk(a, 1, b, kvh, s_lo, s_hi, qpos_lo, qpos_hi);
   const int ntiles = w0.ntiles + w1.ntiles;
 
-  // Q rows of the CTA (zeros past Sq) and the first tile: one copy group
+  // Q rows of the CTA (zeros past Sq and in dead rows) and the first tile:
+  // one copy group
+  static_assert(kRows * kVec % kThreads == 0, "Q copies");
 #pragma unroll
   for (int n = 0; n < kRows * kVec / kThreads; ++n) {
     const int i = tid + n * kThreads;
     const int r = i / kVec, c = i % kVec;
     const int qi = q0 + r / G, h = kvh * G + r % G;
-    const bool live = qi < Sq;
+    const bool live = qi < Sq && r < live_rows;
     cp_async16(qs + r * LD + c * 8,
                a.q + b * a.sqb + (live ? qi : 0) * a.sqs + h * a.sqh + c * 8,
                live);
@@ -319,11 +342,18 @@ flash_attention_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t bk[4];
-        ldsm_x4(smem_u32(ks + (8 * j + (lane & 7)) * LD + kc * 16 +
-                         (lane >> 3) * 8),
-                bk);
-        mma_bf16(s[j], qa[kc], bk[0], bk[1]);
-        mma_bf16(s[j], qa[kc + 1], bk[2], bk[3]);
+        if (kc + 1 < KC) {              // two k-steps: 32 dims of 8 keys
+          ldsm_x4(smem_u32(ks + (8 * j + (lane & 7)) * LD + kc * 16 +
+                           (lane >> 3) * 8),
+                  bk);
+          mma_bf16(s[j], qa[kc], bk[0], bk[1]);
+          mma_bf16(s[j], qa[kc + 1], bk[2], bk[3]);
+        } else {                        // the odd last k-step (hd 80)
+          ldsm_x2(smem_u32(ks + (8 * j + (lane & 7)) * LD + kc * 16 +
+                           ((lane >> 3) & 1) * 8),
+                  bk);
+          mma_bf16(s[j], qa[kc], bk[0], bk[1]);
+        }
       }
     }
 
@@ -412,7 +442,7 @@ flash_attention_kernel(const Args a) {
     for (int rh = 0; rh < 2; ++rh) {
       const int r = warp * 16 + g + 8 * rh;
       const int qi = q0 + r / G;
-      if (qi >= Sq) continue;
+      if (qi >= Sq || r >= live_rows) continue;
       const int h = kvh * G + r % G;
       const int64_t prow =
           ((static_cast<int64_t>(b) * Sq + qi) * H + h) * a.nsplit + split;
@@ -442,7 +472,7 @@ flash_attention_kernel(const Args a) {
   for (int i = lane; i < 16 * kVec; i += 32) {
     const int r = warp * 16 + i / kVec, c = i % kVec;
     const int qi = q0 + r / G;
-    if (qi >= Sq) continue;
+    if (qi >= Sq || r >= live_rows) continue;
     const int h = kvh * G + r % G;
     *reinterpret_cast<uint4*>(
         a.out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * HD + c * 8) =
@@ -515,8 +545,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // into nsplit splits of split_len keys (a multiple of 32); with nsplit > 1,
 // part_m/part_l (B * Sq * KV * G * nsplit) and part_acc (... * hd) f32 hold
 // the partials the merge kernel combines, else they may be null. window <=
-// 0 means no window. G divides 64 and hd is 32, 64 or 128. Returns a
-// cudaError_t (0 on success).
+// 0 means no window. 1 <= G <= 64 (a CTA holds 64 / G queries; where G
+// does not divide 64 its last rows are dead) and hd is 32, 64, 80 or 128.
+// Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* pk,
     const void* pv, const void* kv_len, const void* prefix_len, void* out,
@@ -526,7 +557,7 @@ extern "C" int flash_attention_launch(
     int64_t svb, int64_t svs, int64_t svh, int64_t spb, int64_t sps,
     int64_t sph, int64_t spvb, int64_t spvs, int64_t spvh, int causal,
     int window, float sm_scale, void* stream) {
-  if (G <= 0 || kRows % G || B <= 0 || Sq <= 0 || KV <= 0 || nsplit <= 0 ||
+  if (G <= 0 || G > kRows || B <= 0 || Sq <= 0 || KV <= 0 || nsplit <= 0 ||
       split_len <= 0 || split_len % kTile ||
       (nsplit > 1 && (part_m == nullptr || part_l == nullptr ||
                       part_acc == nullptr)) ||
@@ -551,6 +582,7 @@ extern "C" int flash_attention_launch(
   switch (hd) {
     case 32:  return launch<32>(a, st);
     case 64:  return launch<64>(a, st);
+    case 80:  return launch<80>(a, st);
     case 128: return launch<128>(a, st);
     default:  return cudaErrorInvalidValue;
   }

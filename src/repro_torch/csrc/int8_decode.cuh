@@ -25,10 +25,17 @@
 // load of a CTA in flight at once, and keeps the per-warp work small:
 //
 // - One CTA of kWarps (4) warps per (row, kv head). The head dim is split
-//   over lanes: a group of LPP = hd / DPL neighbouring lanes holds one
-//   position, each lane DPL dims (16 bytes of K and of V at G = 1; fewer
-//   for larger groups, whose accumulators would not fit), so a warp covers
-//   32 / LPP positions in a pass and the CTA kWarps times that.
+//   over lanes: a group of LPP neighbouring lanes holds one position, each
+//   lane DPL dims (16 bytes of K and of V at G = 1; fewer for larger
+//   groups, whose accumulators would not fit), so a warp covers 32 / LPP
+//   positions in a pass and the CTA kWarps times that. LPP is hd / DPL
+//   rounded up to a power of two, so that a group's lanes divide the warp
+//   and its dot reduces by xor-shuffles: at hd 80 the groups are 5, 10 or
+//   20 live lanes in 8, 16 or 32, the rest idle (they load nothing, add
+//   zeros to the dot and store no accumulator). The other layout, 64 dims
+//   in power-of-two groups plus a second pass over dims 64-79, keeps every
+//   lane busy but doubles the shuffles and the merge's code paths; hd 80
+//   (h2o-danube) is one model, so the simple form is the one kept.
 // - Passes are taken in rounds of D (kDepth: 6 at G = 1, 192 positions at
 //   hd 64), held in registers: a round's loads are all issued at once, and
 //   round r + 1 is issued into a second register buffer before round r is
@@ -75,18 +82,24 @@ constexpr int kRoundBytes = 96;           // K bytes a lane holds in a round
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Layout of the head dim over lanes for a group of G heads: DPL dims a lane
-// (its K and V bytes of a position), LPP lanes a position, kDepth passes of
+// (its K and V bytes of a position), LPP lanes a position (the LPA lanes
+// that hold its HD dims, rounded up to a power of two), kDepth passes of
 // K/V held in registers (a round), NP partial sums of the dot.
 template <int HD, int G>
 struct Tile {
   static constexpr int DPL = G <= 1 ? 16 : (G == 2 ? 8 : 4);
   static constexpr int W = DPL / 4;                 // 32-bit words a row
-  static constexpr int LPP = HD / DPL;              // lanes a position
+  static constexpr int LPA = HD / DPL;              // live lanes a position
+  static constexpr int LPP = LPA <= 2 ? 2 : LPA <= 4 ? 4 : LPA <= 8 ? 8
+                           : LPA <= 16 ? 16 : 32;   // lanes a position
   static constexpr int PPW = 32 / LPP;              // positions a warp-pass
   static constexpr int PCTA = PPW * kWarps;         // positions a CTA-pass
-  static constexpr int kDepth = kRoundBytes / DPL < 8 ? kRoundBytes / DPL : 8;
+  // (at G 7, 8 passes a round left K3 at 255 registers with 4 bytes of
+  // spill stores, by ptxas on sm_90a: 6 passes there)
+  static constexpr int kDepth = G == 7 ? 6
+                              : kRoundBytes / DPL < 8 ? kRoundBytes / DPL : 8;
   static constexpr int NP = W < 4 / G ? W : (4 / G > 0 ? 4 / G : 1);
-  static_assert(LPP >= 2 && LPP <= 32 && 32 % LPP == 0, "lane groups");
+  static_assert(HD % DPL == 0 && LPA >= 2 && LPA <= 32, "lane groups");
 };
 
 // The byte j of x (already offset: x ^ 0x80808080) as the f32 value of the
@@ -256,6 +269,9 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int grp = lane / LPP, sub = lane % LPP;
+  // a lane that holds dims of its position (every lane unless hd / DPL is
+  // no power of two); an idle lane holds zero codes and a zero query
+  const bool live = T::LPA == LPP || sub < T::LPA;
 
   const int s_lo = src.s_lo, s_hi = src.s_hi;
   const int n_pass = s_hi > s_lo ? (s_hi - s_lo + PCTA - 1) / PCTA : 0;
@@ -276,7 +292,7 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
       const int8_t* kr = nullptr;
       const int8_t* vr = nullptr;
       if (p < n_pass && s < s_hi) tag[u] = src.row(s, kr, vr);
-      if (tag[u] >= 0) {
+      if (tag[u] >= 0 && live) {
         load_row<W>(kr + sub * DPL, kb[u]);
         load_row<W>(vr + sub * DPL, vb[u]);
       } else {
@@ -302,7 +318,7 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
       const int8_t* kr = nullptr;
       const int8_t* vr = nullptr;
       ltag[u] = u < np && s < s_hi ? src.row(s, kr, vr) : -1;
-      if (ltag[u] >= 0) {
+      if (ltag[u] >= 0 && live) {
         load_row<W>(kr + sub * DPL, lkw[k]);
       } else {
 #pragma unroll
@@ -322,9 +338,12 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
   float qr[G][DPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const __nv_bfloat16* qp = qg + g * HD + sub * DPL;
+    const __nv_bfloat16* qp = qg + g * HD + (live ? sub : 0) * DPL;
     uint32_t qw[DPL / 2];
-    if constexpr (DPL >= 8) {
+    if (!live) {
+#pragma unroll
+      for (int k = 0; k < DPL / 2; ++k) qw[k] = 0u;
+    } else if constexpr (DPL >= 8) {
 #pragma unroll
       for (int i = 0; i < DPL / 8; ++i) {
         const uint4 t = *reinterpret_cast<const uint4*>(qp + 8 * i);
@@ -464,7 +483,7 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
           const int u = h * SB + k;
           if (u >= D) break;
           uint32_t vw[W] = {};
-          if (tag[u] >= 0) {
+          if (tag[u] >= 0 && live) {
             const int8_t* kr;
             const int8_t* vr;
             src.row(s0 + (r * D + u) * PCTA, kr, vr);
@@ -547,11 +566,14 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
         for (int k = 0; k < SB; ++k) {
           const int u = h * SB + k;
           if (u >= D) break;
-          if (tag[u] >= 0) {
+          if (tag[u] >= 0 && live) {
             const int8_t* kr;
             const int8_t* vr;
             src.row(s0 + (r * D + u) * PCTA, kr, vr);
             load_row<W>(vr + sub * DPL, vw[k]);
+          } else if (!live) {
+#pragma unroll
+            for (int i = 0; i < W; ++i) vw[k][i] = 0x80808080u;
           }
         }
 #pragma unroll
@@ -619,10 +641,12 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
       wm[warp * G + g] = m[g];
       wl[warp * G + g] = l[g];
     }
+    if (live) {
 #pragma unroll
-    for (int e = 0; e < DPL; e += 4)
-      *reinterpret_cast<float4*>(wacc + state * OUT + g * HD + sub * DPL + e) =
-          make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+      for (int e = 0; e < DPL; e += 4)
+        *reinterpret_cast<float4*>(wacc + state * OUT + g * HD + sub * DPL + e) =
+            make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+    }
   }
   __syncthreads();
   // R threads (neighbouring lanes) share an output element, each NS / R

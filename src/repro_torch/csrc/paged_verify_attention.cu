@@ -85,6 +85,7 @@ cudaError_t launch_g(int G, const Args& a) {
     case 1: return launch<HD, 1>(a);
     case 2: return launch<HD, 2>(a);
     case 4: return launch<HD, 4>(a);
+    case 7: return launch<HD, 7>(a);
     case 8: return launch<HD, 8>(a);
     default: return cudaErrorInvalidValue;
   }
@@ -117,6 +118,7 @@ extern "C" int paged_verify_launch(const void* q, const void* kp, const void* vp
   switch (hd) {
     case 32:  return launch_g<32>(G, a);
     case 64:  return launch_g<64>(G, a);
+    case 80:  return launch_g<80>(G, a);
     case 128: return launch_g<128>(G, a);
     default:  return cudaErrorInvalidValue;
   }

@@ -22,8 +22,8 @@ import torch
 
 from repro_torch.kernels import build
 
-_HEAD_DIMS = (32, 64, 128)
-_GROUPS = (1, 2, 4, 8)
+_HEAD_DIMS = (32, 64, 80, 128)
+_GROUPS = (1, 2, 4, 7, 8)
 _MIN_SPLIT = 256            # positions per split at least (8 chunks of 32)
 _MAX_SPLITS = 8             # a pair's splits are one cluster: portable size
 _CTAS_PER_SM = 2            # the split stops at this many CTAs an SM
@@ -59,8 +59,8 @@ def decode_attention(q, k, v, lengths, *, window: Optional[int] = None):
     q: (B, H, hd) bf16 CUDA, contiguous; k/v: (B, S, KV, hd) bf16 with any
     strides but a unit hd stride and 16-byte aligned rows (a view into a
     pool is taken as is); lengths: (B,) int32 CUDA, read on the device.
-    H = KV * G with G in (1, 2, 4, 8), hd in (32, 64, 128). Returns (B, H,
-    hd) bf16. A row with no valid position returns zeros."""
+    H = KV * G with G in (1, 2, 4, 7, 8), hd in (32, 64, 80, 128).
+    Returns (B, H, hd) bf16. A row with no valid position returns zeros."""
     if q.device.type != "cuda":
         raise ValueError("decode_attention kernel takes CUDA tensors")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):

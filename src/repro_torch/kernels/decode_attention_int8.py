@@ -15,8 +15,8 @@ import torch
 
 from repro_torch.kernels import build
 
-_HEAD_DIMS = (32, 64, 128)
-_GROUPS = (1, 2, 4, 8)
+_HEAD_DIMS = (32, 64, 80, 128)
+_GROUPS = (1, 2, 4, 7, 8)
 
 
 def quantize_kv(k, v):

@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.kernels import build
 
-_HEAD_DIMS = (32, 64, 128)
-_ROWS = 64                  # (query, head) rows per CTA: G must divide it
+_HEAD_DIMS = (32, 64, 80, 128)
+_ROWS = 64                  # (query, head) rows per CTA: 64 // G queries
 _TILE = 32                  # keys per shared-memory tile of the kernel
 _MIN_SPLIT = 128            # keys per split at least (four tiles)
 
@@ -46,9 +46,9 @@ def splits(B: int, Sq: int, H: int, KV: int, keys: int,
     """(number of splits, keys per split) of the key axis [0, ``keys``)
     (prefix and new keys together) for a (B, Sq, H) query block over KV kv
     heads on ``sms`` SMs: ``build.key_splits`` over the kernel's (query
-    tile, kv head, row) CTAs, in key tiles, at least ``_MIN_SPLIT`` keys a
-    split."""
-    ctas = -(-Sq * (H // KV) // _ROWS) * KV * B
+    tile, kv head, row) CTAs (``_ROWS // G`` queries a tile), in key
+    tiles, at least ``_MIN_SPLIT`` keys a split."""
+    ctas = -(-Sq // (_ROWS // (H // KV))) * KV * B
     return build.key_splits(ctas, keys, _TILE, _MIN_SPLIT, sms)
 
 
@@ -79,7 +79,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Launch the prefill flash-attention kernel.
 
     q: (B, Sq, H, hd) bf16 CUDA; k, v: (B, Sk, KV, hd) bf16, H = KV * G
-    with G dividing 64 and hd in (32, 64, 128); every operand read by
+    with 1 <= G <= 64 (a CTA holds 64 // G queries) and hd in (32, 64,
+    80, 128); every operand read by
     strides (unit hd stride, 16-byte aligned rows). ``kv_len``/
     ``prefix_len``: (B,) integer CUDA tensors, read on the device.
     ``prefix_k``/``prefix_v``: (B, Sp, KV, hd) bf16, with ``prefix_len``
@@ -95,9 +96,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     Sk, KV = k.shape[1], k.shape[2]
     G = H // max(KV, 1)
-    if H % KV or _ROWS % G or hd not in _HEAD_DIMS:
+    if KV == 0 or H % KV or not 1 <= G <= _ROWS or hd not in _HEAD_DIMS:
         raise ValueError(f"unsupported H={H}, KV={KV}, hd={hd} (hd in "
-                         f"{_HEAD_DIMS}, H/KV dividing {_ROWS})")
+                         f"{_HEAD_DIMS}, 1 <= H/KV <= {_ROWS})")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _rows_ok(t, name)
     kv_len = _lengths(kv_len, B, "kv_len")

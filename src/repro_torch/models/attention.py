@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.common import ParamSpec
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_mrope, apply_rope
 
 
 # ---------------- specs ----------------
@@ -92,8 +92,12 @@ def _proj(x, w):
         x.shape[0], x.shape[1], nh, hd)
 
 
-def qkv_project(p, x, cfg, pos=None, rope: bool = True, lora=None,
-                adapter_idx=None, lora_impl: str = "gather", lora_seg=None):
+def qkv_project(p, x, cfg, pos=None, pos3=None, rope: bool = True,
+                lora=None, adapter_idx=None, lora_impl: str = "gather",
+                lora_seg=None):
+    """q, k, v (B, S, heads, hd) of x (B, S, d): projections, the qkv bias
+    where the config has one, the q/v LoRA deltas, then RoPE at ``pos`` or,
+    for an M-RoPE config given ``pos3`` (B, S, 3), M-RoPE."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
@@ -102,9 +106,13 @@ def qkv_project(p, x, cfg, pos=None, rope: bool = True, lora=None,
     if lora is not None and adapter_idx is not None:
         from repro_torch.models.lora import qv_lora
         q, v = qv_lora(x, lora, adapter_idx, q, v, impl=lora_impl, seg=lora_seg)
-    if rope and pos is not None:
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+    if rope:
+        if cfg.mrope_sections is not None and pos3 is not None:
+            q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+        elif pos is not None:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
     return q, k, v
 
 
@@ -115,7 +123,7 @@ def out_project(p, attn_out, dtype):
         p["wo"].to(dtype).reshape(H * hd, d)
 
 
-def self_attention(p, x, cfg, *, causal=True, pos=None, lora=None,
+def self_attention(p, x, cfg, *, causal=True, pos=None, pos3=None, lora=None,
                    adapter_idx=None, lora_impl="gather", lora_seg=None,
                    seq_lens=None, prefix=None, prefix_len=None):
     """Full-sequence self attention (prefill / pooled forward).
@@ -126,7 +134,7 @@ def self_attention(p, x, cfg, *, causal=True, pos=None, lora=None,
     to in ADDITION to this dispatch's own K/V; ``prefix_len`` (B,) true
     prefix lengths. The returned (k, v) stay tail-only: the cache stores
     only what this dispatch computed."""
-    q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
+    q, k, v = qkv_project(p, x, cfg, pos=pos, pos3=pos3, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
     pk, pv = (None, None) if prefix is None else (prefix["k"], prefix["v"])
@@ -152,7 +160,7 @@ def quantize_token(x, scale):
                        -127, 127).to(torch.int8)
 
 
-def self_attention_decode(p, x, cache, cfg, *, pos=None, lora=None,
+def self_attention_decode(p, x, cache, cfg, *, pos=None, pos3=None, lora=None,
                           adapter_idx=None, lora_impl="gather", lora_seg=None):
     """One-step decode. x: (B, 1, d); cache: dict(k, v, len[, k_scale,
     v_scale]) of views into the pool, updated in place. Returns (out, cache).
@@ -163,7 +171,7 @@ def self_attention_decode(p, x, cache, cfg, *, pos=None, lora=None,
     streamed as int8. With ``page_table`` it is the paged int8 arena
     (``_paged_decode``). Otherwise it is a float pool, attended through the
     float flash-decode kernel (``decode_attention``)."""
-    q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
+    q, k, v = qkv_project(p, x, cfg, pos=pos, pos3=pos3, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
     if "page_table" in cache:
@@ -242,8 +250,8 @@ def _paged_decode(p, x, q, k, v, cache, cfg):
     return out_project(p, o[:, None], x.dtype), cache
 
 
-def self_attention_verify(p, x, cache, cfg, *, pos=None, lora=None,
-                          adapter_idx=None, lora_impl="gather",
+def self_attention_verify(p, x, cache, cfg, *, pos=None, pos3=None,
+                          lora=None, adapter_idx=None, lora_impl="gather",
                           lora_seg=None):
     """Speculative verify window: T = k + 1 positions through the paged
     pool, in place. x: (B, T, d): position 0 embeds the slot's last sampled
@@ -277,7 +285,7 @@ def self_attention_verify(p, x, cache, cfg, *, pos=None, lora=None,
     from repro_torch.kernels import ops
     if "page_table" not in cache:
         raise ValueError("the speculative verify window needs the paged pool")
-    q, k, v = qkv_project(p, x, cfg, pos=pos, lora=lora,
+    q, k, v = qkv_project(p, x, cfg, pos=pos, pos3=pos3, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
     B, T = x.shape[:2]

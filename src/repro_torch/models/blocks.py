@@ -169,7 +169,7 @@ def _fill_cache(cache, k, v, seq_lens):
 
 
 def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
-                   cache=None, pos=None, causal=True, enc_out=None,
+                   cache=None, pos=None, pos3=None, causal=True, enc_out=None,
                    cross_len=None, lora=None, adapter_idx=None,
                    lora_impl: str = "gather", lora_seg=None, seq_lens=None,
                    prefix=None, prefix_len=None):
@@ -189,15 +189,21 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
     A cross-attention sublayer projects ``enc_out`` (B, S_enc, d) into its
     K/V in 'full' mode (and persists them in the cache's ``ck``/``cv`` on a
     prefill); in 'decode' mode it reads them back from the cache with
-    ``cross_len`` (B,) valid frames, every row at its full length."""
+    ``cross_len`` (B,) valid frames, every row at its full length.
+
+    ``pos3`` (B, S, 3): M-RoPE position streams (an M-RoPE config; else
+    ignored). A decode or verify step without them takes text positions, t
+    = h = w = the RoPE position, as the JAX package does."""
     if lay.kind != ATTN:
         raise NotImplementedError(f"{lay.kind} sublayers come with a later slice")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if mode == "decode":
         if pos is None:
             pos = cache["len"][:, None]                   # rope position
+        if pos3 is None and cfg.mrope_sections is not None:
+            pos3 = pos[..., None].expand(*pos.shape, 3)   # text: t = h = w
         out, _ = attn.self_attention_decode(
-            p["attn"], h, cache, cfg, pos=pos, lora=lora,
+            p["attn"], h, cache, cfg, pos=pos, pos3=pos3, lora=lora,
             adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg)
     elif mode == "verify":
         if lay.has_cross:
@@ -205,12 +211,14 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
         if pos is None:
             pos = cache["len"][:, None] + torch.arange(
                 x.shape[1], device=x.device)[None]
+        if pos3 is None and cfg.mrope_sections is not None:
+            pos3 = pos[..., None].expand(*pos.shape, 3)   # text: t = h = w
         out, _ = attn.self_attention_verify(
-            p["attn"], h, cache, cfg, pos=pos, lora=lora,
+            p["attn"], h, cache, cfg, pos=pos, pos3=pos3, lora=lora,
             adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg)
     elif mode == "full":
         out, (k, v) = attn.self_attention(
-            p["attn"], h, cfg, causal=causal, pos=pos, lora=lora,
+            p["attn"], h, cfg, causal=causal, pos=pos, pos3=pos3, lora=lora,
             adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg,
             seq_lens=seq_lens, prefix=prefix, prefix_len=prefix_len)
         if cache is not None:

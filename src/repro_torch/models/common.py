@@ -62,7 +62,7 @@ def init_params(gen: Optional[torch.Generator], spec_tree, dtype=None,
         scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return (x * scale).to(dt)
+        return x.mul_(scale).to(dt)
     return tree_map(make, spec_tree)
 
 

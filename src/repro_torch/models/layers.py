@@ -1,4 +1,4 @@
-"""Shared layers: RMSNorm, embeddings, RoPE (M-RoPE comes with the VLM slice)."""
+"""Shared layers: RMSNorm, embeddings, RoPE and Qwen2-VL's M-RoPE."""
 from __future__ import annotations
 
 import torch
@@ -47,6 +47,42 @@ def apply_rope(x, pos, theta: float = 10000.0):
     freqs = rope_freqs(hd, theta, device=x.device)       # (hd/2,)
     angles = pos[..., None].float() * freqs              # (..., S, hd/2)
     angles = angles[..., None, :]                        # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_runs(sections, half: int) -> list:
+    """(stream, frequencies) runs over the ``half`` = hd / 2 rotary
+    frequencies: stream 0 (t), 1 (h), 2 (w) for ``sections`` consecutive
+    frequencies each, cut or padded with the last stream to ``half`` (as
+    ``jnp.repeat`` with ``total_repeat_length`` does in the JAX package; a
+    reduced config's sections may sum past hd / 2). Host ints only: the
+    rotation below stays capturable in a CUDA graph."""
+    runs, left = [], half
+    for i, n in enumerate(sections):
+        n = min(n, left)
+        if n > 0:
+            runs.append((i, n))
+        left -= n
+    if left > 0:
+        runs.append((len(sections) - 1, left))
+    return runs
+
+
+def apply_mrope(x, pos3, sections, theta: float = 10000.0):
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, hd); pos3: (B, S, 3), the
+    temporal/height/width position streams. ``sections`` (e.g. (16, 24,
+    24)) partitions the hd / 2 rotary frequencies, each partition rotated
+    by its own position stream. With t = h = w it is ``apply_rope``."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)       # (hd/2,)
+    p = pos3.float()
+    pos_per_freq = torch.cat(
+        [p[..., i:i + 1].expand(*p.shape[:-1], n)
+         for i, n in mrope_runs(sections, hd // 2)], dim=-1)  # (B, S, hd/2)
+    angles = (pos_per_freq * freqs)[..., None, :]        # (B, S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,8 +1,11 @@
 """Config-driven LM: specs, forward, prefill and decode for attention
-stacks — decoder-only, encoder-decoder (whisper: a bidirectional encoder
-over stub frames, a decoder with cross-attention) and the representation
-encoder (moment-large: bidirectional over stub patch embeddings, pooled by
-the caller). The other block kinds come with later slices.
+stacks — decoder-only (stablelm; qwen2-7b and qwen2-vl-72b with a qkv bias,
+the latter fed stub patch embeddings with M-RoPE position streams;
+h2o-danube-1.8b with a sliding window; minitron-8b), encoder-decoder
+(whisper: a bidirectional encoder over stub frames, a decoder with
+cross-attention) and the representation encoder (moment-large:
+bidirectional over stub patch embeddings, pooled by the caller). The other
+block kinds (MoE, Mamba, xLSTM) come with later slices.
 
 Parameters are nested dicts/lists of tensors with the JAX package's structure
 (``layers`` is a list over the period's sublayers, each leaf with a leading
@@ -79,13 +82,27 @@ def cast_params(params: dict) -> dict:
 
 def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
                device="cuda") -> dict:
-    """Random weights from ``gen`` (f32 draws), cast for serving."""
-    spec = model_spec(cfg)
+    """Random weights from ``gen``: f32 draws in the spec's leaf order, each
+    leaf cast to its use-site dtype (``cast_params``'s) as it is drawn, so
+    the peak is the served weights plus one f32 leaf (a minitron-8b drawn
+    whole in f32 would hold 40 GB before the cast)."""
+    def layers(subs):
+        return [{k: init_params(gen, v, device=device, dtype=ACT_DTYPE
+                                if k in ("attn", "cross", "ffn") else None)
+                 for k, v in sub.items()} for sub in subs]
     out = {}
-    for name, sub in spec.items():       # one group at a time: bounded peak
-        p = init_params(gen, sub, device=device)
-        out[name] = p
-    return cast_params(out)
+    for name, sub in model_spec(cfg).items():
+        if name == "layers":
+            out[name] = layers(sub)
+        elif name == "encoder":
+            out[name] = {k: layers(v) if k == "layers" else
+                         init_params(gen, v, device=device)
+                         for k, v in sub.items()}
+        else:
+            out[name] = init_params(gen, sub, device=device,
+                                    dtype=ACT_DTYPE if name == "embed"
+                                    else None)
+    return out
 
 
 def cache_spec(cfg: ModelConfig, batch: int, s_max: int,
@@ -129,7 +146,7 @@ def _at(tree, i):
 
 
 def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
-                   enc_out=None, lora=None, adapter_idx=None,
+                   pos3=None, enc_out=None, lora=None, adapter_idx=None,
                    lora_impl="gather", lora_seg=None, seq_lens=None,
                    prefix=None, prefix_len=None):
     """Loop over periods and their sublayers (the JAX package scans). A
@@ -146,7 +163,7 @@ def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
             x = blk.sublayer_apply(
                 _at(layers_p[j], i), x, cfg, lay, mode=mode,
                 cache=None if cache is None else _at(cache[j], i), pos=pos,
-                causal=causal, enc_out=enc_out, cross_len=cross_len,
+                pos3=pos3, causal=causal, enc_out=enc_out, cross_len=cross_len,
                 lora=_at(lora[j], i) if lora is not None and lora[j] else None,
                 adapter_idx=adapter_idx, lora_impl=lora_impl,
                 lora_seg=lora_seg, seq_lens=seq_lens,
@@ -167,16 +184,19 @@ def encode(params, cfg: ModelConfig, enc_embeds):
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
-            mode: str = "full", pos=None, enc_embeds=None, lora=None,
-            adapter_idx=None, lora_impl: str = "gather", lora_seg=None,
-            seq_lens=None, prefix=None, prefix_len=None):
+            mode: str = "full", pos=None, pos3=None, enc_embeds=None,
+            lora=None, adapter_idx=None, lora_impl: str = "gather",
+            lora_seg=None, seq_lens=None, prefix=None, prefix_len=None):
     """Backbone forward. Returns (hidden (B, S, d), cache). Inputs are
     ``tokens`` (B, S) int or ``embeds`` (B, S, d); an encoder-decoder stack
     also takes ``enc_embeds`` (B, S_enc, d) outside decode (a decode step
     reads the cross K/V its prefill stored in the cache). ``cache``
     (prefill / decode) is updated in place. ``lora_impl`` "gather" or
     "segmented" (the latter needs ``lora_seg`` metadata); ``seq_lens`` (B,)
-    masks right pads.
+    masks right pads. ``pos3`` (B, S, 3): the M-RoPE position streams of
+    an M-RoPE config (qwen2-vl: a vision patch's t/h/w), taken in place of
+    RoPE at ``pos`` (without them 'full' mode rotates by ``pos``, and
+    decode and verify by t = h = w = the text position).
 
     ``prefix``/``prefix_len``: chunked shared-prefix prefill — a list
     aligned with the period layout of per-sublayer dict(k, v) precomputed
@@ -198,7 +218,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
         pos = torch.arange(x.shape[1], device=x.device)[None]
     x = _stack_forward(params["layers"],
                        blk.period_layout(cfg, cross=cfg.is_encoder_decoder),
-                       x, cfg, mode=mode, cache=cache, pos=pos,
+                       x, cfg, mode=mode, cache=cache, pos=pos, pos3=pos3,
                        causal=not cfg.is_representation, enc_out=enc_out,
                        lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg,
@@ -220,12 +240,14 @@ def _head(params, x):
 
 
 def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
-            enc_embeds=None, cache, lora=None, adapter_idx=None,
+            enc_embeds=None, pos3=None, cache, lora=None, adapter_idx=None,
             lora_impl: str = "gather", lora_seg=None, seq_lens=None, pos=None,
             prefix=None, prefix_len=None):
     """Fill the decode cache from a prompt (in place). Returns
     (last_logits (B, V) f32, cache). ``seq_lens`` (B,): true lengths of
     right-padded prompts; the logits come from each row's last real token.
+    ``embeds`` (B, S, d) in place of ``tokens`` (a stub frontend's patch
+    embeddings) and ``pos3`` (B, S, 3) as in ``forward``.
     An encoder-decoder stack encodes ``enc_embeds`` (B, enc_len, d) here and
     stores every cross-attention sublayer's K/V of it in the cache.
 
@@ -237,8 +259,8 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     tail's K/V — the engine scatters it after the prefix pages in the
     slot's page table."""
     x, cache = forward(params, cfg, tokens=tokens, embeds=embeds, cache=cache,
-                       mode="full", enc_embeds=enc_embeds, lora=lora,
-                       adapter_idx=adapter_idx,
+                       mode="full", pos3=pos3, enc_embeds=enc_embeds,
+                       lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg,
                        seq_lens=seq_lens, pos=pos, prefix=prefix,
                        prefix_len=prefix_len)

@@ -108,6 +108,14 @@ ATTN_CASES = {
                             (150,)),
     "encoder_one_row": (1, 1500, 1500, 8, 8, 16, 0, False, None, None,
                         None),
+    # qwen2-7b's heads (28 over 4: G 7, hd 128) with a prefix, and
+    # h2o-danube-1.8b's (32 over 8, hd 80) under a window
+    "qwen2_g7_suffix_kv_len": (2, 48, 80, 28, 4, 128, 0, True, None,
+                               (80, 61), None),
+    "qwen2_g7_prefix": (2, 16, 16, 28, 4, 128, 32, True, None, (16, 9),
+                        (32, 5)),
+    "h2o_hd80_window_kv_len": (2, 48, 80, 32, 8, 80, 0, True, 48, (80, 61),
+                               None),
 }
 
 
@@ -194,7 +202,9 @@ def test_flash_attention_prefix_mask_is_exact():
 PALLAS_CASES = [(1, 4, 4, 32, 32, 16, True, None),
                 (2, 4, 2, 16, 32, 16, True, None),
                 (1, 4, 1, 32, 32, 16, True, 8),
-                (2, 4, 2, 32, 32, 16, False, None)]
+                (2, 4, 2, 32, 32, 16, False, None),
+                (2, 28, 4, 48, 48, 128, True, None),   # qwen2-7b: G 7
+                (2, 32, 8, 48, 48, 80, True, 16)]      # h2o-danube: hd 80
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -132,7 +132,9 @@ def _decode_case(seed, B, H, KV, S, hd, lens):
 
 DECODE_SHAPES = [(2, 8, 2, 256, 64),    # GQA, S a block multiple
                  (3, 4, 4, 100, 32),    # MHA, S no multiple of any block
-                 (1, 4, 1, 75, 16)]     # MQA, odd S
+                 (1, 4, 1, 75, 16),     # MQA, odd S
+                 (3, 28, 4, 128, 128),  # qwen2-7b's group of 7
+                 (3, 32, 8, 100, 80)]   # h2o-danube-1.8b's hd 80
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -163,7 +165,9 @@ def test_decode_attention_plain_matches_jax(B, H, KV, S, hd, window, lens,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("window", [None, 48])
-@pytest.mark.parametrize("B,H,KV,S,hd,block_s", [(2, 8, 2, 256, 64, 64),
+@pytest.mark.parametrize("B,H,KV,S,hd,block_s", [(3, 28, 4, 128, 128, 64),
+                                                 (3, 32, 8, 128, 80, 64),
+                                                 (2, 8, 2, 256, 64, 64),
                                                  (3, 4, 4, 96, 32, 32)])
 def test_decode_attention_plain_matches_pallas_interpret(B, H, KV, S, hd,
                                                          block_s, window,

@@ -58,10 +58,16 @@ def _np(x):
 @pytest.mark.parametrize("T,d,r,NA,bt,out", [(256, 128, 16, 5, 32, 128),
                                              (128, 256, 8, 2, 64, 256),
                                              (64, 64, 4, 1, 64, 64),
-                                             (96, 64, 16, 4, 16, 96)])
+                                             (96, 64, 16, 4, 16, 96),
+                                             (64, 256, 16, 3, 16, 3584),
+                                             (64, 256, 16, 3, 16, 512),
+                                             (64, 256, 16, 3, 16, 640),
+                                             (64, 256, 16, 3, 16, 8192)])
 def test_segmented_lora_ref_matches_jax(T, d, r, NA, bt, out, dtype):
-    """Square and rectangular outputs; block ids include the sentinel NA
-    (and a larger one), whose blocks must come out zero."""
+    """Square and rectangular outputs (the last four: the q and v widths
+    of qwen2-7b, 3584 and 512, h2o-danube-1.8b's v, 640, and qwen2-vl's
+    q, 8192); block ids include the sentinel NA (and a larger one), whose
+    blocks must come out zero."""
     rng = np.random.RandomState(2)
     x = rng.randn(T, d).astype(np.float32)
     a = (rng.randn(NA, d, r) * 0.05).astype(np.float32)
@@ -104,11 +110,14 @@ def test_quantize_kv_matches_jax():
 
 
 @pytest.mark.parametrize("B,H,KV,S,hd", [(2, 8, 2, 256, 64), (1, 4, 4, 128, 32),
+                                         (3, 28, 4, 128, 128),
+                                         (3, 32, 8, 128, 80),
                                          (8, 4, 4, 161, 16), (3, 4, 2, 37, 32)])
 @pytest.mark.parametrize("window", [None, 48])
 def test_decode_attention_int8_ref_matches_jax(B, H, KV, S, hd, window):
     """Ragged S (161, 37: no block multiple), lengths from 1 to S, GQA and
-    MHA, with and without a window. f32 on both sides: 1e-5."""
+    MHA (qwen2-7b's group of 7 at hd 128, h2o-danube-1.8b's hd 80), with
+    and without a window. f32 on both sides: 1e-5."""
     rng = np.random.RandomState(3)
     q = rng.randn(B, H, hd).astype(np.float32)
     k = rng.randn(B, KV, S, hd).astype(np.float32)
