@@ -156,7 +156,24 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    its 80 layers (a pooled batch of vision-patch embeddings, a greedy
    decode from patches with M-RoPE streams against the CPU, and M-RoPE on
    the card against its CPU run); then the device times of K2-K5 and the
-   verify window at these shapes beside their bounds and SDPA.
+   verify window at these shapes beside their bounds and SDPA;
+10. stacks — the MoE, Mamba and xLSTM stacks (``phase_stacks``), after the
+   families' servers are freed: GPU-against-CPU references of olmoe-1b-7b
+   cut to 2 of its 16 layers (int8, float and paged pools), a jamba probe
+   at full width (one attention sublayer with its dense MLP and one Mamba
+   sublayer with its 16-expert MoE) on the same three pools and
+   xlstm-125m whole (its dense pool), each with the share of tokens whose
+   experts differ between the card and the CPU per MoE layer (rows are
+   compared up to their first such flip, and the rest counted); olmoe-1b-7b
+   (16 layers; dense and paged), jamba-v0.1-52b cut to 16 of its 32 layers
+   (dense, and paged with its demotions, a preemption that re-prefills
+   and the state slots drained) and xlstm-125m (12 layers; dense) served
+   at full width through ``FMplexServer``/``ServeLoop`` with stablelm's
+   gates, each with a profiled decode step where the stack decodes
+   through attention; grok-1-314b cut to 2 of its 64 layers (a pooled
+   batch, a greedy decode on the dense int8 pool against the CPU, K3 at
+   its group of 6); then the device times of K2-K4 at these shapes beside
+   their bounds and SDPA.
 
 The serving paths run graphed: every executable of ``PhysicalFM`` and
 ``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
@@ -180,6 +197,7 @@ a CUDA device the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -717,7 +735,7 @@ INT8_CASES = {
                             lens=[176, 100, 71, 70, 69, 130, 65, 150]),
     **{f"hd{hd}_g{g}": dict(H=8 * g, KV=8, hd=hd, S=161,
                             lens=[1, 32, 33, 64, 176, 161, 65, 128])
-       for hd in (32, 64, 80, 128) for g in (1, 2, 4, 7, 8)},
+       for hd in (32, 64, 80, 128) for g in (1, 2, 4, 6, 7, 8)},
     "qwen2_window": dict(H=28, KV=4, hd=128, S=161, window=48,
                          lens=[161, 1, 48, 49, 120, 7, 96, 176]),
     "h2o_window": dict(H=32, KV=8, hd=80, S=4200, window=4096,
@@ -775,6 +793,8 @@ VERIFY_CASES = {
                      base=[0, 15, 31, 130, 12, 150, 77, 203]),
     "h2o_t5_window": dict(H=32, KV=8, hd=80, T=5, MP=264, window=4096,
                           base=[4160, 0, 4091, 15, 31, 130, 77, 4219]),
+    "grok_t5": dict(H=48, KV=8, hd=128, T=5, MP=13,
+                    base=[0, 15, 31, 130, 12, 150, 77, 203]),
 }
 
 
@@ -1069,6 +1089,15 @@ FLASH_CASES = {
                      kv_len=[37, 37], prefix_len=[64, 0]),
     "h2o_window_prefill": dict(B=1, Sq=4352, Sk=4352, H=32, KV=8, hd=80,
                                window=4096, kv_len=[4160]),
+    # olmoe-1b-7b (H = KV = 16, hd 128), jamba-v0.1-52b (H 32, KV 8, hd
+    # 128) and grok-1-314b (H 48, KV 8, hd 128: G 6): pooled and admission
+    "olmoe_pooled": dict(B=32, Sq=128, Sk=128, H=16, KV=16, hd=128),
+    "olmoe_admission": dict(B=1, Sq=128, Sk=128, H=16, KV=16, hd=128,
+                            kv_len=[77]),
+    "jamba_pooled": dict(B=32, Sq=128, Sk=128, H=32, KV=8, hd=128),
+    "jamba_admission": dict(B=1, Sq=128, Sk=128, H=32, KV=8, hd=128,
+                            kv_len=[77]),
+    "grok_pooled": dict(B=8, Sq=32, Sk=32, H=48, KV=8, hd=128),
 }
 # the shapes timed: one call of each kind as the serving path makes it
 # (whisper: the encoder of one admission, and the cross-attention of a
@@ -1084,6 +1113,9 @@ FLASH_TIMED = {
     "qwen2_pooled": FLASH_CASES["qwen2_pooled"],
     "h2o_pooled": FLASH_CASES["h2o_pooled"],
     "h2o_window_prefill": FLASH_CASES["h2o_window_prefill"],
+    **{name: FLASH_CASES[name] for name in (
+        "olmoe_pooled", "olmoe_admission", "jamba_pooled",
+        "jamba_admission")},
 }
 
 
@@ -1419,7 +1451,18 @@ def fan_in_qk(params, cfg):
     encoder) in place to the model's real fan-in, sqrt(heads / d_model)
     with the projection's own heads (query or kv): the package's init
     takes the heads axis of a (d, heads, hd) projection as its fan-in (see
-    ``phase_reference_whisper``)."""
+    ``phase_reference_whisper``). The xLSTM cells likewise: the mLSTM's
+    q, k and v projections (di, heads, hd) by sqrt(heads / di), its keys a
+    further 1/4, and its gate projection ``wif`` and the sLSTM's ``w`` and
+    ``r`` (drawn at a fixed 0.1 and 0.05) to 1 / sqrt(di). At the init
+    draws xlstm-125m's q/k/v come out 20x and its gate pre-activations
+    2-4x too large, the stabilizer's floor exp(-m) falls to ~1e-3 and the
+    normalizer max(|n . q|, exp(-m)) takes |n . q| where it passes near
+    zero, so one bf16 ulp is amplified: the card and the CPU 0.73 rel L2
+    apart at 12 layers, 0.053 with q/k/v and ``wif`` at their fan-in,
+    0.015 with the keys at 1/4 (|n . q| under the floor) and the sLSTM's
+    gates at theirs (my chip run, PR 25, NVIDIA H100 80GB HBM3,
+    700.00 W)."""
     encoder = params["encoder"]["layers"] if "encoder" in params else []
     for sub in params["layers"] + encoder:
         for name in ("attn", "cross"):
@@ -1427,6 +1470,16 @@ def fan_in_qk(params, cfg):
                 for w, heads in (("wq", cfg.num_heads),
                                  ("wk", cfg.num_kv_heads)):
                     sub[name][w].mul_((heads / cfg.d_model) ** 0.5)
+        if "mlstm" in sub:
+            di = sub["mlstm"]["wq"].shape[1]
+            for w in ("wq", "wk", "wv"):
+                sub["mlstm"][w].mul_((cfg.num_heads / di) ** 0.5)
+            sub["mlstm"]["wk"].mul_(0.25)
+            sub["mlstm"]["wif"].mul_(1.0 / (0.1 * di ** 0.5))
+        if "slstm" in sub:
+            di = sub["slstm"]["w"].shape[1]
+            for w in ("w", "r"):
+                sub["slstm"][w].mul_(1.0 / (0.05 * di ** 0.5))
 
 
 def phase_reference_whisper(dev):
@@ -1835,6 +1888,26 @@ def graph_keys(eng, fm) -> dict:
 
 # ---------------- phase 4/5: serving at full width ----------------
 
+def stack_kernels(eng, decode_kernel: str) -> tuple:
+    """The kernels a served stack must launch: K1, K2, its pool's decode
+    kernel and rmsnorm where it has attention, rmsnorm alone where it has
+    none (xlstm-125m)."""
+    if eng.plan.has_attention:
+        return ("segmented_lora", decode_kernel, "flash_attention", "rmsnorm")
+    return ("rmsnorm",)
+
+
+def state_slots_drained(eng) -> bool:
+    """Every state slot of a stack with fixed per-slot state is free at the
+    end, each allocation freed once, and no more than the slots were ever
+    in use; True for a stack without (the attention-only pools)."""
+    sp = eng.state_pool
+    if sp is None:
+        return True
+    return (sp.in_use_count() == 0 and sp.allocs == sp.frees
+            and 0 < sp.peak_in_use <= eng.num_slots)
+
+
 def build_server(dev, cfg=None, input_len=PROMPT_LEN, prompt_len=PROMPT_LEN,
                  max_new=MAX_NEW, **engine_kwargs):
     """Full-width ``cfg`` (default stablelm-1.6b) behind ``FMplexServer``
@@ -1930,7 +2003,7 @@ def phase_serving(dev, cfg=None):
                           "flash_attention", "rmsnorm")}
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
-    ok = True
+    ok = state_slots_drained(eng)
     bad = [r for r in trace if not r.ok or r.finish_time is None
            or r.result is None]
     if bad:
@@ -1941,7 +2014,7 @@ def phase_serving(dev, cfg=None):
     nonfinite = [r for r in pooled
                  if r.result is None or not np.all(np.isfinite(r.result))]
     ok &= not short and not nonfinite and eng.quarantines == 0
-    ok &= all(v > 0 for v in launches.values())
+    ok &= all(launches[k] > 0 for k in stack_kernels(eng, "decode_attention_int8"))
     keys1 = (eng.compile_count(), fm.compile_count())
     ok &= keys1 == keys0
     ds = decode_stats(gen)
@@ -1955,6 +2028,9 @@ def phase_serving(dev, cfg=None):
         "pooled_p50_ms": ls.get("p50_ms"), "launches": launches,
         "ticks": dict(loop.ticks), "decode_steps": eng.steps,
         "quarantines": eng.quarantines, "shape_keys": [keys0, keys1],
+        "state_slots": None if eng.state_pool is None else dict(
+            eng.state_pool.gauges(), allocs=eng.state_pool.allocs,
+            frees=eng.state_pool.frees),
     }
     ok &= graphed_against_eager(stats, rec, fm, eng, loop, (mem0, mem1))
     log(f"{name}: " + json.dumps(stats, default=float))
@@ -2051,7 +2127,9 @@ def phase_paged_serving(dev, chunked: bool = False, cfg=None):
         name = f"{cfg.name} {name}"
     srv, cfg, fm, loop = build_server(
         dev, cfg, **dict(PAGED_KW, chunked_prefill=chunked))
-    eng = srv.decode_engine("fm0", **loop.engine_kwargs)
+    with warnings.catch_warnings(record=True) as demoted:
+        warnings.simplefilter("always")
+        eng = srv.decode_engine("fm0", **loop.engine_kwargs)
     rec = record_calls(eng, fm)
     mem0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
@@ -2074,6 +2152,7 @@ def phase_paged_serving(dev, chunked: bool = False, cfg=None):
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "paged_decode_attention",
                           "flash_attention", "rmsnorm")}
+    hybrid = eng.plan.has_recurrent
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     bad = [r for r in trace if not r.ok or r.finish_time is None
@@ -2101,12 +2180,30 @@ def phase_paged_serving(dev, chunked: bool = False, cfg=None):
         "shape_keys": [keys0, (eng.compile_count(), fm.compile_count())],
     }
     ok = not bad and not short and not nonfinite and not leak
-    ok &= eng.quarantines == 0 and all(v > 0 for v in launches.values())
-    # stablelm's trace shares prefixes through the loop; another model's
-    # speed batches its admissions otherwise, and there the direct pair
-    # (stablelm's too) shows the sharing
+    ok &= eng.quarantines == 0 and state_slots_drained(eng)
+    ok &= all(launches[k] > 0
+              for k in stack_kernels(eng, "paged_decode_attention"))
     stats["prefix_hits"] = {"loop": loop_hits, "pair": pair}
-    ok &= (loop_hits >= 1 or family) and (chunked or pair == 1)
+    if hybrid:
+        # a stack with recurrent state: prefix sharing, chunked prefill,
+        # speculation and the spill tier demote (reported), a preempted
+        # stream re-prefills its folded prompt (no spill tier to resume
+        # from), and every state slot comes back
+        stats["demotions"] = {
+            "warnings": [str(w.message)[:90] for w in demoted],
+            "prefix_sharing": eng.prefix_sharing,
+            "chunked_prefill": eng.chunked_prefill, "spec_k": eng.spec_k,
+            "spill": eng.spill is not None}
+        stats["state_slots"] = dict(eng.state_pool.gauges(),
+                                    allocs=eng.state_pool.allocs,
+                                    frees=eng.state_pool.frees)
+        ok &= not eng.prefix_sharing and eng.spill is None
+        ok &= eng.prefix_hits == 0 and burst["preemptions"] >= 1
+    else:
+        # stablelm's trace shares prefixes through the loop; another
+        # model's speed batches its admissions otherwise, and there the
+        # direct pair (stablelm's too) shows the sharing
+        ok &= (loop_hits >= 1 or family) and (chunked or pair == 1)
     ok &= stats["shape_keys"][1] == keys0
     if chunked:
         stats["ttft_split"] = mixed_stats(trace, ttft_split={
@@ -3920,6 +4017,404 @@ def family_timing(dev) -> dict:
     return out
 
 
+# ---------------- phase 10: the MoE, Mamba and xLSTM stacks ----------------
+
+OLMOE, JAMBA, XLSTM, GROK = ("olmoe-1b-7b", "jamba-v0.1-52b", "xlstm-125m",
+                             "grok-1-314b")
+# jamba-v0.1-52b's 98.7 GB of bf16 weights do not fit one 80 GB card: 16 of
+# its 32 layers (two whole periods of the 1:7 Mamba:attention interleave,
+# 24.9 B parameters, 49.9 GB); grok-1-314b 2 of its 64 (11.45 B)
+JAMBA_LAYERS, GROK_LAYERS = 16, 2
+GROK_PROMPT, GROK_STEPS = 32, 4
+
+
+@contextlib.contextmanager
+def route_log():
+    """Every MoE call's expert choices while open: each token's top-k
+    experts from its own router input, sorted, on the host ((B, S, k) a
+    call, in call order). Eager runs only (it reads back to the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import blocks, moe
+    calls = []
+    orig = blocks.moe_ffn
+
+    def record(p, x, *, k, **kw):
+        _, idx = moe.top_k(torch.softmax(x.float() @ p["router"].float(),
+                                         dim=-1), k)
+        calls.append(np.sort(idx.cpu().numpy(), axis=-1))
+        return orig(p, x, k=k, **kw)
+    blocks.moe_ffn = record
+    try:
+        yield calls
+    finally:
+        blocks.moe_ffn = orig
+
+
+def route_flips(gcalls, ccalls, n_moe, valid=None) -> dict:
+    """Routing agreement, card against CPU: per MoE layer of the period
+    (call index mod ``n_moe``), the share of (valid) tokens whose top-k
+    set differs."""
+    import numpy as np
+    if len(gcalls) != len(ccalls):
+        raise RuntimeError(f"MoE calls {len(gcalls)} on the card, "
+                           f"{len(ccalls)} on the CPU")
+    per = {}
+    for i, (a, b) in enumerate(zip(gcalls, ccalls)):
+        f = (a != b).any(-1)
+        v = np.ones(f.shape, bool) if valid is None else valid(i, f.shape)
+        d = per.setdefault(i % n_moe, [0, 0])
+        d[0] += int((f & v).sum())
+        d[1] += int(v.sum())
+    return {f"moe_call_{l}": {"flipped": n, "tokens": t,
+                              "share": n / max(t, 1)}
+            for l, (n, t) in sorted(per.items())}
+
+
+def keep_unflipped_tf(gcalls, ccalls, n_moe, B, S, steps):
+    """(1 + steps, B) bool: the logits of ``_teacher_forced`` (prefill of S
+    tokens, then ``steps`` decode steps) to compare: each row's up to its
+    first token routed to other experts on the card than on the CPU
+    (call j reads position S - 1 + j)."""
+    import numpy as np
+    first = np.full((B,), S + steps)
+    for i, (a, b) in enumerate(zip(gcalls, ccalls)):
+        f = (a != b).any(-1)                                  # (B, s)
+        fwd = i // n_moe                      # 0: the prefill, t + 1: step t
+        pos = np.arange(f.shape[1]) if fwd == 0 else np.array([S + fwd - 1])
+        hit = np.where(f, pos[None], S + steps).min(axis=1)
+        first = np.minimum(first, hit)
+    return (S - 1 + np.arange(1 + steps))[:, None] < first[None]
+
+
+def keep_unflipped_engine(gcalls, ccalls, n_moe, calls, prompts):
+    """Per sampler call of ``_engine_run`` (its prompts admitted in order
+    into slots 0.., one prefill each, then decode steps of every slot):
+    the rows to compare, each stream's up to the first call that routes one
+    of its tokens to other experts on the card than on the CPU."""
+    import numpy as np
+    flipped, keep = set(), []
+    for c, (lg, live) in enumerate(calls):
+        pairs = list(zip(gcalls[c * n_moe:(c + 1) * n_moe],
+                         ccalls[c * n_moe:(c + 1) * n_moe]))
+        if c < len(prompts):                  # the prefill of stream c
+            if lg.shape[0] != 1:
+                raise RuntimeError("the streams did not admit in order")
+            n = len(prompts[c])
+            if any((a != b).any(-1)[0, :n].any() for a, b in pairs):
+                flipped.add(c)
+            keep.append(np.array([c not in flipped]))
+            continue
+        f = np.zeros((lg.shape[0],), bool)
+        for a, b in pairs:
+            f |= (a != b).any(-1)[:, 0]
+        flipped |= {int(r) for r in np.nonzero(f & live)[0]}
+        keep.append(live & np.array([r not in flipped
+                                     for r in range(lg.shape[0])]))
+    return keep
+
+
+def stack_config(arch, **over):
+    """``arch`` at full width, cut where one card forces it (jamba to
+    JAMBA_LAYERS, grok to GROK_LAYERS layers)."""
+    cut = {JAMBA: JAMBA_LAYERS, GROK: GROK_LAYERS}.get(arch)
+    if cut is not None and "num_layers" not in over:
+        over["num_layers"] = cut
+    return family_config(arch, **over)
+
+
+def phase_reference_stack(dev, name, cfg):
+    """``cfg`` at full width on the card against the same weights and
+    adapters on the CPU (``family_fms``: attention q/k and the mLSTM q/k/v
+    at their real fan-in): with attention, prefill and teacher-forced
+    decode on the dense int8 pool (segmented LoRA: K1, K3) and the float
+    pool (gather LoRA: K5), K2 carrying every prefill, and the paged
+    engine (K4); without (xlstm-125m), the dense pool alone (rmsnorm).
+    4 rows of 16 prompt tokens and 4 decode steps on the dense pools,
+    phase_reference_paged's 4 streams on the paged one. Bounds as
+    stablelm's: relative L2 2e-2 (dense pools), 3e-2 (paged), greedy tokens
+    equal wherever the CPU's top-2 gap exceeds twice the largest logit
+    difference, each leg's kernels launched. On a MoE stack each leg
+    reports the share of tokens routed to other experts on the card than
+    on the CPU, per MoE layer, and compares each row up to its first such
+    flip (``keep_unflipped_tf``/``keep_unflipped_engine``), the rows left
+    out counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ATTN
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    t0 = time.perf_counter()
+    layout = blocks.period_layout(cfg)
+    nper = cfg.num_layers // len(layout)
+    n_moe = nper * sum(lay.has_moe for lay in layout)
+    attn = any(lay.kind == ATTN for lay in layout)
+    gfm, cfm = family_fms(dev, cfg, seed=6)
+    stack, cstack = gfm.adapters.stacked(), cfm.adapters.stacked()
+    cap = gfm.adapters.capacity()
+    rng = np.random.RandomState(8)
+    report = {"params_b": sum(t.numel() for t in _leaves(gfm.params)) / 1e9}
+    ok = True
+    legs = (("int8", "segmented", True, ("segmented_lora",
+                                         "decode_attention_int8",
+                                         "flash_attention", "rmsnorm")),
+            ("float", "gather", False, ("decode_attention",
+                                        "flash_attention", "rmsnorm"))) \
+        if attn else (("dense", "gather", True, ("rmsnorm",)),)
+    for leg, impl, kvq, kernels in legs:
+        B, S, steps, aidx = 4, 16, 4, np.array([0, 2, cap, 1], np.int32)
+        toks = rng.randint(0, cfg.vocab_size, (B, S + steps)).astype(np.int64)
+        with route_log() as croutes:
+            c = _teacher_forced(cfg, cfm, torch.device("cpu"), cfm.params,
+                                cstack, cap, toks, aidx, S, steps, impl, kvq)
+        ops.reset_launches()
+        with route_log() as groutes:
+            g = _teacher_forced(cfg, gfm, torch.device(dev), gfm.params,
+                                stack, cap, toks, aidx, S, steps, impl, kvq)
+        torch.cuda.synchronize()
+        keep = torch.as_tensor(keep_unflipped_tf(
+            groutes, croutes, n_moe, B, S, steps)) if n_moe else \
+            torch.ones(g.shape[:2], dtype=torch.bool)
+        r = report[leg] = drift(g[keep], c[keep])
+        r.update(rows=B, prompt=S, steps=steps, bound=2e-2,
+                 finite_all=bool(torch.isfinite(g).all()),
+                 compared=[int(keep.sum()), keep.numel()], launches={
+                     k: int(ops.LAUNCHES[k]) for k in kernels})
+        if n_moe:
+            r["routing"] = route_flips(groutes, croutes, n_moe)
+        ok &= (r["finite_all"] and r["rel_l2"] <= 2e-2 and r["argmax_agree"]
+               and r["compared"][0] > 0
+               and all(v > 0 for v in r["launches"].values()))
+    if attn:
+        prefix = rng.randint(0, cfg.vocab_size, PAGE_SIZE)
+        prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, 4)]),
+                   np.concatenate([prefix, rng.randint(0, cfg.vocab_size, 9)]),
+                   rng.randint(0, cfg.vocab_size, 20),
+                   rng.randint(0, cfg.vocab_size, 13)]
+        prompts = [p.astype(np.int32) for p in prompts]
+        names = ["a0", "a0", "a2", None]
+        with route_log() as croutes:
+            ccalls, _ = _engine_run(cfm, prompts, names)
+        ops.reset_launches()
+        with route_log() as groutes:
+            gcalls, geng = _engine_run(gfm, prompts, names, ccalls)
+        torch.cuda.synchronize()
+        keep = keep_unflipped_engine(groutes, croutes, n_moe, ccalls,
+                                     prompts) if n_moe else \
+            [lv for _, lv in ccalls]
+        gk = [lg[torch.as_tensor(k)] for (lg, _), k in zip(gcalls, keep)]
+        ck = [lg[torch.as_tensor(k)] for (lg, _), k in zip(ccalls, keep)]
+        r = report["paged"] = drift(torch.cat(gk), torch.cat(ck))
+        r.update(calls=[len(ccalls), len(gcalls)], bound=3e-2,
+                 finite_all=all(bool(torch.isfinite(lg).all())
+                                for lg, _ in gcalls),
+                 compared=[int(sum(k.sum() for k in keep)),
+                           int(sum(lv.sum() for _, lv in ccalls))],
+                 prefix_sharing=geng.prefix_sharing,
+                 launches={k: int(ops.LAUNCHES[k]) for k in (
+                     "paged_decode_attention", "segmented_lora",
+                     "flash_attention", "rmsnorm")})
+        if n_moe:
+            def valid(i, shape):
+                """A prefill's prompt positions, a decode step's live
+                rows."""
+                c = i // n_moe
+                if c < len(prompts):
+                    return np.arange(shape[1])[None] < len(prompts[c])
+                return ccalls[c][1][:, None]
+            r["routing"] = route_flips(groutes, croutes, n_moe, valid)
+        ok &= (r["finite_all"] and r["rel_l2"] <= 3e-2 and r["argmax_agree"]
+               and r["calls"][0] == r["calls"][1] and r["compared"][0] > 0
+               and all(v > 0 for v in r["launches"].values()))
+        del geng
+    del gfm, cfm, stack, cstack
+    free_device()
+    report["seconds"] = time.perf_counter() - t0
+    log(f"{name} reference (GPU vs CPU): " + json.dumps(report, default=float))
+    return bool(ok), report
+
+
+def phase_stack_serving(dev, arch, pool, profile: bool = False):
+    """Full-width ``arch`` (cut by ``stack_config``) behind
+    ``FMplexServer``/``ServeLoop`` as stablelm is served (4 tasks with
+    rank-16 q/v adapters, 8 slots, graphed, equal to its eager replay, no
+    key after warm-up): ``pool`` "dense" is ``phase_serving``, "paged"
+    ``phase_paged_serving`` (full prefill; on a stack with recurrent state
+    the prefix-hit gates give way to the demotions, a preemption that
+    re-prefills and the state slots drained). ``profile``: one decode step
+    of 8 live streams on the server's engine, profiled eager and graphed
+    (``live_step_timing``). The server is freed before the next model."""
+    t0 = time.perf_counter()
+    cfg = stack_config(arch)
+    if pool == "dense":
+        ok, stats, handles = phase_serving(dev, cfg)
+    else:
+        ok, stats, handles = phase_paged_serving(dev, cfg=cfg)
+    if profile:
+        stats["step"] = live_step_timing(dev, handles, "", seed=31,
+                                         rid0=-3000)
+        log(f"{arch} {pool} decode step: "
+            + json.dumps(stats["step"], default=float))
+    del handles
+    free_device()
+    stats["seconds"] = time.perf_counter() - t0
+    stats["layers"] = [cfg.num_layers, family_config(arch).num_layers]
+    log(f"{arch} {pool} serving ({cfg.num_layers} layers): ok {ok}, "
+        f"{stats['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{stats['ttft_p50_ms']:.1f} ms, TPOT p50 "
+        f"{stats['tpot_p50_ms']:.2f} ms, {stats['seconds']:.1f} s")
+    return ok, stats
+
+
+def phase_grok(dev):
+    """grok-1-314b at full width (d 6144, 48 query heads over 8 kv heads
+    of 128: K3 at its group of 6; 8 experts of d_ff 32768, top-2), its
+    depth cut to GROK_LAYERS of 64. (1) One pooled batch of 8 requests of
+    32 embedding rows through ``PhysicalFM.run_batch_device``: finite (8,
+    d) features, K1 and K2 launched. (2) Two streams of GROK_PROMPT tokens
+    prefilled into the dense int8 pool, then GROK_STEPS greedy decode
+    steps, on the card fed the CPU run's tokens: relative L2 of the logits
+    at most 2e-2 (rows up to their first routing flip, counted), the greedy
+    tokens equal where the CPU's top-2 gap exceeds twice the largest
+    difference, K3 launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    full, cfg = family_config(GROK), stack_config(GROK)
+    reduced = {"num_layers": [full.num_layers, cfg.num_layers],
+               "params_b": [full.param_count() / 1e9,
+                            cfg.param_count() / 1e9]}
+    gfm, cfm = family_fms(dev, cfg, seed=13)
+    rng = np.random.RandomState(14)
+    cap = gfm.adapters.capacity()
+    report, ok = {"reduced": reduced}, True
+    x = (rng.randn(8, 32, cfg.d_model) * 0.5).astype(np.float32)
+    ops.reset_launches()
+    feats = gfm.run_batch_device(x, np.array([0, 1, 2, cap, 0, 1, 2, cap],
+                                             np.int32))
+    torch.cuda.synchronize()
+    pooled = {"shape": list(feats.shape),
+              "finite": bool(torch.isfinite(feats.float()).all()),
+              "launches": {k: int(ops.LAUNCHES[k]) for k in (
+                  "segmented_lora", "flash_attention", "rmsnorm")}}
+    ok &= pooled["shape"] == [8, cfg.d_model] and pooled["finite"] and \
+        all(v > 0 for v in pooled["launches"].values())
+    report["pooled"] = pooled
+    B, S, steps = 2, GROK_PROMPT, GROK_STEPS
+    aidx = np.array([1, cap], np.int32)
+    prompt = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int64)
+
+    def run(d, fm, teacher=None):
+        """Prefill, then greedy decode steps (fed ``teacher``'s tokens
+        where given): the logits of every call, and the tokens fed."""
+        from repro_torch.core.physical import seg_to_device
+        from repro_torch.models import lm
+        stack = fm.adapters.stacked()
+
+        def meta(n):
+            perm, inv, blocks = seg_to_device(
+                *fm.segment_meta(aidx, cap, n), d)
+            return {"perm": perm, "inv": inv, "block_adapter": blocks,
+                    "block_t": fm.seg_block_t}
+        ai = torch.as_tensor(aidx, device=d)
+        cache = lm.init_cache(cfg, B, S + steps + 1, kv_quant=True, device=d)
+        logits, cache = lm.prefill(
+            fm.params, cfg, tokens=torch.as_tensor(prompt, device=d),
+            cache=cache, lora=stack, adapter_idx=ai, lora_impl="segmented",
+            lora_seg=meta(S))
+        out, fed = [logits.float().cpu()], []
+        for t in range(steps):
+            tok = out[-1].argmax(-1) if teacher is None else teacher[t]
+            fed.append(tok)
+            logits, cache = lm.decode_step(
+                fm.params, cfg, tokens=tok.to(d), cache=cache, lora=stack,
+                adapter_idx=ai, lora_impl="segmented", lora_seg=meta(1))
+            out.append(logits.float().cpu())
+        return torch.stack(out), fed
+    with route_log() as croutes:
+        c, fed = run(torch.device("cpu"), cfm)
+    ops.reset_launches()
+    with route_log() as groutes:
+        g, _ = run(torch.device(dev), gfm, fed)
+    torch.cuda.synchronize()
+    n_moe = cfg.num_layers
+    keep = torch.as_tensor(keep_unflipped_tf(groutes, croutes, n_moe, B, S,
+                                             steps))
+    r = report["decode"] = drift(g[keep], c[keep])
+    r.update(rows=B, prompt=S, steps=steps, bound=2e-2,
+             finite_all=bool(torch.isfinite(g).all()),
+             compared=[int(keep.sum()), keep.numel()],
+             routing=route_flips(groutes, croutes, n_moe),
+             launches={k: int(ops.LAUNCHES[k]) for k in (
+                 "decode_attention_int8", "flash_attention",
+                 "segmented_lora", "rmsnorm")})
+    ok &= (r["finite_all"] and r["rel_l2"] <= 2e-2 and r["argmax_agree"]
+           and r["compared"][0] > 0
+           and all(v > 0 for v in r["launches"].values()))
+    del gfm, cfm, feats
+    free_device()
+    report["seconds"] = time.perf_counter() - t0
+    log(f"grok-1-314b: reduced {json.dumps(reduced)}: "
+        + json.dumps(report, default=float))
+    return bool(ok), report
+
+
+def phase_stacks(dev):
+    """The MoE, Mamba and xLSTM stacks (the slice's models): the olmoe,
+    jamba-probe and xlstm references, full-width serving of olmoe-1b-7b
+    (dense and paged), jamba-v0.1-52b at JAMBA_LAYERS layers (dense and
+    paged) and xlstm-125m (dense), a profiled decode step of olmoe and of
+    jamba, and grok-1-314b at GROK_LAYERS layers. Each step's seconds are
+    printed; returns (phase results, serving stats)."""
+    from repro_torch.configs.base import ATTN, MAMBA
+    phases, stats = {}, {}
+    for name, cfg in (
+            (f"{OLMOE} 2-layer", stack_config(OLMOE, num_layers=2)),
+            # one attention sublayer with its dense MLP and one Mamba
+            # sublayer with its 16-expert MoE: the two sublayer kinds of
+            # jamba's period at full width (3.7 B parameters on the CPU in
+            # place of 12.7 B for one whole period)
+            (f"{JAMBA} probe", stack_config(JAMBA, num_layers=2,
+                                            block_pattern=(ATTN, MAMBA))),
+            (XLSTM, stack_config(XLSTM))):
+        phases[f"{name} reference"], _ = phase_reference_stack(dev, name, cfg)
+    for arch, pool, prof in ((OLMOE, "dense", True), (OLMOE, "paged", False),
+                             (JAMBA, "dense", True), (JAMBA, "paged", False),
+                             (XLSTM, "dense", False)):
+        key = f"{arch} {pool} serving"
+        phases[key], stats[key] = phase_stack_serving(dev, arch, pool, prof)
+    phases[f"{GROK} pooled and decode"], _ = phase_grok(dev)
+    return phases, stats
+
+
+def stack_timing(dev) -> dict:
+    """Device time per call of the attention kernels at the shapes the
+    MoE and hybrid stacks give them, beside the bound and SDPA: K2 at
+    olmoe's (16 / 16, hd 128) and jamba's (32 / 8, hd 128) pooled forward
+    (32 x 128) and admission (one 128-token bucket), K3 and K4 at 8
+    streams of each model's pool (s_max 161), and K3 at grok's group of 6
+    (48 / 8)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(15)
+    S = PROMPT_LEN + MAX_NEW + 1
+    out = {"flash_attention": flash_timing(dev, (
+        ("olmoe_pooled", 6), ("olmoe_admission", 48), ("jamba_pooled", 6),
+        ("jamba_admission", 48)))}
+    out["decode_attention_int8"] = {
+        "olmoe": int8_timing(dev, gen, 16, 16, 128, S, 24),
+        "jamba": int8_timing(dev, gen, 32, 8, 128, S, 24),
+        "grok": int8_timing(dev, gen, 48, 8, 128, S, 24)}
+    out["paged_decode_attention"] = {
+        "olmoe": paged_timing(dev, gen, 16, 16, 128, S, 24),
+        "jamba": paged_timing(dev, gen, 32, 8, 128, S, 24)}
+    log("stack timing: " + json.dumps(out, default=float))
+    return out
+
+
 # ---------------- phase 6: timing ----------------
 
 def rotating(fn, items):
@@ -4604,16 +5099,25 @@ def main() -> int:
     phases.update(fam_phases)
     extra["families"] = family_timing(dev)
     log(f"families: {fam_phases}, {time.perf_counter() - t0:.1f} s")
+    free_device()
+    t0 = time.perf_counter()
+    stack_phases, sstats = phase_stacks(dev)
+    phases.update(stack_phases)
+    extra["stacks"] = stack_timing(dev)
+    log(f"stacks: {stack_phases}, {time.perf_counter() - t0:.1f} s")
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
     # K2, K4), the whisper serving run (K1, K2, K4, K5), the moment
     # serving run (K2, and K1 where the table chose "segmented"), the
     # durability phase (K1, K2, K4, K5), the speculative runs (K1, K2,
-    # K4's verify window) and the other families' serving runs (K1, K2, K3
-    # or K4), rmsnorm in every one, each counted from 0 just before it
+    # K4's verify window), the other families' serving runs (K1, K2, K3
+    # or K4) and the MoE and hybrid stacks' (K1, K2, K3 or K4; xlstm-125m
+    # rmsnorm alone), rmsnorm in every one, each counted from 0 just
+    # before it
     launches = {k: sum(st["launches"].get(k, 0)
                        for st in (stats, pstats, cstats, wstats, mstats,
-                                  dstats, spstats, *fstats.values()))
+                                  dstats, spstats, *fstats.values(),
+                                  *sstats.values()))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
                           "paged_verify_attention", "decode_attention",

@@ -16,11 +16,11 @@ against (as in the JAX package):
     trackers only.
 
 ``StateSlotPool`` is the lifecycle of the fixed-size per-slot state (the
-cross-attention K/V of an encoder-decoder stack; recurrent state with the
-slice that serves it): one state slot per live stream, allocated at
-admission and freed on every exit path, strictly, with occupancy gauges.
-The tensors live in the engine's pool (its batch axis is the slot).
-Recurrent and MoE stacks still raise in ``models.blocks.period_layout``.
+cross-attention K/V of an encoder-decoder stack; the state of every
+recurrent sublayer: Mamba's conv window and SSM state, the mLSTM and sLSTM
+cells): one state slot per live stream, allocated at admission and freed
+on every exit path, strictly, with occupancy gauges. The tensors live in
+the engine's pool (its batch axis is the slot).
 ``capture_dense_state``/``restore_dense_state`` carry the per-slot state
 through an engine snapshot (``core.spill.EngineSnapshot``).
 """
@@ -39,7 +39,7 @@ RECURRENT_KINDS = (MAMBA, MLSTM, SLSTM)
 @dataclasses.dataclass(frozen=True)
 class SublayerPlan:
     """Serving-state declaration for one sublayer of the period layout."""
-    kind: str              # ATTN (other kinds come with later slices)
+    kind: str              # ATTN, MAMBA, MLSTM or SLSTM
     paged: bool            # state lives in the shared int8 page arena
     grows: bool            # state grows with decoded tokens (attention KV)
     has_cross: bool        # per-slot encoder-output K/V rides beside it
@@ -143,22 +143,25 @@ class StateSlotPool:
 
 
 def dense_state_keys(sub) -> list[str]:
-    """Per-slot dense state keys of one pool sub: the ``ck``/``cv`` sidecars
-    of a cross-attention sub (beside a dense or paged attention cache);
-    recurrent subs (every key) come with their slice."""
-    return [k for k in ("ck", "cv") if k in sub]
+    """Per-slot dense state keys of one pool sub: every key of a recurrent
+    sub, the ``ck``/``cv`` sidecars of a cross-attention sub (beside a
+    dense or paged attention cache), nothing for an attention cache's own
+    K/V (the paged arena's pages and trackers are captured separately)."""
+    if "k" in sub:
+        return [k for k in ("ck", "cv") if k in sub]
+    return sorted(sub)
 
 
 def capture_dense_state(pool) -> list:
     """Host copies of the fixed-size per-slot state, one entry per pool sub
     (None when the sub has none): the snapshot's counterpart of the
     used-page capture. float32 numpy arrays (bf16 widens exactly; numpy has
-    no bfloat16)."""
+    no bfloat16), always copies: the live engine runs on."""
     out = []
     for sub in pool:
         keys = dense_state_keys(sub)
-        out.append({k: sub[k].float().cpu().numpy() for k in keys}
-                   if keys else None)
+        out.append({k: sub[k].to("cpu", torch.float32, copy=True).numpy()
+                    for k in keys} if keys else None)
     return out
 
 

@@ -111,6 +111,15 @@ per-step cost of multi-task isolation must be ~zero. The engine owns:
     preemption); prefix sharing and chunked prefill demote on such stacks
     (a stream's cross state is private), and a preempted stream re-prefills
     its folded prompt against its stored frames.
+  * **recurrent and hybrid stacks** (xlstm-125m; jamba-v0.1-52b: Mamba,
+    attention and MoE) — each recurrent sublayer's state (Mamba's conv
+    window and SSM state, the xLSTM cells) is fixed-size per slot on either
+    pool, tracked by the same ``StateSlotPool``: the admission prefill's
+    one-row state copies into the slot's row, and a preempted stream's
+    re-prefill recomputes it exactly. Speculation, prefix sharing, chunked
+    prefill and the spill tier demote on such stacks (a warning where the
+    caller asked for one), and ``paged=True`` on a stack with no attention
+    runs the dense pool.
   * **failure semantics** — per-stream non-finite logits quarantine only
     that stream; deadlines cancel live streams at chunk entry (with the
     chunk clamped to a small ladder when a deadline is nearer than a full
@@ -301,6 +310,12 @@ class DecodeEngine:
         # an encoder-decoder stack), and which serving planes the stack
         # supports; unsupported planes demote instead of failing mid-serve
         self.plan = CachePlan.for_config(cfg, paged)
+        if paged and not self.plan.paged:
+            warnings.warn(
+                "paged=True on a stack with no attention sublayers: the "
+                "whole serving state is fixed-size per-slot state, nothing "
+                "to page — running the dense slot pool", RuntimeWarning,
+                stacklevel=2)
         paged = self.plan.paged
         if paged and not kv_quant:
             raise ValueError("the paged arena is int8-only (kv_quant=True)")
@@ -333,7 +348,8 @@ class DecodeEngine:
                 (self.plan.has_recurrent or self.plan.has_encoder):
             warnings.warn(
                 "spec_k > 0 demoted to plain decode: speculative rollback is "
-                "a length/tracker reset on paged attention KV only, and the "
+                "a length/tracker reset on paged attention KV only — "
+                "recurrent state cannot rewind past rejected drafts, and the "
                 "verify forward has no encoder-decoder mode", RuntimeWarning,
                 stacklevel=2)
             self.spec_k = 0
@@ -435,7 +451,7 @@ class DecodeEngine:
                 warnings.warn(
                     "spill tier demoted: the stream spill captures pages and "
                     "quantization trackers only, not per-slot dense state "
-                    "(the encoder's cross K/V): preemption falls back to the "
+                    "(recurrent / encoder) — preemption falls back to the "
                     "lossless fold-and-re-prefill path", RuntimeWarning,
                     stacklevel=2)
                 self.spill = None
@@ -1177,8 +1193,9 @@ class DecodeEngine:
         stamped at the slot-wide scale. The slot's running scales are set to
         the prompt-wide maximum, the drift trackers reset, and ``len`` is
         set to the true prompt length. Fixed-size per-slot state (the
-        cross-attention ``ck``/``cv`` of an encoder-decoder stack) copies
-        into the slot's row as it is. ``slot`` and ``true_len`` are (1,)
+        cross-attention ``ck``/``cv`` of an encoder-decoder stack, and every
+        leaf of a recurrent sublayer's state) copies into the slot's row as
+        it is. ``slot`` and ``true_len`` are (1,)
         device tensors."""
         if npages not in self._fn_write:
             ps = self.page_size
@@ -1187,6 +1204,13 @@ class DecodeEngine:
                 sel = (torch.arange(npages, device=page_idx.device)
                        == true_len // ps)[None, :, None]
                 for psub, csub in zip(pool, cache):
+                    if "page_table" not in psub:
+                        # fixed-size per-slot state (a recurrent
+                        # sublayer): the one-row prefill state copies into
+                        # the slot's row as it is, as on the dense pool
+                        for name, t in psub.items():
+                            t.index_copy_(1, slot, csub[name])
+                        continue
                     kf = csub["k"][:, 0].float()           # (nper, S, kv, hd)
                     nper, _, kv, hd = kf.shape
                     kf = kf.reshape(nper, npages, ps, kv, hd)
@@ -1242,6 +1266,13 @@ class DecodeEngine:
                 sel = (torch.arange(npages, device=page_idx.device)
                        == boundary)[None, :, None]
                 for psub, csub in zip(pool, cache):
+                    if "page_table" not in psub:
+                        # fixed-size per-slot state (a recurrent
+                        # sublayer): the one-row prefill state copies into
+                        # the slot's row as it is, as on the dense pool
+                        for name, t in psub.items():
+                            t.index_copy_(1, slot, csub[name])
+                        continue
                     kf = csub["k"][:, 0].float()           # (nper, S, kv, hd)
                     nper, _, kv, hd = kf.shape
                     kf = kf.reshape(nper, npages, ps, kv, hd)
@@ -1283,6 +1314,8 @@ class DecodeEngine:
 
             def rescale(pool, slot, page):
                 for sub in pool:
+                    if "page_table" not in sub:
+                        continue
                     for c in ("k", "v"):
                         # (nper, 1, kv)
                         mx = sub[f"{c}_max"].index_select(1, slot) * margin
@@ -1352,7 +1385,7 @@ class DecodeEngine:
                     out.append(tok)
                 drift = torch.zeros((nslots,), dtype=torch.bool, device=dev)
                 if refresh_thr is not None:
-                    for sub in pool:
+                    for sub in (s for s in pool if "k_max" in s):
                         o = (sub["k_max"] > refresh_thr * torch.clamp(
                             sub["slot_k_scale"], min=1e-8)) | \
                             (sub["v_max"] > refresh_thr * torch.clamp(
@@ -1480,7 +1513,7 @@ class DecodeEngine:
                     ps.append(nprop)
                 drift = torch.zeros((nslots,), dtype=torch.bool, device=dev)
                 if refresh_thr is not None:
-                    for sub in pool:
+                    for sub in (s for s in pool if "k_max" in s):
                         o = (sub["k_max"] > refresh_thr * torch.clamp(
                             sub["slot_k_scale"], min=1e-8)) | \
                             (sub["v_max"] > refresh_thr * torch.clamp(
@@ -1991,7 +2024,8 @@ class DecodeEngine:
             self.state_pool.free(slot)
         # keep the freed slot's cache length bounded while it idles
         for sub in self.pool:
-            sub["len"][:, slot] = 0
+            if "len" in sub:
+                sub["len"][:, slot] = 0
         return s
 
     # ---- paged page-pressure handling ----
@@ -2019,7 +2053,8 @@ class DecodeEngine:
             # stored frames, recomputing the same cross state
             self.state_pool.free(slot)
         for sub in self.pool:
-            sub["len"][:, slot] = 0
+            if "len" in sub:
+                sub["len"][:, slot] = 0
         self.pending.appendleft(_PendingJoin(
             task_id=s.task_id, prompt=prompt, adapter_id=s.adapter_id,
             max_new_tokens=s.max_new, rid=s.rid, eos_id=s.eos_id, resume=s,

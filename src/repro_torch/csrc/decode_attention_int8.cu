@@ -48,6 +48,7 @@ cudaError_t launch_g(int G, const void* q, const void* kq, const void* vq,
     case 1: return launch<HD, 1>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
     case 2: return launch<HD, 2>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
     case 4: return launch<HD, 4>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
+    case 6: return launch<HD, 6>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
     case 7: return launch<HD, 7>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
     case 8: return launch<HD, 8>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
     default: return cudaErrorInvalidValue;

@@ -95,8 +95,8 @@ struct Tile {
   static constexpr int PPW = 32 / LPP;              // positions a warp-pass
   static constexpr int PCTA = PPW * kWarps;         // positions a CTA-pass
   // (at G 7, 8 passes a round left K3 at 255 registers with 4 bytes of
-  // spill stores, by ptxas on sm_90a: 6 passes there)
-  static constexpr int kDepth = G == 7 ? 6
+  // spill stores, by ptxas on sm_90a: 6 passes there, and at grok-1's G 6)
+  static constexpr int kDepth = G == 6 || G == 7 ? 6
                               : kRoundBytes / DPL < 8 ? kRoundBytes / DPL : 8;
   static constexpr int NP = W < 4 / G ? W : (4 / G > 0 ? 4 / G : 1);
   static_assert(HD % DPL == 0 && LPA >= 2 && LPA <= 32, "lane groups");

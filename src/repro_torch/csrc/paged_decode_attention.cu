@@ -72,6 +72,7 @@ cudaError_t launch_g(int G, const Args& a) {
     case 1: return launch<HD, 1>(a);
     case 2: return launch<HD, 2>(a);
     case 4: return launch<HD, 4>(a);
+    case 6: return launch<HD, 6>(a);
     case 7: return launch<HD, 7>(a);
     case 8: return launch<HD, 8>(a);
     default: return cudaErrorInvalidValue;

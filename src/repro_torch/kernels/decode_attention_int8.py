@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 
 _HEAD_DIMS = (32, 64, 80, 128)
-_GROUPS = (1, 2, 4, 7, 8)
+_GROUPS = (1, 2, 4, 6, 7, 8)
 
 
 def quantize_kv(k, v):

@@ -1,10 +1,10 @@
-"""Config-driven block dispatcher: attention sublayers, optionally followed
-by a cross-attention over an encoder's output (encoder-decoder stacks).
+"""Config-driven block dispatcher: attention sublayers (optionally followed
+by a cross-attention over an encoder's output), Mamba, mLSTM and sLSTM
+sublayers, each optionally followed by a dense or MoE feed-forward.
 
 A model is ``num_periods`` repetitions of a *period* of sublayers; parameters
 and caches carry a leading ``num_periods`` axis, as in the JAX package, and
-``models.lm`` loops over it. Mamba, xLSTM and MoE sublayers come with later
-slices and raise here.
+``models.lm`` loops over it.
 """
 from __future__ import annotations
 
@@ -14,11 +14,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import xlstm as xl
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_spec
+from repro_torch.models.moe import moe_ffn, moe_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,39 +43,74 @@ def period_len(cfg: ModelConfig) -> int:
 
 def period_layout(cfg: ModelConfig, cross: bool = False) -> list[SubLayer]:
     """The period's sublayers; ``cross`` gives each a cross-attention over
-    the encoder output (the decoder of an encoder-decoder stack). Raises
-    for what the port does not serve yet."""
+    the encoder output (the decoder of an encoder-decoder stack). xLSTM
+    blocks carry their own up/down projections: no feed-forward follows
+    them."""
     out = []
     for pos in range(period_len(cfg)):
         kind = cfg.blocks[pos]
-        has_ffn = cfg.d_ff > 0
+        has_ffn = cfg.d_ff > 0 and kind not in (MLSTM, SLSTM)
         has_moe = has_ffn and cfg._layer_has_moe(pos)
-        if kind != ATTN or has_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind}{' + MoE' if has_moe else ''} sublayers "
-                f"come with a later slice (attention stacks only)")
         out.append(SubLayer(kind, has_moe, has_ffn, cross))
     return out
 
 
 # ---------------- specs ----------------
 
+_MIXERS = {ATTN: ("attn", attn.attn_spec), MAMBA: ("mamba", mam.mamba_spec),
+           MLSTM: ("mlstm", xl.mlstm_spec), SLSTM: ("slstm", xl.slstm_spec)}
+
+
 def sublayer_spec(cfg: ModelConfig, lay: SubLayer) -> dict:
-    spec: dict = {"ln1": rmsnorm_spec(cfg.d_model), "attn": attn.attn_spec(cfg)}
+    name, spec_fn = _MIXERS[lay.kind]
+    spec: dict = {"ln1": rmsnorm_spec(cfg.d_model), name: spec_fn(cfg)}
     if lay.has_cross:
         spec["ln_x"] = rmsnorm_spec(cfg.d_model)
         spec["cross"] = attn.attn_spec(cfg, cross=True)
     if lay.has_ffn:
         spec["ln2"] = rmsnorm_spec(cfg.d_model)
-        spec["ffn"] = mlp_spec(cfg)
+        spec["ffn"] = moe_spec(cfg) if lay.has_moe else mlp_spec(cfg)
     return spec
+
+
+def recurrent_cache_spec(cfg: ModelConfig, kind: str, batch: int) -> dict:
+    """The fixed-size per-row state of a recurrent sublayer: Mamba's conv
+    window (bf16) and SSM state, mLSTM's matrix memory, normalizer and
+    stabilizer, sLSTM's four vectors (f32). Zeros in the pool; a prefill
+    starts from ``*_init_state``, not from these."""
+    f32 = torch.float32
+    if kind == MAMBA:
+        di = cfg.mamba_expand * cfg.d_model
+        return {
+            "conv": ParamSpec((batch, cfg.mamba_d_conv - 1, di),
+                              ("batch", None, "mlp"), init="zeros",
+                              dtype=torch.bfloat16),
+            "ssm": ParamSpec((batch, di, cfg.mamba_d_state),
+                             ("batch", "mlp", None), init="zeros", dtype=f32),
+        }
+    dix = int(cfg.xlstm_proj_factor * cfg.d_model)
+    h = cfg.num_heads
+    if kind == MLSTM:
+        return {
+            "C": ParamSpec((batch, h, dix // h, dix // h),
+                           ("batch", "heads", None, None), init="zeros",
+                           dtype=f32),
+            "n": ParamSpec((batch, h, dix // h), ("batch", "heads", None),
+                           init="zeros", dtype=f32),
+            "m": ParamSpec((batch, h), ("batch", "heads"), init="zeros",
+                           dtype=f32),
+        }
+    if kind == SLSTM:
+        return {k: ParamSpec((batch, dix), ("batch", "mlp"), init="zeros",
+                             dtype=f32) for k in ("c", "n", "h", "m")}
+    raise ValueError(f"unknown block kind {kind}")
 
 
 def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
                         s_max: int, enc_len: int = 0, kv_quant: bool = False,
                         paged: bool = False, page_size: int = 16,
                         num_pages: int = 0) -> Optional[dict]:
-    """Decode cache of one attention sublayer.
+    """Decode cache of one sublayer.
 
     Dense: one (batch, s_max) region per row; ``kv_quant`` stores int8 K/V
     with per-(batch, kv-head) scales written at prefill admission.
@@ -90,7 +128,12 @@ def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
     A sublayer with a cross-attention carries ``ck``/``cv``: the encoder
     output's K/V, bf16, ``enc_len`` frames per row, written once at
     admission and read by every decode step — per-slot state beside either
-    pool (dense bf16 sidecars next to the paged arena)."""
+    pool (dense bf16 sidecars next to the paged arena).
+
+    A recurrent sublayer carries its fixed-size state on either pool
+    (``recurrent_cache_spec``): nothing of it is paged or quantized."""
+    if lay.kind != ATTN:
+        return recurrent_cache_spec(cfg, lay.kind, batch)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     cross = {}
     if lay.has_cross:
@@ -140,6 +183,52 @@ def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
 
 # ---------------- apply ----------------
 
+def _ffn_apply(p, x, cfg: ModelConfig, lay: SubLayer, seq_lens=None):
+    """The feed-forward after a mixer: dense, or MoE with the pads of a
+    right-padded prefill (``seq_lens``) kept out of routing. The MoE aux
+    loss is dropped, as on the JAX package's serving path."""
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if lay.has_moe:
+        valid = None if seq_lens is None else \
+            torch.arange(x.shape[1], device=x.device)[None] < seq_lens[:, None]
+        out, _ = moe_ffn(p["ffn"], h, k=cfg.experts_per_token,
+                         dispatch=cfg.moe_dispatch, valid=valid)
+        return x + out
+    return x + mlp(p["ffn"], h)
+
+
+def _recurrent_apply(p, x, h, cfg: ModelConfig, lay: SubLayer, mode: str,
+                     cache, seq_lens):
+    """A Mamba, mLSTM or sLSTM sublayer. Outside decode the scan starts
+    from its initial state (zeros; the xLSTM stabilizer ``m`` at -1e30),
+    never from the pool's zeroed cache, and a given cache receives the
+    state at each row's true length (a prefill)."""
+    if mode not in ("full", "decode"):
+        raise ValueError(f"a {lay.kind} sublayer has no {mode!r} mode")
+    decode = mode == "decode"
+    lens = None if decode else seq_lens
+    if lay.kind == MAMBA:
+        if decode:
+            out, (conv, ssm) = mam.mamba_decode(p["mamba"], h, cfg,
+                                                cache["conv"], cache["ssm"])
+        else:
+            out, (conv, ssm) = mam.mamba_forward(p["mamba"], h, cfg,
+                                                 seq_lens=lens)
+        state = {"conv": conv, "ssm": ssm}
+    else:
+        fwd = xl.mlstm_forward if lay.kind == MLSTM else xl.slstm_forward
+        out, state = fwd(p[lay.kind], h, cfg,
+                         state=dict(cache) if decode else None,
+                         seq_lens=lens)
+    if cache is not None:        # in place: executables read the pool
+        for k, v in state.items():
+            cache[k].copy_(v)
+    x = x + out
+    if lay.has_ffn:
+        x = _ffn_apply(p, x, cfg, lay, seq_lens=lens)
+    return x
+
+
 def _fill_cache(cache, k, v, seq_lens):
     """Prefill: write the prompt's K/V into the (B, s_max) cache in place —
     quantized per (row, kv head) on an int8 cache — zeroing the rest, and
@@ -173,7 +262,7 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
                    cross_len=None, lora=None, adapter_idx=None,
                    lora_impl: str = "gather", lora_seg=None, seq_lens=None,
                    prefix=None, prefix_len=None):
-    """Apply one attention sublayer. mode: 'full' (pooled forward / prefill),
+    """Apply one sublayer. mode: 'full' (pooled forward / prefill),
     'decode' or 'verify' (the speculative window: T positions at rope
     positions ``len + arange(T)`` through the paged pool,
     ``attention.self_attention_verify``). A given cache is a dict of views
@@ -193,10 +282,15 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
 
     ``pos3`` (B, S, 3): M-RoPE position streams (an M-RoPE config; else
     ignored). A decode or verify step without them takes text positions, t
-    = h = w = the RoPE position, as the JAX package does."""
-    if lay.kind != ATTN:
-        raise NotImplementedError(f"{lay.kind} sublayers come with a later slice")
+    = h = w = the RoPE position, as the JAX package does.
+
+    A recurrent sublayer (Mamba, mLSTM, sLSTM; 'full' and 'decode' only)
+    updates its fixed-size state in the cache (``_recurrent_apply``). A MoE
+    feed-forward routes the pads of a 'full' prefill out (``seq_lens``);
+    after a decode or verify step it takes no validity mask."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if lay.kind != ATTN:
+        return _recurrent_apply(p, x, h, cfg, lay, mode, cache, seq_lens)
     if mode == "decode":
         if pos is None:
             pos = cache["len"][:, None]                   # rope position
@@ -224,7 +318,7 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
         if cache is not None:
             _fill_cache(cache, k, v, seq_lens)
     else:
-        raise NotImplementedError(f"mode {mode!r} comes with a later slice")
+        raise ValueError(f"unknown mode {mode!r}")
     x = x + out
     if lay.has_cross:
         hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
@@ -240,5 +334,6 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
                 cache["cv"].copy_(cv)
             x = x + attn.cross_attention(p["cross"], hx, (ck, cv), cfg)
     if lay.has_ffn:
-        x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        x = _ffn_apply(p, x, cfg, lay,
+                       seq_lens=seq_lens if mode == "full" else None)
     return x

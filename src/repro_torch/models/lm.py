@@ -3,15 +3,17 @@ stacks — decoder-only (stablelm; qwen2-7b and qwen2-vl-72b with a qkv bias,
 the latter fed stub patch embeddings with M-RoPE position streams;
 h2o-danube-1.8b with a sliding window; minitron-8b), encoder-decoder
 (whisper: a bidirectional encoder over stub frames, a decoder with
-cross-attention) and the representation encoder (moment-large:
-bidirectional over stub patch embeddings, pooled by the caller). The other
-block kinds (MoE, Mamba, xLSTM) come with later slices.
+cross-attention), the representation encoder (moment-large: bidirectional
+over stub patch embeddings, pooled by the caller), MoE stacks (olmoe-1b-7b,
+grok-1-314b), the Mamba + attention + MoE hybrid (jamba-v0.1-52b) and the
+recurrent xLSTM stack (xlstm-125m).
 
 Parameters are nested dicts/lists of tensors with the JAX package's structure
 (``layers`` is a list over the period's sublayers, each leaf with a leading
 ``num_periods`` axis). Activations run in bf16, as in the JAX package; the
-norms and the vocabulary head compute in f32. ``cast_params`` casts each
-weight once to the dtype its use site computes in, so the per-use casts below
+norms, the vocabulary head, the MoE router and the recurrences' gate and
+decay leaves compute in f32. ``cast_params`` casts each weight once to the
+dtype its use site computes in (``use_dtype``), so the per-use casts below
 are no-ops on a served model.
 """
 from __future__ import annotations
@@ -61,15 +63,36 @@ def model_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+# the leaves of a sublayer's mixer or feed-forward that their use site
+# computes in f32 (the JAX package casts them with ``astype(float32)``)
+F32_LEAVES = {"ffn": ("router",), "mamba": ("A_log", "D", "dt_bias"),
+              "mlstm": ("b_if",), "slstm": ("r", "b")}
+_BF16_PARTS = ("attn", "cross", "ffn", "mamba", "mlstm", "slstm")
+
+
+def use_dtype(part: str, leaf: str):
+    """The dtype a sublayer's ``part`` (``attn``, ``ffn``, ``mamba`` ...)
+    uses its leaf ``leaf`` in: bf16 (the activations' dtype) for the
+    matrices, None (kept f32) for the norms and ``F32_LEAVES``."""
+    if part in _BF16_PARTS and leaf not in F32_LEAVES.get(part, ()):
+        return ACT_DTYPE
+    return None
+
+
 def cast_params(params: dict) -> dict:
-    """Cast each weight to the dtype of its use site: the embedding (where
-    the tree has one) and the attention (self and cross)/MLP matrices to
-    bf16 (the activations' dtype), the norms and the head kept f32 — in the
+    """Cast each weight to the dtype of its use site (``use_dtype``): the
+    embedding (where the tree has one) and the matrices of attention (self
+    and cross), MLP, MoE experts, Mamba and xLSTM to bf16; the norms, the
+    head, the MoE router and the f32 recurrence leaves kept f32 — in the
     decoder and in an encoder alike. The values are exactly those the JAX
     package computes with after its per-use ``astype``."""
+    def cast(part, leaf, t):
+        dt = use_dtype(part, leaf)
+        return t if dt is None else t.to(dt)
+
     def layer(sub):
-        return {k: tree_map(lambda t: t.to(ACT_DTYPE), v)
-                if k in ("attn", "cross", "ffn") else v for k, v in sub.items()}
+        return {k: {n: cast(k, n, t) for n, t in v.items()}
+                if isinstance(v, dict) else v for k, v in sub.items()}
     out = dict(params)
     if "embed" in params:
         out["embed"] = params["embed"].to(ACT_DTYPE)
@@ -83,12 +106,14 @@ def cast_params(params: dict) -> dict:
 def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
                device="cuda") -> dict:
     """Random weights from ``gen``: f32 draws in the spec's leaf order, each
-    leaf cast to its use-site dtype (``cast_params``'s) as it is drawn, so
+    leaf cast to its use-site dtype (``use_dtype``) as it is drawn, so
     the peak is the served weights plus one f32 leaf (a minitron-8b drawn
     whole in f32 would hold 40 GB before the cast)."""
     def layers(subs):
-        return [{k: init_params(gen, v, device=device, dtype=ACT_DTYPE
-                                if k in ("attn", "cross", "ffn") else None)
+        return [{k: {n: init_params(gen, s, device=device,
+                                    dtype=use_dtype(k, n))
+                     for n, s in v.items()} if isinstance(v, dict)
+                 else init_params(gen, v, device=device)
                  for k, v in sub.items()} for sub in subs]
     out = {}
     for name, sub in model_spec(cfg).items():

@@ -27,7 +27,9 @@ def to_torch(tree, device="cuda"):
 
 def model_params(tree, device="cuda") -> dict:
     """A JAX ``lm.init_model`` tree (numpy leaves) as the port's serving
-    params: f32 leaves, then each cast to its use-site dtype."""
+    params: f32 leaves, then each cast to its use-site dtype
+    (``lm.use_dtype``: the matrices bf16; the norms, the head, the MoE
+    router and the recurrences' gate and decay leaves f32)."""
     return cast_params(to_torch(tree, device=device))
 
 

@@ -48,21 +48,25 @@ using namespace int8_decode;
     case 32 * 16 + 1: CALL(32, 1); break;                 \
     case 32 * 16 + 2: CALL(32, 2); break;                 \
     case 32 * 16 + 4: CALL(32, 4); break;                 \
+    case 32 * 16 + 6: CALL(32, 6); break;                 \
     case 32 * 16 + 7: CALL(32, 7); break;                 \
     case 32 * 16 + 8: CALL(32, 8); break;                 \
     case 64 * 16 + 1: CALL(64, 1); break;                 \
     case 64 * 16 + 2: CALL(64, 2); break;                 \
     case 64 * 16 + 4: CALL(64, 4); break;                 \
+    case 64 * 16 + 6: CALL(64, 6); break;                 \
     case 64 * 16 + 7: CALL(64, 7); break;                 \
     case 64 * 16 + 8: CALL(64, 8); break;                 \
     case 80 * 16 + 1: CALL(80, 1); break;                 \
     case 80 * 16 + 2: CALL(80, 2); break;                 \
     case 80 * 16 + 4: CALL(80, 4); break;                 \
+    case 80 * 16 + 6: CALL(80, 6); break;                 \
     case 80 * 16 + 7: CALL(80, 7); break;                 \
     case 80 * 16 + 8: CALL(80, 8); break;                 \
     case 128 * 16 + 1: CALL(128, 1); break;               \
     case 128 * 16 + 2: CALL(128, 2); break;               \
     case 128 * 16 + 4: CALL(128, 4); break;               \
+    case 128 * 16 + 6: CALL(128, 6); break;               \
     case 128 * 16 + 7: CALL(128, 7); break;               \
     case 128 * 16 + 8: CALL(128, 8); break;               \
     default: return 1;                                      \

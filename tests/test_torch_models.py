@@ -250,9 +250,31 @@ def test_unported_paths_raise():
                          num_pages=4, enc_len=5)
     assert spec[0]["ck"].shape == (cfg.num_layers, 2, 5, cfg.num_kv_heads,
                                    cfg.head_dim)
+    # MoE and Mamba stacks are ported (tests/test_torch_moe.py,
+    # test_torch_recurrent.py, test_torch_hybrid.py): a MoE stack's paged
+    # cache is attention's, a hybrid's carries the Mamba state per slot
     moe = dataclasses.replace(cfg, num_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.cache_spec(moe, 2, 8, kv_quant=True, paged=True, num_pages=4)
+    spec = lm.cache_spec(moe, 2, 8, kv_quant=True, paged=True, num_pages=4)
+    assert "page_table" in spec[0]
+    assert "router" in lm.model_spec(moe)["layers"][0]["ffn"]
     hybrid = dataclasses.replace(cfg, block_pattern=("mamba", "attn"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.model_spec(hybrid)
+    assert "mamba" in lm.model_spec(hybrid)["layers"][0]
+    spec = lm.cache_spec(hybrid, 2, 8, kv_quant=True, paged=True, num_pages=4)
+    assert sorted(spec[0]) == ["conv", "ssm"] and "page_table" in spec[1]
+    # what stays unported raises: the verify window through a recurrent
+    # sublayer (speculation demotes on such stacks) and a MoE dispatch
+    # the port does not know ("ep" needs a device mesh: gshard without)
+    params = lm.init_model(torch.Generator().manual_seed(0), hybrid,
+                           device="cpu")
+    cache = lm.init_cache(hybrid, 1, 8, kv_quant=True, paged=True,
+                          num_pages=4, device="cpu")
+    with pytest.raises(ValueError, match="no 'verify' mode"):
+        lm.verify_step(params, hybrid, tokens=torch.zeros((1, 2),
+                                                          dtype=torch.long),
+                       cache=cache)
+    from repro_torch.models import moe as moe_mod
+    with pytest.raises(ValueError, match="unknown MoE dispatch"):
+        moe_mod.moe_ffn(lm.init_model(torch.Generator().manual_seed(0), moe,
+                                      device="cpu")["layers"][0]["ffn"],
+                        torch.zeros((1, 2, cfg.d_model)), k=2,
+                        dispatch="dense")
