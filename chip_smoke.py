@@ -1461,8 +1461,7 @@ def fan_in_qk(params, cfg):
     zero, so one bf16 ulp is amplified: the card and the CPU 0.73 rel L2
     apart at 12 layers, 0.053 with q/k/v and ``wif`` at their fan-in,
     0.015 with the keys at 1/4 (|n . q| under the floor) and the sLSTM's
-    gates at theirs (my chip run, PR 25, NVIDIA H100 80GB HBM3,
-    700.00 W)."""
+    gates at theirs (measured on one NVIDIA H100 80GB HBM3, 700.00 W)."""
     encoder = params["encoder"]["layers"] if "encoder" in params else []
     for sub in params["layers"] + encoder:
         for name in ("attn", "cross"):
@@ -4364,7 +4363,7 @@ def phase_grok(dev):
 
 
 def phase_stacks(dev):
-    """The MoE, Mamba and xLSTM stacks (the slice's models): the olmoe,
+    """The MoE, Mamba and xLSTM stacks: the olmoe,
     jamba-probe and xlstm references, full-width serving of olmoe-1b-7b
     (dense and paged), jamba-v0.1-52b at JAMBA_LAYERS layers (dense and
     paged) and xlstm-125m (dense), a profiled decode step of olmoe and of
