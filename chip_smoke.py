@@ -165,7 +165,7 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    xlstm-125m whole (its dense pool), each with the share of tokens whose
    experts differ between the card and the CPU per MoE layer (rows are
    compared up to their first such flip, and the rest counted); olmoe-1b-7b
-   (16 layers; dense and paged), jamba-v0.1-52b cut to 16 of its 32 layers
+   (16 layers; dense and paged), jamba-v0.1-52b cut to 8 of its 32 layers
    (dense, and paged with its demotions, a preemption that re-prefills
    and the state slots drained) and xlstm-125m (12 layers; dense) served
    at full width through ``FMplexServer``/``ServeLoop`` with stablelm's
@@ -174,6 +174,27 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    batch, a greedy decode on the dense int8 pool against the CPU, K3 at
    its group of 6); then the device times of K2-K4 at these shapes beside
    their bounds and SDPA.
+11. training — the task API (``phase_training``), after the stacks'
+   servers are freed: K2's backward kernel (``flash_attention_bwd``)
+   against the plain version's autograd at moment-large's training shape
+   (16 x 64 patches, 16 heads of 64, not causal), stablelm-1.6b causal
+   over ragged ``kv_len``, qwen2-7b's group of 7 at hd 128, h2o-danube's hd
+   80 under a window shorter than S and whisper's bidirectional 1500
+   frames (dq, dk, dv within 1e-2 rel L2 and 2e-2 of the largest element,
+   bit-identical twice; the forward's output the same bits with its
+   log-sum-exp written or not, the log-sum-exp within 1e-3 of
+   ``torch.logsumexp``); rmsnorm's backward (``rmsnorm_bwd``) at d 1024,
+   2048 and 4096 (dx within two bf16 ulps, dw within 1e-5, bit-identical
+   twice, each row's dx the same bits alone and among 8 and 4176 rows); a
+   two-layer cut of full-width moment-large, one ``train`` step's
+   gradients on the card against the CPU per leaf group (0.05 rel L2);
+   ``Pipeline.train`` at full width (24 layers, 40 steps of 16 x 512 x 3)
+   with its loss halved, its adapter moved, its backbone bit-identical
+   and every step through K2, rmsnorm and both backward kernels; the
+   simulator (fmplex, sp, be) on the card-calibrated and the paper's
+   moment-large profile; and the backward kernels' device times beside
+   their bounds, their plain versions' autograd and SDPA's / ``F.rms_norm``'s
+   backward.
 
 The serving paths run graphed: every executable of ``PhysicalFM`` and
 ``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
@@ -4020,10 +4041,11 @@ def family_timing(dev) -> dict:
 
 OLMOE, JAMBA, XLSTM, GROK = ("olmoe-1b-7b", "jamba-v0.1-52b", "xlstm-125m",
                              "grok-1-314b")
-# jamba-v0.1-52b's 98.7 GB of bf16 weights do not fit one 80 GB card: 16 of
-# its 32 layers (two whole periods of the 1:7 Mamba:attention interleave,
-# 24.9 B parameters, 49.9 GB); grok-1-314b 2 of its 64 (11.45 B)
-JAMBA_LAYERS, GROK_LAYERS = 16, 2
+# jamba-v0.1-52b's 98.7 GB of bf16 weights do not fit one 80 GB card: 8 of
+# its 32 layers (one whole period of the 1:7 Mamba:attention interleave,
+# 12.74 B parameters; 16 layers, two periods, fit too but the whole run then
+# took 769 s against the 750 s aimed at); grok-1-314b 2 of its 64 (11.45 B)
+JAMBA_LAYERS, GROK_LAYERS = 8, 2
 GROK_PROMPT, GROK_STEPS = 32, 4
 
 
@@ -5016,6 +5038,454 @@ def profile_step(fn, match=None) -> dict:
     return out
 
 
+# ---------------- phase 11: training (the task API) ----------------
+
+# the prefill attention's backward at the shapes training gives it, and
+# beyond (B, Sq = Sk, H, KV, hd, causal, window, kv_len)
+FLASH_BWD_CASES = {
+    # moment-large fine-tuned: 16 series of 64 patches, 16 heads of 64
+    "moment": (16, 64, 16, 16, 64, False, None, None),
+    # stablelm-1.6b causal over right-padded rows (one sees one key)
+    "stablelm_ragged": (4, 128, 32, 32, 64, True, None, (128, 97, 64, 1)),
+    # qwen2-7b's group of 7 at hd 128
+    "qwen2_g7": (2, 128, 28, 4, 128, True, None, None),
+    # h2o-danube-1.8b's hd 80, group of 4, a window shorter than S
+    "h2o_window": (1, 256, 32, 8, 80, True, 100, None),
+    # whisper-base's bidirectional encoder over 1500 frames
+    "whisper_encoder": (1, 1500, 8, 8, 64, False, None, None),
+}
+TRAIN_STEPS, TRAIN_B, TRAIN_T = 40, 16, 512     # 64 patches of 8 a series
+TRAIN_LR = 1e-3                  # 5e-3 overshoots at full width (x7 loss)
+
+
+def flash_bwd_inputs(gen, dev, case):
+    """q, k, v and the output's gradient (bf16, model layout) and the
+    forward's keyword arguments of one ``FLASH_BWD_CASES`` entry."""
+    import torch
+    B, S, H, KV, hd, causal, window, kv_len = case
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    kw = {"causal": causal, "window": window}
+    if kv_len is not None:
+        kw["kv_len"] = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    return (r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd),
+            r(B, S, H, hd)), kw
+
+
+def flash_grads(fn, q, k, v, dout, kw):
+    """(out, dq, dk, dv) of ``fn`` (the kernels' ``ops.flash_attention``
+    or the plain ``ref.flash_attention_ref``) through autograd."""
+    import torch
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*ts, **kw)
+    return (out.detach(), *torch.autograd.grad(out, ts, dout))
+
+
+def flash_bwd_bound(q, k, kw):
+    """Bytes and flops of the backward on this data: q, k, v, the output,
+    its gradient (bf16) and the log-sum-exp (f32) read once, dq, dk, dv
+    written once; 10 * hd flops per (query head, visible key): S
+    recomputed, then dP, dV, dQ and dK."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    vis = flash_visible(q, k, kw)
+    nbytes = 2 * (4 * B * Sq * H * hd + 4 * B * Sk * KV * hd) + 4 * B * H * Sq
+    return bound_ms(nbytes, 10.0 * hd * H * int(vis.sum()))
+
+
+def check_flash_bwd(dev, gen):
+    """K2's backward (``flash_attention_bwd`` through ``ops.flash_attention``
+    with inputs that require grad) against the plain version's autograd
+    (``ref.flash_attention_ref``, the same bf16 inputs) at every
+    ``FLASH_BWD_CASES`` entry: dq, dk and dv each within 1e-2 relative L2
+    and every element within 2e-2 of that gradient's largest magnitude
+    (both take bf16 operands into f32 sums in other orders; the kernel
+    rounds P and dS to bf16 for the tensor cores, the plain version rounds
+    P and its bf16 cotangents); two calls bit-identical; the forward's
+    output the same bits with the log-sum-exp written and without, the
+    log-sum-exp within 1e-3 of ``torch.logsumexp`` over the masked scaled
+    scores (f32; -inf where a row sees no key, as a row of kv_len 0 would).
+    One backward launch a call."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as _flash
+    from repro_torch.kernels import ops, ref
+    ok, errs = True, {}
+    for name, case in FLASH_BWD_CASES.items():
+        (q, k, v, dout), kw = flash_bwd_inputs(gen, dev, case)
+        before = ops.LAUNCHES["flash_attention_bwd"]
+        got = flash_grads(ops.flash_attention, q, k, v, dout, kw)
+        launched = ops.LAUNCHES["flash_attention_bwd"] - before
+        again = flash_grads(ops.flash_attention, q, k, v, dout, kw)
+        want = flash_grads(ref.flash_attention_ref, q, k, v, dout, kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        o_plain = _flash.flash_attention(q, k, v, **kw)
+        o_lse, lse = _flash.flash_attention(q, k, v, with_lse=True, **kw)
+        vis = flash_visible(q, k, kw)                 # (B, Sq, Sk)
+        G = q.shape[2] // k.shape[2]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         k.float().repeat_interleave(G, dim=2))
+        s = (s / q.shape[-1] ** 0.5).masked_fill(~vis[:, None], -torch.inf)
+        lse_err = (lse - torch.logsumexp(s, dim=-1)).nan_to_num(0.0) \
+            .abs().max().item()
+        rep = {"launches": launched, "bit_identical": same,
+               "lse_same_out": torch.equal(o_plain, o_lse) and
+               torch.equal(o_lse, got[0]), "lse_max_err": lse_err}
+        worst = 0.0
+        for n, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            g, w = g.float(), w.float()
+            err = (g - w).abs().max().item()
+            worst = max(worst, err)
+            rep[n] = {"rel_l2": (torch.linalg.vector_norm(g - w)
+                                 / torch.linalg.vector_norm(w)).item(),
+                      "max_abs": err, "max_ref": w.abs().max().item(),
+                      "finite": bool(torch.isfinite(g).all())}
+        torch.cuda.synchronize()
+        good = all(rep[n]["finite"] and rep[n]["rel_l2"] <= 1e-2 and
+                   rep[n]["max_abs"] <= 2e-2 * rep[n]["max_ref"]
+                   for n in ("dq", "dk", "dv"))
+        good &= same and rep["lse_same_out"] and lse_err <= 1e-3 and \
+            launched == 1
+        log(f"kernel flash_attention_bwd [{name}: {case}]: {good} "
+            + json.dumps(rep))
+        ok &= good
+        errs[name] = worst
+    return ok, errs
+
+
+def check_rmsnorm_bwd(dev, gen):
+    """rmsnorm's backward (``rmsnorm_bwd`` through ``ops.rmsnorm`` with x
+    and w requiring grad) against the plain version's autograd at d 1024,
+    2048 and 4096 over 4176 rows: dx within two bf16 ulps of each element
+    plus 1e-5 of its row's largest |dx| (one rounding of an f32 value that
+    subtracts two terms: where they cancel, what is left is their f32
+    roundings), dw within 1e-5 of its largest magnitude (f32 sums over the
+    rows in another order); both bit-identical twice; each row's dx the same
+    bits alone, among 8 rows and among 4176."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    ok, errs = True, {}
+    n = RMSNORM_ROWS[-1]
+    for d in (1024, 2048, 4096):
+        x, w = rmsnorm_inputs(gen, n, d, dev)
+        dy = torch.randn((n, d), generator=gen, device=dev).to(x.dtype)
+
+        def grads(fn, lo=0, hi=n):
+            xr = x[lo:hi].detach().clone().requires_grad_(True)
+            wr = w.detach().clone().requires_grad_(True)
+            return torch.autograd.grad(fn(wr, xr), (xr, wr), dy[lo:hi])
+        before = ops.LAUNCHES["rmsnorm_bwd"]
+        dx, dw = grads(ops.rmsnorm)
+        launched = ops.LAUNCHES["rmsnorm_bwd"] - before
+        dx2, dw2 = grads(ops.rmsnorm)
+        px, pw = grads(ref.rmsnorm)
+        inv = torch.equal(grads(ops.rmsnorm, 0, 8)[0], dx[:8]) and all(
+            torch.equal(grads(ops.rmsnorm, i, i + 1)[0], dx[i:i + 1])
+            for i in range(8))
+        torch.cuda.synchronize()
+        g, p = dx.float(), px.float()
+        floor = 1e-5 * p.abs().amax(dim=1, keepdim=True)
+        within = bool(((g - p).abs() <= 2 * 2.0 ** -8 * p.abs() + floor)
+                      .all())
+        dw_err = (dw - pw).abs().max().item() / pw.abs().max().item()
+        same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        good = within and dw_err <= 1e-5 and same and inv and launched == 1
+        log(f"kernel rmsnorm_bwd [d={d}] {n} rows: {good}: dx max_abs_err="
+            f"{(g - p).abs().max().item():.3e} (two bf16 ulps: {within}), "
+            f"dw rel err {dw_err:.2e}, bit-identical twice: {same}, "
+            f"row-invariant over calls of 1, 8 and {n} rows: {inv}")
+        ok &= good
+        errs[f"d{d}"] = (g - p).abs().max().item()
+    return ok, errs
+
+
+def train_batches(seed, B=TRAIN_B, T=TRAIN_T):
+    """Endless (x (B, T, 3), y (B, 1)) numpy batches: three channels of a
+    time series and the regression target of ``tests/test_taskapi.py``
+    (five times channel 0's mean, plus 1)."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    while True:
+        x = r.randn(B, T, 3).astype(np.float32)
+        yield x, (x[:, :, 0].mean(axis=1) * 5.0 + 1.0)[:, None]
+
+
+def training_pipeline(cfg, dev, seed, params=None):
+    """The task of the paper's Listing 1 on moment-large: a
+    LinearChannelCombiner (3 channels -> 1, patches of 8), an
+    MLPDecoder(d, 64, 1) and a rank-16 q/v adapter, over a backbone drawn
+    from ``seed`` on ``dev`` (or ``params``) whose q/k projections are
+    scaled to their real fan-in (``fan_in_qk``: at the package's init they
+    are 8x too large at d 1024 and the attention saturates; the port's own
+    bf16 gradients through such a backbone are then 1.0 rel L2 from its f32
+    ones, 0.008 at the real fan-in, measured on the CPU at 2 layers)."""
+    from repro_torch import taskapi
+    vfm = taskapi.vFM(cfg, seed=seed, params=params, device=dev)
+    if params is None:
+        fan_in_qk(vfm.params, cfg)
+    P = taskapi.Pipeline(vfm, task_id="hr", seed=seed)
+    P.add_encoder(taskapi.LinearChannelCombiner(3, 1, 8, cfg.d_model))
+    P.add_decoder(taskapi.MLPDecoder(cfg.d_model, 64, 1))
+    P.attach_adapter(taskapi.Adapter(rank=RANK, adapter_id="hr_lora"))
+    return P
+
+
+def group_drift(g, c) -> dict:
+    """Per leaf group (encoder, adapter, decoder): relative L2 and max
+    |diff| of a card gradient tree against the CPU's."""
+    import torch
+    out = {}
+    for group in g:
+        a = torch.cat([t.float().cpu().reshape(-1) for t in _leaves(g[group])])
+        b = torch.cat([t.float().reshape(-1) for t in _leaves(c[group])])
+        out[group] = {"rel_l2": (torch.linalg.vector_norm(a - b)
+                                 / torch.linalg.vector_norm(b)).item(),
+                      "max_abs": (a - b).abs().max().item(),
+                      "finite": bool(torch.isfinite(a).all())}
+    return out
+
+
+def phase_reference_training(dev):
+    """A two-layer cut of full-width moment-large: one ``train`` step's
+    loss and gradients (``Pipeline.loss_and_grad``: the encoder, the
+    adapter, the decoder) on the card, through K2's and rmsnorm's kernels
+    and their backward kernels, against the same step on the CPU with the
+    plain versions (the same weights, extension state and numpy batch; the
+    adapter's B leaves drawn, as at init they are zero and the A leaves'
+    gradient with them). Gate: every group within 0.05 relative L2 (both
+    sides round the same bf16 activations and cotangents; sums run in other
+    orders and the kernels round P and dS to bf16); 2 attention and 5 norm
+    backward launches (2 a layer, and the final norm)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_map
+    cfg = moment_config(num_layers=2)
+    G = training_pipeline(cfg, dev, seed=13)
+    r = np.random.RandomState(13)
+    for sub in G.state["adapter"]:
+        for k in ("q", "v"):
+            sub[k]["b"] = torch.tensor(r.randn(*sub[k]["b"].shape) * 0.05,
+                                       dtype=torch.float32, device=dev)
+    C = training_pipeline(cfg, "cpu", seed=13, params=tree_map(
+        lambda t: t.cpu(), G.vfm.params))
+    C.state = tree_map(lambda t: t.cpu(), G.state)
+    x, y = next(train_batches(29))
+    parts = ("encoder", "adapter", "decoder")
+    ops.reset_launches()
+    lg, gg = G.loss_and_grad({k: G.state[k] for k in parts}, x, y)
+    torch.cuda.synchronize()
+    launches = {k: int(ops.LAUNCHES[k]) for k in (
+        "flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")}
+    lc, gc = C.loss_and_grad({k: C.state[k] for k in parts}, x, y)
+    report = {"loss": [lg.item(), lc.item()], "launches": launches,
+              **group_drift(gg, gc)}
+    log("training reference: 2-layer full-width moment-large, one step of "
+        f"{TRAIN_B} x {TRAIN_T} x 3, GPU vs CPU: " + json.dumps(report))
+    ok = all(report[k]["finite"] and report[k]["rel_l2"] <= 0.05
+             for k in parts)
+    ok &= abs(lg.item() - lc.item()) <= 0.05 * abs(lc.item())
+    ok &= launches == {"flash_attention": 2, "flash_attention_bwd": 2,
+                       "rmsnorm": 5, "rmsnorm_bwd": 5}
+    return ok, report
+
+
+class _Clock:
+    """Wraps a batch iterator: the host time at each ``next``. ``train``
+    reads each step's loss on the host (a sync), so the gaps are steps."""
+
+    def __init__(self, it):
+        self.it, self.stamps = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.stamps.append(time.perf_counter())
+        return next(self.it)
+
+
+def phase_train(dev):
+    """``Pipeline.train`` at full width: moment-large, 24 layers, d 1024,
+    the task of ``training_pipeline``, 40 steps (AdamW, lr ``TRAIN_LR``) on
+    batches of 16 series x 512 steps x 3 channels (64 patches, MOMENT's own
+    input length, arXiv:2402.03885) made with numpy. Gates: the mean loss
+    of the last 5 steps below half the first; every layer's adapter B
+    leaves moved off
+    zero; every backbone leaf bit-identical to before and none requiring
+    grad; each step through K2 and rmsnorm and their backward kernels (24
+    attention forwards and backwards a step, 49 norms: 2 a layer and the
+    final one) and no other kernel; the trained task's outputs finite, and
+    its artifact serializable. Reports the step's host ms (median of the
+    steps after the first 5)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.taskapi import serialize
+    cfg = moment_config()
+    P = training_pipeline(cfg, dev, seed=17)
+    before = [t.clone() for t in _leaves(P.vfm.params)]
+    data = _Clock(train_batches(19))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = P.train(data, steps=TRAIN_STEPS, lr=TRAIN_LR, loss="mse")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    steps = np.diff(data.stamps + [t0 + wall]) * 1e3
+    frozen = all(torch.equal(a, b) and not b.requires_grad
+                 for a, b in zip(before, _leaves(P.vfm.params)))
+    moved = all(bool((t[n]["b"].abs().amax(dim=(1, 2, 3)) > 0).all())
+                for t in P.state["adapter"] for n in ("q", "v"))
+    x, _ = next(train_batches(23))
+    y = P.run(x[:4])
+    blob = serialize(P.package(weight=1.0, slo_s=0.2, demand_rps=5.0))
+    want = {"flash_attention": cfg.num_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS,
+            "rmsnorm": (2 * cfg.num_layers + 1) * TRAIN_STEPS,
+            "rmsnorm_bwd": (2 * cfg.num_layers + 1) * TRAIN_STEPS}
+    stats = {"card": smi_line(), "layers": cfg.num_layers,
+             "d": cfg.d_model, "steps": TRAIN_STEPS,
+             "batch": [TRAIN_B, TRAIN_T, 3], "lr": TRAIN_LR,
+             "loss_first": losses[0], "loss_last5_mean": sum(losses[-5:]) / 5,
+             "losses": losses,
+             "wall_s": wall, "step_ms_median": float(np.median(steps[5:])),
+             "step_ms_first": float(steps[0]), "launches": launches,
+             "backbone_bit_identical": frozen, "adapter_b_moved": moved,
+             "artifact_bytes": len(blob),
+             "outputs_finite": bool(torch.isfinite(y).all())}
+    log("training: " + json.dumps(stats, default=float))
+    ok = sum(losses[-5:]) / 5 < 0.5 * losses[0] and frozen and moved
+    ok &= launches == want and stats["outputs_finite"] and tuple(y.shape) \
+        == (4, 1)
+    return ok, stats
+
+
+def phase_simulator(card_profile) -> tuple[bool, dict]:
+    """The discrete-event simulator (``build_single_gpu``) at the loads of
+    ``tests/test_simulator.py`` (two tasks, Poisson 1, 20 and 40 requests/s
+    each for 10 s) under FMplex's shared backbone, the static partition
+    (sp) and processor sharing (be), once with the moment-large profile
+    ``phase_moment_serving`` calibrated on the card and once with the
+    paper's (``PAPER_PROFILES``). Host work; gate: every run finished every
+    request with finite latencies."""
+    import math
+
+    from repro_torch.controller import get_profile
+    from repro_torch.serving import loadgen, metrics, simulator
+    tasks = [{"task_id": "A"}, {"task_id": "B"}]
+    out, ok = {}, True
+    for label, prof in (("card", card_profile),
+                        ("paper", get_profile(MOMENT))):
+        rows = out[label] = {"l1_ms": prof.l(1) * 1e3, "b_max": prof.b_max,
+                             "l_bmax_ms": prof.l(prof.b_max) * 1e3}
+        for rate, horizon in ((1, 60.0), (20, 120.0), (40, 200.0)):
+            for mode in ("fmplex", "sp", "be"):
+                arr = loadgen.merge([
+                    loadgen.poisson_trace("A", rate, 10, seed=1),
+                    loadgen.poisson_trace("B", rate, 10, seed=2)])
+                sim, fits = simulator.build_single_gpu(mode, tasks, prof)
+                fin = sim.run(arr, horizon)
+                st = metrics.latency_stats(fin)
+                done = sum(1 for r in fin if r.finish_time is not None)
+                rows[f"{mode}@{rate}"] = {"mean_ms": st["mean_ms"],
+                                          "p99_ms": st["p99_ms"],
+                                          "done": f"{done}/{len(arr)}"}
+                ok &= fits and done == len(arr) and math.isfinite(
+                    st["mean_ms"]) and math.isfinite(st["p99_ms"])
+    log("simulator (moment-large, 2 tasks): " + json.dumps(out))
+    return ok, out
+
+
+def training_timing(dev, gen) -> dict:
+    """Device times of the two backward kernels at the training shapes
+    beside their bounds, their plain versions' autograd (the backward
+    alone: the graph built once and kept) and one PyTorch call's backward
+    for the same function (``F.scaled_dot_product_attention`` in the head-
+    major layout; ``F.rms_norm``, never called by the port): K2's at
+    moment-large's (16 x 64 patches, 16 heads of 64) and whisper's encoder
+    shape, rmsnorm's over moment's 1024 rows at d 1024."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as _flash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as _rmsnorm
+
+    def backward_only(out, ins, grad):
+        return lambda: torch.autograd.grad(out, ins, grad, retain_graph=True)
+    res = {}
+    for name in ("moment", "whisper_encoder"):
+        (q, k, v, dout), kw = flash_bwd_inputs(gen, dev,
+                                               FLASH_BWD_CASES[name])
+        out, lse = _flash.flash_attention(q, k, v, with_lse=True, **kw)
+        ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        plain = ref.flash_attention_ref(*ins, **kw)
+        heads = [t.detach().transpose(1, 2).clone().requires_grad_(True)
+                 for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(*heads, is_causal=kw["causal"])
+        b_ms, b_by = flash_bwd_bound(q, k, kw)
+        res[f"flash_attention_bwd_{name}"] = dict(
+            shape=list(FLASH_BWD_CASES[name]),
+            ms=device_ms(lambda: _flash.flash_attention_bwd(
+                q, k, v, out, lse, dout, **kw)),
+            plain_ms=device_ms(backward_only(plain, ins, dout)),
+            library_ms=device_ms(backward_only(
+                lib, heads, dout.transpose(1, 2))),
+            bound_ms=b_ms, bound_by=b_by)
+    rows, d = TRAIN_B * TRAIN_T // 8, 1024
+    x, w = rmsnorm_inputs(gen, rows, d, dev)
+    dy = torch.randn((rows, d), generator=gen, device=dev).to(x.dtype)
+    xr, wr = (t.detach().clone().requires_grad_(True) for t in (x, w))
+    xl, wl = (t.detach().clone().requires_grad_(True) for t in (x, w))
+    with warnings.catch_warnings():         # the composite path's notice
+        warnings.simplefilter("ignore", UserWarning)
+        lib = F.rms_norm(xl, (d,), wl, 1e-5)
+        lib_ms = device_ms(backward_only(lib, (xl, wl), dy))
+    b_ms, b_by = bound_ms(3 * 2 * rows * d + 2 * 4 * d, 10.0 * rows * d)
+    res["rmsnorm_bwd"] = dict(
+        rows=rows, d=d,
+        ms=device_ms(lambda: _rmsnorm.rmsnorm_bwd(w, x, dy)),
+        plain_ms=device_ms(backward_only(ref.rmsnorm(wr, xr), (xr, wr), dy)),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    for n, t in res.items():
+        log(f"{n}: {t['ms'] * 1e3:.2f} us (plain {t['plain_ms'] * 1e3:.2f}, "
+            f"library {t['library_ms'] * 1e3:.2f}, bound "
+            f"{t['bound_ms'] * 1e3:.2f} by {t['bound_by']})")
+    return res
+
+
+def phase_training(dev, card_profile):
+    """Phase 11: the backward kernels against their plain versions'
+    autograd, the two-layer gradient reference, ``Pipeline.train`` at full
+    width, the simulator on the card's and the paper's profiles, and the
+    backward kernels' device times. Returns (phases, stats of the full-width
+    run (its launches count toward the kernels line), errors by kernel,
+    timing)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(41)
+    t0 = time.perf_counter()
+    phases, errs = {}, {}
+    phases["flash_attention_bwd"], errs["flash_attention_bwd"] = \
+        check_flash_bwd(dev, gen)
+    phases["rmsnorm_bwd"], errs["rmsnorm_bwd"] = check_rmsnorm_bwd(dev, gen)
+    free_device()
+    phases["training_reference"], _ = phase_reference_training(dev)
+    free_device()
+    phases["training"], stats = phase_train(dev)
+    free_device()
+    phases["simulator"], _ = phase_simulator(card_profile)
+    timing = training_timing(dev, gen)
+    log(f"training phase: {phases}, {time.perf_counter() - t0:.1f} s")
+    return phases, stats, errs, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -5076,6 +5546,7 @@ def main() -> int:
     phases["moment_reference"] = ok_rm
     ok_m, mstats, moment_handles = phase_moment_serving(dev)
     phases["moment_serving"] = ok_m
+    moment_profile = moment_handles[0].profiles["fm0"]
     ok_d, dstats = phase_durability(dev)
     phases["durability"] = ok_d
     ok_sp, spstats = phase_speculative(dev)
@@ -5104,6 +5575,9 @@ def main() -> int:
     phases.update(stack_phases)
     extra["stacks"] = stack_timing(dev)
     log(f"stacks: {stack_phases}, {time.perf_counter() - t0:.1f} s")
+    free_device()
+    train_phases, tstats, terrs, ttiming = phase_training(dev, moment_profile)
+    phases.update(train_phases)
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
     # K2, K4), the whisper serving run (K1, K2, K4, K5), the moment
@@ -5111,16 +5585,17 @@ def main() -> int:
     # durability phase (K1, K2, K4, K5), the speculative runs (K1, K2,
     # K4's verify window), the other families' serving runs (K1, K2, K3
     # or K4) and the MoE and hybrid stacks' (K1, K2, K3 or K4; xlstm-125m
-    # rmsnorm alone), rmsnorm in every one, each counted from 0 just
-    # before it
+    # rmsnorm alone), rmsnorm in every one, and the full-width training
+    # run (K2, rmsnorm and their backward kernels), each counted from 0
+    # just before it
     launches = {k: sum(st["launches"].get(k, 0)
                        for st in (stats, pstats, cstats, wstats, mstats,
                                   dstats, spstats, *fstats.values(),
-                                  *sstats.values()))
+                                  *sstats.values(), tstats))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
                           "paged_verify_attention", "decode_attention",
-                          "rmsnorm")}
+                          "rmsnorm", "flash_attention_bwd", "rmsnorm_bwd")}
     kernels = [
         {"name": "segmented_lora", "route": "cuda",
          "source": "src/repro_torch/csrc/segmented_lora.cu",
@@ -5161,6 +5636,20 @@ def main() -> int:
          "launches": launches["rmsnorm"],
          "max_abs_err": max(errs["rmsnorm"].values()),
          **{k: extra["rmsnorm"]["decode"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:50",
+         "launches": launches["flash_attention_bwd"],
+         "max_abs_err": max(terrs["flash_attention_bwd"].values()),
+         **{k: ttiming["flash_attention_bwd_moment"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "rmsnorm_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/models/layers.py:29",
+         "launches": launches["rmsnorm_bwd"],
+         "max_abs_err": max(terrs["rmsnorm_bwd"].values()),
+         **{k: ttiming["rmsnorm_bwd"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
     log(f"phases: {phases}, total {time.perf_counter() - t_all:.1f} s")

@@ -65,6 +65,11 @@
 // divides once, with no atomics. A split that the lengths or masks leave
 // empty has m = -inf and l = 0 and gets zero weight.
 //
+// Training: with a non-null lse pointer the kernel (or, split, the merge)
+// also writes each row's natural log-sum-exp of its scaled scores, (B, H,
+// Sq) f32, which flash_attention_bwd.cu reads to recompute P. Serving passes
+// null; the output's arithmetic is the same either way.
+//
 // Build (nvcc -O3 for sm_90a, ptxas -v, as chip_smoke.py prints it): 119
 // registers at hd 64, 117 at hd 32, 166 at hd 80, 222 at hd 128, the merge
 // 32; no spills. hd 80 (h2o-danube) runs 5 k-steps of Q K^T (the last
@@ -81,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kRows = 64;      // (query, head) rows per CTA
@@ -90,71 +97,12 @@ constexpr int kTile = 32;      // keys per shared-memory tile
 constexpr int kStages = 2;     // K/V tiles in flight or in use
 constexpr int kPad = 8;        // bf16 padding per shared row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the SFU (relative error ~2^-22, far below the bf16 rounding of p)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&two);
-}
-
-// 16 bytes global -> shared, asynchronous; zeros where !valid (the
-// copy's src-size is 0 and src is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+// The natural log-sum-exp of a row's scaled scores from its running max m
+// (log2 units) and sum l (relative to m): -inf for a row with no valid key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
 }
 
 struct Seg {
@@ -172,6 +120,7 @@ struct Args {
   float* part_m;
   float* part_l;
   float* part_acc;
+  float* lse;                 // (B, H, Sq) f32 or null (serving)
   int B, Sq, Sk, Sp, KV, G, nsplit, split_len;
   int64_t sqb, sqs, sqh;
   int causal, window;
@@ -457,6 +406,17 @@ flash_attention_kernel(const Args a) {
     }
     return;
   }
+  // the log-sum-exp of each live row (the backward's P), when asked for
+  if (a.lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = warp * 16 + g + 8 * rh;
+      const int qi = q0 + r / G;
+      if (qi < Sq && r < live_rows)
+        a.lse[(static_cast<int64_t>(b) * H + kvh * G + r % G) * Sq + qi] =
+            row_lse(m[rh], l[rh]);
+    }
+  }
   // normalise, stage the warp's 16 rows in its own Q rows, store 16 bytes
   // a lane
 #pragma unroll
@@ -490,8 +450,9 @@ __global__ void __launch_bounds__(256)
 flash_attention_kernel_merge(const float* __restrict__ part_m,
                              const float* __restrict__ part_l,
                              const float* __restrict__ part_acc,
-                             __nv_bfloat16* __restrict__ out, int64_t rows,
-                             int nsplit) {
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int64_t rows, int Sq,
+                             int H, int nsplit) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   if (i >= rows * HD) return;
   const int64_t row = i / HD;
@@ -509,6 +470,10 @@ flash_attention_kernel_merge(const float* __restrict__ part_m,
     }
   }
   out[i] = __float2bfloat16(lsum > 0.f ? o / fmaxf(lsum, 1e-30f) : 0.f);
+  if (lse != nullptr && dd == 0) {    // row = (b * Sq + qi) * H + h
+    const int64_t h = row % H, bq = row / H;
+    lse[(bq / Sq * H + h) * Sq + bq % Sq] = row_lse(mx, lsum);
+  }
 }
 
 template <int HD>
@@ -530,7 +495,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int64_t blocks = (rows * HD + 255) / 256;
   flash_attention_kernel_merge<HD>
       <<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-          a.part_m, a.part_l, a.part_acc, a.out, rows, a.nsplit);
+          a.part_m, a.part_l, a.part_acc, a.out, a.lse, rows, a.Sq,
+          a.KV * a.G, a.nsplit);
   return cudaGetLastError();
 }
 
@@ -545,13 +511,17 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // into nsplit splits of split_len keys (a multiple of 32); with nsplit > 1,
 // part_m/part_l (B * Sq * KV * G * nsplit) and part_acc (... * hd) f32 hold
 // the partials the merge kernel combines, else they may be null. window <=
-// 0 means no window. 1 <= G <= 64 (a CTA holds 64 / G queries; where G
+// 0 means no window. lse, when not null, receives each row's natural
+// log-sum-exp of its scaled scores, (B, KV * G, Sq) f32 contiguous (-inf for
+// a row with no valid key): the backward recomputes P from it. Written or
+// not, out's bits are the same. 1 <= G <= 64 (a CTA holds 64 / G queries; where G
 // does not divide 64 its last rows are dead) and hd is 32, 64, 80 or 128.
 // Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* pk,
     const void* pv, const void* kv_len, const void* prefix_len, void* out,
-    void* part_m, void* part_l, void* part_acc, int B, int Sq, int Sk, int Sp,
+    void* part_m, void* part_l, void* part_acc, void* lse, int B, int Sq,
+    int Sk, int Sp,
     int KV, int G, int hd, int nsplit, int split_len, int64_t sqb,
     int64_t sqs, int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
     int64_t svb, int64_t svs, int64_t svh, int64_t spb, int64_t sps,
@@ -576,6 +546,7 @@ extern "C" int flash_attention_launch(
                static_cast<float*>(part_m),
                static_cast<float*>(part_l),
                static_cast<float*>(part_acc),
+               static_cast<float*>(lse),
                B, Sq, Sk, Sp, KV, G, nsplit, split_len, sqb, sqs, sqh,
                causal, window, sm_scale};
   auto st = static_cast<cudaStream_t>(stream);

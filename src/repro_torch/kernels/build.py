@@ -30,6 +30,7 @@ SOURCES = {
     "paged_decode_attention": "paged_decode_attention.cu",
     "paged_verify_attention": "paged_verify_attention.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "decode_attention": "decode_attention.cu",
     "rmsnorm": "rmsnorm.cu",
 }

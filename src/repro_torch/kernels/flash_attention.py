@@ -12,6 +12,12 @@ When the (query tile, kv head, row) CTAs are too few to fill the card
 (whisper's cross-attention prefill at one row), the wrapper cuts the key
 axis into splits (``splits``, from the shapes alone: no host sync) and the
 kernel merges their partials in a second pass.
+
+Training (the task API's fine-tuning through ``kernels.ops``) asks the
+forward for each row's log-sum-exp as well (``with_lse``) and takes the
+gradient with ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``):
+P recomputed from the log-sum-exp, a dQ pass and a dK/dV pass on the
+tensor cores, no atomics.
 """
 from __future__ import annotations
 
@@ -33,10 +39,22 @@ def _lib():
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
             + [ctypes.c_int64] * 15 + [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+            + [ctypes.c_int64] * 15 + [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -75,7 +93,7 @@ def _lengths(t, B, name):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, kv_len=None, prefix_k=None,
-                    prefix_v=None, prefix_len=None):
+                    prefix_v=None, prefix_len=None, with_lse: bool = False):
     """Launch the prefill flash-attention kernel.
 
     q: (B, Sq, H, hd) bf16 CUDA; k, v: (B, Sk, KV, hd) bf16, H = KV * G
@@ -86,7 +104,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``prefix_k``/``prefix_v``: (B, Sp, KV, hd) bf16, with ``prefix_len``
     and without a window. Returns (B, Sq, H, hd) bf16, contiguous. A query
     row with no valid key returns zeros. With more than one key split
-    (``splits``), f32 partials go to scratch allocated here."""
+    (``splits``), f32 partials go to scratch allocated here. ``with_lse``
+    returns (out, lse) instead: lse (B, H, Sq) f32, each row's natural
+    log-sum-exp of its scaled scores (-inf for a row with no valid key),
+    for ``flash_attention_bwd``; the output's bits are the same."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention kernel takes CUDA tensors")
     B, Sq, H, hd = q.shape
@@ -123,8 +144,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         Sp, pk, pv, prefix_len = 0, None, None, None
         pks = pvs = (0, 0, 0)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if B == 0 or Sq == 0:
-        return out
+        return (out, lse) if with_lse else out
     nsplit, split_len = splits(B, Sq, H, KV, Sp + Sk,
                                build.sm_count(q.device.index or 0))
     part_m = part_l = part_acc = None
@@ -140,10 +163,63 @@ def flash_attention(q, k, v, *, causal: bool = True,
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(pk), ptr(pv),
         ptr(kv_len), ptr(prefix_len), out.data_ptr(), ptr(part_m),
-        ptr(part_l), ptr(part_acc), B, Sq, Sk, Sp, KV, G, hd, nsplit,
+        ptr(part_l), ptr(part_acc), ptr(lse), B, Sq, Sk, Sp, KV, G, hd,
+        nsplit,
         split_len, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *pks,
         *pvs, int(causal), -1 if window is None else int(window),
         1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["flash_attention"] += 1
     build.check(err, "flash_attention")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None, kv_len=None):
+    """Launch the gradient kernels of ``flash_attention`` (no prefix):
+    q, k, v as the forward took them, ``out`` and ``lse`` what it returned
+    with ``with_lse``, ``dout`` (B, Sq, H, hd) the output's gradient (made
+    contiguous where its rows break the 16-byte rule). Returns (dq, dk, dv),
+    bf16 contiguous in q's, k's and v's shapes, computed in f32; two calls
+    give the same bits. A row with no valid key gets zero gradients."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd kernel takes CUDA tensors")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // max(KV, 1)
+    if tuple(v.shape) != tuple(k.shape) or KV == 0 or H % KV or \
+            not 1 <= G <= _ROWS or hd not in _HEAD_DIMS:
+        raise ValueError(f"unsupported q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)}")
+    if tuple(out.shape) != tuple(q.shape) or \
+            tuple(dout.shape) != tuple(q.shape) or \
+            tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError("out/dout must be q's shape and lse (B, H, Sq) f32 "
+                         "contiguous")
+    if dout.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd takes a bf16 dout, got "
+                        f"{dout.dtype}")
+    if dout.stride(3) != 1 or dout.data_ptr() % 16 or \
+            any(s % 8 for s in dout.stride()[:3]):
+        dout = dout.contiguous()
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+        _rows_ok(t, name)
+    kv_len = _lengths(kv_len, B, "kv_len")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if B == 0 or Sq == 0 or Sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = _bwd_lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(),
+        None if kv_len is None else kv_len.data_ptr(), dsum.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], *dout.stride()[:3], int(causal),
+        -1 if window is None else int(window), 1.0 / math.sqrt(hd),
+        build.current_stream(q.device.index or 0))
+    build.LAUNCHES["flash_attention_bwd"] += 1
+    build.check(err, "flash_attention_bwd")
+    return dq, dk, dv

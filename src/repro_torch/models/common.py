@@ -47,6 +47,21 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_paths(tree, prefix=()):
+    """(path, leaf) pairs of a tree of dicts and lists, the path its dict
+    keys and list indices joined by ``/`` and dict keys visited sorted: the
+    keys and order of the JAX package's ``tree_flatten_with_path`` over the
+    same tree. None and empty containers have no leaves."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, prefix + (str(i),))
+    elif tree is not None:
+        yield "/".join(prefix), tree
+
+
 def init_params(gen: Optional[torch.Generator], spec_tree, dtype=None,
                 device="cuda"):
     """Materialize a spec tree into tensors on ``device``. ``dtype`` overrides

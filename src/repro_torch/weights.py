@@ -37,3 +37,15 @@ def adapter_tree(tree, device="cuda") -> list:
     """A JAX LoRA adapter tree (``lora.init_single_adapter`` layout, or a
     stack) as the port's: a list over sublayers, f32 leaves."""
     return to_torch(tree, device=device)
+
+
+def extension_state(state, device="cuda") -> dict:
+    """A JAX task pipeline's ``state`` (numpy leaves: ``encoder`` and
+    ``decoder`` dicts, ``adapter`` a LoRA tree or None) as the port's
+    ``taskapi.Pipeline.state``: f32 leaves on ``device``, the adapter a list
+    over sublayers as ``adapter_tree`` gives it."""
+    out = {k: to_torch(state.get(k) or {}, device=device)
+           for k in ("encoder", "decoder")}
+    ada = state.get("adapter")
+    out["adapter"] = None if ada is None else adapter_tree(ada, device=device)
+    return out
