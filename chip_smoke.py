@@ -5404,13 +5404,15 @@ def phase_simulator(card_profile) -> tuple[bool, dict]:
 
 
 def training_timing(dev, gen) -> dict:
-    """Device times of the two backward kernels at the training shapes
-    beside their bounds, their plain versions' autograd (the backward
-    alone: the graph built once and kept) and one PyTorch call's backward
-    for the same function (``F.scaled_dot_product_attention`` in the head-
-    major layout; ``F.rms_norm``, never called by the port): K2's at
-    moment-large's (16 x 64 patches, 16 heads of 64) and whisper's encoder
-    shape, rmsnorm's over moment's 1024 rows at d 1024."""
+    """Device times of the two backward kernels beside their bounds, their
+    plain versions' autograd (the backward alone: the graph built once and
+    kept) and one PyTorch call's backward for the same function where one
+    takes the case without an explicit mask (``F.scaled_dot_product_attention``
+    in the head-major layout, ``enable_gqa`` for a group; ``F.rms_norm``;
+    never called by the port): K2's at every ``FLASH_BWD_CASES`` shape
+    (SDPA where the case has no ``kv_len`` and no window), with its split
+    by kernel name (the fused launch, or the dQ and dK/dV passes) and the
+    plan that chose it; rmsnorm's over moment's 1024 rows at d 1024."""
     import torch
     import torch.nn.functional as F
 
@@ -5421,24 +5423,33 @@ def training_timing(dev, gen) -> dict:
     def backward_only(out, ins, grad):
         return lambda: torch.autograd.grad(out, ins, grad, retain_graph=True)
     res = {}
-    for name in ("moment", "whisper_encoder"):
-        (q, k, v, dout), kw = flash_bwd_inputs(gen, dev,
-                                               FLASH_BWD_CASES[name])
+    for name, case in FLASH_BWD_CASES.items():
+        (q, k, v, dout), kw = flash_bwd_inputs(gen, dev, case)
         out, lse = _flash.flash_attention(q, k, v, with_lse=True, **kw)
         ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         plain = ref.flash_attention_ref(*ins, **kw)
-        heads = [t.detach().transpose(1, 2).clone().requires_grad_(True)
-                 for t in (q, k, v)]
-        lib = F.scaled_dot_product_attention(*heads, is_causal=kw["causal"])
+        lib_ms = None
+        if "kv_len" not in kw and kw["window"] is None:
+            heads = [t.detach().transpose(1, 2).clone().requires_grad_(True)
+                     for t in (q, k, v)]
+            lib = F.scaled_dot_product_attention(
+                *heads, is_causal=kw["causal"],
+                enable_gqa=q.shape[2] != k.shape[2])
+            lib_ms = device_ms(backward_only(lib, heads, dout.transpose(1, 2)))
         b_ms, b_by = flash_bwd_bound(q, k, kw)
+        by_name = device_kernels(lambda: _flash.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw))
+        B, S, H, KV, hd = case[:5]
         res[f"flash_attention_bwd_{name}"] = dict(
-            shape=list(FLASH_BWD_CASES[name]),
-            ms=device_ms(lambda: _flash.flash_attention_bwd(
-                q, k, v, out, lse, dout, **kw)),
+            shape=list(case),
+            plan=list(_flash._bwd_plan(B, S, S, KV, H // KV, hd, case[5],
+                                       case[6])),
+            ms=sum(by_name.values()),
+            split=kernel_split(by_name, {"bwd_fused": "fused",
+                                         "bwd_dq": "dq",
+                                         "bwd_dkv": "dkv"}),
             plain_ms=device_ms(backward_only(plain, ins, dout)),
-            library_ms=device_ms(backward_only(
-                lib, heads, dout.transpose(1, 2))),
-            bound_ms=b_ms, bound_by=b_by)
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     rows, d = TRAIN_B * TRAIN_T // 8, 1024
     x, w = rmsnorm_inputs(gen, rows, d, dev)
     dy = torch.randn((rows, d), generator=gen, device=dev).to(x.dtype)
@@ -5455,9 +5466,13 @@ def training_timing(dev, gen) -> dict:
         plain_ms=device_ms(backward_only(ref.rmsnorm(wr, xr), (xr, wr), dy)),
         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     for n, t in res.items():
+        lib = "none" if t["library_ms"] is None else \
+            f"{t['library_ms'] * 1e3:.2f}"
         log(f"{n}: {t['ms'] * 1e3:.2f} us (plain {t['plain_ms'] * 1e3:.2f}, "
-            f"library {t['library_ms'] * 1e3:.2f}, bound "
-            f"{t['bound_ms'] * 1e3:.2f} by {t['bound_by']})")
+            f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} by "
+            f"{t['bound_by']})" + (f", plan {t['plan']}, split "
+                                   + json.dumps(t["split"])
+                                   if "plan" in t else ""))
     return res
 
 

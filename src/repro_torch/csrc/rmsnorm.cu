@@ -12,17 +12,22 @@
 // last bit, and a deep stack amplifies that (chip_smoke.check_rmsnorm
 // reports it: on an H100, at d 2048, the f32 mean of squares of 810 of
 // 4160 rows differed between calls of 8 rows and of 40). Here a row's bits depend only
-// on the row, w, eps and d: one warp a row, whichever CTA or warp slot it
-// lands in; lane l accumulates the squares of its 16-byte chunks l, l + 32,
-// l + 64, ... in that order (one fma chain a lane), then a fixed xor-shuffle
-// tree sums the lanes. The launch (rows per CTA, threads) depends on nothing
-// but constants, and no row is ever split.
+// on the row, w, eps and d: one warp a row, whichever CTA it lands in; lane
+// l accumulates the squares of its 16-byte chunks l, l + 32, l + 64, ... in
+// that order (one fma chain a lane), then a fixed xor-shuffle tree sums the
+// lanes. The launch (one row a CTA of one warp) depends on nothing but
+// constants, and no row is ever split.
 //
-// What bounds it on this card: the bytes (x read once for the sum and again,
-// from L1/L2, for the output; w; the output), a few microseconds at the
-// decode shapes, where it is launch- and latency-bound (8 rows: 2 CTAs).
-// It takes what the models give it: bf16 activations, f32 weights
-// (lm.cast_params keeps the norms in f32).
+// What bounds it on this card: the bytes (x and w read once, the output
+// written once), under a microsecond of transfer at the decode shapes,
+// where the time is latency: a launch and the round trips a warp makes.
+// So the kernel is instantiated for every width the port's configs use
+// (chunks a lane known at compile time): a lane issues all its x loads and
+// (up to d 4096) its w loads as 16-byte vectors before its first fma,
+// keeps x in registers for the output, and a decode step's 8 rows run as
+// 8 CTAs on 8 SMs: one round trip for the row, one for the stores. It takes
+// what the models give it: bf16 activations, f32 weights (lm.cast_params
+// keeps the norms in f32).
 //
 // The gradient (rmsnorm_bwd_launch, for training through the task API)
 // replaces the gradient XLA derives for the jnp function: dx by one warp a
@@ -36,9 +41,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
+#include <type_traits>
+
 namespace rmsnorm {
 
-constexpr int kRows = 4;                  // rows (warps) a CTA
+constexpr int kFwdThreads = 32;           // the forward: one row a CTA
+constexpr int kPrefetchW = 16;            // chunks a lane whose w is loaded
+                                          // up front (d <= 4096)
+constexpr int kRows = 4;                  // the gradient: rows (warps) a CTA
 constexpr int kThreads = 32 * kRows;
 constexpr int kChunk = 8;                 // bf16 elements in 16 bytes
 constexpr int kDwRows = 64;               // rows a dw partial sums
@@ -56,45 +67,169 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* row, int c,
   }
 }
 
+// 16 bytes global -> shared without registers (cp.async; a plain copy in
+// a host build of the body), complete once copy_async_wait_all returns in
+// the thread that issued it
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src)
+               : "memory");
+#else
+  std::memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
 // f32 pairs -> bf16x2, round to nearest even
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return uint32_t(__bfloat16_as_ushort(__float2bfloat16(lo))) |
          (uint32_t(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
 }
 
-// Row r = blockIdx.x * kRows + warp of bf16 x (rows at stride sx, in
-// elements) with f32 w; out contiguous; d a multiple of kChunk.
-__global__ void __launch_bounds__(kThreads)
+// The forward's row: one warp, lane l owning chunks l, l + 32, ... (below
+// d / kChunk) in that order. CPL (chunks a lane, at most) fixes the trip
+// count at compile time, so every load of x and of w is issued before the
+// first fma and the row stays in registers for the output: x is read once.
+// w's loads come first too: into registers up to kPrefetchW chunks a lane;
+// past that (d 6144 and 8192) they would hold 192 or 256 registers and
+// spill, so they are asynchronous copies into the lane's own slots of
+// shared memory (copy16_async), read back after the shuffle tree.
+// CPL 0 is the generic form (a runtime trip count, any d a multiple of
+// kChunk). The order of every f32 operation is the generic form's: a
+// lane's fma chain over its chunks in order, the xor tree, rsqrtf, then
+// (x * r) * w per element.
+template <int CPL>
+__device__ __forceinline__ void rmsnorm_row(
+    const __nv_bfloat16* __restrict__ xr, const float* __restrict__ w,
+    __nv_bfloat16* __restrict__ orow, int d, float eps, int lane) {
+  const int chunks = d / kChunk;
+  if constexpr (CPL == 0) {
+    float ss = 0.f;
+    for (int c = lane; c < chunks; c += 32) {
+      float v[kChunk];
+      load_chunk(xr, c, v);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) ss = fmaf(v[i], v[i], ss);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    for (int c = lane; c < chunks; c += 32) {
+      float v[kChunk];
+      load_chunk(xr, c, v);
+      uint32_t u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        u[i] = pack2((v[2 * i] * r) * w[c * kChunk + 2 * i],
+                     (v[2 * i + 1] * r) * w[c * kChunk + 2 * i + 1]);
+      uint4 t;
+      t.x = u[0]; t.y = u[1]; t.z = u[2]; t.w = u[3];
+      *reinterpret_cast<uint4*>(orow + c * kChunk) = t;
+    }
+  } else {
+    constexpr bool kW = CPL <= kPrefetchW;
+    uint4 xs[CPL];
+    float4 ws[kW ? CPL : 1][2];
+    __shared__ __align__(16) float4 wsm[kW ? 1 : 2 * 32 * CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        if constexpr (kW) {
+          ws[i][0] = *reinterpret_cast<const float4*>(w + c * kChunk);
+          ws[i][1] = *reinterpret_cast<const float4*>(w + c * kChunk + 4);
+        } else {
+          copy16_async(&wsm[2 * c], w + c * kChunk);
+          copy16_async(&wsm[2 * c + 1], w + c * kChunk + 4);
+        }
+        xs[i] = *reinterpret_cast<const uint4*>(xr + c * kChunk);
+      }
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      if (lane + 32 * i < chunks) {
+        const uint32_t u[4] = {xs[i].x, xs[i].y, xs[i].z, xs[i].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float lo = __uint_as_float(u[k] << 16);
+          const float hi = __uint_as_float(u[k] & 0xffff0000u);
+          ss = fmaf(lo, lo, ss);
+          ss = fmaf(hi, hi, ss);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    if constexpr (!kW) copy_async_wait_all();
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        float4 w0, w1;
+        if constexpr (kW) {
+          w0 = ws[kW ? i : 0][0];
+          w1 = ws[kW ? i : 0][1];
+        } else {
+          w0 = wsm[2 * c];
+          w1 = wsm[2 * c + 1];
+        }
+        const float wv[kChunk] = {w0.x, w0.y, w0.z, w0.w,
+                                  w1.x, w1.y, w1.z, w1.w};
+        const uint32_t u[4] = {xs[i].x, xs[i].y, xs[i].z, xs[i].w};
+        uint32_t p[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          p[k] = pack2((__uint_as_float(u[k] << 16) * r) * wv[2 * k],
+                       (__uint_as_float(u[k] & 0xffff0000u) * r) *
+                           wv[2 * k + 1]);
+        uint4 t;
+        t.x = p[0]; t.y = p[1]; t.z = p[2]; t.w = p[3];
+        *reinterpret_cast<uint4*>(orow + c * kChunk) = t;
+      }
+    }
+  }
+}
+
+// Row blockIdx.x of bf16 x (rows at stride sx, in elements) with f32 w;
+// out contiguous; d a multiple of kChunk (and at most 32 * CPL * kChunk
+// for CPL > 0). One warp a CTA, so a decode step's 8 rows run on 8 SMs.
+template <int CPL>
+__global__ void __launch_bounds__(kFwdThreads)
 rmsnorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
                __nv_bfloat16* __restrict__ out, int rows, int d, int64_t sx,
                float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRows + threadIdx.x / 32;
-  if (row >= rows) return;                // warp-uniform
-  const __nv_bfloat16* xr = x + row * sx;
-  __nv_bfloat16* orow = out + static_cast<int64_t>(row) * d;
-  const int chunks = d / kChunk;
-  float ss = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    float v[kChunk];
-    load_chunk(xr, c, v);
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) ss = fmaf(v[i], v[i], ss);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-  for (int c = lane; c < chunks; c += 32) {
-    float v[kChunk];
-    load_chunk(xr, c, v);
-    uint32_t u[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      u[i] = pack2((v[2 * i] * r) * w[c * kChunk + 2 * i],
-                   (v[2 * i + 1] * r) * w[c * kChunk + 2 * i + 1]);
-    uint4 t;
-    t.x = u[0]; t.y = u[1]; t.z = u[2]; t.w = u[3];
-    *reinterpret_cast<uint4*>(orow + c * kChunk) = t;
+  const int row = blockIdx.x;
+  if (row >= rows) return;
+  rmsnorm_row<CPL>(x + row * sx, w, out + static_cast<int64_t>(row) * d, d,
+                   eps, threadIdx.x % 32);
+}
+
+// Calls f(std::integral_constant<int, CPL>{}) with the CPL of the kernel
+// instance that takes width d: the least count of chunks a lane that covers
+// d where the port's configs have such a width (d 64 to 8192), else 0.
+template <typename F>
+void with_chunks_per_lane(int d, F&& f) {
+  switch ((d / kChunk + 31) / 32) {
+    case 1:  f(std::integral_constant<int, 1>{}); return;    // d <= 256
+    case 2:  f(std::integral_constant<int, 2>{}); return;    // 512
+    case 3:  f(std::integral_constant<int, 3>{}); return;    // 768
+    case 4:  f(std::integral_constant<int, 4>{}); return;    // 1024
+    case 8:  f(std::integral_constant<int, 8>{}); return;    // 2048
+    case 10: f(std::integral_constant<int, 10>{}); return;   // 2560
+    case 14: f(std::integral_constant<int, 14>{}); return;   // 3584
+    case 16: f(std::integral_constant<int, 16>{}); return;   // 4096
+    case 24: f(std::integral_constant<int, 24>{}); return;   // 6144
+    case 32: f(std::integral_constant<int, 32>{}); return;   // 8192
+    default: f(std::integral_constant<int, 0>{}); return;
   }
 }
 
@@ -198,10 +333,13 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
   using namespace rmsnorm;
   if (rows < 0 || d <= 0 || d % kChunk) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  rmsnorm_kernel<<<(rows + kRows - 1) / kRows, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-      static_cast<__nv_bfloat16*>(out), rows, d, sx, eps);
+  with_chunks_per_lane(d, [&](auto cpl) {
+    rmsnorm_kernel<decltype(cpl)::value>
+        <<<rows, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const __nv_bfloat16*>(x),
+            static_cast<const float*>(w), static_cast<__nv_bfloat16*>(out),
+            rows, d, sx, eps);
+  });
   return cudaGetLastError();
 }
 

@@ -16,8 +16,11 @@ kernel merges their partials in a second pass.
 Training (the task API's fine-tuning through ``kernels.ops``) asks the
 forward for each row's log-sum-exp as well (``with_lse``) and takes the
 gradient with ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``):
-P recomputed from the log-sum-exp, a dQ pass and a dK/dV pass on the
-tensor cores, no atomics.
+P recomputed from the log-sum-exp on the tensor cores, no atomics. Its plan
+(``_bwd_plan``, shapes only) takes one fused launch where every key of a
+(row, kv head) fits one CTA (Sk <= 64: moment-large's training) and
+otherwise a dQ pass and a dK/dV pass, each walk split over a cluster of up
+to 8 CTAs where the grid is short of the card's SMs.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ _HEAD_DIMS = (32, 64, 80, 128)
 _ROWS = 64                  # (query, head) rows per CTA: 64 // G queries
 _TILE = 32                  # keys per shared-memory tile of the kernel
 _MIN_SPLIT = 128            # keys per split at least (four tiles)
+_BWD_KEYS = 64              # backward: keys a CTA holds (the fused bound)
+_BWD_QTILE = 32             # backward: queries a dK/dV tile
+_BWD_SMS = 132              # the H100 SXM's SMs: the plan fills one wave
+_BWD_MAX_SPLIT = 8          # the portable thread-block cluster size
 
 
 def _lib():
@@ -53,7 +60,8 @@ def _bwd_lib():
         lib.flash_attention_bwd_launch.argtypes = (
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
             + [ctypes.c_int64] * 15 + [ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_float, ctypes.c_void_p])
+                                       ctypes.c_float]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -68,6 +76,39 @@ def splits(B: int, Sq: int, H: int, KV: int, keys: int,
     tiles, at least ``_MIN_SPLIT`` keys a split."""
     ctas = -(-Sq // (_ROWS // (H // KV))) * KV * B
     return build.key_splits(ctas, keys, _TILE, _MIN_SPLIT, sms)
+
+
+def _bwd_split(ctas: int, items: int, per_sm: int) -> int:
+    """CTAs a backward walk of ``items`` is split over, for a pass of
+    ``ctas`` CTAs of which ``per_sm`` fit an SM: as many as keep the pass in
+    one wave of ``_BWD_SMS`` SMs, at most ``_BWD_MAX_SPLIT`` and two items
+    a split."""
+    return max(1, min(_BWD_MAX_SPLIT, per_sm * _BWD_SMS // max(ctas, 1),
+                      items // 2))
+
+
+def _bwd_plan(B: int, Sq: int, Sk: int, KV: int, G: int, hd: int,
+              causal: bool, window: Optional[int]) -> tuple[bool, int, int]:
+    """(fused, dq_splits, dkv_splits) of ``flash_attention_bwd`` for these
+    shapes, from the shapes and constants alone (never the data or the
+    card). Where every key of a (row, kv head) fits one CTA (Sq <= Sk <=
+    ``_BWD_KEYS``) the backward is one fused launch; otherwise two passes,
+    the dQ pass's key walk split over ``dq_splits`` CTAs (one cluster) and
+    the dK/dV pass's (head, query tile) walk over ``dkv_splits``, each
+    where its (tile, kv head, row) CTAs fall short of a wave (either pass
+    holds three CTAs an SM to hd 64, else two).
+    A window bounds the keys a query tile sees; causality is not counted
+    (a tile's walk length varies along the diagonal)."""
+    if Sq <= Sk <= _BWD_KEYS:
+        return True, 1, 1
+    seen = Sk if window is None else min(Sk, int(window) + _ROWS // G)
+    dq_ctas = -(-Sq // (_ROWS // G)) * KV * B
+    dkv_ctas = -(-Sk // _BWD_KEYS) * KV * B
+    qseen = Sq if window is None else min(Sq, int(window) + _BWD_KEYS)
+    return (False,
+            _bwd_split(dq_ctas, -(-seen // _TILE), 3 if hd <= 64 else 2),
+            _bwd_split(dkv_ctas, G * -(-qseen // _BWD_QTILE),
+                       3 if hd <= 64 else 2))
 
 
 def _rows_ok(t, name):
@@ -180,7 +221,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     with ``with_lse``, ``dout`` (B, Sq, H, hd) the output's gradient (made
     contiguous where its rows break the 16-byte rule). Returns (dq, dk, dv),
     bf16 contiguous in q's, k's and v's shapes, computed in f32; two calls
-    give the same bits. A row with no valid key gets zero gradients."""
+    give the same bits. A row with no valid key gets zero gradients. One
+    launch (``_bwd_plan``'s fused path) or two; the split passes take a
+    (B, H, Sq) f32 scratch for D, allocated here."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd kernel takes CUDA tensors")
     B, Sq, H, hd = q.shape
@@ -210,15 +253,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if B == 0 or Sq == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fused, dq_splits, dkv_splits = _bwd_plan(B, Sq, Sk, KV, G, hd, causal,
+                                             window)
+    dsum = None if fused else torch.empty((B, H, Sq), dtype=torch.float32,
+                                          device=q.device)
     err = _bwd_lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(),
-        None if kv_len is None else kv_len.data_ptr(), dsum.data_ptr(),
+        None if kv_len is None else kv_len.data_ptr(),
+        None if dsum is None else dsum.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], *dout.stride()[:3], int(causal),
         -1 if window is None else int(window), 1.0 / math.sqrt(hd),
+        int(fused), dq_splits, dkv_splits,
         build.current_stream(q.device.index or 0))
     build.LAUNCHES["flash_attention_bwd"] += 1
     build.check(err, "flash_attention_bwd")

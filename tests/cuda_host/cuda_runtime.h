@@ -71,7 +71,11 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   return r;
 }
 
-// Run `body` as a grid of gx x gy CTAs of `threads` threads.
+// Run `body` as a grid of gx x gy CTAs of `threads` threads, one CTA at a
+// time. The `threads` std::threads are started once for the grid and walk
+// the CTAs together, meeting at the CTA barrier after each one (so a body
+// that returns early waits there for the rest of its CTA), which keeps a
+// grid of thousands of CTAs from starting thousands of threads each.
 inline void host_launch(int gx, int gy, int threads,
                         const std::function<void()>& body) {
   host_grid.cta = std::make_unique<std::barrier<>>(threads);
@@ -79,18 +83,19 @@ inline void host_launch(int gx, int gy, int threads,
   for (int w = 0; w < threads / 32; ++w)
     host_grid.warps.push_back(std::make_unique<std::barrier<>>(32));
   host_grid.slots.assign(threads, 0.f);
-  for (int y = 0; y < gy; ++y)
-    for (int x = 0; x < gx; ++x) {
-      std::vector<std::thread> ts;
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([&, t, x, y] {
-          threadIdx.x = t;
+  std::vector<std::thread> ts;
+  for (int t = 0; t < threads; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx.x = t;
+      for (int y = 0; y < gy; ++y)
+        for (int x = 0; x < gx; ++x) {
           blockIdx.x = x;
           blockIdx.y = y;
           body();
-        });
-      for (auto& th : ts) th.join();
-    }
+          host_grid.cta->arrive_and_wait();
+        }
+    });
+  for (auto& th : ts) th.join();
 }
 
 // A grid of `grid` CTAs along x.

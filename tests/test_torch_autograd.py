@@ -12,6 +12,12 @@
   row, dw in two fixed-order passes) compiled by g++ against the stand-in
   headers of ``tests/cuda_host/`` and held to the plain version's autograd;
   each row's dx bits the same alone and among other rows.
+* The prefill attention backward's plan (``flash_attention._bwd_plan``):
+  a function of the shapes alone; moment-large's training shape takes the
+  one fused launch; the split passes' walks, emulated as the kernels cut
+  them, cover every query tile and every key tile
+  exactly once and every visible (query, key) pair, at every
+  ``chip_smoke.FLASH_BWD_CASES`` shape and at the reduced configs'.
 * What runs without a card: the backward wrappers refuse CPU tensors, their
   ctypes bindings match the C signatures, the prefix operand refuses a
   gradient, and every kernel without a backward (K1, K3, K4, the verify
@@ -29,8 +35,10 @@ terms, and where they cancel the f32 roundings of each side are what is
 left); dw (f32 sums over rows in another order) within 1e-5 rel.
 """
 import ctypes
+import inspect
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +55,9 @@ from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import FLASH_BWD_CASES  # noqa: E402
+
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 STUBS = Path(__file__).resolve().parent / "cuda_host"
 EPS = 1e-5
@@ -59,6 +70,9 @@ ATTN_CASES = {
     "window": (1, 32, 32, 4, 2, 16, True, 6, None),
     "kv_len": (3, 16, 16, 4, 4, 16, True, None, (16, 9, 3)),
     "suffix": (2, 8, 24, 4, 4, 32, True, None, None),
+    # moment-large's training shape cut to size: 64 patches, not causal, G 1
+    # (the fused backward's path on the card)
+    "keys64": (2, 64, 64, 2, 2, 16, False, None, None),
 }
 
 
@@ -256,6 +270,135 @@ def test_rmsnorm_bwd_kernel_body_is_row_invariant(host_lib):
     wide_x[:, d:], wide_g[:, 2 * d:] = rows, grads
     assert torch.equal(
         _host_bwd(host_lib, tw, wide_x[:, d:], wide_g[:, 2 * d:])[0], want)
+
+
+# ---------------- the backward's plan ----------------
+
+def _plan_shapes():
+    """(label, B, Sq, Sk, KV, G, hd, causal, window, kv_len) of every
+    ``FLASH_BWD_CASES`` entry and of the reduced configs' attention (hd
+    16) at training and prompt lengths."""
+    from repro_torch.configs.base import get_config, list_configs, reduced
+    out = []
+    for name, (B, S, H, KV, hd, causal, window, kv_len) in \
+            FLASH_BWD_CASES.items():
+        out.append((name, B, S, S, KV, H // KV, hd, causal, window, kv_len))
+    for arch in list_configs():
+        c = reduced(get_config(arch))
+        G = c.num_heads // c.num_kv_heads
+        for S in (8, 64, 65, 200):
+            out.append((f"{arch}-{S}", 2, S, S, c.num_kv_heads, G, c.head_dim,
+                        arch not in ("moment-large", "whisper-base"),
+                        c.sliding_window, (S, max(1, S // 3))))
+    return out
+
+
+PLAN_SHAPES = _plan_shapes()
+
+
+def test_backward_plan_is_a_function_of_shapes_alone(monkeypatch):
+    """``_bwd_plan`` takes shapes only, asks nothing of the card (every
+    device query raises here) and gives the same plan on every call; its
+    splits lie in 1 .. 8 (one portable cluster)."""
+    assert list(inspect.signature(flash._bwd_plan).parameters) == [
+        "B", "Sq", "Sk", "KV", "G", "hd", "causal", "window"]
+
+    def no_card(*a, **k):
+        raise AssertionError("the plan asked the card")
+    monkeypatch.setattr(build, "sm_count", no_card)
+    for fn in ("device_count", "get_device_properties", "is_available",
+               "current_device"):
+        monkeypatch.setattr(torch.cuda, fn, no_card)
+    for _, B, Sq, Sk, KV, G, hd, causal, window, _ in PLAN_SHAPES:
+        plan = flash._bwd_plan(B, Sq, Sk, KV, G, hd, causal, window)
+        assert plan == flash._bwd_plan(B, Sq, Sk, KV, G, hd, causal, window)
+        fused, n_dq, n_dkv = plan
+        assert isinstance(fused, bool)
+        assert 1 <= n_dq <= 8 and 1 <= n_dkv <= 8
+        assert not fused or (n_dq, n_dkv) == (1, 1)
+
+
+def test_moment_training_shape_takes_one_launch():
+    """moment-large fine-tuned (16 series of 64 patches, 16 heads of 64,
+    not causal) runs the fused backward; whisper's 1500 frames split both
+    passes over the card's SMs; no shape past 64 keys is fused."""
+    B, S, H, KV, hd, causal, window, _ = FLASH_BWD_CASES["moment"]
+    assert flash._bwd_plan(B, S, S, KV, H // KV, hd, causal, window) == \
+        (True, 1, 1)
+    B, S, H, KV, hd, causal, window, _ = FLASH_BWD_CASES["whisper_encoder"]
+    fused, n_dq, n_dkv = flash._bwd_plan(B, S, S, KV, H // KV, hd, causal,
+                                         window)
+    assert not fused and n_dq > 1 and n_dkv > 1
+    assert not flash._bwd_plan(1, 65, 65, 1, 1, 64, True, None)[0]
+
+
+def _visible(Sq, Sk, causal, window, kend):
+    """(Sq, Sk) bool: the forward's masks for one batch row."""
+    qpos = np.arange(Sq)[:, None] + (Sk - Sq)
+    kpos = np.arange(Sk)[None, :]
+    vis = (kpos < kend) & np.ones((Sq, 1), bool)
+    if causal:
+        vis &= qpos >= kpos
+    if window is not None:
+        vis &= qpos - kpos < window
+    return vis
+
+
+def _exactly_once(n, parts):
+    """The kernels' split rule (split s of ``parts`` takes items [s n /
+    parts, (s + 1) n / parts) of a walk of n) partitions range(n)."""
+    seen = [i for s in range(parts)
+            for i in range(s * n // parts, (s + 1) * n // parts)]
+    return seen == list(range(n))
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=[s[0] for s in PLAN_SHAPES])
+def test_backward_split_covers_every_tile_once(shape):
+    """The backward's walks as the kernels cut them: the fused CTA holds
+    every key and query of its (row, kv head); otherwise every query tile
+    (dQ pass) and key tile (dK/dV pass) has one CTA per split, the splits'
+    shares of its walk partition it, and the walk holds every key (query)
+    a visible pair needs, in every batch row's ``kv_len``."""
+    _, B, Sq, Sk, KV, G, hd, causal, window, kv_len = shape
+    fused, n_dq, n_dkv = flash._bwd_plan(B, Sq, Sk, KV, G, hd, causal, window)
+    rows, tile, keys, qtile = (flash._ROWS, flash._TILE, flash._BWD_KEYS,
+                               flash._BWD_QTILE)
+    if fused:
+        assert Sq <= Sk <= keys
+        return
+    bq = rows // G
+    q_off = Sk - Sq
+    for b in range(B):
+        kend = min(Sk, kv_len[b % len(kv_len)]) if kv_len else Sk
+        vis = _visible(Sq, Sk, causal, window, kend)
+        # dQ pass: CTA x takes query tile x // n_dq, split x % n_dq
+        tiles = {}
+        for x in range(-(-Sq // bq) * n_dq):
+            tiles.setdefault(x // n_dq, []).append(x % n_dq)
+        assert all(v == list(range(n_dq)) for v in tiles.values())
+        for t in tiles:
+            q0 = t * bq
+            qhi = q_off + min(Sq, q0 + bq) - 1
+            hi = min(kend, qhi + 1) if causal else kend
+            lo = max(0, q_off + q0 - window + 1) if window else 0
+            ntiles = -(-(hi - lo) // tile) if hi > lo else 0
+            assert _exactly_once(ntiles, n_dq)
+            need = np.nonzero(vis[q0:q0 + bq].any(axis=0))[0]
+            assert ((need >= lo) & (need < lo + ntiles * tile)).all()
+        # dK/dV pass: CTA x takes key tile x // n_dkv, split x % n_dkv,
+        # walking (head, query tile) pairs
+        for kt in range(-(-Sk // keys)):
+            j0 = kt * keys
+            kmax = min(j0 + keys, kend) - 1
+            i_lo, i_hi = 0, (Sq if kmax >= j0 else 0)
+            if causal:
+                i_lo = max(i_lo, j0 - q_off)
+            if window:
+                i_hi = min(i_hi, kmax + window - q_off)
+            nqt = -(-(i_hi - i_lo) // qtile) if i_hi > i_lo else 0
+            assert _exactly_once(G * nqt, n_dkv)
+            need = np.nonzero(vis[:, j0:j0 + keys].any(axis=1))[0]
+            assert ((need >= i_lo) & (need < i_lo + nqt * qtile)).all()
 
 
 # ---------------- what runs without a card ----------------

@@ -33,19 +33,31 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 STUBS = Path(__file__).resolve().parent / "cuda_host"
 
-WIDTHS = (512, 1024, 2048)          # whisper-base, moment-large, stablelm
+# every width the kernel has an instance for: the reduced configs (64),
+# whisper-base (512), xlstm-125m (768), moment-large (1024), stablelm
+# (2048), h2o-danube (2560), qwen2-7b (3584), minitron-8b (4096), grok
+# (6144), qwen2-vl-72b (8192)
+WIDTHS = (64, 512, 768, 1024, 2048, 2560, 3584, 4096, 6144, 8192)
 EPS = 1e-5
 
 _GLUE = r"""
 #include "rmsnorm.cu"
 using namespace rmsnorm;
 
+// the instance the launcher picks for d, or with `generic` the runtime
+// loop (CPL 0) that takes any d
 extern "C" int host_rmsnorm(const void* x, const void* w, void* out,
-                            int rows, int d, long sx, float eps) {
-  host_launch((rows + kRows - 1) / kRows, kThreads, [&] {
-    rmsnorm_kernel((const __nv_bfloat16*)x, (const float*)w,
-                   (__nv_bfloat16*)out, rows, d, sx, eps);
-  });
+                            int rows, int d, long sx, float eps,
+                            int generic) {
+  auto run = [&](auto cpl) {
+    host_launch(rows, kFwdThreads, [&] {
+      rmsnorm_kernel<decltype(cpl)::value>(
+          (const __nv_bfloat16*)x, (const float*)w, (__nv_bfloat16*)out,
+          rows, d, sx, eps);
+    });
+  };
+  if (generic) run(std::integral_constant<int, 0>{});
+  else with_chunks_per_lane(d, run);
   return 0;
 }
 """
@@ -68,17 +80,19 @@ def host_lib(tmp_path_factory):
     assert done.returncode == 0, done.stderr
     lib = ctypes.CDLL(str(so))
     lib.host_rmsnorm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
-        + [ctypes.c_long, ctypes.c_float]
+        + [ctypes.c_long, ctypes.c_float, ctypes.c_int]
     return lib
 
 
-def _run(lib, w, x):
-    """The kernel body on rows ``x`` (rows, d), read through its strides."""
+def _run(lib, w, x, generic=False):
+    """The kernel body on rows ``x`` (rows, d), read through its strides:
+    the instance the launcher picks for d, or the generic loop."""
     out = torch.empty(x.shape, dtype=x.dtype)
     assert x.dtype == torch.bfloat16 and w.dtype == torch.float32
     assert x.stride(1) == 1
     rc = lib.host_rmsnorm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                          x.shape[0], x.shape[1], x.stride(0), EPS)
+                          x.shape[0], x.shape[1], x.stride(0), EPS,
+                          int(generic))
     assert rc == 0
     return out
 
@@ -155,3 +169,43 @@ def test_rmsnorm_kernel_body_is_row_invariant(host_lib, d):
     wide = torch.zeros((8, 2 * d), dtype=x.dtype)
     wide[:, d:] = rows
     assert torch.equal(_run(host_lib, w, wide[:, d:]), want)
+
+
+def _pinned_order(w, x, eps):
+    """The kernel's documented order in numpy float32, one rounding per
+    operation: lane l sums the squares of its 8-element chunks l, l + 32,
+    ... in order (a bf16 square is exact in f32, so the kernel's fma is a
+    multiply then an add), the lanes meet in the xor tree (offsets 16, 8,
+    4, 2, 1), r = 1 / sqrt(sum / d + eps) (the host stand-in's rsqrtf),
+    each output (x * r) * w, rounded to bf16 (nearest even). Returns the
+    bf16 bits (uint16)."""
+    rows, d = x.shape
+    chunks = x.reshape(rows, d // 8, 8)
+    lanes = np.zeros((rows, 32), np.float32)
+    for lane in range(32):
+        s = np.zeros(rows, np.float32)
+        for c in range(lane, d // 8, 32):
+            for i in range(8):
+                v = chunks[:, c, i]
+                s = s + v * v
+        lanes[:, lane] = s
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ o]
+    r = np.float32(1) / np.sqrt(lanes[:, 0] / np.float32(d) + np.float32(eps))
+    out = (x * r[:, None]) * w[None, :]
+    u = out.view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_rmsnorm_kernel_body_order_is_pinned(host_lib, d):
+    """The kernel body's output bits, through the instance the launcher
+    picks for d and through the generic loop, equal a numpy float32
+    emulation of the documented order (``_pinned_order``) bit for bit,
+    on 256 rows of spread magnitudes: the order the first row-invariant
+    kernel defined, held without its source."""
+    w, x = _inputs(d, 256, seed=2)
+    want = _pinned_order(w.numpy(), x.float().numpy(), EPS)
+    for generic in (False, True):
+        got = _run(host_lib, w, x, generic).view(torch.int16).numpy()
+        assert np.array_equal(got.view(np.uint16), want), generic

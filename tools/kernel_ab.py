@@ -13,12 +13,14 @@ on the same input sets at the serving shapes of ``chip_smoke.py`` (parent,
 change, the floor build if asked for, then the same in reverse; device
 time from ``torch.profiler`` by kernel name, so a call's split into its
 kernels shows; then the host time per call of parent and change the
-same way), after checking that both agree. A kernel the parent has no
-source for (``rmsnorm``) is timed against the parent's plain function
-(``PARENT_PLAIN``). ``--floor`` also builds this tree's int8 decode
-kernels with ``-DINT8_DECODE_COPY_ONLY`` (the same loads, no math: the
-floor of the design at a shape; its output is not the function's) and
-times that build in the same turns through this tree's wrapper. Prints a
+same way), after checking that both agree. ``flash_attention_bwd`` (in
+``flash_attention.py``) runs at the five ``chip_smoke.FLASH_BWD_CASES``
+shapes, ``rmsnorm`` at a decode step's 8 rows of every model width and
+at stablelm's verify, prefill and pooled row counts. ``--floor`` also
+builds this tree's int8 decode kernels with ``-DINT8_DECODE_COPY_ONLY``
+(the same loads, no math: the floor of the design at a shape; its output
+is not the function's) and times that build in the same turns through
+this tree's wrapper. Prints a
 ptxas summary of every build (spill stores, registers), one JSON line per
 shape and the card's name and power limit.
 ``build/`` is gitignored, so the parent tree and its library stay out of
@@ -83,9 +85,8 @@ def spill_lines(label: str, report: str):
           f"registers (hd 64, G 1: {serving})", flush=True)
 
 
-# kernels the parent may have no source for: (module file, function) of
-# the plain code the parent ran instead
-PARENT_PLAIN = {"rmsnorm": ("models/layers.py", "rmsnorm")}
+# kernels whose wrapper lives in another kernel's module
+MODULES = {"flash_attention_bwd": "flash_attention"}
 
 
 def _module_from(path: str, label: str):
@@ -98,23 +99,18 @@ def _module_from(path: str, label: str):
 def parent_wrapper(parent: str, name: str):
     """The parent tree's wrapper module of kernel ``name``, its library
     built from the parent's source, and a function that calls a wrapper
-    function with that library in place of this tree's; where the parent
-    has no such source, its plain code (``PARENT_PLAIN``) as it is."""
+    function with that library in place of this tree's."""
     import ctypes
 
     from repro_torch.kernels import build
     pkg = os.path.join(parent, "src", "repro_torch")
     src = os.path.join(pkg, "csrc", build.SOURCES[name])
-    if not os.path.exists(src) and name in PARENT_PLAIN:
-        rel, _ = PARENT_PLAIN[name]
-        print(f"parent {name}: no kernel, its plain {rel}", flush=True)
-        return _module_from(os.path.join(pkg, rel), f"_parent_{name}"), \
-            (lambda fn: fn)
     so = build.BUILD_DIR / f"{name}-parent.so"
     spill_lines(f"{name} parent", nvcc_build(src, so))
     lib = ctypes.CDLL(str(so))
-    mod = _module_from(os.path.join(pkg, "kernels", f"{name}.py"),
-                       f"_parent_{name}")
+    mod = _module_from(
+        os.path.join(pkg, "kernels", f"{MODULES.get(name, name)}.py"),
+        f"_parent_{name}")
     return mod, swapper(name, lib)
 
 
@@ -135,6 +131,15 @@ def floor_wrapper(name: str):
                 nvcc_build(str(build.CSRC / build.SOURCES[name]), so,
                            [FLOOR_FLAG]))
     return swapper(name, ctypes.CDLL(str(so)))
+
+
+def short(kernel: str) -> str:
+    """A profiler kernel name cut to its function and template arguments
+    (no return type, anonymous namespace or parameter list), at most 48
+    characters."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    name = name[len("void "):] if name.startswith("void ") else name
+    return (name.split("(")[0] or kernel)[:48]
 
 
 def rotating(fn, sets):
@@ -203,14 +208,30 @@ def cases(name: str, dev, gen):
             for _ in range(24)]
         yield "serving", sets, lambda mod: mod.paged_verify_attention
     elif name == "rmsnorm":
-        # stablelm's width over a decode step's, a verify forward's and a
-        # prefill bucket's rows; 8 sets each
-        for shape, rows in (("decode", cs.SLOTS),
-                            ("verify", cs.SLOTS * (cs.SPEC_K + 1)),
-                            ("prefill", cs.PROMPT_LEN)):
-            sets = [cs.rmsnorm_inputs(gen, rows, 2048, dev)[::-1]
+        # a decode step's rows at every model width, then stablelm's width
+        # over a verify forward's, a prefill bucket's and a pooled batch's
+        # rows; 8 sets each
+        for shape, rows, d in (
+                *((f"decode_d{d}", cs.SLOTS, d) for d in cs.RMSNORM_WIDTHS),
+                ("verify", cs.SLOTS * (cs.SPEC_K + 1), 2048),
+                ("prefill", cs.PROMPT_LEN, 2048),
+                ("pooled", 32 * cs.PROMPT_LEN, 2048)):
+            sets = [cs.rmsnorm_inputs(gen, rows, d, dev)[::-1]
                     for _ in range(8)]
             yield shape, sets, lambda mod: mod.rmsnorm
+    elif name == "flash_attention_bwd":
+        # the five FLASH_BWD_CASES: q, k, v, the forward's output and
+        # log-sum-exp (this tree's forward), the output's gradient; 2 sets
+        from repro_torch.kernels.flash_attention import flash_attention
+        for shape, case in cs.FLASH_BWD_CASES.items():
+            sets = []
+            for _ in range(2):
+                (q, k, v, dout), kw = cs.flash_bwd_inputs(gen, dev, case)
+                out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+                sets.append((q, k, v, out, lse, dout, kw))
+            yield shape, sets, lambda mod: (
+                lambda q, k, v, out, lse, dout, kw: mod.flash_attention_bwd(
+                    q, k, v, out, lse, dout, **kw))
     else:
         raise SystemExit(f"no A/B cases for kernel {name!r}")
 
@@ -237,7 +258,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(17)
     for name in args.kernels:
         parent_mod, swapped = parent_wrapper(args.parent, name)
-        new_mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        new_mod = importlib.import_module(
+            f"repro_torch.kernels.{MODULES.get(name, name)}")
         floor = floor_wrapper(name) \
             if args.floor and name in FLOOR_KERNELS else None
         for shape, sets, pick in cases(name, dev, gen):
@@ -247,14 +269,17 @@ def main() -> int:
                 fns["floor"] = floor(pick(new_mod))
             got, want = new_fn(*sets[0]), old_fn(*sets[0])
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs().max().item()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            diff = max((g.float() - w.float()).abs().max().item()
+                       for g, w in zip(got, want))
             out = {"kernel": name, "shape": shape, "max_abs_diff": diff}
             turns = list(fns) + list(reversed(fns))
             for who in turns:
                 by_name = cs.device_kernels(rotating(fns[who], sets))
                 out.setdefault(f"{who}_us", []).append(
                     1e3 * sum(by_name.values()))
-                out[f"{who}_split_us"] = {k[:48]: 1e3 * v
+                out[f"{who}_split_us"] = {short(k): 1e3 * v
                                           for k, v in by_name.items()}
             # host time per call: the least of three runs of 200 calls
             # (CUDA events time the enqueue rate once the host is the
