@@ -93,6 +93,9 @@ def restore(ckpt_dir: str | Path, tree_like, *, step: Optional[int] = None):
     def build(tree, prefix=()):
         if isinstance(tree, dict):
             return {k: build(v, prefix + (str(k),)) for k, v in tree.items()}
+        if hasattr(tree, "_fields"):         # a NamedTuple (AdamWState)
+            return type(tree)(*(build(v, prefix + (f".{k}",))
+                                for k, v in zip(tree._fields, tree)))
         if isinstance(tree, (list, tuple)):
             return type(tree)(build(v, prefix + (str(i),))
                               for i, v in enumerate(tree))

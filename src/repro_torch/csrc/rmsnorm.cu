@@ -29,13 +29,21 @@
 // what the models give it: bf16 activations, f32 weights (lm.cast_params
 // keeps the norms in f32).
 //
-// The gradient (rmsnorm_bwd_launch, for training through the task API)
-// replaces the gradient XLA derives for the jnp function: dx by one warp a
-// row with the forward's reduction order (row-invariant in the same way),
-// and, when the weight needs one, dw in two fixed-order passes (partial
-// sums over chunks of 64 rows, then the chunks in order: no atomics, so two
-// calls give the same bits). Bytes bound it too: x and dy read twice (the
-// second time from L1/L2), dx written, and x and dy once more for dw.
+// The gradient (rmsnorm_bwd_launch, for training) replaces the gradient
+// XLA derives for the jnp function. Bytes bound it: x and dy read once, dx
+// written once (and w, dw). The first form read x and dy three
+// times and took three launches for dw; this one reads them once, from one
+// launch that also leaves dw's partial sums: one warp a row, the lane's x
+// and dy chunks loaded as 16-byte vectors before its first fma and kept
+// in registers for the second use (an instance per width up to 16 chunks
+// a lane, the generic loop above that), w in registers up to d 1024 and
+// staged once a CTA in shared memory above. dx keeps the first form's arithmetic in its order (so its
+// bits, and row invariance); dw is summed in a fixed order with no
+// atomics: each warp over its rows in shared memory, the CTA's warps in
+// order into one partial row, then a small second launch over the
+// partial rows (rmsnorm_bwd_dw_sum). The plan (warps a CTA, rows a warp)
+// is a function of (rows, d) alone (kernels/rmsnorm.py::_bwd_plan), so
+// two calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,11 +57,10 @@ namespace rmsnorm {
 constexpr int kFwdThreads = 32;           // the forward: one row a CTA
 constexpr int kPrefetchW = 16;            // chunks a lane whose w is loaded
                                           // up front (d <= 4096)
-constexpr int kRows = 4;                  // the gradient: rows (warps) a CTA
-constexpr int kThreads = 32 * kRows;
 constexpr int kChunk = 8;                 // bf16 elements in 16 bytes
-constexpr int kDwRows = 64;               // rows a dw partial sums
-constexpr int kDwThreads = 256;           // columns a dw CTA covers
+constexpr int kBwdWarps = 8;              // the gradient: most warps a CTA
+constexpr int kSumPieces = 8;             // dw_sum: float4 pieces a CTA
+constexpr int kSumGroups = 32;            // dw_sum: blocks of partial rows
 
 // chunk c (16 bytes) of a bf16 row as f32
 __device__ __forceinline__ void load_chunk(const __nv_bfloat16* row, int c,
@@ -233,38 +240,141 @@ void with_chunks_per_lane(int d, F&& f) {
   }
 }
 
-// The gradient, one warp a row as in the forward, which it mirrors: with
-// r = rsqrt(mean(x^2) + eps) (the forward's sum, in its order and tree,
-// so r has the forward's bits) and g = w * dy,
-//   dx = r * g - x * r^3 * mean(x * g),
-// in f32, rounded once to bf16. The lane's chunks accumulate sum(x * g) in
-// the order of sum(x^2), and the same xor tree sums the lanes, so a row's
-// dx bits depend on the row, dy's row, w and eps only. With `rstd` not
-// null, lane 0 writes r for the dw passes. dy rows at stride sdy.
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ dy,
-                   const float* __restrict__ w, __nv_bfloat16* __restrict__ dx,
-                   float* __restrict__ rstd, int rows, int d, int64_t sx,
-                   int64_t sdy, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRows + threadIdx.x / 32;
-  if (row >= rows) return;                // warp-uniform
-  const __nv_bfloat16* xr = x + row * sx;
-  const __nv_bfloat16* gr = dy + row * sdy;
-  __nv_bfloat16* orow = dx + static_cast<int64_t>(row) * d;
-  const int chunks = d / kChunk;
-  float ss = 0.f, sg = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    float v[kChunk], g[kChunk];
-    load_chunk(xr, c, v);
-    load_chunk(gr, c, g);
+// The gradient's dynamic shared memory: w (d floats), then with dw one
+// slice of d floats a warp for its dw sums; dw_sum's warp sums. Every
+// array is float4 pieces in half-major order: piece h * chunks + c holds
+// elements 8c + 4h .. 8c + 4h + 3, so a warp's lanes (chunks l, l + 32,
+// ...) touch consecutive pieces. (A host build runs the body on the CPU
+// one CTA at a time: one array serves every CTA.)
+#ifdef __CUDACC__
+extern __shared__ __align__(16) float4 rmsnorm_bwd_smem[];
+#else
+alignas(16) inline float4 rmsnorm_bwd_smem[1 << 15];
+#endif
+
+// w's chunk c (8 floats) from its half-major copy in shared memory
+__device__ __forceinline__ void w_chunk(const float4* wsm, int chunks, int c,
+                                        float (&wv)[kChunk]) {
+  const float4 a = wsm[c], b = wsm[chunks + c];
+  wv[0] = a.x; wv[1] = a.y; wv[2] = a.z; wv[3] = a.w;
+  wv[4] = b.x; wv[5] = b.y; wv[6] = b.z; wv[7] = b.w;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// A lane's x and dy chunks of one row as 16-byte vectors (CPL > 0), and
+// their loads, issued together.
+template <int CPL>
+struct RowRegs {
+  uint4 x[CPL], g[CPL];
+};
+template <>
+struct RowRegs<0> {};
+
+// w held by the lane in registers (its chunks' 8 floats as two float4s),
+// loaded with the first row: up to 4 chunks a lane (d <= 1024), where the
+// 32 registers are cheap. Wider rows stage w once a CTA in shared memory
+// (cp.async) and wait for it at a CTA barrier, which cost ~1.3 us of a
+// 1024 x 1024 call on an H100 80GB HBM3 at 700 W (in registers: 7.4 ->
+// 5.7 us with dw, 5.0 -> 3.7 without); at d 2048 the registers would cost
+// the second CTA an SM that the plan counts on.
+template <int CPL>
+constexpr bool kWRegs = CPL > 0 && CPL <= 4;
+template <int CPL>
+struct WRegs {
+  float4 w[kWRegs<CPL> ? CPL : 1][2];
+};
+
+template <int CPL>
+__device__ __forceinline__ void load_row(RowRegs<CPL>& rr,
+                                         const __nv_bfloat16* __restrict__ xr,
+                                         const __nv_bfloat16* __restrict__ gr,
+                                         int chunks, int lane) {
+  if constexpr (CPL > 0) {
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      ss = fmaf(v[i], v[i], ss);
-      sg = fmaf(v[i], w[c * kChunk + i] * g[i], sg);
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        rr.x[i] = *reinterpret_cast<const uint4*>(xr + c * kChunk);
+        rr.g[i] = *reinterpret_cast<const uint4*>(gr + c * kChunk);
+      }
     }
   }
+}
+
+// One row's gradient by one warp: with r = rsqrt(mean(x^2) + eps) (the
+// forward's sum, in its order and tree, so r has the forward's bits) and
+// g = w * dy,
+//   dx = r * g - x * r^3 * mean(x * g),
+// in f32, rounded once to bf16. The lane's chunks accumulate sum(x * g)
+// in the order of sum(x^2) (one fma chain each, chunk by chunk, element
+// by element), the same xor tree sums the lanes, and each element is
+// r * (w * g) - x * k: the arithmetic of the first backward kernel,
+// so a row's dx bits depend on the row, dy's row, w and eps only.
+// With DW the lane adds (x * r) * dy of each of its elements to its warp's
+// slice `acc` (a multiply, a multiply, an add, each rounded: the order is
+// pinned, never contracted).
+// CPL (chunks a lane, at most; 1 to 16) fixes the trip count: the row
+// comes in `rr`, loaded before (load_row), and stays in registers for the
+// second use. CPL 0 is the generic form (any d a multiple of kChunk, x
+// and dy loaded in each pass), which also takes d 6144 and 8192: there x
+// and dy would hold 192 or 256 registers a lane.
+template <int CPL, bool DW>
+__device__ __forceinline__ void rmsnorm_bwd_row(
+    const RowRegs<CPL>& rr, const WRegs<CPL>& wr,
+    const __nv_bfloat16* __restrict__ xr,
+    const __nv_bfloat16* __restrict__ gr, const float4* wsm, float4* acc,
+    __nv_bfloat16* __restrict__ orow, int d, float eps, int lane) {
+  const int chunks = d / kChunk;
+  float ss = 0.f, sg = 0.f;
+  // f(c, v, g, wv) for each chunk c = lane + 32 i of the lane, in order,
+  // with its x, dy and w as f32
+  auto each = [&](auto&& f) {
+    float v[kChunk], g[kChunk], wv[kChunk];
+    if constexpr (CPL > 0) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int c = lane + 32 * i;
+        if (c < chunks) {
+          const uint32_t u[4] = {rr.x[i].x, rr.x[i].y, rr.x[i].z, rr.x[i].w};
+          const uint32_t h[4] = {rr.g[i].x, rr.g[i].y, rr.g[i].z, rr.g[i].w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            v[2 * k] = __uint_as_float(u[k] << 16);
+            v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+            g[2 * k] = __uint_as_float(h[k] << 16);
+            g[2 * k + 1] = __uint_as_float(h[k] & 0xffff0000u);
+          }
+          if constexpr (kWRegs<CPL>) {
+            const float4 a = wr.w[i][0], b = wr.w[i][1];
+            wv[0] = a.x; wv[1] = a.y; wv[2] = a.z; wv[3] = a.w;
+            wv[4] = b.x; wv[5] = b.y; wv[6] = b.z; wv[7] = b.w;
+          } else {
+            w_chunk(wsm, chunks, c, wv);
+          }
+          f(c, v, g, wv);
+        }
+      }
+    } else {
+      for (int c = lane; c < chunks; c += 32) {
+        load_chunk(xr, c, v);
+        load_chunk(gr, c, g);
+        w_chunk(wsm, chunks, c, wv);
+        f(c, v, g, wv);
+      }
+    }
+  };
+  each([&](int, const float (&v)[kChunk], const float (&g)[kChunk],
+           const float (&wv)[kChunk]) {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      ss = fmaf(v[e], v[e], ss);
+      sg = fmaf(v[e], wv[e] * g[e], sg);
+    }
+  });
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     ss += __shfl_xor_sync(0xffffffffu, ss, o);
@@ -272,51 +382,128 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
   const float k = (sg / static_cast<float>(d)) * (r * r * r);
-  if (rstd != nullptr && lane == 0) rstd[row] = r;
-  for (int c = lane; c < chunks; c += 32) {
-    float v[kChunk], g[kChunk];
-    load_chunk(xr, c, v);
-    load_chunk(gr, c, g);
+  each([&](int c, const float (&v)[kChunk], const float (&g)[kChunk],
+           const float (&wv)[kChunk]) {
     uint32_t u[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = c * kChunk + 2 * i;
-      u[i] = pack2(r * (w[e] * g[2 * i]) - v[2 * i] * k,
-                   r * (w[e + 1] * g[2 * i + 1]) - v[2 * i + 1] * k);
-    }
+    for (int e = 0; e < 4; ++e)
+      u[e] = pack2(r * (wv[2 * e] * g[2 * e]) - v[2 * e] * k,
+                   r * (wv[2 * e + 1] * g[2 * e + 1]) - v[2 * e + 1] * k);
     uint4 t;
     t.x = u[0]; t.y = u[1]; t.z = u[2]; t.w = u[3];
     *reinterpret_cast<uint4*>(orow + c * kChunk) = t;
+    if constexpr (DW) {
+      float p[kChunk];
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e)
+        p[e] = __fmul_rn(__fmul_rn(v[e], r), g[e]);
+      acc[c] = add4(acc[c], make_float4(p[0], p[1], p[2], p[3]));
+      acc[chunks + c] = add4(acc[chunks + c],
+                             make_float4(p[4], p[5], p[6], p[7]));
+    }
+  });
+}
+
+// The gradient's launch: CTA b of `warps` warps holds rows b * warps * T
+// + t * warps + v (warp v, t = 0 .. T - 1 in order, T = rows_per_warp),
+// one row a warp at a time. A warp's first row is loaded before w (into
+// registers, or staged into shared memory), so the round trips overlap.
+// (Loading the next row while this one is computed, at twice the
+// registers, was no faster on the card: two CTAs an SM overlap rows
+// instead, kernels/rmsnorm.py::_bwd_plan.) With DW
+// (`part` not null) each warp sums its rows' (x * r) * dy in row order in
+// its shared slice (from zero), then the CTA adds the slices in warp
+// order and writes them as partial row b of `part` (half-major float4
+// pieces, 16-byte stores). dy rows at stride sdy.
+template <int CPL, bool DW>
+__global__ void __launch_bounds__(32 * kBwdWarps)
+rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ dy,
+                   const float* __restrict__ w, __nv_bfloat16* __restrict__ dx,
+                   float* __restrict__ part, int rows, int d, int64_t sx,
+                   int64_t sdy, float eps, int rows_per_warp) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32, nthreads = blockDim.x;
+  const int chunks = d / kChunk, pieces = d / 4;
+  float4* wsm = rmsnorm_bwd_smem;
+  float4* acc = wsm + pieces * (1 + warp);
+  int row = blockIdx.x * warps * rows_per_warp + warp;
+  RowRegs<CPL> rr;
+  WRegs<CPL> wr;
+  if (row < rows) load_row(rr, x + row * sx, dy + row * sdy, chunks, lane);
+  if constexpr (kWRegs<CPL>) {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        wr.w[i][0] = *reinterpret_cast<const float4*>(w + c * kChunk);
+        wr.w[i][1] = *reinterpret_cast<const float4*>(w + c * kChunk + 4);
+      }
+    }
+  } else {
+    for (int q = threadIdx.x; q < pieces; q += nthreads)
+      copy16_async(&wsm[(q & 1) * chunks + q / 2], w + 4 * q);
+  }
+  if constexpr (DW) {
+    for (int j = lane; j < pieces; j += 32)
+      acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncwarp();
+  }
+  if constexpr (!kWRegs<CPL>) {
+    copy_async_wait_all();
+    __syncthreads();
+  }
+  // (row < rows is warp-uniform, and so for every later t)
+  for (int t = 0; t < rows_per_warp && row < rows; ++t, row += warps) {
+    if (t > 0) load_row(rr, x + row * sx, dy + row * sdy, chunks, lane);
+    rmsnorm_bwd_row<CPL, DW>(rr, wr, x + row * sx, dy + row * sdy, wsm,
+                             acc, dx + static_cast<int64_t>(row) * d, d,
+                             eps, lane);
+  }
+  if constexpr (DW) {
+    __syncthreads();
+    float4* out = reinterpret_cast<float4*>(part) +
+                  static_cast<int64_t>(blockIdx.x) * pieces;
+    for (int j = threadIdx.x; j < pieces; j += nthreads) {
+      float4 s = wsm[pieces + j];
+      for (int v = 1; v < warps; ++v) s = add4(s, wsm[pieces * (1 + v) + j]);
+      out[j] = s;
+    }
   }
 }
 
-// dw's partial sums: column `col` of row chunk blockIdx.y (kDwRows rows)
-// sums (x * r) * dy over its rows in order into part[chunk * d + col].
-__global__ void __launch_bounds__(kDwThreads)
-rmsnorm_bwd_dw_partial(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ dy,
-                       const float* __restrict__ rstd,
-                       float* __restrict__ part, int rows, int d, int64_t sx,
-                       int64_t sdy) {
-  const int col = blockIdx.x * kDwThreads + threadIdx.x;
-  if (col >= d) return;
-  const int r0 = blockIdx.y * kDwRows, r1 = min(rows, r0 + kDwRows);
-  float acc = 0.f;
-  for (int row = r0; row < r1; ++row)
-    acc = fmaf(__bfloat162float(x[row * sx + col]) * rstd[row],
-               __bfloat162float(dy[row * sdy + col]), acc);
-  part[static_cast<int64_t>(blockIdx.y) * d + col] = acc;
-}
-
-// dw[col] = the chunks' partials summed in chunk order.
-__global__ void __launch_bounds__(kDwThreads)
-rmsnorm_bwd_dw_sum(const float* __restrict__ part, float* __restrict__ dw,
-                   int nchunks, int d) {
-  const int col = blockIdx.x * kDwThreads + threadIdx.x;
-  if (col >= d) return;
-  float s = 0.f;
-  for (int c = 0; c < nchunks; ++c) s += part[static_cast<int64_t>(c) * d + col];
-  dw[col] = s;
+// dw from the kernel's `nparts` partial rows: CTA blockIdx.x owns
+// kSumPieces float4 pieces; its thread group u (kSumPieces threads, one a
+// piece) sums the partial rows of block u of kSumGroups equal blocks (the
+// last ones shorter, maybe empty) in row order from zero, then the groups'
+// sums meet in a fixed pairwise tree in shared memory (at each level h =
+// kSumGroups / 2, ..., 1, group u < h adds group u + h). A fixed order:
+// dw's bits depend on the plan (rows and d) and the data only.
+__global__ void __launch_bounds__(kSumPieces * kSumGroups)
+rmsnorm_bwd_dw_sum(const float4* __restrict__ part, float* __restrict__ dw,
+                   int nparts, int d) {
+  const int piece = threadIdx.x % kSumPieces, grp = threadIdx.x / kSumPieces;
+  const int chunks = d / kChunk, pieces = d / 4;
+  const int j = blockIdx.x * kSumPieces + piece;
+  const int per = (nparts + kSumGroups - 1) / kSumGroups;
+  const int p0 = min(nparts, grp * per), p1 = min(nparts, p0 + per);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j < pieces) {
+    for (int p = p0; p < p1; ++p)
+      s = add4(s, part[static_cast<int64_t>(p) * pieces + j]);
+  }
+  float4* red = rmsnorm_bwd_smem;         // [kSumGroups][kSumPieces]
+  red[threadIdx.x] = s;
+  for (int h = kSumGroups / 2; h > 0; h /= 2) {
+    __syncthreads();
+    if (grp < h)
+      red[threadIdx.x] = add4(red[threadIdx.x],
+                              red[threadIdx.x + h * kSumPieces]);
+  }
+  if (grp == 0 && j < pieces) {
+    const int col = (j % chunks) * kChunk + (j / chunks) * 4;
+    *reinterpret_cast<float4*>(dw + col) = red[piece];
+  }
 }
 
 }  // namespace rmsnorm
@@ -344,42 +531,56 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
 }
 
 // The gradient of rmsnorm_launch's function: x and dy rows of d bf16 at row
-// strides sx and sdy (unit element stride, 16-byte aligned rows); w: d f32;
-// dx: rows x d bf16 contiguous. With dw not null, rstd (rows f32) and part
-// (ceil(rows / 64) x d f32) are scratch and dw (d f32) receives the weight's
-// gradient, summed over the rows in a fixed order. Returns a cudaError_t.
+// strides sx and sdy (unit element stride, 16-byte aligned rows); w: d f32
+// (16-byte aligned); dx: rows x d bf16 contiguous. The plan (`warps` a CTA,
+// `rows_per_warp`) comes from the shapes (kernels/rmsnorm.py::_bwd_plan).
+// With dw not null, part (ctas x d f32, ctas = ceil(rows / (warps *
+// rows_per_warp))) is scratch and dw (d f32) receives the weight's
+// gradient in a second launch, summed over the rows in a fixed order;
+// without, one launch. Returns a cudaError_t.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* dy,
                                   const void* w, void* dx, void* dw,
-                                  void* rstd, void* part, int rows, int d,
-                                  int64_t sx, int64_t sdy, float eps,
-                                  void* stream) {
+                                  void* part, int rows, int d, int64_t sx,
+                                  int64_t sdy, float eps, int warps,
+                                  int rows_per_warp, void* stream) {
   using namespace rmsnorm;
-  if (rows < 0 || d <= 0 || d % kChunk ||
-      (dw != nullptr && (rstd == nullptr || part == nullptr)))
+  const bool with_dw = dw != nullptr;
+  const size_t smem = sizeof(float) * d * (1 + (with_dw ? warps : 0));
+  if (rows < 0 || d <= 0 || d % kChunk || warps < 1 || warps > kBwdWarps ||
+      rows_per_warp < 1 || smem > 227 * 1024 ||
+      (with_dw && part == nullptr))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (rows == 0) {
-    if (dw != nullptr) cudaMemsetAsync(dw, 0, sizeof(float) * d, st);
+    if (with_dw) cudaMemsetAsync(dw, 0, sizeof(float) * d, st);
     return cudaGetLastError();
   }
-  rmsnorm_bwd_kernel<<<(rows + kRows - 1) / kRows, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(w),
-      static_cast<__nv_bfloat16*>(dx),
-      dw != nullptr ? static_cast<float*>(rstd) : nullptr, rows, d, sx, sdy,
-      eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || dw == nullptr) return err;
-  const int nchunks = (rows + kDwRows - 1) / kDwRows;
-  const int cols = (d + kDwThreads - 1) / kDwThreads;
-  rmsnorm_bwd_dw_partial<<<dim3(cols, nchunks), kDwThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(rstd),
-      static_cast<float*>(part), rows, d, sx, sdy);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_dw_sum<<<cols, kDwThreads, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), nchunks, d);
+  const int ctas = (rows + warps * rows_per_warp - 1) / (warps * rows_per_warp);
+  cudaError_t err = cudaSuccess;
+  with_chunks_per_lane(d, [&](auto cpl) {
+    constexpr int C = decltype(cpl)::value <= 16 ? decltype(cpl)::value : 0;
+    auto launch = [&](auto kernel) {
+      if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return;
+      }
+      kernel<<<ctas, 32 * warps, smem, st>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const __nv_bfloat16*>(dy),
+          static_cast<const float*>(w), static_cast<__nv_bfloat16*>(dx),
+          static_cast<float*>(part), rows, d, sx, sdy, eps, rows_per_warp);
+      err = cudaGetLastError();
+    };
+    if (with_dw) launch(rmsnorm_bwd_kernel<C, true>);
+    else launch(rmsnorm_bwd_kernel<C, false>);
+  });
+  if (err != cudaSuccess || !with_dw) return err;
+  rmsnorm_bwd_dw_sum<<<(d / 4 + kSumPieces - 1) / kSumPieces,
+                       kSumPieces * kSumGroups,
+                       sizeof(float4) * kSumPieces * kSumGroups, st>>>(
+      static_cast<const float4*>(part), static_cast<float*>(dw), ctas, d);
   return cudaGetLastError();
 }
 #endif  // __CUDACC__

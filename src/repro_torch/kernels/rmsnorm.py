@@ -8,10 +8,11 @@ step could differ in its last bit. The kernel gives each row one warp and
 a fixed reduction order that depends on d alone, so a row's output bits
 depend on the row, ``w`` and ``eps`` only. One launch per call.
 
-``rmsnorm_bwd`` is its gradient for training (the task API through
-``kernels.ops``): dx one warp a row in the forward's order (row-invariant
-the same way) and, when the weight needs it, dw summed over the rows in a
-fixed order (no atomics).
+``rmsnorm_bwd`` is its gradient for training (through ``kernels.ops``):
+one launch that reads x and dy once, dx one warp a row in the forward's
+order (row-invariant the same way) and, when the weight needs it, dw's
+partial rows summed in a fixed order by a second, small launch (no
+atomics). Its plan (``_bwd_plan``) is a function of the shapes alone.
 """
 from __future__ import annotations
 
@@ -20,6 +21,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+
+_BWD_WARPS = 8              # backward: rows (warps) a CTA holds at once
+_BWD_SMS = 132              # the H100 SXM's SMs
+_BWD_CTAS_PER_SM = 2        # backward: CTAs a wave gives each SM
+_BWD_SMEM = 160 << 10       # backward: most shared memory a CTA takes
 
 
 def _lib():
@@ -30,8 +36,9 @@ def _lib():
             + [ctypes.c_int64, ctypes.c_float, ctypes.c_void_p])
         lib.rmsnorm_launch.restype = ctypes.c_int
         lib.rmsnorm_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-            + [ctypes.c_int64] * 2 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+            + [ctypes.c_int64] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
         lib.rmsnorm_bwd_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -45,6 +52,23 @@ def _row_view(t, d):
     if t2.stride(1) != 1 or t2.data_ptr() % 16 or t2.stride(0) % 8:
         return None
     return t2
+
+
+def _bwd_plan(rows: int, d: int) -> tuple[int, int, int]:
+    """(warps a CTA, rows a warp, CTAs) of ``rmsnorm_bwd`` for ``rows`` x
+    ``d``, from the shapes and constants alone (never the data or the
+    card): ``_BWD_WARPS`` warps, halved while w and a dw slice a warp
+    would pass ``_BWD_SMEM`` of shared memory; enough rows a warp that the
+    CTAs fit one wave of ``_BWD_CTAS_PER_SM`` a CTA an SM (on the card
+    fewer warps a CTA, or more CTAs, were slower: PERF.md). CTA b's warp v
+    takes rows b * warps * T + t * warps + v, t < T. dw's summation order
+    follows the plan, so its bits depend on (rows, d) and the data
+    only."""
+    warps = _BWD_WARPS
+    while warps > 1 and 4 * d * (1 + warps) > _BWD_SMEM:
+        warps //= 2
+    per_warp = max(1, -(-rows // (warps * _BWD_SMS * _BWD_CTAS_PER_SM)))
+    return warps, per_warp, -(-rows // (warps * per_warp))
 
 
 def rmsnorm(w, x, eps: float = 1e-5):
@@ -75,11 +99,11 @@ def rmsnorm(w, x, eps: float = 1e-5):
 
 
 def rmsnorm_bwd(w, x, dy, eps: float = 1e-5, need_dw: bool = True):
-    """Launch the gradient kernels of ``rmsnorm`` for x (..., d) bf16 CUDA,
+    """Launch the gradient kernel of ``rmsnorm`` for x (..., d) bf16 CUDA,
     w (d,) f32 and the output's gradient ``dy`` (x's shape and dtype; made
     contiguous where its rows break the 16-byte rule). Returns (dx, dw): dx
     in x's shape and dtype, computed in f32; dw (d,) f32, or None without
-    ``need_dw``. Two calls give the same bits."""
+    ``need_dw`` (then one launch). Two calls give the same bits."""
     if x.device.type != "cuda" or w.device != x.device or \
             dy.device != x.device:
         raise ValueError("rmsnorm_bwd kernel takes CUDA tensors on one "
@@ -89,11 +113,12 @@ def rmsnorm_bwd(w, x, dy, eps: float = 1e-5, need_dw: bool = True):
         raise TypeError(f"rmsnorm_bwd kernel takes bf16 x and dy and f32 w, "
                         f"got {x.dtype}, {dy.dtype}, {w.dtype}")
     d = x.shape[-1]
-    if w.shape != (d,) or not w.is_contiguous() or d % 8 or \
-            dy.shape != x.shape:
-        raise ValueError(f"rmsnorm_bwd: w must be contiguous ({d},), d a "
-                         f"multiple of 8 and dy x's shape; got w "
-                         f"{tuple(w.shape)}, dy {tuple(dy.shape)}")
+    if w.shape != (d,) or not w.is_contiguous() or w.data_ptr() % 16 or \
+            d % 8 or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: w must be contiguous ({d},) and "
+                         f"16-byte aligned, d a multiple of 8 and dy x's "
+                         f"shape; got w {tuple(w.shape)}, dy "
+                         f"{tuple(dy.shape)}")
     x2 = _row_view(x, d)
     if x2 is None:
         raise ValueError("rmsnorm_bwd: x's rows must have a unit element "
@@ -102,20 +127,19 @@ def rmsnorm_bwd(w, x, dy, eps: float = 1e-5, need_dw: bool = True):
     if dy2 is None:
         dy2 = dy.contiguous().view(-1, d)
     rows = x2.shape[0]
+    warps, per_warp, ctas = _bwd_plan(rows, d)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    dw = rstd = part = None
+    dw = part = None
     if need_dw:
         dw = torch.empty((d,), dtype=torch.float32, device=x.device)
-        scratch = torch.empty((rows + -(-rows // 64) * d,),
-                              dtype=torch.float32, device=x.device)
-        rstd, part = scratch[:rows], scratch[rows:]
+        part = torch.empty((ctas, d), dtype=torch.float32, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     err = _lib().rmsnorm_bwd_launch(
         x2.data_ptr(), dy2.data_ptr(), w.data_ptr(), dx.data_ptr(), ptr(dw),
-        ptr(rstd), ptr(part), rows, d, x2.stride(0), dy2.stride(0),
-        float(eps), build.current_stream(x.device.index or 0))
+        ptr(part), rows, d, x2.stride(0), dy2.stride(0), float(eps), warps,
+        per_warp, build.current_stream(x.device.index or 0))
     build.LAUNCHES["rmsnorm_bwd"] += 1
     build.check(err, "rmsnorm_bwd")
     return dx, dw

@@ -183,22 +183,26 @@ def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
 
 # ---------------- apply ----------------
 
-def _ffn_apply(p, x, cfg: ModelConfig, lay: SubLayer, seq_lens=None):
+def _ffn_apply(p, x, cfg: ModelConfig, lay: SubLayer, seq_lens=None,
+               aux=None):
     """The feed-forward after a mixer: dense, or MoE with the pads of a
     right-padded prefill (``seq_lens``) kept out of routing. The MoE aux
-    loss is dropped, as on the JAX package's serving path."""
+    loss is appended to ``aux`` where a list is given (training, the JAX
+    package's ``loss_fn``), else dropped, as on the serving path."""
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if lay.has_moe:
         valid = None if seq_lens is None else \
             torch.arange(x.shape[1], device=x.device)[None] < seq_lens[:, None]
-        out, _ = moe_ffn(p["ffn"], h, k=cfg.experts_per_token,
+        out, a = moe_ffn(p["ffn"], h, k=cfg.experts_per_token,
                          dispatch=cfg.moe_dispatch, valid=valid)
+        if aux is not None:
+            aux.append(a)
         return x + out
     return x + mlp(p["ffn"], h)
 
 
 def _recurrent_apply(p, x, h, cfg: ModelConfig, lay: SubLayer, mode: str,
-                     cache, seq_lens):
+                     cache, seq_lens, aux=None):
     """A Mamba, mLSTM or sLSTM sublayer. Outside decode the scan starts
     from its initial state (zeros; the xLSTM stabilizer ``m`` at -1e30),
     never from the pool's zeroed cache, and a given cache receives the
@@ -225,7 +229,7 @@ def _recurrent_apply(p, x, h, cfg: ModelConfig, lay: SubLayer, mode: str,
             cache[k].copy_(v)
     x = x + out
     if lay.has_ffn:
-        x = _ffn_apply(p, x, cfg, lay, seq_lens=lens)
+        x = _ffn_apply(p, x, cfg, lay, seq_lens=lens, aux=aux)
     return x
 
 
@@ -261,7 +265,7 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
                    cache=None, pos=None, pos3=None, causal=True, enc_out=None,
                    cross_len=None, lora=None, adapter_idx=None,
                    lora_impl: str = "gather", lora_seg=None, seq_lens=None,
-                   prefix=None, prefix_len=None):
+                   prefix=None, prefix_len=None, aux=None):
     """Apply one sublayer. mode: 'full' (pooled forward / prefill),
     'decode' or 'verify' (the speculative window: T positions at rope
     positions ``len + arange(T)`` through the paged pool,
@@ -287,10 +291,12 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
     A recurrent sublayer (Mamba, mLSTM, sLSTM; 'full' and 'decode' only)
     updates its fixed-size state in the cache (``_recurrent_apply``). A MoE
     feed-forward routes the pads of a 'full' prefill out (``seq_lens``);
-    after a decode or verify step it takes no validity mask."""
+    after a decode or verify step it takes no validity mask. ``aux``, a
+    list (training only), receives the MoE aux loss of its feed-forward."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if lay.kind != ATTN:
-        return _recurrent_apply(p, x, h, cfg, lay, mode, cache, seq_lens)
+        return _recurrent_apply(p, x, h, cfg, lay, mode, cache, seq_lens,
+                                aux)
     if mode == "decode":
         if pos is None:
             pos = cache["len"][:, None]                   # rope position
@@ -335,5 +341,5 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
             x = x + attn.cross_attention(p["cross"], hx, (ck, cv), cfg)
     if lay.has_ffn:
         x = _ffn_apply(p, x, cfg, lay,
-                       seq_lens=seq_lens if mode == "full" else None)
+                       seq_lens=seq_lens if mode == "full" else None, aux=aux)
     return x

@@ -33,6 +33,9 @@ def tree_map(fn, tree, *rest):
     containers pass through), zipping same-structured ``rest`` trees."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):             # a NamedTuple (AdamWState)
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
@@ -48,13 +51,17 @@ def tree_leaves(tree) -> list:
 
 
 def tree_paths(tree, prefix=()):
-    """(path, leaf) pairs of a tree of dicts and lists, the path its dict
-    keys and list indices joined by ``/`` and dict keys visited sorted: the
-    keys and order of the JAX package's ``tree_flatten_with_path`` over the
-    same tree. None and empty containers have no leaves."""
+    """(path, leaf) pairs of a tree of dicts, lists and NamedTuples, the
+    path its dict keys, list indices and ``.``-prefixed field names joined
+    by ``/`` and dict keys visited sorted: the keys and order of the JAX
+    package's ``tree_flatten_with_path`` over the same tree (so a JAX
+    trainer's ``opt/.step``). None and empty containers have no leaves."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_paths(tree[k], prefix + (str(k),))
+    elif hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from tree_paths(v, prefix + (f".{k}",))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from tree_paths(v, prefix + (str(i),))

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import blocks as blk
@@ -104,14 +105,19 @@ def cast_params(params: dict) -> dict:
 
 
 def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
-               device="cuda") -> dict:
+               device="cuda", masters: bool = False) -> dict:
     """Random weights from ``gen``: f32 draws in the spec's leaf order, each
     leaf cast to its use-site dtype (``use_dtype``) as it is drawn, so
     the peak is the served weights plus one f32 leaf (a minitron-8b drawn
-    whole in f32 would hold 40 GB before the cast)."""
+    whole in f32 would hold 40 GB before the cast). With ``masters`` every
+    leaf keeps its f32 draw: the trainer's master weights (the JAX
+    package's ``init_model`` tree, which its trainer trains); the forward
+    casts each at its use site, so gradients reach the f32 leaves."""
+    def dt(part, leaf):
+        return None if masters else use_dtype(part, leaf)
+
     def layers(subs):
-        return [{k: {n: init_params(gen, s, device=device,
-                                    dtype=use_dtype(k, n))
+        return [{k: {n: init_params(gen, s, device=device, dtype=dt(k, n))
                      for n, s in v.items()} if isinstance(v, dict)
                  else init_params(gen, v, device=device)
                  for k, v in sub.items()} for sub in subs]
@@ -126,7 +132,7 @@ def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
         else:
             out[name] = init_params(gen, sub, device=device,
                                     dtype=ACT_DTYPE if name == "embed"
-                                    else None)
+                                    and not masters else None)
     return out
 
 
@@ -173,17 +179,22 @@ def _at(tree, i):
 def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
                    pos3=None, enc_out=None, lora=None, adapter_idx=None,
                    lora_impl="gather", lora_seg=None, seq_lens=None,
-                   prefix=None, prefix_len=None):
+                   prefix=None, prefix_len=None, remat=False, aux=None):
     """Loop over periods and their sublayers (the JAX package scans). A
     decode step over cross-attention sublayers builds the (B,) frame-count
-    vector once, on the device, for every layer."""
+    vector once, on the device, for every layer. Training only: ``aux``, a
+    list, receives each period's MoE aux loss (summed over its
+    sublayers), and ``remat`` recomputes each period's activations in the
+    backward (``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` of the
+    scanned period)."""
     nper = layers_p[0]["ln1"].shape[0]
     cross_len = None
     if mode == "decode" and any(lay.has_cross for lay in layout):
         ck = next(c["ck"] for c, lay in zip(cache, layout) if lay.has_cross)
         cross_len = torch.full((ck.shape[1],), ck.shape[2],
                                dtype=torch.int32, device=ck.device)
-    for i in range(nper):
+
+    def period(i, x, period_aux):
         for j, lay in enumerate(layout):
             x = blk.sublayer_apply(
                 _at(layers_p[j], i), x, cfg, lay, mode=mode,
@@ -193,25 +204,45 @@ def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
                 adapter_idx=adapter_idx, lora_impl=lora_impl,
                 lora_seg=lora_seg, seq_lens=seq_lens,
                 prefix=_at(prefix[j], i) if prefix is not None and prefix[j]
-                else None, prefix_len=prefix_len)
+                else None, prefix_len=prefix_len, aux=period_aux)
+        return x
+
+    def with_aux(i, x):
+        got = []
+        x = period(i, x, got)
+        return x, (torch.stack(got).sum() if got else
+                   torch.zeros((), device=x.device))
+
+    for i in range(nper):
+        if remat:
+            x, a = checkpoint(with_aux, i, x, use_reentrant=False)
+        elif aux is not None:
+            x, a = with_aux(i, x)
+        else:
+            x = period(i, x, None)
+            continue
+        if aux is not None:
+            aux.append(a)
     return x
 
 
-def encode(params, cfg: ModelConfig, enc_embeds):
+def encode(params, cfg: ModelConfig, enc_embeds, remat: bool = False):
     """The encoder of an encoder-decoder stack: bidirectional attention
     sublayers over the stub frontend's frames (B, S_enc, d), RoPE at
     positions 0..S_enc-1, no LoRA, then the encoder's final norm."""
     e = enc_embeds.to(ACT_DTYPE)
     e_pos = torch.arange(e.shape[1], device=e.device)[None]
     e = _stack_forward(params["encoder"]["layers"], _encoder_layout(cfg), e,
-                       cfg, mode="full", cache=None, pos=e_pos, causal=False)
+                       cfg, mode="full", cache=None, pos=e_pos, causal=False,
+                       remat=remat)
     return rmsnorm(params["encoder"]["final_norm"], e, cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
             mode: str = "full", pos=None, pos3=None, enc_embeds=None,
             lora=None, adapter_idx=None, lora_impl: str = "gather",
-            lora_seg=None, seq_lens=None, prefix=None, prefix_len=None):
+            lora_seg=None, seq_lens=None, prefix=None, prefix_len=None,
+            remat: bool = False, aux=None):
     """Backbone forward. Returns (hidden (B, S, d), cache). Inputs are
     ``tokens`` (B, S) int or ``embeds`` (B, S, d); an encoder-decoder stack
     also takes ``enc_embeds`` (B, S_enc, d) outside decode (a decode step
@@ -228,13 +259,19 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
     prefix K/V (leading ``num_periods`` axis, like ``cache``; None for a
     sublayer without attention) that every attention sublayer attends to in
     front of its own keys. Pass absolute ``pos`` (``prefix_len +
-    arange(S)``) so RoPE matches."""
+    arange(S)``) so RoPE matches.
+
+    Training (``loss_fn``): ``remat`` recomputes each period in the
+    backward (the encoder's too); ``aux``, a list, receives the MoE aux
+    loss of each period (serving passes neither, so its executables and
+    outputs are as without them)."""
     enc_out = None
     if cfg.is_encoder_decoder and mode != "decode":
         if enc_embeds is None:
             raise ValueError(f"{cfg.name} is encoder-decoder: forward needs "
                              f"enc_embeds")
-        enc_out = encode(params, cfg, enc_embeds)
+        enc_out = (encode(params, cfg, enc_embeds, remat=True) if remat
+                   else encode(params, cfg, enc_embeds))
     if embeds is None:
         x = embed(params["embed"].to(ACT_DTYPE), tokens)
     else:
@@ -248,8 +285,78 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
                        lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg,
                        seq_lens=seq_lens, prefix=prefix,
-                       prefix_len=prefix_len)
+                       prefix_len=prefix_len, remat=remat, aux=aux)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), cache
+
+
+# ---------------- losses ----------------
+
+def chunked_ce_loss(head_w, x, labels, weights, chunk: int = 512,
+                    true_vocab: Optional[int] = None):
+    """Cross-entropy of the vocabulary head over sequence chunks (the JAX
+    package's ``chunked_ce_loss``): x (B, S, d), labels and weights (B, S);
+    the chunk is ``min(S, chunk)`` lowered until it divides S. Logits are
+    f32 (x and ``head_w`` taken to f32; a product that must not run in
+    TF32 on the card); vocabulary entries at and past ``true_vocab`` get
+    -1e30. Each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``), so no (B, S, V) logits stay alive.
+    Returns the weighted sum over max(sum(weights), 1)."""
+    B, S, d = x.shape
+    V = head_w.shape[-1]
+    c = min(S, chunk)
+    while S % c:
+        c -= 1
+    pad = None
+    if true_vocab is not None and true_vocab < V:
+        pad = torch.where(torch.arange(V, device=x.device) < true_vocab,
+                          0.0, -1e30)
+
+    def step(xc, lc, wc):
+        logits = xc.float() @ head_w.float()
+        if pad is not None:
+            logits = logits + pad
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * wc)
+
+    tot = torch.zeros((), device=x.device)
+    for i in range(0, S, c):
+        tot = tot + checkpoint(step, x[:, i:i + c], labels[:, i:i + c],
+                               weights[:, i:i + c], use_reentrant=False)
+    return tot / torch.clamp(torch.sum(weights), min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
+            aux_weight: float = 0.01):
+    """The training loss of the JAX package's ``loss_fn``: (loss, metrics).
+    ``batch``: ``tokens`` | ``embeds`` (+ ``labels``), ``enc_embeds``,
+    ``pos3``, as tensors on the params' device. A representation config
+    (moment) reconstructs its input embeddings (MSE of ``x @ head``,
+    MOMENT-style); with ``labels`` each position predicts its label;
+    otherwise the next token, the last position weighted 0. The MoE aux
+    loss, summed over the layers, adds ``aux_weight`` times itself."""
+    tokens, embeds = batch.get("tokens"), batch.get("embeds")
+    auxs = []
+    x, _ = forward(params, cfg, tokens=tokens, embeds=embeds,
+                   enc_embeds=batch.get("enc_embeds"), pos3=batch.get("pos3"),
+                   remat=remat, aux=auxs)
+    aux = torch.stack(auxs).sum() if auxs else torch.zeros((),
+                                                           device=x.device)
+    if cfg.is_representation:
+        recon = x @ params["head"].to(x.dtype)
+        loss = torch.mean((recon.float() - embeds.float()) ** 2)
+        return loss, {"loss": loss, "aux": aux}
+    if "labels" in batch:
+        labels = batch["labels"]
+        weights = torch.ones(labels.shape, device=x.device)
+    else:
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        weights = torch.ones(tokens.shape, device=x.device)
+        weights[:, -1] = 0.0
+    ce = chunked_ce_loss(params["head"], x, labels, weights,
+                         true_vocab=cfg.true_vocab)
+    loss = ce + aux_weight * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 # ---------------- serving steps ----------------

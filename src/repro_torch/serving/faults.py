@@ -46,11 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache_manager import dense_state_keys
+from repro_torch.distributed.fault import InjectedFailure
 from repro_torch.models.common import tree_map
-
-
-class InjectedFailure(RuntimeError):
-    """Raised by an injected fault to simulate a crash."""
 
 
 class Fault:

@@ -25,12 +25,15 @@ def to_torch(tree, device="cuda"):
     return list(out) if isinstance(out, tuple) else out
 
 
-def model_params(tree, device="cuda") -> dict:
+def model_params(tree, device="cuda", masters: bool = False) -> dict:
     """A JAX ``lm.init_model`` tree (numpy leaves) as the port's serving
     params: f32 leaves, then each cast to its use-site dtype
     (``lm.use_dtype``: the matrices bf16; the norms, the head, the MoE
-    router and the recurrences' gate and decay leaves f32)."""
-    return cast_params(to_torch(tree, device=device))
+    router and the recurrences' gate and decay leaves f32). With
+    ``masters`` the f32 leaves as they are: the trainer's master weights
+    (``launch.train``), which the forward casts at each use site."""
+    out = to_torch(tree, device=device)
+    return out if masters else cast_params(out)
 
 
 def adapter_tree(tree, device="cuda") -> list:

@@ -1,7 +1,8 @@
 // Host stand-in for the parts of the CUDA runtime and device library that
 // the kernels in src/repro_torch/csrc/ (int8_decode.cuh, rmsnorm.cu) use, so
 // that g++ can compile their bodies for the CPU
-// (tests/test_torch_int8_decode_host.py, tests/test_torch_rmsnorm.py). A
+// (tests/test_torch_int8_decode_host.py, tests/test_torch_rmsnorm.py,
+// tests/test_torch_autograd.py). A
 // grid runs one CTA at a time; each CUDA thread is a std::thread;
 // __syncthreads is a barrier of the CTA and __shfl_xor_sync an exchange
 // through a per-warp slot array between two barriers of the warp, so every
@@ -34,6 +35,7 @@ typedef int cudaError_t;
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim;
 
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
@@ -45,6 +47,7 @@ inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); retu
 inline float __int_as_float(int u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   const uint64_t v = (uint64_t(y) << 32) | x;
   unsigned r = 0;
@@ -61,6 +64,9 @@ struct HostGrid {
 inline HostGrid host_grid;
 
 inline void __syncthreads() { host_grid.cta->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  host_grid.warps[threadIdx.x / 32]->arrive_and_wait();
+}
 
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int t = threadIdx.x, w = t / 32, l = t % 32;
@@ -83,6 +89,7 @@ inline void host_launch(int gx, int gy, int threads,
   for (int w = 0; w < threads / 32; ++w)
     host_grid.warps.push_back(std::make_unique<std::barrier<>>(32));
   host_grid.slots.assign(threads, 0.f);
+  blockDim.x = threads;
   std::vector<std::thread> ts;
   for (int t = 0; t < threads; ++t)
     ts.emplace_back([&, t] {

@@ -8,10 +8,14 @@
   8 so the online softmax crosses tiles) and ``models.layers.rmsnorm`` (dx
   and dw). This is the function the card's backward kernels are held to in
   ``chip_smoke.py``.
-* The rmsnorm backward kernel's body (``csrc/rmsnorm.cu``: dx one warp a
-  row, dw in two fixed-order passes) compiled by g++ against the stand-in
-  headers of ``tests/cuda_host/`` and held to the plain version's autograd;
-  each row's dx bits the same alone and among other rows.
+* The rmsnorm backward kernel's body (``csrc/rmsnorm.cu``: one launch, dx
+  one warp a row, dw's partial rows summed in a fixed order by a second
+  launch) compiled by g++ against the stand-in headers of
+  ``tests/cuda_host/`` and held to the plain version's autograd; each
+  row's dx bits the same alone and among other rows; dx bit for bit the
+  first backward kernel's, dw bit for bit a numpy re-statement of
+  its order; the plan (``kernels/rmsnorm.py::_bwd_plan``) a function of
+  the shapes that takes every row once.
 * The prefill attention backward's plan (``flash_attention._bwd_plan``):
   a function of the shapes alone; moment-large's training shape takes the
   one fused launch; the split passes' walks, emulated as the kernels cut
@@ -169,27 +173,93 @@ def test_rmsnorm_grad_matches_jax(d, dtype):
 
 _GLUE = r"""
 #include "rmsnorm.cu"
+namespace rmsnorm {
+
+// The first backward kernel's dx, as it was, one warp a CTA: the
+// order the redesigned kernel keeps.
+__global__ void old_bwd_dx(const __nv_bfloat16* x, const __nv_bfloat16* dy,
+                           const float* w, __nv_bfloat16* dx, int rows,
+                           int d, int64_t sx, int64_t sdy, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x;
+  if (row >= rows) return;
+  const __nv_bfloat16* xr = x + row * sx;
+  const __nv_bfloat16* gr = dy + row * sdy;
+  __nv_bfloat16* orow = dx + static_cast<int64_t>(row) * d;
+  const int chunks = d / kChunk;
+  float ss = 0.f, sg = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+    float v[kChunk], g[kChunk];
+    load_chunk(xr, c, v);
+    load_chunk(gr, c, g);
+    for (int i = 0; i < kChunk; ++i) {
+      ss = fmaf(v[i], v[i], ss);
+      sg = fmaf(v[i], w[c * kChunk + i] * g[i], sg);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    sg += __shfl_xor_sync(0xffffffffu, sg, o);
+  }
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  const float k = (sg / static_cast<float>(d)) * (r * r * r);
+  for (int c = lane; c < chunks; c += 32) {
+    float v[kChunk], g[kChunk];
+    load_chunk(xr, c, v);
+    load_chunk(gr, c, g);
+    uint32_t u[4];
+    for (int i = 0; i < 4; ++i) {
+      const int e = c * kChunk + 2 * i;
+      u[i] = pack2(r * (w[e] * g[2 * i]) - v[2 * i] * k,
+                   r * (w[e + 1] * g[2 * i + 1]) - v[2 * i + 1] * k);
+    }
+    uint4 t;
+    t.x = u[0]; t.y = u[1]; t.z = u[2]; t.w = u[3];
+    *reinterpret_cast<uint4*>(orow + c * kChunk) = t;
+  }
+}
+}  // namespace rmsnorm
 using namespace rmsnorm;
 
+// The launcher's two launches on the CPU under the plan (warps a CTA, rows
+// a warp), through the instance the launcher picks for d or, with
+// `generic`, the runtime loop (CPL 0); dw null: dx alone.
 extern "C" int host_rmsnorm_bwd(const void* x, const void* dy, const void* w,
-                                void* dx, void* dw, void* rstd, void* part,
-                                int rows, int d, long sx, long sdy,
-                                float eps) {
-  host_launch((rows + kRows - 1) / kRows, kThreads, [&] {
-    rmsnorm_bwd_kernel((const __nv_bfloat16*)x, (const __nv_bfloat16*)dy,
-                       (const float*)w, (__nv_bfloat16*)dx,
-                       dw ? (float*)rstd : nullptr, rows, d, sx, sdy, eps);
-  });
+                                void* dx, void* dw, void* part, int rows,
+                                int d, long sx, long sdy, float eps,
+                                int warps, int per_warp, int generic) {
+  const int ctas = (rows + warps * per_warp - 1) / (warps * per_warp);
+  auto run = [&](auto cpl) {
+    constexpr int C = decltype(cpl)::value <= 16 ? decltype(cpl)::value : 0;
+    host_launch(ctas, 32 * warps, [&] {
+      if (dw != nullptr)
+        rmsnorm_bwd_kernel<C, true>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy,
+            (const float*)w, (__nv_bfloat16*)dx, (float*)part, rows, d, sx,
+            sdy, eps, per_warp);
+      else
+        rmsnorm_bwd_kernel<C, false>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy,
+            (const float*)w, (__nv_bfloat16*)dx, nullptr, rows, d, sx, sdy,
+            eps, per_warp);
+    });
+  };
+  if (generic) run(std::integral_constant<int, 0>{});
+  else with_chunks_per_lane(d, run);
   if (dw == nullptr) return 0;
-  const int chunks = (rows + kDwRows - 1) / kDwRows;
-  const int cols = (d + kDwThreads - 1) / kDwThreads;
-  host_launch(cols, chunks, kDwThreads, [&] {
-    rmsnorm_bwd_dw_partial((const __nv_bfloat16*)x, (const __nv_bfloat16*)dy,
-                           (const float*)rstd, (float*)part, rows, d, sx,
-                           sdy);
+  host_launch((d / 4 + kSumPieces - 1) / kSumPieces, kSumPieces * kSumGroups,
+              [&] {
+    rmsnorm_bwd_dw_sum((const float4*)part, (float*)dw, ctas, d);
   });
-  host_launch(cols, kDwThreads, [&] {
-    rmsnorm_bwd_dw_sum((const float*)part, (float*)dw, chunks, d);
+  return 0;
+}
+
+extern "C" int host_old_bwd_dx(const void* x, const void* dy, const void* w,
+                               void* dx, int rows, int d, long sx, long sdy,
+                               float eps) {
+  host_launch(rows, 32, [&] {
+    old_bwd_dx((const __nv_bfloat16*)x, (const __nv_bfloat16*)dy,
+               (const float*)w, (__nv_bfloat16*)dx, rows, d, sx, sdy, eps);
   });
   return 0;
 }
@@ -212,33 +282,45 @@ def host_lib(tmp_path_factory):
         pytest.skip("g++ without C++20 <barrier>")
     assert done.returncode == 0, done.stderr
     lib = ctypes.CDLL(str(so))
-    lib.host_rmsnorm_bwd.argtypes = [ctypes.c_void_p] * 7 + \
+    lib.host_rmsnorm_bwd.argtypes = [ctypes.c_void_p] * 6 + \
+        [ctypes.c_int] * 2 + [ctypes.c_long] * 2 + [ctypes.c_float] + \
+        [ctypes.c_int] * 3
+    lib.host_old_bwd_dx.argtypes = [ctypes.c_void_p] * 4 + \
         [ctypes.c_int] * 2 + [ctypes.c_long] * 2 + [ctypes.c_float]
     return lib
 
 
-def _host_bwd(lib, w, x, dy, need_dw=True):
+def _host_bwd(lib, w, x, dy, need_dw=True, plan=None, generic=False):
+    """The kernel body's dx and dw on rows ``x`` / ``dy`` (read through
+    their strides) under ``plan`` ((warps, rows a warp); default: the
+    wrapper's ``_bwd_plan``)."""
     rows, d = x.shape
+    warps, per_warp = plan or rms._bwd_plan(rows, d)[:2]
+    ctas = -(-rows // (warps * per_warp))
     dx = torch.empty_like(x)
     dw = torch.empty(d) if need_dw else None
-    rstd = torch.empty(rows)
-    part = torch.empty(-(-rows // 64) * d)
+    part = torch.empty(ctas * d)
     assert lib.host_rmsnorm_bwd(
         x.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        None if dw is None else dw.data_ptr(), rstd.data_ptr(),
-        part.data_ptr(), rows, d, x.stride(0), dy.stride(0), EPS) == 0
+        None if dw is None else dw.data_ptr(), part.data_ptr(), rows, d,
+        x.stride(0), dy.stride(0), EPS, warps, per_warp, int(generic)) == 0
     return dx, dw
+
+
+def _bf16_inputs(d, rows, seed):
+    x, w, dy = _norm_inputs(d, rows, seed=seed)
+    return (torch.tensor(x).to(torch.bfloat16), torch.tensor(w),
+            torch.tensor(dy).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("d,rows", [(64, 5), (1024, 70)])
 def test_rmsnorm_bwd_kernel_body_matches_plain(host_lib, d, rows):
     """dx and dw of the kernel body against the plain version's autograd
-    on the same bf16 x and dy (two dw chunks at 70 rows)."""
-    x, w, dy = _norm_inputs(d, rows, seed=3)
-    tx = torch.tensor(x).to(torch.bfloat16)
-    tdy = torch.tensor(dy).to(torch.bfloat16)
-    tw = torch.tensor(w)
-    dx, dw = _host_bwd(host_lib, tw, tx, tdy)
+    on the same bf16 x and dy (at 70 rows under a plan of 2 warps and 3
+    rows a warp: 12 partial rows, over two dw_sum warps)."""
+    tx, tw, tdy = _bf16_inputs(d, rows, seed=3)
+    dx, dw = _host_bwd(host_lib, tw, tx, tdy,
+                       plan=(2, 3) if rows > 8 else None)
     xr, wr = tx.clone().requires_grad_(True), tw.clone().requires_grad_(True)
     ref.rmsnorm(wr, xr, EPS).backward(tdy)
     g, want = dx.float(), xr.grad.float()
@@ -248,14 +330,11 @@ def test_rmsnorm_bwd_kernel_body_matches_plain(host_lib, d, rows):
 
 
 def test_rmsnorm_bwd_kernel_body_is_row_invariant(host_lib):
-    """Five rows' dx alone, at other indices among 70 rows, and read
-    through strided views of x and dy: the same bits; and with or without
-    dw."""
+    """Five rows' dx alone, at other indices among 70 rows (under two
+    plans), and read through strided views of x and dy: the same bits; and
+    with or without dw."""
     d = 128
-    x, w, dy = _norm_inputs(d, 75, seed=4)
-    tx = torch.tensor(x).to(torch.bfloat16)
-    tdy = torch.tensor(dy).to(torch.bfloat16)
-    tw = torch.tensor(w)
+    tx, tw, tdy = _bf16_inputs(d, 75, seed=4)
     rows, grads = tx[:5].clone(), tdy[:5].clone()
     want, _ = _host_bwd(host_lib, tw, rows, grads)
     for i in range(5):
@@ -264,12 +343,159 @@ def test_rmsnorm_bwd_kernel_body_is_row_invariant(host_lib):
         assert torch.equal(got, want[i:i + 1])
     bx, bg = tx[5:].clone(), tdy[5:].clone()
     bx[41:46], bg[41:46] = rows, grads
-    assert torch.equal(_host_bwd(host_lib, tw, bx, bg)[0][41:46], want)
+    for plan in (None, (4, 3)):
+        assert torch.equal(
+            _host_bwd(host_lib, tw, bx, bg, plan=plan)[0][41:46], want)
     wide_x = torch.zeros((5, 2 * d), dtype=tx.dtype)
     wide_g = torch.zeros((5, 3 * d), dtype=tx.dtype)
     wide_x[:, d:], wide_g[:, 2 * d:] = rows, grads
     assert torch.equal(
         _host_bwd(host_lib, tw, wide_x[:, d:], wide_g[:, 2 * d:])[0], want)
+
+
+# every width the kernel has an instance for, and the generic loop's
+BWD_WIDTHS = (64, 512, 768, 1024, 2048, 2560, 3584, 4096, 6144, 8192)
+
+
+@pytest.mark.parametrize("d", BWD_WIDTHS)
+def test_rmsnorm_bwd_dx_keeps_the_first_kernels_bits(host_lib, d):
+    """dx of the redesigned body, through the instance the launcher picks
+    for d and through the generic loop, with dw and without, equals the
+    first backward kernel's (``old_bwd_dx`` above) bit for bit on
+    24 rows of spread magnitudes."""
+    tx, tw, tdy = _bf16_inputs(d, 24, seed=5)
+    old = torch.empty_like(tx)
+    assert host_lib.host_old_bwd_dx(
+        tx.data_ptr(), tdy.data_ptr(), tw.data_ptr(), old.data_ptr(), 24, d,
+        d, d, EPS) == 0
+    for generic in (False, True):
+        for need_dw in (True, False):
+            got, _ = _host_bwd(host_lib, tw, tx, tdy, need_dw=need_dw,
+                               generic=generic)
+            assert torch.equal(got.view(torch.int16),
+                               old.view(torch.int16)), (generic, need_dw)
+
+
+def _pinned_r(x, eps):
+    """r = 1 / sqrt(sum(x^2) / d + eps) per row in the kernel's order
+    (``test_torch_rmsnorm._pinned_order``: lane l's chunks l, l + 32, ...
+    in order, the xor tree), numpy float32."""
+    rows, d = x.shape
+    chunks = x.reshape(rows, d // 8, 8)
+    lanes = np.zeros((rows, 32), np.float32)
+    for lane in range(32):
+        s = np.zeros(rows, np.float32)
+        for c in range(lane, d // 8, 32):
+            for i in range(8):
+                v = chunks[:, c, i]
+                s = s + v * v
+        lanes[:, lane] = s
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ o]
+    return np.float32(1) / np.sqrt(lanes[:, 0] / np.float32(d)
+                                   + np.float32(eps))
+
+
+def _pinned_dw(x, dy, eps, warps, per_warp, groups=32):
+    """dw in the kernel's documented order, numpy float32, one rounding an
+    operation: each element's (x * r) * dy; warp v of CTA b sums its rows
+    (b * warps * T + t * warps + v, t < T) in order from zero; the CTA adds
+    its warps' sums in warp order (a partial row); dw_sum's group u sums
+    block u of ``groups`` equal blocks of partial rows in order from zero,
+    and the groups' sums meet in the pairwise tree (at each level h =
+    groups / 2, ..., 1, group u < h adds group u + h)."""
+    rows, d = x.shape
+    p = (x * _pinned_r(x, eps)[:, None]) * dy
+    ctas = -(-rows // (warps * per_warp))
+    parts = np.zeros((ctas, d), np.float32)
+    for b in range(ctas):
+        acc = np.zeros((warps, d), np.float32)
+        for t in range(per_warp):
+            for v in range(warps):
+                row = b * warps * per_warp + t * warps + v
+                if row < rows:
+                    acc[v] = acc[v] + p[row]
+        s = acc[0]
+        for v in range(1, warps):
+            s = s + acc[v]
+        parts[b] = s
+    per = -(-ctas // groups)
+    red = np.zeros((groups, d), np.float32)
+    for u in range(groups):
+        p0 = min(ctas, u * per)
+        for q in range(p0, min(ctas, p0 + per)):
+            red[u] = red[u] + parts[q]
+    h = groups // 2
+    while h:
+        red[:h] = red[:h] + red[h:2 * h]
+        h //= 2
+    return red[0]
+
+
+@pytest.mark.parametrize("d,rows,plan", [
+    (64, 1, None), (64, 70, (1, 1)), (768, 40, (8, 1)), (1024, 90, (4, 2)),
+    (2048, 33, (8, 4)), (2048, 140, (2, 1)), (8192, 9, (1, 2))])
+def test_rmsnorm_bwd_dw_order_is_pinned(host_lib, d, rows, plan):
+    """dw of the kernel body equals a numpy float32 re-statement of its
+    fixed order (``_pinned_dw``) bit for bit, under the wrapper's plan or
+    a given one (several warps a CTA and rows a warp, a last CTA short of
+    rows, more partial rows than dw_sum's groups), through the instance the
+    launcher picks and the generic loop; and twice the same bits."""
+    tx, tw, tdy = _bf16_inputs(d, rows, seed=6)
+    warps, per_warp = plan or rms._bwd_plan(rows, d)[:2]
+    want = _pinned_dw(tx.float().numpy(), tdy.float().numpy(), EPS, warps,
+                      per_warp)
+    for generic in (False, True):
+        _, dw = _host_bwd(host_lib, tw, tx, tdy, plan=(warps, per_warp),
+                          generic=generic)
+        assert np.array_equal(dw.numpy().view(np.uint32),
+                              want.view(np.uint32)), generic
+    _, again = _host_bwd(host_lib, tw, tx, tdy, plan=(warps, per_warp))
+    assert torch.equal(dw, again)
+
+
+# (rows, d) the rmsnorm backward takes on the training paths and beyond:
+# moment's 1024 x 1024, stablelm's LM step 4096 x 2048, a row, a decode
+# step's rows, the checks' 4176, every instance's width
+RMS_PLAN_SHAPES = [(1024, 1024), (4096, 2048), (1, 64), (8, 2048),
+                   (4176, 4096), (1025, 768), (2112, 512), (1056, 8192),
+                   (70, 6144), (12345, 2560), (3, 3584)]
+
+
+def test_rmsnorm_bwd_plan_is_a_function_of_shapes_alone(monkeypatch):
+    """``rms._bwd_plan`` takes (rows, d) only, asks nothing of the card
+    (every ``torch.cuda`` query raises here), and gives the same plan on
+    every call; its shared memory fits the card's 227 KB a CTA."""
+    assert list(inspect.signature(rms._bwd_plan).parameters) == ["rows", "d"]
+
+    def refuse(*a, **k):
+        raise AssertionError("the plan asked the card")
+    for name in ("get_device_properties", "current_device", "device_count"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    for rows, d in RMS_PLAN_SHAPES:
+        warps, per_warp, ctas = rms._bwd_plan(rows, d)
+        assert (warps, per_warp, ctas) == rms._bwd_plan(rows, d)
+        assert 1 <= warps <= 8 and per_warp >= 1
+        assert 4 * d * (1 + warps) <= 227 * 1024
+        assert ctas <= rms._BWD_SMS * rms._BWD_CTAS_PER_SM
+
+
+@pytest.mark.parametrize("rows,d", RMS_PLAN_SHAPES)
+def test_rmsnorm_bwd_plan_covers_every_row_once(rows, d):
+    """The rows the plan's CTAs and warps take (CTA b, warp v, t < T:
+    b * warps * T + t * warps + v, skipping those past the last row) are
+    every row exactly once; the partial rows dw_sum's groups take are
+    every CTA's exactly once."""
+    warps, per_warp, ctas = rms._bwd_plan(rows, d)
+    b, t, v = np.meshgrid(np.arange(ctas), np.arange(per_warp),
+                          np.arange(warps), indexing="ij")
+    got = (b * warps * per_warp + t * warps + v).ravel()
+    got = got[got < rows]
+    assert np.array_equal(np.sort(got), np.arange(rows))
+    per = -(-ctas // 32)
+    blocks = [range(min(ctas, u * per), min(ctas, min(ctas, u * per) + per))
+              for u in range(32)]
+    assert sorted(q for blk in blocks for q in blk) == list(range(ctas))
 
 
 # ---------------- the backward's plan ----------------

@@ -3,11 +3,14 @@ twin where the two compute the same thing: ``examples/cluster_sim_torch.py``
 (host work only) gives the placement, surge and recovery of
 ``examples/cluster_sim.py``; ``examples/quickstart_torch.py`` fine-tunes
 reduced moment-large with ``--device cpu --reduced`` (its loss must fall)
-and packages the task."""
+and packages the task; ``examples/train_e2e_torch.py`` trains reduced
+xlstm-125m through ``repro_torch.launch.train`` with ``--device cpu``
+(the failure fires, the run restores and finishes, the loss falls)."""
 import importlib.util
 import itertools
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -41,3 +44,13 @@ def test_quickstart_torch_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert len(losses) == 30 and min(losses[-10:]) < losses[0]
     assert "artifact:" in out and "'task_id': 'heart_rate'" in out
+
+
+def test_train_e2e_torch_on_the_cpu(capsys):
+    losses, inj = _load("train_e2e_torch").main(
+        ["--device", "cpu", "--steps", "30", "--fail-at", "12", "--batch",
+         "4", "--seq", "32"])
+    out = capsys.readouterr().out
+    assert inj.fired and len(losses) >= 30
+    assert np.mean(losses[-5:]) < losses[0]
+    assert "restored step 10" in out and "restarted=True" in out

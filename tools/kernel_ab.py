@@ -16,7 +16,10 @@ kernels shows; then the host time per call of parent and change the
 same way), after checking that both agree. ``flash_attention_bwd`` (in
 ``flash_attention.py``) runs at the five ``chip_smoke.FLASH_BWD_CASES``
 shapes, ``rmsnorm`` at a decode step's 8 rows of every model width and
-at stablelm's verify, prefill and pooled row counts. ``--floor`` also
+at stablelm's verify, prefill and pooled row counts, ``rmsnorm_bwd`` (in
+the ``rmsnorm`` library) at ``chip_smoke.RMSNORM_BWD_TIMED`` and at 1024
+rows of d 512, 768 and 3584 with dw (``max_abs_diff_each``: dx, then dw,
+whose summation order the redesign changed). ``--floor`` also
 builds this tree's int8 decode kernels with ``-DINT8_DECODE_COPY_ONLY``
 (the same loads, no math: the floor of the design at a shape; its output
 is not the function's) and times that build in the same turns through
@@ -85,8 +88,10 @@ def spill_lines(label: str, report: str):
           f"registers (hd 64, G 1: {serving})", flush=True)
 
 
-# kernels whose wrapper lives in another kernel's module
-MODULES = {"flash_attention_bwd": "flash_attention"}
+# kernels whose wrapper lives in another kernel's module, and those whose
+# kernels live in another kernel's library
+MODULES = {"flash_attention_bwd": "flash_attention", "rmsnorm_bwd": "rmsnorm"}
+LIBRARIES = {"rmsnorm_bwd": "rmsnorm"}
 
 
 def _module_from(path: str, label: str):
@@ -104,14 +109,15 @@ def parent_wrapper(parent: str, name: str):
 
     from repro_torch.kernels import build
     pkg = os.path.join(parent, "src", "repro_torch")
-    src = os.path.join(pkg, "csrc", build.SOURCES[name])
+    lib_name = LIBRARIES.get(name, name)
+    src = os.path.join(pkg, "csrc", build.SOURCES[lib_name])
     so = build.BUILD_DIR / f"{name}-parent.so"
     spill_lines(f"{name} parent", nvcc_build(src, so))
     lib = ctypes.CDLL(str(so))
     mod = _module_from(
         os.path.join(pkg, "kernels", f"{MODULES.get(name, name)}.py"),
         f"_parent_{name}")
-    return mod, swapper(name, lib)
+    return mod, swapper(lib_name, lib)
 
 
 # the kernels with a copy-only build, and its define
@@ -219,6 +225,22 @@ def cases(name: str, dev, gen):
             sets = [cs.rmsnorm_inputs(gen, rows, d, dev)[::-1]
                     for _ in range(8)]
             yield shape, sets, lambda mod: mod.rmsnorm
+    elif name == "rmsnorm_bwd":
+        # moment's training rows at its width with dw and without, the LM
+        # step's norms (stablelm, 4096 rows at d 2048) with dw, and the
+        # other widths at 1024 rows with dw; enough sets to pass the L2
+        for shape, rows, d, need_dw in (
+                *((lbl, rows, d, dw) for lbl, rows, d, dw in
+                  cs.RMSNORM_BWD_TIMED),
+                *((f"1024x{d}_dw", 1024, d, True) for d in (512, 768, 3584))):
+            nsets = max(2, -(-64 * 2 ** 20 // (4 * rows * d)))
+            sets = []
+            for _ in range(nsets):
+                x, w = cs.rmsnorm_inputs(gen, rows, d, dev)
+                sets.append((w, x, torch.randn(
+                    (rows, d), generator=gen, device=dev).to(x.dtype)))
+            yield shape, sets, lambda mod, dw=need_dw: (
+                lambda w, x, dy: mod.rmsnorm_bwd(w, x, dy, need_dw=dw))
     elif name == "flash_attention_bwd":
         # the five FLASH_BWD_CASES: q, k, v, the forward's output and
         # log-sum-exp (this tree's forward), the output's gradient; 2 sets
@@ -250,8 +272,9 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
-    build.build_all(args.kernels)
-    for name in args.kernels:
+    libs = sorted({LIBRARIES.get(n, n) for n in args.kernels})
+    build.build_all(libs)
+    for name in libs:
         spill_lines(f"{name} change",
                     (build.BUILD_DIR / f"{name}.log").read_text())
     dev = torch.device("cuda", 0)
@@ -271,9 +294,10 @@ def main() -> int:
             torch.cuda.synchronize()
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
-            diff = max((g.float() - w.float()).abs().max().item()
-                       for g, w in zip(got, want))
-            out = {"kernel": name, "shape": shape, "max_abs_diff": diff}
+            each = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want) if g is not None]
+            out = {"kernel": name, "shape": shape,
+                   "max_abs_diff": max(each), "max_abs_diff_each": each}
             turns = list(fns) + list(reversed(fns))
             for who in turns:
                 by_name = cs.device_kernels(rotating(fns[who], sets))
