@@ -3717,8 +3717,9 @@ def spec_step_timing(dev, fm) -> dict:
 QWEN2, H2O, MINITRON, QWEN2_VL = ("qwen2-7b", "h2o-danube-1.8b", "minitron-8b",
                                   "qwen2-vl-72b")
 H2O_PROMPT, H2O_STEPS = 4160, 32    # a prompt past h2o-danube's 4096 window
-MINITRON_LAYERS = 16                # of minitron-8b's 32: its serving took
-                                    # 42 s, and the run 745-867 s with it
+MINITRON_LAYERS = 8                 # of minitron-8b's 32: its serving took
+                                    # 42 s at 32 and 26.5 s at 16 layers;
+                                    # cut again to make room for phase_mesh
 VLM_LAYERS = 2                      # of qwen2-vl-72b's 80 (see phase_vlm)
 VLM_GRID = 8                        # patches a side: 64 a request
 
@@ -5803,6 +5804,339 @@ def phase_lm_training(dev):
     return phases, stats
 
 
+MESH_LAYERS, MESH_STEPS, MESH_B, MESH_S = 4, 4, 8, 512
+MESH_GRAD_MB = 64                # the compressed gradient tree
+MOE_LAYERS, MOE_S = 2, 512       # one olmoe row: ep's one group is gshard's
+DRYRUN_CELL = "qwen2-7b:train_4k:pod1"
+
+
+@contextlib.contextmanager
+def plain_kernel_inputs():
+    """While open: every tensor a hand-written kernel of the training path
+    is given (``ops._k2``, ``_k2_bwd``, ``_rms``, ``_rms_bwd``, the calls
+    that launch) is checked to be a plain CUDA tensor, never a DTensor;
+    yields the list of offences (empty when all were)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    bad = []
+    names = ("_k2", "_k2_bwd", "_rms", "_rms_bwd")
+    orig = {n: getattr(ops, n) for n in names}
+
+    def wrap(n):
+        def call(*a, **k):
+            for t in list(a) + list(k.values()):
+                if isinstance(t, torch.Tensor) and (
+                        type(t) is not torch.Tensor or t.device.type != "cuda"):
+                    bad.append((n, type(t).__name__, str(t.device)))
+            return orig[n](*a, **k)
+        return call
+    for n in names:
+        setattr(ops, n, wrap(n))
+    try:
+        yield bad
+    finally:
+        for n in names:
+            setattr(ops, n, orig[n])
+
+
+def mesh_training(dev, mesh, ckpt_dir):
+    """(a) ``Trainer(mesh=make_local_mesh())`` on the card: full-width
+    stablelm-1.6b cut to ``MESH_LAYERS`` layers, f32 masters with q/k at
+    their real fan-in, ``MESH_STEPS`` steps of ``MESH_B`` x ``MESH_S``
+    tokens (``Trainer.run``, which saves the last step's checkpoint into
+    ``ckpt_dir``); then the mesh-less ``Trainer``'s step function over the
+    same ``TokenPipeline`` batches from the same masters. Gates: each loss
+    within 1e-5 relative and each final master within 1e-5 rel L2 of the
+    mesh-less run's; exactly ``lm_launches_per_step(MESH_LAYERS)`` launches
+    a step (rmsnorm, rmsnorm_bwd, K2, K2's backward), no other kernel, and
+    every kernel input a plain CUDA tensor (each rank's local shard through
+    ``local_map``). Returns (ok, stats, the mesh trainer)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer, _batch
+    from repro_torch.models.common import tree_map, tree_paths
+    cfg = full_config(num_layers=MESH_LAYERS)
+    masters = lm_masters(cfg, dev, seed=53)
+    with torch.no_grad():
+        fan_in_qk(masters, cfg)
+    masters = tree_map(lambda t: t.detach(), masters)
+    kw = dict(batch=MESH_B, seq=MESH_S, device=dev, ckpt_every=10 ** 9,
+              async_ckpt=False, lr=LM_LR, total_steps=MESH_STEPS)
+    tr = Trainer(cfg, ckpt_dir=ckpt_dir, mesh=mesh, params=masters, **kw)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with plain_kernel_inputs() as bad:
+        losses = tr.run(MESH_STEPS)
+    torch.cuda.synchronize()
+    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    mesh_ms = [1e3 * d for d in tr.straggler.durations]
+    # the same steps without a mesh: the trainer's own step function
+    plain = Trainer(cfg, ckpt_dir=os.path.join(ckpt_dir, "unused"),
+                    params=masters, **kw)
+    state = plain.init_state()
+    want, plain_ms = [], []
+    for _ in range(MESH_STEPS):
+        batch = _batch(next(plain.data), plain.device)
+        t0 = time.perf_counter()
+        state, metrics = plain._step_fn(state, batch)
+        want.append(float(metrics["loss"]))
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+    worst = [0.0, None]
+    with np.load(os.path.join(ckpt_dir, f"checkpoint-{MESH_STEPS - 1}.npz")) \
+            as saved:
+        for k, v in tree_paths(state["params"]):
+            a, b = saved["params/" + k], v.detach().float().cpu().numpy()
+            r = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+            if r >= worst[0]:
+                worst = [r, k]
+    del state
+    per = lm_launches_per_step(MESH_LAYERS)
+    stats = {"card": smi_line(), "layers": MESH_LAYERS, "d": cfg.d_model,
+             "batch": [MESH_B, MESH_S], "steps": MESH_STEPS,
+             "losses_mesh": losses, "losses_plain": want,
+             "bit_identical_losses": losses == want,
+             "worst_master_rel_l2": worst,
+             "step_ms_mesh": mesh_ms, "step_ms_plain": plain_ms,
+             "step_ms_mesh_median": float(np.median(mesh_ms[1:])),
+             "step_ms_plain_median": float(np.median(plain_ms[1:])),
+             "launches": launches, "launches_per_step": per,
+             "non_plain_kernel_inputs": bad[:4]}
+    log("mesh training (1-device mesh vs no mesh): "
+        + json.dumps(stats, default=float))
+    ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(losses, want))
+    ok &= len(losses) == MESH_STEPS and worst[0] <= 1e-5 and not bad
+    ok &= launches == {k: v * MESH_STEPS for k, v in per.items()}
+    return ok, stats, tr
+
+
+def mesh_compression(dev, mesh):
+    """(b) ``compressed_pmean`` of a ``MESH_GRAD_MB`` MB f32 gradient tree
+    over the mesh's 1-rank NCCL group equals ``dequantize_int8(
+    *quantize_int8(x))`` bit for bit, leaf for leaf."""
+    import torch
+
+    from repro_torch.distributed import compression as C
+    gen = torch.Generator(device=dev).manual_seed(59)
+    n = MESH_GRAD_MB * (1 << 20) // 4
+    sizes = [n // 2, n // 4, n // 8, n - n // 2 - n // 4 - n // 8]
+    tree = {f"g{i}": torch.randn(m, generator=gen, device=dev) * 10.0 ** -i
+            for i, m in enumerate(sizes)}
+    t0 = time.perf_counter()
+    got = C.tree_compressed_pmean(tree, mesh.get_group("data"))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    same = {k: bool(torch.equal(got[k], C.dequantize_int8(
+        *C.quantize_int8(v)))) for k, v in tree.items()}
+    out = {"mb": MESH_GRAD_MB, "leaves": sizes, "bit_equal": same,
+           "host_ms": ms}
+    log("mesh compression: " + json.dumps(out))
+    return all(same.values()), out
+
+
+def mesh_restore(tr, ckpt_dir):
+    """(c) (a)'s checkpoint restored onto the mesh with ``shardings=
+    trainer.state_shardings(...)``: every leaf a DTensor in those
+    placements (the step counter plain) equal to the saved leaf."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.checkpoint.ckpt import _sharding_paths
+    from repro_torch.models.common import tree_paths
+    like = tr.init_state()
+    sh = tr.state_shardings(like)
+    t0 = time.perf_counter()
+    state, step = ckpt.restore(ckpt_dir, like, shardings=sh)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    del like
+    want = _sharding_paths(state, sh)
+    bad = []
+    with np.load(os.path.join(ckpt_dir, f"checkpoint-{step}.npz")) as saved:
+        for k, v in tree_paths(state):
+            if want[k] is not None and (not hasattr(v, "placements") or tuple(
+                    v.placements) != tuple(want[k][1])):
+                bad.append(k)
+                continue
+            loc = v.to_local() if hasattr(v, "to_local") else v
+            if not np.array_equal(loc.detach().cpu().numpy(), saved[k]):
+                bad.append(k)
+    out = {"step": step, "leaves": len(want), "mismatched": bad[:5],
+           "restore_s": s}
+    log("mesh restore: " + json.dumps(out))
+    return not bad and step == MESH_STEPS - 1, out
+
+
+def mesh_expert_parallel(dev, mesh):
+    """(d) One olmoe-1b-7b prefill (full width, ``MOE_LAYERS`` layers, one
+    row of ``MOE_S`` tokens, TP-placed bf16 params on the mesh) with
+    ``moe_dispatch="ep"`` against the mesh-less gshard path on the same
+    weights: one row is ep's one routing group and gshard's, so the two
+    drop the same tokens. Gates: ep ran at every MoE layer (no fallback),
+    the hidden states up to the first token routed to other experts within
+    2e-2 rel L2 and, with no such token, the last logits too (bf16
+    products summed in other orders)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import distribute
+    from repro_torch.models import blocks, lm, moe
+    from repro_torch.models.common import ShardCtx, logical_axes
+    from repro_torch.sharding import rules as R
+    cfg = family_config(OLMOE, num_layers=MOE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    params = lm.init_model(gen, cfg, device=dev)
+    with torch.no_grad():
+        fan_in_qk(params, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_S), device=dev,
+                         generator=gen)
+    ep_cfg = dataclasses.replace(cfg, moe_dispatch="ep")
+    dparams = distribute(params, R.tree_shardings(
+        R.TP_RULES, logical_axes(lm.model_spec(cfg)), mesh, params))
+    shard = ShardCtx(R.ACT_RULES, mesh)
+    routes = {"ep": [], "gshard": []}
+    ran_ep = []
+    orig_moe, orig_ep = blocks.moe_ffn, moe._moe_ep
+
+    def record(p, x, *, k, **kw):
+        xx = x.full_tensor() if hasattr(x, "full_tensor") else x
+        rw = p["router"].full_tensor() if hasattr(p["router"], "full_tensor") \
+            else p["router"]
+        _, idx = moe.top_k(torch.softmax(xx.float() @ rw.float(), dim=-1), k)
+        routes["ep" if hasattr(x, "full_tensor") else "gshard"].append(
+            np.sort(idx.cpu().numpy(), axis=-1))
+        return orig_moe(p, x, k=k, **kw)
+
+    def ep(*a, **k):
+        out = orig_ep(*a, **k)
+        ran_ep.append(out is not None)
+        return out
+    blocks.moe_ffn, moe._moe_ep = record, ep
+    try:
+        with torch.no_grad():
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                hx, _ = lm.forward(dparams, ep_cfg, tokens=toks, shard=shard)
+                lx, _ = lm.prefill(dparams, ep_cfg, tokens=toks, cache=None,
+                                   shard=shard)
+                hx, lx = hx.full_tensor(), lx.full_tensor()
+            hg, _ = lm.forward(params, cfg, tokens=toks)
+            lg, _ = lm.prefill(params, cfg, tokens=toks, cache=None)
+    finally:
+        blocks.moe_ffn, moe._moe_ep = orig_moe, orig_ep
+    first = MOE_S
+    for a, b in zip(routes["ep"], routes["gshard"]):
+        f = (a != b).any(-1)[0]
+        if f.any():
+            first = min(first, int(np.argmax(f)))
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm((a - b).float())
+                / torch.linalg.vector_norm(b.float())).item()
+    h_rel = rel(hx[:, :first], hg[:, :first]) if first else 0.0
+    l_rel = rel(lx, lg) if first == MOE_S else None
+    out = {"card": smi_line(), "layers": MOE_LAYERS, "tokens": MOE_S,
+           "ep_calls": ran_ep, "first_flip": first,
+           "hidden_rel_l2": h_rel, "logits_rel_l2": l_rel,
+           "moe_calls": [len(routes["ep"]), len(routes["gshard"])]}
+    log("mesh expert parallelism (ep on the mesh vs gshard): "
+        + json.dumps(out))
+    ok = len(ran_ep) == MOE_LAYERS * 2 and all(ran_ep)
+    ok &= h_rel <= 2e-2 and (l_rel is None or l_rel <= 2e-2)
+    return ok, out
+
+
+def mesh_dryrun_start(out):
+    """(e) ``python -m repro_torch.launch.dryrun --cell DRYRUN_CELL`` as a
+    subprocess on the torch build that runs this script (host only: a
+    256-rank fake group, meta tensors), started before (a) so that it runs
+    beside it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
+         DRYRUN_CELL, "--out", out], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+
+
+def mesh_dryrun_finish(proc, out):
+    try:
+        so, se = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        so, se = proc.communicate()
+    rec = {}
+    if os.path.exists(out):
+        lines = open(out).read().splitlines()
+        rec = json.loads(lines[-1]) if lines else {}
+    mem = rec.get("memory", {})
+    stats = {"rc": proc.returncode, "cell": DRYRUN_CELL,
+             "status": rec.get("status"), "chips": rec.get("chips"),
+             "trace_s": rec.get("trace_s"),
+             "flops_per_dev": rec.get("hlo_flops_per_dev"),
+             "model_flops_per_dev": rec.get("model_flops_per_dev"),
+             "collective_bytes": rec.get("collectives", {}).get("total"),
+             "bottleneck": (rec.get("roofline") or {}).get("bottleneck"),
+             "roofline": rec.get("roofline"),
+             "argument_gb": mem.get("argument_size_in_bytes", 0) / 1e9,
+             "temp_gb": mem.get("temp_size_in_bytes", 0) / 1e9,
+             "kernels": rec.get("cost_analysis_raw"),
+             "error": (rec.get("error") or se[-800:]) if
+             rec.get("status") != "ok" else None}
+    log("mesh dry-run cell: " + json.dumps(stats, default=float))
+    ok = proc.returncode == 0 and rec.get("status") == "ok" and \
+        rec.get("chips") == 256 and stats["bottleneck"] is not None
+    return ok, stats
+
+
+def phase_mesh(dev):
+    """Phase 13: the mesh plane on the card. ``make_local_mesh()``, a (1, 1)
+    mesh over ("data", "model") on a 1-rank NCCL group, carries (a)
+    ``Trainer(mesh=...)`` against the mesh-less trainer, (b) the int8
+    compressed mean, (c) the cross-mesh restore of (a)'s checkpoint and (d)
+    the expert-parallel MoE; (e) one dry-run cell runs as a subprocess
+    beside them. The group is torn down at the end. Its launches stay out
+    of the kernels line's sums (the phase gates them itself)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_phase_")
+    phases, stats = {}, {}
+    proc = mesh_dryrun_start(os.path.join(tmp, "dryrun_torch.jsonl"))
+    try:
+        mesh = make_local_mesh()
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        phases["mesh_training"], stats["training"], tr = mesh_training(
+            dev, mesh, ckpt_dir)
+        free_device()
+        phases["mesh_compression"], stats["compression"] = \
+            mesh_compression(dev, mesh)
+        phases["mesh_restore"], stats["restore"] = mesh_restore(tr, ckpt_dir)
+        del tr
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        free_device()
+        phases["mesh_expert_parallel"], stats["ep"] = \
+            mesh_expert_parallel(dev, mesh)
+        free_device()
+    finally:
+        phases["mesh_dryrun"], stats["dryrun"] = mesh_dryrun_finish(
+            proc, os.path.join(tmp, "dryrun_torch.jsonl"))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"mesh phase: {phases}, {time.perf_counter() - t0:.1f} s")
+    return phases, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -5898,6 +6232,9 @@ def main() -> int:
     free_device()
     lm_phases, lstats = phase_lm_training(dev)
     phases.update(lm_phases)
+    free_device()
+    mesh_phases, _ = phase_mesh(dev)
+    phases.update(mesh_phases)
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
     # K2, K4), the whisper serving run (K1, K2, K4, K5), the moment

@@ -15,5 +15,14 @@ from repro_torch.configs import (  # noqa: F401  (registration side effects)
     whisper_base,
     xlstm_125m,
 )
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable, grid
 
-__all__ = ["ModelConfig", "get_config", "list_configs", "reduced", "register"]
+ASSIGNED = [
+    "xlstm-125m", "whisper-base", "h2o-danube-1.8b", "minitron-8b", "qwen2-7b",
+    "stablelm-1.6b", "qwen2-vl-72b", "olmoe-1b-7b", "grok-1-314b", "jamba-v0.1-52b",
+]
+
+__all__ = [
+    "ModelConfig", "get_config", "list_configs", "reduced", "register",
+    "SHAPES", "ShapeSpec", "applicable", "grid", "ASSIGNED",
+]

@@ -16,6 +16,18 @@ their autograd is the plain version of each backward. The kernels without
 a backward (K1, K3, K4, the verify window, K5) and ``gather_prefix_kv``
 raise ``ValueError`` on an input that requires grad, on either device,
 rather than cut the graph: none of them lies on a training path.
+
+Meshes: ``flash_attention`` and ``rmsnorm`` given DTensors run through
+``local_map`` (``_local_flash``, ``_local_rmsnorm``): each rank's kernel
+(and, where autograd records, its backward kernel) sees plain tensors, its
+local shard, never a DTensor. The other kernels serve on one device and
+refuse a DTensor.
+
+Meta tensors (the dry-run, ``launch.optrace``): every wrapper returns
+outputs of its kernel's shapes and dtypes (K2 with its log-sum-exp) and
+reports the kernel's own FLOPs and bytes to ``META_WORK`` (the formulas of
+the bounds ``chip_smoke.py`` holds each kernel's time against, counted for
+full lengths: a meta tensor has no data); it never runs the plain version.
 """
 from __future__ import annotations
 
@@ -35,12 +47,113 @@ from repro_torch.kernels import segmented_lora as _sgmv
 LAUNCHES = build.LAUNCHES
 reset_launches = build.reset_launches
 
+# set by ``launch.optrace`` while it traces a step: called as
+# ``META_WORK(kernel name, flops, bytes)`` for each kernel call on meta tensors
+META_WORK = None
+
 
 def _route(x) -> str:
+    """"cpu" (the plain version), "cuda" (the kernel) or "meta" (the
+    kernel's shapes and work, only while ``launch.optrace`` traces: a meta
+    tensor outside a trace gets no kernel)."""
     kind = x.device.type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda", "meta") or (
+            kind == "meta" and META_WORK is None):
         raise ValueError(f"no kernel for device {x.device}")
     return kind
+
+
+def _dtensor(t) -> bool:
+    """True for a DTensor (a plain tensor answers without an import)."""
+    if t is None or type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _no_dtensor(name: str, *ts):
+    if any(_dtensor(t) for t in ts):
+        raise ValueError(f"{name} serves on one device: it takes no DTensor")
+
+
+def _meta_work(name: str, flops: float, nbytes: float):
+    if META_WORK is not None:
+        META_WORK(name, float(flops), float(nbytes))
+
+
+def _visible(Sq: int, Sk: int, Sp: int, causal: bool, window) -> tuple:
+    """(visible (query, key) pairs of one row and head, keys any query
+    reads) for full lengths: queries at the last Sq of Sp + Sk positions,
+    ``flash_visible``'s masks in closed form."""
+    import numpy as np
+    n = Sp + Sk
+    qpos = np.arange(n - Sq, n, dtype=np.int64)
+    hi = qpos + 1 if causal else np.full(Sq, n, dtype=np.int64)
+    lo = np.maximum(qpos - int(window) + 1, 0) if window is not None else \
+        np.zeros(Sq, dtype=np.int64)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    keys = int(min(n, hi.max()) - max(0, lo.min())) if Sq else 0
+    return pairs, keys
+
+
+def _k2(q, k, v, causal, window, kv_len, prefix_k=None, prefix_v=None,
+        prefix_len=None, with_lse=False):
+    """K2's forward on CUDA tensors, or its meta shapes and work."""
+    if q.device.type != "meta":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      kv_len=kv_len, prefix_k=prefix_k,
+                                      prefix_v=prefix_v,
+                                      prefix_len=prefix_len,
+                                      with_lse=with_lse)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    Sp = 0 if prefix_k is None else prefix_k.shape[1]
+    pairs, keys = _visible(Sq, Sk, Sp, causal, window)
+    es = q.element_size()
+    _meta_work("flash_attention", 4.0 * hd * H * B * pairs,
+               2 * es * B * Sq * H * hd + 2 * es * B * keys * KV * hd + 8 * B)
+    out = torch.empty(q.shape, dtype=q.dtype, device="meta")
+    if not with_lse:
+        return out
+    return out, torch.empty((B, H, Sq), dtype=torch.float32, device="meta")
+
+
+def _k2_bwd(q, k, v, out, lse, dout, causal, window, kv_len):
+    if q.device.type != "meta":
+        return _flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=causal, window=window,
+                                          kv_len=kv_len)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    pairs, _ = _visible(Sq, Sk, 0, causal, window)
+    es = q.element_size()
+    _meta_work("flash_attention_bwd", 10.0 * hd * H * B * pairs,
+               es * (4 * B * Sq * H * hd + 4 * B * Sk * KV * hd)
+               + 4 * B * H * Sq)
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                 for t in (q, k, v))
+
+
+def _rms(w, x, eps):
+    if x.device.type != "meta":
+        return _rmsnorm.rmsnorm(w, x, eps)
+    d = x.shape[-1]
+    rows = x.numel() // d
+    _meta_work("rmsnorm", 4.0 * rows * d,
+               2 * x.element_size() * rows * d + 4 * d)
+    return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+
+def _rms_bwd(w, x, dy, eps, need_dw):
+    if x.device.type != "meta":
+        return _rmsnorm.rmsnorm_bwd(w, x, dy, eps, need_dw=need_dw)
+    d = x.shape[-1]
+    rows = x.numel() // d
+    _meta_work("rmsnorm_bwd", 10.0 * rows * d,
+               3 * x.element_size() * rows * d + 4 * d * (2 if need_dw else 1))
+    dx = torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return dx, (torch.empty(w.shape, dtype=w.dtype, device="meta")
+                if need_dw else None)
 
 
 def _records(*ts) -> bool:
@@ -62,9 +175,7 @@ class _FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kv_len):
-        out, lse = _flash.flash_attention(q, k, v, causal=causal,
-                                          window=window, kv_len=kv_len,
-                                          with_lse=True)
+        out, lse = _k2(q, k, v, causal, window, kv_len, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, kv_len)
         ctx.causal, ctx.window = causal, window
         return out
@@ -72,9 +183,8 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, kv_len = ctx.saved_tensors
-        dq, dk, dv = _flash.flash_attention_bwd(
-            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,
-            kv_len=kv_len)
+        dq, dk, dv = _k2_bwd(q, k, v, out, lse, dout, ctx.causal,
+                             ctx.window, kv_len)
         return dq, dk, dv, None, None, None
 
 
@@ -86,13 +196,12 @@ class _RMSNormFn(torch.autograd.Function):
     def forward(ctx, w, x, eps):
         ctx.save_for_backward(w, x)
         ctx.eps = eps
-        return _rmsnorm.rmsnorm(w, x, eps)
+        return _rms(w, x, eps)
 
     @staticmethod
     def backward(ctx, dy):
         w, x = ctx.saved_tensors
-        dx, dw = _rmsnorm.rmsnorm_bwd(w, x, dy, ctx.eps,
-                                      need_dw=ctx.needs_input_grad[0])
+        dx, dw = _rms_bwd(w, x, dy, ctx.eps, ctx.needs_input_grad[0])
         return dw, dx, None
 
 
@@ -106,18 +215,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``ref.flash_attention_ref``. ``q_chunk``/``kv_chunk`` tile the plain
     version only; the kernel has its own tiles. Where autograd records, a
     CUDA call takes the kernel's gradient; the prefix operand (serving
-    only) is refused there on either device."""
+    only) is refused there on either device. DTensors run through
+    ``local_map`` (``_local_flash``)."""
+    if _dtensor(q):
+        if prefix_k is not None:
+            raise ValueError("flash_attention's prefix operand serves on one "
+                             "device: no DTensor path")
+        return _local_flash(q, k, v, causal, window, kv_len)
     grad = _records(q, k, v, prefix_k, prefix_v)
     if grad and prefix_k is not None:
         raise ValueError("flash_attention's prefix operand is serving-only: "
                          "no gradient through it")
-    if _route(q) == "cuda":
+    if _route(q) != "cpu":
         if grad:
             return _FlashAttentionFn.apply(q, k, v, causal, window, kv_len)
-        return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      kv_len=kv_len, prefix_k=prefix_k,
-                                      prefix_v=prefix_v,
-                                      prefix_len=prefix_len)
+        return _k2(q, k, v, causal, window, kv_len, prefix_k, prefix_v,
+                   prefix_len)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_chunk=q_chunk, kv_chunk=kv_chunk,
                                    kv_len=kv_len, prefix_k=prefix_k,
@@ -168,6 +281,15 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     attended; the probabilities round to the cache dtype before P·V, as in
     the JAX package's jnp ``models.attention.decode_attention``."""
     _no_grad_path("decode_attention (K5)", q, k_cache, v_cache)
+    _no_dtensor("decode_attention (K5)", q, k_cache, v_cache)
+    if _route(q) == "meta":
+        B, H, hd = q.shape
+        S, KV = k_cache.shape[1], k_cache.shape[2]
+        n = B * (S if window is None else min(S, int(window)))
+        _meta_work("decode_attention", 4.0 * n * H * hd,
+                   2 * q.element_size() * B * H * hd
+                   + 2 * k_cache.element_size() * n * KV * hd + 4 * B)
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if _route(q) == "cuda":
         return _float.decode_attention(q, k_cache, v_cache, lengths,
                                        window=window)
@@ -184,6 +306,15 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
     lengths: (B,) -> (B, H, hd). The kernel reads the cache through a
     head-major view of the model layout, never a copy."""
     _no_grad_path("decode_attention_int8 (K3)", q, k_scale, v_scale)
+    _no_dtensor("decode_attention_int8 (K3)", q, k_q, v_q)
+    if _route(q) == "meta":
+        B, H, hd = q.shape
+        S, KV = k_q.shape[1], k_q.shape[2]
+        n = B * (S if window is None else min(S, int(window)))
+        _meta_work("decode_attention_int8", 4.0 * n * H * hd,
+                   2 * 2 * B * H * hd + 2 * n * KV * hd + 2 * 4 * B * KV
+                   + 4 * B)
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     kh = k_q.transpose(1, 2)
     vh = v_q.transpose(1, 2)
     if _route(q) == "cuda":
@@ -204,6 +335,17 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,
     the arena through its model-layout strides; the plain version gathers
     through a head-major view. Neither copies the arena."""
     _no_grad_path("paged_decode_attention (K4)", q, k_scale, v_scale)
+    _no_dtensor("paged_decode_attention (K4)", q, k_pages, v_pages)
+    if _route(q) == "meta":
+        B, H, hd = q.shape
+        _, ps, KV, _ = k_pages.shape
+        MP = page_table.shape[1]
+        n = B * MP * ps if window is None else B * min(MP * ps, int(window))
+        pages = -(-n // ps)
+        _meta_work("paged_decode_attention", 4.0 * n * H * hd,
+                   2 * pages * ps * KV * hd + 2 * 4 * pages * KV
+                   + 4 * B * MP + 2 * 2 * B * H * hd + 4 * B)
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if _route(q) == "cuda":
         return _paged.paged_decode_attention(q, k_pages, v_pages, k_scale,
                                              v_scale, page_table, lengths,
@@ -227,6 +369,17 @@ def paged_verify_attention(q, k_pages, v_pages, k_scale, v_scale,
     The kernel walks each stream's pages once for all T positions; the
     plain version is T single-token reads."""
     _no_grad_path("paged_verify_attention", q, k_scale, v_scale)
+    _no_dtensor("paged_verify_attention", q, k_pages, v_pages)
+    if _route(q) == "meta":
+        B, T, H, hd = q.shape
+        _, ps, KV, _ = k_pages.shape
+        MP = page_table.shape[1]
+        n = B * MP * ps if window is None else B * min(MP * ps, int(window))
+        pages = -(-n // ps)
+        _meta_work("paged_verify_attention", 4.0 * T * n * H * hd,
+                   2 * pages * ps * KV * hd + 2 * 4 * pages * KV
+                   + 4 * B * MP + 2 * 2 * B * T * H * hd + 4 * B)
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if _route(q) == "cuda":
         return _verify.paged_verify_attention(q, k_pages, v_pages, k_scale,
                                               v_scale, page_table, base_len,
@@ -242,6 +395,17 @@ def segmented_lora(x, block_adapter, a_w, b_w, *, block_t: int = 128):
     Serving only (the gather path carries a gradient): an input that
     requires grad raises."""
     _no_grad_path("segmented_lora (K1)", x, a_w, b_w)
+    _no_dtensor("segmented_lora (K1)", x, a_w, b_w)
+    if _route(x) == "meta":
+        T, d = x.shape
+        na, _, r = a_w.shape
+        out = b_w.shape[-1]
+        blocks = block_adapter.numel()
+        used = min(na, blocks)
+        _meta_work("segmented_lora", 2.0 * T * r * (d + out),
+                   2 * T * d + 2 * T * out + 4 * blocks
+                   + 4 * used * (d * r + r * out))
+        return torch.empty((T, out), dtype=x.dtype, device="meta")
     if _route(x) == "cuda":
         return _sgmv.segmented_lora(x, block_adapter, a_w, b_w,
                                     block_t=block_t)
@@ -253,9 +417,93 @@ def rmsnorm(w, x, eps: float = 1e-5):
     ``rsqrt(mean(x^2) + eps)`` and by ``w`` in f32, returned in x's dtype.
     The kernel's row outputs depend on the row alone, never on how many
     rows share the call (the plain version's f32 mean on the card does).
-    Where autograd records, a CUDA call takes the kernel's gradient."""
-    if _route(x) == "cuda":
+    Where autograd records, a CUDA call takes the kernel's gradient.
+    DTensors run through ``local_map`` (``_local_rmsnorm``)."""
+    if _dtensor(x) or _dtensor(w):
+        return _local_rmsnorm(w, x, eps)
+    if _route(x) != "cpu":
         if _records(w, x):
             return _RMSNormFn.apply(w, x, eps)
-        return _rmsnorm.rmsnorm(w, x, eps)
+        return _rms(w, x, eps)
     return ref.rmsnorm(w, x, eps)
+
+
+# ---------------- DTensors: the kernels on local shards ----------------
+
+def _as_dtensor(t, mesh):
+    """A plain tensor as a replicated DTensor on ``mesh`` (None stays)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if t is None or _dtensor(t):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _local_flash(q, k, v, causal, window, kv_len):
+    """K2 on each rank's local heads and rows. q's placements are kept
+    where they shard the batch (dim 0) or the heads (dim 2); any other
+    placement becomes ``Replicate``. k and v take the same placements:
+    ``heads`` and ``kv_heads`` both go to "model" under the rules, so each
+    rank's q heads and kv heads stay in the same GQA groups (rank r holds
+    q heads [r H/n, (r+1) H/n) and kv heads [r KV/n, (r+1) KV/n), and
+    q head h reads kv head h // G in both numberings). That needs H and KV
+    divisible by the head split n: ``sharding.padding.pad_for_tp`` makes
+    them so, and an unpadded config raises ``ValueError``. ``kv_len``
+    (B,) follows the batch split."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    k, v = _as_dtensor(k, mesh), _as_dtensor(v, mesh)
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in q.placements)
+    n = 1
+    for i, p in enumerate(pl):
+        if p == Shard(2):
+            n *= mesh.size(i)
+    H, KV = q.shape[2], k.shape[2]
+    if H % n or KV % n:
+        raise ValueError(f"K2 on a mesh: {H} q heads and {KV} kv heads over "
+                         f"a {n}-way head split; pad the config with "
+                         f"sharding.padding.pad_for_tp")
+    lpl = None
+    if kv_len is not None:
+        kv_len = _as_dtensor(kv_len, mesh)
+        lpl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+
+    def local(ql, kl, vl, ll):
+        return flash_attention(ql, kl, vl, causal=causal, window=window,
+                               kv_len=ll)
+    return local_map(local, out_placements=(pl,),
+                     in_placements=(pl, pl, pl, lpl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, kv_len)
+
+
+def _local_rmsnorm(w, x, eps):
+    """The rmsnorm kernel on each rank's local rows with the whole ``d``:
+    x keeps its placements but on its last dim (a ``Shard`` there, or a
+    ``Partial``, becomes ``Replicate``); w, ``Shard`` over data along
+    ``embed`` under ``FSDP_RULES``, is gathered to ``Replicate``. Each
+    rank's dw sums its own rows only, so w's gradient is ``Partial`` on
+    every mesh dimension that splits the rows. The output keeps only a
+    split of dim 0 (the batch): a sequence split (the sequence-parallel
+    residual stream) is gathered, as Megatron's sequence parallelism
+    gathers the norm's output before the projections (every norm output
+    feeds a matrix product, and DTensor cannot flatten (B, S) for it
+    with S split)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (x if _dtensor(x) else w).device_mesh
+    x, w = _as_dtensor(x, mesh), _as_dtensor(w, mesh)
+    last = x.ndim - 1
+    pl = tuple(p if isinstance(p, Shard) and p.dim != last else Replicate()
+               for p in x.placements)
+    rep = tuple(Replicate() for _ in pl)
+    dw = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in pl)
+
+    def local(wl, xl):
+        return rmsnorm(wl, xl, eps)
+    y = local_map(local, out_placements=(pl,), in_placements=(rep, pl),
+                  in_grad_placements=(dw, pl), device_mesh=mesh,
+                  redistribute_inputs=True)(w, x)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    return y if rows == pl else y.redistribute(mesh, rows)

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import NO_SHARD, ParamSpec
 from repro_torch.models.layers import apply_mrope, apply_rope
 
 
@@ -78,9 +78,59 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     (``kernels.ops.decode_attention``; plain version ``kernels.ref.
     decode_attention_ref`` with ``p_dtype``).
 
-    q: (B, H, hd); caches: (B, S, KV, hd); cache_len: (B,) valid lengths."""
+    q: (B, H, hd); caches: (B, S, KV, hd); cache_len: (B,) valid lengths.
+    DTensors (a mesh) run K5 on each rank's rows and heads
+    (``_on_cache_shards``)."""
     from repro_torch.kernels import ops
+    if ops._dtensor(k_cache):
+        def local(ql, kl, vl, ll):
+            return ops.decode_attention(ql, kl, vl, ll, window=window)
+        return _on_cache_shards(local, k_cache, q, (k_cache, v_cache),
+                                cache_len)
     return ops.decode_attention(q, k_cache, v_cache, cache_len, window=window)
+
+
+def _on_cache_shards(fn, cache_k, q, caches, lens, extra=()):
+    """``fn(q, *caches, lens, *extra)`` through ``local_map`` on the
+    placements of a DTensor cache (B, S, KV, hd): each rank's rows and kv
+    heads, the cache's own shards (written in place by ``fn`` where it
+    writes). q (B, [T,] H, hd) and ``extra`` (per-row (B, KV) scales or
+    (B, [T,] KV, hd) new keys) follow the cache's row and head split;
+    ``lens`` (B,) its row split. The output is q's shape, so placed. A
+    cache split over its sequence (the long-context rules) raises
+    ``ValueError``: that needs a merge of the softmax across the split."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.ops import _as_dtensor
+    mesh = cache_k.device_mesh
+    cpl = tuple(cache_k.placements)
+    if any(p == Shard(1) for p in cpl):
+        raise ValueError("decode against a cache split over its sequence "
+                         "needs a softmax merge across the split")
+    n = 1
+    for i, p in enumerate(cpl):
+        if p == Shard(2):
+            n *= mesh.size(i)
+    H, KV = q.shape[-2], cache_k.shape[2]
+    if H % n or KV % n:
+        raise ValueError(f"decode on a mesh: {H} q heads and {KV} kv heads "
+                         f"over a {n}-way head split; pad the config with "
+                         f"sharding.padding.pad_for_tp")
+
+    def place(t, head_dim):
+        if t is None:
+            return None
+        return tuple(Shard(0) if p == Shard(0) else
+                     Shard(head_dim % t.ndim) if p == Shard(2) else Replicate()
+                     for p in cpl)
+
+    args = [_as_dtensor(t, mesh) for t in (q, *caches, lens, *extra)]
+    in_pl = [place(args[0], -2)] + [cpl for _ in caches] + \
+        [tuple(Shard(0) if p == Shard(0) else Replicate() for p in cpl)] + \
+        [place(e, -1 if e.ndim == 2 else -2) for e in args[2 + len(caches):]]
+    return local_map(fn, out_placements=(in_pl[0],), in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 # ---------------- full layer ops ----------------
@@ -125,7 +175,8 @@ def out_project(p, attn_out, dtype):
 
 def self_attention(p, x, cfg, *, causal=True, pos=None, pos3=None, lora=None,
                    adapter_idx=None, lora_impl="gather", lora_seg=None,
-                   seq_lens=None, prefix=None, prefix_len=None):
+                   seq_lens=None, prefix=None, prefix_len=None,
+                   shard=NO_SHARD):
     """Full-sequence self attention (prefill / pooled forward).
     Returns (out, (k, v)); ``seq_lens`` (B,) masks right-padding keys.
 
@@ -137,6 +188,9 @@ def self_attention(p, x, cfg, *, causal=True, pos=None, pos3=None, lora=None,
     q, k, v = qkv_project(p, x, cfg, pos=pos, pos3=pos3, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
+    q = shard(q, ("batch", None, "heads", None))
+    k = shard(k, ("batch", None, "kv_heads", None))
+    v = shard(v, ("batch", None, "kv_heads", None))
     pk, pv = (None, None) if prefix is None else (prefix["k"], prefix["v"])
     o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
                         kv_len=seq_lens, prefix_k=pk, prefix_v=pv,
@@ -144,7 +198,7 @@ def self_attention(p, x, cfg, *, causal=True, pos=None, pos3=None, lora=None,
     return out_project(p, o, x.dtype), (k, v)
 
 
-def cross_attention(p, x, enc_kv, cfg):
+def cross_attention(p, x, enc_kv, cfg, shard=NO_SHARD):
     """Decoder cross-attention over precomputed encoder K/V (B, S_enc, KV,
     hd): every query sees every frame (K2, not causal; no RoPE, no LoRA)."""
     q = _proj(x, p["wq"])
@@ -161,7 +215,8 @@ def quantize_token(x, scale):
 
 
 def self_attention_decode(p, x, cache, cfg, *, pos=None, pos3=None, lora=None,
-                          adapter_idx=None, lora_impl="gather", lora_seg=None):
+                          adapter_idx=None, lora_impl="gather", lora_seg=None,
+                          shard=NO_SHARD):
     """One-step decode. x: (B, 1, d); cache: dict(k, v, len[, k_scale,
     v_scale]) of views into the pool, updated in place. Returns (out, cache).
 
@@ -174,15 +229,42 @@ def self_attention_decode(p, x, cache, cfg, *, pos=None, pos3=None, lora=None,
     q, k, v = qkv_project(p, x, cfg, pos=pos, pos3=pos3, lora=lora,
                           adapter_idx=adapter_idx, lora_impl=lora_impl,
                           lora_seg=lora_seg)
+    from repro_torch.kernels import ops
     if "page_table" in cache:
         return _paged_decode(p, x, q, k, v, cache, cfg)
-    B, S = x.shape[0], cache["k"].shape[1]
+    if ops._dtensor(cache["k"]):
+        o = _dense_decode_on_shards(q, k, v, cache, cfg)
+        return out_project(p, o[:, None], x.dtype), cache
+    o = _dense_decode(q, k, v, cache, cfg)
+    return out_project(p, o[:, None], x.dtype), cache
+
+
+def _dense_decode_on_shards(q, k, v, cache, cfg):
+    """``_dense_decode`` on each rank's shards of a DTensor cache."""
+    names = [n for n in ("k_scale", "v_scale") if n in cache]
+    keys = ["k", "v"] + names
+
+    def local(ql, kc, vc, *rest):
+        ln, kl, vl = rest[len(names)], rest[len(names) + 1], \
+            rest[len(names) + 2]
+        sub = dict(zip(keys, (kc, vc) + rest[:len(names)]), len=ln)
+        return _dense_decode(ql[:, None], kl, vl, sub, cfg)
+    caches = tuple(cache[n] for n in keys)
+    return _on_cache_shards(local, cache["k"], q[:, 0], caches, cache["len"],
+                            extra=(k, v))
+
+
+def _dense_decode(q, k, v, cache, cfg):
+    """The dense pool's write of the new token's K/V and its attention:
+    q (B, 1, H, hd), k/v (B, 1, KV, hd) -> (B, H, hd), the cache advanced
+    in place."""
+    B, S = q.shape[0], cache["k"].shape[1]
     # insert position. A free pool slot keeps stepping and its length grows
     # past S; JAX drops such an out-of-range write, torch would raise, so the
     # write is clamped into the free row's own last position (garbage that
     # the next admission overwrites). Live rows always have len < S.
     idx = torch.clamp(cache["len"], max=S - 1).long()
-    bidx = torch.arange(B, device=x.device)
+    bidx = torch.arange(B, device=q.device)
     new_len = (cache["len"] + 1).to(cache["len"].dtype)
     if "k_scale" in cache:
         from repro_torch.kernels import ops
@@ -194,14 +276,14 @@ def self_attention_decode(p, x, cache, cfg, *, pos=None, pos3=None, lora=None,
         cache["v"][bidx, idx] = quantize_token(v[:, 0], vs)
         o = ops.decode_attention_int8(q[:, 0].contiguous(), cache["k"],
                                       cache["v"], ks, vs, new_len,
-                                      window=cfg.sliding_window).to(x.dtype)
+                                      window=cfg.sliding_window).to(q.dtype)
     else:
         cache["k"][bidx, idx] = k[:, 0].to(cache["k"].dtype)
         cache["v"][bidx, idx] = v[:, 0].to(cache["v"].dtype)
         o = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                              new_len, window=cfg.sliding_window)
     cache["len"].copy_(new_len)
-    return out_project(p, o[:, None], x.dtype), cache
+    return o
 
 
 def _paged_decode(p, x, q, k, v, cache, cfg):
@@ -252,7 +334,7 @@ def _paged_decode(p, x, q, k, v, cache, cfg):
 
 def self_attention_verify(p, x, cache, cfg, *, pos=None, pos3=None,
                           lora=None, adapter_idx=None, lora_impl="gather",
-                          lora_seg=None):
+                          lora_seg=None, shard=NO_SHARD):
     """Speculative verify window: T = k + 1 positions through the paged
     pool, in place. x: (B, T, d): position 0 embeds the slot's last sampled
     token (what a plain decode step would feed), positions 1..k the drafted

@@ -18,7 +18,7 @@ from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import xlstm as xl
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import NO_SHARD, ParamSpec
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_spec
 from repro_torch.models.moe import moe_ffn, moe_spec
@@ -183,8 +183,21 @@ def sublayer_cache_spec(cfg: ModelConfig, lay: SubLayer, batch: int,
 
 # ---------------- apply ----------------
 
+def _residual(x, out):
+    """``x + out``. On a mesh (DTensors) ``out`` first takes the residual
+    stream's placements by an explicit redistribute (Megatron's
+    reduce-scatter into the sequence-parallel stream), so that autograd
+    sees it and the gradient goes back to ``out``'s own placements before
+    the product that made it (DTensor cannot flatten (B, S) with S split
+    inside that product's backward)."""
+    if type(out) is not torch.Tensor and hasattr(out, "placements") and \
+            tuple(out.placements) != tuple(x.placements):
+        out = out.redistribute(x.device_mesh, x.placements)
+    return x + out
+
+
 def _ffn_apply(p, x, cfg: ModelConfig, lay: SubLayer, seq_lens=None,
-               aux=None):
+               aux=None, shard=NO_SHARD):
     """The feed-forward after a mixer: dense, or MoE with the pads of a
     right-padded prefill (``seq_lens``) kept out of routing. The MoE aux
     loss is appended to ``aux`` where a list is given (training, the JAX
@@ -194,15 +207,16 @@ def _ffn_apply(p, x, cfg: ModelConfig, lay: SubLayer, seq_lens=None,
         valid = None if seq_lens is None else \
             torch.arange(x.shape[1], device=x.device)[None] < seq_lens[:, None]
         out, a = moe_ffn(p["ffn"], h, k=cfg.experts_per_token,
-                         dispatch=cfg.moe_dispatch, valid=valid)
+                         dispatch=cfg.moe_dispatch, valid=valid,
+                         shard=shard)
         if aux is not None:
             aux.append(a)
-        return x + out
-    return x + mlp(p["ffn"], h)
+        return _residual(x, out)
+    return _residual(x, mlp(p["ffn"], h, shard))
 
 
 def _recurrent_apply(p, x, h, cfg: ModelConfig, lay: SubLayer, mode: str,
-                     cache, seq_lens, aux=None):
+                     cache, seq_lens, aux=None, shard=NO_SHARD):
     """A Mamba, mLSTM or sLSTM sublayer. Outside decode the scan starts
     from its initial state (zeros; the xLSTM stabilizer ``m`` at -1e30),
     never from the pool's zeroed cache, and a given cache receives the
@@ -214,22 +228,23 @@ def _recurrent_apply(p, x, h, cfg: ModelConfig, lay: SubLayer, mode: str,
     if lay.kind == MAMBA:
         if decode:
             out, (conv, ssm) = mam.mamba_decode(p["mamba"], h, cfg,
-                                                cache["conv"], cache["ssm"])
+                                                cache["conv"], cache["ssm"],
+                                                shard=shard)
         else:
             out, (conv, ssm) = mam.mamba_forward(p["mamba"], h, cfg,
-                                                 seq_lens=lens)
+                                                 seq_lens=lens, shard=shard)
         state = {"conv": conv, "ssm": ssm}
     else:
         fwd = xl.mlstm_forward if lay.kind == MLSTM else xl.slstm_forward
         out, state = fwd(p[lay.kind], h, cfg,
                          state=dict(cache) if decode else None,
-                         seq_lens=lens)
+                         seq_lens=lens, shard=shard)
     if cache is not None:        # in place: executables read the pool
         for k, v in state.items():
             cache[k].copy_(v)
-    x = x + out
+    x = _residual(x, out)
     if lay.has_ffn:
-        x = _ffn_apply(p, x, cfg, lay, seq_lens=lens, aux=aux)
+        x = _ffn_apply(p, x, cfg, lay, seq_lens=lens, aux=aux, shard=shard)
     return x
 
 
@@ -265,7 +280,7 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
                    cache=None, pos=None, pos3=None, causal=True, enc_out=None,
                    cross_len=None, lora=None, adapter_idx=None,
                    lora_impl: str = "gather", lora_seg=None, seq_lens=None,
-                   prefix=None, prefix_len=None, aux=None):
+                   prefix=None, prefix_len=None, aux=None, shard=NO_SHARD):
     """Apply one sublayer. mode: 'full' (pooled forward / prefill),
     'decode' or 'verify' (the speculative window: T positions at rope
     positions ``len + arange(T)`` through the paged pool,
@@ -292,11 +307,12 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
     updates its fixed-size state in the cache (``_recurrent_apply``). A MoE
     feed-forward routes the pads of a 'full' prefill out (``seq_lens``);
     after a decode or verify step it takes no validity mask. ``aux``, a
-    list (training only), receives the MoE aux loss of its feed-forward."""
+    list (training only), receives the MoE aux loss of its feed-forward.
+    ``shard`` (a ``ShardCtx``) constrains activations on a mesh."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if lay.kind != ATTN:
         return _recurrent_apply(p, x, h, cfg, lay, mode, cache, seq_lens,
-                                aux)
+                                aux, shard)
     if mode == "decode":
         if pos is None:
             pos = cache["len"][:, None]                   # rope position
@@ -304,7 +320,8 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
             pos3 = pos[..., None].expand(*pos.shape, 3)   # text: t = h = w
         out, _ = attn.self_attention_decode(
             p["attn"], h, cache, cfg, pos=pos, pos3=pos3, lora=lora,
-            adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg)
+            adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg,
+            shard=shard)
     elif mode == "verify":
         if lay.has_cross:
             raise ValueError("the verify window has no encoder-decoder mode")
@@ -315,31 +332,36 @@ def sublayer_apply(p, x, cfg: ModelConfig, lay: SubLayer, *, mode: str,
             pos3 = pos[..., None].expand(*pos.shape, 3)   # text: t = h = w
         out, _ = attn.self_attention_verify(
             p["attn"], h, cache, cfg, pos=pos, pos3=pos3, lora=lora,
-            adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg)
+            adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg,
+            shard=shard)
     elif mode == "full":
         out, (k, v) = attn.self_attention(
             p["attn"], h, cfg, causal=causal, pos=pos, pos3=pos3, lora=lora,
             adapter_idx=adapter_idx, lora_impl=lora_impl, lora_seg=lora_seg,
-            seq_lens=seq_lens, prefix=prefix, prefix_len=prefix_len)
+            seq_lens=seq_lens, prefix=prefix, prefix_len=prefix_len,
+            shard=shard)
         if cache is not None:
             _fill_cache(cache, k, v, seq_lens)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    x = x + out
+    x = _residual(x, out)
     if lay.has_cross:
         hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
         if mode == "decode":
             q = attn._proj(hx, p["cross"]["wq"])[:, 0].contiguous()
             o = attn.decode_attention(q, cache["ck"], cache["cv"], cross_len)
-            x = x + attn.out_project(p["cross"], o[:, None], hx.dtype)
+            x = _residual(x, attn.out_project(p["cross"], o[:, None],
+                                              hx.dtype))
         else:
             ck = attn._proj(enc_out, p["cross"]["wk"])
             cv = attn._proj(enc_out, p["cross"]["wv"])
             if cache is not None:                         # persist for decode
                 cache["ck"].copy_(ck)
                 cache["cv"].copy_(cv)
-            x = x + attn.cross_attention(p["cross"], hx, (ck, cv), cfg)
+            x = _residual(x, attn.cross_attention(p["cross"], hx, (ck, cv),
+                                                  cfg, shard))
     if lay.has_ffn:
         x = _ffn_apply(p, x, cfg, lay,
-                       seq_lens=seq_lens if mode == "full" else None, aux=aux)
+                       seq_lens=seq_lens if mode == "full" else None, aux=aux,
+                       shard=shard)
     return x

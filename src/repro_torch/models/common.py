@@ -1,8 +1,10 @@
 """Minimal parameter-spec system (the port's ``models/common.py``).
 
 Models are described as nested dicts/lists of ``ParamSpec`` (shape + logical
-axes + init), exactly like the JAX package, and materialized into nested
-dicts/lists of tensors. Random leaves draw from an explicit
+axes + init), exactly like the JAX package. From one spec tree we derive
+``init_params`` (tensors), ``shape_structs`` (meta tensors for the dry-run:
+no memory) and ``logical_axes`` (the same tree of logical axis names,
+consumed by ``repro_torch.sharding`` to place DTensors). Random leaves draw from an explicit
 ``torch.Generator``; torch cannot reproduce ``jax.random``, so parity tests
 load the JAX package's weights through ``repro_torch.weights`` instead.
 """
@@ -93,3 +95,50 @@ def stack_specs(spec_tree, n: int, axis_name: Optional[str] = "layers"):
     return tree_map(
         lambda s: ParamSpec((n,) + tuple(s.shape), (axis_name,) + tuple(s.axes),
                             s.init, s.scale, s.dtype), spec_tree)
+
+
+def shape_structs(spec_tree, dtype=None):
+    """Meta tensors of each spec's shape and dtype (``dtype`` overrides):
+    the dry-run's stand-ins, which never touch device memory."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype or s.dtype,
+                                          device="meta"), spec_tree)
+
+
+def logical_axes(spec_tree):
+    """Tree of logical-axis tuples, same structure as the param tree."""
+    return tree_map(lambda s: tuple(s.axes), spec_tree)
+
+
+def param_bytes(spec_tree, bytes_per_el=4) -> int:
+    return sum(math.prod(s.shape) * bytes_per_el
+               for s in tree_leaves(spec_tree))
+
+
+def param_count(spec_tree) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
+
+
+class ShardCtx:
+    """Sharding-constraint injector threaded through model code.
+
+    ``shard(x, ("batch", None, "heads"))`` redistributes a DTensor ``x`` to
+    the placements the logical-axis rules give on the mesh (the JAX
+    package's ``with_sharding_constraint``). Without rules or a mesh, or on
+    a plain tensor, it returns ``x`` itself."""
+
+    def __init__(self, rules=None, mesh=None):
+        self.rules = rules
+        self.mesh = mesh
+
+    def __call__(self, x, axes):
+        if self.rules is None or self.mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        from repro_torch.sharding.rules import placements_for, spec_for
+        spec = spec_for(self.rules, axes, self.mesh, tuple(x.shape))
+        return x.redistribute(self.mesh, placements_for(spec, self.mesh))
+
+
+NO_SHARD = ShardCtx()

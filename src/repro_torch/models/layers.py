@@ -27,7 +27,51 @@ def embed_spec(vocab: int, d: int) -> ParamSpec:
 
 
 def embed(tok_w, tokens):
+    """Rows of the table; a DTensor table (a mesh) is vocab-parallel
+    (``_embed_local``)."""
+    if ops._dtensor(tok_w):
+        return _embed_local(tok_w, tokens)
     return tok_w[tokens]
+
+
+def _embed_local(tok_w, tokens):
+    """Vocab-parallel lookup through ``local_map``: on a mesh dimension
+    that splits the vocab (and not the tokens), each rank looks up the
+    tokens in its own rows, zeroes the others, and the result is
+    ``Partial`` there (summed where it is next redistributed); every
+    other split of the table is gathered first, and the tokens keep
+    theirs. The table's gradient from each rank's tokens is ``Partial``
+    on the mesh dimensions that split the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = tok_w.device_mesh
+    tokens = ops._as_dtensor(tokens, mesh)
+    t_pl = tuple(p if isinstance(p, Shard) else Replicate()
+                 for p in tokens.placements)
+    vocab = [i for i, (p, t) in enumerate(zip(tok_w.placements, t_pl))
+             if p == Shard(0) and t == Replicate()]
+    if len(vocab) > 1:
+        raise ValueError("the vocab split over more than one mesh dimension")
+    w_pl = tuple(Shard(0) if i in vocab else Replicate()
+                 for i in range(mesh.ndim))
+    o_pl = tuple(Partial() if i in vocab else t_pl[i]
+                 for i in range(mesh.ndim))
+    g_pl = tuple(Partial() if t_pl[i] != Replicate() else w_pl[i]
+                 for i in range(mesh.ndim))
+    V = tok_w.shape[0]
+
+    def local(wl, tl):
+        if not vocab:
+            return wl[tl]
+        i = vocab[0]
+        lo = mesh.get_coordinate()[i] * -(-V // mesh.size(i))
+        idx = tl - lo
+        ok = (idx >= 0) & (idx < wl.shape[0])
+        rows = wl[torch.where(ok, idx, torch.zeros_like(idx))]
+        return rows * ok[..., None].to(rows.dtype)
+    return local_map(local, out_placements=(o_pl,), in_placements=(w_pl, t_pl),
+                     in_grad_placements=(g_pl, t_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(tok_w, tokens)
 
 
 def head_spec(d: int, vocab: int) -> ParamSpec:

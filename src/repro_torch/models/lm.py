@@ -25,7 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import blocks as blk
-from repro_torch.models.common import ParamSpec, init_params, stack_specs, tree_map
+from repro_torch.models.common import (NO_SHARD, ParamSpec, init_params,
+                                       stack_specs, tree_map)
 from repro_torch.models.layers import embed, embed_spec, head_spec, rmsnorm, rmsnorm_spec
 
 ACT_DTYPE = torch.bfloat16
@@ -179,14 +180,18 @@ def _at(tree, i):
 def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
                    pos3=None, enc_out=None, lora=None, adapter_idx=None,
                    lora_impl="gather", lora_seg=None, seq_lens=None,
-                   prefix=None, prefix_len=None, remat=False, aux=None):
+                   prefix=None, prefix_len=None, remat=False, aux=None,
+                   shard=NO_SHARD):
     """Loop over periods and their sublayers (the JAX package scans). A
     decode step over cross-attention sublayers builds the (B,) frame-count
     vector once, on the device, for every layer. Training only: ``aux``, a
     list, receives each period's MoE aux loss (summed over its
     sublayers), and ``remat`` recomputes each period's activations in the
     backward (``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` of the
-    scanned period)."""
+    scanned period). ``shard`` constrains each period's output to
+    ("batch", "seq", "embed"): under sequence parallelism the "seq" rule
+    maps to the model dimension, so the residual stream (and the remat
+    residuals kept per period) live sharded."""
     nper = layers_p[0]["ln1"].shape[0]
     cross_len = None
     if mode == "decode" and any(lay.has_cross for lay in layout):
@@ -204,8 +209,9 @@ def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
                 adapter_idx=adapter_idx, lora_impl=lora_impl,
                 lora_seg=lora_seg, seq_lens=seq_lens,
                 prefix=_at(prefix[j], i) if prefix is not None and prefix[j]
-                else None, prefix_len=prefix_len, aux=period_aux)
-        return x
+                else None, prefix_len=prefix_len, aux=period_aux,
+                shard=shard)
+        return shard(x, ("batch", "seq", "embed"))
 
     def with_aux(i, x):
         got = []
@@ -226,15 +232,16 @@ def _stack_forward(layers_p, layout, x, cfg, *, mode, cache, pos, causal,
     return x
 
 
-def encode(params, cfg: ModelConfig, enc_embeds, remat: bool = False):
+def encode(params, cfg: ModelConfig, enc_embeds, remat: bool = False,
+           shard=NO_SHARD):
     """The encoder of an encoder-decoder stack: bidirectional attention
     sublayers over the stub frontend's frames (B, S_enc, d), RoPE at
     positions 0..S_enc-1, no LoRA, then the encoder's final norm."""
-    e = enc_embeds.to(ACT_DTYPE)
+    e = shard(enc_embeds.to(ACT_DTYPE), ("batch", None, "embed"))
     e_pos = torch.arange(e.shape[1], device=e.device)[None]
     e = _stack_forward(params["encoder"]["layers"], _encoder_layout(cfg), e,
                        cfg, mode="full", cache=None, pos=e_pos, causal=False,
-                       remat=remat)
+                       remat=remat, shard=shard)
     return rmsnorm(params["encoder"]["final_norm"], e, cfg.norm_eps)
 
 
@@ -242,7 +249,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
             mode: str = "full", pos=None, pos3=None, enc_embeds=None,
             lora=None, adapter_idx=None, lora_impl: str = "gather",
             lora_seg=None, seq_lens=None, prefix=None, prefix_len=None,
-            remat: bool = False, aux=None):
+            remat: bool = False, aux=None, shard=NO_SHARD):
     """Backbone forward. Returns (hidden (B, S, d), cache). Inputs are
     ``tokens`` (B, S) int or ``embeds`` (B, S, d); an encoder-decoder stack
     also takes ``enc_embeds`` (B, S_enc, d) outside decode (a decode step
@@ -264,18 +271,25 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
     Training (``loss_fn``): ``remat`` recomputes each period in the
     backward (the encoder's too); ``aux``, a list, receives the MoE aux
     loss of each period (serving passes neither, so its executables and
-    outputs are as without them)."""
+    outputs are as without them).
+
+    ``shard`` (a ``ShardCtx``): the logical-axis constraints of the JAX
+    package's model code, applied to DTensor activations on a mesh; the
+    default does nothing."""
     enc_out = None
     if cfg.is_encoder_decoder and mode != "decode":
         if enc_embeds is None:
             raise ValueError(f"{cfg.name} is encoder-decoder: forward needs "
                              f"enc_embeds")
-        enc_out = (encode(params, cfg, enc_embeds, remat=True) if remat
-                   else encode(params, cfg, enc_embeds))
+        kw = {"remat": True} if remat else {}
+        if shard is not NO_SHARD:
+            kw["shard"] = shard
+        enc_out = encode(params, cfg, enc_embeds, **kw)
     if embeds is None:
         x = embed(params["embed"].to(ACT_DTYPE), tokens)
     else:
         x = embeds.to(ACT_DTYPE)
+    x = shard(x, ("batch", None, "embed"))
     if pos is None and mode not in ("decode", "verify"):
         pos = torch.arange(x.shape[1], device=x.device)[None]
     x = _stack_forward(params["layers"],
@@ -285,14 +299,26 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
                        lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg,
                        seq_lens=seq_lens, prefix=prefix,
-                       prefix_len=prefix_len, remat=remat, aux=aux)
+                       prefix_len=prefix_len, remat=remat, aux=aux,
+                       shard=shard)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), cache
 
 
 # ---------------- losses ----------------
 
+def _gold(logits, labels):
+    """Each position's logit at its label. Vocab-sharded DTensor logits
+    take it as a masked sum over the vocab (one nonzero term: exact), which
+    DTensor reduces across the shards."""
+    if type(logits) is torch.Tensor:
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    hit = torch.arange(logits.shape[-1], device=logits.device) == \
+        labels[..., None]
+    return torch.where(hit, logits, 0.0).sum(-1)
+
+
 def chunked_ce_loss(head_w, x, labels, weights, chunk: int = 512,
-                    true_vocab: Optional[int] = None):
+                    true_vocab: Optional[int] = None, shard=NO_SHARD):
     """Cross-entropy of the vocabulary head over sequence chunks (the JAX
     package's ``chunked_ce_loss``): x (B, S, d), labels and weights (B, S);
     the chunk is ``min(S, chunk)`` lowered until it divides S. Logits are
@@ -312,12 +338,11 @@ def chunked_ce_loss(head_w, x, labels, weights, chunk: int = 512,
                           0.0, -1e30)
 
     def step(xc, lc, wc):
-        logits = xc.float() @ head_w.float()
+        logits = shard(xc.float() @ head_w.float(), ("batch", None, "vocab"))
         if pad is not None:
             logits = logits + pad
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
-        return torch.sum((lse - gold) * wc)
+        return torch.sum((lse - _gold(logits, lc)) * wc)
 
     tot = torch.zeros((), device=x.device)
     for i in range(0, S, c):
@@ -326,8 +351,8 @@ def chunked_ce_loss(head_w, x, labels, weights, chunk: int = 512,
     return tot / torch.clamp(torch.sum(weights), min=1.0)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
-            aux_weight: float = 0.01):
+def loss_fn(params, cfg: ModelConfig, batch: dict, shard=NO_SHARD,
+            remat: bool = True, aux_weight: float = 0.01):
     """The training loss of the JAX package's ``loss_fn``: (loss, metrics).
     ``batch``: ``tokens`` | ``embeds`` (+ ``labels``), ``enc_embeds``,
     ``pos3``, as tensors on the params' device. A representation config
@@ -339,7 +364,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     auxs = []
     x, _ = forward(params, cfg, tokens=tokens, embeds=embeds,
                    enc_embeds=batch.get("enc_embeds"), pos3=batch.get("pos3"),
-                   remat=remat, aux=auxs)
+                   remat=remat, aux=auxs, shard=shard)
     aux = torch.stack(auxs).sum() if auxs else torch.zeros((),
                                                            device=x.device)
     if cfg.is_representation:
@@ -354,7 +379,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
         weights = torch.ones(tokens.shape, device=x.device)
         weights[:, -1] = 0.0
     ce = chunked_ce_loss(params["head"], x, labels, weights,
-                         true_vocab=cfg.true_vocab)
+                         true_vocab=cfg.true_vocab, shard=shard)
     loss = ce + aux_weight * aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -374,7 +399,7 @@ def _head(params, x):
 def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             enc_embeds=None, pos3=None, cache, lora=None, adapter_idx=None,
             lora_impl: str = "gather", lora_seg=None, seq_lens=None, pos=None,
-            prefix=None, prefix_len=None):
+            prefix=None, prefix_len=None, shard=NO_SHARD):
     """Fill the decode cache from a prompt (in place). Returns
     (last_logits (B, V) f32, cache). ``seq_lens`` (B,): true lengths of
     right-padded prompts; the logits come from each row's last real token.
@@ -395,18 +420,18 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
                        lora=lora, adapter_idx=adapter_idx,
                        lora_impl=lora_impl, lora_seg=lora_seg,
                        seq_lens=seq_lens, pos=pos, prefix=prefix,
-                       prefix_len=prefix_len)
+                       prefix_len=prefix_len, shard=shard)
     if seq_lens is None:
         last = x[:, -1]
     else:
         rows = torch.arange(x.shape[0], device=x.device)
         last = x[rows, torch.clamp(seq_lens, min=1).long() - 1]
-    return _head(params, last), cache
+    return shard(_head(params, last), ("batch", "vocab")), cache
 
 
 def decode_step(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
                 lora=None, adapter_idx=None, lora_impl: str = "gather",
-                lora_seg=None):
+                lora_seg=None, shard=NO_SHARD):
     """One-token serve step. tokens: (B,) int or embeds: (B, d). Returns
     (logits (B, V) f32, cache) with the cache advanced in place."""
     if embeds is None:
@@ -415,12 +440,13 @@ def decode_step(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
         x = embeds[:, None].to(ACT_DTYPE)
     x, cache = forward(params, cfg, embeds=x, cache=cache, mode="decode",
                        lora=lora, adapter_idx=adapter_idx,
-                       lora_impl=lora_impl, lora_seg=lora_seg)
-    return _head(params, x[:, 0]), cache
+                       lora_impl=lora_impl, lora_seg=lora_seg, shard=shard)
+    return shard(_head(params, x[:, 0]), ("batch", "vocab")), cache
 
 
 def verify_step(params, cfg: ModelConfig, *, tokens, cache, lora=None,
-                adapter_idx=None, lora_impl: str = "gather", lora_seg=None):
+                adapter_idx=None, lora_impl: str = "gather", lora_seg=None,
+                shard=NO_SHARD):
     """Speculative verify: score T = k + 1 positions in one batched forward.
 
     tokens: (B, T) int; column 0 is the slot's last sampled token (what a
@@ -437,13 +463,13 @@ def verify_step(params, cfg: ModelConfig, *, tokens, cache, lora=None,
     x = embed(params["embed"].to(ACT_DTYPE), tokens)
     x, cache = forward(params, cfg, embeds=x, cache=cache, mode="verify",
                        lora=lora, adapter_idx=adapter_idx,
-                       lora_impl=lora_impl, lora_seg=lora_seg)
-    return _head(params, x), cache
+                       lora_impl=lora_impl, lora_seg=lora_seg, shard=shard)
+    return shard(_head(params, x), ("batch", None, "vocab")), cache
 
 
-def backbone_features(params, cfg: ModelConfig, embeds):
+def backbone_features(params, cfg: ModelConfig, embeds, shard=NO_SHARD):
     """Representation-FM forward (MOMENT-style): patch embeddings (B, S, d)
     -> final-norm features (B, S, d), bidirectional attention (K2 with
     ``causal=False``)."""
-    x, _ = forward(params, cfg, embeds=embeds)
+    x, _ = forward(params, cfg, embeds=embeds, shard=shard)
     return x

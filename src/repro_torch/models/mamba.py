@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import NO_SHARD, ParamSpec
 
 
 def mamba_spec(cfg) -> dict:
@@ -48,7 +48,7 @@ def _ssm_chunk(x, dt, B, C, A, D, h0):
 
 
 def mamba_forward(p, x, cfg, conv_state=None, ssm_state=None,
-                  chunk: int = 128, seq_lens=None):
+                  chunk: int = 128, seq_lens=None, shard=NO_SHARD):
     """x: (B, S, d). Returns (y, (conv_state, ssm_state)), the states being
     the decode cache; a prefill passes no state (zeros).
 
@@ -65,6 +65,7 @@ def mamba_forward(p, x, cfg, conv_state=None, ssm_state=None,
     dc = cfg.mamba_d_conv
     dt_x = x.dtype
     xin, z = (x @ p["in_proj"].to(dt_x)).chunk(2, dim=-1)    # (B, S, di) each
+    xin = shard(xin, ("batch", None, "mlp"))
     # causal depthwise conv of width dc
     if conv_state is None:
         conv_state = torch.zeros((Bsz, dc - 1, di), dtype=dt_x,
@@ -108,8 +109,8 @@ def mamba_forward(p, x, cfg, conv_state=None, ssm_state=None,
     return y @ p["out_proj"].to(dt_x), (new_conv, h)
 
 
-def mamba_decode(p, x, cfg, conv_state, ssm_state):
+def mamba_decode(p, x, cfg, conv_state, ssm_state, shard=NO_SHARD):
     """One-step decode. x: (B, 1, d); conv_state: (B, dc-1, di); ssm_state:
     (B, di, ds)."""
     return mamba_forward(p, x, cfg, conv_state=conv_state,
-                         ssm_state=ssm_state, chunk=1)
+                         ssm_state=ssm_state, chunk=1, shard=shard)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import NO_SHARD, ParamSpec
 
 
 def mlp_spec(cfg) -> dict:
@@ -15,8 +15,9 @@ def mlp_spec(cfg) -> dict:
     }
 
 
-def mlp(p, x):
+def mlp(p, x, shard=NO_SHARD):
     dt = x.dtype
     g = x @ p["wi_gate"].to(dt)
     u = x @ p["wi_up"].to(dt)
-    return (F.silu(g) * u) @ p["wo"].to(dt)
+    h = shard(F.silu(g) * u, ("batch", None, "mlp"))
+    return h @ p["wo"].to(dt)

@@ -7,10 +7,11 @@ capacity rule:
 * ``"gshard"``: capacity-based one-hot dispatch and combine (GShard/Switch)
   over sequence subgroups; every expert's matrices are read whatever the
   routing (a decode step touches all of them);
-* ``"scatter"``: the same slots filled and read back by index.
-
-``"ep"`` (expert parallelism) needs a device mesh; without one it falls
-back to gshard, as the JAX package does when its mesh does not fit.
+* ``"scatter"``: the same slots filled and read back by index;
+* ``"ep"``: expert parallelism on a mesh (``_moe_ep``, a ``local_map``
+  over the "model" dimension). Where there is no mesh, or the mesh or the
+  expert count does not fit, it falls back to gshard, as the JAX package
+  does.
 
 Routing is per row (the JAX package vmaps over the batch): a row's capacity
 cumsum, drops and output depend on that row alone, so a free or padded row
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import NO_SHARD, ParamSpec
 
 
 def moe_spec(cfg) -> dict:
@@ -66,10 +67,13 @@ def _router(p, xg, k):
     e = probs.shape[-1]
     me = probs.mean(dim=-2)
     flat = idx_k.reshape(*idx_k.shape[:-2], -1)
-    ce = torch.zeros(*flat.shape[:-1], e, dtype=torch.float32,
-                     device=xg.device).scatter_add_(
-        -1, flat, torch.ones(flat.shape, dtype=torch.float32,
-                             device=xg.device)) / flat.shape[-1]
+    if type(flat) is torch.Tensor:
+        ce = torch.zeros(*flat.shape[:-1], e, dtype=torch.float32,
+                         device=xg.device).scatter_add_(
+            -1, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                 device=xg.device)) / flat.shape[-1]
+    else:   # a DTensor (a mesh): the same integer counts, out of place
+        ce = one_hot(flat, e, torch.float32).sum(-2) / flat.shape[-1]
     return gate_k, idx_k, e * (me * ce).sum(-1)
 
 
@@ -93,19 +97,22 @@ def _positions(idx_k, num_experts: int, cap: int, valid=None):
     return pos, keep
 
 
-def _expert_ffn(p, x_e):
+def _expert_ffn(p, x_e, shard=NO_SHARD):
     """x_e: (B, E, C, d) -> (B, E, C, d): each expert's gated FFN over its
-    C slots of every row, one batched product per matrix over E."""
+    C slots of every row, one batched product per matrix over E, the
+    experts sharded over "model" on a mesh."""
     B, E, C, d = x_e.shape
     dt = x_e.dtype
-    xt = x_e.transpose(0, 1).reshape(E, B * C, d)
+    xt = shard(x_e.transpose(0, 1).reshape(E, B * C, d),
+               ("experts", None, None))
     g = torch.bmm(xt, p["wi_gate"].to(dt))
     u = torch.bmm(xt, p["wi_up"].to(dt))
-    out = torch.bmm(F.silu(g) * u, p["wo"].to(dt))
+    h = shard(F.silu(g) * u, ("experts", None, "mlp"))
+    out = shard(torch.bmm(h, p["wo"].to(dt)), ("experts", None, None))
     return out.reshape(E, B, C, d).transpose(0, 1)
 
 
-def _group_gshard(p, xg, k, cap, valid=None):
+def _group_gshard(p, xg, k, cap, valid=None, shard=NO_SHARD):
     """One subgroup, one-hot dispatch. xg: (B, g, d) -> (B, g, d), aux."""
     B, g, d = xg.shape
     gate_k, idx_k, aux = _router(p, xg, k)
@@ -119,11 +126,11 @@ def _group_gshard(p, xg, k, cap, valid=None):
     combine = (oh * gate_k[..., None, None].to(dt)).sum(dim=2).reshape(
         B, g, e * cap)
     x_e = (dispatch.transpose(1, 2) @ xg).reshape(B, e, cap, d)
-    y_e = _expert_ffn(p, x_e).reshape(B, e * cap, d)
+    y_e = _expert_ffn(p, x_e, shard).reshape(B, e * cap, d)
     return combine @ y_e, aux.mean()
 
 
-def _group_scatter(p, xg, k, cap, valid=None):
+def _group_scatter(p, xg, k, cap, valid=None, shard=NO_SHARD):
     """One subgroup, scatter/gather dispatch. xg: (B, g, d) -> (B, g, d),
     aux. Slot ``e * cap`` is the overflow row every dropped token writes."""
     B, g, d = xg.shape
@@ -137,7 +144,7 @@ def _group_scatter(p, xg, k, cap, valid=None):
     tok = torch.arange(g, device=xg.device).repeat_interleave(k)
     x_e = torch.zeros((B, e * cap + 1, d), dtype=dt, device=xg.device)
     x_e[rows, slot] = xg[:, tok]
-    y_e = _expert_ffn(p, x_e[:, :-1].reshape(B, e, cap, d))
+    y_e = _expert_ffn(p, x_e[:, :-1].reshape(B, e, cap, d), shard)
     y_tok = y_e.reshape(B, e * cap, d)[rows, torch.clamp(slot,
                                                          max=e * cap - 1)]
     y_tok = y_tok.reshape(B, g, k, d) * (keep * gate_k).to(dt)[..., None]
@@ -145,7 +152,7 @@ def _group_scatter(p, xg, k, cap, valid=None):
 
 
 def moe_ffn(p, x, *, k: int, dispatch: str = "gshard", subgroup: int = 1024,
-            valid=None):
+            valid=None, shard=NO_SHARD):
     """x: (B, S, d) -> ((B, S, d), aux loss). The sequence is cut into
     subgroups of ``gc = min(S, subgroup)`` positions (decremented until it
     divides S), each routed with capacity ``capacity(gc, k, E)``: a decode
@@ -153,9 +160,16 @@ def moe_ffn(p, x, *, k: int, dispatch: str = "gshard", subgroup: int = 1024,
 
     ``valid`` (B, S) bool: right-padded variable-length prefill: pad
     positions claim no expert capacity and get a zero output, so a real
-    token's routing does not depend on its admission bucket's padding."""
+    token's routing does not depend on its admission bucket's padding.
+
+    ``dispatch="ep"`` on a mesh (``shard.mesh``) runs ``_moe_ep``; where it
+    returns None (no mesh, or the mesh or the expert count does not fit)
+    gshard runs instead, as in the JAX package."""
     if dispatch == "ep":
-        dispatch = "gshard"        # no device mesh: the JAX fallback
+        out = _moe_ep(p, x, k, shard, valid)
+        if out is not None:
+            return out
+        dispatch = "gshard"        # mesh/divisibility fallback
     if dispatch not in ("gshard", "scatter"):
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     B, S, d = x.shape
@@ -168,11 +182,101 @@ def moe_ffn(p, x, *, k: int, dispatch: str = "gshard", subgroup: int = 1024,
     outs, auxs = [], []
     for i in range(0, S, gc):
         out, aux = fn(p, x[:, i:i + gc], k, cap,
-                      valid=None if valid is None else valid[:, i:i + gc])
+                      valid=None if valid is None else valid[:, i:i + gc],
+                      shard=shard)
         outs.append(out)
         auxs.append(aux)
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out, torch.stack(auxs).mean()
+
+
+def _moe_ep(p, x, k: int, shard, valid=None):
+    """Expert parallelism, a ``local_map`` over the mesh (the JAX
+    package's ``shard_map`` one).
+
+    Tokens stay split over the batch dimensions and replicated over
+    "model"; each model rank routes ALL its local tokens (one group of
+    ``t_loc`` tokens, capacity ``capacity(t_loc, k, e)``, the same
+    ``_positions`` drops as gshard) but dispatches, by a local scatter,
+    only to the experts it owns (rank m: experts [m e_loc, (m+1) e_loc)),
+    runs their FFNs, combines locally, and one bf16 all-reduce over
+    "model" assembles the output. ``aux`` is averaged over the batch
+    dimensions. Returns None where there is no mesh, the mesh has no
+    "model" dimension, the experts do not divide over it, or the batch
+    does not divide over the batch dimensions (the caller falls back to
+    gshard)."""
+    mesh = getattr(shard, "mesh", None)
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.ops import _as_dtensor
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model")
+    M = mesh.size(mi)
+    e = p["router"].shape[-1]
+    if e % M != 0:
+        return None
+    batch_dims = [names.index(a) for a in ("pod", "data") if a in names]
+    B, S, d = x.shape
+    dp = 1
+    for i in batch_dims:
+        dp *= mesh.size(i)
+    if B % dp != 0:
+        return None
+    e_loc = e // M
+    t_loc = (B // dp) * S
+    cap = capacity(t_loc, k, e)
+
+    def pl(batch, model):
+        return tuple(batch if i in batch_dims else
+                     model if i == mi else Replicate()
+                     for i in range(mesh.ndim))
+    rep = pl(Replicate(), Replicate())
+    xpl = pl(Shard(0), Replicate())
+    wpl = pl(Replicate(), Shard(0))
+
+    def local_fn(xl, vl, router_w, wg, wu, wo):
+        b_loc, s, _ = xl.shape
+        T = b_loc * s
+        dt = xl.dtype
+        xf = xl.reshape(T, d)
+        gate_k, idx_k, aux = _router({"router": router_w}, xf, k)
+        pos, keep = _positions(idx_k, e, cap,
+                               valid=None if vl is None else vl.reshape(T))
+        m_idx = mesh.get_coordinate()[mi]
+        keep_loc = keep & ((idx_k // e_loc) == m_idx)
+        slot = torch.where(keep_loc, (idx_k % e_loc) * cap + pos,
+                           torch.full_like(idx_k, e_loc * cap))
+        tok = torch.arange(T, device=xl.device).repeat_interleave(k)
+        x_e = torch.zeros((e_loc * cap + 1, d), dtype=dt, device=xl.device)
+        x_e[slot.reshape(-1)] = xf[tok]
+        x_e = x_e[:-1].reshape(e_loc, cap, d)
+        g = torch.bmm(x_e, wg.to(dt))
+        u = torch.bmm(x_e, wu.to(dt))
+        y_e = torch.bmm(F.silu(g) * u, wo.to(dt))
+        y_tok = y_e.reshape(e_loc * cap, d)[
+            torch.clamp(slot, max=e_loc * cap - 1).reshape(-1)]
+        y = (y_tok.reshape(T, k, d)
+             * (keep_loc * gate_k).to(dt)[..., None]).sum(dim=1)
+        # aux is the same on every model rank: each carries 1/M of it,
+        # so its sum over "model" (and its gradient) counts it once
+        return y.reshape(b_loc, s, d), aux / M
+
+    out_pl = pl(Shard(0), Partial())
+    aux_pl = pl(Partial("avg"), Partial())
+    args = tuple(_as_dtensor(t, mesh) for t in (
+        x, valid, p["router"], p["wi_gate"], p["wi_up"], p["wo"]))
+    in_pl = (xpl, None if valid is None else xpl, rep, wpl, wpl, wpl)
+    grad_pl = (pl(Shard(0), Partial()), in_pl[1],
+               pl(Partial(), Partial()), pl(Partial(), Shard(0)),
+               pl(Partial(), Shard(0)), pl(Partial(), Shard(0)))
+    out, aux = local_map(local_fn, out_placements=(out_pl, aux_pl),
+                         in_placements=in_pl, in_grad_placements=grad_pl,
+                         device_mesh=mesh, redistribute_inputs=True)(*args)
+    out = out.redistribute(mesh, xpl)             # the one all-reduce
+    return out, aux.redistribute(mesh, rep).mean()
 
 
 def moe_ref(p, x, k: int):

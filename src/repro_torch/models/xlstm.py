@@ -15,7 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import NO_SHARD, ParamSpec
 
 
 def _di(cfg) -> int:
@@ -74,7 +74,7 @@ def _heads(x, w):
         *x.shape[:2], h, hd)
 
 
-def mlstm_forward(p, x, cfg, state=None, seq_lens=None):
+def mlstm_forward(p, x, cfg, state=None, seq_lens=None, shard=NO_SHARD):
     """x: (B, S, d) -> (y, state'). ``state`` None starts from
     ``mlstm_init_state`` (a prefill); a decode step passes the cache."""
     B, S, d = x.shape
@@ -83,6 +83,7 @@ def mlstm_forward(p, x, cfg, state=None, seq_lens=None):
     hd = di // h
     dt = x.dtype
     xin, z = (x @ p["up"].to(dt)).chunk(2, dim=-1)
+    xin = shard(xin, ("batch", None, "mlp"))
     scale = 1.0 / math.sqrt(hd)
     q = _heads(xin, p["wq"])
     k = _heads(xin, p["wk"]) * scale
@@ -134,12 +135,12 @@ def slstm_init_state(cfg, batch: int, device="cuda") -> dict:
             "m": torch.full((batch, di), -1e30, **f32)}
 
 
-def slstm_forward(p, x, cfg, state=None, seq_lens=None):
+def slstm_forward(p, x, cfg, state=None, seq_lens=None, shard=NO_SHARD):
     """x: (B, S, d) -> (y, state'). Sequential in the recurrent ``h``; the
     recurrent ``r`` and bias ``b`` are used in f32."""
     B, S, d = x.shape
     dt = x.dtype
-    xin = x @ p["up"].to(dt)
+    xin = shard(x @ p["up"].to(dt), ("batch", None, "mlp"))
     wx = (xin @ p["w"].to(dt)).float() + p["b"].float()
     r = p["r"].float()
     st = state if state is not None else slstm_init_state(cfg, B, x.device)

@@ -5,7 +5,9 @@ twin where the two compute the same thing: ``examples/cluster_sim_torch.py``
 reduced moment-large with ``--device cpu --reduced`` (its loss must fall)
 and packages the task; ``examples/train_e2e_torch.py`` trains reduced
 xlstm-125m through ``repro_torch.launch.train`` with ``--device cpu``
-(the failure fires, the run restores and finishes, the loss falls)."""
+(the failure fires, the run restores and finishes, the loss falls);
+``examples/serve_multitask_torch.py`` serves its pooled and mixed paged
+planes with ``--device cpu --reduced``."""
 import importlib.util
 import itertools
 from pathlib import Path
@@ -54,3 +56,27 @@ def test_train_e2e_torch_on_the_cpu(capsys):
     assert inj.fired and len(losses) >= 30
     assert np.mean(losses[-5:]) < losses[0]
     assert "restored step 10" in out and "restarted=True" in out
+
+
+def test_serve_multitask_torch_pooled_on_the_cpu(capsys):
+    """``examples/serve_multitask_torch.py --device cpu --reduced``: the
+    pooled plane under each scheduler (reduced moment-large, as the JAX
+    twin serves it) serves requests."""
+    got = _load("serve_multitask_torch").main(
+        ["--device", "cpu", "--reduced", "--tasks", "2", "--rps", "20",
+         "--seconds", "0.5"])
+    assert set(got) == {"bfq", "stfq", "s-be"}
+    assert all(s["n"] > 0 for s in got.values())
+    assert "fairness=" in capsys.readouterr().out
+
+
+def test_serve_multitask_torch_mixed_paged_on_the_cpu(capsys):
+    """``--mixed --paged``: pooled and generative traffic through one
+    ``ServeLoop`` on the paged pool (reduced stablelm-1.6b); both planes
+    serve and the page gauges print."""
+    s = _load("serve_multitask_torch").main(
+        ["--device", "cpu", "--reduced", "--mixed", "--paged", "--tasks",
+         "4", "--rps", "20", "--seconds", "1"])
+    assert s["pooled"].get("n", 0) > 0 and s["decode"].get("n", 0) > 0
+    out = capsys.readouterr().out
+    assert "mixed:" in out and "kv pages:" in out

@@ -349,7 +349,9 @@ def test_serving_faults_raise_the_trainers_failure_type():
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh that is not a ``DeviceMesh`` (the trainer on a mesh is held
+    in ``tests/test_torch_mesh.py``)."""
+    with pytest.raises(TypeError, match="mesh"):
         ttrain.Trainer(treduced(tget(STABLELM)), batch=2, seq=16,
                        ckpt_dir=tmp_path, mesh=object(), device="cpu")
 
