@@ -213,7 +213,21 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    memory and one profiled step by kernel group; and
    ``examples/train_e2e_torch.py --full-width`` (xlstm-125m, 4 layers,
    30 steps): the injected failure fires, the run restores from its
-   checkpoint and finishes with its loss lower.
+   checkpoint and finishes with its loss lower;
+13. the mesh plane (``phase_mesh``) on a 1-device mesh; and
+14. long context and the recurrent scans (``phase_long``): K5 with a key
+   offset and log-sum-exp at the long_500k shapes (h2o-danube-1.8b's hd 80
+   under its 4096-position window, jamba's hd 128; 524288 positions;
+   lengths 524288, 300001 and 1) within two bf16 ulps of its plain
+   version, the cache cut into the 16 pieces of the "data" split and
+   merged by ``merge_partials`` within two ulps of one call, empty pieces
+   o = 0 and lse = -inf, each timed beside SDPA; decode at 524288
+   positions (h2o-danube-1.8b at full depth, jamba at JAMBA_LAYERS,
+   graphed) with finite logits and the last step within LONG_TOL of the
+   same step through the 16 pieces; xlstm-125m trained two steps at 2 x
+   4096 with its peak memory beside the prediction; one Mamba layer at
+   jamba's width with and without its chunks checkpointed; and four
+   dry-run cells traced on the host beside the whole run.
 
 The serving paths run graphed: every executable of ``PhysicalFM`` and
 ``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
@@ -3720,6 +3734,12 @@ H2O_PROMPT, H2O_STEPS = 4160, 32    # a prompt past h2o-danube's 4096 window
 MINITRON_LAYERS = 8                 # of minitron-8b's 32: its serving took
                                     # 42 s at 32 and 26.5 s at 16 layers;
                                     # cut again to make room for phase_mesh
+# the served depth of each family cut for the run's time (room for
+# phase_long, whose xlstm-125m training alone takes ~170 s): qwen2-7b at 14
+# of 28 layers and h2o-danube-1.8b at 12 of 24 (phase_long decodes h2o at
+# its full depth); minitron-8b at MINITRON_LAYERS
+SERVED_LAYERS = {"minitron-8b": MINITRON_LAYERS, "qwen2-7b": 14,
+                 "h2o-danube-1.8b": 12}
 VLM_LAYERS = 2                      # of qwen2-vl-72b's 80 (see phase_vlm)
 VLM_GRID = 8                        # patches a side: 64 a request
 
@@ -3846,7 +3866,7 @@ def phase_reference_family(dev, arch):
 
 
 def phase_family_serving(dev, arch, pool):
-    """Full-width ``arch`` (full depth; minitron-8b at MINITRON_LAYERS)
+    """Full-width ``arch`` (at SERVED_LAYERS where the run's time cuts it)
     behind ``FMplexServer``/``ServeLoop`` as stablelm is served (random
     weights from a seed, 4 tasks with rank-16 q/v adapters, 8 slots,
     graphed): ``pool`` "dense" is
@@ -3855,8 +3875,10 @@ def phase_family_serving(dev, arch, pool):
     burst that defers and preempts), with the same gates. The server is
     freed before the next model is built."""
     t0 = time.perf_counter()
-    cfg = family_config(arch, **({"num_layers": MINITRON_LAYERS}
-                                 if arch == MINITRON else {}))
+    cfg = family_config(arch, **({"num_layers": SERVED_LAYERS[arch]}
+                                 if arch in SERVED_LAYERS else {}))
+    log(f"{arch} {pool} serving at {cfg.num_layers} of "
+        f"{family_config(arch).num_layers} layers")
     if pool == "dense":
         ok, stats, handles = phase_serving(dev, cfg)
     else:
@@ -4071,6 +4093,9 @@ OLMOE, JAMBA, XLSTM, GROK = ("olmoe-1b-7b", "jamba-v0.1-52b", "xlstm-125m",
 # 12.74 B parameters; 16 layers, two periods, fit too but the whole run then
 # took 769 s against the 750 s aimed at); grok-1-314b 2 of its 64 (11.45 B)
 JAMBA_LAYERS, GROK_LAYERS = 8, 2
+# olmoe-1b-7b at 8 of its 16 layers (the run's time, room for
+# phase_long; its serving took ~58 s at 16)
+OLMOE_LAYERS = 8
 # xlstm-125m at 4 of its 12 layers (one period of its sublayer pattern),
 # to keep the whole run near 800 s once the LM training phase came in (a
 # run took 745-867 s with it whole; its 12-layer serving took 50 s, its
@@ -4169,9 +4194,9 @@ def keep_unflipped_engine(gcalls, ccalls, n_moe, calls, prompts):
 def stack_config(arch, **over):
     """``arch`` at full width, cut where one card forces it (jamba to
     JAMBA_LAYERS, grok to GROK_LAYERS layers) or the run's time does
-    (xlstm to XLSTM_LAYERS)."""
+    (xlstm to XLSTM_LAYERS, olmoe to OLMOE_LAYERS)."""
     cut = {JAMBA: JAMBA_LAYERS, GROK: GROK_LAYERS,
-           XLSTM: XLSTM_LAYERS}.get(arch)
+           XLSTM: XLSTM_LAYERS, OLMOE: OLMOE_LAYERS}.get(arch)
     if cut is not None and "num_layers" not in over:
         over["num_layers"] = cut
     return family_config(arch, **over)
@@ -6137,6 +6162,433 @@ def phase_mesh(dev):
     return phases, stats
 
 
+# ---------------- phase 14: long context and the recurrent scans -----------
+
+# the long_500k cells' cache: 524288 positions, cut into the 16 pieces of
+# the "data" split (32768 positions each) under the long-context rules
+LONG_S, LONG_PIECES = 524288, 16
+# K5 at the long_500k cells' attention layers: h2o-danube-1.8b's (hd 80,
+# its 4096-position window) and jamba's (hd 128, no window), one row, at
+# the full length, an odd length and one position
+LONG_CASES = {"h2o": dict(H=32, KV=8, hd=80, window=4096),
+              "jamba": dict(H=32, KV=8, hd=128, window=None)}
+LONG_LENS = (LONG_S, 300001, 1)
+LONG_STEPS = 6                  # decode steps at ~524288 positions
+LONG_TOL = (1e-2, 5e-2)         # rel L2, max abs: one call vs 16 pieces
+XLSTM_TRAIN_B, XLSTM_TRAIN_S = 2, 4096
+MAMBA_S = 4096
+# the dry-run cells phase_long runs on the host (started with the run)
+LONG_DRYRUN_CELLS = ("h2o-danube-1.8b:long_500k:pod1",
+                     "jamba-v0.1-52b:long_500k:pod1",
+                     "xlstm-125m:train_4k:pod1", "jamba-v0.1-52b:train_4k:pod1")
+
+
+def long_pieces(q, k, v, ln, window, pieces=LONG_PIECES):
+    """K5 over the cache (B, S, KV, hd) cut into ``pieces`` along its
+    sequence, as the ranks of the long-context split hold it: each piece
+    with its key offset and log-sum-exp, merged by
+    ``models.attention.merge_partials`` -> (o in q's dtype, [(o, lse)] of
+    each piece)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import merge_partials
+    n = k.shape[1] // pieces
+    parts = [ops.decode_attention(q, k[:, i * n:(i + 1) * n],
+                                  v[:, i * n:(i + 1) * n], ln, window=window,
+                                  key_offset=i * n, return_lse=True)
+             for i in range(pieces)]
+    o, _ = merge_partials(torch.stack([p[0] for p in parts]),
+                          torch.stack([p[1] for p in parts]))
+    return o.to(q.dtype), parts
+
+
+def long_k5(dev, gen):
+    """(a) K5 at the long_500k shapes against its plain version on the
+    card: each length's call within two bf16 ulps of the largest output;
+    the same call with ``return_lse`` rounding to its bits (the log-sum-exp
+    path computes what the plain call does); every piece (key offset, lse)
+    within two ulps of its largest output (o) and 1e-3 (lse) of the plain
+    version's piece; the 16
+    pieces merged within two ulps of the one call; a piece wholly outside
+    the window or past the length o = 0 and lse = -inf. Timed at the full
+    length: one call, the 16 pieces plus the merge, the plain version and
+    SDPA (``enable_gqa``, the window as a mask) on the same cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    ok, out = True, {}
+    for name, case in LONG_CASES.items():
+        H, KV, hd, window = case["H"], case["KV"], case["hd"], case["window"]
+        q, k, v, _ = float_inputs(gen, 1, H, KV, LONG_S, hd, 1, dev,
+                                  lens=[LONG_S])[0]
+        n = LONG_S // LONG_PIECES
+        res = {}
+        for L in LONG_LENS:
+            ln = torch.tensor([L], dtype=torch.int32, device=dev)
+            got = ops.decode_attention(q, k, v, ln, window=window)
+            want = ref.decode_attention_ref(q, k.transpose(1, 2),
+                                            v.transpose(1, 2), ln,
+                                            window=window, p_dtype=v.dtype)
+            tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+            err = (got.float() - want.float()).abs().max().item()
+            o32, _ = ops.decode_attention(q, k, v, ln, window=window,
+                                          return_lse=True)
+            same = torch.equal(got, o32.to(got.dtype))
+            merged, parts = long_pieces(q, k, v, ln, window)
+            merr = (merged.float() - got.float()).abs().max().item()
+            # each piece against its own plain version, two ulps of that
+            # piece's largest output (a piece normalised over fewer keys
+            # holds larger outputs than the whole)
+            perr, pok, lerr, empty, empty_ok = 0.0, True, 0.0, 0, True
+            lo = max(0, L - window) if window else 0
+            for i, (po, pl) in enumerate(parts):
+                wo, wl = ref.decode_attention_ref(
+                    q, k[:, i * n:(i + 1) * n].transpose(1, 2),
+                    v[:, i * n:(i + 1) * n].transpose(1, 2), ln,
+                    window=window, p_dtype=v.dtype, key_offset=i * n,
+                    return_lse=True)
+                e = (po - wo).abs().max().item()
+                perr = max(perr, e)
+                pok &= e <= 2 * 2.0 ** -8 * wo.abs().max().item() + 1e-6
+                fin = torch.isfinite(wl)
+                lerr = max(lerr, (pl[fin] - wl[fin]).abs().max().item()
+                           if fin.any() else 0.0)
+                if i * n >= L or (i + 1) * n <= lo:
+                    empty += 1
+                    empty_ok &= bool(torch.isneginf(pl).all()) and \
+                        not po.any().item()
+            good = err <= tol and pok and merr <= tol and \
+                lerr <= 1e-3 and same and empty_ok and \
+                bool(torch.isfinite(merged.float()).all())
+            log(f"long K5 [{name}] H={H} KV={KV} hd={hd} S={LONG_S} "
+                f"window={window} len={L}: max_abs_err={err:.3e} (bound "
+                f"{tol:.3e}), lse path same bits: {same}, pieces: o err "
+                f"{perr:.3e}, lse err {lerr:.3e}, {empty} empty (o 0, lse "
+                f"-inf: {empty_ok}), 16-piece merge vs one call "
+                f"{merr:.3e}: {good}")
+            ok &= good
+            res[L] = {"max_abs_err": err, "merge_err": merr,
+                      "piece_err": perr, "lse_err": lerr,
+                      "empty_pieces": empty}
+        ln = torch.tensor([LONG_S], dtype=torch.int32, device=dev)
+        ms = device_ms(lambda: ops.decode_attention(q, k, v, ln,
+                                                    window=window))
+        pieces_ms = device_ms(lambda: long_pieces(q, k, v, ln, window))
+        plain_ms = device_ms(lambda: ref.decode_attention_ref(
+            q, k.transpose(1, 2), v.transpose(1, 2), ln, window=window,
+            p_dtype=v.dtype), iters=3, warmup=1)
+        q4 = q.view(1, H, 1, hd)
+        k4 = k.transpose(1, 2).contiguous()
+        v4 = v.transpose(1, 2).contiguous()
+        mask = None
+        if window is not None:
+            pos = torch.arange(LONG_S, device=dev)
+            mask = (pos >= LONG_S - window)[None, None, None]
+        sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True))
+        del k4, v4
+        bound, by = float_bound(q, k, ln, window)
+        out[name] = {"ms": ms, "pieces_ms": pieces_ms, "plain_ms": plain_ms,
+                     "library_ms": sdpa_ms, "bound_ms": bound,
+                     "bound_by": by, "lengths": res}
+        log(f"long K5 timing [{name}] (card {smi_line()}): one call {ms:.4f}"
+            f" ms, 16 pieces + merge {pieces_ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, SDPA {sdpa_ms:.4f} ms, bound {bound:.4f} ms"
+            f" ({by})")
+        del q, k, v
+        free_device()
+    return ok, out
+
+
+@contextlib.contextmanager
+def attention_in_pieces():
+    """The float cache's decode attention (``models.attention.
+    decode_attention``) routed through ``long_pieces`` while open."""
+    from repro_torch.models import attention
+
+    real = attention.decode_attention
+
+    def pieces(q, k_cache, v_cache, cache_len, *, window=None):
+        return long_pieces(q, k_cache, v_cache, cache_len, window)[0]
+    attention.decode_attention = pieces
+    try:
+        yield
+    finally:
+        attention.decode_attention = real
+
+
+def long_decode(dev, arch, seed):
+    """(b) ``lm.decode_step`` of ``arch`` (h2o-danube-1.8b at full width
+    and depth, jamba at its served JAMBA_LAYERS) on one row of a float
+    cache of LONG_S positions filled from a seed (no prefill: the
+    recurrent states zero), its length LONG_S - LONG_STEPS, for
+    LONG_STEPS steps through one ``graphs.Executable`` (call 1 eager, 2
+    captured, then replays): TPOT over the replays, finite logits, K5's
+    launches one per attention sublayer a step; then the last step again
+    from the same state, eager, its attention through the 16 pieces and
+    the merge, within LONG_TOL of the graphed step's logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import graphs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    cfg = stack_config(arch) if arch == JAMBA else family_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.init_model(gen, cfg, device=dev)
+    with torch.no_grad():
+        fan_in_qk(params, cfg)
+    cache = lm.init_cache(cfg, 1, LONG_S, device=dev)
+    n_attn = 0
+    for sub in cache:
+        if "k" in sub:
+            sub["k"].normal_(generator=gen)
+            sub["v"].normal_(generator=gen)
+            sub["len"].fill_(LONG_S - LONG_STEPS)
+            n_attn += sub["k"].shape[0]
+    gb = sum(t.numel() * t.element_size() for sub in cache
+             for t in sub.values()) / 1e9
+    toks = torch.randint(0, cfg.vocab_size, (LONG_STEPS, 1), generator=gen,
+                         device=dev)
+
+    def step(params, cache, tok):
+        return lm.decode_step(params, cfg, tokens=tok, cache=cache)[0]
+    exe = graphs.Executable(step, bake=(0, 1))
+    ops.reset_launches()
+    ms, finite = [], True
+    for t in range(LONG_STEPS):
+        if t == LONG_STEPS - 1:
+            snap = [{k: v.clone() for k, v in sub.items()
+                     if k not in ("k", "v")} for sub in cache]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = exe(params, cache, toks[t])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        finite &= bool(torch.isfinite(logits).all())
+    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    last = logits.float().clone()
+    for sub, sn in zip(cache, snap):
+        for k, v in sn.items():
+            sub[k].copy_(v)
+    with graphs.disabled(), attention_in_pieces(), torch.no_grad():
+        split = lm.decode_step(params, cfg, tokens=toks[-1],
+                               cache=cache)[0].float()
+    rel = (torch.linalg.vector_norm(split - last) /
+           torch.linalg.vector_norm(last)).item()
+    worst = (split - last).abs().max().item()
+    want = n_attn * LONG_STEPS
+    stats = {"card": smi_line(), "layers": cfg.num_layers,
+             "attention_layers": n_attn, "cache_gb": gb,
+             "len_last": LONG_S, "tpot_ms": float(np.median(ms[2:])),
+             "step_ms": ms, "finite": finite,
+             "pieces_vs_one_call": [rel, worst], "launches": launches}
+    log(f"long decode {arch}: " + json.dumps(stats, default=float))
+    ok = finite and rel <= LONG_TOL[0] and worst <= LONG_TOL[1] and \
+        launches.get("decode_attention", 0) == want
+    del exe, params, cache, logits
+    free_device()
+    return ok, stats
+
+
+def long_xlstm_training(dev):
+    """(c) xlstm-125m at full width and its served XLSTM_LAYERS: two
+    ``make_train_step`` steps on one batch of XLSTM_TRAIN_B x
+    XLSTM_TRAIN_S, the mLSTM/sLSTM scans in checkpointed chunks of 64
+    inside the per-period remat. The peak memory of a step above what the
+    params and AdamW hold, beside the prediction: without chunks each
+    mLSTM layer would keep every step's (B, 4, 384, 384) f32 memory C (3
+    layers x 2 rows x 9.7 GB = 58 GB of C alone); with them it keeps 64
+    boundary states a layer (3 x 64 x 4.73 MB = 0.91 GB) plus one chunk's
+    recompute."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg = stack_config(XLSTM)
+    params = lm_masters(cfg, dev, seed=61)
+    with torch.no_grad():
+        fan_in_qk(params, cfg)
+    opt = AdamW(lr=LM_LR)
+    state = {"params": params, "opt": opt.init(params)}
+    step = make_train_step(cfg, opt)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(TokenPipeline(
+        cfg, XLSTM_TRAIN_B, XLSTM_TRAIN_S, seed=62)).items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    di = int(cfg.xlstm_proj_factor * cfg.d_model)
+    hd = di // cfg.num_heads
+    n_ml = sum(1 for k in cfg.block_pattern[:cfg.num_layers] if k == "mlstm")
+    state_b = XLSTM_TRAIN_B * cfg.num_heads * (hd * hd + hd + 1) * 4
+    pred = {"boundaries_gb": n_ml * (XLSTM_TRAIN_S // 64) * state_b / 1e9,
+            "unchunked_C_gb": n_ml * XLSTM_TRAIN_S * XLSTM_TRAIN_B
+            * cfg.num_heads * hd * hd * 4 / 1e9}
+    stats = {"card": smi_line(), "layers": cfg.num_layers,
+             "batch": [XLSTM_TRAIN_B, XLSTM_TRAIN_S], "losses": losses,
+             "step_ms": ms, "base_gb": base / 1e9, "step_peak_gb": peak,
+             "prediction": pred}
+    log("long xlstm training: " + json.dumps(stats, default=float))
+    ok = all(np.isfinite(losses)) and peak < pred["unchunked_C_gb"] / 4
+    del state, step, params
+    free_device()
+    return ok, stats
+
+
+def long_mamba(dev):
+    """(c) One Mamba layer at jamba's width (d 4096, di 8192, d_state 16),
+    forward and backward at B 1, S MAMBA_S, in checkpointed chunks of 128
+    and again with nothing checkpointed (``scan._run`` run plain): each
+    one's peak memory beside the prediction (unchunked: dA, dBx and the
+    states, each (S, di, ds) f32, 2.15 GB; chunked: 32 boundary states of
+    0.5 MB and one chunk's three (128, di, ds) tensors, 0.2 GB), and the
+    same gradients."""
+    import torch
+
+    from repro_torch.models import mamba, scan
+    from repro_torch.models.common import init_params
+    cfg = family_config(JAMBA)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    # f32 masters, as the trainer holds them: the forward casts at each use
+    p = {k: v.requires_grad_(True) for k, v in init_params(
+        gen, mamba.mamba_spec(cfg), device=dev).items()}
+    x = (torch.randn((1, MAMBA_S, cfg.d_model), generator=gen, device=dev)
+         * 0.1).to(torch.bfloat16).requires_grad_(True)
+
+    def run():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y, _ = mamba.mamba_forward(p, x, cfg)
+        g = torch.autograd.grad(y.float().square().mean(), [x, p["A_log"]])
+        torch.cuda.synchronize()
+        return ((torch.cuda.max_memory_allocated() - base) / 1e9,
+                1e3 * (time.perf_counter() - t0), [t.float() for t in g])
+    chunked, c_ms, g1 = run()
+    real = scan._run
+    scan._run = lambda fn, state, xs, consts: fn(state, xs, *consts)
+    try:
+        whole, w_ms, g0 = run()
+    finally:
+        scan._run = real
+    di, ds = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    pred = {"unchunked_gb": 3 * MAMBA_S * di * ds * 4 / 1e9,
+            "chunked_gb": (MAMBA_S // 128 * di * ds * 4
+                           + 3 * 128 * di * ds * 4) / 1e9}
+    same = all(torch.equal(a, b) for a, b in zip(g1, g0))
+    rel = max((torch.linalg.vector_norm(a - b) /
+               torch.linalg.vector_norm(b)).item() for a, b in zip(g1, g0))
+    stats = {"card": smi_line(), "S": MAMBA_S, "peak_gb_chunked": chunked,
+             "peak_gb_unchunked": whole, "ms_chunked": c_ms,
+             "ms_unchunked": w_ms, "prediction": pred,
+             "gradients_bit_identical": same, "gradients_rel_l2": rel}
+    log("long mamba layer: " + json.dumps(stats, default=float))
+    del p, x, g0, g1
+    free_device()
+    # the gradients: the same ops in the same order (a checkpoint hands
+    # the recomputed tensors back to the same graph), 1e-6 rel L2 a leaf
+    return rel <= 1e-6 and chunked < whole / 4, stats
+
+
+def long_dryrun_start():
+    """(d) ``python -m repro_torch.launch.dryrun --cell`` of each of
+    LONG_DRYRUN_CELLS as subprocesses on the host (a 256-rank fake group,
+    meta tensors), started with the run at a lower priority, each writing
+    its own file: ({cell: process}, directory)."""
+    import atexit
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="long_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {}
+    for cell in LONG_DRYRUN_CELLS:
+        procs[cell] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
+             cell, "--out", os.path.join(tmp, cell.replace(":", "_"))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT, preexec_fn=lambda: os.nice(10))
+
+    def stop():                   # a run that ends early leaves none behind
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    return procs, tmp
+
+
+def long_dryrun_finish(procs, tmp, timeout=900):
+    import shutil
+    ok, stats = True, {}
+    t_end = time.perf_counter() + timeout
+    for cell, proc in procs.items():
+        try:
+            _, se = proc.communicate(
+                timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, se = proc.communicate()
+        path = os.path.join(tmp, cell.replace(":", "_"))
+        lines = open(path).read().splitlines() if os.path.exists(path) \
+            else []
+        rec = json.loads(lines[-1]) if lines else {}
+        stats[cell] = {"rc": proc.returncode, "status": rec.get("status"),
+                       "trace_s": rec.get("trace_s"),
+                       "flops_per_dev": rec.get("hlo_flops_per_dev"),
+                       "collective_bytes": (rec.get("collectives") or {}).get(
+                           "total"),
+                       "temp_gb": (rec.get("memory") or {}).get(
+                           "temp_size_in_bytes", 0) / 1e9,
+                       "error": None if rec.get("status") == "ok" else
+                       (rec.get("error") or se[-800:])}
+        ok &= proc.returncode == 0 and rec.get("status") == "ok"
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("long dry-run cells: " + json.dumps(stats, default=float))
+    return ok, stats
+
+
+def phase_long(dev, dryrun):
+    """Phase 14: (a) K5 with a key offset and log-sum-exp at the long_500k
+    shapes (``long_k5``), (b) decode at 524288 positions (``long_decode``:
+    h2o-danube-1.8b, jamba), (c) the checkpointed scans (``long_xlstm_
+    training``, ``long_mamba``) and (d) the dry-run cells started with the
+    run (``long_dryrun_finish``). Returns (phases, stats), stats with the
+    decode runs' launches for the kernels line."""
+    import torch
+    t0 = time.perf_counter()
+    phases, stats = {}, {}
+    try:
+        gen = torch.Generator(device=dev).manual_seed(53)
+        phases["long_k5"], stats["k5"] = long_k5(dev, gen)
+        free_device()
+        for arch, seed in ((H2O, 54), (JAMBA, 55)):
+            phases[f"long_decode {arch}"], stats[arch] = long_decode(
+                dev, arch, seed)
+        phases["long_xlstm_training"], stats["xlstm"] = \
+            long_xlstm_training(dev)
+        phases["long_mamba"], stats["mamba"] = long_mamba(dev)
+    finally:
+        phases["long_dryrun"], stats["dryrun"] = long_dryrun_finish(*dryrun)
+    launches = {}
+    for arch in (H2O, JAMBA):
+        for k, v in stats.get(arch, {}).get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    stats["launches"] = launches
+    log(f"long phase: {phases}, {time.perf_counter() - t0:.1f} s")
+    return phases, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -6160,6 +6612,8 @@ def main() -> int:
     except RuntimeError as e:
         return fail(str(e))
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
+    # the long phase's dry-run cells trace on the host beside the run
+    long_dryrun = long_dryrun_start()
     for name in build.SOURCES:
         log(f"  ptxas {name} (kernel: registers, spill store bytes): "
             + ", ".join(f"{k}: {r}, {sp}" for k, r, sp in ptxas_kernels(name)))
@@ -6235,6 +6689,9 @@ def main() -> int:
     free_device()
     mesh_phases, _ = phase_mesh(dev)
     phases.update(mesh_phases)
+    free_device()
+    long_phases, long_stats = phase_long(dev, long_dryrun)
+    phases.update(long_phases)
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
     # K2, K4), the whisper serving run (K1, K2, K4, K5), the moment
@@ -6244,11 +6701,13 @@ def main() -> int:
     # or K4) and the MoE and hybrid stacks' (K1, K2, K3 or K4; xlstm-125m
     # rmsnorm alone), rmsnorm in every one, the full-width training run
     # (K2, rmsnorm and their backward kernels) and the full-depth LM
-    # training steps (the same four), each counted from 0 just before it
+    # training steps (the same four), and phase_long's decode at 524288
+    # positions (K5, rmsnorm), each counted from 0 just before it
     launches = {k: sum(st["launches"].get(k, 0)
                        for st in (stats, pstats, cstats, wstats, mstats,
                                   dstats, spstats, *fstats.values(),
-                                  *sstats.values(), tstats, lstats))
+                                  *sstats.values(), tstats, lstats,
+                                  long_stats))
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
                           "paged_verify_attention", "decode_attention",

@@ -2160,6 +2160,11 @@ class DecodeEngine:
                 return idx
         return None
 
+    def can_admit_pending(self) -> bool:
+        """Whether a deferred join could be admitted now (a free slot and
+        the pages of the next admissible entry)."""
+        return self._next_admissible_pending() is not None
+
     def _drain_pending(self):
         """Admit deferred joins while slots and pages allow — FIFO with the
         bounded skip-ahead of ``_next_admissible_pending``. Bypassing a

@@ -49,6 +49,16 @@
 // cache is read in the model layout (B, S, KV, hd) by strides: the
 // cross-attention sidecars and the float pool are views, never copied or
 // transposed. Lengths are read on the device: no host sync.
+//
+// A piece of a longer cache (decode against a cache split over its
+// sequence, one piece a rank): key_offset is the global position of local
+// key 0, and the call attends the global range [max(0, len - window), len)
+// where it meets [key_offset, key_offset + S). With a non-null lse the
+// output is f32 (out_f32, normalised over the keys the call saw) and lse
+// receives each (row, head)'s natural log-sum-exp of its scaled scores (the
+// units of K2's), -inf with o = 0 where the piece holds no valid key: the
+// pieces then merge by one lse-weighted sum. key_offset 0 and a null lse
+// give the bits of a call without them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -156,15 +166,42 @@ __device__ __forceinline__ int swz(int row, int piece) {
   }
 }
 
+// Element i of (row, kv head) pair bh's G x HD output from the merged max,
+// sum and accumulator: bf16, or f32 plus the head's lse (written by its
+// first element) when lse is not null.
 template <int HD, int G>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store(__nv_bfloat16* out, float* out_f32,
+                                      float* lse, int bh, int i, bool first,
+                                      float mx, float lsum, float o) {
+  const float val = mx == -INFINITY ? 0.f : o / fmaxf(lsum, 1e-30f);
+  const int64_t at = static_cast<int64_t>(bh) * G * HD + i;
+  if (lse == nullptr) {
+    out[at] = __float2bfloat16(val);
+    return;
+  }
+  out_f32[at] = val;
+  if (first)
+    lse[static_cast<int64_t>(bh) * G + i / HD] =
+        mx == -INFINITY || !(lsum > 0.f) ? -INFINITY : mx + logf(lsum);
+}
+
+// ptxas is told that one resident CTA an SM suffices, so it may take up to
+// 255 registers a thread (two CTAs of 128 threads still fit an SM, as the
+// split plan assumes): left to its own bound it held some instantiations at
+// 128 registers, and the key offset and the log-sum-exp epilogue tipped
+// <128, 7>, <128, 1> (with LSE a template argument, <80, 8> and <80, 4>)
+// into 12-24 bytes of spill stores (sm_90a, CUDA 12.8); with it, 64 to 204
+// registers and none.
+template <int HD, int G>
+__global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               const int32_t* __restrict__ lengths,
-              __nv_bfloat16* __restrict__ out, int KV, int S, int split_len,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ out_f32,
+              float* __restrict__ lse, int KV, int S, int split_len,
               int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
-              int64_t svh, int window, float sm_scale) {
+              int64_t svh, int window, int key_offset, float sm_scale) {
   using P = Plan<HD, G>;
   constexpr int kVec = P::kVec;
   constexpr int kStages = P::kStages;
@@ -196,9 +233,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   // its shared memory: arrive now, wait before the first remote write
   if (nsplit > 1) cluster_arrive_relaxed();
 
+  // the global range [g_lo, len) in local positions of this piece
   const int len = lengths[b];
-  const int s_lo = max(window > 0 ? max(0, len - window) : 0, split * split_len);
-  const int s_hi = min(min(len, S), (split + 1) * split_len);
+  const int g_lo = window > 0 ? max(0, len - window) : 0;
+  const int s_lo = max(max(g_lo - key_offset, 0), split * split_len);
+  const int s_hi = min(min(len - key_offset, S), (split + 1) * split_len);
   const __nv_bfloat16* kbase = k + b * skb + h * skh;
   const __nv_bfloat16* vbase = v + b * svb + h * svh;
   const int c_begin = s_lo / 32;
@@ -418,8 +457,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     if (nsplit == 1) {
-      out[static_cast<int64_t>(bh) * G * HD + i] =
-          __float2bfloat16(mx == -INFINITY ? 0.f : o / fmaxf(lsum, 1e-30f));
+      store<HD, G>(out, out_f32, lse, bh, i, dd == 0, mx, lsum, o);
     } else {
       so[split * G * HD + i] = o;
       if (dd == 0) {
@@ -450,8 +488,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
         o += so[r * G * HD + i] * wt;
       }
     }
-    out[static_cast<int64_t>(bh) * G * HD + i] =
-        __float2bfloat16(mx == -INFINITY ? 0.f : o / fmaxf(lsum, 1e-30f));
+    store<HD, G>(out, out_f32, lse, bh, i, i % HD == 0, mx, lsum, o);
   }
 }
 
@@ -461,9 +498,11 @@ struct Args {
   const __nv_bfloat16* v;
   const int32_t* lengths;
   __nv_bfloat16* out;
+  float* out_f32;
+  float* lse;
   int B, KV, G, S, nsplit, split_len;
   int64_t skb, sks, skh, svb, svs, svh;
-  int window;
+  int window, key_offset;
   float sm_scale;
 };
 
@@ -497,9 +536,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, decode_kernel<HD, G>, a.q, a.k, a.v,
-                            a.lengths, a.out, a.KV, a.S, a.split_len, a.skb,
-                            a.sks, a.skh, a.svb, a.svs, a.svh, a.window,
-                            a.sm_scale);
+                            a.lengths, a.out, a.out_f32, a.lse, a.KV, a.S,
+                            a.split_len, a.skb, a.sks, a.skh, a.svb, a.svs,
+                            a.svh, a.window, a.key_offset, a.sm_scale);
 }
 
 template <int HD>
@@ -520,23 +559,27 @@ cudaError_t launch_g(const Args& a, cudaStream_t st) {
 // through the element strides s*b, s*s, s*h (hd stride 1, every row 16-byte
 // aligned); lengths (B,) int32 on the device; out like q. The positions are
 // cut into nsplit (1 to kMaxSplits) splits of split_len (a multiple of 32),
-// the splits of a pair one cluster. window <= 0 means no window. Returns a
-// cudaError_t (0 on success).
+// the splits of a pair one cluster. window <= 0 means no window. key_offset
+// is the global position of local key 0. With a non-null lse ((B, KV * G)
+// f32) the output goes to out_f32 ((B, KV * G, hd) f32) instead of out.
+// Returns a cudaError_t (0 on success).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, int B, int KV, int G, int S, int hd, int nsplit, int split_len,
-    int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
-    int64_t svh, int window, float sm_scale, void* stream) {
+    void* out, void* out_f32, void* lse, int B, int KV, int G, int S, int hd,
+    int nsplit, int split_len, int64_t skb, int64_t sks, int64_t skh,
+    int64_t svb, int64_t svs, int64_t svh, int window, int key_offset,
+    float sm_scale, void* stream) {
   if (B <= 0 || KV <= 0 || nsplit <= 0 || nsplit > kMaxSplits ||
-      split_len <= 0 || split_len % 32)
+      split_len <= 0 || split_len % 32 || (lse != nullptr && out_f32 == nullptr))
     return cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(k),
                static_cast<const __nv_bfloat16*>(v),
                static_cast<const int32_t*>(lengths),
                static_cast<__nv_bfloat16*>(out),
+               static_cast<float*>(out_f32), static_cast<float*>(lse),
                B, KV, G, S, nsplit, split_len, skb, sks, skh, svb, svs, svh,
-               window, sm_scale};
+               window, key_offset, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:  return launch_g<32>(a, st);

@@ -272,30 +272,45 @@ def quantize_kv(k, v):
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, key_offset: int = 0,
+                     return_lse: bool = False):
     """Float-cache GQA decode attention, model layout (kernel K5).
 
     q: (B, H, hd); k_cache/v_cache: (B, S, KV, hd) in the cache dtype (any
     S; views into a pool are read in place); lengths: (B,) valid lengths
     -> (B, H, hd) in q's dtype. Positions [max(0, len - window), len) are
     attended; the probabilities round to the cache dtype before P·V, as in
-    the JAX package's jnp ``models.attention.decode_attention``."""
+    the JAX package's jnp ``models.attention.decode_attention``.
+    ``key_offset`` (an int): the cache is a piece of a longer one whose
+    key 0 sits at that global position; only the global positions it holds
+    are attended. ``return_lse``: return (o (B, H, hd) f32 normalised over
+    those keys, lse (B, H) f32 their natural log-sum-exp; o = 0 and lse =
+    -inf where the piece holds none), for ``models.attention.
+    merge_partials``."""
     _no_grad_path("decode_attention (K5)", q, k_cache, v_cache)
     _no_dtensor("decode_attention (K5)", q, k_cache, v_cache)
     if _route(q) == "meta":
         B, H, hd = q.shape
         S, KV = k_cache.shape[1], k_cache.shape[2]
         n = B * (S if window is None else min(S, int(window)))
+        o_size = 4 if return_lse else q.element_size()
         _meta_work("decode_attention", 4.0 * n * H * hd,
-                   2 * q.element_size() * B * H * hd
-                   + 2 * k_cache.element_size() * n * KV * hd + 4 * B)
+                   (q.element_size() + o_size) * B * H * hd
+                   + 2 * k_cache.element_size() * n * KV * hd + 4 * B
+                   + (4 * B * H if return_lse else 0))
+        if return_lse:
+            return (torch.empty(q.shape, dtype=torch.float32, device="meta"),
+                    torch.empty((B, H), dtype=torch.float32, device="meta"))
         return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if _route(q) == "cuda":
         return _float.decode_attention(q, k_cache, v_cache, lengths,
-                                       window=window)
+                                       window=window, key_offset=key_offset,
+                                       return_lse=return_lse)
     return ref.decode_attention_ref(q, k_cache.transpose(1, 2),
                                     v_cache.transpose(1, 2), lengths,
-                                    window=window, p_dtype=v_cache.dtype)
+                                    window=window, p_dtype=v_cache.dtype,
+                                    key_offset=key_offset,
+                                    return_lse=return_lse)
 
 
 def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,

@@ -109,7 +109,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 
 def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None,
-                         p_dtype=None):
+                         p_dtype=None, key_offset: int = 0,
+                         return_lse: bool = False):
     """q: (B, H, hd); k, v: (B, KV, S, hd); lengths: (B,). -> (B, H, hd).
 
     Scores, softmax and the P·V accumulation in f32. ``p_dtype``: round the
@@ -118,23 +119,37 @@ def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None,
     decode_attention``, the function the float flash-decode kernel (K5)
     computes; without it, the f32 oracle the int8 references reuse. A row
     with no valid position yields the mean of the masked values, as JAX
-    does."""
+    does.
+
+    ``key_offset``: k/v are a piece of a longer cache whose key 0 sits at
+    global position ``key_offset``; the window and lengths are global.
+    ``return_lse``: return (o (B, H, hd) f32, lse (B, H) f32), lse the
+    natural log-sum-exp of the scaled scores of the valid keys; a row with
+    none gives o = 0 and lse = -inf (K5's outputs with ``return_lse``,
+    which ``models.attention.merge_partials`` combines)."""
     B, H, hd = q.shape
     _, KV, S, _ = k.shape
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
     qf = q.reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgd,bksd->bkgs", qf, k.float()) * scale
-    pos = torch.arange(S, device=q.device)[None]
+    pos = key_offset + torch.arange(S, device=q.device)[None]
     lengths = lengths.to(q.device)
     mask = pos < lengths[:, None]
     if window is not None:
         mask &= pos >= (lengths[:, None] - window)
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    mask = mask[:, None, None]
+    if return_lse:
+        lse = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     if p_dtype is not None:
         p = p.to(p_dtype).float()
+    if return_lse:
+        p = p * mask.any(dim=-1, keepdim=True)
     o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    if return_lse:
+        return o.reshape(B, H, hd), lse.reshape(B, H)
     return o.reshape(B, H, hd).to(q.dtype)
 
 

@@ -9,7 +9,12 @@ that has a DTensor operand back to DTensor (``NotImplemented``) and counts
 only the plain ops DTensor then runs on the local shards, and the
 collectives it issues; the global-shape ops that DTensor's sharding
 propagation runs on fake tensors are skipped. A Python loop is unrolled by
-the trace, so a body that runs n times is counted n times. It accumulates:
+the trace, so a body that runs n times is counted n times, except a
+recurrent scan (``models.scan.scan_chunks``): while a trace is active it
+runs one chunk for all but the first and counts that chunk's forward,
+recompute and backward under ``repeat(n - 1)``, as ``hlo.py`` multiplies a
+``while`` body by its trip count (``OpTrace(once_a_chunk=False)`` unrolls
+every chunk instead). It accumulates:
 
   * dot FLOPs        - 2 · prod(result dims) · prod(contracting dims) of
                        every ``mm``, ``bmm``, ``addmm`` and ``baddbmm``
@@ -33,6 +38,7 @@ All quantities are per device. The roofline constants are the H100 SXM's.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import weakref
 from typing import Optional
@@ -90,8 +96,10 @@ class OpTrace(TorchDispatchMode):
     """Counts what one rank runs while it is active (see the module
     docstring). ``analyze()`` gives the record."""
 
-    def __init__(self):
+    def __init__(self, once_a_chunk: bool = True):
         super().__init__()
+        self.once_a_chunk = once_a_chunk
+        self._mult = 1
         self.dot_flops = 0.0
         self.dot_bytes = 0.0
         self.kernels: dict = {}
@@ -115,19 +123,33 @@ class OpTrace(TorchDispatchMode):
     def kernel(self, name: str, flops: float, nbytes: float):
         k = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
                                            "bytes": 0.0})
-        k["calls"] += 1
-        k["flops"] += flops
-        k["bytes"] += nbytes
+        k["calls"] += self._mult
+        k["flops"] += self._mult * flops
+        k["bytes"] += self._mult * nbytes
+
+    @contextlib.contextmanager
+    def repeat(self, k: int):
+        """Count what runs inside as if it ran ``k`` times (live bytes
+        excepted: the copies would not be alive at once)."""
+        prev, self._mult = self._mult, self._mult * k
+        try:
+            yield
+        finally:
+            self._mult = prev
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self._prev_sink = ops.META_WORK
+        from repro_torch.models import scan
+        self._prev_sink, self._prev_scan = ops.META_WORK, scan.TRACE
         ops.META_WORK = self.kernel
+        scan.TRACE = self
         return super().__enter__()
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
+        from repro_torch.models import scan
         ops.META_WORK = self._prev_sink
+        scan.TRACE = self._prev_scan
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -144,16 +166,16 @@ class OpTrace(TorchDispatchMode):
         name = func._opname
         if ns == "aten" and name in _DOTS:
             f, b = _dot(name, args)
-            self.dot_flops += f
-            self.dot_bytes += b
+            self.dot_flops += self._mult * f
+            self.dot_bytes += self._mult * b
         elif ns == "_c10d_functional" and name in _KIND:
             kind = _KIND[name]
             nb = float(sum(_nbytes(a) for a in torch.utils._pytree.tree_leaves(
                 args) if isinstance(a, torch.Tensor)))
-            self.coll_by_kind[kind] += nb
-            self.coll_counts[kind] += 1
+            self.coll_by_kind[kind] += self._mult * nb
+            self.coll_counts[kind] += self._mult
             if self._in_node(args[-1]):
-                self.coll_nvlink += nb
+                self.coll_nvlink += self._mult * nb
         for t in torch.utils._pytree.tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self._track(t)

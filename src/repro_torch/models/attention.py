@@ -79,15 +79,61 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     decode_attention_ref`` with ``p_dtype``).
 
     q: (B, H, hd); caches: (B, S, KV, hd); cache_len: (B,) valid lengths.
-    DTensors (a mesh) run K5 on each rank's rows and heads
-    (``_on_cache_shards``)."""
+    DTensors (a mesh) run K5 on each rank's rows, heads and, under the
+    long-context rules, piece of the sequence (``_on_cache_shards``)."""
     from repro_torch.kernels import ops
     if ops._dtensor(k_cache):
-        def local(ql, kl, vl, ll):
-            return ops.decode_attention(ql, kl, vl, ll, window=window)
+        def local(ql, kl, vl, ll, piece=None):
+            return _attend_float(ql, kl, vl, ll, window, piece)
         return _on_cache_shards(local, k_cache, q, (k_cache, v_cache),
                                 cache_len)
     return ops.decode_attention(q, k_cache, v_cache, cache_len, window=window)
+
+
+def merge_partials(o, lse):
+    """Attention over pieces of the keys, merged: o (P, ..., hd) f32, each
+    piece's output normalised over its own keys; lse (P, ...) f32, each
+    piece's natural log-sum-exp (-inf for a piece with no valid key) ->
+    (o, lse) over the union, by one lse-weighted sum. A row with no valid
+    key in any piece gives o = 0 and lse = -inf. Plain tensor code: in the
+    JAX package this merge is the partitioner's, not a kernel."""
+    m = lse.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)                             # a -inf piece weighs 0
+    tot = w.sum(dim=0)
+    o = (w[..., None] * o).sum(dim=0) / torch.where(
+        tot > 0, tot, torch.ones_like(tot))[..., None]
+    return o, m + torch.log(tot)
+
+
+class _Piece:
+    """This rank's piece of a cache split over its sequence: ``offset``
+    (the global position of its key 0), ``total`` (the global length) and
+    the mesh dimensions of the split, over which ``merge`` gathers every
+    piece's (o, lse) and merges them (``merge_partials``)."""
+
+    def __init__(self, offset: int, total: int, mesh, dims):
+        self.offset, self.total, self.mesh, self.dims = offset, total, mesh, dims
+
+    def merge(self, o, lse):
+        part = torch.cat([o, lse[..., None]], dim=-1)[None]
+        for d in self.dims:
+            g = self.mesh.get_group(d)
+            part = torch.ops._c10d_functional.wait_tensor(
+                torch.ops._c10d_functional.all_gather_into_tensor(
+                    part.contiguous(), g.size(), g.group_name))
+        return merge_partials(part[..., :-1], part[..., -1])[0]
+
+
+def _attend_float(q, k_cache, v_cache, lens, window, piece):
+    """K5 on plain tensors; on a ``piece`` of a sequence split it runs with
+    the piece's key offset and log-sum-exp, and the pieces merge."""
+    from repro_torch.kernels import ops
+    if piece is None:
+        return ops.decode_attention(q, k_cache, v_cache, lens, window=window)
+    o, lse = ops.decode_attention(q, k_cache, v_cache, lens, window=window,
+                                  key_offset=piece.offset, return_lse=True)
+    return piece.merge(o, lse).to(q.dtype)
 
 
 def _on_cache_shards(fn, cache_k, q, caches, lens, extra=()):
@@ -97,17 +143,26 @@ def _on_cache_shards(fn, cache_k, q, caches, lens, extra=()):
     writes). q (B, [T,] H, hd) and ``extra`` (per-row (B, KV) scales or
     (B, [T,] KV, hd) new keys) follow the cache's row and head split;
     ``lens`` (B,) its row split. The output is q's shape, so placed. A
-    cache split over its sequence (the long-context rules) raises
-    ``ValueError``: that needs a merge of the softmax across the split."""
+    float cache split over its sequence (the long-context rules) passes
+    ``fn`` its ``piece=_Piece``; every rank of the split gets the merged
+    output. An int8 cache split so raises ``ValueError`` (K3 takes no key
+    offset)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     from repro_torch.kernels.ops import _as_dtensor
+    from repro_torch.sharding.rules import local_slices
     mesh = cache_k.device_mesh
     cpl = tuple(cache_k.placements)
-    if any(p == Shard(1) for p in cpl):
-        raise ValueError("decode against a cache split over its sequence "
-                         "needs a softmax merge across the split")
+    seq_dims = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    if seq_dims and cache_k.dtype == torch.int8:
+        raise ValueError("decode against an int8 cache split over its "
+                         "sequence is not supported (K3 takes no key offset)")
+    piece = None
+    if seq_dims:
+        total = cache_k.shape[1]
+        offset = local_slices(tuple(cache_k.shape), mesh, cpl)[1].start
+        piece = _Piece(offset, total, mesh, seq_dims)
     n = 1
     for i, p in enumerate(cpl):
         if p == Shard(2):
@@ -129,6 +184,11 @@ def _on_cache_shards(fn, cache_k, q, caches, lens, extra=()):
     in_pl = [place(args[0], -2)] + [cpl for _ in caches] + \
         [tuple(Shard(0) if p == Shard(0) else Replicate() for p in cpl)] + \
         [place(e, -1 if e.ndim == 2 else -2) for e in args[2 + len(caches):]]
+    if piece is not None:
+        inner = fn
+
+        def fn(*a):
+            return inner(*a, piece=piece)
     return local_map(fn, out_placements=(in_pl[0],), in_placements=in_pl,
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
@@ -244,27 +304,38 @@ def _dense_decode_on_shards(q, k, v, cache, cfg):
     names = [n for n in ("k_scale", "v_scale") if n in cache]
     keys = ["k", "v"] + names
 
-    def local(ql, kc, vc, *rest):
+    def local(ql, kc, vc, *rest, piece=None):
         ln, kl, vl = rest[len(names)], rest[len(names) + 1], \
             rest[len(names) + 2]
         sub = dict(zip(keys, (kc, vc) + rest[:len(names)]), len=ln)
-        return _dense_decode(ql[:, None], kl, vl, sub, cfg)
+        return _dense_decode(ql[:, None], kl, vl, sub, cfg, piece)
     caches = tuple(cache[n] for n in keys)
     return _on_cache_shards(local, cache["k"], q[:, 0], caches, cache["len"],
                             extra=(k, v))
 
 
-def _dense_decode(q, k, v, cache, cfg):
+def _dense_decode(q, k, v, cache, cfg, piece=None):
     """The dense pool's write of the new token's K/V and its attention:
     q (B, 1, H, hd), k/v (B, 1, KV, hd) -> (B, H, hd), the cache advanced
-    in place."""
+    in place. With a ``piece`` (``_on_cache_shards``) the cache is this
+    rank's piece of a float cache split over its sequence: the rank whose
+    piece holds the insert position writes it, the others rewrite what
+    they hold (a masked write: no host sync), and the pieces' attention
+    merges."""
     B, S = q.shape[0], cache["k"].shape[1]
     # insert position. A free pool slot keeps stepping and its length grows
     # past S; JAX drops such an out-of-range write, torch would raise, so the
     # write is clamped into the free row's own last position (garbage that
     # the next admission overwrites). Live rows always have len < S.
-    idx = torch.clamp(cache["len"], max=S - 1).long()
     bidx = torch.arange(B, device=q.device)
+    mine = None
+    if piece is None:
+        idx = torch.clamp(cache["len"], max=S - 1).long()
+    else:
+        at = torch.clamp(cache["len"], max=piece.total - 1).long() - \
+            piece.offset
+        mine = ((at >= 0) & (at < S))[:, None, None]
+        idx = torch.clamp(at, 0, S - 1)
     new_len = (cache["len"] + 1).to(cache["len"].dtype)
     if "k_scale" in cache:
         from repro_torch.kernels import ops
@@ -278,10 +349,17 @@ def _dense_decode(q, k, v, cache, cfg):
                                       cache["v"], ks, vs, new_len,
                                       window=cfg.sliding_window).to(q.dtype)
     else:
-        cache["k"][bidx, idx] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, idx] = v[:, 0].to(cache["v"].dtype)
-        o = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
-                             new_len, window=cfg.sliding_window)
+        for n, new in (("k", k), ("v", v)):
+            new = new[:, 0].to(cache[n].dtype)
+            cache[n][bidx, idx] = new if mine is None else torch.where(
+                mine, new, cache[n][bidx, idx])
+        if piece is None:
+            o = decode_attention(q[:, 0].contiguous(), cache["k"],
+                                 cache["v"], new_len,
+                                 window=cfg.sliding_window)
+        else:
+            o = _attend_float(q[:, 0].contiguous(), cache["k"], cache["v"],
+                              new_len, cfg.sliding_window, piece)
     cache["len"].copy_(new_len)
     return o
 

@@ -5,7 +5,10 @@ The recurrence ``h = h * dA_t + dBx_t`` runs sequentially in f32, one step
 a position, in chunks of at most ``chunk`` positions so that the per-step
 (di, d_state) updates of a chunk are materialized together. It is a loop of
 small tensor ops: a serving engine captures each prefill bucket's loop in
-that key's CUDA graph.
+that key's CUDA graph. Where autograd records each chunk is checkpointed
+(``scan.scan_chunks``), as the JAX package's ``jax.checkpoint`` per chunk:
+the backward keeps the chunk-boundary states and recomputes one chunk's
+``dA``/``dBx``/states at a time.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import NO_SHARD, ParamSpec
+from repro_torch.models.scan import scan_chunks
 
 
 def mamba_spec(cfg) -> dict:
@@ -38,11 +42,14 @@ def _ssm_chunk(x, dt, B, C, A, D, h0):
     B/C: (Bsz, T, ds); h0: (Bsz, di, ds). Returns (y (Bsz, T, di), hT)."""
     dA = torch.exp(dt[..., None] * A)                     # (Bsz, T, di, ds)
     dBx = dt[..., None] * B[:, :, None, :] * x[..., None]
-    hs = torch.empty_like(dA)
+    hs = []
     h = h0
     for t in range(x.shape[1]):
         h = h * dA[:, t] + dBx[:, t]
-        hs[:, t] = h
+        hs.append(h)
+    # stacked, not written into a buffer in place: on a mesh the in-place
+    # write's backward asked DTensor for a Shard -> Partial redistribute
+    hs = torch.stack(hs, dim=1)
     y = (hs @ C[..., None])[..., 0] + x * D
     return y, h
 
@@ -85,8 +92,13 @@ def mamba_forward(p, x, cfg, conv_state=None, ssm_state=None,
     for i in range(1, dc):
         xc = xc + xpad[:, i:i + S] * w[i]
     xc = F.silu(xc + p["conv_b"].to(dt_x))
-    Bm, Cm = (xc @ p["x_bc"].to(dt_x)).float().chunk(2, dim=-1)  # (B, S, ds)
-    dt = F.softplus((xc @ p["x_dt"].to(dt_x)).float()
+    # the di-contracted products whole over the model split: left Partial
+    # sums, DTensor reduce-scattered them over the sequence, which the
+    # scan's (B, T) products then flattened (torch 2.11 refuses)
+    whole = ("batch", None, None)
+    Bm, Cm = shard((xc @ p["x_bc"].to(dt_x)).float(), whole).chunk(
+        2, dim=-1)                                          # (B, S, ds)
+    dt = F.softplus(shard((xc @ p["x_dt"].to(dt_x)).float(), whole)
                     + p["dt_bias"].float())                 # (B, S, di)
     if seq_lens is not None:
         valid = torch.arange(S, device=x.device)[None] < seq_lens[:, None]
@@ -98,13 +110,11 @@ def mamba_forward(p, x, cfg, conv_state=None, ssm_state=None,
     c = min(S, chunk)
     while S % c:
         c -= 1
-    xf = xc.float()
-    ys = []
-    for i in range(0, S, c):
-        y, h = _ssm_chunk(xf[:, i:i + c], dt[:, i:i + c], Bm[:, i:i + c],
-                          Cm[:, i:i + c], A, D, h)
-        ys.append(y)
-    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+
+    def run(h, xs, A, D):
+        y, h = _ssm_chunk(*xs, A, D, h)
+        return h, y
+    h, y = scan_chunks(run, h, (xc.float(), dt, Bm, Cm), S // c, (A, D))
     y = y.to(dt_x) * F.silu(z)
     return y @ p["out_proj"].to(dt_x), (new_conv, h)
 

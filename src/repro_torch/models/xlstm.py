@@ -6,7 +6,8 @@ code serves a prefill (the whole prompt, from ``*_init_state``) and a decode
 step (S = 1 from the carried state). States are stabilized in log space
 (``m``). With ``seq_lens`` every state leaf is carried unchanged through a
 row's right pads, so the returned state is the one at the row's true
-length.
+length. The time loop runs in chunks (``_chunked_scan``), each checkpointed
+where autograd records, as the JAX package's ``_chunked_scan``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import NO_SHARD, ParamSpec
+from repro_torch.models.scan import scan_chunks
 
+# steps a checkpointed chunk of the time scan at most (the JAX package's 64)
+SCAN_CHUNK = 64
 
 def _di(cfg) -> int:
     return int(cfg.xlstm_proj_factor * cfg.d_model)
@@ -27,10 +31,51 @@ def _log_sigmoid(x):
 
 
 def _ok(seq_lens, S, device):
-    """(S, B) step validity of right-padded rows, or None."""
+    """(B, S) step validity of right-padded rows, or None."""
     if seq_lens is None:
         return None
-    return torch.arange(S, device=device)[:, None] < seq_lens[None, :]
+    return torch.arange(S, device=device)[None, :] < seq_lens[:, None]
+
+
+def _chunked_scan(step, state, xs, S: int, chunk: int = 64, consts=()):
+    """``step(state, xs_t, *consts) -> (state, y_t)`` over the S steps of
+    ``xs`` (a tuple of (B, S, ...) tensors or None), in chunks of ``c``
+    steps, c the largest divisor of S up to ``chunk`` (the JAX package's
+    rule). Each chunk is checkpointed where autograd records
+    (``scan.scan_chunks``): the backward keeps the chunk-boundary states,
+    not one (B, H, hd, hd) matrix memory a step. Returns (state, ys (B, S,
+    ...))."""
+    c = min(S, chunk)
+    while S % c:
+        c -= 1
+
+    def run(st, xc, *cs):
+        cols = [None if a is None else a.unbind(1) for a in xc]
+        ys = []
+        for t in range(c):
+            st, y = step(st, tuple(None if col is None else col[t]
+                                   for col in cols), *cs)
+            ys.append(y)
+        return st, torch.stack(ys, dim=1)
+    return scan_chunks(run, state, xs, S // c, consts)
+
+
+def _merge_heads(hs, di: int):
+    """(B, S, h, hd) -> (B, S, di). On a mesh the result is redistributed
+    at once (a Partial placement to a split of di where the mesh dimension
+    divides di, else to Replicate). The redistribute's backward turns the
+    incoming gradient into the view's own placements, Replicate over di,
+    before the view's backward unflattens it into heads: DTensor refuses
+    that unflatten on a split the head count does not divide (4 heads over
+    16), as in xlstm-125m's train cells."""
+    y = hs.reshape(*hs.shape[:2], di)
+    if type(y) is torch.Tensor or not hasattr(y, "placements"):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = y.device_mesh
+    pl = tuple((Shard(2) if di % mesh.size(i) == 0 else Replicate())
+               if p.is_partial() else p for i, p in enumerate(y.placements))
+    return y.redistribute(mesh, pl)
 
 
 def _carry(new: dict, old: dict, okt):
@@ -85,30 +130,39 @@ def mlstm_forward(p, x, cfg, state=None, seq_lens=None, shard=NO_SHARD):
     xin, z = (x @ p["up"].to(dt)).chunk(2, dim=-1)
     xin = shard(xin, ("batch", None, "mlp"))
     scale = 1.0 / math.sqrt(hd)
-    q = _heads(xin, p["wq"])
-    k = _heads(xin, p["wk"]) * scale
-    v = _heads(xin, p["wv"])
-    ifl = (xin @ p["wif"].to(dt)).float() + p["b_if"].float()
+    # q, k, v and the gates whole over the model split (4 heads do not
+    # split 16 ways): left Partial sums, DTensor's strategies reduce-
+    # scattered them over the sequence or the head dim, and the backward's
+    # products and head views then flattened a split dim, which torch
+    # 2.11's DTensor refuses (xlstm-125m's train cells)
+    whole = ("batch", None, None, None)
+    q = shard(_heads(xin, p["wq"]), whole)
+    k = shard(_heads(xin, p["wk"]) * scale, whole)
+    v = shard(_heads(xin, p["wv"]), whole)
+    ifl = shard((xin @ p["wif"].to(dt)).float() + p["b_if"].float(),
+                whole[:3])
     i_log, f_raw = ifl.chunk(2, dim=-1)                    # (B, S, H)
     f_log = _log_sigmoid(f_raw)
     st = state if state is not None else mlstm_init_state(cfg, B, x.device)
-    ok = _ok(seq_lens, S, x.device)
-    hs = []
-    for t in range(S):
-        qt, kt, vt, il, fl = q[:, t], k[:, t], v[:, t], i_log[:, t], \
-            f_log[:, t]
-        m_new = torch.maximum(fl + st["m"], il)
+
+    def step(st, xt):
+        qt, kt, vt, il, fl, okt = xt
+        fm = fl + st["m"]
+        m_new = torch.maximum(fm, il)
         i_g = torch.exp(il - m_new)[..., None]             # (B, H, 1)
-        f_g = torch.exp(fl + st["m"] - m_new)[..., None]
+        f_g = torch.exp(fm - m_new)[..., None]
         C = f_g[..., None] * st["C"] + i_g[..., None] * (
             vt[..., :, None] * kt[..., None, :])
         n = f_g * st["n"] + i_g * kt
         num = (C @ qt[..., None])[..., 0]
         den = torch.maximum((n * qt).sum(-1).abs(), torch.exp(-m_new))
-        st = _carry({"C": C, "n": n, "m": m_new}, st,
-                    None if ok is None else ok[t])
-        hs.append(num / den[..., None])
-    y = torch.stack(hs, dim=1).reshape(B, S, di).to(dt) * F.silu(z)
+        return _carry({"C": C, "n": n, "m": m_new}, st, okt), \
+            num / den[..., None]
+
+    st, hs = _chunked_scan(step, st, (q, k, v, i_log, f_log,
+                                      _ok(seq_lens, S, x.device)), S,
+                           SCAN_CHUNK)
+    y = _merge_heads(hs, di).to(dt) * F.silu(z)
     return y @ p["down"].to(dt), st
 
 
@@ -144,22 +198,24 @@ def slstm_forward(p, x, cfg, state=None, seq_lens=None, shard=NO_SHARD):
     wx = (xin @ p["w"].to(dt)).float() + p["b"].float()
     r = p["r"].float()
     st = state if state is not None else slstm_init_state(cfg, B, x.device)
-    ok = _ok(seq_lens, S, x.device)
-    hs = []
-    for t in range(S):
-        gates = wx[:, t] + st["h"] @ r                     # (B, 4 di)
+
+    def step(st, xt, r):
+        wxt, okt = xt
+        gates = wxt + st["h"] @ r                          # (B, 4 di)
         zi, ii, fi, oi = gates.chunk(4, dim=-1)
         zt = torch.tanh(zi)
         ot = torch.sigmoid(oi)
         f_log = _log_sigmoid(fi)
-        m_new = torch.maximum(f_log + st["m"], ii)
+        fm = f_log + st["m"]
+        m_new = torch.maximum(fm, ii)
         i_g = torch.exp(ii - m_new)
-        f_g = torch.exp(f_log + st["m"] - m_new)
+        f_g = torch.exp(fm - m_new)
         c = f_g * st["c"] + i_g * zt
         n = torch.clamp(f_g * st["n"] + i_g, min=1e-6)
         h = ot * c / n
-        st = _carry({"c": c, "n": n, "h": h, "m": m_new}, st,
-                    None if ok is None else ok[t])
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(dt)
+        return _carry({"c": c, "n": n, "h": h, "m": m_new}, st, okt), h
+
+    st, hs = _chunked_scan(step, st, (wx, _ok(seq_lens, S, x.device)), S,
+                           SCAN_CHUNK, consts=(r,))
+    y = hs.to(dt)
     return y @ p["down"].to(dt), st

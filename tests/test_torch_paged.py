@@ -322,6 +322,36 @@ def _drive(eng, jobs):
     return states, sorted(done, key=lambda s: s.rid)
 
 
+def test_can_admit_pending_matches_jax_after_a_deferral(fms):
+    """``DecodeEngine.can_admit_pending()`` against the JAX engine's after
+    every join and chunk of the churn script's first 8 joins: the answers
+    and the deferred queues equal throughout, at least one join deferred
+    (the pool full), and False while joins wait (each chunk first admits
+    what fits) and once the queue is empty. Admission reads prompt
+    lengths, pages and slots, never tokens, so the two engines' greedy
+    streams need not agree."""
+    jfm, fm, cfg = fms
+    jeng = JDecodeEngine(jfm, **ENGINE_KW)
+    eng = DecodeEngine(fm, **ENGINE_KW)
+    seen = set()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for i, (p, name, n) in enumerate(_workload(cfg)[:8]):
+            for e in (jeng, eng):
+                e.join(f"t{i}", p, adapter_id=name, max_new_tokens=n, rid=i)
+            assert eng.can_admit_pending() == jeng.can_admit_pending()
+            assert eng.pending_rids() == jeng.pending_rids()
+        assert eng.deferrals >= 1
+        while eng.pending_count():
+            seen.add(eng.can_admit_pending())
+            jeng.step_chunk()
+            eng.step_chunk()
+            assert eng.can_admit_pending() == jeng.can_admit_pending()
+            assert eng.pending_rids() == jeng.pending_rids()
+    assert not eng.can_admit_pending() and not jeng.can_admit_pending()
+    assert False in seen
+
+
 @pytest.fixture(scope="module")
 def jax_paged(fms):
     """The JAX paged engine, greedy, under the churn script: the logits of
