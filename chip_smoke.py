@@ -442,7 +442,7 @@ def ptxas_kernels(name: str) -> list:
             n = re.match(r"\d+", mangled[i:]).group()
             names.append(mangled[i + len(n):i + len(n) + int(n)])
             i += len(n) + int(n)
-        args = re.findall(r"Li(\d+)E", mangled) \
+        args = re.findall(r"L[ib](\d+)E", mangled) \
             if mangled[i:i + 1] == "I" else []
         label = (names[-1] if names else mangled) + (
             f"<{','.join(args)}>" if args else "")
@@ -6183,60 +6183,89 @@ LONG_DRYRUN_CELLS = ("h2o-danube-1.8b:long_500k:pod1",
                      "xlstm-125m:train_4k:pod1", "jamba-v0.1-52b:train_4k:pod1")
 
 
-def long_pieces(q, k, v, ln, window, pieces=LONG_PIECES):
+def long_pieces(q, k, v, ln, window, pieces=LONG_PIECES, scales=None):
     """K5 over the cache (B, S, KV, hd) cut into ``pieces`` along its
-    sequence, as the ranks of the long-context split hold it: each piece
-    with its key offset and log-sum-exp, merged by
-    ``models.attention.merge_partials`` -> (o in q's dtype, [(o, lse)] of
-    each piece)."""
+    sequence, as the ranks of the long-context split hold it (with
+    ``scales`` (k_scale, v_scale): K3 over an int8 cache): each piece with
+    its key offset and log-sum-exp, merged by ``models.attention.
+    merge_partials`` -> (o in q's dtype, [(o, lse)] of each piece)."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.models.attention import merge_partials
+
+    def call(kc, vc, **kw):
+        if scales is None:
+            return ops.decode_attention(q, kc, vc, ln, window=window, **kw)
+        return ops.decode_attention_int8(q, kc, vc, *scales, ln,
+                                         window=window, **kw)
     n = k.shape[1] // pieces
-    parts = [ops.decode_attention(q, k[:, i * n:(i + 1) * n],
-                                  v[:, i * n:(i + 1) * n], ln, window=window,
-                                  key_offset=i * n, return_lse=True)
-             for i in range(pieces)]
+    parts = [call(k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n],
+                  key_offset=i * n, return_lse=True) for i in range(pieces)]
     o, _ = merge_partials(torch.stack([p[0] for p in parts]),
                           torch.stack([p[1] for p in parts]))
     return o.to(q.dtype), parts
 
 
-def long_k5(dev, gen):
-    """(a) K5 at the long_500k shapes against its plain version on the
-    card: each length's call within two bf16 ulps of the largest output;
-    the same call with ``return_lse`` rounding to its bits (the log-sum-exp
-    path computes what the plain call does); every piece (key offset, lse)
-    within two ulps of its largest output (o) and 1e-3 (lse) of the plain
-    version's piece; the 16
-    pieces merged within two ulps of the one call; a piece wholly outside
-    the window or past the length o = 0 and lse = -inf. Timed at the full
-    length: one call, the 16 pieces plus the merge, the plain version and
-    SDPA (``enable_gqa``, the window as a mask) on the same cache."""
+def long_kernel(dev, gen, int8: bool):
+    """K5 (float cache) or K3 (``int8``: an int8 cache, ``quantize_kv`` of
+    random floats) with a key offset and log-sum-exp at the long_500k
+    shapes, against its plain version on the card: each length's call
+    within two bf16 ulps of the largest output; the same call with
+    ``return_lse`` rounding to its bits (the log-sum-exp path computes what
+    the plain call does); every piece (key offset, lse) within two ulps of
+    its largest output (o) and 1e-3 (lse) of the plain version's piece; the
+    16 pieces merged within two ulps of the one call; a piece wholly
+    outside the window or past the length o = 0 and lse = -inf. Timed at
+    the full length: one call, the 16 pieces plus the merge, the plain
+    version and SDPA (``enable_gqa``, the window as a mask) on the same
+    cache (K3's dequantized to bf16 outside the timing)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    label = "K3" if int8 else "K5"
     ok, out = True, {}
     for name, case in LONG_CASES.items():
         H, KV, hd, window = case["H"], case["KV"], case["hd"], case["window"]
-        q, k, v, _ = float_inputs(gen, 1, H, KV, LONG_S, hd, 1, dev,
-                                  lens=[LONG_S])[0]
+        if int8:
+            q, k, v, ks, vs, _ = int8_inputs(gen, 1, H, KV, LONG_S, hd, 1,
+                                             dev, lens=[LONG_S])[0]
+            free_device()
+            scales = (ks, vs)
+
+            def kernel(kc, vc, ln, **kw):
+                return ops.decode_attention_int8(q, kc, vc, ks, vs, ln,
+                                                 window=window, **kw)
+
+            def plain(kc, vc, ln, **kw):
+                return ref.decode_attention_int8_ref(
+                    q, kc.transpose(1, 2), vc.transpose(1, 2), ks, vs, ln,
+                    window=window, **kw)
+        else:
+            q, k, v, _ = float_inputs(gen, 1, H, KV, LONG_S, hd, 1, dev,
+                                      lens=[LONG_S])[0]
+            scales = None
+
+            def kernel(kc, vc, ln, **kw):
+                return ops.decode_attention(q, kc, vc, ln, window=window,
+                                            **kw)
+
+            def plain(kc, vc, ln, **kw):
+                return ref.decode_attention_ref(
+                    q, kc.transpose(1, 2), vc.transpose(1, 2), ln,
+                    window=window, p_dtype=vc.dtype, **kw)
         n = LONG_S // LONG_PIECES
         res = {}
         for L in LONG_LENS:
             ln = torch.tensor([L], dtype=torch.int32, device=dev)
-            got = ops.decode_attention(q, k, v, ln, window=window)
-            want = ref.decode_attention_ref(q, k.transpose(1, 2),
-                                            v.transpose(1, 2), ln,
-                                            window=window, p_dtype=v.dtype)
+            got = kernel(k, v, ln)
+            want = plain(k, v, ln)
             tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
             err = (got.float() - want.float()).abs().max().item()
-            o32, _ = ops.decode_attention(q, k, v, ln, window=window,
-                                          return_lse=True)
+            o32, _ = kernel(k, v, ln, return_lse=True)
             same = torch.equal(got, o32.to(got.dtype))
-            merged, parts = long_pieces(q, k, v, ln, window)
+            merged, parts = long_pieces(q, k, v, ln, window, scales=scales)
             merr = (merged.float() - got.float()).abs().max().item()
             # each piece against its own plain version, two ulps of that
             # piece's largest output (a piece normalised over fewer keys
@@ -6244,15 +6273,14 @@ def long_k5(dev, gen):
             perr, pok, lerr, empty, empty_ok = 0.0, True, 0.0, 0, True
             lo = max(0, L - window) if window else 0
             for i, (po, pl) in enumerate(parts):
-                wo, wl = ref.decode_attention_ref(
-                    q, k[:, i * n:(i + 1) * n].transpose(1, 2),
-                    v[:, i * n:(i + 1) * n].transpose(1, 2), ln,
-                    window=window, p_dtype=v.dtype, key_offset=i * n,
-                    return_lse=True)
+                wo, wl = plain(k[:, i * n:(i + 1) * n],
+                               v[:, i * n:(i + 1) * n], ln, key_offset=i * n,
+                               return_lse=True)
                 e = (po - wo).abs().max().item()
                 perr = max(perr, e)
                 pok &= e <= 2 * 2.0 ** -8 * wo.abs().max().item() + 1e-6
                 fin = torch.isfinite(wl)
+                pok &= torch.equal(fin, torch.isfinite(pl))
                 lerr = max(lerr, (pl[fin] - wl[fin]).abs().max().item()
                            if fin.any() else 0.0)
                 if i * n >= L or (i + 1) * n <= lo:
@@ -6262,7 +6290,7 @@ def long_k5(dev, gen):
             good = err <= tol and pok and merr <= tol and \
                 lerr <= 1e-3 and same and empty_ok and \
                 bool(torch.isfinite(merged.float()).all())
-            log(f"long K5 [{name}] H={H} KV={KV} hd={hd} S={LONG_S} "
+            log(f"long {label} [{name}] H={H} KV={KV} hd={hd} S={LONG_S} "
                 f"window={window} len={L}: max_abs_err={err:.3e} (bound "
                 f"{tol:.3e}), lse path same bits: {same}, pieces: o err "
                 f"{perr:.3e}, lse err {lerr:.3e}, {empty} empty (o 0, lse "
@@ -6273,53 +6301,76 @@ def long_k5(dev, gen):
                       "piece_err": perr, "lse_err": lerr,
                       "empty_pieces": empty}
         ln = torch.tensor([LONG_S], dtype=torch.int32, device=dev)
-        ms = device_ms(lambda: ops.decode_attention(q, k, v, ln,
-                                                    window=window))
-        pieces_ms = device_ms(lambda: long_pieces(q, k, v, ln, window))
-        plain_ms = device_ms(lambda: ref.decode_attention_ref(
-            q, k.transpose(1, 2), v.transpose(1, 2), ln, window=window,
-            p_dtype=v.dtype), iters=3, warmup=1)
-        q4 = q.view(1, H, 1, hd)
-        k4 = k.transpose(1, 2).contiguous()
-        v4 = v.transpose(1, 2).contiguous()
+        # K3 without a window streams the whole cache through its 8 CTAs
+        # (one a (row, kv head)): tens of ms a call, so few calls
+        it = dict(iters=2, warmup=1) if int8 else {}
+        ms = device_ms(lambda: kernel(k, v, ln), **it)
+        pieces_ms = device_ms(lambda: long_pieces(q, k, v, ln, window,
+                                                  scales=scales), **it)
+        plain_ms = device_ms(lambda: plain(k, v, ln), iters=3, warmup=1)
+        if int8:
+            k4 = (k.transpose(1, 2).float() * ks[:, :, None, None]).to(
+                torch.bfloat16)
+            v4 = (v.transpose(1, 2).float() * vs[:, :, None, None]).to(
+                torch.bfloat16)
+        else:
+            k4 = k.transpose(1, 2).contiguous()
+            v4 = v.transpose(1, 2).contiguous()
         mask = None
         if window is not None:
             pos = torch.arange(LONG_S, device=dev)
             mask = (pos >= LONG_S - window)[None, None, None]
         sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, enable_gqa=True))
+            q.view(1, H, 1, hd), k4, v4, attn_mask=mask, enable_gqa=True),
+            **({"iters": 5, "warmup": 1} if int8 else {}))
         del k4, v4
-        bound, by = float_bound(q, k, ln, window)
+        bound, by = (int8_bound if int8 else float_bound)(q, k, ln, window)
         out[name] = {"ms": ms, "pieces_ms": pieces_ms, "plain_ms": plain_ms,
                      "library_ms": sdpa_ms, "bound_ms": bound,
                      "bound_by": by, "lengths": res}
-        log(f"long K5 timing [{name}] (card {smi_line()}): one call {ms:.4f}"
-            f" ms, 16 pieces + merge {pieces_ms:.4f} ms, plain "
+        log(f"long {label} timing [{name}] (card {smi_line()}): one call "
+            f"{ms:.4f} ms, 16 pieces + merge {pieces_ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, SDPA {sdpa_ms:.4f} ms, bound {bound:.4f} ms"
             f" ({by})")
-        del q, k, v
+        del q, k, v, kernel, plain
         free_device()
     return ok, out
 
 
+def long_k5(dev, gen):
+    """(a) K5 at the long_500k shapes (``long_kernel``)."""
+    return long_kernel(dev, gen, int8=False)
+
+
+def long_k3(dev, gen):
+    """(a) K3 at the long_500k shapes (``long_kernel``): one CTA a (row, kv
+    head), 8 CTAs on the card."""
+    return long_kernel(dev, gen, int8=True)
+
+
 @contextlib.contextmanager
 def attention_in_pieces():
-    """The float cache's decode attention (``models.attention.
-    decode_attention``) routed through ``long_pieces`` while open."""
+    """The dense cache's decode attention (float: ``models.attention.
+    decode_attention``; int8: ``attention._attend_int8``) routed through
+    ``long_pieces`` while open."""
     from repro_torch.models import attention
 
-    real = attention.decode_attention
+    real = attention.decode_attention, attention._attend_int8
 
     def pieces(q, k_cache, v_cache, cache_len, *, window=None):
         return long_pieces(q, k_cache, v_cache, cache_len, window)[0]
-    attention.decode_attention = pieces
+
+    def pieces_int8(q, k_cache, v_cache, ks, vs, lens, window, piece):
+        return long_pieces(q, k_cache, v_cache, lens, window,
+                           scales=(ks, vs))[0]
+    attention.decode_attention, attention._attend_int8 = pieces, pieces_int8
     try:
         yield
     finally:
-        attention.decode_attention = real
+        attention.decode_attention, attention._attend_int8 = real
 
 
-def long_decode(dev, arch, seed):
+def long_decode(dev, arch, seed, kv_quant=False):
     """(b) ``lm.decode_step`` of ``arch`` (h2o-danube-1.8b at full width
     and depth, jamba at its served JAMBA_LAYERS) on one row of a float
     cache of LONG_S positions filled from a seed (no prefill: the
@@ -6328,7 +6379,9 @@ def long_decode(dev, arch, seed):
     captured, then replays): TPOT over the replays, finite logits, K5's
     launches one per attention sublayer a step; then the last step again
     from the same state, eager, its attention through the 16 pieces and
-    the merge, within LONG_TOL of the graphed step's logits."""
+    the merge, within LONG_TOL of the graphed step's logits. With
+    ``kv_quant`` the dense int8 pool instead (random codes, per-(row, kv
+    head) scales of 1.5 / 127) and K3."""
     import numpy as np
     import torch
 
@@ -6340,12 +6393,16 @@ def long_decode(dev, arch, seed):
     params = lm.init_model(gen, cfg, device=dev)
     with torch.no_grad():
         fan_in_qk(params, cfg)
-    cache = lm.init_cache(cfg, 1, LONG_S, device=dev)
+    cache = lm.init_cache(cfg, 1, LONG_S, kv_quant=kv_quant, device=dev)
     n_attn = 0
     for sub in cache:
         if "k" in sub:
-            sub["k"].normal_(generator=gen)
-            sub["v"].normal_(generator=gen)
+            for name in ("k", "v"):
+                if kv_quant:
+                    sub[name].random_(-127, 128, generator=gen)
+                    sub[f"{name}_scale"].fill_(1.5 / 127)
+                else:
+                    sub[name].normal_(generator=gen)
             sub["len"].fill_(LONG_S - LONG_STEPS)
             n_attn += sub["k"].shape[0]
     gb = sum(t.numel() * t.element_size() for sub in cache
@@ -6380,14 +6437,16 @@ def long_decode(dev, arch, seed):
            torch.linalg.vector_norm(last)).item()
     worst = (split - last).abs().max().item()
     want = n_attn * LONG_STEPS
-    stats = {"card": smi_line(), "layers": cfg.num_layers,
+    kernel = "decode_attention_int8" if kv_quant else "decode_attention"
+    stats = {"card": smi_line(), "layers": cfg.num_layers, "int8": kv_quant,
              "attention_layers": n_attn, "cache_gb": gb,
              "len_last": LONG_S, "tpot_ms": float(np.median(ms[2:])),
              "step_ms": ms, "finite": finite,
              "pieces_vs_one_call": [rel, worst], "launches": launches}
-    log(f"long decode {arch}: " + json.dumps(stats, default=float))
+    log(f"long decode {arch}{' int8' if kv_quant else ''}: "
+        + json.dumps(stats, default=float))
     ok = finite and rel <= LONG_TOL[0] and worst <= LONG_TOL[1] and \
-        launches.get("decode_attention", 0) == want
+        launches.get(kernel, 0) == want
     del exe, params, cache, logits
     free_device()
     return ok, stats
@@ -6559,9 +6618,10 @@ def long_dryrun_finish(procs, tmp, timeout=900):
 
 
 def phase_long(dev, dryrun):
-    """Phase 14: (a) K5 with a key offset and log-sum-exp at the long_500k
-    shapes (``long_k5``), (b) decode at 524288 positions (``long_decode``:
-    h2o-danube-1.8b, jamba), (c) the checkpointed scans (``long_xlstm_
+    """Phase 14: (a) K5 and K3 with a key offset and log-sum-exp at the
+    long_500k shapes (``long_k5``, ``long_k3``), (b) decode at 524288
+    positions (``long_decode``: h2o-danube-1.8b, jamba, and h2o-danube-1.8b
+    on the dense int8 pool), (c) the checkpointed scans (``long_xlstm_
     training``, ``long_mamba``) and (d) the dry-run cells started with the
     run (``long_dryrun_finish``). Returns (phases, stats), stats with the
     decode runs' launches for the kernels line."""
@@ -6572,17 +6632,20 @@ def phase_long(dev, dryrun):
         gen = torch.Generator(device=dev).manual_seed(53)
         phases["long_k5"], stats["k5"] = long_k5(dev, gen)
         free_device()
+        phases["long_k3"], stats["k3"] = long_k3(dev, gen)
         for arch, seed in ((H2O, 54), (JAMBA, 55)):
             phases[f"long_decode {arch}"], stats[arch] = long_decode(
                 dev, arch, seed)
+        phases[f"long_decode_int8 {H2O}"], stats[f"{H2O} int8"] = \
+            long_decode(dev, H2O, 56, kv_quant=True)
         phases["long_xlstm_training"], stats["xlstm"] = \
             long_xlstm_training(dev)
         phases["long_mamba"], stats["mamba"] = long_mamba(dev)
     finally:
         phases["long_dryrun"], stats["dryrun"] = long_dryrun_finish(*dryrun)
     launches = {}
-    for arch in (H2O, JAMBA):
-        for k, v in stats.get(arch, {}).get("launches", {}).items():
+    for run in (H2O, JAMBA, f"{H2O} int8"):
+        for k, v in stats.get(run, {}).get("launches", {}).items():
             launches[k] = launches.get(k, 0) + v
     stats["launches"] = launches
     log(f"long phase: {phases}, {time.perf_counter() - t0:.1f} s")
@@ -6702,7 +6765,7 @@ def main() -> int:
     # rmsnorm alone), rmsnorm in every one, the full-width training run
     # (K2, rmsnorm and their backward kernels) and the full-depth LM
     # training steps (the same four), and phase_long's decode at 524288
-    # positions (K5, rmsnorm), each counted from 0 just before it
+    # positions (K5 or K3, rmsnorm), each counted from 0 just before it
     launches = {k: sum(st["launches"].get(k, 0)
                        for st in (stats, pstats, cstats, wstats, mstats,
                                   dstats, spstats, *fstats.values(),

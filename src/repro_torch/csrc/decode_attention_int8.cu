@@ -23,34 +23,50 @@ namespace {
 
 using namespace int8_decode;
 
+// The kernel's arguments past q.. out, in its order.
+struct Args {
+  int KV, S;
+  int64_t skb, skh, sks, svb, svh, svs;
+  int window;
+  float sm_scale;
+  int key_offset;
+  float* out_f32;
+  float* lse;
+};
+
 template <int HD, int G>
 cudaError_t launch(const void* q, const void* kq, const void* vq,
                    const void* ks, const void* vs, const void* lengths,
-                   void* out, int B, int KV, int S, int64_t skb, int64_t skh,
-                   int64_t sks, int64_t svb, int64_t svh, int64_t svs,
-                   int window, float sm_scale, cudaStream_t stream) {
-  decode_int8_kernel<HD, G><<<B * KV, kThreads, smem_bytes<HD, G>(0), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const int8_t*>(vq), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int32_t*>(lengths),
-      static_cast<__nv_bfloat16*>(out), KV, S, skb, skh, sks, svb, svh, svs,
-      window, sm_scale);
+                   void* out, int B, const Args& a, cudaStream_t stream) {
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const int8_t*>(kq);
+  const auto* vp = static_cast<const int8_t*>(vq);
+  const auto* ksp = static_cast<const float*>(ks);
+  const auto* vsp = static_cast<const float*>(vs);
+  const auto* lp = static_cast<const int32_t*>(lengths);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (a.lse != nullptr)
+    decode_int8_kernel<HD, G, true><<<B * a.KV, kThreads, smem_bytes<HD, G>(0), stream>>>(
+        qp, kp, vp, ksp, vsp, lp, op, a.KV, a.S, a.skb, a.skh, a.sks, a.svb,
+        a.svh, a.svs, a.window, a.sm_scale, a.key_offset, a.out_f32, a.lse);
+  else
+    decode_int8_kernel<HD, G><<<B * a.KV, kThreads, smem_bytes<HD, G>(0), stream>>>(
+        qp, kp, vp, ksp, vsp, lp, op, a.KV, a.S, a.skb, a.skh, a.sks, a.svb,
+        a.svh, a.svs, a.window, a.sm_scale, a.key_offset);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_g(int G, const void* q, const void* kq, const void* vq,
                      const void* ks, const void* vs, const void* lengths,
-                     void* out, int B, int KV, int S, int64_t skb, int64_t skh,
-                     int64_t sks, int64_t svb, int64_t svh, int64_t svs,
-                     int window, float sm_scale, cudaStream_t st) {
+                     void* out, int B, const Args& a, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<HD, 1>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 2: return launch<HD, 2>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 4: return launch<HD, 4>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 6: return launch<HD, 6>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 7: return launch<HD, 7>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 8: return launch<HD, 8>(q, kq, vq, ks, vs, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
+    case 1: return launch<HD, 1>(q, kq, vq, ks, vs, lengths, out, B, a, st);
+    case 2: return launch<HD, 2>(q, kq, vq, ks, vs, lengths, out, B, a, st);
+    case 4: return launch<HD, 4>(q, kq, vq, ks, vs, lengths, out, B, a, st);
+    case 6: return launch<HD, 6>(q, kq, vq, ks, vs, lengths, out, B, a, st);
+    case 7: return launch<HD, 7>(q, kq, vq, ks, vs, lengths, out, B, a, st);
+    case 8: return launch<HD, 8>(q, kq, vq, ks, vs, lengths, out, B, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -60,21 +76,29 @@ cudaError_t launch_g(int G, const void* q, const void* kq, const void* vq,
 // q (B, KV * G, hd) bf16 contiguous, 16-byte aligned; kq/vq int8 addressed
 // as (B, KV, S, hd) through the element strides s*b, s*h, s*s (hd stride 1,
 // every row 16-byte aligned); k_scale/v_scale (B, KV) f32; lengths (B,)
-// int32; out like q. window <= 0 means no window. Returns a cudaError_t
-// (0 on success).
+// int32; out like q. window <= 0 means no window. key_offset: the global
+// position of local key 0 (a piece of a cache split over its sequence).
+// With a non-null lse ((B, KV * G) f32) the output goes to out_f32 ((B, KV *
+// G, hd) f32) and out is not written (int8_decode.cuh). Returns a
+// cudaError_t (0 on success).
 extern "C" int decode_int8_launch(const void* q, const void* kq, const void* vq,
                                   const void* k_scale, const void* v_scale,
-                                  const void* lengths, void* out, int B, int KV,
-                                  int G, int S, int hd, int64_t skb, int64_t skh,
+                                  const void* lengths, void* out, void* out_f32,
+                                  void* lse, int B, int KV, int G, int S,
+                                  int hd, int64_t skb, int64_t skh,
                                   int64_t sks, int64_t svb, int64_t svh,
-                                  int64_t svs, int window, float sm_scale,
-                                  void* stream) {
+                                  int64_t svs, int window, int key_offset,
+                                  float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr && out_f32 == nullptr) return cudaErrorInvalidValue;
+  const Args a{KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale,
+               key_offset, static_cast<float*>(out_f32),
+               static_cast<float*>(lse)};
   switch (hd) {
-    case 32:  return launch_g<32>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 64:  return launch_g<64>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 80:  return launch_g<80>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
-    case 128: return launch_g<128>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, KV, S, skb, skh, sks, svb, svh, svs, window, sm_scale, st);
+    case 32:  return launch_g<32>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, a, st);
+    case 64:  return launch_g<64>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, a, st);
+    case 80:  return launch_g<80>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, a, st);
+    case 128: return launch_g<128>(G, q, kq, vq, k_scale, v_scale, lengths, out, B, a, st);
     default:  return cudaErrorInvalidValue;
   }
 }

@@ -14,6 +14,16 @@
 // bf16. A row with no valid position gives zeros. A page-table entry outside
 // [0, P) is never dereferenced: its positions count as masked.
 //
+// K3 also decodes a piece of a dense cache split over its sequence (one
+// piece a rank): key_offset o is the global position of local key 0, and
+// the CTA attends the global range [max(0, len - window), len) where it
+// meets [o, o + S). With the log-sum-exp epilogue (attend's kLse) the
+// output is f32, normalised over the keys the piece saw, and each head's
+// natural log-sum-exp of its scaled scores goes beside it; a piece with no
+// valid key gives o = 0 and lse = -inf (K5's conventions), so the pieces
+// merge by one lse-weighted sum. The epilogue is a template argument: K4,
+// the verify window and K3 without it compile to the code they had.
+//
 // What bounds it on this card: at the serving shapes, not the bytes (a
 // few MB, about a microsecond at 3.35 TB/s) but the chain of dependent
 // memory round trips (the length and the page table, then the K/V rows)
@@ -124,7 +134,8 @@ __device__ __forceinline__ void load_row(const int8_t* p, uint32_t (&w)[W]) {
 }
 
 // Dense pool (K3): row b of k/v addressed as (B, KV, S, hd) through element
-// strides, one k and one v scale per (b, h).
+// strides, one k and one v scale per (b, h). key_offset: the global position
+// of local position 0 (0 for a whole cache); the range is local.
 struct Dense {
   const int8_t* kbase;
   const int8_t* vbase;
@@ -138,14 +149,15 @@ struct Dense {
                                    const int32_t* lengths, int b, int h, int KV,
                                    int S, int64_t skb, int64_t skh, int64_t sks_,
                                    int64_t svb, int64_t svh, int64_t svs_,
-                                   int window, float sm_scale)
+                                   int window, float sm_scale,
+                                   int key_offset = 0)
       : kbase(kq + b * skb + h * skh), vbase(vq + b * svb + h * svh),
         sks(sks_), svs(svs_) {
-    const int len = __ldg(lengths + b);
+    const int len = __ldg(lengths + b) - key_offset;
     kscale = __ldg(k_scale + b * KV + h) * sm_scale * kLog2e;
     vscale = __ldg(v_scale + b * KV + h);
-    s_hi = min(len, S);
-    s_lo = window > 0 ? max(0, len - window) : 0;
+    s_hi = min(max(len, 0), S);
+    s_lo = window > 0 ? min(max(0, len - window), s_hi) : 0;
   }
   // Where position s's K/V rows start; a tag for scales() (-1: masked).
   __device__ __forceinline__ int row(int s, const int8_t*& kr, const int8_t*& vr) const {
@@ -244,6 +256,11 @@ struct MergePlan {
 // called once after the first passes' loads are issued (the paged source
 // stores its scales there and synchronises). q: this (row, kv head)'s G x
 // HD bf16 query heads; out: its G x HD outputs; merge: MergePlan floats.
+// kLse (K3 on a piece of a split cache): the outputs go to of32 (G x HD
+// f32) instead, unrounded, and each head's natural log-sum-exp to lse (G
+// floats): ln 2 (m + log2 l) of the merged max m and sum l, in the log2
+// units the body scores in; o = 0 and lse = -inf where no key was valid.
+// Rounded to bf16, of32 is what out would hold.
 // K3 and K4 read a round ahead into two register buffers. kLean (the
 // verify window's positions, many CTAs an SM): no round ahead, a round's K
 // words loaded in two batches, the scores, then its V words in two
@@ -258,11 +275,14 @@ struct MergePlan {
 // whisper) and 6.3-6.6 against 4.7 (K3, stablelm): one CTA a (row, kv
 // head) waits for the scores before it loads a round's V words, and
 // nothing else on the SM hides that round trip; lean K3 also spilled.
-template <int HD, int G, bool kLean = false, class Src, class Stage>
+template <int HD, int G, bool kLean = false, bool kLse = false, class Src,
+          class Stage>
 __device__ __forceinline__ void attend(const Src& src, Stage stage,
                                        const __nv_bfloat16* __restrict__ qg,
                                        __nv_bfloat16* __restrict__ og,
-                                       float* merge) {
+                                       float* merge,
+                                       float* __restrict__ of32 = nullptr,
+                                       float* __restrict__ lse = nullptr) {
   using T = Tile<HD, G>;
   constexpr int DPL = T::DPL, W = T::W, LPP = T::LPP, PPW = T::PPW;
   constexpr int PCTA = T::PCTA, D = T::kDepth, NP = T::NP;
@@ -618,8 +638,13 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
 #ifdef INT8_DECODE_COPY_ONLY
   // a token output, stored only if the loads gave this pattern (so that
   // they are not dropped): the floor of the loads and the prologue
-  if (threadIdx.x < G * HD) og[threadIdx.x] = __float2bfloat16(0.f);
-  if (sink == 0x9e3779b9u) og[0] = __float2bfloat16(1.f);
+  if constexpr (kLse) {
+    if (threadIdx.x < G * HD) of32[threadIdx.x] = 0.f;
+    if (sink == 0x9e3779b9u) lse[0] = 1.f;
+  } else {
+    if (threadIdx.x < G * HD) og[threadIdx.x] = __float2bfloat16(0.f);
+    if (sink == 0x9e3779b9u) og[0] = __float2bfloat16(1.f);
+  }
   (void)merge;
 #else
   // ---- merge: each lane group's accumulator and each warp's (m, l) go to
@@ -678,7 +703,15 @@ __device__ __forceinline__ void attend(const Src& src, Stage stage,
         const float mw = wm[w * G + g];
         lsum = fmaf(wl[w * G + g], mw == -INFINITY ? 0.f : exp2f(mw - mx), lsum);
       }
-      og[i] = __float2bfloat16(mx == -INFINITY ? 0.f : o / lsum);
+      const float val = mx == -INFINITY ? 0.f : o / lsum;
+      if constexpr (kLse) {
+        of32[i] = val;
+        if (i % HD == 0)
+          lse[i / HD] = mx == -INFINITY ? -INFINITY
+                                        : (mx + log2f(lsum)) * 0.6931471805599453f;
+      } else {
+        og[i] = __float2bfloat16(val);
+      }
     }
   }
 #endif
@@ -697,8 +730,10 @@ __host__ __device__ constexpr size_t smem_bytes(int MP) {
   return sizeof(float) * MergePlan<HD, G>::kFloats + 12 * static_cast<size_t>(MP);
 }
 
-// K3: one CTA per (row b, kv head h), blockIdx.x = b * KV + h.
-template <int HD, int G>
+// K3: one CTA per (row b, kv head h), blockIdx.x = b * KV + h. kLse: a
+// piece of a split cache at key_offset, out_f32 (B, KV * G, HD) and lse
+// (B, KV * G) written in place of out (attend).
+template <int HD, int G, bool kLse = false>
 __global__ void __launch_bounds__(kThreads)
 decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
                    const int8_t* __restrict__ kq, const int8_t* __restrict__ vq,
@@ -707,14 +742,21 @@ decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
                    const int32_t* __restrict__ lengths,
                    __nv_bfloat16* __restrict__ out, int KV, int S,
                    int64_t skb, int64_t skh, int64_t sks, int64_t svb,
-                   int64_t svh, int64_t svs, int window, float sm_scale) {
+                   int64_t svh, int64_t svs, int window, float sm_scale,
+                   int key_offset = 0, float* __restrict__ out_f32 = nullptr,
+                   float* __restrict__ lse = nullptr) {
   float* merge = reinterpret_cast<float*>(int8_decode_smem);
   const int b = blockIdx.x / KV;
   const int h = blockIdx.x % KV;
   const Dense src(kq, vq, k_scale, v_scale, lengths, b, h, KV, S, skb, skh,
-                  sks, svb, svh, svs, window, sm_scale);
-  const int64_t base = (static_cast<int64_t>(b) * KV + h) * G * HD;
-  attend<HD, G>(src, [] {}, q + base, out + base, merge);
+                  sks, svb, svh, svs, window, sm_scale, key_offset);
+  const int64_t bh = static_cast<int64_t>(b) * KV + h;
+  const int64_t base = bh * G * HD;
+  if constexpr (kLse)
+    attend<HD, G, false, true>(src, [] {}, q + base, nullptr, merge,
+                               out_f32 + base, lse + bh * G);
+  else
+    attend<HD, G>(src, [] {}, q + base, out + base, merge);
 }
 
 // K4: one CTA per (row b, kv head h), blockIdx.x = b * KV + h; ps_shift is

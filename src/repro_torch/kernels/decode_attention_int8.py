@@ -4,6 +4,12 @@ Decode is bound by the bytes of the KV cache. Storing K/V as int8 with a
 per-(batch, kv-head) symmetric scale halves them; ``csrc/
 decode_attention_int8.cu`` dequantizes in registers, so device memory only
 ever streams int8. The error per element is at most scale/2.
+
+A piece of a cache split over its sequence (``key_offset``, the global
+position of its first key) attends the part of the global range that it
+holds; with ``return_lse`` the call returns f32 output and each head's
+log-sum-exp, which ``models.attention.merge_partials`` combines across the
+pieces (K5's conventions).
 """
 from __future__ import annotations
 
@@ -36,23 +42,30 @@ def _lib():
     lib = build.load("decode_attention_int8")
     if not getattr(lib, "_typed", False):
         lib.decode_int8_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_float,
-                                      ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_float, ctypes.c_void_p])
         lib.decode_int8_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
 def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
-                          window: Optional[int] = None):
+                          window: Optional[int] = None, key_offset: int = 0,
+                          return_lse: bool = False):
     """Launch the int8 flash-decode kernel.
 
     q: (B, H, hd) bf16 CUDA, contiguous; k_q/v_q: (B, KV, S, hd) int8 with
     any strides but a unit hd stride and 16-byte aligned rows (the model
     layout's transposed view is taken as is, never copied); k_scale/v_scale:
     (B, KV) f32 (callers guard free slots' unwritten zeros); lengths: (B,)
-    int32. Returns (B, H, hd) in q's dtype."""
+    int32. Returns (B, H, hd) in q's dtype. ``key_offset``: the global
+    position of local key 0 (a piece of a cache split over its sequence);
+    the call attends global positions [max(0, len - window), len) that lie
+    in [key_offset, key_offset + S). ``return_lse``: return (o (B, H, hd)
+    f32, lse (B, H) f32), lse the natural log-sum-exp of the scaled scores
+    the call saw (-inf, with o 0, where it saw none); o rounds to the bf16
+    output of a call without it."""
     B, H, hd = q.shape
     _, KV, S, _ = k_q.shape
     if q.device.type != "cuda":
@@ -80,13 +93,28 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
                              f"{t.dtype} {tuple(t.shape)}")
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("q must be contiguous and 16-byte aligned")
+    if lengths.device != q.device:
+        raise ValueError(f"lengths must be on {q.device}, got "
+                         f"{lengths.device}")
+    if not 0 <= key_offset < 2 ** 31 - S:
+        raise ValueError(f"key_offset {key_offset} out of range")
     out = torch.empty_like(q)
+    out_f32 = lse = None
+    if return_lse:
+        out_f32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if B == 0 or S == 0:
+        return (out_f32.zero_(), lse.fill_(-math.inf)) if return_lse else \
+            out.zero_()
     stream = build.current_stream(q.device.index or 0)
     err = _lib().decode_int8_launch(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, KV, G, S,
-        hd, *k_q.stride()[:3], *v_q.stride()[:3],
-        -1 if window is None else int(window), 1.0 / math.sqrt(hd), stream)
+        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if out_f32 is None else out_f32.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, KV, G, S, hd,
+        *k_q.stride()[:3], *v_q.stride()[:3],
+        -1 if window is None else int(window), int(key_offset),
+        1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["decode_attention_int8"] += 1
     build.check(err, "decode_attention_int8")
-    return out
+    return (out_f32, lse) if return_lse else out

@@ -314,29 +314,42 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 
 
 def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
-                          window: Optional[int] = None):
-    """int8-KV decode attention, model layout.
+                          window: Optional[int] = None, key_offset: int = 0,
+                          return_lse: bool = False):
+    """int8-KV decode attention, model layout (kernel K3).
 
     q: (B, H, hd); k_q/v_q: (B, S, KV, hd) int8; k_scale/v_scale: (B, KV);
     lengths: (B,) -> (B, H, hd). The kernel reads the cache through a
-    head-major view of the model layout, never a copy."""
+    head-major view of the model layout, never a copy. ``key_offset`` (an
+    int): the cache is a piece of a longer one whose key 0 sits at that
+    global position; only the global positions it holds are attended.
+    ``return_lse``: return (o (B, H, hd) f32 normalised over those keys,
+    lse (B, H) f32 their natural log-sum-exp; o = 0 and lse = -inf where
+    the piece holds none), for ``models.attention.merge_partials``."""
     _no_grad_path("decode_attention_int8 (K3)", q, k_scale, v_scale)
     _no_dtensor("decode_attention_int8 (K3)", q, k_q, v_q)
     if _route(q) == "meta":
         B, H, hd = q.shape
         S, KV = k_q.shape[1], k_q.shape[2]
         n = B * (S if window is None else min(S, int(window)))
+        o_size = 4 if return_lse else 2
         _meta_work("decode_attention_int8", 4.0 * n * H * hd,
-                   2 * 2 * B * H * hd + 2 * n * KV * hd + 2 * 4 * B * KV
-                   + 4 * B)
+                   (2 + o_size) * B * H * hd + 2 * n * KV * hd
+                   + 2 * 4 * B * KV + 4 * B + (4 * B * H if return_lse else 0))
+        if return_lse:
+            return (torch.empty(q.shape, dtype=torch.float32, device="meta"),
+                    torch.empty((B, H), dtype=torch.float32, device="meta"))
         return torch.empty(q.shape, dtype=q.dtype, device="meta")
     kh = k_q.transpose(1, 2)
     vh = v_q.transpose(1, 2)
     if _route(q) == "cuda":
         return _int8.decode_attention_int8(q, kh, vh, k_scale, v_scale,
-                                           lengths, window=window)
+                                           lengths, window=window,
+                                           key_offset=key_offset,
+                                           return_lse=return_lse)
     return ref.decode_attention_int8_ref(q, kh, vh, k_scale, v_scale, lengths,
-                                         window=window)
+                                         window=window, key_offset=key_offset,
+                                         return_lse=return_lse)
 
 
 def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,

@@ -154,14 +154,18 @@ def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None,
 
 
 def decode_attention_int8_ref(q, k_q, v_q, k_scale, v_scale, lengths, *,
-                              window: Optional[int] = None):
+                              window: Optional[int] = None,
+                              key_offset: int = 0, return_lse: bool = False):
     """int8-KV decode: dequantize, then the f32 decode reference.
 
     q: (B, H, hd); k_q/v_q: (B, KV, S, hd) int8; k_scale/v_scale: (B, KV);
-    lengths: (B,). -> (B, H, hd)."""
+    lengths: (B,). -> (B, H, hd). ``key_offset`` and ``return_lse`` as in
+    ``decode_attention_ref`` (a piece of a cache split over its sequence:
+    (o f32, lse) for ``models.attention.merge_partials``)."""
     k = k_q.float() * k_scale[:, :, None, None]
     v = v_q.float() * v_scale[:, :, None, None]
-    return decode_attention_ref(q, k, v, lengths, window=window)
+    return decode_attention_ref(q, k, v, lengths, window=window,
+                                key_offset=key_offset, return_lse=return_lse)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, k_scale, v_scale,

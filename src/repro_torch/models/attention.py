@@ -130,9 +130,23 @@ def _attend_float(q, k_cache, v_cache, lens, window, piece):
     the piece's key offset and log-sum-exp, and the pieces merge."""
     from repro_torch.kernels import ops
     if piece is None:
-        return ops.decode_attention(q, k_cache, v_cache, lens, window=window)
+        return decode_attention(q, k_cache, v_cache, lens, window=window)
     o, lse = ops.decode_attention(q, k_cache, v_cache, lens, window=window,
                                   key_offset=piece.offset, return_lse=True)
+    return piece.merge(o, lse).to(q.dtype)
+
+
+def _attend_int8(q, k_cache, v_cache, ks, vs, lens, window, piece):
+    """K3 on plain tensors (the dense int8 pool, its (B, KV) scales); on a
+    ``piece`` of a sequence split it runs with the piece's key offset and
+    log-sum-exp, and the pieces merge (the scales are every piece's)."""
+    from repro_torch.kernels import ops
+    if piece is None:
+        return ops.decode_attention_int8(q, k_cache, v_cache, ks, vs, lens,
+                                         window=window).to(q.dtype)
+    o, lse = ops.decode_attention_int8(q, k_cache, v_cache, ks, vs, lens,
+                                       window=window, key_offset=piece.offset,
+                                       return_lse=True)
     return piece.merge(o, lse).to(q.dtype)
 
 
@@ -142,11 +156,11 @@ def _on_cache_shards(fn, cache_k, q, caches, lens, extra=()):
     heads, the cache's own shards (written in place by ``fn`` where it
     writes). q (B, [T,] H, hd) and ``extra`` (per-row (B, KV) scales or
     (B, [T,] KV, hd) new keys) follow the cache's row and head split;
-    ``lens`` (B,) its row split. The output is q's shape, so placed. A
-    float cache split over its sequence (the long-context rules) passes
-    ``fn`` its ``piece=_Piece``; every rank of the split gets the merged
-    output. An int8 cache split so raises ``ValueError`` (K3 takes no key
-    offset)."""
+    ``lens`` (B,) its row split; a (B, KV) cache leaf (the int8 pool's
+    scales) its row and head split, whole over the sequence split. The
+    output is q's shape, so placed. A cache split over its sequence (the
+    long-context rules) passes ``fn`` its ``piece=_Piece``; every rank of
+    the split gets the merged output."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -155,9 +169,6 @@ def _on_cache_shards(fn, cache_k, q, caches, lens, extra=()):
     mesh = cache_k.device_mesh
     cpl = tuple(cache_k.placements)
     seq_dims = [i for i, p in enumerate(cpl) if p == Shard(1)]
-    if seq_dims and cache_k.dtype == torch.int8:
-        raise ValueError("decode against an int8 cache split over its "
-                         "sequence is not supported (K3 takes no key offset)")
     piece = None
     if seq_dims:
         total = cache_k.shape[1]
@@ -181,7 +192,9 @@ def _on_cache_shards(fn, cache_k, q, caches, lens, extra=()):
                      for p in cpl)
 
     args = [_as_dtensor(t, mesh) for t in (q, *caches, lens, *extra)]
-    in_pl = [place(args[0], -2)] + [cpl for _ in caches] + \
+    in_pl = [place(args[0], -2)] + \
+        [cpl if t.ndim == 4 else place(t, -1)
+         for t in args[1:1 + len(caches)]] + \
         [tuple(Shard(0) if p == Shard(0) else Replicate() for p in cpl)] + \
         [place(e, -1 if e.ndim == 2 else -2) for e in args[2 + len(caches):]]
     if piece is not None:
@@ -318,10 +331,10 @@ def _dense_decode(q, k, v, cache, cfg, piece=None):
     """The dense pool's write of the new token's K/V and its attention:
     q (B, 1, H, hd), k/v (B, 1, KV, hd) -> (B, H, hd), the cache advanced
     in place. With a ``piece`` (``_on_cache_shards``) the cache is this
-    rank's piece of a float cache split over its sequence: the rank whose
-    piece holds the insert position writes it, the others rewrite what
-    they hold (a masked write: no host sync), and the pieces' attention
-    merges."""
+    rank's piece of a cache split over its sequence (float or int8): the
+    rank whose piece holds the insert position writes it, the others
+    rewrite what they hold (a masked write: no host sync), and the pieces'
+    attention merges."""
     B, S = q.shape[0], cache["k"].shape[1]
     # insert position. A free pool slot keeps stepping and its length grows
     # past S; JAX drops such an out-of-range write, torch would raise, so the
@@ -337,29 +350,26 @@ def _dense_decode(q, k, v, cache, cfg, piece=None):
         mine = ((at >= 0) & (at < S))[:, None, None]
         idx = torch.clamp(at, 0, S - 1)
     new_len = (cache["len"] + 1).to(cache["len"].dtype)
-    if "k_scale" in cache:
-        from repro_torch.kernels import ops
-        # scales are per (B, KV), fixed at prefill; epsilon-guard free slots
-        # whose scales were never written (their rows are masked anyway)
+    int8 = "k_scale" in cache
+    if int8:
+        # scales are per (B, KV), fixed at prefill and every piece's; epsilon-
+        # guard free slots whose scales were never written (their rows are
+        # masked anyway)
         ks = torch.clamp(cache["k_scale"], min=1e-8)
         vs = torch.clamp(cache["v_scale"], min=1e-8)
-        cache["k"][bidx, idx] = quantize_token(k[:, 0], ks)
-        cache["v"][bidx, idx] = quantize_token(v[:, 0], vs)
-        o = ops.decode_attention_int8(q[:, 0].contiguous(), cache["k"],
-                                      cache["v"], ks, vs, new_len,
-                                      window=cfg.sliding_window).to(q.dtype)
+        news = (quantize_token(k[:, 0], ks), quantize_token(v[:, 0], vs))
     else:
-        for n, new in (("k", k), ("v", v)):
-            new = new[:, 0].to(cache[n].dtype)
-            cache[n][bidx, idx] = new if mine is None else torch.where(
-                mine, new, cache[n][bidx, idx])
-        if piece is None:
-            o = decode_attention(q[:, 0].contiguous(), cache["k"],
-                                 cache["v"], new_len,
-                                 window=cfg.sliding_window)
-        else:
-            o = _attend_float(q[:, 0].contiguous(), cache["k"], cache["v"],
-                              new_len, cfg.sliding_window, piece)
+        news = (k[:, 0].to(cache["k"].dtype), v[:, 0].to(cache["v"].dtype))
+    for n, new in zip(("k", "v"), news):
+        cache[n][bidx, idx] = new if mine is None else torch.where(
+            mine, new, cache[n][bidx, idx])
+    q1 = q[:, 0].contiguous()
+    if int8:
+        o = _attend_int8(q1, cache["k"], cache["v"], ks, vs, new_len,
+                         cfg.sliding_window, piece)
+    else:
+        o = _attend_float(q1, cache["k"], cache["v"], new_len,
+                          cfg.sliding_window, piece)
     cache["len"].copy_(new_len)
     return o
 

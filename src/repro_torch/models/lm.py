@@ -306,15 +306,77 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache=None,
 
 # ---------------- losses ----------------
 
-def _gold(logits, labels):
-    """Each position's logit at its label. Vocab-sharded DTensor logits
-    take it as a masked sum over the vocab (one nonzero term: exact), which
-    DTensor reduces across the shards."""
-    if type(logits) is torch.Tensor:
-        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    hit = torch.arange(logits.shape[-1], device=logits.device) == \
-        labels[..., None]
-    return torch.where(hit, logits, 0.0).sum(-1)
+def _all_reduce(t, op: str, groups: tuple):
+    """``t`` reduced (``op``: "sum" or "max") over each of ``groups`` (the
+    names of the process groups that split the vocab; none on one device),
+    by functional collectives, which the dry-run's trace counts."""
+    for g in groups:
+        t = torch.ops._c10d_functional.wait_tensor(
+            torch.ops._c10d_functional.all_reduce(t.contiguous(), op, g))
+    return t
+
+
+class _TokenCE(torch.autograd.Function):
+    """Each position's cross-entropy ``logsumexp(x) - x[label]`` of logits
+    x (..., V_local), whose vocab entries start at global index ``offset``
+    and whose other vocab pieces lie on the ranks of ``groups``
+    (Megatron's vocab-parallel cross-entropy): the max, the sum of
+    exponentials and the label's logit are reduced across the vocab as
+    (...)-shaped vectors, and no rank ever holds the whole vocab. The
+    forward is ATen's ``logsumexp`` (the max, zeroed where infinite, then
+    the log-sum-exp about it) and ``gather``; the backward is the sum of
+    their two backwards, ``g * exp(x - lse)`` less ``g`` at the label.
+    DTensor's own ops split the work otherwise: its ``logsumexp`` gathers
+    the vocab on every rank, and in the backward a replicated gradient
+    that meets a row split over two mesh dimensions ("pod", "data") is cut
+    one dimension at a time through a copy of half the global logits."""
+
+    @staticmethod
+    def forward(ctx, x, labels, offset, groups):
+        m = _all_reduce(torch.amax(x, dim=-1), "max", groups)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        s = torch.sum(torch.exp(x - m[..., None]), dim=-1)
+        lse = torch.log(_all_reduce(s, "sum", groups)) + m
+        idx = labels.long() - offset
+        hit = (idx >= 0) & (idx < x.shape[-1])
+        idx = torch.clamp(idx, 0, x.shape[-1] - 1)[..., None]
+        gold = torch.gather(x, -1, idx)[..., 0]
+        gold = _all_reduce(torch.where(hit, gold, torch.zeros_like(gold)),
+                           "sum", groups)
+        ctx.save_for_backward(x, lse, idx, hit)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, idx, hit = ctx.saved_tensors
+        dx = g[..., None] * torch.exp(x - lse[..., None])
+        dx.scatter_add_(-1, idx, torch.where(hit, -g, torch.zeros_like(g))[
+            ..., None])
+        return dx, None, None, None
+
+
+def _token_ce(logits, labels):
+    """``_TokenCE`` of (B, c, V) logits: plain tensors in one piece; a
+    DTensor through ``local_map`` on each rank's rows and vocab piece (the
+    labels follow the rows), the result split as the rows."""
+    from repro_torch.kernels import ops
+    if not ops._dtensor(logits):
+        return _TokenCE.apply(logits, labels, 0, ())
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import local_slices
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    vocab = [i for i, p in enumerate(pl) if p == Shard(2)]
+    rows = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in pl)
+    groups = tuple(mesh.get_group(i).group_name for i in vocab)
+    offset = local_slices(tuple(logits.shape), mesh, pl)[2].start
+    if not ops._dtensor(labels):
+        labels = ops._as_dtensor(labels, mesh)
+    return local_map(lambda x, lab: _TokenCE.apply(x, lab, offset, groups),
+                     out_placements=(rows,), in_placements=(pl, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(logits,
+                                                                 labels)
 
 
 def chunked_ce_loss(head_w, x, labels, weights, chunk: int = 512,
@@ -337,12 +399,17 @@ def chunked_ce_loss(head_w, x, labels, weights, chunk: int = 512,
         pad = torch.where(torch.arange(V, device=x.device) < true_vocab,
                           0.0, -1e30)
 
+    # on a mesh the head is gathered whole over its "embed" split (FSDP's
+    # all-gather) and keeps its vocab split, as GSPMD does: left to DTensor,
+    # the product contracts the embed split into Partial sums and every
+    # rank computes the logits of all rows for its vocab piece
+    head = shard(head_w.float(), ("embed", "vocab"))
+
     def step(xc, lc, wc):
-        logits = shard(xc.float() @ head_w.float(), ("batch", None, "vocab"))
+        logits = shard(xc.float() @ head, ("batch", None, "vocab"))
         if pad is not None:
             logits = logits + pad
-        lse = torch.logsumexp(logits, dim=-1)
-        return torch.sum((lse - _gold(logits, lc)) * wc)
+        return torch.sum(_token_ce(logits, lc) * wc)
 
     tot = torch.zeros((), device=x.device)
     for i in range(0, S, c):

@@ -43,6 +43,57 @@ def records(tmp_path_factory):
         "whisper-base:long_500k:pod1")}
 
 
+def test_train_cell_peak_halves_on_two_pods(tmp_path):
+    """whisper-base's train_4k cell on 256 (pod1) and 512 (pod2) fake
+    ranks: the doubled mesh halves each rank's rows, so its peak live bytes
+    must not grow (the JAX package's halves: 11.39 -> 5.71 GB). The
+    cross-entropy gathered the vocab on every rank (DTensor's
+    ``logsumexp``), and on pod2 the backward cut a replicated gradient
+    through the nested ("pod", "data") row split one mesh dimension at a
+    time, through a copy of half the global logits: 2.81 -> 7.49 GB."""
+    runs = {}
+    for mk in ("pod1", "pod2"):               # the two traces side by side
+        out = tmp_path / f"{mk}.jsonl"
+        runs[mk] = out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
+             f"whisper-base:train_4k:{mk}", "--out", str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    recs = {}
+    for mk, (out, proc) in runs.items():
+        log = proc.communicate(timeout=600)[0]
+        assert proc.returncode == 0, log[-3000:]
+        recs[mk] = json.loads(out.read_text().splitlines()[-1])
+    pod1, pod2 = recs["pod1"], recs["pod2"]
+    assert pod1["status"] == pod2["status"] == "ok"
+    t1 = pod1["memory"]["temp_size_in_bytes"]
+    t2 = pod2["memory"]["temp_size_in_bytes"]
+    assert 0 < t2 <= t1, (t1, t2)
+
+
+def test_peak_trace_names_the_storages_at_the_peak():
+    """``tools/peak_live.py``'s ``PeakTrace``: the storages alive when the
+    live bytes peak, with their shapes, dtypes and the ops that made
+    them; a storage freed before the peak is not among them."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from peak_live import PeakTrace
+    tr = PeakTrace()
+    x = torch.empty((64, 64), device="meta")
+    tr.inputs([x])
+    with tr:
+        a = x.float() @ x                       # 16 KiB, freed below
+        del a
+        b = torch.cat([x, x])                   # 32 KiB
+        c = b.to(torch.bfloat16)                # 16 KiB: the peak, 48 KiB
+        del c
+        d = torch.ones(8, device="meta")
+    assert tr.peak_bytes == 64 * 64 * 4 * 2 + 64 * 64 * 2 * 2
+    live = sorted(v for v in tr.at_peak.values() if v)
+    assert live == [(16384, (128, 64), "bfloat16", "aten._to_copy"),
+                    (32768, (128, 64), "float32", "aten.cat")]
+    del b, d
+
+
 def test_xlstm_decode_cell_on_256_fake_ranks(records):
     """The cell of the acceptance list: status ok on 256 ranks, a
     bottleneck named, every term finite, and the local inputs plus the
@@ -259,3 +310,24 @@ def test_meta_paths_give_kernel_shapes_and_work(monkeypatch):
     assert seen[2][1:] == (4.0 * 15 * 64, 2 * 2 * 15 * 64 + 4 * 64)
     # K2: 4 hd flops per (query head, visible key), causal 16 x 16
     assert seen[0][1] == 4.0 * 64 * 8 * 2 * (16 * 17 // 2)
+
+
+def test_k3_meta_path_with_a_key_offset_and_lse(monkeypatch):
+    """K3 on a meta piece of a split cache: the f32 output and the (B, H)
+    log-sum-exp, and the piece's work: its S positions' FLOPs, the int8
+    codes read, q read and the f32 output and lse written."""
+    seen = []
+    monkeypatch.setattr(ops, "META_WORK", lambda *a: seen.append(a))
+    m = dict(device="meta")
+    q = torch.empty(2, 8, 64, dtype=torch.bfloat16, **m)
+    k8 = torch.empty(2, 32, 2, 64, dtype=torch.int8, **m)
+    sc = torch.empty(2, 2, **m)
+    lens = torch.empty(2, dtype=torch.int32, **m)
+    o, lse = ops.decode_attention_int8(q, k8, k8, sc, sc, lens, key_offset=32,
+                                       return_lse=True)
+    assert o.shape == q.shape and o.dtype == torch.float32
+    assert lse.shape == (2, 8) and lse.dtype == torch.float32
+    n = 2 * 32
+    assert seen == [("decode_attention_int8", 4.0 * n * 8 * 64,
+                     (2 + 4) * 2 * 8 * 64 + 2 * n * 2 * 64 + 2 * 4 * 2 * 2
+                     + 4 * 2 + 4 * 2 * 8)]

@@ -1,8 +1,8 @@
 """Decode against a cache split over its sequence (the long-context rules,
-``cache_seq`` over "data"): K5's plain version with a key offset and a
-log-sum-exp, ``models.attention.merge_partials``, ``lm.decode_step`` on
-gloo ranks each holding one piece of the cache, and the dry-run's
-long_500k cells.
+``cache_seq`` over "data"): K5's and K3's plain versions with a key offset
+and a log-sum-exp, ``models.attention.merge_partials``, ``lm.decode_step``
+on gloo ranks each holding one piece of a float or an int8 cache, and the
+dry-run's long_500k cells.
 
 Ranks are spawned (``torch.multiprocessing``) and meet over a
 ``FileStore`` under a temporary directory; their functions live here and
@@ -23,7 +23,18 @@ Tolerances:
       the attention below it), the lengths exactly, and the positions past
       the row's length exactly zero (no piece wrote there);
   against the JAX package's unsplit ``decode_step``, teacher-forced:
-      ``tests/test_torch_families.py``'s LOGIT_TOL, (4e-2, 0.25).
+      ``tests/test_torch_families.py``'s LOGIT_TOL, (4e-2, 0.25);
+  K3's pieces merged against the JAX package's ``decode_attention_int8``
+      (its Pallas kernel in interpret mode, as ``tests/test_kernels.py``
+      runs it) on the whole cache: 1e-5 of the largest output (both sides
+      dequantize the same codes and run in f32 without rounding p; only
+      the order of the sums differs), the log-sum-exp within 1e-5 of
+      numpy's;
+  the int8 split decode: the bars of the float one, and the int8 codes of
+      the new tokens within one code of the mesh-less cache's (a code
+      rounds the new K/V, which later layers compute from the merged
+      attention's rounding); every rank's piece changed only at the
+      positions it holds among those written, nothing past a row's length.
 """
 import json
 import os
@@ -167,18 +178,22 @@ def gloo(rank, world, store):
 
 
 def _port_cache(cache_np):
-    """The JAX cache (numpy, k/v as f32) as the port's: k/v in bf16."""
+    """The JAX cache (numpy, float k/v as f32) as the port's: float k/v in
+    bf16, int8 codes as they are."""
     from repro_torch import weights
     c = weights.to_torch(cache_np, device="cpu")
-    return [{k: (t.to(torch.bfloat16) if k in ("k", "v") else t)
+    return [{k: (t.to(torch.bfloat16) if k in ("k", "v") and
+                 t.dtype != torch.int8 else t)
              for k, t in sub.items()} for sub in c]
 
 
-def _decode(arch, np_params, cache_np, toks, mesh=None):
+def _decode(arch, np_params, cache_np, toks, mesh=None, pieces=False):
     """``lm.decode_step`` teacher-forced over ``toks`` (B, STEPS): the
     logits of every step (numpy f32) and the final cache (plain tensors).
     With a mesh the params and cache are placed under the long-context
-    rules and the activations follow ``LONG_CTX_ACT``."""
+    rules and the activations follow ``LONG_CTX_ACT``; with ``pieces`` also
+    a dict: for each attention layer's k and v, the global positions at
+    which this rank's piece changed over the steps."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -191,6 +206,7 @@ def _decode(arch, np_params, cache_np, toks, mesh=None):
     params = weights.model_params(np_params, "cpu")
     cache = _port_cache(cache_np)
     B = len(toks)
+    kv_quant = any("k_scale" in sub for sub in cache_np)
     shard = None
     if mesh is not None:
         shard = ShardCtx(R.LONG_CTX_ACT, mesh)
@@ -198,8 +214,12 @@ def _decode(arch, np_params, cache_np, toks, mesh=None):
             R.LONG_CTX_PARAM, logical_axes(lm.model_spec(cfg)), mesh,
             params))
         cache = distribute(cache, R.tree_shardings(
-            R.LONG_CTX_PARAM, logical_axes(lm.cache_spec(cfg, B, S_MAX)),
-            mesh, cache))
+            R.LONG_CTX_PARAM, logical_axes(lm.cache_spec(
+                cfg, B, S_MAX, kv_quant=kv_quant)), mesh, cache))
+    kv = [(j, k) for j, sub in enumerate(cache) for k in ("k", "v")
+          if k in sub]
+    before = {(j, k): cache[j][k].to_local().clone() for j, k in kv} \
+        if pieces else {}
     out = []
     with torch.no_grad(), implicit_replication():
         for t in range(STEPS):
@@ -213,9 +233,19 @@ def _decode(arch, np_params, cache_np, toks, mesh=None):
             if mesh is not None:
                 log = log.full_tensor()
             out.append(log.float().numpy())
+        changed = {}
+        for (j, k), old in before.items():
+            new = cache[j][k]
+            # (periods, B, S, KV, hd)
+            at = R.local_slices(tuple(new.shape), mesh, new.placements)[2]
+            diff = (new.to_local() != old).flatten(3).any(-1).flatten(
+                0, 1).any(0)
+            changed[f"{j}/{k}"] = at.start + np.flatnonzero(diff.numpy())
         if mesh is not None:
             cache = tree_map(lambda t: t.full_tensor()
                              if isinstance(t, DTensor) else t, cache)
+    if pieces:
+        return np.stack(out), cache, changed
     return np.stack(out), cache
 
 
@@ -312,6 +342,169 @@ def test_split_decode_matches_jax(jax_run, world, tmp_path):
                 n = PROMPT_LEN
                 assert not mine[:, 0, n + STEPS:].any()
                 assert np.abs(mine[:, 0, n:n + STEPS]).max(axis=(-1, -2)).all()
+
+
+# ---------------- the same on an int8 cache (K3) ----------------
+
+# K3 cases: K5's shapes (the same pieces, windows and lengths), int8 codes
+K3_CASES = K5_CASES
+
+
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_k3_pieces_merge_to_jax_decode_attention_int8(name):
+    """An int8 cache quantized by the JAX package's ``quantize_kv``, cut
+    into pieces, each through ``ops.decode_attention_int8``'s plain version
+    with its key offset and ``return_lse``, merged by ``merge_partials``:
+    the JAX package's int8 decode kernel (Pallas, interpret mode) on the
+    whole cache; empty pieces give o = 0 and lse = -inf; one piece at
+    offset 0 rounds to the bits of a call without the log-sum-exp."""
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention_int8 import (decode_attention_int8,
+                                                     quantize_kv)
+    case = K3_CASES[name]
+    window, S = case.get("window"), case["S"]
+    q, k, v, lens = _k5_inputs(case, seed=2)
+    q = torch.tensor(q).to(torch.bfloat16)
+    qf = q.float().numpy()
+    kq, vq, ks, vs = (np.asarray(a) for a in quantize_kv(
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3))))
+    want = np.asarray(decode_attention_int8(
+        jnp.asarray(qf), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(ks),
+        jnp.asarray(vs), jnp.asarray(lens), window=window, block_s=16,
+        interpret=True), np.float32)
+    # the port's model layout (B, S, KV, hd)
+    tk, tv = (torch.from_numpy(a.transpose(0, 2, 1, 3).copy())
+              for a in (kq, vq))
+    tks, tvs, tl = torch.from_numpy(ks), torch.from_numpy(vs), \
+        torch.tensor(lens)
+    n = S // case["pieces"]
+    parts = [ops.decode_attention_int8(q, tk[:, i * n:(i + 1) * n],
+                                       tv[:, i * n:(i + 1) * n], tks, tvs,
+                                       tl, window=window, key_offset=i * n,
+                                       return_lse=True)
+             for i in range(case["pieces"])]
+    o, lse = merge_partials(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]))
+    assert np.abs(o.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    kd = kq.astype(np.float32) * ks[:, :, None, None]
+    s = np.einsum("bkgd,bksd->bkgs", qf.reshape(B, KV, -1, HD), kd) / \
+        np.sqrt(HD)
+    pos = np.arange(S)[None]
+    valid = (pos < lens[:, None]) & (pos >= lens[:, None] - (window or S))
+    s = np.where(valid[:, None, None], s, -np.inf)
+    ref_lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + \
+        s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.reshape(B, H),
+                               atol=1e-5)
+    for i, (po, pl) in enumerate(parts):
+        none = torch.tensor(~valid[:, i * n:(i + 1) * n].any(-1))
+        assert torch.isfinite(po).all()
+        assert (po[none] == 0).all() and torch.isneginf(pl[none]).all()
+    whole, _ = ops.decode_attention_int8(q, tk, tv, tks, tvs, tl,
+                                         window=window, return_lse=True)
+    assert torch.equal(whole.to(torch.bfloat16), ops.decode_attention_int8(
+        q, tk, tv, tks, tvs, tl, window=window))
+
+
+def _int8_cache(cache_np):
+    """A float cache (numpy, the JAX prefill's) with each attention layer's
+    K/V quantized by the JAX package's ``quantize_kv`` per (row, kv head),
+    period by period: the dense int8 pool's layout and scales."""
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention_int8 import quantize_kv
+    out = []
+    for sub in cache_np:
+        sub = dict(sub)
+        if "k" in sub:
+            per = [quantize_kv(jnp.asarray(k.transpose(0, 2, 1, 3)),
+                               jnp.asarray(v.transpose(0, 2, 1, 3)))
+                   for k, v in zip(sub["k"], sub["v"])]
+            for i, name in enumerate(("k", "v", "k_scale", "v_scale")):
+                a = np.stack([np.asarray(p[i]) for p in per])
+                sub[name] = a.transpose(0, 1, 3, 2, 4) if i < 2 else a
+        out.append(sub)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_int8_run(jax_run):
+    """``jax_run``'s prefill quantized into a dense int8 cache and the JAX
+    package's unsplit int8 decode teacher-forced over the same tokens."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config, reduced
+    from repro.models import lm as jlm
+    arch, params, cache_np, toks, _, _ = jax_run
+    jcfg = dataclasses.replace(reduced(get_config(arch)), **ARCHS[arch])
+    cache8 = _int8_cache(cache_np)
+    jp = jax.tree.map(jnp.asarray, params)
+    jc = jax.tree.map(jnp.asarray, cache8)
+    want = []
+    for t in range(STEPS):
+        log, jc = jlm.decode_step(jp, jcfg, tokens=jnp.asarray(toks[:, t]),
+                                  cache=jc)
+        want.append(np.asarray(log, np.float32))
+    final = jax.tree.map(np.asarray, jc)
+    return arch, params, cache8, toks, np.stack(want), final
+
+
+def _split_rank_int8(rank, world, store, tmp, arch, np_params, cache_np,
+                     toks):
+    from repro_torch.launch.mesh import make_mesh
+    gloo(rank, world, store)
+    mesh = make_mesh((world, 1), ("data", "model"), "cpu")
+    logits, cache, changed = _decode(arch, np_params, cache_np, toks, mesh,
+                                     pieces=True)
+    np.savez(Path(tmp) / f"changed{rank}.npz", **changed)
+    if rank == 0:
+        np.savez(Path(tmp) / "split.npz", logits=logits,
+                 **{f"{j}/{k}": t.float().numpy()
+                    for j, sub in enumerate(cache) for k, t in sub.items()})
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_split_int8_decode_matches_jax(jax_int8_run, world, tmp_path):
+    """``lm.decode_step`` on ``world`` gloo ranks, the dense int8 cache
+    split over its sequence (K3's pieces merged), teacher-forced for 5
+    steps whose writes cross a piece boundary: the logits against the port
+    without a mesh and against the JAX package's unsplit int8 decode; the
+    lengths and scales exactly; the new tokens' codes written by the rank
+    whose piece holds each position and by no other, nothing past the
+    row's length."""
+    arch, params, cache8, toks, want, jfinal = jax_int8_run
+    store = str(tmp_path / "store")
+    mp.spawn(_split_rank_int8, args=(world, store, str(tmp_path), arch,
+                                     params, cache8, toks),
+             nprocs=world, join=True)
+    got = np.load(tmp_path / "split.npz")
+    plain, pcache = _decode(arch, params, cache8, toks)
+    assert np.isfinite(got["logits"]).all()
+    _close(got["logits"], plain, MESH_TOL)
+    _close(got["logits"], want, LOGIT_TOL)
+    n, piece = PROMPT_LEN, S_MAX // world
+    written = np.arange(n, n + STEPS)
+    for j, sub in enumerate(pcache):
+        for k, t in sub.items():
+            mine = got[f"{j}/{k}"]
+            if k in ("len", "k_scale", "v_scale"):
+                np.testing.assert_array_equal(mine, t.float().numpy())
+                np.testing.assert_array_equal(mine, jfinal[j][k])
+            elif k in ("k", "v"):
+                codes = t.float().numpy()
+                assert np.abs(mine - codes).max() <= 1
+                assert not mine[:, 0, n + STEPS:].any()
+                assert np.abs(mine[:, 0, n:n + STEPS]).max(
+                    axis=(-1, -2)).all()
+                # each rank changed exactly the written positions it holds
+                for r in range(world):
+                    ch = np.load(tmp_path / f"changed{r}.npz")[f"{j}/{k}"]
+                    held = written[(written >= r * piece) &
+                                   (written < (r + 1) * piece)]
+                    np.testing.assert_array_equal(ch, held)
 
 
 # ---------------- the dry-run's long_500k cells ----------------
