@@ -148,9 +148,9 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    after stablelm's servers are freed: two-layer full-width cuts of
    qwen2-7b and h2o-danube-1.8b on the card against the CPU on the dense
    int8, float and paged pools (h2o with one 4160-token prompt and 32
-   decode steps, so its window binds in K2, K3 and K4); qwen2-7b (28
-   layers; dense and paged), h2o-danube-1.8b (24; dense and paged, full
-   prefill) and minitron-8b (16 of its 32; paged) at full width through
+   decode steps, so its window binds in K2, K3 and K4); qwen2-7b (4 of its
+   28 layers; dense and paged), h2o-danube-1.8b (4 of 24; dense and paged,
+   full prefill) and minitron-8b (4 of 32; paged) at full width through
    ``FMplexServer``/``ServeLoop`` with stablelm's gates, each server freed
    before the next model is built; qwen2-vl-72b at full width cut to 2 of
    its 80 layers (a pooled batch of vision-patch embeddings, a greedy
@@ -166,12 +166,12 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    share of tokens whose
    experts differ between the card and the CPU per MoE layer (rows are
    compared up to their first such flip, and the rest counted); olmoe-1b-7b
-   (16 layers; dense and paged), jamba-v0.1-52b cut to 8 of its 32 layers
+   (4 of 16 layers; dense and paged), jamba-v0.1-52b cut to 8 of its 32 layers
    (dense, and paged with its demotions, a preemption that re-prefills
    and the state slots drained) and xlstm-125m (4 of 12 layers; dense) served
    at full width through ``FMplexServer``/``ServeLoop`` with stablelm's
    gates, each with a profiled decode step where the stack decodes
-   through attention; grok-1-314b cut to 2 of its 64 layers (a pooled
+   through attention; grok-1-314b cut to 1 of its 64 layers (a pooled
    batch, a greedy decode on the dense int8 pool against the CPU, K3 at
    its group of 6); then the device times of K2-K4 at these shapes beside
    their bounds and SDPA.
@@ -224,10 +224,17 @@ then runs these phases and fails (non-zero exit) if any of them fails:
    o = 0 and lse = -inf, each timed beside SDPA; decode at 524288
    positions (h2o-danube-1.8b at full depth, jamba at JAMBA_LAYERS,
    graphed) with finite logits and the last step within LONG_TOL of the
-   same step through the 16 pieces; xlstm-125m trained two steps at 2 x
+   same step through the 16 pieces; xlstm-125m trained one step at 2 x
    4096 with its peak memory beside the prediction; one Mamba layer at
    jamba's width with and without its chunks checkpointed; and four
    dry-run cells traced on the host beside the whole run.
+
+The references of 9 and 10 (with qwen2-vl-72b and grok-1-314b), 12's
+checkpoint/restart example and 14's xlstm-125m training step check and
+time nothing: they run in child processes (``python3 chip_smoke.py
+--child <job>``, ``CHILD_JOBS``) beside 13, which checks only, and their
+results join the run's. Every log line is headed by the seconds since its
+process started.
 
 The serving paths run graphed: every executable of ``PhysicalFM`` and
 ``DecodeEngine`` is a ``torch.cuda.CUDAGraph`` per shape key from its
@@ -276,8 +283,12 @@ PAGED_KW = dict(paged=True, page_size=PAGE_SIZE, total_pages=TOTAL_PAGES,
                 prefix_sharing=True, chunked_prefill=False)
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """One line of the run's log, headed by the seconds since the start."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
 
 
 def fail(msg: str) -> int:
@@ -438,7 +449,9 @@ def ptxas_kernels(name: str) -> list:
             r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
             text, flags=re.S):
         names, i = [], 3 if mangled.startswith("_ZN") else 2
-        while i < len(mangled) and mangled[i].isdigit():
+        while i < len(mangled) and (mangled[i].isdigit() or (
+                mangled[i] == "L" and mangled[i + 1:i + 2].isdigit())):
+            i += mangled[i] == "L"               # a static function's name
             n = re.match(r"\d+", mangled[i:]).group()
             names.append(mangled[i + len(n):i + len(n) + int(n)])
             i += len(n) + int(n)
@@ -775,8 +788,7 @@ def paged_bound(q, kp, pt, lens, window=None):
 # h2o-danube-1.8b's (H 32, KV 8, hd 80: lane groups with idle lanes) with
 # its own 4096-position window over a 4200-position cache (4160 prompt
 # tokens plus decode). The one K3/K4 case table: the cuda-marked tests and
-# the CPU build of the kernel body (tests/test_torch_int8_decode_host.py)
-# import it.
+# the CPU builds of the kernel bodies (tests/_int8_host.py) import it.
 INT8_CASES = {
     "serving": dict(H=32, KV=32, S=161, lens=[1, 32, 33, 80, 176, 161, 100, 7]),
     "serving_window": dict(H=32, KV=32, S=161, window=48,
@@ -814,7 +826,7 @@ INT8_CASES = {
 # heads (G 7, hd 128) and h2o-danube-1.8b's (G 4, hd 80) at T 5, the latter
 # under its 4096-position window over 4160 prompt positions and more. The
 # one verify case table: the cuda-marked tests and the CPU build of the
-# kernel body (tests/test_torch_int8_decode_host.py) import it.
+# kernel body (tests/_int8_host.py) import it.
 VERIFY_CASES = {
     "serving": dict(H=32, KV=32, T=5, MP=13,
                     base=[0, 15, 31, 100, 155, 60, 7, 203]),
@@ -1022,12 +1034,59 @@ def check_rmsnorm(dev, gen):
     return ok, errs
 
 
+# K3's kernels by profiler name: the one-CTA body, the split body and the
+# splits' merge (kernel_split keys)
+K3_PARTS = {"decode_int8_kernel": "cta", "decode_int8_split_kernel": "split",
+            "merge_kernel": "merge"}
+
+
+def sm_count(dev) -> int:
+    """The SMs of ``dev``'s card (an H100's 132 for a CPU rehearsal)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention_int8 as k3
+    if dev.type != "cuda":
+        return k3._META_SMS
+    return build.sm_count(dev.index or 0)
+
+
+def k3_plan(B, KV, G, hd, S, window, dev) -> list:
+    """K3's plan at a shape on this card: [body, splits]."""
+    from repro_torch.kernels import decode_attention_int8 as k3
+    return list(k3.plan(B, KV, G, hd, S, window, sm_count(dev)))
+
+
+def k3_sides(B, KV, G, hd, S, window, dev):
+    """K3's bodies at a shape, as ``k3_forced`` values: None (the plan's
+    own choice, first), then every body the plan did not pick: the
+    one-CTA body ("cta"), the split body with one split ("split") and
+    with several and the merge ("merge", the plan's count or 4). Both
+    sides of the dispatch."""
+    body, n = k3_plan(B, KV, G, hd, S, window, dev)
+    others = [("cta", 1), ("split", 1), ("merge", n if body == "merge" else 4)]
+    return [None] + [o for o in others if o[0] != body]
+
+
+@contextlib.contextmanager
+def k3_forced(side):
+    """K3's plan (``decode_attention_int8.plan``) replaced by ``side``, a
+    (body, splits) pair, while open (None: the plan itself)."""
+    from repro_torch.kernels import decode_attention_int8 as k3
+    real = k3.plan
+    if side is not None:
+        k3.plan = lambda *shape: side
+    try:
+        yield
+    finally:
+        k3.plan = real
+
+
 def check_int8_decode(dev, gen):
     """K3 and K4 against their plain versions at every case of
     ``INT8_CASES``, two bf16 ulps of the largest output (every length >= 1,
     so no row is empty), and bit-identical over two calls on the same
-    inputs. K4's inputs hold stale codes in unmapped pages and two streams
-    sharing their first pages (``paged_inputs``)."""
+    inputs; K3 through each of its bodies (``k3_sides``: the plan's, then
+    the others). K4's inputs hold stale codes in unmapped pages and two
+    streams sharing their first pages (``paged_inputs``)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1050,13 +1109,21 @@ def check_int8_decode(dev, gen):
                  lambda: ref.paged_decode_attention_ref(
                      q4, kp.transpose(1, 2), vp.transpose(1, 2), pks, pvs, pt,
                      ln4, window=window))
-        for kind, (kernel, plain) in (("dense", dense), ("paged", paged)):
-            got, again, want = kernel(), kernel(), plain()
+        planned = k3_plan(SLOTS, KV, H // KV, hd, S, window, dev)
+        runs = [("dense", side) for side in
+                k3_sides(SLOTS, KV, H // KV, hd, S, window, dev)]
+        for kind, side in runs + [("paged", None)]:
+            kernel, plain = dense if kind == "dense" else paged
+            with k3_forced(side):
+                got, again = kernel(), kernel()
+            want = plain()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
             same = torch.equal(got, again)
-            label, where = (("decode_attention_int8", f"S={S}")
+            label, where = (("decode_attention_int8",
+                             f"S={S} body={list(side or planned)}"
+                             f"{' (plan)' if side is None else ''}")
                             if kind == "dense" else
                             ("paged_decode_attention",
                              f"ps={PAGE_SIZE} MP={MP}"))
@@ -1065,7 +1132,7 @@ def check_int8_decode(dev, gen):
                 f"{tol:.3e}), bit-identical twice: {same}")
             ok &= err <= tol and bool(torch.isfinite(got.float()).all()) \
                 and same
-            errs[kind][name] = err
+            errs[kind][name] = max(err, errs[kind].get(name, 0.0))
     return ok, errs
 
 
@@ -3731,15 +3798,16 @@ def spec_step_timing(dev, fm) -> dict:
 QWEN2, H2O, MINITRON, QWEN2_VL = ("qwen2-7b", "h2o-danube-1.8b", "minitron-8b",
                                   "qwen2-vl-72b")
 H2O_PROMPT, H2O_STEPS = 4160, 32    # a prompt past h2o-danube's 4096 window
-MINITRON_LAYERS = 8                 # of minitron-8b's 32: its serving took
-                                    # 42 s at 32 and 26.5 s at 16 layers;
-                                    # cut again to make room for phase_mesh
-# the served depth of each family cut for the run's time (room for
-# phase_long, whose xlstm-125m training alone takes ~170 s): qwen2-7b at 14
-# of 28 layers and h2o-danube-1.8b at 12 of 24 (phase_long decodes h2o at
-# its full depth); minitron-8b at MINITRON_LAYERS
-SERVED_LAYERS = {"minitron-8b": MINITRON_LAYERS, "qwen2-7b": 14,
-                 "h2o-danube-1.8b": 12}
+MINITRON_LAYERS = 4                 # of minitron-8b's 32: its serving took
+                                    # 42 s at 32, 26.5 s at 16 and 11.6 s
+                                    # at 8 layers
+# the served depth of each family cut for the run's time (the whole run
+# took 1009 s on an H100 with qwen2-7b at 14 of 28 layers and h2o-danube-
+# 1.8b at 12 of 24, the eager replay of each serving run ~1 s a layer):
+# qwen2-7b and h2o-danube-1.8b at 4 (phase_long decodes h2o at its full
+# depth); minitron-8b at MINITRON_LAYERS
+SERVED_LAYERS = {"minitron-8b": MINITRON_LAYERS, "qwen2-7b": 4,
+                 "h2o-danube-1.8b": 4}
 VLM_LAYERS = 2                      # of qwen2-vl-72b's 80 (see phase_vlm)
 VLM_GRID = 8                        # patches a side: 64 a request
 
@@ -4014,20 +4082,29 @@ def phase_vlm(dev):
 
 
 def phase_families(dev):
-    """The other attention-only families (the slice's models): the
-    qwen2-7b and h2o-danube-1.8b references, full-width, full-depth serving
-    of qwen2-7b (dense and paged), h2o-danube-1.8b (dense and paged) and
-    minitron-8b (paged, MINITRON_LAYERS layers), and qwen2-vl-72b cut to
-    VLM_LAYERS layers. Each
-    step's seconds are printed; returns (phase results, serving stats)."""
+    """The other attention-only families (the slice's models): full-width
+    serving of qwen2-7b (dense and paged), h2o-danube-1.8b (dense and
+    paged) and minitron-8b (paged), each at SERVED_LAYERS. Their references
+    (``family_references``) and qwen2-vl-72b (``stack_references``) run in
+    child processes beside phase_mesh. Each step's seconds are printed; returns
+    (phase results, serving stats)."""
     phases, stats = {}, {}
-    for arch in (QWEN2, H2O):
-        phases[f"{arch} reference"], _ = phase_reference_family(dev, arch)
     for arch, pool in ((QWEN2, "dense"), (QWEN2, "paged"), (H2O, "dense"),
                        (H2O, "paged"), (MINITRON, "paged")):
         key = f"{arch} {pool} serving"
         phases[key], stats[key] = phase_family_serving(dev, arch, pool)
-    phases[f"{QWEN2_VL} pooled and decode"], _ = phase_vlm(dev)
+    return phases, stats
+
+
+def family_references(dev):
+    """The qwen2-7b and h2o-danube-1.8b references, each the card against
+    the CPU (they check, and time nothing; qwen2-vl-72b runs with the
+    stacks' references, ``stack_references``, so that the largest CPU
+    models are built one at a time): (phase results, their reports)."""
+    phases, stats = {}, {}
+    for arch in (QWEN2, H2O):
+        key = f"{arch} reference"
+        phases[key], stats[key] = phase_reference_family(dev, arch)
     return phases, stats
 
 
@@ -4091,11 +4168,12 @@ OLMOE, JAMBA, XLSTM, GROK = ("olmoe-1b-7b", "jamba-v0.1-52b", "xlstm-125m",
 # jamba-v0.1-52b's 98.7 GB of bf16 weights do not fit one 80 GB card: 8 of
 # its 32 layers (one whole period of the 1:7 Mamba:attention interleave,
 # 12.74 B parameters; 16 layers, two periods, fit too but the whole run then
-# took 769 s against the 750 s aimed at); grok-1-314b 2 of its 64 (11.45 B)
-JAMBA_LAYERS, GROK_LAYERS = 8, 2
-# olmoe-1b-7b at 8 of its 16 layers (the run's time, room for
-# phase_long; its serving took ~58 s at 16)
-OLMOE_LAYERS = 8
+# took 769 s against the 750 s aimed at); grok-1-314b 1 of its 64 (5.7 B
+# parameters on the card and again on the CPU; 2 layers took 26.5 s)
+JAMBA_LAYERS, GROK_LAYERS = 8, 1
+# olmoe-1b-7b at 4 of its 16 layers (the run's time; its serving took
+# ~58 s at 16 and 9.6 + 13.8 s dense and paged at 8)
+OLMOE_LAYERS = 4
 # xlstm-125m at 4 of its 12 layers (one period of its sublayer pattern),
 # to keep the whole run near 800 s once the LM training phase came in (a
 # run took 745-867 s with it whole; its 12-layer serving took 50 s, its
@@ -4442,12 +4520,26 @@ def phase_grok(dev):
 
 
 def phase_stacks(dev):
-    """The MoE, Mamba and xLSTM stacks: the olmoe,
-    jamba-probe and xlstm references, full-width serving of olmoe-1b-7b
+    """The MoE, Mamba and xLSTM stacks: full-width serving of olmoe-1b-7b
     (dense and paged), jamba-v0.1-52b at JAMBA_LAYERS layers (dense and
     paged) and xlstm-125m (dense), a profiled decode step of olmoe and of
-    jamba, and grok-1-314b at GROK_LAYERS layers. Each step's seconds are
-    printed; returns (phase results, serving stats)."""
+    jamba. Their references and grok-1-314b run in a child process beside
+    phase_mesh (``stack_references``). Each step's seconds are printed;
+    returns (phase results, serving stats)."""
+    phases, stats = {}, {}
+    for arch, pool, prof in ((OLMOE, "dense", True), (OLMOE, "paged", False),
+                             (JAMBA, "dense", True), (JAMBA, "paged", False),
+                             (XLSTM, "dense", False)):
+        key = f"{arch} {pool} serving"
+        phases[key], stats[key] = phase_stack_serving(dev, arch, pool, prof)
+    return phases, stats
+
+
+def stack_references(dev):
+    """The olmoe, jamba-probe and xlstm references, grok-1-314b at
+    GROK_LAYERS layers and qwen2-vl-72b at VLM_LAYERS, each the card
+    against the CPU (they check, and time nothing): (phase results, their
+    reports)."""
     from repro_torch.configs.base import ATTN, MAMBA
     phases, stats = {}, {}
     for name, cfg in (
@@ -4459,13 +4551,12 @@ def phase_stacks(dev):
             (f"{JAMBA} probe", stack_config(JAMBA, num_layers=2,
                                             block_pattern=(ATTN, MAMBA))),
             (XLSTM, stack_config(XLSTM))):
-        phases[f"{name} reference"], _ = phase_reference_stack(dev, name, cfg)
-    for arch, pool, prof in ((OLMOE, "dense", True), (OLMOE, "paged", False),
-                             (JAMBA, "dense", True), (JAMBA, "paged", False),
-                             (XLSTM, "dense", False)):
-        key = f"{arch} {pool} serving"
-        phases[key], stats[key] = phase_stack_serving(dev, arch, pool, prof)
-    phases[f"{GROK} pooled and decode"], _ = phase_grok(dev)
+        key = f"{name} reference"
+        phases[key], stats[key] = phase_reference_stack(dev, name, cfg)
+    key = f"{GROK} pooled and decode"
+    phases[key], stats[key] = phase_grok(dev)
+    key = f"{QWEN2_VL} pooled and decode"
+    phases[key], stats[key] = phase_vlm(dev)
     return phases, stats
 
 
@@ -4535,7 +4626,8 @@ def int8_timing(dev, gen, H, KV, hd, S, nsets, window=None, lo=1) -> dict:
     sets = int8_inputs(gen, SLOTS, H, KV, S, hd, nsets, dev, lens=lens)
     kernel = rotating(lambda q, kq, vq, ks, vs, l: ops.decode_attention_int8(
         q, kq, vq, ks, vs, l, window=window), sets)
-    k_ms = device_ms(kernel)
+    by_kernel = device_kernels(kernel)
+    k_ms = sum(by_kernel.values())
     p_ms = device_ms(rotating(lambda q, kq, vq, ks, vs, l: ref.decode_attention_int8_ref(
         q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, l, window=window),
         sets), iters=5 if S > 1024 else 20)
@@ -4550,11 +4642,15 @@ def int8_timing(dev, gen, H, KV, hd, S, nsets, window=None, lo=1) -> dict:
     lib_ms = device_ms(rotating(lambda q, k, v, m: F.scaled_dot_product_attention(
         q, k, v, attn_mask=m), lib_sets))
     b_ms, b_by = int8_bound(sets[0][0], sets[0][1], sets[0][5], window)
+    plan = k3_plan(SLOTS, KV, H // KV, hd, S, window, dev)
+    split = kernel_split(by_kernel, K3_PARTS)
     log(f"decode_attention_int8 [H={H} KV={KV} hd={hd} S={S} window={window}]: "
-        f"{k_ms * 1e3:.2f} us (SDPA {lib_ms * 1e3:.2f}, bound "
-        f"{b_ms * 1e3:.2f})")
+        f"plan {plan}, {k_ms * 1e3:.2f} us ("
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in split.items() if v)
+        + f"; SDPA {lib_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f})")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, enqueue_ms=time_ms(kernel))
+                library_ms=lib_ms, plan=plan, split_ms=split,
+                enqueue_ms=time_ms(kernel))
 
 
 def paged_timing(dev, gen, H, KV, hd, s_max, nsets, window=None,
@@ -4675,7 +4771,8 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S = PROMPT_LEN + MAX_NEW + 1
     k3 = int8_timing(dev, gen, H, KV, hd, S, nsets)
-    extra["decode_attention_int8_enqueue_ms"] = k3.pop("enqueue_ms")
+    for key in ("enqueue_ms", "plan", "split_ms"):
+        extra[f"decode_attention_int8_{key}"] = k3.pop(key)
     # K4 at the stablelm shape (the kernels line) and at whisper-base's
     # decoder self-attention (H = KV = 8, a table of 9 pages)
     k4 = paged_timing(dev, gen, H, KV, hd, S, nsets)
@@ -5789,33 +5886,150 @@ def phase_lm_steps(dev):
 E2E_STEPS, E2E_FAIL_AT = 30, 15
 
 
-def phase_train_e2e(dev):
-    """``examples/train_e2e_torch.py --full-width`` as a subprocess on the
-    card: xlstm-125m at full width cut to 4 layers, checkpoints every 10
-    steps in a temporary directory, ``E2E_STEPS`` steps with a failure
-    injected at step ``E2E_FAIL_AT``: the run must restore from its
-    checkpoint, finish and exit 0 (the example asserts the loss
-    decreased)."""
-    t0 = time.perf_counter()
+def start_train_e2e():
+    """Start ``examples/train_e2e_torch.py --full-width`` as a subprocess on
+    the card: xlstm-125m at full width cut to 4 layers, checkpoints every
+    10 steps in a temporary directory, ``E2E_STEPS`` steps with a failure
+    injected at step ``E2E_FAIL_AT``, its output to a file. Returns the
+    handle ``finish_train_e2e`` takes."""
+    import tempfile
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    done = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "examples", "train_e2e_torch.py"),
-         "--full-width", "--steps", str(E2E_STEPS), "--fail-at",
-         str(E2E_FAIL_AT)], capture_output=True, text=True, timeout=600,
-        env=env, cwd=ROOT)
-    tail = (done.stdout + done.stderr).strip().splitlines()[-4:]
-    out = {"rc": done.returncode, "s": time.perf_counter() - t0,
-           "tail": tail}
+    fd, path = tempfile.mkstemp(prefix="train_e2e_", suffix=".log")
+    with os.fdopen(fd, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples",
+                                          "train_e2e_torch.py"),
+             "--full-width", "--steps", str(E2E_STEPS), "--fail-at",
+             str(E2E_FAIL_AT)], stdout=f, stderr=subprocess.STDOUT,
+            env=env, cwd=ROOT)
+    stop_at_exit(proc)
+    return proc, path, time.perf_counter()
+
+
+def finish_train_e2e(handle, timeout=600):
+    """Wait for ``start_train_e2e``'s run: it must restore from its
+    checkpoint, finish and exit 0 (the example asserts the loss
+    decreased). Returns (ok, its exit code, seconds and last lines)."""
+    proc, path, t0 = handle
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(path) as f:
+        text = f.read()
+    os.remove(path)
+    out = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+           "tail": text.strip().splitlines()[-4:]}
     log("train_e2e_torch --full-width: " + json.dumps(out))
-    ok = done.returncode == 0 and "restarted=True" in done.stdout and \
-        "restored step" in done.stdout
+    ok = proc.returncode == 0 and "restarted=True" in text and \
+        "restored step" in text
     return ok, out
+
+
+# ---------------- child processes beside phase_mesh ----------------
+
+# work that checks, and times nothing, runs in child processes (``python3
+# chip_smoke.py --child <job>``) beside phase_mesh, which checks only too:
+# each job returns ({phase: ok}, stats) (the whole run took 1210 s on an
+# H100 whose host ran it 1.5x slower than another's 879 s, most of it host
+# work; the references and the xlstm step, ~180 s, are host work alone)
+CHILD_RESULT = "child result: "
+
+
+def xlstm_training_job(dev):
+    ok, stats = long_xlstm_training(dev)
+    return {"long_xlstm_training": ok}, stats
+
+
+CHILD_JOBS = {"family_references": (family_references, 5),
+              "stack_references": (stack_references, 5),
+              "long_xlstm_training": (xlstm_training_job, 0)}
+
+
+def stop_at_exit(proc):
+    """Kill ``proc`` when this process exits, if it still runs."""
+    import atexit
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+
+
+def child_main(name: str) -> int:
+    """The body of ``--child <name>``: run CHILD_JOBS[name] on the card and
+    print its result as the last line, after CHILD_RESULT."""
+    import torch
+    if not torch.cuda.is_available():
+        return fail("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phases, stats = CHILD_JOBS[name][0](torch.device("cuda", 0))
+    print(CHILD_RESULT + json.dumps({
+        "phases": {k: bool(v) for k, v in phases.items()}, "stats": stats},
+        default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),
+        flush=True)
+    return 0
+
+
+def start_children(names=tuple(CHILD_JOBS)) -> dict:
+    """Start ``--child`` of each job (the CPU-heavy references at nice 5,
+    so that the single-threaded host work beside them keeps its core),
+    each writing to its own file: {name: (process, path)}."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    for name in names:
+        fd, path = tempfile.mkstemp(prefix=f"child_{name}_", suffix=".log")
+        nice = CHILD_JOBS[name][1]
+        with os.fdopen(fd, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child", name],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                preexec_fn=(lambda n=nice: os.nice(n)) if nice else None)
+        stop_at_exit(proc)
+        out[name] = (proc, path)
+    return out
+
+
+def finish_children(children, timeout=900) -> tuple[dict, dict]:
+    """Wait for ``start_children``'s jobs (killed ``timeout`` s from here),
+    relay each one's log lines headed by its name, and merge their
+    results: ({phase: ok}, {job: stats}); a job that exits without a
+    result fails as the phase "<job> child"."""
+    phases, stats = {}, {}
+    t_end = time.perf_counter() + timeout
+    for name, (proc, path) in children.items():
+        try:
+            proc.wait(timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        with open(path) as f:
+            lines = f.read().splitlines()
+        os.remove(path)
+        res = None
+        for line in lines:
+            if line.startswith(CHILD_RESULT):
+                res = json.loads(line[len(CHILD_RESULT):])
+            else:
+                log(f"[child {name}] {line}")
+        if res is None or proc.returncode != 0:
+            phases[f"{name} child"] = False
+            log(f"child {name}: exit code {proc.returncode}, no result")
+            continue
+        phases.update(res["phases"])
+        stats[name] = res["stats"]
+    return phases, stats
 
 
 def phase_lm_training(dev):
     """Phase 12: the LM trainer's gradient reference (2 layers, GPU vs
-    CPU), full-width full-depth steps with their launches and profile,
-    and the checkpoint/restart example on the card. Returns (phases, stats
+    CPU) and full-width full-depth steps with their launches and profile
+    (the checkpoint/restart example, ``start_train_e2e``, runs beside
+    phase_mesh). Returns (phases, stats
     of the full-depth steps: their launches count toward the kernels
     line)."""
     t0 = time.perf_counter()
@@ -5824,7 +6038,6 @@ def phase_lm_training(dev):
     free_device()
     phases["lm_training"], stats = phase_lm_steps(dev)
     free_device()
-    phases["train_e2e"], _ = phase_train_e2e(dev)
     log(f"LM training phase: {phases}, {time.perf_counter() - t0:.1f} s")
     return phases, stats
 
@@ -6175,7 +6388,7 @@ LONG_CASES = {"h2o": dict(H=32, KV=8, hd=80, window=4096),
 LONG_LENS = (LONG_S, 300001, 1)
 LONG_STEPS = 6                  # decode steps at ~524288 positions
 LONG_TOL = (1e-2, 5e-2)         # rel L2, max abs: one call vs 16 pieces
-XLSTM_TRAIN_B, XLSTM_TRAIN_S = 2, 4096
+XLSTM_TRAIN_B, XLSTM_TRAIN_S, XLSTM_TRAIN_STEPS = 2, 4096, 1
 MAMBA_S = 4096
 # the dry-run cells phase_long runs on the host (started with the run)
 LONG_DRYRUN_CELLS = ("h2o-danube-1.8b:long_500k:pod1",
@@ -6216,7 +6429,9 @@ def long_kernel(dev, gen, int8: bool):
     the plain call does); every piece (key offset, lse) within two ulps of
     its largest output (o) and 1e-3 (lse) of the plain version's piece; the
     16 pieces merged within two ulps of the one call; a piece wholly
-    outside the window or past the length o = 0 and lse = -inf. Timed at
+    outside the window or past the length o = 0 and lse = -inf; K3 also
+    through each body its plan did not pick, within two ulps and the same
+    bits twice, and a second call of the plan's with the same bits. Timed at
     the full length: one call, the 16 pieces plus the merge, the plain
     version and SDPA (``enable_gqa``, the window as a mask) on the same
     cache (K3's dequantized to bf16 outside the timing)."""
@@ -6228,6 +6443,9 @@ def long_kernel(dev, gen, int8: bool):
     ok, out = True, {}
     for name, case in LONG_CASES.items():
         H, KV, hd, window = case["H"], case["KV"], case["hd"], case["window"]
+        # K3's other bodies, each checked at every length too
+        sides = k3_sides(1, KV, H // KV, hd, LONG_S, window,
+                         dev)[1:] if int8 else []
         if int8:
             q, k, v, ks, vs, _ = int8_inputs(gen, 1, H, KV, LONG_S, hd, 1,
                                              dev, lens=[LONG_S])[0]
@@ -6264,7 +6482,16 @@ def long_kernel(dev, gen, int8: bool):
             tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
             err = (got.float() - want.float()).abs().max().item()
             o32, _ = kernel(k, v, ln, return_lse=True)
-            same = torch.equal(got, o32.to(got.dtype))
+            same = torch.equal(got, o32.to(got.dtype)) and \
+                torch.equal(got, kernel(k, v, ln))
+            side_err = {}
+            for side in sides:
+                with k3_forced(side):
+                    s1, s2 = kernel(k, v, ln), kernel(k, v, ln)
+                e = (s1.float() - want.float()).abs().max().item()
+                side_err[f"{side[0]}{side[1]}"] = e
+                same &= e <= tol and torch.equal(s1, s2)
+                del s1, s2
             merged, parts = long_pieces(q, k, v, ln, window, scales=scales)
             merr = (merged.float() - got.float()).abs().max().item()
             # each piece against its own plain version, two ulps of that
@@ -6292,21 +6519,20 @@ def long_kernel(dev, gen, int8: bool):
                 bool(torch.isfinite(merged.float()).all())
             log(f"long {label} [{name}] H={H} KV={KV} hd={hd} S={LONG_S} "
                 f"window={window} len={L}: max_abs_err={err:.3e} (bound "
-                f"{tol:.3e}), lse path same bits: {same}, pieces: o err "
+                f"{tol:.3e}), other bodies {json.dumps(side_err)}, lse path "
+                f"and a second call same bits: {same}, pieces: o err "
                 f"{perr:.3e}, lse err {lerr:.3e}, {empty} empty (o 0, lse "
                 f"-inf: {empty_ok}), 16-piece merge vs one call "
                 f"{merr:.3e}: {good}")
             ok &= good
             res[L] = {"max_abs_err": err, "merge_err": merr,
                       "piece_err": perr, "lse_err": lerr,
-                      "empty_pieces": empty}
+                      "empty_pieces": empty, "other_bodies_err": side_err}
         ln = torch.tensor([LONG_S], dtype=torch.int32, device=dev)
-        # K3 without a window streams the whole cache through its 8 CTAs
-        # (one a (row, kv head)): tens of ms a call, so few calls
-        it = dict(iters=2, warmup=1) if int8 else {}
-        ms = device_ms(lambda: kernel(k, v, ln), **it)
+        by_kernel = device_kernels(lambda: kernel(k, v, ln))
+        ms = sum(by_kernel.values())
         pieces_ms = device_ms(lambda: long_pieces(q, k, v, ln, window,
-                                                  scales=scales), **it)
+                                                  scales=scales))
         plain_ms = device_ms(lambda: plain(k, v, ln), iters=3, warmup=1)
         if int8:
             k4 = (k.transpose(1, 2).float() * ks[:, :, None, None]).to(
@@ -6328,6 +6554,12 @@ def long_kernel(dev, gen, int8: bool):
         out[name] = {"ms": ms, "pieces_ms": pieces_ms, "plain_ms": plain_ms,
                      "library_ms": sdpa_ms, "bound_ms": bound,
                      "bound_by": by, "lengths": res}
+        if int8:
+            out[name]["plan"] = k3_plan(1, KV, H // KV, hd, LONG_S, window,
+                                        dev)
+            out[name]["split_ms"] = kernel_split(by_kernel, K3_PARTS)
+            log(f"long K3 [{name}]: plan {out[name]['plan']}, by kernel "
+                f"{json.dumps(out[name]['split_ms'])} ms")
         log(f"long {label} timing [{name}] (card {smi_line()}): one call "
             f"{ms:.4f} ms, 16 pieces + merge {pieces_ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, SDPA {sdpa_ms:.4f} ms, bound {bound:.4f} ms"
@@ -6343,8 +6575,9 @@ def long_k5(dev, gen):
 
 
 def long_k3(dev, gen):
-    """(a) K3 at the long_500k shapes (``long_kernel``): one CTA a (row, kv
-    head), 8 CTAs on the card."""
+    """(a) K3 at the long_500k shapes (``long_kernel``): the plan's split
+    body (tens of splits a (row, kv head) and the merge), and at every
+    length its other bodies (``k3_sides``)."""
     return long_kernel(dev, gen, int8=True)
 
 
@@ -6453,8 +6686,9 @@ def long_decode(dev, arch, seed, kv_quant=False):
 
 
 def long_xlstm_training(dev):
-    """(c) xlstm-125m at full width and its served XLSTM_LAYERS: two
-    ``make_train_step`` steps on one batch of XLSTM_TRAIN_B x
+    """(c) xlstm-125m at full width and its served XLSTM_LAYERS: one
+    ``make_train_step`` step (a second took 71 s of the run's time and
+    is checked no differently) on one batch of XLSTM_TRAIN_B x
     XLSTM_TRAIN_S, the mLSTM/sLSTM scans in checkpointed chunks of 64
     inside the per-period remat. The peak memory of a step above what the
     params and AdamW hold, beside the prediction: without chunks each
@@ -6481,7 +6715,7 @@ def long_xlstm_training(dev):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     losses, ms = [], []
-    for _ in range(2):
+    for _ in range(XLSTM_TRAIN_STEPS):
         t0 = time.perf_counter()
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
@@ -6565,40 +6799,41 @@ def long_dryrun_start():
     """(d) ``python -m repro_torch.launch.dryrun --cell`` of each of
     LONG_DRYRUN_CELLS as subprocesses on the host (a 256-rank fake group,
     meta tensors), started with the run at a lower priority, each writing
-    its own file: ({cell: process}, directory)."""
-    import atexit
+    its own file, its output and errors to files beside it (a pipe that
+    nobody reads until the end could stall it): ({cell: process},
+    directory)."""
     import tempfile
     tmp = tempfile.mkdtemp(prefix="long_dryrun_")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     procs = {}
     for cell in LONG_DRYRUN_CELLS:
-        procs[cell] = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
-             cell, "--out", os.path.join(tmp, cell.replace(":", "_"))],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env, cwd=ROOT, preexec_fn=lambda: os.nice(10))
-
-    def stop():                   # a run that ends early leaves none behind
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    atexit.register(stop)
+        base = os.path.join(tmp, cell.replace(":", "_"))
+        with open(base + ".stdout", "w") as so, \
+                open(base + ".stderr", "w") as se:
+            procs[cell] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
+                 cell, "--out", base], stdout=so, stderr=se, env=env,
+                cwd=ROOT, preexec_fn=lambda: os.nice(10))
+        stop_at_exit(procs[cell])   # none left running on an early exit
     return procs, tmp
 
 
-def long_dryrun_finish(procs, tmp, timeout=900):
+def long_dryrun_finish(procs, tmp, timeout=120):
+    """Wait for the dry-run cells (each traced in a few seconds; those not
+    done ``timeout`` s from here are killed and fail) and read their
+    records: (ok, {cell: summary})."""
     import shutil
     ok, stats = True, {}
     t_end = time.perf_counter() + timeout
     for cell, proc in procs.items():
         try:
-            _, se = proc.communicate(
-                timeout=max(1.0, t_end - time.perf_counter()))
+            proc.wait(timeout=max(1.0, t_end - time.perf_counter()))
         except subprocess.TimeoutExpired:
             proc.kill()
-            _, se = proc.communicate()
+            proc.wait()
         path = os.path.join(tmp, cell.replace(":", "_"))
+        with open(path + ".stderr") as f:
+            se = f.read()
         lines = open(path).read().splitlines() if os.path.exists(path) \
             else []
         rec = json.loads(lines[-1]) if lines else {}
@@ -6617,12 +6852,13 @@ def long_dryrun_finish(procs, tmp, timeout=900):
     return ok, stats
 
 
-def phase_long(dev, dryrun):
+def phase_long(dev, dryrun, xlstm=True):
     """Phase 14: (a) K5 and K3 with a key offset and log-sum-exp at the
     long_500k shapes (``long_k5``, ``long_k3``), (b) decode at 524288
     positions (``long_decode``: h2o-danube-1.8b, jamba, and h2o-danube-1.8b
     on the dense int8 pool), (c) the checkpointed scans (``long_xlstm_
-    training``, ``long_mamba``) and (d) the dry-run cells started with the
+    training`` where ``xlstm``, else it ran in a child process beside
+    phase_mesh; ``long_mamba``) and (d) the dry-run cells started with the
     run (``long_dryrun_finish``). Returns (phases, stats), stats with the
     decode runs' launches for the kernels line."""
     import torch
@@ -6638,8 +6874,12 @@ def phase_long(dev, dryrun):
                 dev, arch, seed)
         phases[f"long_decode_int8 {H2O}"], stats[f"{H2O} int8"] = \
             long_decode(dev, H2O, 56, kv_quant=True)
-        phases["long_xlstm_training"], stats["xlstm"] = \
-            long_xlstm_training(dev)
+        t8, tf = stats[f"{H2O} int8"]["tpot_ms"], stats[H2O]["tpot_ms"]
+        log(f"long decode {H2O}: TPOT {t8:.3f} ms on the int8 cache, "
+            f"{tf:.3f} ms on the float cache ({t8 / tf:.3f}x)")
+        if xlstm:
+            phases["long_xlstm_training"], stats["xlstm"] = \
+                long_xlstm_training(dev)
         phases["long_mamba"], stats["mamba"] = long_mamba(dev)
     finally:
         phases["long_dryrun"], stats["dryrun"] = long_dryrun_finish(*dryrun)
@@ -6674,7 +6914,8 @@ def main() -> int:
         build.build_all()
     except RuntimeError as e:
         return fail(str(e))
-    log(f"built kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"built kernels in {time.perf_counter() - t0:.1f} s, by source: "
+        + json.dumps({k: round(v, 1) for k, v in build.BUILD_SECONDS.items()}))
     # the long phase's dry-run cells trace on the host beside the run
     long_dryrun = long_dryrun_start()
     for name in build.SOURCES:
@@ -6736,13 +6977,15 @@ def main() -> int:
     fam_phases, fstats = phase_families(dev)
     phases.update(fam_phases)
     extra["families"] = family_timing(dev)
-    log(f"families: {fam_phases}, {time.perf_counter() - t0:.1f} s")
+    log(f"families (servings): {fam_phases}, "
+        f"{time.perf_counter() - t0:.1f} s")
     free_device()
     t0 = time.perf_counter()
     stack_phases, sstats = phase_stacks(dev)
     phases.update(stack_phases)
     extra["stacks"] = stack_timing(dev)
-    log(f"stacks: {stack_phases}, {time.perf_counter() - t0:.1f} s")
+    log(f"stacks (servings): {stack_phases}, "
+        f"{time.perf_counter() - t0:.1f} s")
     free_device()
     train_phases, tstats, terrs, ttiming = phase_training(dev, moment_profile)
     phases.update(train_phases)
@@ -6750,10 +6993,22 @@ def main() -> int:
     lm_phases, lstats = phase_lm_training(dev)
     phases.update(lm_phases)
     free_device()
-    mesh_phases, _ = phase_mesh(dev)
-    phases.update(mesh_phases)
+    # the references of phases 9 and 10, xlstm-125m's long training step
+    # and the checkpoint/restart example check and time nothing: they run
+    # in child processes beside the mesh phase, which checks only
+    t0 = time.perf_counter()
+    children, e2e = start_children(), start_train_e2e()
+    try:
+        mesh_phases, _ = phase_mesh(dev)
+        phases.update(mesh_phases)
+    finally:
+        child_phases, _ = finish_children(children)
+        phases.update(child_phases)
+        phases["train_e2e"], _ = finish_train_e2e(e2e)
+    log(f"mesh phase and its children: {child_phases}, "
+        f"{time.perf_counter() - t0:.1f} s")
     free_device()
-    long_phases, long_stats = phase_long(dev, long_dryrun)
+    long_phases, long_stats = phase_long(dev, long_dryrun, xlstm=False)
     phases.update(long_phases)
     # launches on the main paths: the dense serving run (K1, K2, K3), the
     # paged serving run (K1, K2, K4), the chunked paged serving run (K1,
@@ -6831,6 +7086,11 @@ def main() -> int:
          **{k: ttiming["rmsnorm_bwd_1024x1024_dw"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
+    from repro_torch.kernels.decode_attention_int8 import PATHS
+    log(f"K3 calls by body over this process's run, its child processes' "
+        f"not counted (cta: one CTA a pair; split: "
+        f"the split body, one split; merge: several and the merge launch): "
+        f"{json.dumps(dict(PATHS))}")
     log(f"phases: {phases}, total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:
@@ -6847,4 +7107,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child_main(sys.argv[2]))
     sys.exit(main())

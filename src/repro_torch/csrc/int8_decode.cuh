@@ -73,6 +73,10 @@
 // each, and the body runs lean there (one register buffer; see attend) so
 // that six CTAs share an SM.
 //
+// K3 has a second body for few (row, kv head) pairs and long spans, its
+// keys split over CTAs: int8_split_decode.cuh. It uses this file's Dense
+// source policy and nothing of attend.
+//
 // Built with -DINT8_DECODE_COPY_ONLY, the kernels only load what they would
 // read (the same prologue and the same loads) and write a token output: the
 // floor of this design at a shape (tools/kernel_ab.py --floor).

@@ -27,7 +27,11 @@
 
 #include "int8_decode.cuh"
 
-namespace {
+// The build compiles this file as four objects at once (kernels/build.py,
+// PARTS), each with -DKERNEL_PART=i, and links them into one library:
+// part 0 holds the entry point and the launchers of hd 32, parts 1-3 those
+// of hd 64, 80 and 128. Without KERNEL_PART it is one translation unit.
+namespace k4_launch {  // named: the parts link to each other's launch_g
 
 using namespace int8_decode;
 
@@ -79,7 +83,24 @@ cudaError_t launch_g(int G, const Args& a) {
   }
 }
 
-}  // namespace
+}  // namespace k4_launch
+
+#if defined(KERNEL_PART) && KERNEL_PART != 0
+#if KERNEL_PART == 1
+template cudaError_t k4_launch::launch_g<64>(int, const k4_launch::Args&);
+#elif KERNEL_PART == 2
+template cudaError_t k4_launch::launch_g<80>(int, const k4_launch::Args&);
+#elif KERNEL_PART == 3
+template cudaError_t k4_launch::launch_g<128>(int, const k4_launch::Args&);
+#else
+#error "paged_decode_attention.cu has parts 0-3"
+#endif
+#else
+#if defined(KERNEL_PART)
+extern template cudaError_t k4_launch::launch_g<64>(int, const k4_launch::Args&);
+extern template cudaError_t k4_launch::launch_g<80>(int, const k4_launch::Args&);
+extern template cudaError_t k4_launch::launch_g<128>(int, const k4_launch::Args&);
+#endif
 
 // q (B, KV * G, hd) bf16 contiguous, 16-byte aligned; kp/vp int8 arenas
 // addressed as (P, ps, KV, hd) through the element strides s*p (page), s*s
@@ -95,6 +116,7 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
                                    int64_t sks, int64_t skh, int64_t svp,
                                    int64_t svs, int64_t svh, int window,
                                    float sm_scale, void* stream) {
+  using namespace k4_launch;
   if (ps <= 0 || MP < 0) return cudaErrorInvalidValue;
   const Args a{q, kp, vp, k_scale, v_scale, page_table, lengths, out,
                B, KV, P, ps, MP, skp, sks, skh, svp, svs, svh, window,
@@ -107,3 +129,4 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
     default:  return cudaErrorInvalidValue;
   }
 }
+#endif  // the entry point: part 0, or the whole file

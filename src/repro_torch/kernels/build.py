@@ -5,7 +5,8 @@ with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). Libraries land in ``build/kernels/`` at the
 repository root, named by a hash of the source, the headers it includes and
 the flags, on first use;
-``build_all`` starts one ``nvcc`` per source at once. Nothing here runs when
+``build_all`` starts one ``nvcc`` per source (per part of a source in
+``PARTS``) at once. Nothing here runs when
 the module is imported.
 
 Launch counts live here too (``LAUNCHES``, re-exported as
@@ -22,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 SOURCES = {
@@ -36,11 +38,17 @@ SOURCES = {
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# sources compiled as several objects at once, object i with -DKERNEL_PART=i,
+# then linked into one library: K3's and K4's sources instantiate their
+# kernels at four head dims, one part each (as one object each took 65.9 s
+# and 36.5 s, the build's long poles, on the H100 machine's 8 cores)
+PARTS = {"decode_attention_int8": 4, "paged_decode_attention": 4}
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def reset_launches():
@@ -81,33 +89,73 @@ def library_path(name: str) -> Path:
     for path, text in _sources(CSRC / SOURCES[name], {}).items():
         h.update(path.name.encode() + b"\0" + text + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(f"parts {PARTS.get(name, 1)}".encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def _compile(name: str, lib: Path) -> str | None:
+    """Build kernel ``name``'s library at ``lib``: one ``nvcc`` for the
+    whole source, or one for each of its PARTS at once and a link. Writes
+    the compiler output to ``<name>.log``; returns it where a step failed,
+    else None."""
+    src, parts = str(CSRC / SOURCES[name]), PARTS.get(name, 1)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    if parts == 1:
+        steps = [[[nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]]]
+    else:
+        objs = [lib.with_suffix(f".tmp{os.getpid()}.{i}.o")
+                for i in range(parts)]
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        steps = [[[nvcc(), *flags, "-c", f"-DKERNEL_PART={i}", "-o",
+                   str(o), src] for i, o in enumerate(objs)],
+                 [[nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *map(str, objs)]]]
+    logs, failed = [], False
+    for cmds in steps:                    # the commands of a step at once
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        for p in procs:
+            logs.append(p.communicate()[0])
+            failed |= p.returncode != 0
+        if failed:
+            break
+    if parts > 1:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    log = "".join(logs)
+    (BUILD_DIR / f"{name}.log").write_text(log)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        return log
+    os.replace(tmp, lib)
+    return None
+
+
 def build_all(names=None) -> dict[str, Path]:
-    """Compile every missing library among ``names`` (default: all), one
-    ``nvcc`` process per source, all started together. The ptxas report
-    (registers, shared memory, spills) is kept beside each library as
-    ``<name>.log``. Raises with the compiler output if any build fails."""
+    """Compile every missing library among ``names`` (default: all), all
+    at once: one ``nvcc`` per source, or per part of a source in PARTS.
+    The ptxas report (registers, shared memory, spills) is kept beside
+    each library as ``<name>.log``, and each build's seconds from the
+    start of the call in ``BUILD_SECONDS``. Raises with the compiler
+    output if any build fails."""
+    from concurrent.futures import ThreadPoolExecutor
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: library_path(n) for n in names}
-    procs = {}
-    for n, lib in out.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp)
+    todo = [n for n in names if not out[n].exists()]
+    t0 = time.perf_counter()
+
+    def one(n):
+        err = _compile(n, out[n])
+        BUILD_SECONDS[n] = time.perf_counter() - t0
+        return err
     errors = []
-    for n, (p, tmp) in procs.items():
-        log, _ = p.communicate()
-        (BUILD_DIR / f"{n}.log").write_text(log)
-        if p.returncode != 0:
-            errors.append(f"{n}: nvcc exited {p.returncode}\n{log}")
-        else:
-            os.replace(tmp, out[n])
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            for n, err in zip(todo, pool.map(one, todo)):
+                if err is not None:
+                    errors.append(f"{n}: nvcc failed\n{err}")
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return out

@@ -10,10 +10,20 @@ position of its first key) attends the part of the global range that it
 holds; with ``return_lse`` the call returns f32 output and each head's
 log-sum-exp, which ``models.attention.merge_partials`` combines across the
 pieces (K5's conventions).
+
+Two kernel bodies compute the function (``plan`` picks one from shapes
+only, so choosing needs no host sync and a CUDA graph captures it): one CTA
+per (row, kv head) pair (``csrc/int8_decode.cuh``), where the pairs fill
+the card and a row's span is one or two of that body's rounds; and the
+split body (``csrc/int8_split_decode.cuh``), whose CTAs each take a share
+of a pair's keys and, for more than one split, a second launch that merges
+their partials in split order.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -23,6 +33,58 @@ from repro_torch.kernels import build
 
 _HEAD_DIMS = (32, 64, 80, 128)
 _GROUPS = (1, 2, 4, 6, 7, 8)
+_MIN_SPLIT = 256            # keys a split at least
+_CTAS_PER_SM = 2            # the splits stop at this many CTAs an SM
+_META_SMS = 132             # an H100's SMs: the dry-run's plan (meta tensors)
+
+# calls by body: "cta" (one CTA a pair), "split" (the split body, one split)
+# and "merge" (several splits and the merge launch); read by chip_smoke to
+# show which bodies a run went through
+PATHS: collections.Counter = collections.Counter()
+
+
+def _round_keys(hd: int, G: int) -> int:
+    """Keys one round of the one-CTA body covers (``Tile<HD, G>`` in
+    ``csrc/int8_decode.cuh``: kDepth passes of a CTA pass)."""
+    dpl = 16 if G <= 1 else (8 if G == 2 else 4)
+    lpa = hd // dpl
+    lpp = next(n for n in (2, 4, 8, 16, 32) if lpa <= n)
+    depth = 6 if G in (6, 7) else min(96 // dpl, 8)
+    return depth * (32 // lpp) * 4
+
+
+def pass_keys(hd: int) -> int:
+    """Keys one pass of a split-body CTA covers (``SplitTile<HD>::PASS``:
+    4 warps of 16, 32 or 64 keys)."""
+    return 4 * 16 * (1 if hd >= 128 else 2 if hd >= 64 else 4)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, KV: int, G: int, hd: int, S: int, window: Optional[int],
+         sms: int) -> tuple[str, int]:
+    """(body, splits) for a call on ``B`` rows of a (B, KV, S, hd) cache.
+
+    The span a row can attend is ``min(window, S)`` with a window, else
+    ``S``; it is split over CTAs by ``build.key_splits`` (at most
+    ``_CTAS_PER_SM`` CTAs an SM over the grid, so one wave; each split a
+    multiple of a CTA pass and at least ``_MIN_SPLIT`` keys). One split
+    over a span of at most two of the one-CTA body's rounds keeps that
+    body ("cta"); anything else runs the split body ("split" with one
+    split, "merge" with several). Shapes only, never lengths. The
+    constants and the boundary come from ``tools/k3_plan.py`` (``PERF.md``
+    §6)."""
+    span = S if window is None or window <= 0 else min(int(window), S)
+    n, _ = build.key_splits(B * KV, span, pass_keys(hd), _MIN_SPLIT, sms,
+                            slots=_CTAS_PER_SM * sms)
+    if n == 1 and span <= 2 * _round_keys(hd, G):
+        return "cta", 1
+    return ("split" if n == 1 else "merge"), n
+
+
+def workspace_floats(B: int, KV: int, G: int, hd: int, nsplit: int) -> int:
+    """f32 elements of the partials of ``nsplit`` > 1 splits: each CTA's
+    G x hd accumulator and G (max, sum) pairs."""
+    return B * KV * nsplit * G * (hd + 2) if nsplit > 1 else 0
 
 
 def quantize_kv(k, v):
@@ -42,7 +104,7 @@ def _lib():
     lib = build.load("decode_attention_int8")
     if not getattr(lib, "_typed", False):
         lib.decode_int8_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
             + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_float, ctypes.c_void_p])
         lib.decode_int8_launch.restype = ctypes.c_int
@@ -106,15 +168,23 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
     if B == 0 or S == 0:
         return (out_f32.zero_(), lse.fill_(-math.inf)) if return_lse else \
             out.zero_()
-    stream = build.current_stream(q.device.index or 0)
+    index = q.device.index or 0
+    body, nsplit = plan(B, KV, G, hd, S, window, build.sm_count(index))
+    work = None
+    if body == "merge":
+        work = torch.empty(workspace_floats(B, KV, G, hd, nsplit),
+                           dtype=torch.float32, device=q.device)
+    stream = build.current_stream(index)
     err = _lib().decode_int8_launch(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if out_f32 is None else out_f32.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, KV, G, S, hd,
-        *k_q.stride()[:3], *v_q.stride()[:3],
+        None if lse is None else lse.data_ptr(),
+        None if work is None else work.data_ptr(), B, KV, G, S, hd,
+        0 if body == "cta" else nsplit, *k_q.stride()[:3], *v_q.stride()[:3],
         -1 if window is None else int(window), int(key_offset),
         1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["decode_attention_int8"] += 1
+    PATHS[body] += 1
     build.check(err, "decode_attention_int8")
     return (out_f32, lse) if return_lse else out

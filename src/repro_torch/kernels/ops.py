@@ -333,9 +333,13 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
         S, KV = k_q.shape[1], k_q.shape[2]
         n = B * (S if window is None else min(S, int(window)))
         o_size = 4 if return_lse else 2
+        # the split body's partials, written and read once (an H100's plan)
+        _, nsplit = _int8.plan(B, KV, H // KV, hd, S, window, _int8._META_SMS)
         _meta_work("decode_attention_int8", 4.0 * n * H * hd,
                    (2 + o_size) * B * H * hd + 2 * n * KV * hd
-                   + 2 * 4 * B * KV + 4 * B + (4 * B * H if return_lse else 0))
+                   + 2 * 4 * B * KV + 4 * B + (4 * B * H if return_lse else 0)
+                   + 2 * 4 * _int8.workspace_floats(B, KV, H // KV, hd,
+                                                    nsplit))
         if return_lse:
             return (torch.empty(q.shape, dtype=torch.float32, device="meta"),
                     torch.empty((B, H), dtype=torch.float32, device="meta"))

@@ -330,6 +330,51 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert build.library_path("a").name.startswith("a-")
 
 
+def test_build_all_runs_sources_together_and_times_each(tmp_path,
+                                                        monkeypatch):
+    """``build_all`` starts one compiler a source (a source in PARTS: one
+    object a part, each with its -DKERNEL_PART, then a link), keeps the
+    output as ``<name>.log``, records each build's seconds, moves each
+    library into place, skips what is built, and raises with the output of
+    a failed build (a shell script stands in for nvcc)."""
+    from repro_torch.kernels import build
+    for n in ("a", "b", "bad"):
+        (tmp_path / f"{n}.cu").write_text(f"int {n};\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nsrc=""; out=""; objs=""; part=""\n'
+                    'while [ $# -gt 0 ]; do case "$1" in -o) out="$2"; '
+                    'shift;; *.cu) src="$1";; *.o) objs="$objs $1";; '
+                    '-DKERNEL_PART=*) part="$1";; esac; shift; done\n'
+                    'if [ -z "$src" ]; then echo "link"; cat $objs > "$out"; '
+                    'exit 0; fi\necho "ptxas info for $src $part"\n'
+                    'case "$src" in *bad.cu) echo "error: bad" >&2; '
+                    'exit 2;; esac\n{ cat "$src"; echo "$part"; } > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "SOURCES", {n: f"{n}.cu"
+                                           for n in ("a", "b", "bad")})
+    monkeypatch.setattr(build, "PARTS", {"b": 3})
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_SECONDS", {})
+    libs = build.build_all(["a", "b"])
+    assert libs["a"].read_text() == "int a;\n\n"
+    assert libs["b"].read_text() == "".join(f"int b;\n-DKERNEL_PART={i}\n"
+                                            for i in range(3))
+    assert set(build.BUILD_SECONDS) == {"a", "b"}
+    assert all(s >= 0 for s in build.BUILD_SECONDS.values())
+    assert "ptxas info for" in (tmp_path / "out" / "a.log").read_text()
+    blog = (tmp_path / "out" / "b.log").read_text()
+    assert blog.count("ptxas info for") == 3 and blog.endswith("link\n")
+    assert not list((tmp_path / "out").glob("*.o"))
+    build.BUILD_SECONDS.clear()
+    assert build.build_all(["a", "b"]) == libs and not build.BUILD_SECONDS
+    with pytest.raises(RuntimeError, match="bad: nvcc failed"):
+        build.build_all()
+    assert not build.library_path("bad").exists()
+    assert not list((tmp_path / "out").glob("*.tmp*"))
+
+
 def test_int8_decode_sources_share_one_header():
     """K3 and K4 are one kernel body: both sources include
     int8_decode.cuh, which defines both kernels, and each keeps its own

@@ -13,7 +13,10 @@ on the same input sets at the serving shapes of ``chip_smoke.py`` (parent,
 change, the floor build if asked for, then the same in reverse; device
 time from ``torch.profiler`` by kernel name, so a call's split into its
 kernels shows; then the host time per call of parent and change the
-same way), after checking that both agree. ``flash_attention_bwd`` (in
+same way), after checking that both agree (``max_abs_diff``: 0 where
+the change keeps the parent's bits). ``decode_attention_int8`` runs at
+stablelm's serving shape (its one-CTA body), qwen2-7b's pool, h2o-danube's
+window and the long_500k cells' 524288 keys. ``flash_attention_bwd`` (in
 ``flash_attention.py``) runs at the five ``chip_smoke.FLASH_BWD_CASES``
 shapes, ``rmsnorm`` at a decode step's 8 rows of every model width and
 at stablelm's verify, prefill and pooled row counts, ``rmsnorm_bwd`` (in
@@ -182,13 +185,27 @@ def cases(name: str, dev, gen):
                                                       block_t=cs.BLOCK_T))
     elif name == "decode_attention_int8":
         # the dense pool of stablelm-1.6b: 8 slots, H = KV = 32, hd 64,
-        # S = s_max = 161, ragged lengths in [1, S]; 24 sets (one a layer)
+        # S = s_max = 161, ragged lengths in [1, S]; 24 sets (one a layer);
+        # then qwen2-7b's pool (H 28, KV 4, hd 128), h2o-danube-1.8b's under
+        # its 4096 window (lengths 4097-4200) and the long_500k cells' one
+        # row of 524288 positions (h2o's window, jamba's whole cache)
         S = cs.PROMPT_LEN + cs.MAX_NEW + 1
-        sets = cs.int8_inputs(gen, cs.SLOTS, 32, 32, S, 64, 24, dev)
-        # the wrapper takes the head-major view of the pool's layout
-        yield "stablelm", sets, lambda mod: (
-            lambda q, kq, vq, ks, vs, ln: mod.decode_attention_int8(
-                q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, ln))
+        for shape, B, H, KV, hd, s_len, window, lo, nsets in (
+                ("stablelm", cs.SLOTS, 32, 32, 64, S, None, 1, 24),
+                ("qwen2", cs.SLOTS, 28, 4, 128, S, None, 1, 24),
+                ("h2o_window", cs.SLOTS, 32, 8, 80, 4200, 4096, 4097, 6),
+                ("h2o_long_window", 1, 32, 8, 80, 524288, 4096, 524288, 1),
+                ("jamba_long", 1, 32, 8, 128, 524288, None, 524288, 1)):
+            lens = None if lo == 1 else torch.randint(
+                lo, s_len + 1, (B,), generator=torch.Generator()
+                .manual_seed(s_len)).tolist()
+            sets = cs.int8_inputs(gen, B, H, KV, s_len, hd, nsets, dev,
+                                  lens=lens)
+            # the wrapper takes the head-major view of the pool's layout
+            yield shape, sets, lambda mod, w=window: (
+                lambda q, kq, vq, ks, vs, ln: mod.decode_attention_int8(
+                    q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, ln,
+                    window=w))
     elif name == "paged_decode_attention":
         # the paged pools: stablelm-1.6b (H = KV = 32, a table of 11 pages,
         # lengths in [1, s_max = 161]; 24 sets) and whisper-base's decoder
