@@ -916,10 +916,12 @@ def verify_bound(q, kp, pt, base, window=None):
 
 def check_verify(dev, gen):
     """The verify window against its plain version (T single-token reads)
-    at every case of ``VERIFY_CASES``: two bf16 ulps of the largest output,
-    bit-identical over two calls, one launch a call, and every window
-    position bit-identical to K4 (``paged_decode_attention``) at its
-    length: the speculative engine's attention is the plain engine's."""
+    at every case of ``VERIFY_CASES``, through each body K4's plan can pick
+    (``k4_sides``: the plan's, then the others, forced): two bf16 ulps of
+    the largest output, bit-identical over two calls, one launch a call,
+    and every window position bit-identical to K4
+    (``paged_decode_attention``, under the same plan) at its length: the
+    speculative engine's attention is the plain engine's."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -929,31 +931,37 @@ def check_verify(dev, gen):
         hd, window = c.get("hd", 64), c.get("window")
         q, kp, vp, ks, vs, pt, base = verify_inputs(
             gen, SLOTS, H, KV, hd, T, MP, c["base"], dev)
-        before = ops.LAUNCHES["paged_verify_attention"]
-        got = ops.paged_verify_attention(q, kp, vp, ks, vs, pt, base,
-                                         window=window)
-        launched = ops.LAUNCHES["paged_verify_attention"] - before
-        again = ops.paged_verify_attention(q, kp, vp, ks, vs, pt, base,
-                                           window=window)
         want = ref.paged_verify_attention_ref(
             q, kp.transpose(1, 2), vp.transpose(1, 2), ks, vs, pt, base,
             window=window)
-        k4 = torch.stack([ops.paged_decode_attention(
-            q[:, j].contiguous(), kp, vp, ks, vs, pt,
-            (base + j + 1).to(torch.int32), window=window)
-            for j in range(T)], dim=1)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
-        same = torch.equal(got, again)
-        as_k4 = torch.equal(got, k4)
-        log(f"kernel paged_verify_attention [{name}] B={SLOTS} T={T} H={H} "
-            f"KV={KV} hd={hd} ps={PAGE_SIZE} MP={MP} window={window}: "
-            f"max_abs_err={err:.3e} (bound {tol:.3e}), bit-identical twice: "
-            f"{same}, each position bit-identical to K4: {as_k4}")
-        ok &= err <= tol and bool(torch.isfinite(got.float()).all()) \
-            and same and launched == 1 and as_k4
-        errs[name] = err
+        S = MP * PAGE_SIZE
+        for side in k4_sides(SLOTS, KV, H // KV, hd, S, window, dev):
+            with k4_forced(side):
+                body = k4_plan(SLOTS, KV, H // KV, hd, S, window, dev, T=T)
+                before = ops.LAUNCHES["paged_verify_attention"]
+                got = ops.paged_verify_attention(q, kp, vp, ks, vs, pt, base,
+                                                 window=window)
+                launched = ops.LAUNCHES["paged_verify_attention"] - before
+                again = ops.paged_verify_attention(q, kp, vp, ks, vs, pt,
+                                                   base, window=window)
+                k4 = torch.stack([ops.paged_decode_attention(
+                    q[:, j].contiguous(), kp, vp, ks, vs, pt,
+                    (base + j + 1).to(torch.int32), window=window)
+                    for j in range(T)], dim=1)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 2 * 2.0 ** -8 * want.float().abs().max().item() + 1e-6
+            same = torch.equal(got, again)
+            as_k4 = torch.equal(got, k4)
+            log(f"kernel paged_verify_attention [{name}] B={SLOTS} T={T} "
+                f"H={H} KV={KV} hd={hd} ps={PAGE_SIZE} MP={MP} "
+                f"window={window} body={body}"
+                f"{' (plan)' if side is None else ''}: max_abs_err="
+                f"{err:.3e} (bound {tol:.3e}), bit-identical twice: {same}, "
+                f"each position bit-identical to K4: {as_k4}")
+            ok &= err <= tol and bool(torch.isfinite(got.float()).all()) \
+                and same and launched == 1 and as_k4
+            errs[name] = max(err, errs.get(name, 0.0))
     return ok, errs
 
 
@@ -1080,13 +1088,76 @@ def k3_forced(side):
         k3.plan = real
 
 
+# K4's and the verify window's kernels by profiler name: the one-CTA bodies,
+# the split body (one walk, a kernel a form) and its merge
+K4_PARTS = {"paged_decode_kernel": "cta", "paged_split_kernel": "split",
+            "paged_merge_kernel": "merge"}
+VERIFY_PARTS = {"paged_verify_kernel": "cta",
+                "paged_verify_split_kernel": "split",
+                "paged_merge_kernel": "merge"}
+
+
+def k4_plan(B, KV, G, hd, S, window, dev, T=1) -> list:
+    """What a call of T window positions (K4: T 1) launches at a table of
+    S positions on this card (``paged_decode_attention.split_for``):
+    [body, cells a pair walks, cell keys]."""
+    from repro_torch.kernels import paged_decode_attention as k4
+    return list(k4.split_for(B, KV, G, hd, S, window, T, sm_count(dev))[:3])
+
+
+def k4_sides(B, KV, G, hd, S, window, dev):
+    """K4's bodies (the verify window's too: it takes K4's plan) at a
+    shape, as ``k4_forced`` values: None (the plan's own choice, first),
+    then every body the plan did not pick: the one-CTA body ("cta", 0),
+    the split body with one cell over the whole table ("split") and with
+    cells of a quarter of the span, 64 keys at least ("merge": several
+    cells and the merge launch)."""
+    body = k4_plan(B, KV, G, hd, S, window, dev)[0]
+    span = min(window, S) if window else S
+    out = [None]
+    for side in (("cta", 0), ("split", 64 * -(-S // 64)),
+                 ("split", 64 * max(1, span // 4 // 64))):
+        with k4_forced(side):
+            if k4_plan(B, KV, G, hd, S, window, dev)[0] != body:
+                out.append(side)
+    return out
+
+
+def sum_bodies(runs) -> dict:
+    """The calls by body (``ops.bodies``, kernel -> body -> calls) of
+    several runs' stats, summed."""
+    out: dict = {}
+    for st in runs:
+        for kernel, by in st.get("bodies", {}).items():
+            into = out.setdefault(kernel, {})
+            for body, n in by.items():
+                into[body] = into.get(body, 0) + n
+    return out
+
+
+@contextlib.contextmanager
+def k4_forced(side):
+    """K4's plan (``paged_decode_attention.plan``, which the verify window
+    takes too) replaced by ``side``, a (body, cell keys) pair, while open
+    (None: the plan itself); ``split_for`` counts the cells from it."""
+    from repro_torch.kernels import paged_decode_attention as k4
+    real = k4.plan
+    if side is not None:
+        k4.plan = lambda *shape: side
+    try:
+        yield
+    finally:
+        k4.plan = real
+
+
 def check_int8_decode(dev, gen):
     """K3 and K4 against their plain versions at every case of
     ``INT8_CASES``, two bf16 ulps of the largest output (every length >= 1,
     so no row is empty), and bit-identical over two calls on the same
-    inputs; K3 through each of its bodies (``k3_sides``: the plan's, then
-    the others). K4's inputs hold stale codes in unmapped pages and two
-    streams sharing their first pages (``paged_inputs``)."""
+    inputs; K3 and K4 through each of their bodies (``k3_sides``,
+    ``k4_sides``: the plan's, then the others). K4's inputs hold stale
+    codes in unmapped pages and two streams sharing their first pages
+    (``paged_inputs``)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1110,11 +1181,16 @@ def check_int8_decode(dev, gen):
                      q4, kp.transpose(1, 2), vp.transpose(1, 2), pks, pvs, pt,
                      ln4, window=window))
         planned = k3_plan(SLOTS, KV, H // KV, hd, S, window, dev)
+        planned4 = k4_plan(SLOTS, KV, H // KV, hd, MP * PAGE_SIZE, window,
+                           dev)
         runs = [("dense", side) for side in
-                k3_sides(SLOTS, KV, H // KV, hd, S, window, dev)]
-        for kind, side in runs + [("paged", None)]:
+                k3_sides(SLOTS, KV, H // KV, hd, S, window, dev)] + \
+            [("paged", side) for side in
+             k4_sides(SLOTS, KV, H // KV, hd, MP * PAGE_SIZE, window, dev)]
+        for kind, side in runs:
             kernel, plain = dense if kind == "dense" else paged
-            with k3_forced(side):
+            with k3_forced(side if kind == "dense" else None), \
+                    k4_forced(side if kind == "paged" else None):
                 got, again = kernel(), kernel()
             want = plain()
             torch.cuda.synchronize()
@@ -1126,7 +1202,9 @@ def check_int8_decode(dev, gen):
                              f"{' (plan)' if side is None else ''}")
                             if kind == "dense" else
                             ("paged_decode_attention",
-                             f"ps={PAGE_SIZE} MP={MP}"))
+                             f"ps={PAGE_SIZE} MP={MP} body="
+                             f"{list(side or planned4)}"
+                             f"{' (plan)' if side is None else ''}"))
             log(f"kernel {label} [{name}] B={SLOTS} H={H} KV={KV} hd={hd} "
                 f"{where} window={window}: max_abs_err={err:.3e} (bound "
                 f"{tol:.3e}), bit-identical twice: {same}")
@@ -2121,6 +2199,7 @@ def phase_serving(dev, cfg=None):
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "decode_attention_int8",
                           "flash_attention", "rmsnorm")}
+    bodies = ops.bodies()
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     ok = state_slots_drained(eng)
@@ -2146,6 +2225,7 @@ def phase_serving(dev, cfg=None):
         "pooled": len(pooled), "tokens": n_tok, "tokens_per_s": n_tok / wall,
         "ttft_p50_ms": ds.get("ttft_p50_ms"), "tpot_p50_ms": ds.get("tpot_p50_ms"),
         "pooled_p50_ms": ls.get("p50_ms"), "launches": launches,
+        "bodies": bodies,
         "ticks": dict(loop.ticks), "decode_steps": eng.steps,
         "quarantines": eng.quarantines, "shape_keys": [keys0, keys1],
         "state_slots": None if eng.state_pool is None else dict(
@@ -2272,6 +2352,7 @@ def phase_paged_serving(dev, chunked: bool = False, cfg=None):
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "paged_decode_attention",
                           "flash_attention", "rmsnorm")}
+    bodies = ops.bodies()
     hybrid = eng.plan.has_recurrent
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
@@ -2294,6 +2375,7 @@ def phase_paged_serving(dev, chunked: bool = False, cfg=None):
         "ttft_p50_ms": ds.get("ttft_p50_ms"),
         "tpot_p50_ms": ds.get("tpot_p50_ms"),
         "pooled_p50_ms": ls.get("p50_ms"), "launches": launches,
+        "bodies": bodies,
         "ticks": dict(loop.ticks), "decode_steps": eng.steps,
         "quarantines": eng.quarantines, "page_gauges": gauges,
         "occupancy_max": max(loop.page_samples, default=0.0),
@@ -2412,6 +2494,7 @@ def phase_whisper_serving(dev):
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention", "paged_decode_attention",
                           "rmsnorm")}
+    bodies = ops.bodies()
     gen = [r for r in trace if r.max_new_tokens > 0]
     pooled = [r for r in trace if r.max_new_tokens <= 0]
     bad = [r for r in trace if not r.ok or r.finish_time is None
@@ -2431,6 +2514,7 @@ def phase_whisper_serving(dev):
         "tokens_per_s": n_tok / wall, "ttft_p50_ms": ds.get("ttft_p50_ms"),
         "tpot_p50_ms": ds.get("tpot_p50_ms"),
         "pooled_p50_ms": ls.get("p50_ms"), "launches": launches,
+        "bodies": bodies,
         "ticks": dict(loop.ticks), "decode_steps": eng.steps,
         "quarantines": eng.quarantines, "page_gauges": page_gauges(eng),
         "prefix_sharing": eng.prefix_sharing,
@@ -3222,6 +3306,7 @@ def phase_durability(dev):
                                    "decode_attention_int8",
                                    "paged_decode_attention",
                                    "decode_attention", "rmsnorm")}
+    stats["bodies"] = ops.bodies()
     stats["wall_s"] = time.perf_counter() - t0
     stats["sampled_step"] = sampled_step_timing(dev, fm)
     log("durability sampled step: " + json.dumps(stats["sampled_step"],
@@ -3436,12 +3521,48 @@ def verify_vs_sequential(fm, cfg, seed: int = 61) -> dict:
     r["code_max_diff"] = max(
         int((a[c].int() - b[c].int()).abs().max()) for a, b in zip(wide, seq)
         for c in ("k", "v"))
+    r["bit_equal"] = bool(torch.equal(
+        got.float().transpose(0, 1).reshape(-1, got.shape[-1]),
+        torch.stack(want).reshape(-1, got.shape[-1])))
     r["ok"] = bool(r["finite"] and r["rel_l2"] <= SPEC_REL_L2
                    and r["argmax_agree"] and r["len_equal"]
                    and r["code_max_diff"] <= 1)
     for i in range(SLOTS):
         eng.leave(i)
     return r
+
+
+def verify_split_walk(dev) -> dict:
+    """``verify_vs_sequential`` on full-width qwen2-7b cut to 2 layers,
+    whose G 7 takes K4's split body on the spec engine's table: once at
+    the plan's cells (one cell: ``paged_verify_split_kernel``) and once
+    with cells of 64 keys forced on both kernels (``k4_forced``: several
+    cells and ``paged_merge_kernel``), so that the verify window's split
+    walk runs inside the model's verify step against K4's in its
+    sequential steps. Gated as ``verify_vs_sequential``, and on each run
+    going through the body it was meant to."""
+    from repro_torch.core.physical import PhysicalFM
+    from repro_torch.kernels import ops
+    cfg = family_config(QWEN2, num_layers=2)
+    fm = PhysicalFM(cfg, seed=7, lora_rank=RANK, input_len=PROMPT_LEN,
+                    lora_impl="segmented", seg_block_t=BLOCK_T, device=dev)
+    for i in range(N_TASKS):
+        fm.adapters.add(f"lora{i}", random_adapter(fm.adapters, i, dev))
+    out, ok = {}, True
+    for side, body in ((None, "split"), (("split", 64), "merge")):
+        ops.reset_launches()
+        with k4_forced(side):
+            r = verify_vs_sequential(fm, cfg)
+        r["bodies"] = ops.bodies()
+        ok &= r["ok"] and set(r["bodies"].get("paged_verify_attention",
+                                              {})) == {body} \
+            and set(r["bodies"].get("paged_decode_attention", {})) == {body}
+        out[body] = r
+        log(f"speculative verify vs sequential steps, {cfg.name} at 2 "
+            f"layers, K4's {body} body: " + json.dumps(r, default=float))
+    del fm
+    out["ok"] = bool(ok)
+    return out
 
 
 def spec_serving(fm, cfg, name: str, joins: list) -> dict:
@@ -3475,6 +3596,7 @@ def spec_serving(fm, cfg, name: str, joins: list) -> dict:
     st = {"card": smi_line(), "wall_s": wall,
           "tokens": sum(len(v) for v in got.values()),
           "len_mismatch_chunks": bad_len, "launches": launches,
+          "bodies": ops.bodies(),
           "run": {k: getattr(eng, k) - v for k, v in base.items()},
           "speculation": speculation_stats(eng),
           "shape_keys": [keys0, eng.compile_count()],
@@ -3536,6 +3658,7 @@ def spec_loop(srv, cfg, loop) -> dict:
     bad = [r for r in trace if not r.ok or r.result is None]
     short = [r for r in gen if r.result is None or len(r.result) != MAX_NEW]
     st = {"wall_s": wall, "requests": len(trace), "launches": launches,
+          "bodies": ops.bodies(),
           "tokens": sum(len(r.result) for r in gen if r.result is not None),
           "shape_keys": [keys0, eng.compile_count()], "leak": leaked(eng),
           "spec_dispatches": eng.spec_dispatches,
@@ -3554,15 +3677,18 @@ def phase_speculative(dev):
     layers; the serving phases' 4 tasks with rank-16 q/v adapters; 8
     slots, pages of 16, chunk 4, spec_k 4, greedy): the verify window
     teacher-forced against sequential decode steps on the same cache, on
-    a two-layer full-width cut and at the full 24 layers; then on random
-    weights (zero accepts: every step commits one token) and on the
-    copy-inclined model (every attention out-projection zeroed, as the
-    JAX package's ``bench_speculative.py`` does: accepts fire), 8 streams
-    of 32 tokens each through the speculative engine, graphed, with every
+    a two-layer full-width cut and at the full 24 layers, and on
+    qwen2-7b's two-layer cut through K4's split body
+    (``verify_split_walk``: one cell, then several and the merge); then
+    on random weights (zero accepts: every step commits one token) and on
+    the copy-inclined model (every attention out-projection zeroed, as
+    the JAX package's ``bench_speculative.py`` does: accepts fire), 8
+    streams of 32 tokens each through the speculative engine, graphed,
+    with every
     dispatch speculative (``spec_disable_below`` 1.0), and on random
     weights behind the serve loop (``spec_loop``). Gates: the verify
     logits within SPEC_REL_L2 of the sequential ones with greedy agreement,
-    at 2 and at 24 layers; the streams equal to the plain engine's (the
+    at 2 and at 24 layers and on qwen2-7b's bodies; the streams equal to the plain engine's (the
     JAX contract: greedy speculation is lossless), on random weights and
     on the copy-inclined model; the device length equal to the host's
     committed length after every chunk; accepts on the copy-inclined run;
@@ -3584,6 +3710,8 @@ def phase_speculative(dev):
     log("speculative verify vs sequential steps, 2 layers: "
         + json.dumps(stats["verify_vs_sequential"], default=float))
     del fm2
+    _release()
+    stats["verify_split_walk"] = verify_split_walk(dev)
     _release()
     srv, cfg, fm, loop = build_server(dev, **SPEC_KW)
     full = stats["verify_vs_sequential_24_layers"] = verify_vs_sequential(
@@ -3608,9 +3736,11 @@ def phase_speculative(dev):
         for k, v in stats[run]["launches"].items():
             launches[k] = launches.get(k, 0) + v
     stats["launches"] = launches
+    stats["bodies"] = sum_bodies(stats[run] for run in (
+        "random", "loop", "copy_inclined"))
     stats["wall_s"] = time.perf_counter() - t0
     ok = stats["verify_vs_sequential"]["ok"] and full["ok"] \
-        and stats["random"]["ok"] and stats["loop"]["ok"] \
+        and stats["verify_split_walk"]["ok"] and stats["random"]["ok"] and stats["loop"]["ok"] \
         and stats["copy_inclined"]["ok"]
     ok &= stats["copy_inclined"]["run"]["draft_accepted"] > 0
     ok &= all(launches.get(k, 0) > 0 for k in (
@@ -3649,7 +3779,8 @@ def verify_timing(dev, gen, nsets: int = 24, H: int = 32, KV: int = 32,
                                   base.tolist(), dev))
     kernel = rotating(lambda *a: ops.paged_verify_attention(
         *a, window=window), sets)
-    k_ms = device_ms(kernel)
+    by_kernel = device_kernels(kernel)
+    k_ms = sum(by_kernel.values())
     p_ms = device_ms(rotating(lambda q, kp, vp, ks, vs, pt, b:
                               ref.paged_verify_attention_ref(
                                   q, kp.transpose(1, 2), vp.transpose(1, 2),
@@ -3685,13 +3816,16 @@ def verify_timing(dev, gen, nsets: int = 24, H: int = 32, KV: int = 32,
         lib_sets))
     b_ms, b_by = verify_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6],
                               window)
+    plan = k4_plan(SLOTS, KV, H // KV, hd, MP * PAGE_SIZE, window, dev, T=T)
+    split = kernel_split(by_kernel, VERIFY_PARTS)
     log(f"paged_verify_attention [B={SLOTS} T={T} H={H} KV={KV} hd={hd} "
-        f"MP={MP} window={window}]: {k_ms * 1e3:.2f} us (T unrolled K4 "
-        f"{u_ms * 1e3:.2f}, SDPA {lib_ms * 1e3:.2f}, bound "
-        f"{b_ms * 1e3:.2f})")
+        f"MP={MP} window={window}]: plan {plan}, {k_ms * 1e3:.2f} us ("
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in split.items() if v)
+        + f"; T unrolled K4 {u_ms * 1e3:.2f}, SDPA {lib_ms * 1e3:.2f}, "
+        f"bound {b_ms * 1e3:.2f})")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, unrolled_k4_ms=u_ms,
-                enqueue_ms=time_ms(kernel))
+                library_ms=lib_ms, unrolled_k4_ms=u_ms, plan=plan,
+                split_ms=split, enqueue_ms=time_ms(kernel))
 
 
 def rmsnorm_timing(dev, gen, d: int = 2048, shapes=None) -> dict:
@@ -4679,7 +4813,8 @@ def paged_timing(dev, gen, H, KV, hd, s_max, nsets, window=None,
         st[6].clamp_(max=s_max)
     kernel = rotating(lambda *a: ops.paged_decode_attention(*a, window=window),
                       sets)
-    k_ms = device_ms(kernel)
+    by_kernel = device_kernels(kernel)
+    k_ms = sum(by_kernel.values())
     p_ms = device_ms(rotating(lambda q, kp, vp, ks, vs, pt, l:
                               ref.paged_decode_attention_ref(
                                   q, kp.transpose(1, 2), vp.transpose(1, 2),
@@ -4700,11 +4835,15 @@ def paged_timing(dev, gen, H, KV, hd, s_max, nsets, window=None,
         q, k, v, attn_mask=m), lib_sets))
     b_ms, b_by = paged_bound(sets[0][0], sets[0][1], sets[0][5], sets[0][6],
                              window)
+    plan = k4_plan(SLOTS, KV, H // KV, hd, MP * PAGE_SIZE, window, dev)
+    split = kernel_split(by_kernel, K4_PARTS)
     log(f"paged_decode_attention [H={H} KV={KV} hd={hd} MP={MP} "
-        f"window={window}]: {k_ms * 1e3:.2f} us (SDPA {lib_ms * 1e3:.2f}, "
-        f"bound {b_ms * 1e3:.2f})")
+        f"window={window}]: plan {plan}, {k_ms * 1e3:.2f} us ("
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in split.items() if v)
+        + f"; SDPA {lib_ms * 1e3:.2f}, bound {b_ms * 1e3:.2f})")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, enqueue_ms=time_ms(kernel))
+                library_ms=lib_ms, plan=plan, split_ms=split,
+                enqueue_ms=time_ms(kernel))
 
 
 def phase_timing(dev, handles, paged_handles, chunked_handles,
@@ -4776,7 +4915,8 @@ def phase_timing(dev, handles, paged_handles, chunked_handles,
     # K4 at the stablelm shape (the kernels line) and at whisper-base's
     # decoder self-attention (H = KV = 8, a table of 9 pages)
     k4 = paged_timing(dev, gen, H, KV, hd, S, nsets)
-    extra["paged_decode_attention_enqueue_ms"] = k4.pop("enqueue_ms")
+    for key in ("enqueue_ms", "plan", "split_ms"):
+        extra[f"paged_decode_attention_{key}"] = k4.pop(key)
     extra["paged_decode_attention_whisper"] = paged_timing(
         dev, gen, 8, 8, hd, W_PROMPT_LEN + W_MAX_NEW + 1, 6)
     # launches, ms and profile of one full-width decode step, 8 live streams
@@ -6659,6 +6799,7 @@ def long_decode(dev, arch, seed, kv_quant=False):
         ms.append(1e3 * (time.perf_counter() - t0))
         finite &= bool(torch.isfinite(logits).all())
     launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    bodies = ops.bodies()
     last = logits.float().clone()
     for sub, sn in zip(cache, snap):
         for k, v in sn.items():
@@ -6675,7 +6816,8 @@ def long_decode(dev, arch, seed, kv_quant=False):
              "attention_layers": n_attn, "cache_gb": gb,
              "len_last": LONG_S, "tpot_ms": float(np.median(ms[2:])),
              "step_ms": ms, "finite": finite,
-             "pieces_vs_one_call": [rel, worst], "launches": launches}
+             "pieces_vs_one_call": [rel, worst], "launches": launches,
+             "bodies": bodies}
     log(f"long decode {arch}{' int8' if kv_quant else ''}: "
         + json.dumps(stats, default=float))
     ok = finite and rel <= LONG_TOL[0] and worst <= LONG_TOL[1] and \
@@ -6888,6 +7030,8 @@ def phase_long(dev, dryrun, xlstm=True):
         for k, v in stats.get(run, {}).get("launches", {}).items():
             launches[k] = launches.get(k, 0) + v
     stats["launches"] = launches
+    stats["bodies"] = sum_bodies(stats.get(run, {})
+                                 for run in (H2O, JAMBA, f"{H2O} int8"))
     log(f"long phase: {phases}, {time.perf_counter() - t0:.1f} s")
     return phases, stats
 
@@ -7021,11 +7165,10 @@ def main() -> int:
     # (K2, rmsnorm and their backward kernels) and the full-depth LM
     # training steps (the same four), and phase_long's decode at 524288
     # positions (K5 or K3, rmsnorm), each counted from 0 just before it
-    launches = {k: sum(st["launches"].get(k, 0)
-                       for st in (stats, pstats, cstats, wstats, mstats,
-                                  dstats, spstats, *fstats.values(),
-                                  *sstats.values(), tstats, lstats,
-                                  long_stats))
+    main_runs = (stats, pstats, cstats, wstats, mstats, dstats, spstats,
+                 *fstats.values(), *sstats.values(), tstats, lstats,
+                 long_stats)
+    launches = {k: sum(st["launches"].get(k, 0) for st in main_runs)
                 for k in ("segmented_lora", "flash_attention",
                           "decode_attention_int8", "paged_decode_attention",
                           "paged_verify_attention", "decode_attention",
@@ -7086,11 +7229,21 @@ def main() -> int:
          **{k: ttiming["rmsnorm_bwd_1024x1024_dw"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
-    from repro_torch.kernels.decode_attention_int8 import PATHS
-    log(f"K3 calls by body over this process's run, its child processes' "
-        f"not counted (cta: one CTA a pair; split: "
-        f"the split body, one split; merge: several and the merge launch): "
-        f"{json.dumps(dict(PATHS))}")
+    # K3's, K4's and the verify window's calls by body on the same main
+    # paths, counted from 0 with the launches (cta: one CTA a pair, the
+    # window one a position; split: the split body, one split or cell;
+    # merge: several and the merge launch)
+    bodies = sum_bodies(main_runs)
+    for k in kernels:
+        if k["name"] in ("decode_attention_int8", "paged_decode_attention",
+                         "paged_verify_attention"):
+            k["calls_by_body"] = bodies.get(k["name"], {})
+            whole = sum(k["calls_by_body"].values()) == k["launches"]
+            phases["calls_by_body"] = phases.get("calls_by_body", True) \
+                and whole
+            log(f"{k['name']} calls by body on the main paths: "
+                f"{json.dumps(k['calls_by_body'])}, summing to its "
+                f"launches: {whole}")
     log(f"phases: {phases}, total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     try:

@@ -46,8 +46,11 @@ struct Args {
   float* work;         // nsplit > 1: the splits' partials
 };
 
+// Static: its opt-in record (attr) stays this library's, not one object
+// with another library of the same launcher (tools/kernel_ab.py loads a
+// parent's beside this one).
 template <int HD, int G>
-cudaError_t launch(const void* q, const void* kq, const void* vq,
+static cudaError_t launch(const void* q, const void* kq, const void* vq,
                    const void* ks, const void* vs, const void* lengths,
                    void* out, int B, const Args& a, cudaStream_t stream) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);

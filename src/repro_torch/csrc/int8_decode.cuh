@@ -65,17 +65,19 @@
 //   element; the shares meet by xor-shuffles. A fixed order: the same bits
 //   on every call.
 //
-// The verify window (paged_verify_kernel) runs this body once per window
-// position j, at length base_len + j + 1, with K4's lane layout, passes,
+// The verify window (paged_verify_kernel), where K4's plan picks this body,
+// runs it once per window position j, at length base_len + j + 1, with
+// K4's lane layout, passes,
 // rounds and merge for that length, so each position's output is
 // bit-identical to a K4 call at its length: a verify step computes what T
 // sequential decode steps compute. The positions run at once, one CTA
 // each, and the body runs lean there (one register buffer; see attend) so
 // that six CTAs share an SM.
 //
-// K3 has a second body for few (row, kv head) pairs and long spans, its
-// keys split over CTAs: int8_split_decode.cuh. It uses this file's Dense
-// source policy and nothing of attend.
+// K3, K4 and the verify window have a second body for few (row, kv head)
+// pairs and long spans, their keys split over CTAs: int8_split_decode.cuh.
+// It uses this file's Dense and Paged source policies and nothing of
+// attend.
 //
 // Built with -DINT8_DECODE_COPY_ONLY, the kernels only load what they would
 // read (the same prologue and the same loads) and write a token output: the
@@ -210,6 +212,25 @@ struct Paged {
     s_hi = min(len, MP * ps);
     s_lo = window > 0 ? max(0, len - window) : 0;
     __syncthreads();
+  }
+  // The addressing alone (the split body, int8_split_decode.cuh, stages its
+  // own share of the table row and of the scales; tab, ksc, vsc, s_lo and
+  // s_hi are not set).
+  __device__ __forceinline__ Paged(const int8_t* kp, const int8_t* vp, int h,
+                                   int P_, int ps_, int ps_shift_, int64_t skp_,
+                                   int64_t sks_, int64_t skh, int64_t svp_,
+                                   int64_t svs_, int64_t svh)
+      : kbase(kp + h * skh), vbase(vp + h * svh), skp(skp_), sks(sks_),
+        svp(svp_), svs(svs_), ps(ps_), ps_shift(ps_shift_), P(P_) {}
+  // The table entry (page index j = s / ps) of position s.
+  __device__ __forceinline__ int entry(int s) const {
+    return ps_shift >= 0 ? s >> ps_shift : s / ps;
+  }
+  // Where the K/V rows of offset `off` of page `page` (inside [0, P)) start.
+  __device__ __forceinline__ void at(int page, int off, const int8_t*& kr,
+                                     const int8_t*& vr) const {
+    kr = kbase + page * skp + off * sks;
+    vr = vbase + page * svp + off * svs;
   }
   __device__ __forceinline__ int row(int s, const int8_t*& kr, const int8_t*& vr) const {
     const int j = ps_shift >= 0 ? s >> ps_shift : s / ps;

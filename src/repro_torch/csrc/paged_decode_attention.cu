@@ -11,9 +11,15 @@
 // prefix sharing): the gather only reads. A row with no valid position gives
 // zeros.
 //
-// What bounds it, and the design: int8_decode.cuh, which holds this kernel
-// (paged_decode_kernel) and the dense one (decode_attention_int8.cu) on one
-// body; this file launches it. The TPU kernel
+// Two bodies, chosen by the wrapper from shapes only
+// (kernels/paged_decode_attention.py, `plan`): the one-CTA body of
+// int8_decode.cuh (paged_decode_kernel, shared with the dense kernel), one
+// CTA a (row, kv head), for many pairs over a short span (stablelm's and
+// whisper's pools); and the split body of int8_split_decode.cuh
+// (paged_split_kernel, then paged_merge_kernel where a row meets several
+// cells) everywhere else: few pairs, long spans (h2o-danube's window,
+// qwen2-7b's and jamba's groups). What bounds each and their designs are in
+// those headers; this file launches them. In the one-CTA body the TPU kernel
 // walks the table as a sequential grid axis with the table scalar-prefetched;
 // here the CTA of a (row, kv head) reads its table row into shared memory
 // once, together with the length (one round trip, one barrier), then issues
@@ -26,6 +32,7 @@
 // masked.
 
 #include "int8_decode.cuh"
+#include "int8_split_decode.cuh"
 
 // The build compiles this file as four objects at once (kernels/build.py,
 // PARTS), each with -DKERNEL_PART=i, and links them into one library:
@@ -42,11 +49,28 @@ struct Args {
   int64_t skp, sks, skh, svp, svs, svh;
   int window;
   float sm_scale;
+  int cell, nsplit;    // nsplit 0: the one-CTA body; >= 1: the split body
+  float* work;         // nsplit > 1: the splits' partials
   cudaStream_t stream;
 };
 
 template <int HD, int G>
 cudaError_t launch(const Args& a) {
+  // a page size that is a power of two is looked up by a shift
+  int ps_shift = -1;
+  if ((a.ps & (a.ps - 1)) == 0)
+    for (ps_shift = 0; (1 << ps_shift) < a.ps; ++ps_shift) {}
+  if (a.nsplit >= 1) {
+    const int64_t qsb = static_cast<int64_t>(a.KV) * G * HD;
+    return paged_split_launch<HD, G, false>(
+        static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.kp),
+        static_cast<const int8_t*>(a.vp), static_cast<const float*>(a.ks),
+        static_cast<const float*>(a.vs), static_cast<const int32_t*>(a.ptab),
+        static_cast<const int32_t*>(a.lengths),
+        static_cast<__nv_bfloat16*>(a.out), a.B, a.KV, a.P, a.ps, ps_shift,
+        a.MP, a.skp, a.sks, a.skh, a.svp, a.svs, a.svh, a.window, a.sm_scale,
+        0, 1, qsb, 0, qsb, 0, a.cell, a.nsplit, a.work, a.stream);
+  }
   // the merge and the staged table row and scales (12 bytes a table
   // entry): past 48 KB the kernel must opt in
   const size_t dyn = smem_bytes<HD, G>(a.MP);
@@ -56,10 +80,6 @@ cudaError_t launch(const Args& a) {
         static_cast<int>(dyn));
     if (err != cudaSuccess) return err;
   }
-  // a page size that is a power of two is looked up by a shift
-  int ps_shift = -1;
-  if ((a.ps & (a.ps - 1)) == 0)
-    for (ps_shift = 0; (1 << ps_shift) < a.ps; ++ps_shift) {}
   paged_decode_kernel<HD, G><<<a.B * a.KV, kThreads, dyn, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.kp),
       static_cast<const int8_t*>(a.vp), static_cast<const float*>(a.ks),
@@ -107,20 +127,25 @@ extern template cudaError_t k4_launch::launch_g<128>(int, const k4_launch::Args&
 // (position), s*h (kv head), hd stride 1 and every row 16-byte aligned;
 // k_scale/v_scale (P, KV) f32 contiguous; page_table (B, MP) int32
 // contiguous; lengths (B,) int32; out like q. window <= 0 means no window.
-// Returns a cudaError_t (0 on success).
+// nsplit 0 runs the one-CTA body; nsplit >= 1 the split body over cells of
+// `cell` keys (a multiple of 64), nsplit a (row, kv head), and for nsplit >
+// 1 work holds B * KV * nsplit * ceil(G / 16) * 16 * (hd + 2) f32 of
+// partials. Returns a cudaError_t (0 on success).
 extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp,
                                    const void* k_scale, const void* v_scale,
                                    const void* page_table, const void* lengths,
-                                   void* out, int B, int KV, int G, int P,
-                                   int ps, int MP, int hd, int64_t skp,
-                                   int64_t sks, int64_t skh, int64_t svp,
-                                   int64_t svs, int64_t svh, int window,
-                                   float sm_scale, void* stream) {
+                                   void* out, void* work, int B, int KV, int G,
+                                   int P, int ps, int MP, int hd, int cell,
+                                   int nsplit, int64_t skp, int64_t sks,
+                                   int64_t skh, int64_t svp, int64_t svs,
+                                   int64_t svh, int window, float sm_scale,
+                                   void* stream) {
   using namespace k4_launch;
-  if (ps <= 0 || MP < 0) return cudaErrorInvalidValue;
+  if (ps <= 0 || MP < 0 || nsplit < 0) return cudaErrorInvalidValue;
   const Args a{q, kp, vp, k_scale, v_scale, page_table, lengths, out,
                B, KV, P, ps, MP, skp, sks, skh, svp, svs, svh, window,
-               sm_scale, static_cast<cudaStream_t>(stream)};
+               sm_scale, cell, nsplit, static_cast<float*>(work),
+               static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 32:  return launch_g<32>(G, a);
     case 64:  return launch_g<64>(G, a);

@@ -11,7 +11,11 @@ the module is imported.
 
 Launch counts live here too (``LAUNCHES``, re-exported as
 ``kernels.ops.LAUNCHES``): each kernel wrapper adds one where it launches its
-kernel, so a run can show that its main path went through the kernels.
+kernel, so a run can show that its main path went through the kernels. The
+wrappers of kernels with several bodies (K3, K4, the verify window) also
+count their calls by body there, under ``"<kernel>/<body>"`` (read by
+``bodies``), so that whatever keeps the launch counts true (a CUDA graph's
+replay adds its capture's counts, ``core/graphs.py``) keeps these too.
 """
 from __future__ import annotations
 
@@ -39,10 +43,12 @@ SOURCES = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # sources compiled as several objects at once, object i with -DKERNEL_PART=i,
-# then linked into one library: K3's and K4's sources instantiate their
-# kernels at four head dims, one part each (as one object each took 65.9 s
-# and 36.5 s, the build's long poles, on the H100 machine's 8 cores)
-PARTS = {"decode_attention_int8": 4, "paged_decode_attention": 4}
+# then linked into one library: K3's, K4's and the verify window's sources
+# instantiate their kernels at four head dims, one part each (as one object
+# K3's and K4's took 65.9 s and 36.5 s, the build's long poles, on the H100
+# machine's 8 cores)
+PARTS = {"decode_attention_int8": 4, "paged_decode_attention": 4,
+         "paged_verify_attention": 4}
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -55,6 +61,19 @@ def reset_launches():
     """Set every launch count to 0 (in place: callers hold the object)."""
     for k in list(LAUNCHES):
         LAUNCHES[k] = 0
+
+
+def bodies() -> dict[str, dict[str, int]]:
+    """The calls by body since the last ``reset_launches``, kernel -> body
+    -> calls, the bodies that ran only: "cta" (one CTA a pair; the verify
+    window: a position), "split" (the split body, one split or cell) and
+    "merge" (several and the merge launch)."""
+    out: dict[str, dict[str, int]] = {}
+    for key, n in sorted(LAUNCHES.items()):
+        kernel, _, body = key.partition("/")
+        if body and n:
+            out.setdefault(kernel, {})[body] = int(n)
+    return out
 
 
 def nvcc() -> str:

@@ -21,7 +21,6 @@ their partials in split order.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -36,12 +35,6 @@ _GROUPS = (1, 2, 4, 6, 7, 8)
 _MIN_SPLIT = 256            # keys a split at least
 _CTAS_PER_SM = 2            # the splits stop at this many CTAs an SM
 _META_SMS = 132             # an H100's SMs: the dry-run's plan (meta tensors)
-
-# calls by body: "cta" (one CTA a pair), "split" (the split body, one split)
-# and "merge" (several splits and the merge launch); read by chip_smoke to
-# show which bodies a run went through
-PATHS: collections.Counter = collections.Counter()
-
 
 def _round_keys(hd: int, G: int) -> int:
     """Keys one round of the one-CTA body covers (``Tile<HD, G>`` in
@@ -185,6 +178,6 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
         -1 if window is None else int(window), int(key_offset),
         1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["decode_attention_int8"] += 1
-    PATHS[body] += 1
+    build.LAUNCHES[f"decode_attention_int8/{body}"] += 1
     build.check(err, "decode_attention_int8")
     return (out_f32, lse) if return_lse else out

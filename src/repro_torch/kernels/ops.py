@@ -4,7 +4,8 @@ Each op launches its hand-written CUDA kernel for CUDA tensors and uses the
 plain PyTorch version in ``kernels.ref`` only for tensors that lie on the
 CPU (the tests); any other device raises. There is no fallback: a CUDA
 tensor reaches the kernel or an error. ``LAUNCHES`` counts kernel launches
-per kernel name.
+per kernel name, and under ``"<kernel>/<body>"`` the calls by body of K3,
+K4 and the verify window (``bodies``).
 
 Gradients: where autograd records (grad mode on and an input that requires
 grad), ``flash_attention`` and ``rmsnorm`` on CUDA tensors go through
@@ -46,6 +47,7 @@ from repro_torch.kernels import segmented_lora as _sgmv
 
 LAUNCHES = build.LAUNCHES
 reset_launches = build.reset_launches
+bodies = build.bodies
 
 # set by ``launch.optrace`` while it traces a step: called as
 # ``META_WORK(kernel name, flops, bytes)`` for each kernel call on meta tensors
@@ -356,6 +358,13 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
                                          return_lse=return_lse)
 
 
+def _paged_work(B, KV, T, G, hd, S, window) -> int:
+    """f32 partials of K4's (T 1) or the verify window's split body on an
+    H100's plan: written once and read once by the merge (0 for one cell
+    or the one-CTA body)."""
+    return _paged.split_for(B, KV, G, hd, S, window, T, _paged._META_SMS).work
+
+
 def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,
                            lengths, *, window: Optional[int] = None):
     """Paged int8-KV decode attention, model layout.
@@ -376,7 +385,9 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,
         pages = -(-n // ps)
         _meta_work("paged_decode_attention", 4.0 * n * H * hd,
                    2 * pages * ps * KV * hd + 2 * 4 * pages * KV
-                   + 4 * B * MP + 2 * 2 * B * H * hd + 4 * B)
+                   + 4 * B * MP + 2 * 2 * B * H * hd + 4 * B
+                   + 2 * 4 * _paged_work(B, KV, 1, H // KV, hd,
+                                         MP * ps, window))
         return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if _route(q) == "cuda":
         return _paged.paged_decode_attention(q, k_pages, v_pages, k_scale,
@@ -410,7 +421,9 @@ def paged_verify_attention(q, k_pages, v_pages, k_scale, v_scale,
         pages = -(-n // ps)
         _meta_work("paged_verify_attention", 4.0 * T * n * H * hd,
                    2 * pages * ps * KV * hd + 2 * 4 * pages * KV
-                   + 4 * B * MP + 2 * 2 * B * T * H * hd + 4 * B)
+                   + 4 * B * MP + 2 * 2 * B * T * H * hd + 4 * B
+                   + 2 * 4 * _paged_work(B, KV, T, H // KV, hd,
+                                         MP * ps, window))
         return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if _route(q) == "cuda":
         return _verify.paged_verify_attention(q, k_pages, v_pages, k_scale,

@@ -3,14 +3,17 @@ wrapper (K4 over T window positions).
 
 A verify step scores the T = spec_k + 1 positions of every stream's window
 in one forward, and window position j attends ``base_len + j + 1`` keys.
-``csrc/paged_verify_attention.cu`` runs the paged decode kernel's body (K4)
-for every position at its own length, so each position's output is
-bit-identical to a K4 call's, and runs the positions at once: one CTA per
-(row, kv head, position), the body in a leaner register form than K4's so
-that six CTAs share an SM (the JAX package's XLA path gathers the pages
-once for all T positions; its Pallas path unrolls T single-token calls).
-The arena is read in the model layout ``(P, ps, KV, hd)`` through its
-strides. One launch per call.
+``csrc/paged_verify_attention.cu`` runs the body K4's plan picks at the
+same shapes (``paged_decode_attention.plan``), so that each position's
+output is bit-identical to a K4 call's at its length: where K4 keeps its
+one-CTA body, one CTA per (row, kv head, position), that body in a leaner
+register form so that six CTAs share an SM; elsewhere K4's split body, one
+walk over a cell's pages for all T positions, their G T heads the rows of
+the tensor-core products, each masked at its own length (the JAX package's
+XLA path gathers the pages once for all T positions; its Pallas path
+unrolls T single-token calls). The arena is read in the model layout
+``(P, ps, KV, hd)`` through its strides. One launch a call, or two (the
+split body, then the merge of its cells).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import paged_decode_attention as k4
 from repro_torch.kernels.decode_attention_int8 import _GROUPS, _HEAD_DIMS
 
 
@@ -28,7 +32,7 @@ def _lib():
     lib = build.load("paged_verify_attention")
     if not getattr(lib, "_typed", False):
         lib.paged_verify_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
             + [ctypes.c_int64] * 10 + [ctypes.c_int, ctypes.c_float,
                                        ctypes.c_void_p])
         lib.paged_verify_launch.restype = ctypes.c_int
@@ -85,15 +89,23 @@ def paged_verify_attention(q, k_pages, v_pages, k_scale, v_scale, page_table,
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
     out = torch.empty_like(q)
-    stream = build.current_stream(q.device.index or 0)
+    index = q.device.index or 0
+    sp = k4.split_for(B, KV, G, hd, MP * ps, window, T,
+                      build.sm_count(index))
+    work = None
+    if sp.work:
+        work = torch.empty(sp.work, dtype=torch.float32, device=q.device)
+    stream = build.current_stream(index)
     err = _lib().paged_verify_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-        base_len.data_ptr(), out.data_ptr(), B, KV, G, T, P, ps, MP, hd,
-        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        base_len.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), B, KV, G, T, P, ps, MP,
+        hd, sp.cell, sp.nsplit, k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2), q.stride(0),
         q.stride(1), out.stride(0), out.stride(1),
         -1 if window is None else int(window), 1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["paged_verify_attention"] += 1
+    build.LAUNCHES[f"paged_verify_attention/{sp.body}"] += 1
     build.check(err, "paged_verify_attention")
     return out

@@ -221,8 +221,51 @@ extern "C" int host_paged_verify(
 }
 """
 
+# K4's and the verify window's split body and, for nsplit > 1, their merge
+# (as paged_split_launch launches them): window position j of row b at
+# length lengths[b] + lead + j (K4: lead 0, T 1, tiles of 8 rows; the verify
+# window: lead 1, tiles of 16 rows)
+_PAGED_SPLIT = r"""
+extern "C" int host_paged_split(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* pt, const void* lengths, void* out,
+    void* work, int B, int KV, int G, int T, int P, int ps, int MP, int hd,
+    int cell, int nsplit, int lead, int64_t skp, int64_t sks, int64_t skh,
+    int64_t svp, int64_t svs, int64_t svh, int64_t qsb, int64_t qst,
+    int64_t osb, int64_t ost, int window, float sm_scale) {
+  const int shift = (ps & (ps - 1)) == 0 ? __builtin_ctz(ps) : -1;
+  const int ntile = (T * G + 15) / 16, n_ent = (cell - 1) / ps + 2;
+  const bool verify = lead > 0;
+  if (!verify && T * G > 8) return 2;
+  float* part_o = (float*)work;
+  float* part_ml = part_o + (int64_t)B * KV * nsplit * ntile * 16 * hd;
+#define PSPLIT_ARGS                                                         \
+  (const __nv_bfloat16*)q, (const int8_t*)kp, (const int8_t*)vp,            \
+      (const float*)ks, (const float*)vs, (const int32_t*)pt,               \
+      (const int32_t*)lengths, (__nv_bfloat16*)out, KV, P, ps, shift, MP,   \
+      skp, sks, skh, svp, svs, svh, window, sm_scale, lead, T, qsb, qst,    \
+      osb, ost, cell, nsplit, ntile, n_ent, part_o, part_ml
+#define PSPLIT(HD, GG)                                                      \
+  host_launch(B * KV * nsplit * ntile, kThreads, [&] {                      \
+    if (verify)                                                             \
+      paged_verify_split_kernel<HD, GG>(PSPLIT_ARGS);                       \
+    else                                                                    \
+      paged_split_kernel<HD, GG>(PSPLIT_ARGS);                              \
+  });                                                                       \
+  if (nsplit > 1)                                                           \
+    host_launch(B * KV * T * GG, HD, [&] {                                  \
+      paged_merge_kernel(part_o, part_ml, (__nv_bfloat16*)out, KV, GG, HD,  \
+                         T, nsplit, ntile, osb, ost);                       \
+    })
+  if (cell <= 0 || cell % 64 != 0 || nsplit < 1 ||
+      paged_split_smem_bytes<128>(n_ent) > (1 << 18))
+    return 2;
+  HD_G_SWITCH(PSPLIT)
+}
+"""
+
 _PARTS = {"dense": _DENSE, "split": _SPLIT, "paged": _PAGED,
-          "verify": _VERIFY}
+          "verify": _VERIFY, "paged_split": _PAGED_SPLIT}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _ARGTYPES = {
     "dense": {"host_decode_int8": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_I, _F]},
@@ -235,6 +278,8 @@ _ARGTYPES = {
     "paged": {"host_paged_decode": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _F]},
     "verify": {"host_paged_verify":
                [_P] * 8 + [_I] * 8 + [_L] * 10 + [_I, _F]},
+    "paged_split": {"host_paged_split":
+                    [_P] * 9 + [_I] * 11 + [_L] * 10 + [_I, _F]},
 }
 
 
@@ -396,3 +441,30 @@ def per_position_k4(lib, q, kp, vp, ks, vs, pt, base, window):
     return torch.stack([run_paged(lib, q[:, j].contiguous(), kp, vp, ks, vs,
                                   pt, base + j + 1, window)
                         for j in range(q.shape[1])], dim=1)
+
+
+def run_paged_split(lib, q, kp, vp, ks, vs, pt, ln, window, cell, T=None,
+                    lead=0):
+    """K4's split body (q (B, H, hd): T 1) or the verify window's (q (B, T,
+    H, hd), window position j at ln + lead + j) over cells of ``cell``
+    keys, as many a pair as the wrapper walks
+    (``paged_decode_attention.cells``), and their merge."""
+    from repro_torch.kernels import paged_decode_attention as k4
+    one = q.dim() == 3
+    qq = q[:, None] if one else q
+    B, T, H, hd = qq.shape
+    P, ps, KV, _ = kp.shape
+    MP = pt.shape[1]
+    nsplit = k4.cells(MP * ps, window, T, cell)
+    out = torch.empty_like(qq)
+    work = torch.empty(max(1, k4.workspace_floats(B, KV, T * (H // KV), hd,
+                                                  max(nsplit, 2))))
+    rc = lib.host_paged_split(
+        qq.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), pt.data_ptr(), ln.data_ptr(), out.data_ptr(),
+        work.data_ptr(), B, KV, H // KV, T, P, ps, MP, hd, cell, nsplit, lead,
+        *kp.stride()[:3], *vp.stride()[:3], qq.stride(0), qq.stride(1),
+        out.stride(0), out.stride(1), -1 if window is None else window,
+        1 / math.sqrt(hd))
+    assert rc == 0
+    return out[:, 0] if one else out

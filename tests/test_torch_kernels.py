@@ -330,6 +330,45 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert build.library_path("a").name.startswith("a-")
 
 
+def test_calls_by_body_count_beside_launches_and_reset_with_them():
+    """The calls by body of K3, K4 and the verify window are launch counts
+    under "<kernel>/<body>": ``reset_launches`` zeroes them with the rest,
+    a graph's replay adds its capture's (``core/graphs.py``, here on the
+    CPU), ``ops.bodies`` reports only the bodies that ran since, and
+    ``chip_smoke.sum_bodies`` adds several runs' reports as the kernels
+    line does."""
+    from chip_smoke import sum_bodies
+    from repro_torch.core import graphs
+    from repro_torch.kernels import build
+    saved = dict(build.LAUNCHES)
+
+    def step(x):
+        build.LAUNCHES["paged_verify_attention"] += 1
+        build.LAUNCHES["paged_verify_attention/split"] += 1
+        return x + 1
+    try:
+        ops.reset_launches()
+        build.LAUNCHES["paged_verify_attention/merge"] += 1
+        build.LAUNCHES["paged_decode_attention/cta"] += 0
+        exe = graphs.Executable(step)
+        for _ in range(3):
+            exe(torch.zeros(4))
+        assert build.LAUNCHES["paged_verify_attention"] == 3
+        assert ops.bodies() == {"paged_verify_attention": {"merge": 1,
+                                                           "split": 3}}
+        first = {"bodies": ops.bodies()}
+        ops.reset_launches()
+        assert ops.bodies() == {} and not any(build.LAUNCHES.values())
+        build.LAUNCHES["paged_verify_attention/split"] += 4
+        build.LAUNCHES["decode_attention_int8/cta"] += 5
+        assert sum_bodies([first, {}, {"bodies": ops.bodies()}]) == {
+            "paged_verify_attention": {"merge": 1, "split": 7},
+            "decode_attention_int8": {"cta": 5}}
+    finally:
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+
+
 def test_build_all_runs_sources_together_and_times_each(tmp_path,
                                                         monkeypatch):
     """``build_all`` starts one compiler a source (a source in PARTS: one

@@ -16,7 +16,11 @@ kernels shows; then the host time per call of parent and change the
 same way), after checking that both agree (``max_abs_diff``: 0 where
 the change keeps the parent's bits). ``decode_attention_int8`` runs at
 stablelm's serving shape (its one-CTA body), qwen2-7b's pool, h2o-danube's
-window and the long_500k cells' 524288 keys. ``flash_attention_bwd`` (in
+window and the long_500k cells' 524288 keys; ``paged_decode_attention``
+at stablelm's and whisper's pools (the one-CTA body), qwen2-7b's, jamba's
+and h2o-danube's window (the split body); ``paged_verify_attention`` at
+stablelm's speculative pool, qwen2-7b's and h2o-danube's window.
+``flash_attention_bwd`` (in
 ``flash_attention.py``) runs at the five ``chip_smoke.FLASH_BWD_CASES``
 shapes, ``rmsnorm`` at a decode step's 8 rows of every model width and
 at stablelm's verify, prefill and pooled row counts, ``rmsnorm_bwd`` (in
@@ -208,28 +212,50 @@ def cases(name: str, dev, gen):
                     window=w))
     elif name == "paged_decode_attention":
         # the paged pools: stablelm-1.6b (H = KV = 32, a table of 11 pages,
-        # lengths in [1, s_max = 161]; 24 sets) and whisper-base's decoder
-        # self-attention (H = KV = 8, a table of 9 pages, lengths in [1,
-        # s_max = 129]; 6 sets); pages of 16, a dense-equivalent arena
-        for shape, H, s_max, nsets in (
-                ("stablelm", 32, cs.PROMPT_LEN + cs.MAX_NEW + 1, 24),
-                ("whisper", 8, cs.W_PROMPT_LEN + cs.W_MAX_NEW + 1, 6)):
+        # lengths in [1, s_max = 161]; 24 sets; the one-CTA body) and
+        # whisper-base's decoder self-attention (H = KV = 8, a table of 9
+        # pages, lengths in [1, s_max = 129]; 6 sets); then qwen2-7b's
+        # (H 28, KV 4, hd 128) and jamba's (H 32, KV 8, hd 128) pools and
+        # h2o-danube-1.8b's (H 32, KV 8, hd 80) under its 4096 window
+        # (lengths 4097-4200, a table of 263 pages; 6 sets); pages of 16, a
+        # dense-equivalent arena
+        S = cs.PROMPT_LEN + cs.MAX_NEW + 1
+        for shape, H, KV, hd, s_max, window, lo, nsets in (
+                ("stablelm", 32, 32, 64, S, None, 1, 24),
+                ("whisper", 8, 8, 64, cs.W_PROMPT_LEN + cs.W_MAX_NEW + 1,
+                 None, 1, 6),
+                ("qwen2", 28, 4, 128, S, None, 1, 24),
+                ("jamba", 32, 8, 128, S, None, 1, 24),
+                ("h2o_window", 32, 8, 80, 4200, 4096, 4097, 6)):
             MP = -(-s_max // cs.PAGE_SIZE)
-            sets = cs.paged_inputs(gen, cs.SLOTS, H, H, 64, 1 + cs.SLOTS * MP,
-                                   nsets, dev, MP=MP)
+            lens = None if lo == 1 else torch.randint(
+                lo, s_max + 1, (cs.SLOTS,), generator=torch.Generator()
+                .manual_seed(s_max)).tolist()
+            sets = cs.paged_inputs(gen, cs.SLOTS, H, KV, hd,
+                                   1 + cs.SLOTS * MP, nsets, dev, lens=lens,
+                                   MP=MP)
             for st in sets:
                 st[6].clamp_(max=s_max)
-            yield shape, sets, lambda mod: mod.paged_decode_attention
+            yield shape, sets, lambda mod, w=window: (
+                lambda *a: mod.paged_decode_attention(*a, window=w))
     elif name == "paged_verify_attention":
-        # chip_smoke.verify_timing's shape: stablelm's speculative pool
+        # chip_smoke.verify_timing's shapes: stablelm's speculative pool
         # (8 streams, T 5, H = KV = 32, hd 64, a table of 13 pages of 16),
-        # ragged base lengths; 24 sets (one a layer)
-        T, MP = cs.SPEC_K + 1, 13
-        rng = torch.Generator().manual_seed(5)
-        sets = [cs.verify_inputs(gen, cs.SLOTS, 32, 32, 64, T, MP, torch.randint(
-            0, MP * cs.PAGE_SIZE - T, (cs.SLOTS,), generator=rng).tolist(), dev)
-            for _ in range(24)]
-        yield "serving", sets, lambda mod: mod.paged_verify_attention
+        # ragged base lengths; 24 sets (one a layer); then qwen2-7b's heads
+        # and h2o-danube-1.8b's under its window (base lengths from 4097, a
+        # table of 264 pages; 6 sets)
+        T = cs.SPEC_K + 1
+        for shape, H, KV, hd, MP, window, lo, nsets in (
+                ("serving", 32, 32, 64, 13, None, 0, 24),
+                ("qwen2", 28, 4, 128, 13, None, 0, 24),
+                ("h2o_window", 32, 8, 80, 264, 4096, 4097, 6)):
+            rng = torch.Generator().manual_seed(5)
+            sets = [cs.verify_inputs(
+                gen, cs.SLOTS, H, KV, hd, T, MP, torch.randint(
+                    lo, MP * cs.PAGE_SIZE - T, (cs.SLOTS,),
+                    generator=rng).tolist(), dev) for _ in range(nsets)]
+            yield shape, sets, lambda mod, w=window: (
+                lambda *a: mod.paged_verify_attention(*a, window=w))
     elif name == "rmsnorm":
         # a decode step's rows at every model width, then stablelm's width
         # over a verify forward's, a prefill bucket's and a pooled batch's
