@@ -409,9 +409,9 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def sass_hmma(name: str) -> dict:
-    """How many tensor-core (HMMA) instructions the built library of kernel
-    ``name`` holds, by kind, from ``cuobjdump -sass`` (raises if the tool
-    fails)."""
+    """How many tensor-core instructions (mma.sync's HMMA, wgmma's HGMMA)
+    the built library of kernel ``name`` holds, by kind, from ``cuobjdump
+    -sass`` (raises if the tool fails)."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
@@ -420,7 +420,7 @@ def sass_hmma(name: str) -> dict:
     kinds: dict = {}
     for line in sass.splitlines():
         for word in line.replace(";", " ").split():
-            if word.startswith("HMMA"):
+            if word.startswith(("HMMA", "HGMMA")):
                 kinds[word] = kinds.get(word, 0) + 1
     return kinds
 
@@ -435,15 +435,16 @@ def spill_stores(name: str) -> int:
     return sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log_text))
 
 
-def ptxas_kernels(name: str) -> list:
+def ptxas_kernels(name: str, text: str | None = None) -> list:
     """(kernel, registers, spill store bytes) of every kernel in the ptxas
-    report of kernel ``name``'s library, the kernel named by its mangled
-    name's function and template arguments (e.g.
-    ``paged_verify_kernel<64,1,0>``)."""
+    report of kernel ``name``'s library (or in the report ``text``), the
+    kernel named by its mangled name's function and template arguments
+    (e.g. ``paged_verify_kernel<64,1,0>``)."""
     import re
 
     from repro_torch.kernels import build
-    text = (build.BUILD_DIR / f"{name}.log").read_text()
+    if text is None:
+        text = (build.BUILD_DIR / f"{name}.log").read_text()
     out = []
     for mangled, body in re.findall(
             r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
@@ -1123,6 +1124,13 @@ def k4_sides(B, KV, G, hd, S, window, dev):
     return out
 
 
+def kernel_launches() -> dict:
+    """The launches since the last ``reset_launches`` by kernel (the
+    kernels that ran; calls by body apart, ``ops.bodies``)."""
+    from repro_torch.kernels import ops
+    return {k: int(v) for k, v in ops.LAUNCHES.items() if v and "/" not in k}
+
+
 def sum_bodies(runs) -> dict:
     """The calls by body (``ops.bodies``, kernel -> body -> calls) of
     several runs' stats, summed."""
@@ -1382,10 +1390,74 @@ def flash_bound(q, k, kw):
     return bound_ms(nbytes, flops)
 
 
+def flash_shape(q, k, kw) -> tuple:
+    """(B, Sq, Sk, Sp, H, KV, hd, causal, window) of a K2 call."""
+    B, Sq, H, hd = q.shape
+    pk = kw.get("prefix_k")
+    return (B, Sq, k.shape[1], 0 if pk is None else pk.shape[1], H,
+            k.shape[2], hd, kw.get("causal", True), kw.get("window"))
+
+
+def flash_plan(q, k, kw) -> list:
+    """What K2's wrapper launches for this call on this card: [body, rows,
+    splits, keys a split] (``flash_attention.plan``)."""
+    from repro_torch.kernels import flash_attention as fa
+    return list(fa.plan(*flash_shape(q, k, kw), sm_count(q.device)))
+
+
+def flash_forms(shape: tuple, sms: int) -> dict:
+    """Each form of K2 at a call's shapes (B, Sq, Sk, Sp, H, KV, hd, causal,
+    window), by label, as ``flash_attention.Plan`` values: the mma body
+    with its own split ("mma"), and where the Hopper body takes the call
+    (no prefix, hd 64 or 128) that body with 64 and with 128 rows a CTA,
+    unsplit ("wgmma64", "wgmma128"), and with 64 rows and the keys in
+    about three splits of 64-key multiples, which end inside the body's
+    key tiles ("wgmma64_split")."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, Sp, H, KV, hd = shape[:7]
+    forms = {"mma": fa.Plan("mma", fa._ROWS,
+                            *fa.splits(B, Sq, H, KV, Sp + Sk, sms))}
+    if not Sp and hd in fa._SM90_HEAD_DIMS:
+        whole = fa._SM90_TILE * -(-Sk // fa._SM90_TILE)
+        part = 64 * max(1, -(-Sk // 3 // 64))
+        forms.update(wgmma64=fa.Plan("wgmma", 64, 1, whole),
+                     wgmma128=fa.Plan("wgmma", 128, 1, whole),
+                     wgmma64_split=fa.Plan("wgmma", 64, -(-Sk // part),
+                                           part))
+    return forms
+
+
+def flash_sides(q, k, kw) -> list:
+    """K2's forms at a call's shapes, as ``flash_forced`` values: None (the
+    plan's own choice, first), then every form of ``flash_forms`` that
+    launches something else."""
+    from repro_torch.kernels import flash_attention as fa
+    shape = flash_shape(q, k, kw)
+    mine = fa.plan(*shape, sm_count(q.device))
+    return [None] + [f for f in flash_forms(shape, sm_count(q.device))
+                     .values() if f != mine]
+
+
+@contextlib.contextmanager
+def flash_forced(side):
+    """K2's plan (``flash_attention.plan``) replaced by ``side``, a
+    ``flash_attention.Plan``, while open (None: the plan itself)."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.plan
+    if side is not None:
+        fa.plan = lambda *shape: side
+    try:
+        yield
+    finally:
+        fa.plan = real
+
+
 def check_flash(dev, gen):
-    """K2 against its plain version at every case of ``FLASH_CASES``, two
-    bf16 ulps of the largest output; rows with no visible key are left out
-    (the kernel returns zeros there, the plain version the mean of the
+    """K2 against its plain version at every case of ``FLASH_CASES``
+    through each of its bodies (``flash_sides``: the plan's, then the
+    others, forced), two bf16 ulps of the largest output, and bit-identical
+    over two calls on the same inputs; rows with no visible key are left
+    out (the kernel returns zeros there, the plain version the mean of the
     masked values, as JAX does)."""
     import torch
 
@@ -1393,17 +1465,25 @@ def check_flash(dev, gen):
     errs, ok = {}, True
     for name, case in FLASH_CASES.items():
         (args, kw), = flash_inputs(gen, dev, **case)
-        got = ops.flash_attention(*args, **kw)
         want = ref.flash_attention_ref(*args, **kw)
-        torch.cuda.synchronize()
         rows = flash_visible(args[0], args[1], kw).any(dim=-1)
-        err = (got.float() - want.float()).abs()[rows].max().item()
         tol = 2 * 2.0 ** -8 * want.float()[rows].abs().max().item() + 1e-6
-        log(f"kernel flash_attention [{name}] {case}: "
-            f"{flash_splits(args[0], args[1], kw)} key split(s), "
-            f"max_abs_err={err:.3e} (bound {tol:.3e})")
-        ok &= err <= tol and bool(torch.isfinite(got.float()).all())
-        errs[name] = err
+        for side in flash_sides(args[0], args[1], kw):
+            with flash_forced(side):
+                got = ops.flash_attention(*args, **kw)
+                again = ops.flash_attention(*args, **kw)
+                planned = flash_plan(args[0], args[1], kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()[rows].max().item()
+            same = bool(torch.equal(got, again))
+            good = err <= tol and same and bool(
+                torch.isfinite(got.float()).all())
+            tag = name if side is None else f"{name} forced {planned}"
+            log(f"kernel flash_attention [{tag}] {case}: plan {planned}, "
+                f"max_abs_err={err:.3e} (bound {tol:.3e}), bit-identical "
+                f"twice: {same}" + ("" if good else "  FAILED"))
+            ok &= good
+            errs[name] = max(errs.get(name, 0.0), err)
     return ok, errs
 
 
@@ -2786,6 +2866,7 @@ def phase_moment_serving(dev):
     del fm.resolve_lora_impl
     launches = {k: int(ops.LAUNCHES[k])
                 for k in ("segmented_lora", "flash_attention", "rmsnorm")}
+    bodies = ops.bodies()
     s = launch.summary(srv, reqs, MOMENT_TASKS)
     bad = [r for r in reqs if not r.ok or r.result is None
            or not np.all(np.isfinite(r.result))]
@@ -2797,7 +2878,8 @@ def phase_moment_serving(dev):
         "fairness": s["fairness"], "l1_ms": 1e3 * prof.l(1),
         "b_max": prof.b_max, "l_bmax_ms": 1e3 * prof.l(prof.b_max),
         "forwards": len(chosen), "segmented_forwards": n_seg,
-        "launches": launches, "shape_keys": [keys0, fm.compile_count()],
+        "launches": launches, "bodies": bodies,
+        "shape_keys": [keys0, fm.compile_count()],
     }
     log(f"served {s['n']}/{len(reqs)} mean={s.get('mean_ms', float('nan')):.1f}ms "
         f"p99={s.get('p99_ms', float('nan')):.1f}ms "
@@ -3592,7 +3674,7 @@ def spec_serving(fm, cfg, name: str, joins: list) -> dict:
     got, bad_len = spec_run(eng, joins)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    launches = kernel_launches()
     st = {"card": smi_line(), "wall_s": wall,
           "tokens": sum(len(v) for v in got.values()),
           "len_mismatch_chunks": bad_len, "launches": launches,
@@ -3653,7 +3735,7 @@ def spec_loop(srv, cfg, loop) -> dict:
     loop.run(trace, max_wall=300)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    launches = kernel_launches()
     gen = [r for r in trace if r.max_new_tokens > 0]
     bad = [r for r in trace if not r.ok or r.result is None]
     short = [r for r in gen if r.result is None or len(r.result) != MAX_NEW]
@@ -3911,8 +3993,7 @@ def spec_step_timing(dev, fm) -> dict:
         ops.reset_launches()
         fn()
         torch.cuda.synchronize()
-        out[f"launches_per_{name}"] = {k: int(v) for k, v in
-                                       ops.LAUNCHES.items() if v}
+        out[f"launches_per_{name}"] = kernel_launches()
         prof = out[f"{name}_profile"] = profile_both(fn)
         out[f"{name}_ms"] = {w: prof[w]["event_ms"]
                              for w in ("eager", "graphed")}
@@ -5084,6 +5165,26 @@ def float_decode_timing(dev,
     return out
 
 
+def flash_sdpa_args(q, k, v, kw) -> tuple:
+    """The (args, kwargs) of one ``scaled_dot_product_attention`` call for
+    the same function as a K2 call: heads first and repeated to the query
+    heads, the prefix and the keys concatenated; causal where that is the
+    whole mask, no mask where every key is visible (whisper's encoder and
+    cross-attention), else a boolean mask from the same visibility."""
+    import torch
+    G = q.shape[2] // k.shape[2]
+    mask = flash_visible(q, k, kw)[:, None]
+    if kw.get("prefix_k") is not None:
+        k = torch.cat([kw["prefix_k"], k], dim=1)
+        v = torch.cat([kw["prefix_v"], v], dim=1)
+    args = (q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, dim=1),
+            v.transpose(1, 2).repeat_interleave(G, dim=1))
+    if kw.get("causal", True) and kw.get("window") is None and \
+            kw.get("kv_len") is None and q.shape[1] == k.shape[1]:
+        return args, {"is_causal": True}
+    return args, {} if bool(mask.all()) else {"attn_mask": mask}
+
+
 def flash_timing(dev, shapes=(("pooled", 6), ("admission", 48), ("tail", 48),
                              ("whisper_encoder", 8), ("whisper_cross", 24),
                              ("moment", 24))) -> dict:
@@ -5096,8 +5197,6 @@ def flash_timing(dev, shapes=(("pooled", 6), ("admission", 48), ("tail", 48),
     over the prefix and the keys concatenated, for the others; the
     concatenation is not timed), and the bound counted on this data; where
     the wrapper splits the keys, the same calls unsplit (``unsplit_ms``)."""
-    from unittest import mock
-
     import torch
     import torch.nn.functional as F
 
@@ -5119,50 +5218,24 @@ def flash_timing(dev, shapes=(("pooled", 6), ("admission", 48), ("tail", 48),
             return call
         k_ms = device_ms(rotating(ops.flash_attention, sets))
         p_ms = device_ms(rotating(ref.flash_attention_ref, sets), iters=5)
-        lib = []
-        for (q, k, v), kw in sets:
-            G = q.shape[2] // k.shape[2]
-            mask = flash_visible(q, k, kw)[:, None]
-            if kw.get("prefix_k") is not None:
-                k = torch.cat([kw["prefix_k"], k], dim=1)
-                v = torch.cat([kw["prefix_v"], v], dim=1)
-            qh = q.transpose(1, 2)
-            kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
-            vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
-            lib.append(((qh, kh, vh), {"is_causal": True}
-                        if kw.get("causal", True) and kw.get("window") is None
-                        and kw.get("kv_len") is None and q.shape[1] ==
-                        k.shape[1] else {} if bool(mask.all())
-                        else {"attn_mask": mask}))
+        lib = [flash_sdpa_args(*a, kw) for a, kw in sets]
         l_ms = device_ms(rotating(F.scaled_dot_product_attention, lib))
         (q, k, _), kw = sets[0]
         b_ms, b_by = flash_bound(q, k, kw)
-        nsplit = flash_splits(q, k, kw)
+        planned = flash_plan(q, k, kw)
+        body, rows, nsplit = planned[:3]
         out[name] = dict(case=case, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by, nsplit=nsplit)
+                         bound_ms=b_ms, bound_by=b_by, nsplit=nsplit,
+                         plan=planned)
         if nsplit > 1:      # what the split buys: the same calls unsplit
-            with mock.patch.object(fa, "splits", lambda *a: (1, 1 << 30)):
+            with flash_forced(fa.Plan(body, rows, 1, 1 << 30)):
                 out[name]["unsplit_ms"] = device_ms(
                     rotating(ops.flash_attention, sets))
-        log(f"flash_attention [{name}]: {nsplit} key split(s), "
-            f"{k_ms * 1e3:.1f} us"
+        log(f"flash_attention [{name}]: plan {planned}, {k_ms * 1e3:.1f} us"
             + (f" (unsplit {out[name]['unsplit_ms'] * 1e3:.1f} us)"
-               if nsplit > 1 else ""))
+               if nsplit > 1 else "")
+            + f", SDPA {l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us")
     return out
-
-
-def flash_splits(q, k, kw) -> int:
-    """The number of key splits K2's wrapper takes at these shapes (1 on
-    the CPU, where the plain version runs)."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import splits
-    if not q.is_cuda:
-        return 1
-    B, Sq, H, _ = q.shape
-    pk = kw.get("prefix_k")
-    keys = k.shape[1] + (0 if pk is None else pk.shape[1])
-    return splits(B, Sq, H, k.shape[2], keys,
-                  build.sm_count(q.device.index or 0))[0]
 
 
 def tail_saving(dev, handles) -> dict:
@@ -5263,7 +5336,7 @@ def live_step_timing(dev, handles, prefix: str, seed: int, rid0: int,
     run()
     torch.cuda.synchronize()
     out = {f"{prefix}launches_per_decode_step":
-           {k: int(v) for k, v in ops.LAUNCHES.items() if v}}
+           kernel_launches()}
     prof = out[f"{prefix}decode_step_profile"] = profile_both(run)
     out[f"{prefix}decode_step_ms"] = {way: prof[way]["event_ms"]
                                       for way in ("eager", "graphed")}
@@ -5671,7 +5744,7 @@ def phase_train(dev):
     losses = P.train(data, steps=TRAIN_STEPS, lr=TRAIN_LR, loss="mse")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    launches, bodies = kernel_launches(), ops.bodies()
     steps = np.diff(data.stamps + [t0 + wall]) * 1e3
     frozen = all(torch.equal(a, b) and not b.requires_grad
                  for a, b in zip(before, _leaves(P.vfm.params)))
@@ -5691,6 +5764,7 @@ def phase_train(dev):
              "losses": losses,
              "wall_s": wall, "step_ms_median": float(np.median(steps[5:])),
              "step_ms_first": float(steps[0]), "launches": launches,
+             "bodies": bodies,
              "backbone_bit_identical": frozen, "adapter_b_moved": moved,
              "artifact_bytes": len(blob),
              "outputs_finite": bool(torch.isfinite(y).all())}
@@ -5921,7 +5995,7 @@ def lm_reference_training(dev):
     ops.reset_launches()
     lg, gg = grads(params, batch)
     torch.cuda.synchronize()
-    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    launches = kernel_launches()
     lc, gc = grads(cpu, {k: v.cpu() for k, v in batch.items()})
     names = [k for k, _ in tree_paths(cpu)]
     drift = {}
@@ -5993,7 +6067,7 @@ def phase_lm_steps(dev):
         ms.append(1e3 * (time.perf_counter() - t0))
         norms.append(float(metrics["grad_norm"]))
     torch.cuda.synchronize()
-    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    launches, bodies = kernel_launches(), ops.bodies()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = all(not torch.equal(a, b.detach())
                 for a, b in zip(before, tree_leaves(state["params"])))
@@ -6012,7 +6086,8 @@ def phase_lm_steps(dev):
              "losses": losses, "grad_norms": norms,
              "step_ms_median": float(np.median(ms[1:])),
              "step_ms_first": ms[0], "peak_gb": peak_gb,
-             "launches": launches, "launches_per_step": per,
+             "launches": launches, "bodies": bodies,
+             "launches_per_step": per,
              "all_leaves_moved": moved, "profiled_step": split}
     log("LM training: " + json.dumps(stats, default=float))
     ok = all(np.isfinite(losses)) and np.mean(losses[-3:]) < 0.5 * losses[0]
@@ -6249,7 +6324,7 @@ def mesh_training(dev, mesh, ckpt_dir):
     with plain_kernel_inputs() as bad:
         losses = tr.run(MESH_STEPS)
     torch.cuda.synchronize()
-    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    launches = kernel_launches()
     mesh_ms = [1e3 * d for d in tr.straggler.durations]
     # the same steps without a mesh: the trainer's own step function
     plain = Trainer(cfg, ckpt_dir=os.path.join(ckpt_dir, "unused"),
@@ -6798,7 +6873,7 @@ def long_decode(dev, arch, seed, kv_quant=False):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         finite &= bool(torch.isfinite(logits).all())
-    launches = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    launches = kernel_launches()
     bodies = ops.bodies()
     last = logits.float().clone()
     for sub, sn in zip(cache, snap):
@@ -7075,8 +7150,13 @@ def main() -> int:
     except (OSError, subprocess.SubprocessError) as e:
         return fail(f"cuobjdump failed: {e}")
     log(f"  sass flash_attention: {json.dumps(hmma)}")
-    # K2's two products must run on the tensor cores (mma.sync m16n8k16)
+    # K2's two products must run on the tensor cores: mma.sync m16n8k16 in
+    # the mma.sync body, wgmma (S = Q K^T from shared memory, P V with P in
+    # registers) in the Hopper body
     phases["flash_attention_hmma"] = hmma.get("HMMA.16816.F32.BF16", 0) > 0
+    phases["flash_attention_hgmma"] = all(
+        any(k.startswith(f"HGMMA.64x{n}x16.F32.BF16") for k in hmma)
+        for n in (64, 128))
     ok_k, errs = phase_kernels(dev)
     phases["kernels"] = ok_k
     ok_r, _ = phase_reference(dev)
@@ -7229,14 +7309,15 @@ def main() -> int:
          **{k: ttiming["rmsnorm_bwd_1024x1024_dw"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
-    # K3's, K4's and the verify window's calls by body on the same main
-    # paths, counted from 0 with the launches (cta: one CTA a pair, the
-    # window one a position; split: the split body, one split or cell;
-    # merge: several and the merge launch)
+    # K2's, K3's, K4's and the verify window's calls by body on the same
+    # main paths, counted from 0 with the launches (K2: mma, the mma.sync body,
+    # or wgmma, the Hopper body; cta: one CTA a pair, the window one a
+    # position; split: the split body, one split or cell; merge: several
+    # and the merge launch)
     bodies = sum_bodies(main_runs)
     for k in kernels:
-        if k["name"] in ("decode_attention_int8", "paged_decode_attention",
-                         "paged_verify_attention"):
+        if k["name"] in ("flash_attention", "decode_attention_int8",
+                         "paged_decode_attention", "paged_verify_attention"):
             k["calls_by_body"] = bodies.get(k["name"], {})
             whole = sum(k["calls_by_body"].values()) == k["launches"]
             phases["calls_by_body"] = phases.get("calls_by_body", True) \

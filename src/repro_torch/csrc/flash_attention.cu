@@ -17,6 +17,13 @@
 // key returns zeros (JAX returns the mean of the masked values there; no
 // such row occurs on the serving path).
 //
+// Two bodies compute it: this file's, on mma.sync (below; every call with
+// a prefix, hd 32 and 80, and calls of fewer than 128 queries), and the
+// Hopper body on wgmma and TMA (flash_attention_sm90.cuh, launched by
+// flash_attention_sm90_launch at the end of this file; the pooled
+// forwards, admissions and whisper's encoder). The wrapper's plan
+// (kernels/flash_attention.py::plan) picks one from the shapes.
+//
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16):
 // bytes at the serving shapes of stablelm (the pooled forward, B=32 x 128
 // positions x 32 heads of 64, does ~32 flops per byte it must move; an
@@ -86,6 +93,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -476,6 +484,20 @@ flash_attention_kernel_merge(const float* __restrict__ part_m,
   }
 }
 
+// the merge of nsplit > 1 key splits' partials into out (and lse)
+template <int HD>
+cudaError_t launch_merge(const float* part_m, const float* part_l,
+                         const float* part_acc, __nv_bfloat16* out,
+                         float* lse, int B, int Sq, int H, int nsplit,
+                         cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
+  const int64_t blocks = (rows * HD + 255) / 256;
+  flash_attention_kernel_merge<HD>
+      <<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+          part_m, part_l, part_acc, out, lse, rows, Sq, H, nsplit);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = (kRows + 2 * kStages * kTile) * (HD + kPad) * 2;
@@ -491,13 +513,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return err;
-  const int64_t rows = static_cast<int64_t>(a.B) * a.Sq * a.KV * a.G;
-  const int64_t blocks = (rows * HD + 255) / 256;
-  flash_attention_kernel_merge<HD>
-      <<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-          a.part_m, a.part_l, a.part_acc, a.out, a.lse, rows, a.Sq,
-          a.KV * a.G, a.nsplit);
-  return cudaGetLastError();
+  return launch_merge<HD>(a.part_m, a.part_l, a.part_acc, a.out, a.lse, a.B,
+                          a.Sq, a.KV * a.G, a.nsplit, stream);
 }
 
 }  // namespace
@@ -557,4 +574,76 @@ extern "C" int flash_attention_launch(
     case 128: return launch<128>(a, st);
     default:  return cudaErrorInvalidValue;
   }
+}
+
+// The Hopper body (flash_attention_sm90.cuh) on the same operands, without
+// a prefix: q, k, v, kv_len, out, the split partials, lse, the shapes and
+// strides as flash_attention_launch takes them (every stride a multiple of
+// 8 elements, the bases 16-byte aligned: the TMA's rule), hd 64 or 128,
+// rows 64 or 128 (query, head) rows a CTA (one or two consumer
+// warpgroups; G <= 64), nsplit splits of split_len keys merged by the mma body's merge kernel. Returns a
+// cudaError_t (0 on success; cudaErrorInvalidValue where a tensor map
+// cannot be encoded).
+extern "C" int flash_attention_sm90_launch(
+    const void* q, const void* k, const void* v, const void* kv_len,
+    void* out, void* part_m, void* part_l, void* part_acc, void* lse, int B,
+    int Sq, int Sk, int KV, int G, int hd, int rows, int nsplit,
+    int split_len, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
+    int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
+    int causal, int window, float sm_scale, void* stream) {
+  if (G <= 0 || G > 64 || B <= 0 || Sq <= 0 || KV <= 0 || nsplit <= 0 ||
+      split_len <= 0 || (rows != 64 && rows != 128) ||
+      (hd != 64 && hd != 128) ||
+      (nsplit > 1 && (part_m == nullptr || part_l == nullptr ||
+                      part_acc == nullptr)))
+    return cudaErrorInvalidValue;
+  const int H = KV * G, bq = rows / G;
+  CUtensorMap tq, tk, tv, to;
+  const int64_t qdim[4] = {hd, H, Sq, B}, qstride[4] = {1, sqh, sqs, sqb};
+  const int64_t ostride[4] = {1, hd, static_cast<int64_t>(H) * hd,
+                              static_cast<int64_t>(Sq) * H * hd};
+  const int64_t kdim[4] = {hd, KV, Sk, B};
+  const int64_t kstride[4] = {1, skh, sks, skb};
+  const int64_t vstride[4] = {1, svh, svs, svb};
+  const uint32_t qbox[4] = {64, static_cast<uint32_t>(G),
+                            static_cast<uint32_t>(bq), 1};
+  const int kn = fa90::key_tile(hd, rows / 64, causal || window > 0);
+  const uint32_t kbox[4] = {64, 1, static_cast<uint32_t>(kn), 1};
+  if (!bf16_map_4d(&tq, q, qdim, qstride, qbox) ||
+      !bf16_map_4d(&tk, k, kdim, kstride, kbox) ||
+      !bf16_map_4d(&tv, v, kdim, vstride, kbox) ||
+      !bf16_map_4d(&to, out, qdim, ostride, qbox))
+    return cudaErrorInvalidValue;
+  const int nqt = (Sq + bq - 1) / bq;
+  const fa90::Args a{static_cast<const int32_t*>(kv_len),
+                     static_cast<float*>(part_m),
+                     static_cast<float*>(part_l),
+                     static_cast<float*>(part_acc),
+                     static_cast<float*>(lse),
+                     B, Sq, Sk, KV, G, nsplit, split_len, causal, window,
+                     nqt, nqt * KV * B * nsplit, sm_scale};
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return cudaErrorInvalidValue;
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (hd == 64)
+    err = rows == 64 ? fa90::launch<64, 1>(kn, tq, tk, tv, to, a, sms, st)
+                     : fa90::launch<64, 2>(kn, tq, tk, tv, to, a, sms, st);
+  else
+    err = rows == 64 ? fa90::launch<128, 1>(kn, tq, tk, tv, to, a, sms, st)
+                     : fa90::launch<128, 2>(kn, tq, tk, tv, to, a, sms, st);
+  if (err != cudaSuccess || nsplit == 1) return err;
+  return hd == 64
+             ? launch_merge<64>(a.part_m, a.part_l, a.part_acc,
+                                static_cast<__nv_bfloat16*>(out), a.lse, B,
+                                Sq, H, nsplit, st)
+             : launch_merge<128>(a.part_m, a.part_l, a.part_acc,
+                                 static_cast<__nv_bfloat16*>(out), a.lse, B,
+                                 Sq, H, nsplit, st);
 }

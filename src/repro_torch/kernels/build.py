@@ -12,7 +12,7 @@ the module is imported.
 Launch counts live here too (``LAUNCHES``, re-exported as
 ``kernels.ops.LAUNCHES``): each kernel wrapper adds one where it launches its
 kernel, so a run can show that its main path went through the kernels. The
-wrappers of kernels with several bodies (K3, K4, the verify window) also
+wrappers of kernels with several bodies (K2, K3, K4, the verify window) also
 count their calls by body there, under ``"<kernel>/<body>"`` (read by
 ``bodies``), so that whatever keeps the launch counts true (a CUDA graph's
 replay adds its capture's counts, ``core/graphs.py``) keeps these too.
@@ -65,9 +65,10 @@ def reset_launches():
 
 def bodies() -> dict[str, dict[str, int]]:
     """The calls by body since the last ``reset_launches``, kernel -> body
-    -> calls, the bodies that ran only: "cta" (one CTA a pair; the verify
-    window: a position), "split" (the split body, one split or cell) and
-    "merge" (several and the merge launch)."""
+    -> calls, the bodies that ran only: K2's "mma" (the mma.sync body) and
+    "wgmma" (the Hopper body); K3's, K4's and the verify window's "cta"
+    (one CTA a pair; the verify window: a position), "split" (the split
+    body, one split or cell) and "merge" (several and the merge launch)."""
     out: dict[str, dict[str, int]] = {}
     for key, n in sorted(LAUNCHES.items()):
         kernel, _, body = key.partition("/")

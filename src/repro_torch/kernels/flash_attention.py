@@ -13,6 +13,15 @@ When the (query tile, kv head, row) CTAs are too few to fill the card
 axis into splits (``splits``, from the shapes alone: no host sync) and the
 kernel merges their partials in a second pass.
 
+Two bodies compute the function: the mma.sync body ("mma": 64 rows a CTA,
+cp.async; every call with a prefix, at hd 32 and 80, or of fewer than 128
+queries) and the Hopper body ("wgmma": ``csrc/flash_attention_sm90.cuh``,
+both products on wgmma, K/V by TMA from a producer warpgroup, 64 or 128
+rows a CTA). ``plan`` picks the body,
+the rows a CTA and the key split from the shapes alone (the mma body's
+split by ``splits``). Calls are counted by body under
+``"flash_attention/<body>"`` beside the launch count.
+
 Training (the task API's fine-tuning through ``kernels.ops``) asks the
 forward for each row's log-sum-exp as well (``with_lse``) and takes the
 gradient with ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``):
@@ -26,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,6 +49,11 @@ _BWD_KEYS = 64              # backward: keys a CTA holds (the fused bound)
 _BWD_QTILE = 32             # backward: queries a dK/dV tile
 _BWD_SMS = 132              # the H100 SXM's SMs: the plan fills one wave
 _BWD_MAX_SPLIT = 8          # the portable thread-block cluster size
+_SM90_HEAD_DIMS = (64, 128)  # head dims the Hopper body is built for
+_SM90_TILE = 128            # keys a split is a multiple of (a Hopper
+#                             body key tile at hd 64, two at hd 128)
+_SM90_MIN_SPLIT = 256       # Hopper body: keys a split at least
+_SM90_MIN_QUERIES = 128     # Hopper body: queries a call at least
 
 
 def _lib():
@@ -50,6 +64,11 @@ def _lib():
             + [ctypes.c_int64] * 15 + [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_sm90_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+            + [ctypes.c_int64] * 9 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_sm90_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -76,6 +95,53 @@ def splits(B: int, Sq: int, H: int, KV: int, keys: int,
     tiles, at least ``_MIN_SPLIT`` keys a split."""
     ctas = -(-Sq // (_ROWS // (H // KV))) * KV * B
     return build.key_splits(ctas, keys, _TILE, _MIN_SPLIT, sms)
+
+
+class Plan(NamedTuple):
+    """What one K2 call launches: the body ("mma", the mma.sync body, or
+    "wgmma", the Hopper body), its (query, head) rows a CTA, and the key
+    split (``nsplit`` splits of ``split_len`` keys; the mma body's from
+    ``splits``)."""
+    body: str
+    rows: int
+    nsplit: int
+    split_len: int
+
+
+def plan(B: int, Sq: int, Sk: int, Sp: int, H: int, KV: int, hd: int,
+         causal: bool, window: Optional[int], sms: int) -> Plan:
+    """The body, rows a CTA and key split of a K2 call, from the shapes and
+    constants alone (never the lengths, the data or the card), so choosing
+    needs no host sync and a CUDA graph captures the choice.
+
+    Calls with a prefix, at a head dim the Hopper body is not built for
+    (32, 80) or with fewer than ``_SM90_MIN_QUERIES`` queries (admissions'
+    tails, whisper's cross-attention prefill, moment's 32 patches) keep
+    the mma body, split by ``splits``. The others take the Hopper body:
+    with 128 rows a CTA where G is 1 and those CTAs fill the card's
+    ``sms`` SMs (two consumer warpgroups: a 128-token row's K/V walked
+    once for each kv head), or
+    half of them without a causal or window mask (the two warpgroups take
+    turns at the tensor cores on the same tiles: whisper's encoder at one
+    row, 96 CTAs); else with 64 rows (G > 1: qwen2-7b's and jamba's pooled
+    forwards ran faster so), the keys split by ``build.key_splits`` (whole
+    key tiles, at least ``_SM90_MIN_SPLIT`` keys) where those CTAs fall
+    short of the SMs and the keys allow it. The boundary comes from
+    ``tools/flash_plan.py`` (every body at each ``chip_smoke.FLASH_TIMED``
+    shape: the table "K2's bodies at each timed shape" in ``PERF.md``
+    section 6)."""
+    G = H // max(KV, 1)
+    if Sp or hd not in _SM90_HEAD_DIMS or Sq < _SM90_MIN_QUERIES:
+        return Plan("mma", _ROWS, *splits(B, Sq, H, KV, Sp + Sk, sms))
+    whole = _SM90_TILE * -(-Sk // _SM90_TILE)
+    turns = not causal and (window is None or window <= 0)
+    if G == 1 and -(-Sq // 128) * KV * B * (2 if turns else 1) >= sms:
+        return Plan("wgmma", 128, 1, whole)
+    ctas = -(-Sq // (64 // G)) * KV * B
+    if ctas >= sms:
+        return Plan("wgmma", 64, 1, whole)
+    return Plan("wgmma", 64, *build.key_splits(
+        ctas, Sk, _SM90_TILE, _SM90_MIN_SPLIT, sms))
 
 
 def _bwd_split(ctas: int, items: int, per_sm: int) -> int:
@@ -145,7 +211,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``prefix_k``/``prefix_v``: (B, Sp, KV, hd) bf16, with ``prefix_len``
     and without a window. Returns (B, Sq, H, hd) bf16, contiguous. A query
     row with no valid key returns zeros. With more than one key split
-    (``splits``), f32 partials go to scratch allocated here. ``with_lse``
+    (``plan``), f32 partials go to scratch allocated here. ``with_lse``
     returns (out, lse) instead: lse (B, H, Sq) f32, each row's natural
     log-sum-exp of its scaled scores (-inf for a row with no valid key),
     for ``flash_attention_bwd``; the output's bits are the same."""
@@ -189,8 +255,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if with_lse else None
     if B == 0 or Sq == 0:
         return (out, lse) if with_lse else out
-    nsplit, split_len = splits(B, Sq, H, KV, Sp + Sk,
-                               build.sm_count(q.device.index or 0))
+    body, rows, nsplit, split_len = plan(
+        B, Sq, Sk, Sp, H, KV, hd, causal, window,
+        build.sm_count(q.device.index or 0))
+    if body == "mma":
+        # the mma body's launch takes its split from its own rule (the
+        # values ``plan`` reports)
+        nsplit, split_len = splits(B, Sq, H, KV, Sp + Sk,
+                                   build.sm_count(q.device.index or 0))
     part_m = part_l = part_acc = None
     if nsplit > 1:
         n = B * Sq * H * nsplit
@@ -201,15 +273,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    err = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(pk), ptr(pv),
-        ptr(kv_len), ptr(prefix_len), out.data_ptr(), ptr(part_m),
-        ptr(part_l), ptr(part_acc), ptr(lse), B, Sq, Sk, Sp, KV, G, hd,
-        nsplit,
-        split_len, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *pks,
-        *pvs, int(causal), -1 if window is None else int(window),
-        1.0 / math.sqrt(hd), stream)
+    win = -1 if window is None else int(window)
+    if body == "mma":
+        err = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(pk), ptr(pv),
+            ptr(kv_len), ptr(prefix_len), out.data_ptr(), ptr(part_m),
+            ptr(part_l), ptr(part_acc), ptr(lse), B, Sq, Sk, Sp, KV, G, hd,
+            nsplit,
+            split_len, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *pks, *pvs, int(causal), win, 1.0 / math.sqrt(hd), stream)
+    else:
+        err = _lib().flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(kv_len),
+            out.data_ptr(), ptr(part_m), ptr(part_l), ptr(part_acc),
+            ptr(lse), B, Sq, Sk, KV, G, hd, rows, nsplit, split_len,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            win, 1.0 / math.sqrt(hd), stream)
     build.LAUNCHES["flash_attention"] += 1
+    build.LAUNCHES[f"flash_attention/{body}"] += 1
     build.check(err, "flash_attention")
     return (out, lse) if with_lse else out
 

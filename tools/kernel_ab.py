@@ -20,6 +20,9 @@ window and the long_500k cells' 524288 keys; ``paged_decode_attention``
 at stablelm's and whisper's pools (the one-CTA body), qwen2-7b's, jamba's
 and h2o-danube's window (the split body); ``paged_verify_attention`` at
 stablelm's speculative pool, qwen2-7b's and h2o-danube's window.
+``flash_attention`` (K2's forward) runs at every
+``chip_smoke.FLASH_TIMED`` shape (each call through the body this tree's
+plan picks: max |diff| 0 where it keeps the parent's mma body);
 ``flash_attention_bwd`` (in
 ``flash_attention.py``) runs at the five ``chip_smoke.FLASH_BWD_CASES``
 shapes, ``rmsnorm`` at a decode step's 8 rows of every model width and
@@ -284,6 +287,16 @@ def cases(name: str, dev, gen):
                     (rows, d), generator=gen, device=dev).to(x.dtype)))
             yield shape, sets, lambda mod, dw=need_dw: (
                 lambda w, x, dy: mod.rmsnorm_bwd(w, x, dy, need_dw=dw))
+    elif name == "flash_attention":
+        # every timed K2 shape; enough input sets to pass the 50 MB L2
+        for shape, case in cs.FLASH_TIMED.items():
+            probe, = cs.flash_inputs(gen, dev, **case)
+            (q, k, v), _ = probe
+            nbytes = 2 * (q.numel() + k.numel() + v.numel())
+            sets = [(*a, kw) for a, kw in cs.flash_inputs(
+                gen, dev, **case, nsets=max(2, -(-64 * 2 ** 20 // nbytes)))]
+            yield shape, sets, lambda mod: (
+                lambda q, k, v, kw: mod.flash_attention(q, k, v, **kw))
     elif name == "flash_attention_bwd":
         # the five FLASH_BWD_CASES: q, k, v, the forward's output and
         # log-sum-exp (this tree's forward), the output's gradient; 2 sets

@@ -26,6 +26,14 @@ CUDA-event ms eager and graphed, device busy ms and K4's device time in
 the graphed step's profile (its kernels among the profile's eight
 costliest).
 
+With ``--pooled`` each turn instead times the pooled forwards whose
+attention is K2's Hopper body: full-width stablelm-1.6b's pooled forward
+of 32 requests x 128 positions and whisper-base's pooled batch of 4
+requests x 1500 frames (encoder, and the decoder over as many BOS tokens),
+each through ``PhysicalFM.run_batch_device``: device ms of the call
+(``chip_smoke.device_ms``), the graphed call's CUDA-event ms and device
+busy ms, and K2's device ms in the graphed call's profile.
+
 With ``--families`` each turn instead runs ``chip_smoke``'s paged
 servings of the families phase (``phase_family_serving``: qwen2-7b,
 h2o-danube-1.8b and minitron-8b at their served depth, the serve loop
@@ -120,6 +128,47 @@ print("STEP " + json.dumps(out), flush=True)
 """
 
 
+# the same in a tree's root for the pooled forwards of stablelm-1.6b and
+# whisper-base
+CHILD_POOLED = r"""
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import build
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+build.build_all()
+out = {}
+rng = np.random.RandomState(9)
+aidx = np.sort(np.arange(32) % 4).astype(np.int32)
+for name, kw, shape in (
+        ("stablelm_pooled", {}, (32, cs.PROMPT_LEN)),
+        ("whisper_pooled", dict(cfg=cs.whisper_config(), input_len=cs.ENC_LEN,
+                                prompt_len=cs.W_PROMPT_LEN,
+                                max_new=cs.W_MAX_NEW, enc_len=cs.ENC_LEN,
+                                paged=True, page_size=cs.W_PAGE_SIZE),
+         (4, cs.ENC_LEN))):
+    srv, cfg, fm, loop = cs.build_server(dev, **kw)
+    embeds = (rng.randn(*shape, cfg.d_model) * 0.5).astype(np.float32)
+    idx = aidx[:shape[0]]
+
+    def run():
+        fm.run_batch_device(embeds, idx)
+    run()
+    torch.cuda.synchronize()
+    prof = cs.profile_both(run, match="flash_attention_kernel")
+    out[name] = {"device_ms": cs.device_ms(run, iters=10, warmup=2),
+                 "event_ms": prof["graphed"]["event_ms"],
+                 "busy_ms": prof["graphed"]["device_busy_ms"],
+                 "k2_ms": prof["graphed"]["match_ms"]}
+    del srv, fm, loop
+    cs._release()
+print("STEP " + json.dumps(out), flush=True)
+"""
+
+
 def turn(tree: str, child: str = CHILD) -> dict:
     done = subprocess.run([sys.executable, "-c", child], cwd=tree,
                           capture_output=True, text=True)
@@ -137,6 +186,7 @@ def main() -> int:
     ap.add_argument("--h2o-window", action="store_true")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--families", action="store_true")
+    ap.add_argument("--pooled", action="store_true")
     args = ap.parse_args()
     trees = {"parent": os.path.abspath(args.parent), "change": ROOT}
     runs: dict = {"parent": [], "change": []}
@@ -144,6 +194,8 @@ def main() -> int:
         "LAYERS", str(args.layers)).replace("PROMPT", "4160")
     if args.families:
         child = CHILD_FAMILIES
+    if args.pooled:
+        child = CHILD_POOLED
     for _ in range(args.rounds):
         for who in ("parent", "change", "change", "parent"):
             r = turn(trees[who], child)
@@ -155,6 +207,15 @@ def main() -> int:
             for k in ("tpot_p50_ms", "ttft_p50_ms", "tokens_per_s",
                       "wall_s")} for arch in runs[who][0]}
             for who in runs}), flush=True)
+        sys.path.insert(0, ROOT)
+        import chip_smoke as cs
+        print(cs.smi_line(), flush=True)
+        return 0
+    if args.pooled:
+        print("medians " + json.dumps({who: {name: {
+            k: statistics.median(r[name][k] for r in runs[who])
+            for k in ("device_ms", "event_ms", "busy_ms", "k2_ms")}
+            for name in runs[who][0]} for who in runs}), flush=True)
         sys.path.insert(0, ROOT)
         import chip_smoke as cs
         print(cs.smi_line(), flush=True)
